@@ -1,15 +1,21 @@
-// Shared building blocks of the int8 half-block kernels (sm_90a).
+// Shared building blocks of the Hopper half-block kernels (sm_90a).
 //
-// - rowquant_kernel: one block per row; optional LayerNorm with fp32
-//   statistics, then symmetric per-row int8 quantization (amax/127 with a
-//   1e-6 floor, true division, round half to even, clamp to +-127). The LN
-//   result stays fp32 into the quantizer, as in the JAX kernels.
+// - load_row / rowquant_kernel / ln_rows_kernel: one block per row;
+//   optional LayerNorm with fp32 statistics, then either symmetric per-row
+//   int8 quantization (amax/127 with a 1e-6 floor, true division, round
+//   half to even, clamp to +-127; the LN result stays fp32 into the
+//   quantizer, as in the JAX int8 kernels) or one rounding to bf16 (the
+//   unquantized kernels cast LN x to the compute dtype before the product).
 // - gemm_kernel: a tiled tensor-core product C = A @ B for A (M, K) and
 //   B (K, N), both row-major, through WMMA 16x16x16 fragments (int8 -> int32
 //   or bf16 -> fp32). B is the weight in the port's (in, out) layout, read
 //   directly as a row-major matrix_b, so no transposed copy is kept. The
 //   fp32/int32 tile goes through shared memory to a per-element epilogue
 //   functor that does the dequant, bias, activation or residual.
+// - attn_core_kernel<T>: the streaming no-max attention core on the packed
+//   (B, S, 3W) projection, for bf16 and fp32. Rows 1, 5 and 7 of the TPU
+//   kernel table share it; T is the rounding policy (q*c, p and the output
+//   round to T, which is a no-op for fp32).
 //
 // Built with -fmad=false so the epilogues' a*b+c round twice, as the plain
 // PyTorch versions do; the products themselves use the tensor cores or
@@ -22,6 +28,12 @@
 #include <mma.h>
 #include <stdint.h>
 
+#define AIIC_CHECK(expr)                       \
+  do {                                         \
+    const cudaError_t aiic_err_ = (expr);      \
+    if (aiic_err_ != cudaSuccess) return aiic_err_; \
+  } while (0)
+
 namespace aiic {
 namespace {
 
@@ -29,7 +41,7 @@ using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// Row pass: [LayerNorm] + per-row int8 quantization
+// Row passes: [LayerNorm] + per-row int8 quantization, or LayerNorm -> bf16
 // ---------------------------------------------------------------------------
 
 constexpr int kRowThreads = 256;
@@ -62,19 +74,13 @@ __device__ float block_reduce(float v, bool take_max, float* red) {
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
 
-// x (rows, W) -> q (rows, W) int8 and qscale (rows,). Dynamic shared memory:
-// W floats (the row, normalized in place). Each thread touches only its own
-// strided elements of the row, so the block reductions are the only syncs.
+// One row of x into h[] (fp32), LayerNorm'd when kLN. Each thread touches
+// only its own strided elements of the row, so the block reductions are the
+// only syncs and callers may read their own h[i] right after.
 template <bool kLN, typename TIn>
-__global__ void __launch_bounds__(kRowThreads)
-rowquant_kernel(const TIn* __restrict__ x, const float* __restrict__ ln_s,
-                const float* __restrict__ ln_b, int8_t* __restrict__ q,
-                float* __restrict__ qscale, int W, float eps) {
-  extern __shared__ float h[];
-  __shared__ float red[kRowThreads / 32 + 1];
-  const size_t row = blockIdx.x;
-  const TIn* xr = x + row * W;
-
+__device__ __forceinline__ void load_row(const TIn* __restrict__ xr, const float* __restrict__ ln_s,
+                                         const float* __restrict__ ln_b, float* h, float* red,
+                                         int W, float eps) {
   float part = 0.f;
   for (int i = threadIdx.x; i < W; i += kRowThreads) {
     const float v = to_f32(xr[i]);
@@ -95,6 +101,19 @@ rowquant_kernel(const TIn* __restrict__ x, const float* __restrict__ ln_s,
     for (int i = threadIdx.x; i < W; i += kRowThreads)
       h[i] = (h[i] - mean) * rstd * ln_s[i] + ln_b[i];
   }
+}
+
+// x (rows, W) -> q (rows, W) int8 and qscale (rows,). Dynamic shared memory:
+// W floats (the row, normalized in place).
+template <bool kLN, typename TIn>
+__global__ void __launch_bounds__(kRowThreads)
+rowquant_kernel(const TIn* __restrict__ x, const float* __restrict__ ln_s,
+                const float* __restrict__ ln_b, int8_t* __restrict__ q,
+                float* __restrict__ qscale, int W, float eps) {
+  extern __shared__ float h[];
+  __shared__ float red[kRowThreads / 32 + 1];
+  const size_t row = blockIdx.x;
+  load_row<kLN>(x + row * W, ln_s, ln_b, h, red, W, eps);
   float amax = 0.f;
   for (int i = threadIdx.x; i < W; i += kRowThreads) amax = fmaxf(amax, fabsf(h[i]));
   amax = block_reduce(amax, true, red);
@@ -105,6 +124,18 @@ rowquant_kernel(const TIn* __restrict__ x, const float* __restrict__ ln_s,
     qr[i] = static_cast<int8_t>(v);
   }
   if (threadIdx.x == 0) qscale[row] = scale;
+}
+
+// x (rows, W) bf16 -> bf16(LN x) (rows, W). Dynamic shared memory: W floats.
+__global__ void __launch_bounds__(kRowThreads)
+ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+               const float* __restrict__ ln_b, bf16* __restrict__ out, int W, float eps) {
+  extern __shared__ float h[];
+  __shared__ float red[kRowThreads / 32 + 1];
+  const size_t row = blockIdx.x;
+  load_row<true>(x + row * W, ln_s, ln_b, h, red, W, eps);
+  bf16* o = out + row * W;
+  for (int i = threadIdx.x; i < W; i += kRowThreads) o[i] = __float2bfloat16_rn(h[i]);
 }
 
 // ---------------------------------------------------------------------------
@@ -206,11 +237,153 @@ cudaError_t launch_rowquant(const TIn* x, const float* ln_s, const float* ln_b, 
   return cudaGetLastError();
 }
 
+inline cudaError_t launch_ln_rows(const bf16* x, const float* ln_s, const float* ln_b, bf16* out,
+                                  int rows, int W, float eps, cudaStream_t st) {
+  ln_rows_kernel<<<rows, kRowThreads, W * sizeof(float), st>>>(x, ln_s, ln_b, out, W, eps);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Epilogues shared by several kernels
+// ---------------------------------------------------------------------------
+
+constexpr float kGeluC = static_cast<float>(-1.702 * 1.4426950408889634);
+
+// quick_gelu via exp2: y * 1/(1 + 2^(-1.702 log2(e) y)), in fp32.
+__device__ __forceinline__ float gelu_exp2(float y) {
+  return y * (1.0f / (1.0f + exp2f(kGeluC * y)));
+}
+
+struct EpiOutProj {  // out = bf16(x + (acc + b)): bias, then the fp32 residual
+  const float* b;
+  const bf16* x;
+  bf16* out;
+  int n_cols;
+  __device__ void operator()(int r, int n, float acc) const {
+    const size_t i = static_cast<size_t>(r) * n_cols + n;
+    const float v = acc + b[n];
+    out[i] = __float2bfloat16_rn(__bfloat162float(x[i]) + v);
+  }
+};
+
+// The same epilogue for the MLP's second product; a type of its own so that
+// a profile tells the two GEMMs apart by name.
+struct EpiMlpOut : EpiOutProj {};
+
+// ---------------------------------------------------------------------------
+// Attention core on the packed (B, S, 3W) projection
+// ---------------------------------------------------------------------------
+
+constexpr int kHeadDim = 64;
+constexpr int kCoreThreads = 128;
+constexpr float kExp2Clamp = static_cast<float>(70.0 * 1.4426950408889634);
+constexpr int kMaxDynamicSmem = 232448;  // 227 KB a block may opt into on sm_90
+
+template <typename T> __device__ __forceinline__ float round_as(float v);
+template <> __device__ __forceinline__ float round_as<bf16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+template <> __device__ __forceinline__ float round_as<float>(float v) { return v; }
+
+template <typename T> __device__ __forceinline__ float2 load2(const T* p);
+template <> __device__ __forceinline__ float2 load2<bf16>(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+template <> __device__ __forceinline__ float2 load2<float>(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
+template <> __device__ __forceinline__ void store2<bf16>(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+template <> __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Grid (query tiles, H, B), one thread per query row. Scores
+// s = (T(q*c) . k) in fp32 with c = T(scale*log2 e) (the caller rounds c);
+// s += mask*log2 e; p = exp2(min(s, 70 log2 e)); l += p; o += T(p) * v;
+// out = T(o * (1 / max(l, 1e-38))). A -inf mask entry gives p = 0. The
+// no-max softmax needs no running-max rescale, so one streaming pass over the
+// keys is exact. Dynamic shared memory: K and V of the head, 2*S*D of T.
+template <typename T, int D>
+__global__ void __launch_bounds__(kCoreThreads)
+attn_core_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+                 T* __restrict__ out, int S, int W, float qconst) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kVec = 16 / sizeof(T);
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + static_cast<size_t>(S) * D;
+  const int h = blockIdx.y;
+  const size_t row0 = static_cast<size_t>(blockIdx.z) * S;
+  const size_t ld = 3 * static_cast<size_t>(W);
+
+  for (int idx = threadIdx.x; idx < S * (D / kVec); idx += kCoreThreads) {
+    const int s = idx / (D / kVec), d = (idx % (D / kVec)) * kVec;
+    const T* src = qkv + (row0 + s) * ld + h * D + d;
+    *reinterpret_cast<uint4*>(ks + s * D + d) = *reinterpret_cast<const uint4*>(src + W);
+    *reinterpret_cast<uint4*>(vs + s * D + d) = *reinterpret_cast<const uint4*>(src + 2 * W);
+  }
+  __syncthreads();
+
+  const int qi = blockIdx.x * kCoreThreads + threadIdx.x;
+  if (qi >= S) return;
+
+  float q[D], o[D];
+  const T* qrow = qkv + (row0 + qi) * ld + h * D;
+#pragma unroll
+  for (int d = 0; d < D; d += 2) {
+    const float2 v = load2<T>(qrow + d);
+    q[d] = round_as<T>(v.x * qconst);
+    q[d + 1] = round_as<T>(v.y * qconst);
+    o[d] = 0.f;
+    o[d + 1] = 0.f;
+  }
+  float l = 0.f;
+  const float* mrow = mask ? mask + static_cast<size_t>(qi) * S : nullptr;
+
+  for (int k = 0; k < S; ++k) {
+    const T* kr = ks + k * D;
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 2) {
+      const float2 kv = load2<T>(kr + d);
+      s = fmaf(q[d], kv.x, s);
+      s = fmaf(q[d + 1], kv.y, s);
+    }
+    if (mrow) s = s + mrow[k] * kLog2e;
+    const float p = exp2f(fminf(s, kExp2Clamp));
+    l += p;
+    const float pb = round_as<T>(p);
+    const T* vr = vs + k * D;
+#pragma unroll
+    for (int d = 0; d < D; d += 2) {
+      const float2 vv = load2<T>(vr + d);
+      o[d] = fmaf(pb, vv.x, o[d]);
+      o[d + 1] = fmaf(pb, vv.y, o[d + 1]);
+    }
+  }
+
+  const float inv = 1.0f / fmaxf(l, 1e-38f);
+  T* dst = out + (row0 + qi) * W + h * D;
+#pragma unroll
+  for (int d = 0; d < D; d += 2) store2<T>(dst + d, o[d] * inv, o[d + 1] * inv);
+}
+
+// qkv (B*S, 3W) -> out (B*S, W); mask (S, S) fp32 or null. Needs W == H*64
+// and K/V of one head within the shared memory a block may use.
+template <typename T>
+cudaError_t launch_attn_core(const T* qkv, const float* mask, T* out, int B, int S, int W,
+                             int H, float qconst, cudaStream_t st) {
+  const int smem = 2 * S * kHeadDim * static_cast<int>(sizeof(T));
+  if (W != H * kHeadDim || smem > kMaxDynamicSmem) return cudaErrorInvalidValue;
+  AIIC_CHECK(cudaFuncSetAttribute(attn_core_kernel<T, kHeadDim>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  const dim3 grid((S + kCoreThreads - 1) / kCoreThreads, H, B);
+  attn_core_kernel<T, kHeadDim><<<grid, kCoreThreads, smem, st>>>(qkv, mask, out, S, W, qconst);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace aiic
-
-#define AIIC_CHECK(expr)                       \
-  do {                                         \
-    const cudaError_t aiic_err_ = (expr);      \
-    if (aiic_err_ != cudaSuccess) return static_cast<int>(aiic_err_); \
-  } while (0)

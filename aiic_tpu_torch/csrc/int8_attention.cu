@@ -9,8 +9,9 @@
 //   (a) rowquant_kernel<LN>: LN1 in fp32 + per-row int8 quantization;
 //   (b) gemm_kernel<int8_t>: hq @ wqkv_q on the int8 tensor cores, epilogue
 //       acc*hscale*sqkv + bqkv in fp32, stored bf16 (B*S, 3W);
-//   (c) attn_core_kernel: one thread per query row of one (image, head),
-//       K and V of that head staged in shared memory;
+//   (c) attn_core_kernel<bf16> (common.cuh, shared with the unquantized
+//       kernels): one thread per query row of one (image, head), K and V of
+//       that head staged in shared memory;
 //   (d) gemm_kernel<bf16>: attn @ wo on the bf16 tensor cores, epilogue
 //       + bo + x (fp32), stored bf16.
 //
@@ -32,10 +33,6 @@
 namespace aiic {
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kCoreThreads = 128;
-constexpr float kExp2Clamp = static_cast<float>(70.0 * 1.4426950408889634);
-
 struct EpiQKV {  // qkv = bf16(acc * hscale * sqkv + bqkv)
   const float* hs;
   const float* s;
@@ -47,87 +44,6 @@ struct EpiQKV {  // qkv = bf16(acc * hscale * sqkv + bqkv)
     out[static_cast<size_t>(r) * n_cols + n] = __float2bfloat16_rn(v);
   }
 };
-
-struct EpiOutProj {  // out = bf16(x + (acc + bo))
-  const float* bo;
-  const bf16* x;
-  bf16* out;
-  int n_cols;
-  __device__ void operator()(int r, int n, float acc) const {
-    const size_t i = static_cast<size_t>(r) * n_cols + n;
-    const float v = acc + bo[n];
-    out[i] = __float2bfloat16_rn(__bfloat162float(x[i]) + v);
-  }
-};
-
-// Grid (query tiles, H, B). Scores s = (bf16(q*c) . k) in fp32 with
-// c = bf16(scale*log2 e); s += mask*log2 e; p = exp2(min(s, 70 log2 e));
-// l += p; o += bf16(p) * v; out = bf16(o / max(l, 1e-38)). A -inf mask entry
-// gives p = 0. Dynamic shared memory: K and V of the head, 2*S*64 bf16.
-template <int D>
-__global__ void __launch_bounds__(kCoreThreads)
-attn_core_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
-                 bf16* __restrict__ out, int S, int W, float qconst) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + static_cast<size_t>(S) * D;
-  const int h = blockIdx.y;
-  const size_t row0 = static_cast<size_t>(blockIdx.z) * S;
-  const size_t ld = 3 * static_cast<size_t>(W);
-
-  for (int idx = threadIdx.x; idx < S * (D / 8); idx += kCoreThreads) {
-    const int s = idx / (D / 8), d = (idx % (D / 8)) * 8;
-    const bf16* src = qkv + (row0 + s) * ld + h * D + d;
-    *reinterpret_cast<uint4*>(ks + s * D + d) = *reinterpret_cast<const uint4*>(src + W);
-    *reinterpret_cast<uint4*>(vs + s * D + d) = *reinterpret_cast<const uint4*>(src + 2 * W);
-  }
-  __syncthreads();
-
-  const int qi = blockIdx.x * kCoreThreads + threadIdx.x;
-  if (qi >= S) return;
-
-  float q[D], o[D];
-  const __nv_bfloat162* qsrc =
-      reinterpret_cast<const __nv_bfloat162*>(qkv + (row0 + qi) * ld + h * D);
-#pragma unroll
-  for (int d2 = 0; d2 < D / 2; ++d2) {
-    const float2 v = __bfloat1622float2(qsrc[d2]);
-    q[2 * d2] = __bfloat162float(__float2bfloat16_rn(v.x * qconst));
-    q[2 * d2 + 1] = __bfloat162float(__float2bfloat16_rn(v.y * qconst));
-    o[2 * d2] = 0.f;
-    o[2 * d2 + 1] = 0.f;
-  }
-  float l = 0.f;
-  const float* mrow = mask ? mask + static_cast<size_t>(qi) * S : nullptr;
-
-  for (int k = 0; k < S; ++k) {
-    const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(ks + k * D);
-    float s = 0.f;
-#pragma unroll
-    for (int d2 = 0; d2 < D / 2; ++d2) {
-      const float2 kv = __bfloat1622float2(kr[d2]);
-      s = fmaf(q[2 * d2], kv.x, s);
-      s = fmaf(q[2 * d2 + 1], kv.y, s);
-    }
-    if (mrow) s = s + mrow[k] * kLog2e;
-    const float p = exp2f(fminf(s, kExp2Clamp));
-    l += p;
-    const float pb = __bfloat162float(__float2bfloat16_rn(p));
-    const __nv_bfloat162* vr = reinterpret_cast<const __nv_bfloat162*>(vs + k * D);
-#pragma unroll
-    for (int d2 = 0; d2 < D / 2; ++d2) {
-      const float2 vv = __bfloat1622float2(vr[d2]);
-      o[2 * d2] = fmaf(pb, vv.x, o[2 * d2]);
-      o[2 * d2 + 1] = fmaf(pb, vv.y, o[2 * d2 + 1]);
-    }
-  }
-
-  const float inv = 1.0f / fmaxf(l, 1e-38f);
-  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out + (row0 + qi) * W + h * D);
-#pragma unroll
-  for (int d2 = 0; d2 < D / 2; ++d2)
-    dst[d2] = __floats2bfloat162_rn(o[2 * d2] * inv, o[2 * d2 + 1] * inv);
-}
 
 }  // namespace
 }  // namespace aiic
@@ -156,14 +72,8 @@ extern "C" int aiic_int8_ln_qkv_attention(
                          EpiQKV{static_cast<const float*>(hs), static_cast<const float*>(sqkv),
                                 static_cast<const float*>(bqkv), static_cast<bf16*>(qkv), 3 * W},
                          st));
-  const int smem = 2 * S * kHeadDim * static_cast<int>(sizeof(bf16));
-  AIIC_CHECK(cudaFuncSetAttribute(attn_core_kernel<kHeadDim>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  const dim3 grid((S + kCoreThreads - 1) / kCoreThreads, H, B);
-  attn_core_kernel<kHeadDim><<<grid, kCoreThreads, smem, st>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
-      static_cast<bf16*>(attn), S, W, qconst);
-  AIIC_CHECK(cudaGetLastError());
+  AIIC_CHECK(launch_attn_core(static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
+                              static_cast<bf16*>(attn), B, S, W, H, qconst, st));
   AIIC_CHECK(launch_gemm(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo),
                          rows, W, W,
                          EpiOutProj{static_cast<const float*>(bo), xb, static_cast<bf16*>(out), W},

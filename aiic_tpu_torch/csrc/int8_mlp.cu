@@ -29,8 +29,6 @@
 namespace aiic {
 namespace {
 
-constexpr float kGeluC = static_cast<float>(-1.702 * 1.4426950408889634);
-
 struct EpiGelu {  // y = gelu_exp2(acc * hscale * s1 + b1), fp32
   const float* hs;
   const float* s;
@@ -39,7 +37,7 @@ struct EpiGelu {  // y = gelu_exp2(acc * hscale * s1 + b1), fp32
   int n_cols;
   __device__ void operator()(int r, int n, int acc) const {
     const float v = static_cast<float>(acc) * hs[r] * s[n] + b[n];
-    y[static_cast<size_t>(r) * n_cols + n] = v * (1.0f / (1.0f + exp2f(kGeluC * v)));
+    y[static_cast<size_t>(r) * n_cols + n] = gelu_exp2(v);
   }
 };
 

@@ -1,0 +1,50 @@
+"""Attribute vocabulary and prompts — the part of ``aiic_tpu.data.dataset``
+that the serving engine needs, copied.
+
+- ``extract_all_categories``: the attribute vocabulary {styles,
+  characteristics, materials, colors, room_types} of a training set, empty
+  strings dropped, in first-seen order (reference main.py:273-294).
+- ``build_category_prompts``: the Polish prompt templates — bare ``"{a}"``
+  for room_types, ``"wnętrze z {a}"`` for everything else (reference
+  main.py:296-311).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence
+
+CATEGORY_KEYS = ("styles", "characteristics", "materials", "colors", "room_types")
+
+
+def _ordered_unique(items) -> List[str]:
+    return [k for k in dict.fromkeys(items) if k]
+
+
+def extract_all_categories(training_data: Sequence[Dict[str, Any]]) -> Dict[str, List[str]]:
+    styles, chars, mats, cols, rooms = [], [], [], [], []
+    for item in training_data:
+        styles.append(item.get("style", ""))
+        rooms.append(item.get("room_type", ""))
+        chars.extend(item.get("characteristics", []))
+        mats.extend(item.get("materials", []))
+        cols.extend(item.get("colors", []))
+    return {
+        "styles": _ordered_unique(styles),
+        "characteristics": _ordered_unique(chars),
+        "materials": _ordered_unique(mats),
+        "colors": _ordered_unique(cols),
+        "room_types": _ordered_unique(rooms),
+    }
+
+
+def build_category_prompts(categories: Dict[str, List[str]]) -> Dict[str, List[str]]:
+    """Attribute -> text prompt, per category (reference main.py:302-305)."""
+    prompts = {}
+    for category, attributes in categories.items():
+        if not attributes:
+            continue
+        if category == "room_types":
+            prompts[category] = [f"{a}" for a in attributes]
+        else:
+            prompts[category] = [f"wnętrze z {a}" for a in attributes]
+    return prompts

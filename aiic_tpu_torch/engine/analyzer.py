@@ -1,10 +1,22 @@
 """InteriorAnalyzer — the serving engine of the port (``aiic_tpu.engine.analyzer``).
 
-Holds what the serving path needs: one CLIP backbone (int8-quantized for
-bf16 serving), the detector and category text features precomputed once
-through the text tower, and the classify program over power-of-two padded
-batches on the patch-major uint8 wire. Results use the reference schema of
+Holds what the serving path needs: one CLIP backbone, the detector and
+category text features precomputed once through the text tower, and the
+classify program over power-of-two padded batches of uint8 pixels, on the
+HWC wire (normalized on the device) or the patch-major wire. Results use the
+reference schema of
 ``aiic_tpu.engine.analyzer.InteriorAnalyzer.analyze_images_batch``.
+
+The configurations users run, and the kernels each runs in every block
+(``models.clip.block``):
+
+- ``dtype=torch.bfloat16, quantize=True``: int8 serving, the two int8
+  half-block kernels;
+- ``dtype=torch.bfloat16, quantize=False``: the worker's default, the bf16
+  attention half-block kernel and a cuBLAS bf16 MLP, or with
+  ``attn_impl="pallas_mlp"`` the fused LN+MLP kernel too;
+- ``dtype=torch.float32``: the batch CLI's default, cuBLAS fp32 projections
+  around the packed-QKV attention core kernel.
 
 File decoding, URL streams, LoRA folding, the text-feature cache, device
 resize and multi-card serving are not ported yet (ROADMAP.md).
@@ -18,9 +30,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from aiic_tpu.data.dataset import build_category_prompts, extract_all_categories
-from aiic_tpu.data.tokenizer import tokenize_for_model
-from aiic_tpu.utils.batching import bucket_size, pad_batch
+from aiic_tpu_torch.data.dataset import build_category_prompts, extract_all_categories
+from aiic_tpu_torch.data.tokenizer import tokenize_for_model
 from aiic_tpu_torch.engine.detector import (
     DEFAULT_CONFIDENCE_THRESHOLD,
     DETECTOR_CATEGORIES,
@@ -29,6 +40,7 @@ from aiic_tpu_torch.engine.detector import (
 from aiic_tpu_torch.engine.programs import classify_batch, encode_texts_program
 from aiic_tpu_torch.models.config import VIT_B_16, CLIPConfig
 from aiic_tpu_torch.models.init import init_clip_params, tree_map
+from aiic_tpu_torch.utils.batching import bucket_size, pad_batch
 
 
 class InteriorAnalyzer:
@@ -48,6 +60,7 @@ class InteriorAnalyzer:
         dtype: torch.dtype = torch.bfloat16,
         quantize: bool = True,
         wire_format: str = "patch",
+        attn_impl: str = "pallas",
         max_batch: int = 512,
         seed: int = 0,
         device="cuda",
@@ -55,6 +68,7 @@ class InteriorAnalyzer:
         if wire_format not in ("hwc", "patch"):
             raise ValueError(f"wire_format must be 'hwc' or 'patch', got {wire_format!r}")
         self.config = config
+        self.attn_impl = attn_impl
         self.dtype = dtype
         self.max_batch = max_batch
         self.wire_format = wire_format
@@ -95,7 +109,8 @@ class InteriorAnalyzer:
             all_prompts.extend(prompts_by_cat[name])
             spans[name] = (start, len(all_prompts))
         tokens = torch.from_numpy(tokenize_for_model(all_prompts, config)).to(self.device)
-        feats = encode_texts_program(self.params, tokens, config=config, dtype=self.dtype)
+        feats = encode_texts_program(self.params, tokens, config=config, dtype=self.dtype,
+                                     attn_impl=self.attn_impl)
         self.det_text = feats[: len(DETECTOR_CATEGORIES)]
 
         n_cat = len(self.category_names)
@@ -125,7 +140,8 @@ class InteriorAnalyzer:
         pixels = torch.from_numpy(padded).to(self.device, non_blocking=True)
         res = classify_batch(self.params, pixels, self.det_text, self.cat_text,
                              self.cat_mask, config=self.config,
-                             interior_count=INTERIOR_COUNT, dtype=self.dtype)
+                             interior_count=INTERIOR_COUNT, dtype=self.dtype,
+                             attn_impl=self.attn_impl)
         return res, valid
 
     def classify_pixels(self, pixels: np.ndarray,

@@ -50,7 +50,7 @@ def analyze_topk(feats: torch.Tensor, cat_text: torch.Tensor, cat_mask: torch.Te
 
 def classify_batch(params: Dict[str, Any], pixels: torch.Tensor, det_text: torch.Tensor,
                    cat_text: torch.Tensor, cat_mask: torch.Tensor, *, config: CLIPConfig,
-                   interior_count: int, dtype: torch.dtype,
+                   interior_count: int, dtype: torch.dtype, attn_impl: str = "pallas",
                    topk: int = 5) -> Dict[str, torch.Tensor]:
     """Encode once, detect + analyze. ``pixels``: normalized float HWC,
     uint8 HWC (normalized here), or patch-major uint8 (B, N, 3·p·p)."""
@@ -58,7 +58,8 @@ def classify_batch(params: Dict[str, Any], pixels: torch.Tensor, det_text: torch
         from aiic_tpu_torch.ops.preprocess import normalize_u8
 
         pixels = normalize_u8(pixels, dtype=dtype)
-    feats = normalize_features(encode_image(params, pixels, config, dtype=dtype))
+    feats = normalize_features(encode_image(params, pixels, config, dtype=dtype,
+                                            attn_impl=attn_impl))
     out = detect_logits(feats, det_text, interior_count)
     out["topk_vals"], out["topk_idx"] = analyze_topk(feats, cat_text, cat_mask, k=topk)
     out["features"] = feats
@@ -66,7 +67,9 @@ def classify_batch(params: Dict[str, Any], pixels: torch.Tensor, det_text: torch
 
 
 def encode_texts_program(params: Dict[str, Any], tokens: torch.Tensor, *,
-                         config: CLIPConfig, dtype: torch.dtype) -> torch.Tensor:
+                         config: CLIPConfig, dtype: torch.dtype,
+                         attn_impl: str = "pallas") -> torch.Tensor:
     """Normalized text features for a (N, ctx) token batch; run once when
     the engine is built, for the detector and category prompts."""
-    return normalize_features(encode_text(params, tokens, config, dtype=dtype))
+    return normalize_features(encode_text(params, tokens, config, dtype=dtype,
+                                          attn_impl=attn_impl))

@@ -7,13 +7,25 @@ on a leading layer axis that ``run_tower`` loops over.
 
 Numerics follow the JAX package: LayerNorm statistics in fp32 with the
 result cast to the input dtype; every product accumulates in fp32
-(``preferred_element_type=float32`` there — here both operands are lifted to
-fp32, which is exact for bf16 inputs, with TF32 off on the card).
+(``preferred_element_type=float32`` there). Here bf16 operands on the card
+go to the bf16 tensor cores with an fp32 result (cuBLAS); everything else is
+lifted to fp32, which is exact for bf16 inputs, with TF32 off.
 
-The serving path (bf16 with ``attn_q``/``mlp_q`` in the tree) runs each
-block as the two int8 half-block kernels of ``ops.quant``; every other tree
-or dtype runs the plain fp composition. The last image block runs for the
-CLS row only, in fp32, on the unquantized weights (``block_cls``).
+``attn_impl`` takes the JAX package's values and branch order
+(``aiic_tpu.models.clip.block``):
+
+- ``"pallas"`` (the default; what JAX's ``"auto"`` gives on its
+  accelerator): bf16 blocks run the int8 half-block kernels of ``ops.quant``
+  when the tree carries ``attn_q``/``mlp_q``, else the bf16 attention
+  half-block kernel (``ops.attention.fused_ln_qkv_attention``) and the plain
+  MLP; fp32 blocks run the plain projections around the packed-QKV core
+  kernel (``ops.attention.fused_attention_qkv``);
+- ``"pallas_mlp"``: as ``"pallas"``, and an unquantized bf16 MLP runs the
+  fused LN+MLP kernel (``ops.mlp.fused_ln_mlp``);
+- ``"xla"``: the reference composition (stable softmax, no kernels).
+
+The last image block runs for the CLS row only, in fp32, on the unquantized
+weights (``block_cls``).
 """
 
 from __future__ import annotations
@@ -23,6 +35,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from aiic_tpu_torch.models.config import CLIPConfig
+from aiic_tpu_torch.ops import attention as attention_ops
+from aiic_tpu_torch.ops import mlp as mlp_ops
+from aiic_tpu_torch.ops import quant
 from aiic_tpu_torch.ops.attention import attention_qkv_ref, no_tf32
 
 Params = Dict[str, Any]
@@ -33,8 +48,17 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
+ATTN_IMPLS = ("pallas", "pallas_mlp", "xla")
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with fp32 accumulation (the operands' values, lifted to fp32)."""
+    """a @ b with fp32 accumulation and an fp32 result. Two bf16 operands on
+    the card run on the bf16 tensor cores through cuBLAS with an fp32 output
+    (exact products, fp32 sums); anything else is lifted to fp32 with TF32
+    off."""
+    if a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return y.reshape(*a.shape[:-1], b.shape[-1])
     no_tf32()
     return a.float() @ b.float()
 
@@ -50,8 +74,13 @@ def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    """x * sigmoid(1.702 x) — OpenAI CLIP's activation."""
-    return x * torch.sigmoid(1.702 * x)
+    """x * sigmoid(1.702 x) — OpenAI CLIP's activation, rounded where JAX
+    rounds it in x's dtype: the constant first (a weakly typed Python scalar;
+    1.702 is 1.703125 in bf16), then each op of ``jax.nn.sigmoid``'s
+    expansion 1 / (1 + exp(-y)). ``torch.sigmoid`` in one op rounds once and
+    differs by a bf16 ULP on about a quarter of the elements."""
+    y = torch.tensor(1.702, dtype=x.dtype, device=x.device) * x
+    return x * (1.0 / (1.0 + torch.exp(-y)))
 
 
 def _gelu(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -61,18 +90,23 @@ def _gelu(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """x @ w + b with fp32 sums and one rounding to x's dtype after the bias."""
     y = _mm(x, w.to(x.dtype))
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
 
 
-def attention(x: torch.Tensor, p: Params, heads: int,
-              mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Multi-head self-attention with the fused [Q|K|V] projection."""
-    bsz, seq, width = x.shape
+def attention(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tensor],
+              attn_impl: str = "pallas") -> torch.Tensor:
+    """Multi-head self-attention with the fused [Q|K|V] projection; the core
+    is the packed-QKV kernel under ``pallas*``, the stable-softmax
+    composition under ``xla``."""
     qkv = linear(x, p["wqkv"], p["bqkv"])
-    out = attention_qkv_ref(qkv, mask, heads).reshape(bsz, seq, width)
+    if attn_impl in ("pallas", "pallas_mlp"):
+        out = attention_ops.fused_attention_qkv(qkv, mask, heads=heads)
+    else:
+        out = attention_qkv_ref(qkv, mask, heads)
     return linear(out, p["wo"], p["bo"])
 
 
@@ -82,33 +116,36 @@ def attention(x: torch.Tensor, p: Params, heads: int,
 
 
 def block(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tensor],
-          gelu_type: str) -> torch.Tensor:
-    """Pre-LN residual block: x + attn(ln1(x)); x + mlp(ln2(x)).
-
-    With quantized weights in the tree (``ops.quant.quantize_model``) and a
-    bf16 activation, each half runs as one int8 half-block kernel, as the
-    JAX package does on its Pallas path."""
-    from aiic_tpu_torch.ops.quant import int8_ln_mlp, int8_ln_qkv_attention
-
-    serving = x.dtype == torch.bfloat16
-    if "attn_q" in p and serving:
+          gelu_type: str, attn_impl: str = "pallas") -> torch.Tensor:
+    """Pre-LN residual block: x + attn(ln1(x)); x + mlp(ln2(x)), each half
+    on the first branch that applies, in the JAX package's order."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+    kernels = attn_impl in ("pallas", "pallas_mlp") and x.dtype == torch.bfloat16
+    quick = gelu_type == "quick_gelu"
+    a, ln1, ln2, mlp = p["attn"], p["ln1"], p["ln2"], p["mlp"]
+    if "attn_q" in p and kernels:
         q = p["attn_q"]
-        x = int8_ln_qkv_attention(
-            x, p["ln1"]["scale"], p["ln1"]["bias"], q["wqkv_q"], q["sqkv"],
-            p["attn"]["bqkv"], p["attn"]["wo"], p["attn"]["bo"], mask, heads=heads)
+        x = quant.int8_ln_qkv_attention(x, ln1["scale"], ln1["bias"], q["wqkv_q"], q["sqkv"],
+                                        a["bqkv"], a["wo"], a["bo"], mask, heads=heads)
+    elif kernels:
+        x = attention_ops.fused_ln_qkv_attention(x, ln1["scale"], ln1["bias"], a["wqkv"],
+                                                 a["bqkv"], a["wo"], a["bo"], mask, heads=heads)
     else:
-        x = x + attention(layer_norm(x, p["ln1"]), p["attn"], heads, mask)
+        x = x + attention(layer_norm(x, ln1), a, heads, mask, attn_impl)
 
-    if "mlp_q" in p and serving and gelu_type == "quick_gelu":
+    if "mlp_q" in p and kernels and quick:
         q = p["mlp_q"]
-        return int8_ln_mlp(
-            x, p["ln2"]["scale"], p["ln2"]["bias"], q["w1_q"], q["s1"],
-            p["mlp"]["b1"], q["w2_q"], q["s2"], p["mlp"]["b2"])
+        return quant.int8_ln_mlp(x, ln2["scale"], ln2["bias"], q["w1_q"], q["s1"], mlp["b1"],
+                                 q["w2_q"], q["s2"], mlp["b2"])
+    if attn_impl == "pallas_mlp" and kernels and quick:
+        return mlp_ops.fused_ln_mlp(x, ln2["scale"], ln2["bias"], mlp["w1"], mlp["b1"],
+                                    mlp["w2"], mlp["b2"])
 
-    h = layer_norm(x, p["ln2"])
-    h = linear(h, p["mlp"]["w1"], p["mlp"]["b1"])
+    h = layer_norm(x, ln2)
+    h = linear(h, mlp["w1"], mlp["b1"])
     h = _gelu(h, gelu_type)
-    h = linear(h, p["mlp"]["w2"], p["mlp"]["b2"])
+    h = linear(h, mlp["w2"], mlp["b2"])
     return x + h
 
 
@@ -155,10 +192,10 @@ def num_layers(blocks: Params) -> int:
 
 def run_tower(x: torch.Tensor, blocks: Params, heads: int,
               mask: Optional[torch.Tensor], gelu_type: str,
-              layers: Optional[range] = None) -> torch.Tensor:
+              layers: Optional[range] = None, attn_impl: str = "pallas") -> torch.Tensor:
     """Run the stacked blocks in order (``layers``: which of them)."""
     for i in layers if layers is not None else range(num_layers(blocks)):
-        x = block(x, _layer(blocks, i), heads, mask, gelu_type)
+        x = block(x, _layer(blocks, i), heads, mask, gelu_type, attn_impl)
     return x
 
 
@@ -200,7 +237,7 @@ def _embed_patch_u8(v: Params, pixels: torch.Tensor, config: CLIPConfig,
 
 
 def encode_image(params: Params, pixels: torch.Tensor, config: CLIPConfig,
-                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "pallas") -> torch.Tensor:
     """Image tower: pixels -> embeddings (B, embed_dim) fp32.
 
     ``pixels`` is normalized float (B, H, W, 3), or patch-major uint8
@@ -222,7 +259,7 @@ def encode_image(params: Params, pixels: torch.Tensor, config: CLIPConfig,
 
     n_layers = num_layers(v["blocks"])
     x = run_tower(x, v["blocks"], config.vision.heads, None, config.gelu_type,
-                  layers=range(n_layers - 1))
+                  layers=range(n_layers - 1), attn_impl=attn_impl)
     x = block_cls(x, _layer(v["blocks"], n_layers - 1), config.vision.heads,
                   config.gelu_type)
     x = layer_norm(x, v["ln_post"])
@@ -235,14 +272,15 @@ def causal_mask(seq: int, device=None) -> torch.Tensor:
 
 
 def encode_text(params: Params, tokens: torch.Tensor, config: CLIPConfig,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32, attn_impl: str = "pallas") -> torch.Tensor:
     """Text tower: (B, ctx) token ids -> embeddings (B, embed_dim) fp32,
     pooled at the EOT token (the highest id: argmax of the tokens)."""
     t = params["text"]
     x = t["tok_embed"][tokens.long()].to(dtype)
     x = x + t["pos"].to(dtype)
     mask = causal_mask(tokens.shape[1], device=x.device)
-    x = run_tower(x, t["blocks"], config.text.heads, mask, config.gelu_type)
+    x = run_tower(x, t["blocks"], config.text.heads, mask, config.gelu_type,
+                  attn_impl=attn_impl)
     x = layer_norm(x, t["ln_final"])
     eot = torch.argmax(tokens, dim=-1)
     x = x[torch.arange(x.shape[0], device=x.device), eot]

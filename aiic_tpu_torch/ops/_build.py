@@ -1,8 +1,9 @@
-"""Build and load the Hopper kernels of ``aiic_tpu_torch/csrc``.
+"""Build, load and launch the Hopper kernels of ``aiic_tpu_torch/csrc``.
 
 One shared library with a plain C interface, compiled by ``nvcc`` for
 ``sm_90a`` at first use and loaded with ``ctypes`` (no PyTorch headers, so
-the build takes seconds). The library is keyed by a hash of the sources and
+the build takes seconds): one ``nvcc -c`` per source, all started together,
+then one link. The library is keyed by a hash of the sources and
 flags and lands in ``aiic_tpu_torch/_build/`` (listed in ``.gitignore``), so
 a fresh checkout builds it from the repo's sources alone and an unchanged
 tree reuses it.
@@ -10,6 +11,12 @@ tree reuses it.
 No ``--use_fast_math``: the kernels must round like the plain versions
 (IEEE division and square root, no flush to zero). ``-fmad=false`` keeps the
 epilogues' ``a*b + c`` as two roundings, as PyTorch's separate ops do.
+
+The launch side shared by every kernel wrapper lives here too: ``route``
+(kernel for a CUDA tensor, plain version for a CPU tensor, an error for any
+other device), ``ptr``/``f32_vector``/``check`` for the ctypes call, and
+``counted``, which gives a wrapper its ``launches`` count and registers it
+for ``launch_counts``/``reset_launch_counts``.
 """
 
 from __future__ import annotations
@@ -21,13 +28,15 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
 _LIB: Optional[ctypes.CDLL] = None
 # Filled by load_library(): library path, build seconds (0 when reused),
@@ -44,6 +53,13 @@ _SIGNATURES = {
     # x, ln_s, ln_b, wqkv_q, sqkv, bqkv, wo, bo, mask, out, hq, hs, qkv, attn,
     # B, S, W, H, eps, qconst, stream
     "aiic_int8_ln_qkv_attention": [_P] * 14 + [_I, _I, _I, _I, _F, _F, _P],
+    # qkv, mask, out, B, S, W, H, qconst, fp32, stream
+    "aiic_attention_qkv": [_P] * 3 + [_I, _I, _I, _I, _F, _I, _P],
+    # x, ln_s, ln_b, wqkv, bqkv, wo, bo, mask, out, h, qkv, attn,
+    # B, S, W, H, eps, qconst, stream
+    "aiic_ln_qkv_attention": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P],
+    # x, ln_s, ln_b, w1, b1, w2, b2, out, h, y, rows, W, M, eps, stream
+    "aiic_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _P],
 }
 
 
@@ -79,14 +95,25 @@ def load_library() -> ctypes.CDLL:
     seconds, log = 0.0, ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
+        tag = f"{os.getpid()}.tmp"
+        objs = [BUILD_DIR / f"{cu.stem}.{tag}.o" for cu in cus]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(cu)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cu, o in zip(cus, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [cu.name for cu, p in zip(cus, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = so.with_suffix(f".{tag}")
+        link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        for o in objs:
+            o.unlink()
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
@@ -96,3 +123,77 @@ def load_library() -> ctypes.CDLL:
     BUILD_INFO.update(path=str(so), seconds=seconds, log=log)
     _LIB = lib
     return lib
+
+
+# ---------------------------------------------------------------------------
+# Launch helpers shared by the kernel wrappers
+# ---------------------------------------------------------------------------
+
+_COUNTED: Dict[str, Callable] = {}
+
+
+def counted(fn: Callable) -> Callable:
+    """Give a kernel wrapper a ``launches`` count (incremented by the wrapper
+    where it launches its kernel, and nowhere else) and register it."""
+    fn.launches = 0
+    _COUNTED[fn.__name__] = fn
+    return fn
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in _COUNTED.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _COUNTED.values():
+        fn.launches = 0
+
+
+def route(name: str, x: torch.Tensor) -> bool:
+    """True for the kernel (CUDA tensor), False for the plain version (CPU)."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise RuntimeError(f"{name}: no kernel for device {x.device}")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def f32_vector(t: torch.Tensor, n: int, device: torch.device) -> torch.Tensor:
+    """A length-n fp32 vector on ``device`` (raises on any other size)."""
+    return t.reshape(n).to(device=device, dtype=torch.float32).contiguous()
+
+
+def bf16_activation(name: str, x: torch.Tensor) -> None:
+    """The half-block kernels take bf16 (B, S, W) activations only."""
+    if x.dtype != torch.bfloat16 or x.dim() != 3:
+        raise TypeError(f"{name}: the Hopper kernel takes bf16 (B, S, W) activations, "
+                        f"got {x.dtype} {tuple(x.shape)}")
+
+
+def weight(name: str, w: torch.Tensor, shape, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """A contiguous weight of ``shape`` cast to ``dtype``; raises if it lies
+    on another device or has another shape (the kernel reads raw pointers)."""
+    if w.device != device or tuple(w.shape) != tuple(shape):
+        raise ValueError(f"{name}: weight must be {tuple(shape)} on {device}, "
+                         f"got {tuple(w.shape)} on {w.device}")
+    return w.to(dtype).contiguous()
+
+
+def mask_arg(mask: Optional[torch.Tensor], seq: int, device: torch.device):
+    """The additive (S, S) mask as a contiguous fp32 tensor, or None."""
+    if mask is None:
+        return None
+    mask = mask.to(device=device, dtype=torch.float32).contiguous()
+    if mask.shape != (seq, seq):
+        raise ValueError(f"mask must be ({seq}, {seq}), got {tuple(mask.shape)}")
+    return mask
+
+
+def check(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")

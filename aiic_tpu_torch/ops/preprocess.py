@@ -14,7 +14,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from aiic_tpu.data.preprocess import CLIP_MEAN, CLIP_STD
+from aiic_tpu_torch.data.preprocess import CLIP_MEAN, CLIP_STD
 
 
 def normalize_u8(pixels_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

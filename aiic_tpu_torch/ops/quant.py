@@ -17,17 +17,22 @@ Each half-block has three faces here:
   ``_int8_ln_mlp_cuda``.
 - a **public wrapper** with the JAX signature. It takes the plain version
   only for tensors on the CPU; for a CUDA tensor it launches the kernel or
-  raises. ``wrapper.launches`` counts kernel launches and nothing else.
+  raises. ``wrapper.launches`` counts kernel launches and nothing else
+  (``ops._build.counted``; ``ops._build.reset_launch_counts`` zeroes every
+  kernel's).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
-from aiic_tpu_torch.ops.attention import LOG2E, _denom_guard, exp2_rows, no_tf32
+from aiic_tpu_torch.ops._build import (
+    bf16_activation, check, counted, f32_vector, load_library, mask_arg, ptr, route, weight,
+)
+from aiic_tpu_torch.ops.attention import LOG2E, _ln_fp32, fused_attention_qkv_ref, no_tf32
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -57,15 +62,6 @@ def _gelu_exp2(y: torch.Tensor) -> torch.Tensor:
 def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int8 x int8 -> int32 product through float64."""
     return (a.double() @ b.double()).to(torch.int32)
-
-
-def _ln_fp32(xf: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
-    """LayerNorm with fp32 statistics and an fp32 result (the kernels feed
-    it to the row quantizer without a cast to the compute dtype)."""
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    h = (xf - mean) * torch.rsqrt(var + eps)
-    return h * scale.float() + bias.float()
 
 
 # ---------------------------------------------------------------------------
@@ -101,27 +97,16 @@ def int8_ln_qkv_attention_ref(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo,
     softmax with the denominator folded past p·V, bf16 output projection."""
     no_tf32()
     bsz, seq, width = x.shape
-    dim = width // heads
-    scale = dim ** -0.5
     xf = x.float()
     h = _ln_fp32(xf, ln_scale.reshape(1, width), ln_bias.reshape(1, width), eps)
     hq, hscale = _row_quant(h.reshape(bsz * seq, width))
     acc = _int_matmul(hq, wqkv_q)
     qkv = (acc.float() * hscale * sqkv.reshape(1, 3 * width).float()
            + bqkv.reshape(1, 3 * width).float())
-    qkv = qkv.to(x.dtype).reshape(bsz, seq, 3, heads, dim)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, S, H, D)
+    qkv = qkv.to(x.dtype).reshape(bsz, seq, 3 * width)
+    attn = fused_attention_qkv_ref(qkv, mask, heads)
 
-    q = q * torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    if mask is not None:
-        s = s + mask.float() * LOG2E
-    p = exp2_rows(s)
-    denom = _denom_guard(p.sum(dim=-1, keepdim=True))  # (B, H, S, 1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    attn = (o * (1.0 / denom.permute(0, 2, 1, 3))).reshape(bsz * seq, width)
-
-    out = attn.to(x.dtype).float() @ wo.to(x.dtype).float()
+    out = attn.float().reshape(bsz * seq, width) @ wo.to(x.dtype).float()
     out = out + bo.reshape(1, width).float()
     return (xf + out.reshape(bsz, seq, width)).to(x.dtype)
 
@@ -131,26 +116,10 @@ def int8_ln_qkv_attention_ref(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo,
 # ---------------------------------------------------------------------------
 
 
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def _f32(t: torch.Tensor, n: int, device: torch.device) -> torch.Tensor:
-    """A length-n fp32 vector on ``device`` (raises on any other size)."""
-    return t.reshape(n).to(device=device, dtype=torch.float32).contiguous()
-
-
-def _check(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-
-
 def _check_inputs(name: str, x: torch.Tensor, *weights) -> None:
     """x must be bf16 (B, S, W); each (weight, shape) contiguous int8 of
     that shape on x's device — the kernel reads them through raw pointers."""
-    if x.dtype != torch.bfloat16 or x.dim() != 3:
-        raise TypeError(f"{name}: the Hopper kernel takes bf16 (B, S, W) activations, "
-                        f"got {x.dtype} {tuple(x.shape)}")
+    bf16_activation(name, x)
     for w, shape in weights:
         if (w.dtype != torch.int8 or not w.is_contiguous() or w.device != x.device
                 or tuple(w.shape) != shape):
@@ -159,8 +128,6 @@ def _check_inputs(name: str, x: torch.Tensor, *weights) -> None:
 
 
 def _int8_ln_mlp_cuda(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps):
-    from aiic_tpu_torch.ops._build import load_library
-
     bsz, seq, width = x.shape
     mlp_dim = w1_q.shape[-1]
     _check_inputs("int8_ln_mlp", x, (w1_q, (width, mlp_dim)), (w2_q, (mlp_dim, width)))
@@ -176,23 +143,21 @@ def _int8_ln_mlp_cuda(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps):
     y = torch.empty((rows, mlp_dim), dtype=torch.float32, device=dev)
     yq = torch.empty((rows, mlp_dim), dtype=torch.int8, device=dev)
     ys = torch.empty((rows,), dtype=torch.float32, device=dev)
-    args = [x, _f32(ln_scale, width, dev), _f32(ln_bias, width, dev), w1_q,
-            _f32(s1, mlp_dim, dev), _f32(b1, mlp_dim, dev), w2_q, _f32(s2, width, dev),
-            _f32(b2, width, dev), out, hq, hs, y, yq, ys]
+    args = [x, f32_vector(ln_scale, width, dev), f32_vector(ln_bias, width, dev), w1_q,
+            f32_vector(s1, mlp_dim, dev), f32_vector(b1, mlp_dim, dev), w2_q, f32_vector(s2, width, dev),
+            f32_vector(b2, width, dev), out, hq, hs, y, yq, ys]
     # The scratch tensors are freed when this returns, before the kernels
     # run: PyTorch's caching allocator reuses their memory only for work
     # queued later on this same (current) stream, so that is safe.
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.aiic_int8_ln_mlp(*[_ptr(a) for a in args], rows, width, mlp_dim,
+    rc = lib.aiic_int8_ln_mlp(*[ptr(a) for a in args], rows, width, mlp_dim,
                               ctypes.c_float(eps), stream)
-    _check("int8_ln_mlp", rc)
+    check("int8_ln_mlp", rc)
     return out
 
 
 def _int8_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo,
                                 bo, mask, heads, eps):
-    from aiic_tpu_torch.ops._build import load_library
-
     bsz, seq, width = x.shape
     _check_inputs("int8_ln_qkv_attention", x, (wqkv_q, (width, 3 * width)))
     dim = width // heads
@@ -203,13 +168,8 @@ def _int8_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo,
     rows = bsz * seq
     x = x.contiguous()
     dev = x.device
-    wo = wo.to(device=dev, dtype=torch.bfloat16).contiguous()
-    if wo.shape != (width, width):
-        raise ValueError(f"wo must be ({width}, {width}), got {tuple(wo.shape)}")
-    if mask is not None:
-        mask = mask.to(device=dev, dtype=torch.float32).contiguous()
-        if mask.shape != (seq, seq):
-            raise ValueError(f"mask must be ({seq}, {seq}), got {tuple(mask.shape)}")
+    wo = weight("int8_ln_qkv_attention", wo, (width, width), torch.bfloat16, dev)
+    mask = mask_arg(mask, seq, dev)
     out = torch.empty_like(x)
     hq = torch.empty((rows, width), dtype=torch.int8, device=dev)
     hs = torch.empty((rows,), dtype=torch.float32, device=dev)
@@ -217,14 +177,14 @@ def _int8_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo,
     attn = torch.empty((rows, width), dtype=torch.bfloat16, device=dev)
     # The bf16-rounded scale·log2(e) constant, as jnp.asarray(.., q.dtype).
     qconst = float(torch.tensor(dim ** -0.5 * LOG2E, dtype=torch.bfloat16))
-    args = [x, _f32(ln_scale, width, dev), _f32(ln_bias, width, dev), wqkv_q,
-            _f32(sqkv, 3 * width, dev), _f32(bqkv, 3 * width, dev), wo, _f32(bo, width, dev),
+    args = [x, f32_vector(ln_scale, width, dev), f32_vector(ln_bias, width, dev), wqkv_q,
+            f32_vector(sqkv, 3 * width, dev), f32_vector(bqkv, 3 * width, dev), wo, f32_vector(bo, width, dev),
             mask, out, hq, hs, qkv, attn]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.aiic_int8_ln_qkv_attention(
-        *[_ptr(a) for a in args], bsz, seq, width, heads,
+        *[ptr(a) for a in args], bsz, seq, width, heads,
         ctypes.c_float(eps), ctypes.c_float(qconst), stream)
-    _check("int8_ln_qkv_attention", rc)
+    check("int8_ln_qkv_attention", rc)
     return out
 
 
@@ -233,47 +193,29 @@ def _int8_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo,
 # ---------------------------------------------------------------------------
 
 
-def _route(name: str, x: torch.Tensor) -> bool:
-    """True for the kernel (CUDA tensor), False for the plain version (CPU)."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise RuntimeError(f"{name}: no kernel for device {x.device}")
-
-
+@counted
 def int8_ln_mlp(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2,
                 *, eps: float = 1e-5) -> torch.Tensor:
     """(B, S, W) -> (B, S, W): x + int8-MLP(LN(x))."""
-    if not _route("int8_ln_mlp", x):
+    if not route("int8_ln_mlp", x):
         return int8_ln_mlp_ref(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps=eps)
     out = _int8_ln_mlp_cuda(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps)
     int8_ln_mlp.launches += 1
     return out
 
 
-int8_ln_mlp.launches = 0
-
-
+@counted
 def int8_ln_qkv_attention(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo,
                           mask=None, *, heads: int,
                           eps: float = 1e-5) -> torch.Tensor:
     """(B, S, W) -> (B, S, W): x + OutProj_bf16(Attn(QKV_int8(LN(x))))."""
-    if not _route("int8_ln_qkv_attention", x):
+    if not route("int8_ln_qkv_attention", x):
         return int8_ln_qkv_attention_ref(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
                                          wo, bo, mask, heads=heads, eps=eps)
     out = _int8_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
                                       wo, bo, mask, heads, eps)
     int8_ln_qkv_attention.launches += 1
     return out
-
-
-int8_ln_qkv_attention.launches = 0
-
-
-def reset_launch_counts() -> None:
-    int8_ln_mlp.launches = 0
-    int8_ln_qkv_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,9 @@
-"""The port's copies, weight bridge and import hygiene against the JAX package."""
+"""The port's copies, weight bridge and import hygiene against the JAX package.
+
+The port imports nothing of ``aiic_tpu``: its host helpers (tokenizer,
+prompts, normalization constants, batch buckets) are copies, each held here
+to its original on the CPU.
+"""
 
 import dataclasses
 import os
@@ -11,9 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from aiic_tpu.data import dataset as jax_dataset
+from aiic_tpu.data import preprocess as jax_data_pre
+from aiic_tpu.data import tokenizer as jax_tokenizer
 from aiic_tpu.engine import detector as jax_detector
 from aiic_tpu.models import config as jax_config
 from aiic_tpu.models.init import flatten_params, init_clip_params as jax_init
+from aiic_tpu.utils import batching as jax_batching
+from aiic_tpu_torch.data import dataset, tokenizer
+from aiic_tpu_torch.data import preprocess as data_pre
 from aiic_tpu_torch.engine import detector
 from aiic_tpu_torch.models import config
 from aiic_tpu_torch.models.init import (
@@ -22,7 +33,10 @@ from aiic_tpu_torch.models.init import (
     params_from_numpy,
     save_clip_weights,
 )
-from aiic_tpu_torch.ops import quant
+from aiic_tpu_torch.ops import _build, attention, mlp, quant
+from aiic_tpu_torch.utils import batching
+
+torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESETS = ["VIT_B_16", "VIT_B_32", "VIT_L_14", "VIT_L_14_336", "TINY_TEST"]
@@ -89,40 +103,131 @@ def test_params_from_numpy_and_npz_round_trip(tmp_path):
         np.testing.assert_array_equal(v.numpy(), flat[k])
 
 
-@pytest.mark.parametrize("name", ["int8_ln_mlp", "int8_ln_qkv_attention"])
+KERNEL_WRAPPERS = ["int8_ln_mlp", "int8_ln_qkv_attention", "fused_attention_qkv",
+                   "fused_ln_qkv_attention", "fused_ln_mlp"]
+
+
+@pytest.mark.parametrize("name", KERNEL_WRAPPERS)
 def test_wrapper_takes_plain_version_on_cpu_without_counting(name):
     rng = np.random.default_rng(0)
     w = 64
     x = torch.from_numpy(rng.standard_normal((2, 8, w)).astype(np.float32)).to(torch.bfloat16)
     ones, zeros = torch.ones(w), torch.zeros(w)
-    quant.reset_launch_counts()
+    _build.reset_launch_counts()
     if name == "int8_ln_mlp":
         w1_q, s1 = quant.quantize_weight(torch.randn(w, 4 * w))
         w2_q, s2 = quant.quantize_weight(torch.randn(4 * w, w))
         args = (x, ones, zeros, w1_q, s1, torch.zeros(4 * w), w2_q, s2, zeros)
         out = quant.int8_ln_mlp(*args)
         ref = quant.int8_ln_mlp_ref(*args)
-    else:
+    elif name == "int8_ln_qkv_attention":
         wq, sq = quant.quantize_weight(torch.randn(w, 3 * w))
         args = (x, ones, zeros, wq, sq, torch.zeros(3 * w), torch.randn(w, w), zeros)
         out = quant.int8_ln_qkv_attention(*args, heads=4)
         ref = quant.int8_ln_qkv_attention_ref(*args, heads=4)
+    elif name == "fused_attention_qkv":
+        qkv = torch.randn(2, 8, 3 * w).to(torch.bfloat16)
+        out = attention.fused_attention_qkv(qkv, heads=4)
+        ref = attention.fused_attention_qkv_ref(qkv, None, 4)
+    elif name == "fused_ln_qkv_attention":
+        args = (x, ones, zeros, torch.randn(w, 3 * w), torch.zeros(3 * w), torch.randn(w, w), zeros)
+        out = attention.fused_ln_qkv_attention(*args, heads=4)
+        ref = attention.fused_ln_qkv_attention_ref(*args, heads=4)
+    else:
+        args = (x, ones, zeros, torch.randn(w, 4 * w), torch.zeros(4 * w), torch.randn(4 * w, w),
+                zeros)
+        out = mlp.fused_ln_mlp(*args)
+        ref = mlp.fused_ln_mlp_ref(*args)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
-    assert getattr(quant, name).launches == 0
+    assert _build.launch_counts()[name] == 0
+    assert set(_build.launch_counts()) == set(KERNEL_WRAPPERS)
     with pytest.raises(RuntimeError, match="no kernel"):
-        quant._route(name, x.to("meta"))
+        _build.route(name, x.to("meta"))
 
 
 def test_batching_helpers_are_jax_free_and_reused():
-    code = ("import sys; import aiic_tpu.utils.batching as b; import aiic_tpu.data.dataset; "
-            "assert b.bucket_size(3, 8) == 4; assert 'jax' not in sys.modules, 'jax imported'")
+    """Importing the port, its smoke script and its profiler loads no JAX
+    and no module of the ``aiic_tpu`` package: the batching helpers and the
+    other host helpers the engine reuses are the port's own copies."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import aiic_tpu_torch, aiic_tpu_torch.engine.analyzer, aiic_tpu_torch.models.clip\n"
+        "import aiic_tpu_torch.ops.quant, aiic_tpu_torch.ops.attention, aiic_tpu_torch.ops.mlp\n"
+        "import chip_smoke, torch_profile\n"
+        "from aiic_tpu_torch.utils.batching import bucket_size\n"
+        "assert bucket_size(3, 8) == 4\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'aiic_tpu' or m.startswith('aiic_tpu.'))\n"
+        "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
+
+
+PROMPTS = ["wnętrze w stylu skandynawskim", "Łazienka z płytkami — żółć, źdźbło, gęślą jaźń",
+           "  kuchnia   ze  ŚCIANĄ &amp; oknem 3D!  ", "sypialnia's 12 poduszek"]
+VOCAB = [
+    {"image_path": "x.jpg", "style": "nowoczesny",
+     "characteristics": ["czyste linie", "przestronne"], "materials": ["drewno"],
+     "colors": ["biały", "szary"], "room_type": "kuchnia"},
+    {"image_path": "y.jpg", "style": "klasyczny", "characteristics": ["eleganckie", ""],
+     "materials": ["marmur", "drewno"], "colors": ["beżowy"], "room_type": "salon"},
+    {"image_path": "z.jpg", "style": "", "room_type": "łazienka"},
+]
+
+
+def _bpe_file(tmp_path):
+    import gzip
+
+    path = tmp_path / "bpe.txt.gz"
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version\n" + "w n\nwn ę\ns t\nst y\nk u\nku ch\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("case", ["tokenize_for_model", "tokenizer_bpe_env", "category_prompts",
+                                  "batching", "clip_mean_std"])
+def test_port_copies_match_jax_package(case, tmp_path, monkeypatch):
+    if case == "tokenize_for_model":
+        for name in ("TINY_TEST", "VIT_B_16"):
+            np.testing.assert_array_equal(
+                tokenizer.tokenize_for_model(PROMPTS, getattr(config, name)),
+                jax_tokenizer.tokenize_for_model(PROMPTS, getattr(jax_config, name)))
+        assert tokenizer.ClipTokenizer().hermetic and jax_tokenizer.ClipTokenizer().hermetic
+    elif case == "tokenizer_bpe_env":
+        monkeypatch.setenv("AIIC_BPE_PATH", _bpe_file(tmp_path))
+        ours, ref = tokenizer.ClipTokenizer(), jax_tokenizer.ClipTokenizer()
+        assert not ours.hermetic and ours.bpe_ranks == ref.bpe_ranks
+        np.testing.assert_array_equal(ours(PROMPTS), ref(PROMPTS))
+        assert ours.decode(ours(PROMPTS[0])[0]) == ref.decode(ref(PROMPTS[0])[0])
+    elif case == "category_prompts":
+        cats = dataset.extract_all_categories(VOCAB)
+        assert cats == jax_dataset.extract_all_categories(VOCAB)
+        assert dataset.build_category_prompts(cats) == jax_dataset.build_category_prompts(cats)
+        assert dataset.CATEGORY_KEYS == jax_dataset.CATEGORY_KEYS
+    elif case == "batching":
+        for n, cap in [(1, 8), (3, 8), (8, 8), (9, 8), (5, 512), (300, 256)]:
+            assert batching.bucket_size(n, cap) == jax_batching.bucket_size(n, cap)
+        a = np.arange(3 * 4, dtype=np.uint8).reshape(3, 4)
+        for size in (3, 4, 8):
+            ours, ref = batching.pad_batch(a, size), jax_batching.pad_batch(a, size)
+            np.testing.assert_array_equal(ours[0], ref[0])
+            assert ours[1] == ref[1] and ours[0].dtype == ref[0].dtype
+        for mod in (batching, jax_batching):
+            with pytest.raises(ValueError):
+                mod.bucket_size(0, 8)
+            with pytest.raises(ValueError):
+                mod.pad_batch(a, 2)
+    else:
+        np.testing.assert_array_equal(data_pre.CLIP_MEAN, jax_data_pre.CLIP_MEAN)
+        np.testing.assert_array_equal(data_pre.CLIP_STD, jax_data_pre.CLIP_STD)
+        assert data_pre.CLIP_MEAN.dtype == jax_data_pre.CLIP_MEAN.dtype
 
 
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import aiic_tpu_torch, aiic_tpu_torch.engine.analyzer, aiic_tpu_torch.ops.quant\n"
             "import aiic_tpu_torch.ops._build, aiic_tpu_torch.models.clip, chip_smoke\n"
+            "import aiic_tpu_torch.ops.attention, aiic_tpu_torch.ops.mlp\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
 

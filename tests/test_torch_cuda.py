@@ -5,17 +5,21 @@ and skip elsewhere. Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Tolerance (as in chip_smoke.py): every row's cosine >= 0.9999 and >= 99% of
-elements within 2 bf16 ULPs of the plain version, which differs only in
-summation order.
+Tolerance (as in chip_smoke.py): in bf16, every row's cosine >= 0.9999 and
+>= 99% of elements within 2 bf16 ULPs of the plain version, which differs
+only in summation order; in fp32, max |kernel - plain| / max(|plain|, 1)
+<= 1e-5 (summation order of fp32 sums over 64 dims and S keys).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from aiic_tpu_torch.models import clip
 from aiic_tpu_torch.models.clip import causal_mask
-from aiic_tpu_torch.ops import quant
+from aiic_tpu_torch.ops import attention, mlp, quant
+
+torch.set_num_threads(2)
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +85,104 @@ def test_kernels_refuse_what_they_do_not_take(device):
         quant.int8_ln_mlp(x.float(), *mlp)
     with pytest.raises(ValueError):
         quant.int8_ln_qkv_attention(x, *attn, heads=16)  # head_dim 48
+
+
+def _f32_agree(out, ref):
+    assert out.dtype == ref.dtype == torch.float32
+    assert float(((out - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 197, 768, 12, False), (4, 77, 512, 8, True)],
+                         ids=["image", "text_causal"])
+def test_attention_qkv_kernel_matches_plain(device, shape, dtype):
+    bsz, seq, width, heads, masked = shape
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(rng.standard_normal((bsz, seq, 3 * width)).astype(np.float32))
+    qkv = qkv.to(device=device, dtype=dtype)
+    mask = causal_mask(seq, device=device) if masked else None
+    before = attention.fused_attention_qkv.launches
+    out = attention.fused_attention_qkv(qkv, mask, heads=heads)
+    torch.cuda.synchronize()
+    assert attention.fused_attention_qkv.launches == before + 1
+    ref = attention.fused_attention_qkv_ref(qkv, mask, heads)
+    _f32_agree(out, ref) if dtype == torch.float32 else _agree(out, ref)
+
+
+@pytest.mark.parametrize("shape", [(2, 197, 768, 12, False), (4, 77, 512, 8, True)],
+                         ids=["image", "text_causal"])
+def test_ln_qkv_attention_kernel_matches_plain(device, shape):
+    bsz, seq, width, heads, masked = shape
+    x, attn, _ = _inputs(device, bsz, seq, width)
+    ln_s, ln_b = attn[:2]
+    rng = np.random.default_rng(2)
+    wqkv = torch.from_numpy((rng.standard_normal((width, 3 * width)) * width ** -0.5)
+                            .astype(np.float32)).to(device)
+    args = (x, ln_s, ln_b, wqkv, *attn[4:])
+    mask = causal_mask(seq, device=device) if masked else None
+    before = attention.fused_ln_qkv_attention.launches
+    out = attention.fused_ln_qkv_attention(*args, mask, heads=heads)
+    torch.cuda.synchronize()
+    assert attention.fused_ln_qkv_attention.launches == before + 1
+    _agree(out, attention.fused_ln_qkv_attention_ref(*args, mask, heads=heads))
+
+
+@pytest.mark.parametrize("shape", [(2, 197, 768), (4, 77, 512)], ids=["image", "text"])
+def test_ln_mlp_kernel_matches_plain(device, shape):
+    x, _, mlp_args = _inputs(device, *shape)
+    width = shape[-1]
+    rng = np.random.default_rng(3)
+    w = lambda *s, std: torch.from_numpy((rng.standard_normal(s) * std).astype(np.float32)).to(device)  # noqa: E731
+    args = (x, *mlp_args[:2], w(width, 4 * width, std=(2 * width) ** -0.5), mlp_args[4],
+            w(4 * width, width, std=0.01), mlp_args[7])
+    before = mlp.fused_ln_mlp.launches
+    out = mlp.fused_ln_mlp(*args)
+    torch.cuda.synchronize()
+    assert mlp.fused_ln_mlp.launches == before + 1
+    _agree(out, mlp.fused_ln_mlp_ref(*args))
+
+
+@pytest.mark.parametrize("kernel", ["fused_attention_qkv", "fused_ln_qkv_attention",
+                                    "fused_ln_mlp"])
+def test_new_kernels_refuse_what_they_do_not_take(device, kernel):
+    """A CUDA tensor of a shape or type the kernel does not take raises; it
+    never falls back to the plain version."""
+    x, attn, mlp_args = _inputs(device, 1, 17, 768)
+    before = getattr(attention if kernel != "fused_ln_mlp" else mlp, kernel).launches
+    if kernel == "fused_attention_qkv":
+        qkv = torch.zeros((1, 17, 3 * 768), device=device)
+        with pytest.raises(ValueError):
+            attention.fused_attention_qkv(qkv, heads=16)  # head_dim 48
+        with pytest.raises(TypeError):
+            attention.fused_attention_qkv(qkv.half(), heads=12)
+    elif kernel == "fused_ln_qkv_attention":
+        wqkv = torch.zeros((768, 3 * 768), device=device)
+        args = (x, *attn[:2], wqkv, *attn[4:])
+        with pytest.raises(ValueError):
+            attention.fused_ln_qkv_attention(*args, heads=16)  # head_dim 48
+        with pytest.raises(TypeError):
+            attention.fused_ln_qkv_attention(x.float(), *args[1:], heads=12)
+        with pytest.raises(ValueError):  # a weight on another device
+            attention.fused_ln_qkv_attention(x, *attn[:2], wqkv.cpu(), *attn[4:], heads=12)
+    else:
+        w1 = torch.zeros((768, 3000), device=device)
+        w2 = torch.zeros((3000, 768), device=device)
+        with pytest.raises(ValueError):  # hidden width not a multiple of 128
+            mlp.fused_ln_mlp(x, *mlp_args[:2], w1, torch.zeros(3000), w2, mlp_args[7])
+        with pytest.raises(TypeError):
+            mlp.fused_ln_mlp(x.float(), *mlp_args[:2], w1, torch.zeros(3000), w2, mlp_args[7])
+    assert getattr(attention if kernel != "fused_ln_mlp" else mlp, kernel).launches == before
+
+
+def test_bf16_linear_runs_cublas_with_one_rounding(device):
+    """The plain bf16 ``linear`` on the card: bf16 operands, fp32 sums and
+    output from cuBLAS, one rounding after the fp32 bias add."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((3, 50, 256)).astype(np.float32)).to(device, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((256, 384)).astype(np.float32) * 0.06).to(device)
+    b = torch.from_numpy(rng.standard_normal(384).astype(np.float32)).to(device)
+    y = clip._mm(x, w.to(torch.bfloat16))
+    assert y.dtype == torch.float32 and y.shape == (3, 50, 384)
+    ref = x.float() @ w.to(torch.bfloat16).float()  # exact products, TF32 off
+    assert float((y - ref).abs().max()) <= 1e-4
+    _agree(clip.linear(x, w, b), (ref + b).to(torch.bfloat16))

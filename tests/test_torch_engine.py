@@ -1,8 +1,10 @@
 """The port's classify program and InteriorAnalyzer against the JAX engine.
 
 Both engines get the same weights and the fixture vocabulary of
-tests/test_engine.py, in the serving configuration (bf16, int8, patch wire;
-the JAX kernels in interpret mode). Verdicts, categories and attribute names
+tests/test_engine.py, in two serving configurations (the JAX kernels in
+interpret mode): int8 serving (bf16, int8, patch wire) and the worker's
+default (bf16 without int8 weights, HWC uint8 wire normalized on the
+device). Verdicts, categories and attribute names
 must be identical; confidences agree within 1e-3. Top-k ties may be
 ordered differently by torch.topk and lax.top_k, so indices are compared
 only where the values differ.
@@ -34,7 +36,9 @@ from aiic_tpu_torch.engine.analyzer import InteriorAnalyzer
 from aiic_tpu_torch.engine.detector import INTERIOR_COUNT
 from aiic_tpu_torch.models.config import TINY_TEST
 from aiic_tpu_torch.models.init import params_from_numpy
-from aiic_tpu_torch.ops import quant
+from aiic_tpu_torch.ops import _build, quant
+
+torch.set_num_threads(2)
 
 TRAINING = [
     {"image_path": "x.jpg", "style": "nowoczesny",
@@ -52,7 +56,7 @@ def engines():
         warnings.simplefilter("ignore")  # real-weights-with-hermetic-tokenizer notice
         ref = JaxAnalyzer(jp, JAX_TINY, training_data=TRAINING, dtype=jnp.bfloat16,
                           quantize=True, attn_impl="pallas", wire_format="patch", max_batch=4)
-    quant.reset_launch_counts()
+    _build.reset_launch_counts()
     ours = InteriorAnalyzer(params_from_numpy(flatten_params(jp)), TINY_TEST,
                             training_data=TRAINING, dtype=torch.bfloat16, quantize=True,
                             wire_format="patch", max_batch=4, device="cpu")
@@ -62,12 +66,12 @@ def engines():
 EXACT_BF16 = {"xla_allow_excess_precision": False}
 
 
-def _jax_classify(ref, pm):
+def _jax_classify(ref, pixels):
     """The JAX engine's classify program with every bf16 rounding kept."""
     fn = jax.jit(functools.partial(
         jax_programs.classify_batch, config=JAX_TINY, interior_count=INTERIOR_COUNT,
         dtype=jnp.bfloat16, attn_impl="pallas"), compiler_options=EXACT_BF16)
-    out = fn(ref.params, jnp.asarray(pm), ref.det_text, ref.cat_text, ref.cat_mask)
+    out = fn(ref.params, jnp.asarray(pixels), ref.det_text, ref.cat_text, ref.cat_mask)
     return {k: np.asarray(v) for k, v in out.items()}
 
 
@@ -118,7 +122,8 @@ def test_classify_batch_matches_jax(engines):
 def _jax_results(ref, px, threshold=0.3, filter_interiors=True):
     """The JAX engine's analyze_images_batch assembly, on in-memory pixels
     (one bucket: the JAX engine's chunking is that of the port's)."""
-    res = _jax_classify(ref, to_patch_major(px, TINY_TEST.patch_size))
+    wire = to_patch_major(px, TINY_TEST.patch_size) if ref.wire_format == "patch" else px
+    res = _jax_classify(ref, wire)
     out = []
     from aiic_tpu.engine.detector import DETECTOR_CATEGORIES
 
@@ -137,12 +142,7 @@ def _jax_results(ref, px, threshold=0.3, filter_interiors=True):
     return out
 
 
-@pytest.mark.parametrize("filter_interiors", [True, False], ids=["filter", "nofilter"])
-def test_analyze_pixels_matches_jax_engine(engines, filter_interiors):
-    ref, ours = engines
-    px = _pixels(5, seed=8)  # max_batch=4: a full chunk and a padded one
-    got = ours.analyze_pixels(px, filter_interiors=filter_interiors)
-    want = _jax_results(ref, px, 0.3, filter_interiors)
+def _check_results(got, want):
     assert len(got) == len(want) == 5
     for g, w in zip(got, want):
         assert g["is_interior"] == w["is_interior"]
@@ -157,6 +157,62 @@ def test_analyze_pixels_matches_jax_engine(engines, filter_interiors):
             assert g["reason"] == "Success - interior image analyzed"
         else:
             assert g["reason"].startswith(f"Nie wnętrze: {g['detected_category']} (confidence: ")
+
+
+@pytest.mark.parametrize("filter_interiors", [True, False], ids=["filter", "nofilter"])
+def test_analyze_pixels_matches_jax_engine(engines, filter_interiors):
+    ref, ours = engines
+    px = _pixels(5, seed=8)  # max_batch=4: a full chunk and a padded one
+    _check_results(ours.analyze_pixels(px, filter_interiors=filter_interiors),
+                   _jax_results(ref, px, 0.3, filter_interiors))
+
+
+@pytest.fixture(scope="module")
+def bf16_engines():
+    """The worker's default: bf16, no int8 weights, HWC uint8 wire."""
+    jp = init_clip_params(jax.random.PRNGKey(0), JAX_TINY)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = JaxAnalyzer(jp, JAX_TINY, training_data=TRAINING, dtype=jnp.bfloat16,
+                          quantize=False, attn_impl="pallas", wire_format="hwc", max_batch=4)
+    ours = InteriorAnalyzer(params_from_numpy(flatten_params(jp)), TINY_TEST,
+                            training_data=TRAINING, dtype=torch.bfloat16, quantize=False,
+                            wire_format="hwc", attn_impl="pallas", max_batch=4, device="cpu")
+    return ref, ours
+
+
+def test_bf16_unquantized_text_features_match_jax(bf16_engines):
+    ref, ours = bf16_engines
+    assert not ours.quantized and "attn_q" not in ours.params["text"]["blocks"]
+    for a, b in ((ours.det_text, ref.det_text), (ours.cat_text, ref.cat_text)):
+        a = a.numpy().reshape(-1, TINY_TEST.embed_dim)
+        b = np.asarray(b).reshape(a.shape)
+        live = np.linalg.norm(b, axis=-1) > 0
+        cos = (a[live] * b[live]).sum(-1) / (np.linalg.norm(a[live], axis=-1) * np.linalg.norm(b[live], axis=-1))
+        assert cos.min() >= 0.9999
+
+
+def test_bf16_unquantized_classify_batch_matches_jax(bf16_engines):
+    ref, ours = bf16_engines
+    px = _pixels(4, seed=17)  # uint8 HWC: normalized on the device by both
+    jout = _jax_classify(ref, px)
+    tout = programs.classify_batch(
+        ours.params, torch.from_numpy(px), torch.from_numpy(np.array(ref.det_text)),
+        torch.from_numpy(np.array(ref.cat_text)), torch.from_numpy(np.array(ref.cat_mask)),
+        config=TINY_TEST, interior_count=INTERIOR_COUNT, dtype=torch.bfloat16)
+    assert ((tout["features"].numpy() * jout["features"]).sum(-1)).min() >= 0.9999
+    for k in ("top_conf", "interior_mass", "non_interior_mass"):
+        np.testing.assert_allclose(tout[k].numpy(), jout[k], atol=1e-3)
+    _topk_close(tout["topk_vals"].numpy(), tout["topk_idx"].numpy(),
+                jout["topk_vals"], jout["topk_idx"], 1e-3)
+
+
+@pytest.mark.parametrize("filter_interiors", [True, False], ids=["filter", "nofilter"])
+def test_bf16_unquantized_analyze_pixels_matches_jax_engine(bf16_engines, filter_interiors):
+    ref, ours = bf16_engines
+    px = _pixels(5, seed=18)
+    _check_results(ours.analyze_pixels(px, filter_interiors=filter_interiors),
+                   _jax_results(ref, px, 0.3, filter_interiors))
 
 
 def test_detector_and_topk_programs_match_jax():

@@ -1,13 +1,17 @@
 """The port's CLIP towers against the JAX package on the same weights.
 
-- fp32 unquantized towers against JAX ``attn_impl="xla"``: within 1e-5
-  (the same math; only summation orders differ).
+- fp32 unquantized towers against JAX ``attn_impl="xla"`` and ``"pallas"``
+  (the packed-QKV core kernel in interpret mode): within 1e-5 (the same
+  math; only summation orders differ).
 - the bf16 int8 serving towers (patch-major uint8 wire, int8 embed) against
   JAX ``attn_impl="pallas"`` (its kernels in interpret mode): every row's
   cosine >= 0.9999, because bf16 rounding flips at a few boundaries move an
   int8 quantization step somewhere in the tower. The JAX towers compile
   with ``xla_allow_excess_precision`` off, so that XLA rounds every bf16
   intermediate as the port does (see test_torch_engine.py).
+- the bf16 unquantized towers (the worker's default) against JAX
+  ``attn_impl="pallas"`` and ``"pallas_mlp"``: every row's cosine >= 0.9999,
+  for the same reason (a bf16 rounding flip moves one value by an ULP).
 """
 
 import functools
@@ -23,10 +27,13 @@ from aiic_tpu.models.config import TINY_TEST as JAX_TINY
 from aiic_tpu.models.init import flatten_params, init_clip_params
 from aiic_tpu.ops import quant as jax_quant
 from aiic_tpu.ops.preprocess import to_patch_major
+from aiic_tpu_torch.data.preprocess import CLIP_MEAN, CLIP_STD
 from aiic_tpu_torch.models import clip
 from aiic_tpu_torch.models.config import TINY_TEST
 from aiic_tpu_torch.models.init import params_from_numpy
 from aiic_tpu_torch.ops import quant
+
+torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")
@@ -59,8 +66,8 @@ def _tokens(seed=2):
 EXACT_BF16 = {"xla_allow_excess_precision": False}
 
 
-def _jax_tower(fn, params, x):
-    f = jax.jit(functools.partial(fn, config=JAX_TINY, dtype=jnp.bfloat16, attn_impl="pallas"),
+def _jax_tower(fn, params, x, attn_impl="pallas"):
+    f = jax.jit(functools.partial(fn, config=JAX_TINY, dtype=jnp.bfloat16, attn_impl=attn_impl),
                 compiler_options=EXACT_BF16)
     return np.asarray(f(params, jnp.asarray(x)), np.float32)
 
@@ -80,7 +87,7 @@ def test_encode_image_fp32_matches_jax_xla(weights, wire):
         pm = to_patch_major(px, TINY_TEST.patch_size)
         jx, tx = jnp.asarray(pm), torch.from_numpy(pm)
     ref = np.asarray(jax_clip.encode_image(jp, jx, JAX_TINY, dtype=jnp.float32, attn_impl="xla"))
-    out = clip.encode_image(tp, tx, TINY_TEST, dtype=torch.float32).numpy()
+    out = clip.encode_image(tp, tx, TINY_TEST, dtype=torch.float32, attn_impl="xla").numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
 
 
@@ -89,8 +96,88 @@ def test_encode_text_fp32_matches_jax_xla(weights):
     tok = _tokens()
     ref = np.asarray(jax_clip.encode_text(jp, jnp.asarray(tok), JAX_TINY, dtype=jnp.float32,
                                           attn_impl="xla"))
-    out = clip.encode_text(tp, torch.from_numpy(tok), TINY_TEST, dtype=torch.float32).numpy()
+    out = clip.encode_text(tp, torch.from_numpy(tok), TINY_TEST, dtype=torch.float32,
+                           attn_impl="xla").numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tower", ["image_hwc", "image_patch", "text"])
+def test_fp32_towers_match_jax_pallas(weights, tower):
+    """The batch CLI's default: fp32 towers on the packed-QKV core kernel."""
+    jp, tp = weights
+    if tower == "text":
+        tok = _tokens(seed=11)
+        ref = jax_clip.encode_text(jp, jnp.asarray(tok), JAX_TINY, dtype=jnp.float32,
+                                   attn_impl="pallas")
+        out = clip.encode_text(tp, torch.from_numpy(tok), TINY_TEST, dtype=torch.float32)
+    else:
+        px = _images(seed=12)
+        pix = ((px.astype(np.float32) / 255.0 - 0.45) / 0.27 if tower == "image_hwc"
+               else to_patch_major(px, TINY_TEST.patch_size))
+        ref = jax_clip.encode_image(jp, jnp.asarray(pix), JAX_TINY, dtype=jnp.float32,
+                                    attn_impl="pallas")
+        out = clip.encode_image(tp, torch.from_numpy(pix), TINY_TEST, dtype=torch.float32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "pallas_mlp"])
+@pytest.mark.parametrize("tower", ["image", "text"])
+def test_bf16_unquantized_towers_match_jax(weights, tower, attn_impl):
+    """The worker's default: bf16 without int8 weights, on the bf16
+    attention half-block (and under pallas_mlp the fused LN+MLP) kernels."""
+    jp, tp = weights
+    if tower == "text":
+        tok = _tokens(seed=13)
+        ref = _jax_tower(jax_clip.encode_text, jp, tok, attn_impl)
+        out = clip.encode_text(tp, torch.from_numpy(tok), TINY_TEST, dtype=torch.bfloat16,
+                               attn_impl=attn_impl)
+    else:
+        px = _images(4, seed=14)  # uint8 HWC, normalized as the HWC wire does
+        norm = (px.astype(np.float32) - 255.0 * CLIP_MEAN) / (255.0 * CLIP_STD)
+        ref = _jax_tower(jax_clip.encode_image, jp, norm.astype(jnp.bfloat16), attn_impl)
+        out = clip.encode_image(tp, torch.from_numpy(norm).to(torch.bfloat16), TINY_TEST,
+                                dtype=torch.bfloat16, attn_impl=attn_impl)
+    assert out.dtype == torch.float32
+    assert _row_cos(out.numpy(), ref).min() >= 0.9999
+
+
+BRANCHES = [  # (dtype, quantized tree, attn_impl) -> (attention half, MLP half)
+    ("bfloat16", True, "pallas", ("int8_ln_qkv_attention", "int8_ln_mlp")),
+    ("bfloat16", True, "pallas_mlp", ("int8_ln_qkv_attention", "int8_ln_mlp")),
+    ("bfloat16", True, "xla", ("xla", "plain")),
+    ("bfloat16", False, "pallas", ("fused_ln_qkv_attention", "plain")),
+    ("bfloat16", False, "pallas_mlp", ("fused_ln_qkv_attention", "fused_ln_mlp")),
+    ("bfloat16", False, "xla", ("xla", "plain")),
+    ("float32", False, "pallas", ("fused_attention_qkv", "plain")),
+    ("float32", True, "pallas_mlp", ("fused_attention_qkv", "plain")),
+    ("float32", False, "xla", ("xla", "plain")),
+]
+
+
+@pytest.mark.parametrize("dtype,quantized,attn_impl,want", BRANCHES,
+                         ids=[f"{d}-{'int8' if q else 'fp'}-{a}" for d, q, a, _ in BRANCHES])
+def test_block_takes_the_jax_branch(quantized, weights, monkeypatch, dtype, attn_impl, want):
+    """``block`` picks each half's path in ``aiic_tpu.models.clip.block``'s
+    order; recorded by wrapping each kernel wrapper and the xla core."""
+    from aiic_tpu_torch.ops import attention, mlp
+
+    _, tp = weights
+    tree = quant.quantize_model(tp) if quantized else tp
+    calls = []
+    for mod, name in ((quant, "int8_ln_qkv_attention"), (quant, "int8_ln_mlp"),
+                      (attention, "fused_ln_qkv_attention"), (attention, "fused_attention_qkv"),
+                      (mlp, "fused_ln_mlp")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name, **k: calls.append(_n) or _f(*a, **k))
+    xla = clip.attention_qkv_ref
+    monkeypatch.setattr(clip, "attention_qkv_ref", lambda *a: calls.append("xla") or xla(*a))
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal((2, 5, 64)).astype(np.float32))
+    out = clip.block(x.to(getattr(torch, dtype)), clip._layer(tree["visual"]["blocks"], 0), 4,
+                     None, "quick_gelu", attn_impl)
+    assert out.dtype == getattr(torch, dtype) and torch.isfinite(out.float()).all()
+    assert tuple(calls) + ("plain",) * (2 - len(calls)) == want
+    with pytest.raises(ValueError, match="attn_impl"):
+        clip.block(x, clip._layer(tree["visual"]["blocks"], 0), 4, None, "quick_gelu", "auto")
 
 
 def test_encode_image_int8_serving_matches_jax_pallas(quantized):

@@ -19,6 +19,8 @@ from aiic_tpu.ops import quant as jax_quant
 from aiic_tpu_torch.models.clip import causal_mask
 from aiic_tpu_torch.ops import preprocess, quant
 
+torch.set_num_threads(2)
+
 
 def _int8_close(ours, ref):
     ours, ref = np.asarray(ours).astype(np.int32), np.asarray(ref).astype(np.int32)
