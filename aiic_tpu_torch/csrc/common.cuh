@@ -28,6 +28,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define AIIC_CHECK(expr)                       \
   do {                                         \
     const cudaError_t aiic_err_ = (expr);      \
@@ -153,12 +155,17 @@ template <> struct GemmTypes<bf16> { using frag = __nv_bfloat16; using acc = flo
 // (As[k/16][m][16], Bs[n/16][k][16]) so every fragment pointer is 256-bit
 // aligned and every global load is one 16-byte vector. Requires N % 128 == 0
 // and K % 32 == 0; rows past M are zero-filled and never stored.
-template <typename T, typename Epi>
+// kTransB: B is stored (N, K) row-major and the product is A @ B^T (the
+// backward's dy @ W^T against a weight kept (in, out)); its tile is kept as
+// Bs[n/16][n%16][k] and read through col_major fragments, so no transposed
+// copy of the weight is made.
+template <typename T, typename Epi, bool kTransB = false>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int K, Epi epi) {
   using namespace nvcuda;
   using FragT = typename GemmTypes<T>::frag;
   using Acc = typename GemmTypes<T>::acc;
+  using BLayout = typename std::conditional<kTransB, wmma::col_major, wmma::row_major>::type;
   constexpr int kVec = 16 / sizeof(T);
   __shared__ __align__(128) T As[kBK / 16][kBM][16];
   __shared__ __align__(128) T Bs[kBN / 16][kBK][16];
@@ -182,22 +189,34 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int 
         v = *reinterpret_cast<const uint4*>(A + static_cast<size_t>(m0 + r) * K + k0 + kc);
       *reinterpret_cast<uint4*>(&As[kc / 16][r][kc % 16]) = v;
     }
-    for (int c = tid; c < kBK * kBN / kVec; c += kGemmThreads) {
-      const int kr = c / (kBN / kVec), nc = (c % (kBN / kVec)) * kVec;
-      *reinterpret_cast<uint4*>(&Bs[nc / 16][kr][nc % 16]) =
-          *reinterpret_cast<const uint4*>(B + static_cast<size_t>(k0 + kr) * N + n0 + nc);
+    T* const bt = &Bs[0][0][0];  // the kTransB view: [n/16][n%16][k]
+    if constexpr (kTransB) {
+      for (int c = tid; c < kBN * kBK / kVec; c += kGemmThreads) {
+        const int nr = c / (kBK / kVec), kc = (c % (kBK / kVec)) * kVec;
+        *reinterpret_cast<uint4*>(bt + (nr / 16) * 16 * kBK + (nr % 16) * kBK + kc) =
+            *reinterpret_cast<const uint4*>(B + static_cast<size_t>(n0 + nr) * K + k0 + kc);
+      }
+    } else {
+      for (int c = tid; c < kBK * kBN / kVec; c += kGemmThreads) {
+        const int kr = c / (kBN / kVec), nc = (c % (kBN / kVec)) * kVec;
+        *reinterpret_cast<uint4*>(&Bs[nc / 16][kr][nc % 16]) =
+            *reinterpret_cast<const uint4*>(B + static_cast<size_t>(k0 + kr) * N + n0 + nc);
+      }
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, FragT, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, FragT, wmma::row_major> b[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, FragT, BLayout> b[2];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         wmma::load_matrix_sync(a[i], reinterpret_cast<const FragT*>(&As[kk][wm * 64 + i * 16][0]), 16);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], reinterpret_cast<const FragT*>(&Bs[wn * 2 + j][kk * 16][0]), 16);
+      for (int j = 0; j < 2; ++j) {
+        const T* bj =
+            kTransB ? bt + (wn * 2 + j) * 16 * kBK + kk * 16 : &Bs[wn * 2 + j][kk * 16][0];
+        wmma::load_matrix_sync(b[j], reinterpret_cast<const FragT*>(bj), kTransB ? kBK : 16);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -222,10 +241,10 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int 
   }
 }
 
-template <typename T, typename Epi>
+template <bool kTransB = false, typename T, typename Epi>
 cudaError_t launch_gemm(const T* A, const T* B, int M, int N, int K, Epi epi, cudaStream_t st) {
   const dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<T, Epi><<<grid, kGemmThreads, 0, st>>>(A, B, M, N, K, epi);
+  gemm_kernel<T, Epi, kTransB><<<grid, kGemmThreads, 0, st>>>(A, B, M, N, K, epi);
   return cudaGetLastError();
 }
 

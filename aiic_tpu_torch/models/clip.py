@@ -22,7 +22,21 @@ lifted to fp32, which is exact for bf16 inputs, with TF32 off.
   kernel (``ops.attention.fused_attention_qkv``);
 - ``"pallas_mlp"``: as ``"pallas"``, and an unquantized bf16 MLP runs the
   fused LN+MLP kernel (``ops.mlp.fused_ln_mlp``);
-- ``"xla"``: the reference composition (stable softmax, no kernels).
+- ``"xla"``: the reference composition (stable softmax, no kernels);
+- ``"pallas_vjp"`` (training): the packed-QKV core kernel forward under
+  autograd, its backward differentiated through the stable-softmax
+  composition (``ops.attention.fused_attention_qkv_vjp``);
+- ``"block_fused"`` (training): the whole text block with LoRA on its
+  forward and backward kernels (``ops.block_grad.text_block_lora``) where
+  the full attach set is present, dropout is 0, the activation is
+  quick-gelu and the JAX package's gate admits the geometry; otherwise
+  ``"pallas_vjp"``;
+- ``"auto"``: ``"pallas_vjp"`` on a CUDA tensor, ``"xla"`` on the CPU (the
+  JAX trainer's resolution on its accelerator and elsewhere).
+
+LoRA adapters ride along as a stacked tree (``adapters.lora``) on the
+``out_proj``, ``c_fc`` and ``c_proj`` linears (``lora_delta``); with
+``lora=None`` every path is the serving one.
 
 The last image block runs for the CLS row only, in fp32, on the unquantized
 weights (``block_cls``).
@@ -33,9 +47,12 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from aiic_tpu_torch.adapters.lora import ATTACH_POINTS
 from aiic_tpu_torch.models.config import CLIPConfig
 from aiic_tpu_torch.ops import attention as attention_ops
+from aiic_tpu_torch.ops import block_grad
 from aiic_tpu_torch.ops import mlp as mlp_ops
 from aiic_tpu_torch.ops import quant
 from aiic_tpu_torch.ops.attention import attention_qkv_ref, no_tf32
@@ -48,15 +65,24 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
-ATTN_IMPLS = ("pallas", "pallas_mlp", "xla")
+ATTN_IMPLS = ("auto", "pallas", "pallas_mlp", "pallas_vjp", "block_fused", "xla")
+
+
+def resolve_attn_impl(impl: str, x: torch.Tensor) -> str:
+    """``"auto"`` -> ``"pallas_vjp"`` for a CUDA tensor, ``"xla"`` on the CPU."""
+    if impl != "auto":
+        return impl
+    return "pallas_vjp" if x.is_cuda else "xla"
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with fp32 accumulation and an fp32 result. Two bf16 operands on
     the card run on the bf16 tensor cores through cuBLAS with an fp32 output
-    (exact products, fp32 sums); anything else is lifted to fp32 with TF32
-    off."""
-    if a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
+    (exact products, fp32 sums) where no gradient is asked for (that
+    overload has no derivative); anything else is lifted to fp32 with TF32
+    off, which is exact for bf16 operands too."""
+    if (a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad))):
         y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
         return y.reshape(*a.shape[:-1], b.shape[-1])
     no_tf32()
@@ -97,17 +123,55 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch
     return y.to(x.dtype)
 
 
+def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               scaling: float) -> torch.Tensor:
+    """The low-rank delta ``(x @ A @ B) * (alpha/rank)`` in x's dtype, A
+    (in, r), B (r, out), each product with fp32 sums and the down-projection
+    rounded to x's dtype (reference LoRALayer.forward, main.py:30-31)."""
+    down = _mm(x, a.to(x.dtype))
+    up = _mm(down.to(x.dtype), b.to(x.dtype))
+    return (up * scaling).to(x.dtype)
+
+
+def _maybe_lora_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                       lora: Optional[Params], scaling: float, dropout: float = 0.0,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``linear`` plus the LoRA delta where an adapter is given; train-time
+    inverted dropout on the delta when ``dropout`` > 0 and a generator is
+    given (the reference trainer's nn.Dropout on the low-rank path,
+    train_lora.py:16-29). The keep mask comes from ``generator``, so it
+    matches JAX's only in distribution."""
+    y = linear(x, w, b)
+    if lora is not None:
+        d = lora_delta(x, lora["A"], lora["B"], scaling)
+        if dropout > 0.0 and generator is not None:
+            keep = torch.rand(d.shape, generator=generator, device=d.device) < 1.0 - dropout
+            d = torch.where(keep, d / (1.0 - dropout), torch.zeros_like(d))
+        y = y + d
+    return y
+
+
 def attention(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tensor],
-              attn_impl: str = "pallas") -> torch.Tensor:
+              attn_impl: str = "pallas", *, lora_out: Optional[Params] = None,
+              lora_scaling: float = 1.0, lora_dropout: float = 0.0,
+              lora_generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Multi-head self-attention with the fused [Q|K|V] projection; the core
-    is the packed-QKV kernel under ``pallas*``, the stable-softmax
-    composition under ``xla``."""
+    is the packed-QKV kernel under ``pallas*``, the same kernel under
+    autograd with the stable-softmax backward under ``pallas_vjp``, the
+    stable-softmax composition under ``xla``. ``lora_out`` adapts the
+    output projection."""
+    attn_impl = resolve_attn_impl(attn_impl, x)
     qkv = linear(x, p["wqkv"], p["bqkv"])
     if attn_impl in ("pallas", "pallas_mlp"):
         out = attention_ops.fused_attention_qkv(qkv, mask, heads=heads)
+    elif attn_impl == "pallas_vjp":
+        seq = x.shape[1]
+        m = (torch.zeros((seq, seq), device=x.device) if mask is None else mask.float())
+        out = attention_ops.fused_attention_qkv_vjp(qkv, m, heads)
     else:
         out = attention_qkv_ref(qkv, mask, heads)
-    return linear(out, p["wo"], p["bo"])
+    return _maybe_lora_linear(out, p["wo"], p["bo"], lora_out, lora_scaling,
+                              lora_dropout, lora_generator)
 
 
 # ---------------------------------------------------------------------------
@@ -116,36 +180,59 @@ def attention(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tenso
 
 
 def block(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tensor],
-          gelu_type: str, attn_impl: str = "pallas") -> torch.Tensor:
+          gelu_type: str, attn_impl: str = "pallas", *, lora: Optional[Params] = None,
+          lora_scaling: float = 1.0, lora_dropout: float = 0.0,
+          lora_generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Pre-LN residual block: x + attn(ln1(x)); x + mlp(ln2(x)), each half
-    on the first branch that applies, in the JAX package's order."""
+    on the first branch that applies, in the JAX package's order. ``lora``
+    is one layer's adapter tree ({point: {"A", "B"}}); the dropout mask of
+    each attach point comes from ``lora_generator`` in the order out_proj,
+    c_fc, c_proj."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    kernels = attn_impl in ("pallas", "pallas_mlp") and x.dtype == torch.bfloat16
+    attn_impl = resolve_attn_impl(attn_impl, x)
     quick = gelu_type == "quick_gelu"
+    lora = lora or {}
+    l_out, l_fc, l_proj = (lora.get(k) for k in ATTACH_POINTS)
+    if attn_impl == "block_fused":
+        if (all(k in lora for k in ATTACH_POINTS) and lora_dropout == 0.0 and quick
+                and block_grad.text_block_supported(x.shape[1], x.shape[2],
+                                                    p["mlp"]["w1"].shape[-1], heads,
+                                                    x.element_size())):
+            seq = x.shape[1]
+            m = torch.zeros((seq, seq), device=x.device) if mask is None else mask.float()
+            return block_grad.text_block_lora(
+                x, {k: p[k] for k in ("ln1", "attn", "ln2", "mlp")},
+                {k: lora[k] for k in ATTACH_POINTS}, m, heads, lora_scaling)
+        attn_impl = "pallas_vjp"  # the configuration is not kernelizable
+    kernels = attn_impl in ("pallas", "pallas_mlp") and x.dtype == torch.bfloat16
     a, ln1, ln2, mlp = p["attn"], p["ln1"], p["ln2"], p["mlp"]
-    if "attn_q" in p and kernels:
+    gen = lora_generator if lora_dropout > 0.0 else None
+    if "attn_q" in p and kernels and l_out is None:
         q = p["attn_q"]
         x = quant.int8_ln_qkv_attention(x, ln1["scale"], ln1["bias"], q["wqkv_q"], q["sqkv"],
                                         a["bqkv"], a["wo"], a["bo"], mask, heads=heads)
-    elif kernels:
+    elif kernels and l_out is None:
         x = attention_ops.fused_ln_qkv_attention(x, ln1["scale"], ln1["bias"], a["wqkv"],
                                                  a["bqkv"], a["wo"], a["bo"], mask, heads=heads)
     else:
-        x = x + attention(layer_norm(x, ln1), a, heads, mask, attn_impl)
+        x = x + attention(layer_norm(x, ln1), a, heads, mask, attn_impl, lora_out=l_out,
+                          lora_scaling=lora_scaling, lora_dropout=lora_dropout,
+                          lora_generator=gen)
 
-    if "mlp_q" in p and kernels and quick:
+    mlp_lora = l_fc is not None or l_proj is not None
+    if "mlp_q" in p and kernels and quick and not mlp_lora:
         q = p["mlp_q"]
         return quant.int8_ln_mlp(x, ln2["scale"], ln2["bias"], q["w1_q"], q["s1"], mlp["b1"],
                                  q["w2_q"], q["s2"], mlp["b2"])
-    if attn_impl == "pallas_mlp" and kernels and quick:
+    if attn_impl == "pallas_mlp" and kernels and quick and not mlp_lora:
         return mlp_ops.fused_ln_mlp(x, ln2["scale"], ln2["bias"], mlp["w1"], mlp["b1"],
                                     mlp["w2"], mlp["b2"])
 
     h = layer_norm(x, ln2)
-    h = linear(h, mlp["w1"], mlp["b1"])
+    h = _maybe_lora_linear(h, mlp["w1"], mlp["b1"], l_fc, lora_scaling, lora_dropout, gen)
     h = _gelu(h, gelu_type)
-    h = linear(h, mlp["w2"], mlp["b2"])
+    h = _maybe_lora_linear(h, mlp["w2"], mlp["b2"], l_proj, lora_scaling, lora_dropout, gen)
     return x + h
 
 
@@ -192,10 +279,35 @@ def num_layers(blocks: Params) -> int:
 
 def run_tower(x: torch.Tensor, blocks: Params, heads: int,
               mask: Optional[torch.Tensor], gelu_type: str,
-              layers: Optional[range] = None, attn_impl: str = "pallas") -> torch.Tensor:
-    """Run the stacked blocks in order (``layers``: which of them)."""
+              layers: Optional[range] = None, attn_impl: str = "pallas", *,
+              lora: Optional[Params] = None, lora_scaling: float = 1.0, remat: bool = False,
+              lora_dropout: float = 0.0,
+              lora_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Run the stacked blocks in order (``layers``: which of them), each with
+    its layer of the stacked adapter tree ``lora``.
+
+    ``remat``: each block runs under ``torch.utils.checkpoint`` and is
+    recomputed in the backward instead of keeping its activations (the JAX
+    package's ``jax.checkpoint`` per scanned block). Dropout draws one seed
+    per layer from ``lora_generator`` up front and seeds that layer's masks
+    from it, so a recomputed block draws the same masks."""
+    use_dropout = lora is not None and lora_dropout > 0.0 and lora_generator is not None
     for i in layers if layers is not None else range(num_layers(blocks)):
-        x = block(x, _layer(blocks, i), heads, mask, gelu_type, attn_impl)
+        seed = (int(torch.randint(0, 2 ** 62, (), generator=lora_generator,
+                                  device=lora_generator.device))
+                if use_dropout else None)
+        lp = _layer(lora, i) if lora is not None else None
+
+        def run(x, bp=_layer(blocks, i), lp=lp, seed=seed):
+            gen = (None if seed is None
+                   else torch.Generator(device=x.device).manual_seed(seed))
+            return block(x, bp, heads, mask, gelu_type, attn_impl, lora=lp,
+                         lora_scaling=lora_scaling,
+                         lora_dropout=lora_dropout if use_dropout else 0.0,
+                         lora_generator=gen)
+
+        remat_here = remat and torch.is_grad_enabled()
+        x = checkpoint(run, x, use_reentrant=False) if remat_here else run(x)
     return x
 
 
@@ -272,15 +384,20 @@ def causal_mask(seq: int, device=None) -> torch.Tensor:
 
 
 def encode_text(params: Params, tokens: torch.Tensor, config: CLIPConfig,
-                dtype: torch.dtype = torch.float32, attn_impl: str = "pallas") -> torch.Tensor:
+                dtype: torch.dtype = torch.float32, attn_impl: str = "pallas", *,
+                lora: Optional[Params] = None, lora_scaling: float = 1.0, remat: bool = False,
+                lora_dropout: float = 0.0,
+                lora_generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Text tower: (B, ctx) token ids -> embeddings (B, embed_dim) fp32,
-    pooled at the EOT token (the highest id: argmax of the tokens)."""
+    pooled at the EOT token (the highest id: argmax of the tokens), with the
+    stacked adapter tree ``lora`` threaded through the blocks."""
     t = params["text"]
     x = t["tok_embed"][tokens.long()].to(dtype)
     x = x + t["pos"].to(dtype)
     mask = causal_mask(tokens.shape[1], device=x.device)
     x = run_tower(x, t["blocks"], config.text.heads, mask, config.gelu_type,
-                  attn_impl=attn_impl)
+                  attn_impl=attn_impl, lora=lora, lora_scaling=lora_scaling, remat=remat,
+                  lora_dropout=lora_dropout, lora_generator=lora_generator)
     x = layer_norm(x, t["ln_final"])
     eot = torch.argmax(tokens, dim=-1)
     x = x[torch.arange(x.shape[0], device=x.device), eot]

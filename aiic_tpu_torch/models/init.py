@@ -8,7 +8,8 @@ tower's blocks stacked on a leading layer axis.
 - ``params_from_numpy`` takes the flat dict that
   ``aiic_tpu.models.init.flatten_params`` produces (numpy arrays keyed
   ``visual/blocks/attn/wqkv`` …, the layout of ``save_clip_weights`` npz
-  files) and returns the port's tree on a device and dtype.
+  files) and returns the port's tree on a device and dtype. A flattened
+  LoRA adapter tree (``c_fc/A`` …) comes across the same way.
 - ``load_clip_weights`` reads such an npz with numpy alone.
 - ``init_clip_params`` reproduces the shapes and distributions of the JAX
   package's OpenAI-CLIP init with a ``torch.Generator``. It does not

@@ -60,7 +60,15 @@ _SIGNATURES = {
     "aiic_ln_qkv_attention": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P],
     # x, ln_s, ln_b, w1, b1, w2, b2, out, h, y, rows, W, M, eps, stream
     "aiic_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _P],
+    # B, S, W, M, ro, rf, rp, fp32, backward -> bytes (a long long)
+    "aiic_text_block_workspace": [_I] * 9,
+    # x, mask, 18 weights/vectors/factors, y, ws, B, S, W, H, M, ro, rf, rp,
+    # scaling, eps, qconst, fp32, stream
+    "aiic_text_block_fwd": [_P] * 22 + [_I] * 8 + [_F] * 3 + [_I, _P],
+    # x, dy, mask, 18 weights, dx, six LoRA cotangents, ws, then as the forward
+    "aiic_text_block_bwd": [_P] * 29 + [_I] * 8 + [_F] * 3 + [_I, _P],
 }
+_RESTYPES = {"aiic_text_block_workspace": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -119,7 +127,7 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     BUILD_INFO.update(path=str(so), seconds=seconds, log=log)
     _LIB = lib
     return lib

@@ -14,6 +14,14 @@ serving paths run, with two Hopper kernels.
 - ``attention_qkv_ref``: the reference stable-softmax composition on a fused
   (B, S, 3W) projection (``_attention_qkv_xla``), the ``attn_impl="xla"``
   path.
+- ``fused_attention_qkv_vjp``: the training text tower's ``pallas_vjp``
+  core: ``fused_attention_qkv``'s kernel forward under autograd, with the
+  backward differentiated through ``attention_qkv_ref`` at the saved qkv,
+  as JAX's custom VJP ``_fa_vjp_bwd`` differentiates ``_attention_qkv_xla``
+  (the JAX package leaves that backward to XLA). The pairing is the JAX
+  package's: the forward is the clamped no-max exp2 softmax, the backward
+  the stable softmax's; the two differ only for rows whose scores pass the
+  70-nat clamp or all underflow, which LN-bounded scores do not reach.
 
 Each wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises.
@@ -235,3 +243,29 @@ def fused_ln_qkv_attention(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask=None, 
                                        heads, eps)
     fused_ln_qkv_attention.launches += 1
     return out
+
+
+class _AttentionQKVVJP(torch.autograd.Function):
+    """Kernel forward; backward through the stable-softmax composition."""
+
+    @staticmethod
+    def forward(ctx, qkv, mask, heads):
+        ctx.heads = heads
+        ctx.save_for_backward(qkv, mask)
+        return fused_attention_qkv(qkv, mask, heads=heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            t = qkv.detach().requires_grad_()
+            out = attention_qkv_ref(t, mask, ctx.heads)
+            (dqkv,) = torch.autograd.grad(out, t, g.to(qkv.dtype))
+        return dqkv, None, None
+
+
+def fused_attention_qkv_vjp(qkv: torch.Tensor, mask: torch.Tensor, heads: int) -> torch.Tensor:
+    """Differentiable (B, S, 3W) -> (B, S, W) core for training: the kernel
+    forward, the stable-softmax backward. ``mask`` is a concrete (S, S)
+    tensor (zeros for none) and gets no gradient."""
+    return _AttentionQKVVJP.apply(qkv, mask, heads)

@@ -19,10 +19,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
 5. the same weights and 4 images through the int8 and the bf16 unquantized
    engines on the CPU (plain path): feature cosine, verdicts and top-1
    categories against the card;
-6. timings: each kernel against its plain version at B=256 (and the packed
-   core against ``scaled_dot_product_attention``), with its bound; classify
-   images/s at B=256 and single-image p50 latency of the int8 and the bf16
-   unquantized engines.
+6. the whole-text-block kernels of training (``text_block_fwd``,
+   ``text_block_bwd``) against their plain versions at the B/16 text shape
+   (S=77, W=512, M=2048, H=8, rank 16, causal mask, nonzero LoRA B) for
+   B = 1, 7, 64 in fp32 and bf16;
+7. the LoRA trainer at full ViT-B/16 width through ``train_lora``, 2 epochs
+   at batch 16 on a synthetic dataset of random 256x256 PNGs written to a
+   temporary directory, on three paths: fp32 ``auto`` (which resolves to
+   ``pallas_vjp``), fp32 ``block_fused`` and bf16 ``block_fused``, each with
+   every launch count set to 0 before and checked exactly after; the loss
+   finite, adapter B moved off zero, the ``.pth`` in the reference layout;
+8. one train step of each path on the card against the same step on the CPU
+   (plain versions), and ``block_fused`` against ``xla`` on the card;
+9. timings: each kernel against its plain version (serving kernels at B=256
+   image rows, the text-block kernels at B=256 text rows in fp32 and bf16),
+   with its bound (and the packed core against
+   ``scaled_dot_product_attention``); classify images/s at B=256 and
+   single-image p50 latency of the int8 and the bf16 unquantized engines;
+   train-step ms at batch 256 (cached image features, dense text rows) on
+   the three training paths; the steady-state images/s of a ``train_lora``
+   epoch.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -36,12 +52,14 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPORT: dict = {}
+T0 = time.perf_counter()
 
 # A kernel agrees with its plain version when every row's cosine is at least
 # COS_MIN and at least ULP_SHARE of the elements lie within 2 bf16 ULPs of the
@@ -49,6 +67,12 @@ REPORT: dict = {}
 # value across a bf16 or int8 rounding boundary.
 # In fp32 a kernel agrees when max |kernel - plain| / max(|plain|, 1) is at
 # most F32_REL: only the order of fp32 sums differs.
+# The text-block kernels (training) round eleven intermediates to bf16 on
+# the way from x to y or dx (qkv, p, a, h2, u; dfq, dy1, da, ds, dqkv and the
+# rank-r products); where a later sum cancels, a flipped rounding upstream
+# costs a few ULPs of the terms, not of the smaller result. Their bf16 bar is
+# therefore per row: cosine >= COS_MIN and every element within 2 bf16 ULPs
+# of the row's largest |plain| value.
 COS_MIN = 0.9999
 ULP_SHARE = 0.99
 F32_REL = 1e-5
@@ -73,6 +97,14 @@ KERNELS = {
     "fused_ln_mlp": {
         "source": "aiic_tpu_torch/csrc/ln_mlp.cu",
         "replaces": "aiic_tpu/ops/mlp.py:27",
+    },
+    "text_block_fwd": {
+        "source": "aiic_tpu_torch/csrc/text_block.cuh",
+        "replaces": "aiic_tpu/ops/block_grad.py:322 and :388",
+    },
+    "text_block_bwd": {
+        "source": "aiic_tpu_torch/csrc/text_block.cuh",
+        "replaces": "aiic_tpu/ops/block_grad.py:198 and :472",
     },
 }
 
@@ -215,26 +247,37 @@ def _bound(inputs, out, ops) -> dict:
             "bytes": nbytes, "ops": ops}
 
 
-def _agreement(out, ref) -> dict:
+def _ulp(v):
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -126))) - 7)
+
+
+def _agreement(out, ref, row_scale: bool = False) -> dict:
     """Agreement with the plain version and whether it passes: the bf16 bar
-    for bf16 outputs, the fp32 bar for fp32 ones."""
+    for bf16 outputs (per row for the text-block kernels, ``row_scale``),
+    the fp32 bar for fp32 ones."""
     import torch
 
     o = out.float().reshape(-1, out.shape[-1])
     r = ref.float().reshape(-1, ref.shape[-1])
     err = (o - r).abs()
-    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp(min=2.0 ** -126))) - 7)
     cos = torch.nn.functional.cosine_similarity(o, r, dim=-1)
+    row_ulp = _ulp(r.abs().amax(dim=-1, keepdim=True))
     a = {
         "dtype": str(out.dtype).replace("torch.", ""),
         "max_abs_err": float(err.max()),
         "max_rel_err": float((err / r.abs().clamp(min=1.0)).max()),
-        "within_2ulp": float((err <= 2 * ulp).float().mean()),
+        "within_2ulp": float((err <= 2 * _ulp(r)).float().mean()),
+        "max_err_in_row_max_ulps": float((err / row_ulp).max()),
         "min_row_cos": float(cos.min()),
         "finite": bool(torch.isfinite(o).all()),
     }
     if out.dtype == torch.float32:
         a["ok"] = a["finite"] and a["max_rel_err"] <= F32_REL
+    elif row_scale:
+        a["ok"] = (a["finite"] and a["min_row_cos"] >= COS_MIN
+                   and a["max_err_in_row_max_ulps"] <= 2)
     else:
         a["ok"] = a["finite"] and a["min_row_cos"] >= COS_MIN and a["within_2ulp"] >= ULP_SHARE
     return a
@@ -403,7 +446,406 @@ def phase_cpu_compare(label: str, engine, params) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: timings
+# Phases 6-8: training
+# ---------------------------------------------------------------------------
+
+# The training paths of phase 7: TrainConfig options, the resolved text path.
+TRAIN_PATHS = {
+    "fp32_auto": (dict(dtype="float32", attn_impl="auto"), "pallas_vjp"),
+    "fp32_block_fused": (dict(dtype="float32", attn_impl="block_fused"), "block_fused"),
+    "bf16_block_fused": (dict(dtype="bfloat16", attn_impl="block_fused"), "block_fused"),
+}
+TRAIN_ITEMS, TRAIN_BATCH, TRAIN_EPOCHS = 56, 16, 2
+STYLES = ["nowoczesny", "klasyczny", "skandynawski", "industrialny"]
+ROOMS = ["kuchnia", "salon", "sypialnia", ""]
+CHARS = ["czyste linie", "przestronne", "eleganckie", "jasne"]
+# The LoRA cotangents are fp32 sums over all B*S rows: in fp32 a kernel
+# agrees when max |kernel - plain| <= LORA_F32_REL * max |plain| per factor;
+# in bf16 when the factor's cosine to the plain one is at least COS_MIN.
+LORA_F32_REL = 1e-5
+
+
+def _text_block_inputs(rng, bsz, dtype, device, rank=16):
+    """The B/16 text block (S=77, W=512, M=2048, H=8) with rank-16 LoRA on
+    all three attach points, B nonzero; x and an output cotangent."""
+    import torch
+
+    from aiic_tpu_torch.models.clip import causal_mask
+
+    w, m = 512, 2048
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)).to(device)
+
+    bp = {"ln1": {"scale": 1 + t(w, std=0.1), "bias": t(w, std=0.1)},
+          "ln2": {"scale": 1 + t(w, std=0.1), "bias": t(w, std=0.1)},
+          "attn": {"wqkv": t(w, 3 * w, std=w ** -0.5), "bqkv": t(3 * w, std=0.1),
+                   "wo": t(w, w, std=w ** -0.5), "bo": t(w, std=0.1)},
+          "mlp": {"w1": t(w, m, std=w ** -0.5), "b1": t(m, std=0.1),
+                  "w2": t(m, w, std=m ** -0.5), "b2": t(w, std=0.1)}}
+    dims = {"out_proj": (w, w), "c_fc": (w, m), "c_proj": (m, w)}
+    lora = {p: {"A": t(dims[p][0], rank, std=0.02), "B": t(rank, dims[p][1], std=0.02)}
+            for p in dims}
+    return {"x": t(bsz, 77, w).to(dtype), "dy": t(bsz, 77, w, std=0.01).to(dtype),
+            "mask": causal_mask(77, device=device), "bp": bp, "lora": lora}
+
+
+def _tree_tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_tensors(v)]
+    return [tree]
+
+
+def _block_calls(p):
+    """name -> (kernel call, plain call, tensors the kernel reads, ops by
+    type). The operations are what the function does on these inputs. The
+    forward: the backbone products 2 rows W (4W + 2M), the core 4 B H S^2 D,
+    the rank-r products 2 rows (r_o 2W + r_f (W + M) + r_p (M + W)). The
+    backward recomputes the forward without its last product (y itself is
+    not needed): 2 rows W (4W + M), the core, the rank-r products less u_ap
+    Bp; then the four input-gradient products 2 rows W (4W + 2M), the core's
+    8 B H S^2 D, and the rank-r cotangent and gradient products 2 rows
+    (4 r_o W + 2 r_f (W + M) + 2 r_p (W + M)). (The TPU cost estimate,
+    block_grad.py:958-964, counts three full forwards: 381.3 GFLOP at B=256
+    against the 216.0 + rank-r counted here.)"""
+    from aiic_tpu_torch.ops import block_grad
+
+    x, dy, mask, bp, lora = p["x"], p["dy"], p["mask"], p["bp"], p["lora"]
+    bsz, seq, width = x.shape
+    rows, heads = bsz * seq, 8
+    mlp_dim = bp["mlp"]["w1"].shape[-1]
+    r_o, r_f, r_p = (lora[k]["A"].shape[-1] for k in ("out_proj", "c_fc", "c_proj"))
+    w, m = width, mlp_dim
+    core = 4 * bsz * heads * seq * seq * (width // heads)
+    fwd_rank = 2 * rows * (r_o * 2 * w + r_f * (w + m) + r_p * (m + w))
+    fwd = 2 * rows * w * (4 * w + 2 * m) + core + fwd_rank
+    bwd = (2 * rows * w * (4 * w + m) + core + fwd_rank - 2 * rows * r_p * w
+           + 2 * rows * w * (4 * w + 2 * m) + 2 * core
+           + 2 * rows * (4 * r_o * w + 2 * r_f * (w + m) + 2 * r_p * (w + m)))
+    kind = "fp32" if x.dtype.itemsize == 4 else "bf16"
+    kw = dict(heads=heads, scaling=2.0)
+    weights = _tree_tensors(bp) + _tree_tensors(lora)
+    return {
+        "text_block_fwd": (
+            lambda: block_grad.text_block_fwd(x, mask, bp, lora, **kw),
+            lambda: block_grad.text_block_fwd_ref(x, mask, bp, lora, **kw),
+            [x, mask, *weights], {kind: fwd}),
+        "text_block_bwd": (
+            lambda: block_grad.text_block_bwd(x, dy, mask, bp, lora, **kw),
+            lambda: block_grad.text_block_bwd_ref(x, dy, mask, bp, lora, **kw),
+            [x, dy, mask, *weights], {kind: bwd}),
+    }
+
+
+def _lora_agreement(got: dict, ref: dict, fp32: bool) -> dict:
+    import torch
+
+    worst = {}
+    for pt in ref:
+        for ab in "AB":
+            g, r = got[pt][ab], ref[pt][ab]
+            worst[f"{pt}.{ab}"] = (
+                float((g - r).abs().max() / r.abs().max()) if fp32 else
+                float(torch.nn.functional.cosine_similarity(g.flatten(), r.flatten(), dim=0)))
+    ok = (all(v <= LORA_F32_REL for v in worst.values()) if fp32
+          else all(v >= COS_MIN for v in worst.values()))
+    return {"per_factor": worst, "ok": ok}
+
+
+def phase_text_block_kernels(device) -> dict:
+    """Phase 6: the text-block kernels against their plain versions."""
+    import torch
+
+    rng = np.random.default_rng(5)
+    worst, results = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for bsz in (1, 7, 64):
+            p = _text_block_inputs(rng, bsz, dtype, device)
+            calls = _block_calls(p)
+            y = calls["text_block_fwd"][0]()
+            dx, dl = calls["text_block_bwd"][0]()
+            torch.cuda.synchronize()
+            y_ref = calls["text_block_fwd"][1]()
+            dx_ref, dl_ref = calls["text_block_bwd"][1]()
+            label = f"B={bsz} S=77 W=512"
+            for name, out, ref in (("text_block_fwd", y, y_ref), ("text_block_bwd", dx, dx_ref)):
+                a = _agreement(out, ref, row_scale=True)
+                a.update(kernel=name, case=label)
+                if name == "text_block_bwd":
+                    a["lora"] = _lora_agreement(dl, dl_ref, dtype == torch.float32)
+                    a["ok"] = a["ok"] and a["lora"]["ok"]
+                results.append(a)
+                log(f"[kernels] {name:24s} {label:20s} {a['dtype']:8s} "
+                    f"max_abs_err={a['max_abs_err']:.6g} max_rel_err={a['max_rel_err']:.3g} "
+                    f"within_2ulp={a['within_2ulp']:.6f} "
+                    f"max_err_in_row_max_ulps={a['max_err_in_row_max_ulps']:.3g} "
+                    f"min_row_cos={a['min_row_cos']:.8f}"
+                    + (f" lora={a['lora']['per_factor']}" if "lora" in a else ""))
+                if not a["ok"]:
+                    raise AssertionError(f"{name} disagrees with its plain version on {label}: {a}")
+                if dtype == torch.float32:  # the line reports the fp32 (CLI default) kernel
+                    worst[name] = max(worst.get(name, 0.0), a["max_abs_err"])
+    REPORT["text_block_checks"] = results
+    return worst
+
+
+def _synth_dataset(root: str, n: int, size: int = 256):
+    """n random size x size PNGs and a dataset JSON with items built like
+    TRAINING_DATA (style, room type, characteristics, materials, colours)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(7)
+    items = []
+    for i in range(n):
+        name = f"img{i:03d}.png"
+        Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
+            os.path.join(root, name))
+        items.append({"image_path": name, "style": STYLES[i % 4],
+                      "characteristics": CHARS[: i % 3], "materials": ["drewno"],
+                      "colors": ["biały"], "room_type": ROOMS[(i // 4) % 4]})
+    path = os.path.join(root, "dataset.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"training_data": items}, f, ensure_ascii=False)
+    return path
+
+
+def _train_config(opts, **kw):
+    import torch
+
+    from aiic_tpu_torch.train import TrainConfig
+
+    return TrainConfig(dtype=getattr(torch, opts["dtype"]), attn_impl=opts["attn_impl"], **kw)
+
+
+def _expected_train_launches(text_impl: str, dtype: str, n_items: int) -> dict:
+    """Launches of one train_lora run, derived from the design:
+
+    - the image-feature precompute runs the frozen tower once per chunk of
+      TRAIN_BATCH unique images (the last padded): 11 launches per chunk of
+      the packed core (fp32) or of the bf16 attention half-block (the last
+      image block is the CLS-row block, no kernel);
+    - pallas_vjp (remat on): the packed core 12 times per text encode, and
+      12 more per train step where the backward recomputes each block: 24
+      per train step, 12 per eval step;
+    - block_fused: ``text_block_fwd`` 12 per train and per eval step,
+      ``text_block_bwd`` 12 per train step (no remat: the backward kernel
+      recomputes its forward itself)."""
+    n_val = max(1, int(n_items * 0.1))
+    train_steps = TRAIN_EPOCHS * ((n_items - n_val) // TRAIN_BATCH)
+    eval_steps = TRAIN_EPOCHS * max(1, n_val // TRAIN_BATCH)
+    chunks = -(-n_items // TRAIN_BATCH)
+    image = "fused_attention_qkv" if dtype == "float32" else "fused_ln_qkv_attention"
+    want = {image: 11 * chunks}
+    if text_impl == "pallas_vjp":
+        want["fused_attention_qkv"] = want.get("fused_attention_qkv", 0) + 24 * train_steps \
+            + 12 * eval_steps
+    else:
+        want["text_block_fwd"] = 12 * (train_steps + eval_steps)
+        want["text_block_bwd"] = 12 * train_steps
+    return want
+
+
+def phase_train(params, device) -> dict:
+    """Phase 7: train_lora on each path from the serving phases' seeded
+    init, with exact launch counts."""
+    import torch
+
+    from aiic_tpu_torch.adapters import parse_lora_key
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+    from aiic_tpu_torch.train import train_lora
+
+    launches, rates = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        json_path = _synth_dataset(root, TRAIN_ITEMS)
+        log(f"[train] synthetic dataset of {TRAIN_ITEMS} 256x256 PNGs written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for label, (opts, text_impl) in TRAIN_PATHS.items():
+            save = os.path.join(root, label, "adapters.pth")
+            cfg = _train_config(opts, epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH, seed=0)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = train_lora(json_path, save, params=params, config=VIT_B_16, cfg=cfg,
+                             log=lambda msg, label=label: log(f"[train {label}] {msg}"),
+                             device=device)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = launch_counts()
+            want = _expected_train_launches(text_impl, opts["dtype"], TRAIN_ITEMS)
+            log(f"[train {label}] {opts}: {seconds:.2f} s; launches {got} (expected {want}, "
+                f"0 for the others)")
+            for name, n in got.items():
+                if n != want.get(name, 0):
+                    raise AssertionError(f"train {label}: {name} launched {n} times, "
+                                         f"expected {want.get(name, 0)}")
+            hist = out["history"]
+            if not all(np.isfinite(h["train_loss"]) and np.isfinite(h["val_loss"]) for h in hist):
+                raise AssertionError(f"train {label}: non-finite loss {hist}")
+            moved = max(float(out["lora_tree"][p]["B"].abs().max()) for p in out["lora_tree"])
+            if not moved > 0:
+                raise AssertionError(f"train {label}: adapter B did not move off zero")
+            sd = torch.load(save, map_location="cpu", weights_only=True)
+            if (len(sd) != 6 * VIT_B_16.text.layers
+                    or not all(parse_lora_key(k) and k.startswith("clip_model.") for k in sd)
+                    or not all(v.dtype == torch.float32 for v in sd.values())):
+                raise AssertionError(f"train {label}: .pth keys {sorted(sd)[:3]}...")
+            last = hist[-1]
+            rates[label] = last["train_images"] / last["train_seconds"]
+            log(f"[train {label}] losses {[(h['train_loss'], h['val_loss']) for h in hist]}; "
+                f"max |B| {moved:.3g}; .pth has {len(sd)} reference keys; epoch "
+                f"{last['epoch']}: {last['train_images']} images in "
+                f"{last['train_seconds']:.3f} s = {rates[label]:.1f} images/s")
+            REPORT.setdefault("train", {})[label] = {
+                "options": opts, "text_impl": text_impl, "seconds": seconds, "history": hist,
+                "launches": got, "expected": want, "epoch_images_per_s": rates[label]}
+            for name in ("text_block_fwd", "text_block_bwd"):
+                launches[name] = launches.get(name, 0) + got[name]
+    return launches, rates
+
+
+def _step_batch(rng, rows: int, device):
+    """Cached-feature rows and dense token rows of distinct prompts."""
+    import torch
+
+    from aiic_tpu_torch.data.tokenizer import tokenize_for_model
+    from aiic_tpu_torch.models.config import VIT_B_16
+
+    feats = rng.standard_normal((rows, VIT_B_16.embed_dim)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
+    prompts = [f"{CHARS[i % 4]} {STYLES[(i // 4) % 4]} wnętrze {ROOMS[(i // 16) % 4]} {i}"
+               for i in range(rows)]
+    tokens = tokenize_for_model(prompts, VIT_B_16)
+    return torch.from_numpy(feats).to(device), torch.from_numpy(tokens).to(device)
+
+
+def _lora_init(rng, device):
+    import torch
+
+    from aiic_tpu_torch.models.config import VIT_B_16
+
+    t = VIT_B_16.text
+    dims = {"out_proj": (t.width, t.width), "c_fc": (t.width, t.mlp_dim),
+            "c_proj": (t.mlp_dim, t.width)}
+    return {p: {ab: torch.from_numpy((rng.standard_normal(
+        (t.layers, *((dims[p][0], 16) if ab == "A" else (16, dims[p][1])))) * 0.02)
+        .astype(np.float32)).to(device) for ab in "AB"} for p in dims}
+
+
+def _one_step(params, lora, feats, tokens, opts, impl, device):
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.train import make_optimizer, make_train_step
+
+    cfg = _train_config(dict(opts, attn_impl=impl), epochs=2, batch_size=len(feats))
+    opt = make_optimizer(cfg, steps_per_epoch=1)
+    step, _ = make_train_step(VIT_B_16, cfg, opt, cached_image=True, device=device)
+    loss, new, state = step(params, lora, opt.init(lora), feats, tokens)
+    return float(loss), new, state, cfg.lr
+
+
+def _step_agreement(a, b, fp32: bool) -> dict:
+    """Card step a against step b: loss, first Adam moment (0.1 x the
+    gradient), updated adapters. fp32: loss rel <= 1e-5, moment within 1e-4
+    of its largest entry, adapters within 1e-6 where the gradient is above
+    1e-3 of its largest entry and within 4 lr elsewhere (an Adam step moves
+    each element by about lr whatever its gradient's size). bf16: loss rel
+    <= 2e-3, moment cosine >= 0.999, adapters within 4 lr."""
+    import torch
+
+    loss_rel = abs(a[0] - b[0]) / abs(b[0])
+    res = {"loss": a[0], "loss_ref": b[0], "loss_rel": loss_rel, "moment": {}, "adapters": {}}
+    ok = loss_rel <= (1e-5 if fp32 else 2e-3)
+    lr = a[3]
+    for pt in b[1]:
+        for ab in "AB":
+            m, mr = a[2]["exp_avg"][pt][ab].cpu(), b[2]["exp_avg"][pt][ab].cpu()
+            new, newr = a[1][pt][ab].cpu(), b[1][pt][ab].cpu()
+            diff = (new - newr).abs()
+            if fp32:
+                res["moment"][f"{pt}.{ab}"] = mv = float((m - mr).abs().max() / mr.abs().max())
+                clear = mr.abs() > 1e-3 * mr.abs().max()
+                res["adapters"][f"{pt}.{ab}"] = av = float(diff[clear].max())
+                ok = ok and mv <= 1e-4 and av <= 1e-6 and float(diff.max()) <= 4 * lr
+            else:
+                res["moment"][f"{pt}.{ab}"] = mv = float(
+                    torch.nn.functional.cosine_similarity(m.flatten(), mr.flatten(), dim=0))
+                res["adapters"][f"{pt}.{ab}"] = av = float(diff.max())
+                ok = ok and mv >= 0.999 and av <= 4 * lr
+    res["ok"] = ok
+    return res
+
+
+def phase_train_compare(params, device) -> None:
+    """Phase 8: one text-only train step (8 cached-feature rows, dense token
+    rows, the same adapters) on the card against the CPU plain path for each
+    training path, and block_fused against xla on the card."""
+    from aiic_tpu_torch.models.init import tree_map
+    from aiic_tpu_torch.ops import _build
+
+    saved = _build.launch_counts()
+    rng = np.random.default_rng(9)
+    feats, tokens = _step_batch(rng, 8, device)
+    lora = _lora_init(rng, device)
+    cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    cpu_params = cpu(params)
+    for label, (opts, impl) in TRAIN_PATHS.items():
+        t0 = time.perf_counter()
+        card = _one_step(params, lora, feats, tokens, opts, impl, device)
+        plain = _one_step(cpu_params, cpu(lora), feats.cpu(), tokens.cpu(), opts, impl, "cpu")
+        res = _step_agreement(card, plain, opts["dtype"] == "float32")
+        log(f"[train-cpu {label}] one step card vs CPU plain ({time.perf_counter() - t0:.1f} s): "
+            f"loss {res['loss']:.7f} vs {res['loss_ref']:.7f} (rel {res['loss_rel']:.3g}); "
+            f"moment {res['moment']}; adapters {res['adapters']}")
+        REPORT.setdefault("train_cpu_compare", {})[label] = res
+        if not res["ok"]:
+            raise AssertionError(f"card and CPU disagree on the {label} train step: {res}")
+    opts = TRAIN_PATHS["fp32_block_fused"][0]
+    block = _one_step(params, lora, feats, tokens, opts, "block_fused", device)
+    xla = _one_step(params, lora, feats, tokens, opts, "xla", device)
+    res = _step_agreement(block, xla, True)
+    log(f"[train-xla] block_fused vs xla on the card, fp32: loss {res['loss']:.7f} vs "
+        f"{res['loss_ref']:.7f} (rel {res['loss_rel']:.3g}); moment {res['moment']}")
+    REPORT["train_block_vs_xla"] = res
+    if not res["ok"]:
+        raise AssertionError(f"block_fused and xla disagree on the card: {res}")
+    for fn in _build._COUNTED.values():
+        fn.launches = saved[fn.__name__]
+
+
+def train_step_times(params, device, card: str) -> dict:
+    """Train-step ms at batch 256 (cached image features, dense text rows,
+    so the text kernels see 256 rows) on each training path."""
+    import torch
+
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.train import make_optimizer, make_train_step
+
+    rng = np.random.default_rng(11)
+    feats, tokens = _step_batch(rng, 256, device)
+    lora = _lora_init(rng, device)
+    times = {}
+    for label, (opts, impl) in TRAIN_PATHS.items():
+        cfg = _train_config(opts, epochs=2, batch_size=256)
+        opt = make_optimizer(cfg, steps_per_epoch=4)
+        step, _ = make_train_step(VIT_B_16, cfg, opt, cached_image=True, device=device)
+        state, tree = opt.init(lora), lora
+        loss, tree, state = step(params, tree, state, feats, tokens)  # warm
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            loss, tree, state = step(params, tree, state, feats, tokens)
+            float(loss)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[f"train_step_{label}"] = r = {"ms": min(ms), "all_ms": ms,
+                                            "images_per_s": 256e3 / min(ms)}
+        log(f"[timing] train step {label} ({impl}) B=256 dense rows: {r['ms']:.2f} ms "
+            f"({r['images_per_s']:.1f} images/s) ({card})")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: timings
 # ---------------------------------------------------------------------------
 
 
@@ -457,28 +899,48 @@ def _engine_rate(engine, rng) -> dict:
     return {"images_per_s_b256": ips, "single_image_p50_ms": float(np.percentile(lat, 50))}
 
 
-def phase_timing(device, card: str, engines) -> dict:
-    """Phase 6. Launches made here are not the paths': the counts are
+def _kernel_times(calls, times, label: str, card: str) -> None:
+    """plain, kernel, kernel, plain on one card, for each call."""
+    for name, (kernel, plain, inputs, ops) in calls.items():
+        t_plain = [_time_ms(plain, 3)]
+        t_kernel = [_time_ms(kernel, 10), _time_ms(kernel, 10)]
+        t_plain.append(_time_ms(plain, 3))
+        out = kernel()
+        out = out[0] if isinstance(out, tuple) else out
+        times[name] = {"ms": min(t_kernel), "plain_ms": min(t_plain), "library_ms": None,
+                       **_bound(inputs, out, ops)}
+        t = times[name]
+        log(f"[timing] {name:24s} {label}: kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+            f"library {t['library_ms']} ms ({card})")
+
+
+def phase_timing(device, card: str, engines, params) -> dict:
+    """Phase 9. Launches made here are not the paths': the counts are
     saved before and put back after."""
+    import torch
+
     from aiic_tpu_torch.ops import _build
 
     p = _half_block_inputs(np.random.default_rng(3), 256, 197, 768, 12,
                            mask=False, zero_row=False, device=device)
     times = {}
     saved = _build.launch_counts()
-    for name, (kernel, plain, inputs, ops) in _calls(p).items():
-        # plain, kernel, kernel, plain on one card
-        t_plain = [_time_ms(plain, 3)]
-        t_kernel = [_time_ms(kernel, 10), _time_ms(kernel, 10)]
-        t_plain.append(_time_ms(plain, 3))
-        times[name] = {"ms": min(t_kernel), "plain_ms": min(t_plain), "library_ms": None,
-                       **_bound(inputs, kernel(), ops)}
-        if name.startswith("fused_attention_qkv"):
-            times[name].update(_sdpa_times(dict(p, qkv=inputs[0])))
-        t = times[name]
-        log(f"[timing] {name:24s} B=256 S=197 W=768: kernel {t['ms']:.3f} ms, plain "
-            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
-            f"library {t['library_ms']} ms ({card})")
+    calls = _calls(p)
+    _kernel_times(calls, times, "B=256 S=197 W=768", card)
+    for name in ("fused_attention_qkv", "fused_attention_qkv_bf16"):
+        times[name].update(_sdpa_times(dict(p, qkv=calls[name][2][0])))
+        log(f"[timing] {name:24s} SDPA {times[name]['library_ms']:.3f} ms, transposes "
+            f"{times[name]['transpose_ms']:.3f} ms ({card})")
+    del p, calls
+    rng = np.random.default_rng(6)
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        calls = _block_calls(_text_block_inputs(rng, 256, dtype, device))
+        _kernel_times({name + suffix: c for name, c in calls.items()}, times,
+                      f"B=256 S=77 W=512 {str(dtype)[6:]}", card)
+        del calls
+        torch.cuda.empty_cache()
+    times.update(train_step_times(params, device, card))
     for fn in _build._COUNTED.values():
         fn.launches = saved[fn.__name__]
     rng = np.random.default_rng(4)
@@ -511,10 +973,16 @@ def main() -> int:
     REPORT["build"] = dict(BUILD_INFO)
 
     worst = phase_kernels(device)
+    worst.update(phase_text_block_kernels(device))
     engines, params, launches = phase_slice(device)
     for label, engine in engines.items():
         phase_cpu_compare(label, engine, params)
-    times = phase_timing(device, card, engines)
+    train_launches, epoch_rates = phase_train(params, device)
+    launches.update(train_launches)
+    phase_train_compare(params, device)
+    times = phase_timing(device, card, engines, params)
+    times["train_lora_epoch_images_per_s"] = epoch_rates
+    REPORT["wall_s"] = time.perf_counter() - T0
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", **meta, "launches": launches[name],

@@ -6,6 +6,7 @@ to its original on the CPU.
 """
 
 import dataclasses
+import json
 import os
 import shutil
 import subprocess
@@ -33,7 +34,7 @@ from aiic_tpu_torch.models.init import (
     params_from_numpy,
     save_clip_weights,
 )
-from aiic_tpu_torch.ops import _build, attention, mlp, quant
+from aiic_tpu_torch.ops import _build, attention, block_grad, mlp, quant
 from aiic_tpu_torch.utils import batching
 
 torch.set_num_threads(2)
@@ -104,7 +105,7 @@ def test_params_from_numpy_and_npz_round_trip(tmp_path):
 
 
 KERNEL_WRAPPERS = ["int8_ln_mlp", "int8_ln_qkv_attention", "fused_attention_qkv",
-                   "fused_ln_qkv_attention", "fused_ln_mlp"]
+                   "fused_ln_qkv_attention", "fused_ln_mlp", "text_block_fwd", "text_block_bwd"]
 
 
 @pytest.mark.parametrize("name", KERNEL_WRAPPERS)
@@ -133,11 +134,27 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting(name):
         args = (x, ones, zeros, torch.randn(w, 3 * w), torch.zeros(3 * w), torch.randn(w, w), zeros)
         out = attention.fused_ln_qkv_attention(*args, heads=4)
         ref = attention.fused_ln_qkv_attention_ref(*args, heads=4)
-    else:
+    elif name == "fused_ln_mlp":
         args = (x, ones, zeros, torch.randn(w, 4 * w), torch.zeros(4 * w), torch.randn(4 * w, w),
                 zeros)
         out = mlp.fused_ln_mlp(*args)
         ref = mlp.fused_ln_mlp_ref(*args)
+    else:
+        ln = {"scale": ones, "bias": zeros}
+        bp = {"ln1": ln, "ln2": ln,
+              "attn": {"wqkv": torch.randn(w, 3 * w) * 0.1, "bqkv": torch.zeros(3 * w),
+                       "wo": torch.randn(w, w) * 0.1, "bo": zeros},
+              "mlp": {"w1": torch.randn(w, 4 * w) * 0.1, "b1": torch.zeros(4 * w),
+                      "w2": torch.randn(4 * w, w) * 0.1, "b2": zeros}}
+        dims = {"out_proj": (w, w), "c_fc": (w, 4 * w), "c_proj": (4 * w, w)}
+        lora = {k: {"A": torch.randn(i, 2), "B": torch.randn(2, o)} for k, (i, o) in dims.items()}
+        mask = torch.triu(torch.full((8, 8), float("-inf")), diagonal=1)
+        if name == "text_block_fwd":
+            out = block_grad.text_block_fwd(x, mask, bp, lora, heads=4, scaling=2.0)
+            ref = block_grad.text_block_fwd_ref(x, mask, bp, lora, heads=4, scaling=2.0)
+        else:
+            out = block_grad.text_block_bwd(x, x, mask, bp, lora, heads=4, scaling=2.0)[0]
+            ref = block_grad.text_block_bwd_ref(x, x, mask, bp, lora, heads=4, scaling=2.0)[0]
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert _build.launch_counts()[name] == 0
     assert set(_build.launch_counts()) == set(KERNEL_WRAPPERS)
@@ -153,6 +170,7 @@ def test_batching_helpers_are_jax_free_and_reused():
         "import sys\n"
         "sys.path.insert(0, 'tools')\n"
         "import aiic_tpu_torch, aiic_tpu_torch.engine.analyzer, aiic_tpu_torch.models.clip\n"
+        "import aiic_tpu_torch.train, aiic_tpu_torch.cli.train_lora, aiic_tpu_torch.adapters\n"
         "import aiic_tpu_torch.ops.quant, aiic_tpu_torch.ops.attention, aiic_tpu_torch.ops.mlp\n"
         "import chip_smoke, torch_profile\n"
         "from aiic_tpu_torch.utils.batching import bucket_size\n"
@@ -185,7 +203,8 @@ def _bpe_file(tmp_path):
 
 
 @pytest.mark.parametrize("case", ["tokenize_for_model", "tokenizer_bpe_env", "category_prompts",
-                                  "batching", "clip_mean_std"])
+                                  "batching", "clip_mean_std", "training_data", "preprocess",
+                                  "pth_layout", "lora_fold", "model_presets"])
 def test_port_copies_match_jax_package(case, tmp_path, monkeypatch):
     if case == "tokenize_for_model":
         for name in ("TINY_TEST", "VIT_B_16"):
@@ -217,10 +236,126 @@ def test_port_copies_match_jax_package(case, tmp_path, monkeypatch):
                 mod.bucket_size(0, 8)
             with pytest.raises(ValueError):
                 mod.pad_batch(a, 2)
-    else:
+    elif case == "clip_mean_std":
         np.testing.assert_array_equal(data_pre.CLIP_MEAN, jax_data_pre.CLIP_MEAN)
         np.testing.assert_array_equal(data_pre.CLIP_STD, jax_data_pre.CLIP_STD)
         assert data_pre.CLIP_MEAN.dtype == jax_data_pre.CLIP_MEAN.dtype
+    elif case == "training_data":
+        path = tmp_path / "d.json"
+        path.write_text(json.dumps({"training_data": VOCAB}), encoding="utf-8")
+        assert dataset.load_training_data(str(path)) == jax_dataset.load_training_data(str(path))
+        for item in VOCAB[:2] + [{"style": "boho"}]:
+            assert dataset.build_training_prompts(item) == jax_dataset.build_training_prompts(item)
+    elif case == "preprocess":
+        _check_preprocess_copy()
+    elif case == "pth_layout":
+        _check_pth_layout_copy(tmp_path)
+    elif case == "lora_fold":
+        _check_lora_copy()
+    else:
+        from aiic_tpu.cli.common import model_presets as jax_presets
+        from aiic_tpu_torch.cli.common import model_presets
+
+        ours, ref = model_presets(), jax_presets()
+        assert list(ours) == list(ref)
+        assert all(dataclasses.asdict(ours[k]) == dataclasses.asdict(ref[k]) for k in ours)
+
+
+def _check_preprocess_copy():
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    for size in ((640, 480), (100, 300), (224, 224), (60, 40)):
+        assert data_pre.resize_target(*size, 224) == jax_data_pre.resize_target(*size, 224)
+        assert data_pre.center_crop_bounds(*size, 224) == jax_data_pre.center_crop_bounds(*size, 224)
+        np.testing.assert_array_equal(data_pre.resize_matrix(size[0], 224),
+                                      jax_data_pre.resize_matrix(size[0], 224))
+        img = rng.integers(0, 256, (size[1], size[0], 3), dtype=np.uint8)
+        np.testing.assert_array_equal(data_pre.resize_bicubic_numpy(img, 50, 40),
+                                      jax_data_pre.resize_bicubic_numpy(img, 50, 40))
+        pil = Image.fromarray(img)
+        np.testing.assert_array_equal(data_pre.preprocess_pil_u8(pil, 32),
+                                      jax_data_pre.preprocess_pil_u8(pil, 32))
+        np.testing.assert_array_equal(data_pre.preprocess_pil(pil.convert("L"), 32),
+                                      jax_data_pre.preprocess_pil(pil.convert("L"), 32))
+
+
+def _check_pth_layout_copy(tmp_path):
+    from aiic_tpu.adapters import LoRAConfig as JaxLoRAConfig
+    from aiic_tpu.adapters import torch_convert as jax_convert
+    from aiic_tpu_torch.adapters import LoRAConfig, torch_convert
+
+    for key in ("clip_model.transformer.resblocks.3.mlp.c_fc.lora.lora_A",
+                "visual.transformer.resblocks.0.attn.out_proj.lora.lora_B",
+                "transformer.resblocks.11.mlp.c_proj.lora.lora_B", "logit_scale"):
+        assert torch_convert.parse_lora_key(key) == jax_convert.parse_lora_key(key)
+    rng = np.random.default_rng(1)
+    tree = {p: {"A": rng.standard_normal((2, i, 3)).astype(np.float32),
+                "B": rng.standard_normal((2, 3, o)).astype(np.float32)}
+            for p, (i, o) in {"c_fc": (32, 128), "out_proj": (32, 32)}.items()}
+    ours = torch_convert.lora_tree_to_pth_dict({p: {k: torch.from_numpy(v) for k, v in d.items()}
+                                                for p, d in tree.items()})
+    ref = jax_convert.lora_tree_to_pth_dict(tree)
+    assert list(ours) == list(ref)
+    for k in ref:
+        np.testing.assert_array_equal(ours[k], ref[k])
+        assert ours[k].dtype == ref[k].dtype
+    path = str(tmp_path / "a.pth")
+    torch_convert.save_lora_pth({p: {k: torch.from_numpy(v) for k, v in d.items()}
+                                 for p, d in tree.items()}, path)
+    assert torch_convert.infer_lora_rank(path) == jax_convert.infer_lora_rank(path) == 3
+    attach = ("c_fc", "c_proj", "out_proj")
+    got, meta = torch_convert.lora_tree_from_pth(path, config.TINY_TEST,
+                                                 LoRAConfig(3, 6, attach), device="cpu")
+    want, jmeta = jax_convert.lora_tree_from_pth(path, jax_config.TINY_TEST,
+                                                 JaxLoRAConfig(3, 6, attach))
+    assert meta == jmeta
+    for p in ("c_fc", "out_proj"):  # loaded; c_proj keeps a fresh (seeded) init
+        for ab in "AB":
+            np.testing.assert_array_equal(got[p][ab].numpy(), np.asarray(want[p][ab]))
+    assert float(got["c_proj"]["B"].abs().max()) == 0.0
+    assert got["c_proj"]["A"].shape == want["c_proj"]["A"].shape
+
+
+def _check_lora_copy():
+    from aiic_tpu.adapters import lora as jax_lora
+    from aiic_tpu_torch.adapters import lora
+
+    assert lora.ATTACH_POINTS == jax_lora.ATTACH_POINTS
+    assert lora.LoRAConfig(16, 32).scaling == jax_lora.LoRAConfig(16, 32).scaling == 2.0
+    for point in lora.ATTACH_POINTS:
+        assert lora._dims(point, 32, 128) == jax_lora._dims(point, 32, 128)
+    flat = flatten_params(jax_init(jax.random.PRNGKey(2), jax_config.TINY_TEST))
+    params = params_from_numpy(flat)
+    cfg = lora.LoRAConfig(2, 4, ("c_fc", "c_proj", "out_proj"))
+    tree = lora.init_text_lora(torch.Generator().manual_seed(0), config.TINY_TEST, cfg,
+                               device="cpu")
+    ref_tree = jax_lora.init_text_lora(jax.random.PRNGKey(0), jax_config.TINY_TEST, cfg)
+    assert {p: {k: tuple(v.shape) for k, v in d.items()} for p, d in tree.items()} == {
+        p: {k: tuple(v.shape) for k, v in d.items()} for p, d in ref_tree.items()}
+    assert lora.lora_param_count(tree) == jax_lora.lora_param_count(ref_tree)
+    assert abs(float(tree["c_fc"]["A"].std()) - 0.02) < 0.003
+    for d in tree.values():
+        d["B"] = torch.randn(d["B"].shape, generator=torch.Generator().manual_seed(1))
+    folded = lora.fold_text_lora(params, tree, 2.0)
+    ref = jax_lora.fold_text_lora(
+        jax.tree.map(jax.numpy.asarray, _nested(flat)),
+        {p: {k: jax.numpy.asarray(v.numpy()) for k, v in d.items()} for p, d in tree.items()}, 2.0)
+    for grp, name in (("mlp", "w1"), ("mlp", "w2"), ("attn", "wo")):
+        np.testing.assert_allclose(folded["text"]["blocks"][grp][name].numpy(),
+                                   np.asarray(ref["text"]["blocks"][grp][name]), rtol=0, atol=1e-6)
+    assert folded["visual"] is params["visual"]
+
+
+def _nested(flat):
+    tree = {}
+    for key, value in flat.items():
+        node = tree
+        *head, last = key.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = value
+    return tree
 
 
 def test_port_imports_no_jax():
@@ -228,6 +363,9 @@ def test_port_imports_no_jax():
             "import aiic_tpu_torch, aiic_tpu_torch.engine.analyzer, aiic_tpu_torch.ops.quant\n"
             "import aiic_tpu_torch.ops._build, aiic_tpu_torch.models.clip, chip_smoke\n"
             "import aiic_tpu_torch.ops.attention, aiic_tpu_torch.ops.mlp\n"
+            "import aiic_tpu_torch.ops.block_grad, aiic_tpu_torch.train.trainer\n"
+            "import aiic_tpu_torch.train.checkpoint, aiic_tpu_torch.train.evaluate\n"
+            "import aiic_tpu_torch.cli.train_lora, aiic_tpu_torch.adapters.torch_convert\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
 

@@ -8,7 +8,13 @@ and skip elsewhere. Run them on the card with
 Tolerance (as in chip_smoke.py): in bf16, every row's cosine >= 0.9999 and
 >= 99% of elements within 2 bf16 ULPs of the plain version, which differs
 only in summation order; in fp32, max |kernel - plain| / max(|plain|, 1)
-<= 1e-5 (summation order of fp32 sums over 64 dims and S keys).
+<= 1e-5 (summation order of fp32 sums over 64 dims and S keys). The six
+LoRA cotangents of the text-block backward are sums over all B*S rows:
+fp32 max |kernel - plain| <= 1e-5 * max |plain| per factor, bf16 cosine
+>= 0.9999 per factor. The text-block kernels' bf16 outputs go through a
+chain of eleven bf16 roundings, so their bar is per row (as in
+chip_smoke.py): cosine >= 0.9999 and every element within 2 bf16 ULPs of the
+row's largest |plain| value.
 """
 
 import numpy as np
@@ -17,7 +23,7 @@ import torch
 
 from aiic_tpu_torch.models import clip
 from aiic_tpu_torch.models.clip import causal_mask
-from aiic_tpu_torch.ops import attention, mlp, quant
+from aiic_tpu_torch.ops import attention, block_grad, mlp, quant
 
 torch.set_num_threads(2)
 
@@ -85,6 +91,14 @@ def test_kernels_refuse_what_they_do_not_take(device):
         quant.int8_ln_mlp(x.float(), *mlp)
     with pytest.raises(ValueError):
         quant.int8_ln_qkv_attention(x, *attn, heads=16)  # head_dim 48
+
+
+def _agree_rows(out, ref):
+    o, r = out.float().flatten(0, -2), ref.float().flatten(0, -2)
+    rmax = r.abs().amax(dim=-1, keepdim=True).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(rmax)) - 7)
+    assert bool(((o - r).abs() <= 2 * ulp).all())
+    assert torch.nn.functional.cosine_similarity(o, r, dim=-1).min() >= 0.9999
 
 
 def _f32_agree(out, ref):
@@ -186,3 +200,73 @@ def test_bf16_linear_runs_cublas_with_one_rounding(device):
     ref = x.float() @ w.to(torch.bfloat16).float()  # exact products, TF32 off
     assert float((y - ref).abs().max()) <= 1e-4
     _agree(clip.linear(x, w, b), (ref + b).to(torch.bfloat16))
+
+
+def _text_block_inputs(device, bsz, dtype, width=512, heads=8, rank=16, seed=5):
+    """B/16 text-block weights (S=77, W=512, M=2048, H=8), LoRA of rank 16
+    with nonzero B, x and an output cotangent."""
+    rng = np.random.default_rng(seed)
+    mlp_dim = 4 * width
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)).to(device)
+
+    bp = {"ln1": {"scale": 1 + t(width, std=0.1), "bias": t(width, std=0.1)},
+          "ln2": {"scale": 1 + t(width, std=0.1), "bias": t(width, std=0.1)},
+          "attn": {"wqkv": t(width, 3 * width, std=width ** -0.5), "bqkv": t(3 * width, std=0.1),
+                   "wo": t(width, width, std=width ** -0.5), "bo": t(width, std=0.1)},
+          "mlp": {"w1": t(width, mlp_dim, std=width ** -0.5), "b1": t(mlp_dim, std=0.1),
+                  "w2": t(mlp_dim, width, std=mlp_dim ** -0.5), "b2": t(width, std=0.1)}}
+    dims = {"out_proj": (width, width), "c_fc": (width, mlp_dim), "c_proj": (mlp_dim, width)}
+    lora = {p: {"A": t(dims[p][0], rank, std=0.02), "B": t(rank, dims[p][1], std=0.02)}
+            for p in dims}
+    x = t(bsz, 77, width).to(dtype)
+    dy = t(bsz, 77, width, std=0.01).to(dtype)
+    return x, dy, bp, lora
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bsz", [1, 3])
+def test_text_block_kernels_match_plain(device, dtype, bsz):
+    x, dy, bp, lora = _text_block_inputs(device, bsz, dtype)
+    mask = causal_mask(77, device=device)
+    kw = dict(heads=8, scaling=2.0)
+    before = (block_grad.text_block_fwd.launches, block_grad.text_block_bwd.launches)
+    y = block_grad.text_block_fwd(x, mask, bp, lora, **kw)
+    dx, dl = block_grad.text_block_bwd(x, dy, mask, bp, lora, **kw)
+    torch.cuda.synchronize()
+    assert (block_grad.text_block_fwd.launches, block_grad.text_block_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    y_ref = block_grad.text_block_fwd_ref(x, mask, bp, lora, **kw)
+    dx_ref, dl_ref = block_grad.text_block_bwd_ref(x, dy, mask, bp, lora, **kw)
+    assert y.dtype == dx.dtype == dtype
+    for out, ref in ((y, y_ref), (dx, dx_ref)):
+        _f32_agree(out, ref) if dtype == torch.float32 else _agree_rows(out, ref)
+    for p in dl:
+        for ab in "AB":
+            got, want = dl[p][ab], dl_ref[p][ab]
+            assert got.dtype == want.dtype == torch.float32
+            if dtype == torch.float32:
+                assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), (p, ab)
+            else:
+                cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0)
+                assert float(cos) >= 0.9999, (p, ab)
+
+
+def test_text_block_kernels_refuse_what_they_do_not_take(device):
+    """Head dim other than 64, W or M not a multiple of 128, fp16, a mask
+    that is not (S, S): each raises, and nothing launches."""
+    kw = dict(heads=8, scaling=2.0)
+    before = (block_grad.text_block_fwd.launches, block_grad.text_block_bwd.launches)
+    x, dy, bp, lora = _text_block_inputs(device, 1, torch.float32)
+    mask = causal_mask(77, device=device)
+    with pytest.raises(ValueError):  # head dim 32
+        block_grad.text_block_fwd(x, mask, bp, lora, heads=16, scaling=2.0)
+    with pytest.raises(TypeError):
+        block_grad.text_block_fwd(x.half(), mask, bp, lora, **kw)
+    with pytest.raises(ValueError):
+        block_grad.text_block_bwd(x, dy, mask[:76, :76], bp, lora, **kw)
+    x5, dy5, bp5, lora5 = _text_block_inputs(device, 1, torch.float32, width=320, heads=5)
+    with pytest.raises(ValueError):  # W = 320: head dim 64, W % 128 != 0
+        block_grad.text_block_bwd(x5, dy5, mask, bp5, lora5, heads=5, scaling=2.0)
+    assert (block_grad.text_block_fwd.launches, block_grad.text_block_bwd.launches) == before

@@ -177,7 +177,12 @@ def test_block_takes_the_jax_branch(quantized, weights, monkeypatch, dtype, attn
     assert out.dtype == getattr(torch, dtype) and torch.isfinite(out.float()).all()
     assert tuple(calls) + ("plain",) * (2 - len(calls)) == want
     with pytest.raises(ValueError, match="attn_impl"):
-        clip.block(x, clip._layer(tree["visual"]["blocks"], 0), 4, None, "quick_gelu", "auto")
+        clip.block(x, clip._layer(tree["visual"]["blocks"], 0), 4, None, "quick_gelu", "flash")
+    # "auto" is the JAX trainer's resolution: the reference composition on
+    # the CPU ("pallas_vjp" on a CUDA tensor)
+    calls.clear()
+    clip.block(x, clip._layer(tree["visual"]["blocks"], 0), 4, None, "quick_gelu", "auto")
+    assert calls == ["xla"]
 
 
 def test_encode_image_int8_serving_matches_jax_pallas(quantized):

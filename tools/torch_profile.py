@@ -3,6 +3,8 @@
 
     python3 tools/torch_profile.py [--config int8|bf16|fp32] [--attn-impl pallas|pallas_mlp]
                                    [--batch 256] [--iters 3]
+    python3 tools/torch_profile.py --train fp32_auto|fp32_block_fused|bf16_block_fused
+                                   [--batch 256] [--iters 3]
 
 Builds a ViT-B/16 ``aiic_tpu_torch`` engine from a seeded init in one of the
 serving configurations (``int8``: bf16 with int8 weights on the patch-major
@@ -17,6 +19,13 @@ wire, the default; ``bf16``: bf16 without int8 weights, the worker's default;
   kernel group (the Hopper kernels' launches by stage, cuBLAS GEMMs,
   elementwise, copies), with the device's busy and idle share of the wall
   time.
+
+With ``--train PATH`` it profiles the LoRA trainer's step instead: a
+seeded ViT-B/16, ``make_train_step`` with cached image features and
+``--batch`` dense text rows (so the text tower sees every row), on one of
+``chip_smoke.py``'s training paths; host time per step, then device time by
+kernel group (the text-block kernels' launches by stage, cuBLAS, autograd
+elementwise work).
 
 Prints one JSON line; writes the chrome trace and the full kernel table to
 ``chiprun_out/``. Needs a CUDA card; fails without one.
@@ -37,6 +46,13 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 GROUPS = [  # (group, substring of the CUDA kernel name), first match wins
+    ("block_core_fwd", "block_core_fwd_kernel"),
+    ("block_core_bwd", "block_core_bwd_kernel"),
+    ("block_simt_gemm_backbone", "sgemm_kernel"),
+    ("block_simt_gemm_rank_r", "simt_gemm_kernel<64"),
+    ("block_rank_r_sums", "sum_partials_kernel"),
+    ("block_ln_fwd", "ln_fwd_rows_kernel"),
+    ("block_ln_bwd", "ln_bwd_rows_kernel"),
     ("attn_core_fp32", "attn_core_kernel<float"),
     ("attn_core_bf16", "attn_core_kernel"),
     ("int8_gemm_qkv", "EpiQKV"),
@@ -46,6 +62,7 @@ GROUPS = [  # (group, substring of the CUDA kernel name), first match wins
     ("int8_gemm_c_proj", "EpiResidual"),
     ("bf16_gemm_c_fc_gelu", "EpiBiasGelu"),
     ("bf16_gemm_c_proj", "EpiMlpOut"),
+    ("block_wmma_gemm_bf16", "gemm_kernel<__nv_bfloat16"),
     ("row_quant_ln", "rowquant_kernel"),
     ("row_ln_bf16", "ln_rows_kernel"),
     ("memcpy", "Memcpy"),
@@ -67,13 +84,16 @@ def main(argv=None) -> int:
     ap.add_argument("--attn-impl", choices=["pallas", "pallas_mlp"], default="pallas")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--train", choices=["fp32_auto", "fp32_block_fused", "bf16_block_fused"],
+                    help="profile the LoRA train step on this path instead of serving")
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA card")
+    if args.train:
+        return profile_train(args)
     from chip_smoke import TRAINING_DATA
     from aiic_tpu_torch.engine.analyzer import InteriorAnalyzer
     from aiic_tpu_torch.models.config import VIT_B_16
@@ -103,10 +123,26 @@ def main(argv=None) -> int:
         engine.classify_pixels(px)
     call_ms = (time.perf_counter() - t0) * 1e3 / args.iters
 
+    traced = _trace(lambda: engine.classify_pixels(px), args.iters,
+                    f"{args.config}_{args.attn_impl}_b{args.batch}")
+    print(json.dumps({
+        "card": card, "config": args.config, "attn_impl": args.attn_impl,
+        "batch": args.batch, "call_ms": call_ms,
+        "images_per_s": args.batch / call_ms * 1e3,
+        "host_repack_ms": repack_ms, "host_to_device_ms": h2d_ms, **traced,
+    }), flush=True)
+    return 0
+
+
+def _trace(fn, iters: int, tag: str) -> dict:
+    """Trace ``iters`` calls of fn; device ms per call by kernel group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.iters):
-            engine.classify_pixels(px)
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
         traced_wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -118,26 +154,58 @@ def main(argv=None) -> int:
         us = ev.self_device_time_total
         busy_us += us
         name = next((g for g, key in GROUPS if key in ev.key), "elementwise_and_other")
-        groups[name] = groups.get(name, 0.0) + us / 1e3 / args.iters
+        groups[name] = groups.get(name, 0.0) + us / 1e3 / iters
     if busy_us == 0:
         raise SystemExit("torch_profile: the trace shows no device time")
-    busy_ms = busy_us / 1e3 / args.iters
+    busy_ms = busy_us / 1e3 / iters
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    tag = f"{args.config}_{args.attn_impl}_b{args.batch}"
     prof.export_chrome_trace(os.path.join(out_dir, f"torch_profile_trace_{tag}.json"))
     with open(os.path.join(out_dir, f"torch_profile_kernels_{tag}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
-    wall = traced_wall_ms / args.iters
-    print(json.dumps({
-        "card": card, "config": args.config, "attn_impl": args.attn_impl,
-        "batch": args.batch, "call_ms": call_ms,
-        "images_per_s": args.batch / call_ms * 1e3,
-        "host_repack_ms": repack_ms, "host_to_device_ms": h2d_ms,
-        "traced_call_ms": wall, "device_busy_ms": busy_ms,
-        "device_idle_share": max(0.0, 1 - busy_ms / wall),
-        "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-    }), flush=True)
+    wall = traced_wall_ms / iters
+    return {"traced_call_ms": wall, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / wall),
+            "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+
+
+def profile_train(args) -> int:
+    """The LoRA train step on one training path (cached image features,
+    ``--batch`` dense text rows), profiled as the serving call is."""
+    import torch
+
+    from chip_smoke import TRAIN_PATHS, _lora_init, _step_batch, _train_config
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.models.init import init_clip_params
+    from aiic_tpu_torch.train import make_optimizer, make_train_step
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    opts, impl = TRAIN_PATHS[args.train]
+    params = init_clip_params(VIT_B_16, torch.Generator(device="cuda").manual_seed(0),
+                              device="cuda")
+    rng = np.random.default_rng(0)
+    feats, tokens = _step_batch(rng, args.batch, "cuda")
+    cfg = _train_config(opts, epochs=2, batch_size=args.batch)
+    opt = make_optimizer(cfg, steps_per_epoch=4)
+    step, _ = make_train_step(VIT_B_16, cfg, opt, cached_image=True, device="cuda")
+    state = {"lora": _lora_init(rng, "cuda")}
+    state["opt"] = opt.init(state["lora"])
+
+    def one_step():
+        loss, state["lora"], state["opt"] = step(params, state["lora"], state["opt"], feats,
+                                                 tokens)
+        return float(loss)
+
+    one_step()
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        one_step()
+    step_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+    traced = _trace(one_step, args.iters, f"train_{args.train}_b{args.batch}")
+    print(json.dumps({"card": card, "train": args.train, "text_impl": impl,
+                      "batch": args.batch, "step_ms": step_ms,
+                      "images_per_s": args.batch / step_ms * 1e3, **traced}), flush=True)
     return 0
 
 
