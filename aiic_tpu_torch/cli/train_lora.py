@@ -7,9 +7,10 @@
 
 ``--weights`` takes a backbone ``.npz`` (``models.init.save_clip_weights``, or
 the JAX package's ``flatten_params`` layout); without it the backbone is a
-seeded random init. ``--mesh``/``--tp`` and ``--quantize-text`` are parsed and
-refused: their paths are not ported yet (ROADMAP Queue 1 item 13, Queue 2
-rows 13-14).
+seeded random init. ``--quantize-text`` (with ``--attn-impl block_fused``)
+trains the text tower in the int8 serving numerics on the int8 whole-block
+kernels. ``--mesh``/``--tp`` are parsed and refused: multi-device training
+is not ported yet (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize-image", action="store_true",
                    help="run the frozen image tower with the int8 serving numerics")
     p.add_argument("--quantize-text", action="store_true",
-                   help="int8 serving numerics in the text tower (not ported yet)")
+                   help="train the text tower in the int8 serving numerics (needs "
+                        "--attn-impl block_fused)")
     p.add_argument("--no-dedup-prompts", action="store_true",
                    help="encode every batch row's tokens instead of the unique-prompt "
                         "pool once per step")
@@ -65,9 +67,6 @@ def main(argv=None) -> int:
     if args.mesh or args.tp:
         raise SystemExit("--mesh/--tp: multi-device training is not ported yet "
                          "(ROADMAP Queue 1 item 13, parallel/ as torch.distributed)")
-    if args.quantize_text:
-        raise SystemExit("--quantize-text: the int8 whole-block text kernels are not ported "
-                         "yet (ROADMAP Queue 2 rows 13-14, the next slice)")
 
     import torch
 

@@ -11,7 +11,8 @@
 //   or bf16 -> fp32). B is the weight in the port's (in, out) layout, read
 //   directly as a row-major matrix_b, so no transposed copy is kept. The
 //   fp32/int32 tile goes through shared memory to a per-element epilogue
-//   functor that does the dequant, bias, activation or residual.
+//   functor that does the dequant, bias, activation or residual. A transposed
+//   B (kTransB, for dy @ W^T) and a split depth (blockIdx.z) are options.
 // - attn_core_kernel<T>: the streaming no-max attention core on the packed
 //   (B, S, 3W) projection, for bf16 and fp32. Rows 1, 5 and 7 of the TPU
 //   kernel table share it; T is the rounding policy (q*c, p and the output
@@ -105,6 +106,21 @@ __device__ __forceinline__ void load_row(const TIn* __restrict__ xr, const float
   }
 }
 
+// Symmetric int8 quantization of the row h[0, W) into qr and its scale into
+// *qscale; each thread reads only its own strided elements of h.
+__device__ __forceinline__ void quantize_row(const float* h, int8_t* __restrict__ qr,
+                                             float* __restrict__ qscale, int W, float* red) {
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < W; i += kRowThreads) amax = fmaxf(amax, fabsf(h[i]));
+  amax = block_reduce(amax, true, red);
+  const float scale = fmaxf(amax, 1e-6f) / 127.0f;
+  for (int i = threadIdx.x; i < W; i += kRowThreads) {
+    const float v = fminf(fmaxf(rintf(h[i] / scale), -127.f), 127.f);
+    qr[i] = static_cast<int8_t>(v);
+  }
+  if (threadIdx.x == 0) *qscale = scale;
+}
+
 // x (rows, W) -> q (rows, W) int8 and qscale (rows,). Dynamic shared memory:
 // W floats (the row, normalized in place).
 template <bool kLN, typename TIn>
@@ -116,16 +132,7 @@ rowquant_kernel(const TIn* __restrict__ x, const float* __restrict__ ln_s,
   __shared__ float red[kRowThreads / 32 + 1];
   const size_t row = blockIdx.x;
   load_row<kLN>(x + row * W, ln_s, ln_b, h, red, W, eps);
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < W; i += kRowThreads) amax = fmaxf(amax, fabsf(h[i]));
-  amax = block_reduce(amax, true, red);
-  const float scale = fmaxf(amax, 1e-6f) / 127.0f;
-  int8_t* qr = q + row * W;
-  for (int i = threadIdx.x; i < W; i += kRowThreads) {
-    const float v = fminf(fmaxf(rintf(h[i] / scale), -127.f), 127.f);
-    qr[i] = static_cast<int8_t>(v);
-  }
-  if (threadIdx.x == 0) qscale[row] = scale;
+  quantize_row(h, q + row * W, qscale + row, W, red);
 }
 
 // x (rows, W) bf16 -> bf16(LN x) (rows, W). Dynamic shared memory: W floats.
@@ -157,11 +164,15 @@ template <> struct GemmTypes<bf16> { using frag = __nv_bfloat16; using acc = flo
 // and K % 32 == 0; rows past M are zero-filled and never stored.
 // kTransB: B is stored (N, K) row-major and the product is A @ B^T (the
 // backward's dy @ W^T against a weight kept (in, out)); its tile is kept as
-// Bs[n/16][n%16][k] and read through col_major fragments, so no transposed
-// copy of the weight is made.
+// A's is, [k/16][n][16], and read through col_major fragments (ldm 16), so no
+// transposed copy of the weight is made and every fragment pointer stays
+// 256-bit aligned for int8 too.
+// blockIdx.z takes the depth range [z*ksplit, (z+1)*ksplit) (split depth: the
+// epilogue sees one range's partial product and may read blockIdx.z).
 template <typename T, typename Epi, bool kTransB = false>
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int K, Epi epi) {
+gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int K, int ksplit,
+            Epi epi) {
   using namespace nvcuda;
   using FragT = typename GemmTypes<T>::frag;
   using Acc = typename GemmTypes<T>::acc;
@@ -174,6 +185,8 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 2, wn = warp & 3;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int kb = blockIdx.z * ksplit, ke = min(K, kb + ksplit);
+  T (*const Bt)[kBN][16] = reinterpret_cast<T (*)[kBN][16]>(&Bs[0][0][0]);  // kTransB view
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[4][2];
 #pragma unroll
@@ -181,7 +194,7 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int 
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], static_cast<Acc>(0));
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
+  for (int k0 = kb; k0 < ke; k0 += kBK) {
     for (int c = tid; c < kBM * kBK / kVec; c += kGemmThreads) {
       const int r = c / (kBK / kVec), kc = (c % (kBK / kVec)) * kVec;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
@@ -189,11 +202,10 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int 
         v = *reinterpret_cast<const uint4*>(A + static_cast<size_t>(m0 + r) * K + k0 + kc);
       *reinterpret_cast<uint4*>(&As[kc / 16][r][kc % 16]) = v;
     }
-    T* const bt = &Bs[0][0][0];  // the kTransB view: [n/16][n%16][k]
     if constexpr (kTransB) {
       for (int c = tid; c < kBN * kBK / kVec; c += kGemmThreads) {
         const int nr = c / (kBK / kVec), kc = (c % (kBK / kVec)) * kVec;
-        *reinterpret_cast<uint4*>(bt + (nr / 16) * 16 * kBK + (nr % 16) * kBK + kc) =
+        *reinterpret_cast<uint4*>(&Bt[kc / 16][nr][kc % 16]) =
             *reinterpret_cast<const uint4*>(B + static_cast<size_t>(n0 + nr) * K + k0 + kc);
       }
     } else {
@@ -213,9 +225,8 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int 
         wmma::load_matrix_sync(a[i], reinterpret_cast<const FragT*>(&As[kk][wm * 64 + i * 16][0]), 16);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const T* bj =
-            kTransB ? bt + (wn * 2 + j) * 16 * kBK + kk * 16 : &Bs[wn * 2 + j][kk * 16][0];
-        wmma::load_matrix_sync(b[j], reinterpret_cast<const FragT*>(bj), kTransB ? kBK : 16);
+        const T* bj = kTransB ? &Bt[kk][(wn * 2 + j) * 16][0] : &Bs[wn * 2 + j][kk * 16][0];
+        wmma::load_matrix_sync(b[j], reinterpret_cast<const FragT*>(bj), 16);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -241,10 +252,13 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int 
   }
 }
 
+// ksplit: the depth of one split (a multiple of kBK), 0 for the whole K.
 template <bool kTransB = false, typename T, typename Epi>
-cudaError_t launch_gemm(const T* A, const T* B, int M, int N, int K, Epi epi, cudaStream_t st) {
-  const dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<T, Epi, kTransB><<<grid, kGemmThreads, 0, st>>>(A, B, M, N, K, epi);
+cudaError_t launch_gemm(const T* A, const T* B, int M, int N, int K, Epi epi, cudaStream_t st,
+                        int ksplit = 0) {
+  if (ksplit <= 0) ksplit = K;
+  const dim3 grid(N / kBN, (M + kBM - 1) / kBM, (K + ksplit - 1) / ksplit);
+  gemm_kernel<T, Epi, kTransB><<<grid, kGemmThreads, 0, st>>>(A, B, M, N, K, ksplit, epi);
   return cudaGetLastError();
 }
 

@@ -613,15 +613,17 @@ block_core_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   for (int d = 0; d < kHeadDim; ++d) store_as<T>(dst + d, o[d]);
 }
 
-// dqkv = T([dq | dk | dv]) of one head from qkv and g = da, the
+// dqkv = TO([dq | dk | dv]) of one head from qkv and g = da, the
 // probabilities recomputed as in the forward:
 //   dv = T(p)^T g;  dp = g v^T;  ds = T((p (dp - rowsum(dp p))) scale);
 //   dq = ds k;  dk = ds^T q.
+// TO is T where dqkv only feeds a product that rounds it to T, fp32 where it
+// feeds a row quantizer (the int8 block).
 // Dynamic shared memory: Q, K, V, G (S x 64) and P (S x S, then ds), fp32.
-template <typename T>
+template <typename T, typename TO>
 __global__ void __launch_bounds__(kBlockCoreThreads)
 block_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
-                      const float* __restrict__ mask, T* __restrict__ dqkv, int S, int W,
+                      const float* __restrict__ mask, TO* __restrict__ dqkv, int S, int W,
                       float qconst, float scale) {
   extern __shared__ float sm[];
   float* Qs = sm;
@@ -650,7 +652,7 @@ block_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
     probs_row(acc, Ks, mask + static_cast<size_t>(i) * S, P + i * S, S);
   }
   __syncthreads();
-  T* out = dqkv + (row0 + i) * ld + h * kHeadDim;
+  TO* out = dqkv + (row0 + i) * ld + h * kHeadDim;
   if (live) {  // dv for key row i
 #pragma unroll
     for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
@@ -661,7 +663,7 @@ block_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
       for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(pr, gr[d], acc[d]);
     }
 #pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) store_as<T>(out + 2 * W + d, acc[d]);
+    for (int d = 0; d < kHeadDim; ++d) store_as<TO>(out + 2 * W + d, acc[d]);
   }
   __syncthreads();  // every column of P is read; row i may now become ds
   if (live) {
@@ -697,7 +699,7 @@ block_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
     for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(ds, kr[d], acc[d]);
   }
 #pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) store_as<T>(out + d, acc[d]);
+  for (int d = 0; d < kHeadDim; ++d) store_as<TO>(out + d, acc[d]);
 #pragma unroll
   for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
   for (int r = 0; r < S; ++r) {  // dk = ds^T q
@@ -707,7 +709,7 @@ block_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
     for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(ds, qr[d], acc[d]);
   }
 #pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) store_as<T>(out + W + d, acc[d]);
+  for (int d = 0; d < kHeadDim; ++d) store_as<TO>(out + W + d, acc[d]);
 }
 
 template <typename T>
@@ -720,15 +722,15 @@ cudaError_t launch_core_fwd(const T* qkv, const float* mask, T* a, int B, int S,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_core_bwd(const T* qkv, const T* da, const float* mask, T* dqkv, int B, int S,
+template <typename T, typename TO>
+cudaError_t launch_core_bwd(const T* qkv, const T* da, const float* mask, TO* dqkv, int B, int S,
                             int W, int H, float qconst, cudaStream_t st) {
   const int smem = (4 * S * kHeadDim + S * S) * static_cast<int>(sizeof(float));
-  AIIC_CHECK(cudaFuncSetAttribute(block_core_bwd_kernel<T>,
+  AIIC_CHECK(cudaFuncSetAttribute(block_core_bwd_kernel<T, TO>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));  // dim ** -0.5, exact for 64
-  block_core_bwd_kernel<T><<<dim3(H, B), kBlockCoreThreads, smem, st>>>(qkv, da, mask, dqkv, S,
-                                                                        W, qconst, scale);
+  block_core_bwd_kernel<T, TO><<<dim3(H, B), kBlockCoreThreads, smem, st>>>(
+      qkv, da, mask, dqkv, S, W, qconst, scale);
   return cudaGetLastError();
 }
 

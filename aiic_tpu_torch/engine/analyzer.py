@@ -18,14 +18,19 @@ The configurations users run, and the kernels each runs in every block
 - ``dtype=torch.float32``: the batch CLI's default, cuBLAS fp32 projections
   around the packed-QKV attention core kernel.
 
-File decoding, URL streams, LoRA folding, the text-feature cache, device
-resize and multi-card serving are not ported yet (ROADMAP.md).
+``use_lora`` folds a text-tower adapter (a reference ``.pth``, a loaded
+state dict, or a seeded no-op init) into the backbone before the int8
+quantization and the text-feature precompute, as the JAX engine does.
+
+File decoding, URL streams, the text-feature cache, device resize and
+multi-card serving are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import os
 import warnings
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -57,6 +62,10 @@ class InteriorAnalyzer:
         config: CLIPConfig = VIT_B_16,
         *,
         training_data: Optional[List[Dict[str, Any]]] = None,
+        use_lora: bool = False,
+        lora_weights_path: Union[str, Mapping[str, Any], None] = None,
+        lora_rank: int = 4,
+        lora_alpha: int = 8,
         dtype: torch.dtype = torch.bfloat16,
         quantize: bool = True,
         wire_format: str = "patch",
@@ -79,6 +88,25 @@ class InteriorAnalyzer:
             params = init_clip_params(config, gen, device=self.device)
         else:
             params = tree_map(lambda t: t.to(self.device), params)
+
+        # LoRA: folded into the text tower before any quantization and the
+        # text-feature precompute (the reference applies LoRA before its
+        # text features, main.py:243-262)
+        self.use_lora = use_lora
+        if use_lora:
+            from aiic_tpu_torch.adapters import (
+                LoRAConfig, fold_text_lora, init_text_lora, lora_tree_from_pth,
+            )
+
+            lc = LoRAConfig(rank=lora_rank, alpha=lora_alpha, attach=("c_fc", "c_proj"))
+            if lora_weights_path is not None and (not isinstance(lora_weights_path, str)
+                                                  or os.path.exists(lora_weights_path)):
+                tree, _ = lora_tree_from_pth(lora_weights_path, config, lc, seed=seed,
+                                             device=self.device)
+            else:
+                tree = init_text_lora(torch.Generator(device=self.device).manual_seed(seed),
+                                      config, lc, device=self.device)
+            params = fold_text_lora(params, tree, lc.scaling)
 
         # int8 serving weights: active only on the bf16 path (models.clip.block).
         self.quantized = False

@@ -31,6 +31,11 @@ lifted to fp32, which is exact for bf16 inputs, with TF32 off.
   the full attach set is present, dropout is 0, the activation is
   quick-gelu and the JAX package's gate admits the geometry; otherwise
   ``"pallas_vjp"``;
+- ``"block_fused_int8"`` (training in the int8 serving numerics): the
+  whole text block on its int8 forward and backward kernels
+  (``ops.block_grad.text_block_lora_int8``) where the tree carries
+  ``attn_q``/``mlp_q``, the preconditions of ``"block_fused"`` hold and the
+  JAX package's int8 gate admits the geometry; otherwise ``"block_fused"``;
 - ``"auto"``: ``"pallas_vjp"`` on a CUDA tensor, ``"xla"`` on the CPU (the
   JAX trainer's resolution on its accelerator and elsewhere).
 
@@ -65,7 +70,8 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
-ATTN_IMPLS = ("auto", "pallas", "pallas_mlp", "pallas_vjp", "block_fused", "xla")
+ATTN_IMPLS = ("auto", "pallas", "pallas_mlp", "pallas_vjp", "block_fused", "block_fused_int8",
+              "xla")
 
 
 def resolve_attn_impl(impl: str, x: torch.Tensor) -> str:
@@ -194,11 +200,21 @@ def block(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tensor],
     quick = gelu_type == "quick_gelu"
     lora = lora or {}
     l_out, l_fc, l_proj = (lora.get(k) for k in ATTACH_POINTS)
+    kernel_lora = all(k in lora for k in ATTACH_POINTS) and lora_dropout == 0.0 and quick
+    if attn_impl == "block_fused_int8":
+        if (kernel_lora and "attn_q" in p and "mlp_q" in p
+                and block_grad.text_block_int8_supported(x.shape[1], x.shape[2],
+                                                         p["mlp"]["w1"].shape[-1], heads)):
+            seq = x.shape[1]
+            m = torch.zeros((seq, seq), device=x.device) if mask is None else mask.float()
+            return block_grad.text_block_lora_int8(
+                x, {k: p[k] for k in ("ln1", "attn", "ln2", "mlp")},
+                {**p["attn_q"], **p["mlp_q"]}, {k: lora[k] for k in ATTACH_POINTS}, m, heads,
+                lora_scaling)
+        attn_impl = "block_fused"  # no int8 weights or not kernelizable: the bf16 gate
     if attn_impl == "block_fused":
-        if (all(k in lora for k in ATTACH_POINTS) and lora_dropout == 0.0 and quick
-                and block_grad.text_block_supported(x.shape[1], x.shape[2],
-                                                    p["mlp"]["w1"].shape[-1], heads,
-                                                    x.element_size())):
+        if kernel_lora and block_grad.text_block_supported(
+                x.shape[1], x.shape[2], p["mlp"]["w1"].shape[-1], heads, x.element_size()):
             seq = x.shape[1]
             m = torch.zeros((seq, seq), device=x.device) if mask is None else mask.float()
             return block_grad.text_block_lora(

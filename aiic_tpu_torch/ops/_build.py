@@ -67,8 +67,19 @@ _SIGNATURES = {
     "aiic_text_block_fwd": [_P] * 22 + [_I] * 8 + [_F] * 3 + [_I, _P],
     # x, dy, mask, 18 weights, dx, six LoRA cotangents, ws, then as the forward
     "aiic_text_block_bwd": [_P] * 29 + [_I] * 8 + [_F] * 3 + [_I, _P],
+    # B, S, W, M, ro, rf, rp, n_chunks, backward -> bytes (a long long)
+    "aiic_text_block_int8_workspace": [_I] * 9,
+    # x, mask, 21 weights/scales/vectors/factors, y, ws, B, S, W, H, M, ro,
+    # rf, rp, scaling, eps, qconst, stream
+    "aiic_text_block_int8_fwd": [_P] * 25 + [_I] * 8 + [_F] * 3 + [_P],
+    # x, dy, mask, 21 weights, dx, six LoRA cotangents, ws, then as the
+    # forward with n_chunks after rp
+    "aiic_text_block_int8_bwd": [_P] * 32 + [_I] * 9 + [_F] * 3 + [_P],
+    # A, B, out, M, N, K, ksplit, stream (the int8 A @ B^T alone, for tests)
+    "aiic_int8_matmul_t": [_P] * 3 + [_I] * 4 + [_P],
 }
-_RESTYPES = {"aiic_text_block_workspace": ctypes.c_longlong}
+_RESTYPES = {"aiic_text_block_workspace": ctypes.c_longlong,
+             "aiic_text_block_int8_workspace": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -101,16 +112,26 @@ def load_library() -> ctypes.CDLL:
         raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
     so = BUILD_DIR / f"libaiic_kernels_{source_digest()}.so"
     seconds, log = 0.0, ""
+    done: Dict[str, float] = {}  # seconds each source took, for the build report
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tag = f"{os.getpid()}.tmp"
         objs = [BUILD_DIR / f"{cu.stem}.{tag}.o" for cu in cus]
         t0 = time.perf_counter()
-        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(cu)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for cu, o in zip(cus, objs)]
-        logs = [p.communicate()[0] for p in procs]
-        log = "".join(logs)
+        outs = [o.with_suffix(".log") for o in objs]
+        procs = []
+        for cu, o, out in zip(cus, objs, outs):
+            with open(out, "w") as f:
+                procs.append(subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(cu)],
+                                              stdout=f, stderr=subprocess.STDOUT))
+        while len(done) < len(procs):
+            for cu, proc in zip(cus, procs):
+                if cu.name not in done and proc.poll() is not None:
+                    done[cu.name] = round(time.perf_counter() - t0, 2)
+            time.sleep(0.05)
+        log = "".join(out.read_text() for out in outs)
+        for out in outs:
+            out.unlink()
         failed = [cu.name for cu, p in zip(cus, procs) if p.returncode != 0]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
@@ -128,7 +149,7 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _RESTYPES.get(name, ctypes.c_int)
-    BUILD_INFO.update(path=str(so), seconds=seconds, log=log)
+    BUILD_INFO.update(path=str(so), seconds=seconds, per_source_s=done, log=log)
     _LIB = lib
     return lib
 

@@ -1,5 +1,6 @@
 """The whole training text block, forward and backward — the port of
-``aiic_tpu.ops.block_grad`` (the unquantized kernel pair).
+``aiic_tpu.ops.block_grad``: the unquantized kernel pair and its int8
+(serving-numerics) variant.
 
 The block being differentiated (the training text block with LoRA on the
 reference attach set ``out_proj``, ``c_fc``, ``c_proj``; no dropout):
@@ -34,6 +35,22 @@ come out in fp32. The chunked TPU kernels (the fp32 plan at ViT-B/16) split
 only the MLP hidden axis, so the same math covers both plans up to the order
 of fp32 sums.
 
+The int8 variant (``text_block_fwd_int8``, ``text_block_bwd_int8``,
+``TextBlockLoRAInt8`` / ``text_block_lora_int8``; TPU kernels
+``_text_block_{fwd,bwd}_int8_kernel`` and their chunked forms; kernels
+``csrc/text_block_int8.cu``) trains against the int8 serving numerics: QKV,
+c_fc and c_proj are int8 x int8 -> int32 products of the fp32 activation
+row-quantized (``h1f``, ``h2f``, ``u``, never rounded to bf16 first) against
+the per-output-channel int8 weights, dequantized as ``(acc·rowscale)·colscale``
+before the bias; ``wo``, the core and the LoRA deltas stay in the compute
+dtype. Its backward is the straight-through estimator, each cotangent
+product through an int8 weight itself int8: ``rowquant(g·colscale) @ Wqᵀ``
+times the row scale, for ``dy·s2``, ``dfq·s1`` and ``dqkv·sqkv``. Its plans
+(``text_block_int8_plan``) differ in one place: with ``n_chunks > 1``
+``dfq·s1`` is quantized per (row, hidden-axis chunk) and the chunks'
+dequantized products are summed in chunk order. The plain versions run the
+integer products exactly, through float64 (``quant._int_matmul``).
+
 Each wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises.
 """
@@ -50,20 +67,26 @@ from aiic_tpu_torch.ops._build import check, counted, load_library, mask_arg, ro
 from aiic_tpu_torch.ops.attention import (
     LOG2E, _HEAD_DIM, _denom_guard, _qconst, _split_heads, exp2_rows, no_tf32,
 )
+from aiic_tpu_torch.ops.quant import _int_matmul, _row_quant
 
 Params = Dict[str, Any]
 
 # ---------------------------------------------------------------------------
-# The JAX package's gate for the whole-block path
+# The JAX package's gates for the whole-block paths
 # ---------------------------------------------------------------------------
 #
 # A copy of the pure arithmetic of aiic_tpu/ops/block_grad.py
 # (_text_block_vmem_bytes, _text_block_chunk_vmem_bytes, text_block_plan,
-# text_block_supported). It mirrors the JAX package's ROUTING, so that one
-# configuration runs the same math in both packages; it is not a memory plan
-# for Hopper (the CUDA kernels tile for the card on their own).
+# text_block_supported, and the int8 twins _int8_text_block_vmem_bytes,
+# _int8_text_block_chunk_vmem_bytes, text_block_int8_plan,
+# text_block_int8_supported). It mirrors the JAX package's ROUTING, so that
+# one configuration runs the same math in both packages; it is not a memory
+# plan for Hopper (the CUDA kernels tile for the card on their own). The
+# int8 plan's chunk count does change the numerics (the backward's dfq
+# quantization), so the int8 kernels take it.
 
 _BLOCK_VMEM_BUDGET = 15 * 1024 * 1024
+_INT8_BLOCK_VMEM_BUDGET = int(12.5 * 1024 * 1024)
 
 
 def _text_block_vmem_bytes(group: int, seq: int, width: int, mlp_dim: int,
@@ -99,15 +122,54 @@ def _text_block_chunk_vmem_bytes(group: int, seq: int, width: int, mlp_dim: int,
     )
 
 
+def _int8_text_block_vmem_bytes(group: int, seq: int, width: int, mlp_dim: int,
+                                heads: int) -> int:
+    rows = group * seq
+    weights = (3 * width * width + 2 * width * mlp_dim) + 2 * width * width
+    return weights + (
+        3 * rows * width * 2
+        + seq * seq * 4
+        + rows * 3 * width * (4 + 2)
+        + group * heads * seq * seq * 4
+        + 3 * rows * mlp_dim * 4
+        + 6 * rows * width * 4
+        + rows * (width + mlp_dim)
+    )
+
+
+def _int8_text_block_chunk_vmem_bytes(group: int, seq: int, width: int, mlp_dim: int,
+                                      heads: int, n_chunks: int) -> int:
+    rows = group * seq
+    chunk = mlp_dim // n_chunks
+    return (
+        3 * width * width + 2 * width * width
+        + 2 * 2 * width * chunk
+        + 2 * 3 * rows * width * 2
+        + seq * seq * 4
+        + rows * 3 * width * (4 + 2)
+        + group * heads * seq * seq * 4
+        + rows * mlp_dim * 5
+        + 2 * rows * width * 4
+        + 2 * rows * width * (1 + 2)
+        + 2 * rows * width * 4
+        + 5 * rows * chunk * 4
+        + 2 * 64 * mlp_dim * 4
+        + (1 << 20)
+    )
+
+
+def _chunk_counts(mlp_dim: int):
+    """Hidden-axis chunk counts whose chunk is a multiple of 128."""
+    return [c for c in range(2, mlp_dim // 128 + 1) if not mlp_dim % c and not (mlp_dim // c) % 128]
+
+
 def text_block_plan(seq: int, width: int, mlp_dim: int, heads: int,
                     itemsize: int = 2) -> Optional[Tuple[int, int]]:
     """(group, n_chunks) of the JAX package's planner, or None."""
     for g in (2, 1):
         if _text_block_vmem_bytes(g, seq, width, mlp_dim, heads, itemsize) <= _BLOCK_VMEM_BUDGET:
             return (g, 1)
-        for c in range(2, mlp_dim // 128 + 1):
-            if mlp_dim % c or (mlp_dim // c) % 128:
-                continue
+        for c in _chunk_counts(mlp_dim):
             if _text_block_chunk_vmem_bytes(g, seq, width, mlp_dim, heads, c,
                                             itemsize) <= _BLOCK_VMEM_BUDGET:
                 return (g, c)
@@ -120,30 +182,115 @@ def text_block_supported(seq: int, width: int, mlp_dim: int, heads: int,
     return text_block_plan(seq, width, mlp_dim, heads, itemsize) is not None
 
 
+def text_block_int8_plan(seq: int, width: int, mlp_dim: int, heads: int,
+                         bsz: Optional[int] = None) -> Optional[Tuple[int, int]]:
+    """(group, n_chunks) of the JAX package's int8 planner, or None."""
+    for g in (2, 1):
+        if bsz is not None and bsz % g:
+            continue
+        if _int8_text_block_vmem_bytes(g, seq, width, mlp_dim, heads) <= _INT8_BLOCK_VMEM_BUDGET:
+            return (g, 1)
+        for c in _chunk_counts(mlp_dim):
+            if _int8_text_block_chunk_vmem_bytes(g, seq, width, mlp_dim, heads,
+                                                 c) <= _INT8_BLOCK_VMEM_BUDGET:
+                return (g, c)
+    return None
+
+
+def text_block_int8_supported(seq: int, width: int, mlp_dim: int, heads: int) -> bool:
+    """True where some int8 plan exists: the trainer's ``quantize_text`` gate."""
+    return text_block_int8_plan(seq, width, mlp_dim, heads) is not None
+
+
+def _int8_chunks(x: torch.Tensor, mlp_dim: int, heads: int,
+                 force_plan: Optional[Tuple[int, int]]) -> int:
+    """The hidden-axis chunk count of the plan the JAX package runs for x."""
+    if force_plan is not None:
+        return force_plan[1]
+    bsz, seq, width = x.shape
+    plan = text_block_int8_plan(seq, width, mlp_dim, heads, bsz=bsz)
+    if plan is None:
+        raise ValueError(f"int8 text block geometry (S={seq}, W={width}, M={mlp_dim}) has no "
+                         "plan in the JAX package, even hidden-axis-chunked at G=1")
+    return plan[1]
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
+
+# The per-output-channel scale of each int8 weight.
+_SCALE = {"wqkv": "sqkv", "w1": "s1", "w2": "s2"}
+
+
+def _vectors(bp: Params, lora: Params, cdt: torch.dtype) -> Params:
+    """LN vectors and biases as fp32 holding values rounded to the compute
+    dtype, and the LoRA factors in it, as ``_weight_operands`` casts them."""
+    vec = lambda v: v.reshape(-1).to(cdt).float()  # noqa: E731
+    return {
+        "ln1s": vec(bp["ln1"]["scale"]), "ln1b": vec(bp["ln1"]["bias"]),
+        "ln2s": vec(bp["ln2"]["scale"]), "ln2b": vec(bp["ln2"]["bias"]),
+        "bqkv": vec(bp["attn"]["bqkv"]), "bo": vec(bp["attn"]["bo"]),
+        "b1": vec(bp["mlp"]["b1"]), "b2": vec(bp["mlp"]["b2"]),
+        **{f"{p}_{ab}": lora[p][ab].to(cdt) for p in POINTS for ab in ("A", "B")},
+    }
 
 
 def _operands(bp: Params, lora: Params, cdt: torch.dtype) -> Params:
     """Every weight, bias, LN vector and LoRA factor cast to the compute
     dtype, as ``_weight_operands`` does; vectors come back as fp32 holding
     the rounded values."""
-    vec = lambda v: v.reshape(-1).to(cdt).float()  # noqa: E731
-    return {
-        "ln1s": vec(bp["ln1"]["scale"]), "ln1b": vec(bp["ln1"]["bias"]),
-        "ln2s": vec(bp["ln2"]["scale"]), "ln2b": vec(bp["ln2"]["bias"]),
-        "wqkv": bp["attn"]["wqkv"].to(cdt), "bqkv": vec(bp["attn"]["bqkv"]),
-        "wo": bp["attn"]["wo"].to(cdt), "bo": vec(bp["attn"]["bo"]),
-        "w1": bp["mlp"]["w1"].to(cdt), "b1": vec(bp["mlp"]["b1"]),
-        "w2": bp["mlp"]["w2"].to(cdt), "b2": vec(bp["mlp"]["b2"]),
-        **{f"{p}_{ab}": lora[p][ab].to(cdt) for p in POINTS for ab in ("A", "B")},
-    }
+    return {**_vectors(bp, lora, cdt), "wqkv": bp["attn"]["wqkv"].to(cdt),
+            "wo": bp["attn"]["wo"].to(cdt), "w1": bp["mlp"]["w1"].to(cdt),
+            "w2": bp["mlp"]["w2"].to(cdt)}
+
+
+def _int8_operands(bp: Params, qw: Params, lora: Params, cdt: torch.dtype) -> Params:
+    """``_int8_weight_operands``: the int8 weights and their fp32 scales as
+    given, ``wo`` in the compute dtype, vectors and factors as above."""
+    return {**_vectors(bp, lora, cdt), "wo": bp["attn"]["wo"].to(cdt),
+            **{k + "_q": qw[k + "_q"] for k in _SCALE},
+            **{s: qw[s].reshape(-1).float() for s in _SCALE.values()}}
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """a @ b with both operands rounded to ``cdt`` and fp32 sums."""
     return a.to(cdt).float() @ b.to(cdt).float()
+
+
+def _q_dot(v: torch.Tensor, wq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_q_dot``: fp32 v row-quantized against int8 wq, exactly; returns
+    (the int32 accumulator as fp32, the per-row scale)."""
+    vq, vs = _row_quant(v)
+    return _int_matmul(vq, wq).float(), vs
+
+
+def _product(h: torch.Tensor, w: Params, key: str, cdt: torch.dtype) -> torch.Tensor:
+    """h @ W for a backbone weight: in the compute dtype with fp32 sums, or,
+    for an int8 weight, the fp32 h row-quantized, dequantized as
+    (acc·rowscale)·colscale."""
+    if key + "_q" in w:
+        acc, hs = _q_dot(h, w[key + "_q"])
+        return acc * hs * w[_SCALE[key]]
+    return _dot(h, w[key], cdt)
+
+
+def _product_t(g: torch.Tensor, w: Params, key: str, cdt: torch.dtype,
+               n_chunks: int = 1) -> torch.Tensor:
+    """g @ Wᵀ, the cotangent through a backbone weight: in the compute dtype,
+    or for an int8 weight the straight-through estimator
+    ``rowquant(g·colscale) @ Wqᵀ · rowscale``, quantized per (row, chunk) of
+    the contraction and summed in chunk order when ``n_chunks > 1``."""
+    if key + "_q" not in w:
+        return _dot(g, w[key].t(), cdt)
+    wq, gs = w[key + "_q"], g * w[_SCALE[key]]
+    step = gs.shape[-1] // n_chunks
+    out = 0.0
+    for c in range(n_chunks):
+        sl = slice(c * step, (c + 1) * step)
+        acc, qs = _q_dot(gs[:, sl], wq[:, sl].t())
+        out = out + acc * qs
+    return out
 
 
 def _ln_fwd(xf: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float):
@@ -176,13 +323,15 @@ def _core_probs(qkv: torch.Tensor, mask: torch.Tensor, heads: int) -> torch.Tens
 
 def _forward(x: torch.Tensor, mask: torch.Tensor, w: Params, heads: int,
              scaling: float, eps: float) -> Params:
-    """The forward on (rows, W) views, returning what the backward needs."""
+    """The forward on (rows, W) views, returning what the backward needs.
+    ``u`` stays fp32: the int8 c_proj quantizes it, every other product
+    rounds it to the compute dtype."""
     cdt = x.dtype
     bsz, seq, width = x.shape
     dot = lambda a, b: _dot(a, b, cdt)  # noqa: E731
     xf = x.reshape(bsz * seq, width).float()
     h1f, xhat1, inv1 = _ln_fwd(xf, w["ln1s"], w["ln1b"], eps)
-    qkv = (dot(h1f, w["wqkv"]) + w["bqkv"]).to(cdt)
+    qkv = (_product(h1f, w, "wqkv", cdt) + w["bqkv"]).to(cdt)
     probs = _core_probs(qkv.reshape(bsz, seq, 3 * width), mask, heads)
     _, _, v = _split_heads(qkv.reshape(bsz, seq, 3 * width), heads)
     a = torch.einsum("bhqk,bkhd->bqhd", probs.to(cdt).float(), v.float())
@@ -192,54 +341,43 @@ def _forward(x: torch.Tensor, mask: torch.Tensor, w: Params, heads: int,
     h2f, xhat2, inv2 = _ln_fwd(y1, w["ln2s"], w["ln2b"], eps)
     h2 = h2f.to(cdt)
     h2_af = dot(h2, w["c_fc_A"])
-    f = dot(h2, w["w1"]) + w["b1"] + scaling * dot(h2_af, w["c_fc_B"])
+    f = _product(h2f, w, "w1", cdt) + w["b1"] + scaling * dot(h2_af, w["c_fc_B"])
     sig = torch.sigmoid(1.702 * f)
-    u_c = (f * sig).to(cdt)
-    u_ap = dot(u_c, w["c_proj_A"])
+    u = f * sig
+    u_ap = dot(u, w["c_proj_A"])
     return dict(xhat1=xhat1, inv1=inv1, qkv=qkv, probs=probs, a=a, a_ao=a_ao, y1=y1,
-                xhat2=xhat2, inv2=inv2, h2=h2, h2_af=h2_af, f=f, sig=sig, u_c=u_c, u_ap=u_ap)
+                xhat2=xhat2, inv2=inv2, h2=h2, h2_af=h2_af, f=f, sig=sig, u=u, u_ap=u_ap)
 
 
-def text_block_fwd_ref(x: torch.Tensor, mask: Optional[torch.Tensor], bp: Params,
-                       lora: Params, *, heads: int, scaling: float,
-                       eps: float = 1e-5) -> torch.Tensor:
-    """(B, S, W) -> (B, S, W), the TPU kernels' forward op for op."""
+def _block_fwd(x, mask, w, heads, scaling, eps) -> torch.Tensor:
     no_tf32()
     cdt = x.dtype
-    mask = _mask_or_zeros(mask, x)
-    w = _operands(bp, lora, cdt)
-    t = _forward(x, mask, w, heads, scaling, eps)
-    mo = (_dot(t["u_c"], w["w2"], cdt) + w["b2"]
+    t = _forward(x, _mask_or_zeros(mask, x), w, heads, scaling, eps)
+    mo = (_product(t["u"], w, "w2", cdt) + w["b2"]
           + scaling * _dot(t["u_ap"], w["c_proj_B"], cdt))
     return (t["y1"] + mo).to(cdt).reshape(x.shape)
 
 
-def text_block_bwd_ref(x: torch.Tensor, dy: torch.Tensor, mask: Optional[torch.Tensor],
-                       bp: Params, lora: Params, *, heads: int, scaling: float,
-                       eps: float = 1e-5) -> Tuple[torch.Tensor, Params]:
-    """(x, dy) -> (dx, dlora), the TPU kernels' backward op for op:
-    forward recomputed from x, then the MLP half, LN2, the attention half,
-    the per-head core backward and LN1. dx has x's dtype; the six LoRA
-    cotangents are fp32 sums over all B·S rows."""
+def _block_bwd(x, dy, mask, w, lora, heads, scaling, eps, n_chunks=1):
+    """The forward recomputed from x, then the MLP half, LN2, the attention
+    half, the per-head core backward and LN1."""
     no_tf32()
     cdt = x.dtype
     bsz, seq, width = x.shape
     rows = bsz * seq
-    mask = _mask_or_zeros(mask, x)
-    w = _operands(bp, lora, cdt)
-    t = _forward(x, mask, w, heads, scaling, eps)
+    t = _forward(x, _mask_or_zeros(mask, x), w, heads, scaling, eps)
     dot = lambda a, b: _dot(a, b, cdt)  # noqa: E731
     dy = dy.to(cdt).reshape(rows, width).float()
 
     # MLP half: y = y1 + u W2 + b2 + s (u Ap) Bp
     t_p = dot(dy, w["c_proj_B"].t())
-    du = dot(dy, w["w2"].t()) + scaling * dot(t_p, w["c_proj_A"].t())
-    d_ap_a = scaling * dot(t["u_c"].t(), t_p)
+    du = _product_t(dy, w, "w2", cdt) + scaling * dot(t_p, w["c_proj_A"].t())
+    d_ap_a = scaling * dot(t["u"].t(), t_p)
     d_ap_b = scaling * dot(t["u_ap"].t(), dy)
     f, sig = t["f"], t["sig"]
     dfq = du * (sig + 1.702 * f * sig * (1.0 - sig))
     t_f = dot(dfq, w["c_fc_B"].t())
-    dh2 = dot(dfq, w["w1"].t()) + scaling * dot(t_f, w["c_fc_A"].t())
+    dh2 = _product_t(dfq, w, "w1", cdt, n_chunks) + scaling * dot(t_f, w["c_fc_A"].t())
     d_af_a = scaling * dot(t["h2"].t(), t_f)
     d_af_b = scaling * dot(t["h2_af"].t(), dfq)
     dy1 = dy + _ln_bwd(dh2, t["xhat2"], t["inv2"], w["ln2s"])
@@ -264,13 +402,50 @@ def text_block_bwd_ref(x: torch.Tensor, dy: torch.Tensor, mask: Optional[torch.T
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dqkv = torch.cat([dq.reshape(rows, width), dk.reshape(rows, width),
                       dv.reshape(rows, width)], dim=-1)
-    dh1 = dot(dqkv, w["wqkv"].t())
+    dh1 = _product_t(dqkv, w, "wqkv", cdt)
     dx = dy1 + _ln_bwd(dh1, t["xhat1"], t["inv1"], w["ln1s"])
     dlora = {"out_proj": {"A": d_ao_a, "B": d_ao_b}, "c_fc": {"A": d_af_a, "B": d_af_b},
              "c_proj": {"A": d_ap_a, "B": d_ap_b}}
     dlora = {pt: {ab: g_.to(lora[pt][ab].dtype) for ab, g_ in d.items()}
              for pt, d in dlora.items()}
     return dx.to(cdt).reshape(x.shape), dlora
+
+
+def text_block_fwd_ref(x: torch.Tensor, mask: Optional[torch.Tensor], bp: Params,
+                       lora: Params, *, heads: int, scaling: float,
+                       eps: float = 1e-5) -> torch.Tensor:
+    """(B, S, W) -> (B, S, W), the TPU kernels' forward op for op."""
+    return _block_fwd(x, mask, _operands(bp, lora, x.dtype), heads, scaling, eps)
+
+
+def text_block_bwd_ref(x: torch.Tensor, dy: torch.Tensor, mask: Optional[torch.Tensor],
+                       bp: Params, lora: Params, *, heads: int, scaling: float,
+                       eps: float = 1e-5) -> Tuple[torch.Tensor, Params]:
+    """(x, dy) -> (dx, dlora), the TPU kernels' backward op for op. dx has
+    x's dtype; the six LoRA cotangents are fp32 sums over all B·S rows."""
+    return _block_bwd(x, dy, mask, _operands(bp, lora, x.dtype), lora, heads, scaling, eps)
+
+
+def text_block_fwd_int8_ref(x: torch.Tensor, mask: Optional[torch.Tensor], bp: Params,
+                            qw: Params, lora: Params, *, heads: int, scaling: float,
+                            n_chunks: int = 1, eps: float = 1e-5) -> torch.Tensor:
+    """(B, S, W) -> (B, S, W), ``_int8_block_fwd_stage`` op for op. The
+    chunked forward quantizes u over the full hidden axis and sums c_proj in
+    int32, so ``n_chunks`` changes nothing here but the order of fp32 sums
+    the TPU kernel takes, which this version does not follow."""
+    del n_chunks
+    return _block_fwd(x, mask, _int8_operands(bp, qw, lora, x.dtype), heads, scaling, eps)
+
+
+def text_block_bwd_int8_ref(x: torch.Tensor, dy: torch.Tensor, mask: Optional[torch.Tensor],
+                            bp: Params, qw: Params, lora: Params, *, heads: int,
+                            scaling: float, n_chunks: int = 1,
+                            eps: float = 1e-5) -> Tuple[torch.Tensor, Params]:
+    """(x, dy) -> (dx, dlora), ``_text_block_bwd_int8_kernel`` op for op;
+    with ``n_chunks > 1`` the chunked kernel's per-(row, chunk) quantization
+    of ``dfq·s1`` and its chunk-ordered sum into dh2."""
+    return _block_bwd(x, dy, mask, _int8_operands(bp, qw, lora, x.dtype), lora, heads, scaling,
+                      eps, n_chunks)
 
 
 def _mask_or_zeros(mask: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -281,20 +456,23 @@ def _mask_or_zeros(mask: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tenso
 
 
 # ---------------------------------------------------------------------------
-# Hopper kernels (csrc/text_block.cuh), launched through ctypes
+# Hopper kernels (csrc/text_block.cuh, csrc/text_block_int8.cu), through ctypes
 # ---------------------------------------------------------------------------
 
+# The order of the C entry points' weight arguments.
+_ORDER = ("ln1s", "ln1b", "ln2s", "ln2b", "wqkv", "bqkv", "wo", "bo", "w1", "b1", "w2", "b2",
+          "out_proj_A", "out_proj_B", "c_fc_A", "c_fc_B", "c_proj_A", "c_proj_B")
+_ORDER_INT8 = ("ln1s", "ln1b", "ln2s", "ln2b", "wqkv_q", "sqkv", "bqkv", "wo", "bo", "w1_q",
+               "s1", "b1", "w2_q", "s2", "b2", "out_proj_A", "out_proj_B", "c_fc_A",
+               "c_fc_B", "c_proj_A", "c_proj_B")
 
-def _kernel_operands(name: str, x: torch.Tensor, mask, bp: Params, lora: Params,
-                     heads: int):
+
+def _kernel_operands(name: str, x: torch.Tensor, mask, w: Params, lora: Params,
+                     heads: int, mlp_dim: int, order):
     """Checks what the kernels take and returns (args, dims, ranks): the
-    compute-dtype weights and LoRA factors, the fp32 vectors holding the
-    rounded LN vectors and biases, and the (S, S) fp32 mask."""
-    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 3:
-        raise TypeError(f"{name}: the Hopper kernel takes fp32 or bf16 (B, S, W), "
-                        f"got {x.dtype} {tuple(x.shape)}")
+    weights, vectors and LoRA factors of ``order`` from ``w``, each on x's
+    device with its shape (int8 weights as int8), and the (S, S) fp32 mask."""
     bsz, seq, width = x.shape
-    mlp_dim = bp["mlp"]["w1"].shape[-1]
     if width % heads or width // heads != _HEAD_DIM:
         raise ValueError(f"{name} kernel needs head_dim {_HEAD_DIM}, got W={width}, H={heads}")
     if width % 128 or mlp_dim % 128:
@@ -302,27 +480,27 @@ def _kernel_operands(name: str, x: torch.Tensor, mask, bp: Params, lora: Params,
     if seq > 128:
         raise ValueError(f"{name} kernel takes S <= 128 (one thread per query row), got {seq}")
     dev = x.device
-    cdt = x.dtype
     shapes = {"wqkv": (width, 3 * width), "wo": (width, width), "w1": (width, mlp_dim),
               "w2": (mlp_dim, width), "bqkv": (3 * width,), "b1": (mlp_dim,),
-              **{k: (width,) for k in ("ln1s", "ln1b", "ln2s", "ln2b", "bo", "b2")}}
+              "sqkv": (3 * width,), "s1": (mlp_dim,),
+              **{k: (width,) for k in ("ln1s", "ln1b", "ln2s", "ln2b", "bo", "b2", "s2")}}
+    shapes.update({k + "_q": shapes[k] for k in _SCALE})
     for p in POINTS:
         din, dout = {"out_proj": (width, width), "c_fc": (width, mlp_dim),
                      "c_proj": (mlp_dim, width)}[p]
         rank = lora[p]["A"].shape[-1]
         shapes[f"{p}_A"], shapes[f"{p}_B"] = (din, rank), (rank, dout)
-    w = _operands(bp, lora, cdt)
-    for k, t in w.items():
+    for k in order:
+        t = w[k]
         if t.device != dev:
             raise ValueError(f"{name}: {k} lies on {t.device}, x on {dev}")
         if tuple(t.shape) != shapes[k]:
             raise ValueError(f"{name}: {k} must be {shapes[k]}, got {tuple(t.shape)}")
-    w = {k: _aligned(t) for k, t in w.items()}
+        if k.endswith("_q") and t.dtype != torch.int8:
+            raise TypeError(f"{name}: {k} must be int8, got {t.dtype}")
     mask = mask_arg(mask if mask is not None else torch.zeros((seq, seq)), seq, dev)
-    order = ("ln1s", "ln1b", "ln2s", "ln2b", "wqkv", "bqkv", "wo", "bo", "w1", "b1", "w2",
-             "b2", "out_proj_A", "out_proj_B", "c_fc_A", "c_fc_B", "c_proj_A", "c_proj_B")
     ranks = tuple(lora[p]["A"].shape[-1] for p in POINTS)
-    return [mask, *(w[k] for k in order)], (bsz, seq, width, heads, mlp_dim), ranks
+    return [mask, *(_aligned(w[k]) for k in order)], (bsz, seq, width, heads, mlp_dim), ranks
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -331,28 +509,65 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _workspace(lib, dims, ranks, fp32: bool, backward: bool, dev) -> torch.Tensor:
-    bsz, seq, width, _, mlp_dim = dims
-    nbytes = lib.aiic_text_block_workspace(bsz, seq, width, mlp_dim, *ranks, int(fp32),
-                                           int(backward))
+def _fp_operands(name: str, x: torch.Tensor, mask, bp: Params, lora: Params, heads: int):
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 3:
+        raise TypeError(f"{name}: the Hopper kernel takes fp32 or bf16 (B, S, W), "
+                        f"got {x.dtype} {tuple(x.shape)}")
+    return _kernel_operands(name, x, mask, _operands(bp, lora, x.dtype), lora, heads,
+                            bp["mlp"]["w1"].shape[-1], _ORDER)
+
+
+def _int8_kernel_operands(name: str, x: torch.Tensor, mask, bp: Params, qw: Params,
+                          lora: Params, heads: int):
+    if x.dtype != torch.bfloat16 or x.dim() != 3:
+        raise TypeError(f"{name}: the Hopper kernel takes bf16 (B, S, W), "
+                        f"got {x.dtype} {tuple(x.shape)}")
+    return _kernel_operands(name, x, mask, _int8_operands(bp, qw, lora, x.dtype), lora, heads,
+                            qw["w1_q"].shape[-1], _ORDER_INT8)
+
+
+def _scratch(nbytes: int, dev) -> torch.Tensor:
     # Scratch freed on return is reused by the caching allocator only for
     # work queued later on this same stream, so that is safe.
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
+def _grads(dims, ranks, dev):
+    """The six fp32 LoRA cotangents in the entry points' order."""
+    width, mlp_dim = dims[2], dims[4]
+    r_o, r_f, r_p = ranks
+    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    return [f32(width, r_o), f32(r_o, width), f32(width, r_f), f32(r_f, mlp_dim),
+            f32(mlp_dim, r_p), f32(r_p, width)]
+
+
+def _lora_out(grads, lora: Params) -> Params:
+    it = iter(grads)
+    return {p: {ab: next(it).to(lora[p][ab].dtype) for ab in ("A", "B")} for p in POINTS}
+
+
+def _dy_arg(name: str, x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
+        raise ValueError(f"{name}: dy must be {tuple(x.shape)} on {x.device}, "
+                         f"got {tuple(dy.shape)} on {dy.device}")
+    return _aligned(dy.to(x.dtype))
+
+
 def _text_block_fwd_cuda(x, mask, bp, lora, heads, scaling, eps):
     name = "text_block_fwd"
     x = x.contiguous()
-    args, dims, ranks = _kernel_operands(name, x, mask, bp, lora, heads)
+    args, dims, ranks = _fp_operands(name, x, mask, bp, lora, heads)
     lib = load_library()
     fp32 = x.dtype == torch.float32
     y = torch.empty_like(x)
-    ws = _workspace(lib, dims, ranks, fp32, False, x.device)
+    bsz, seq, width, _, mlp_dim = dims
+    ws = _scratch(lib.aiic_text_block_workspace(bsz, seq, width, mlp_dim, *ranks, int(fp32), 0),
+                  x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.aiic_text_block_fwd(
         x.data_ptr(), *[a.data_ptr() for a in args], y.data_ptr(), ws.data_ptr(), *dims,
         *ranks, ctypes.c_float(scaling), ctypes.c_float(eps),
-        ctypes.c_float(_qconst(dims[2] // heads, x.dtype)), int(fp32), stream)
+        ctypes.c_float(_qconst(width // heads, x.dtype)), int(fp32), stream)
     check(name, rc)
     return y
 
@@ -360,20 +575,15 @@ def _text_block_fwd_cuda(x, mask, bp, lora, heads, scaling, eps):
 def _text_block_bwd_cuda(x, dy, mask, bp, lora, heads, scaling, eps):
     name = "text_block_bwd"
     x = x.contiguous()
-    if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
-        raise ValueError(f"{name}: dy must be {tuple(x.shape)} on {x.device}, "
-                         f"got {tuple(dy.shape)} on {dy.device}")
-    dy = _aligned(dy.to(x.dtype))
-    args, dims, ranks = _kernel_operands(name, x, mask, bp, lora, heads)
+    dy = _dy_arg(name, x, dy)
+    args, dims, ranks = _fp_operands(name, x, mask, bp, lora, heads)
     lib = load_library()
     fp32 = x.dtype == torch.float32
     dx = torch.empty_like(x)
-    width, mlp_dim = dims[2], dims[4]
-    r_o, r_f, r_p = ranks
-    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=x.device)  # noqa: E731
-    grads = [f32(width, r_o), f32(r_o, width), f32(width, r_f), f32(r_f, mlp_dim),
-             f32(mlp_dim, r_p), f32(r_p, width)]
-    ws = _workspace(lib, dims, ranks, fp32, True, x.device)
+    grads = _grads(dims, ranks, x.device)
+    bsz, seq, width, _, mlp_dim = dims
+    ws = _scratch(lib.aiic_text_block_workspace(bsz, seq, width, mlp_dim, *ranks, int(fp32), 1),
+                  x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.aiic_text_block_bwd(
         x.data_ptr(), dy.data_ptr(), *[a.data_ptr() for a in args], dx.data_ptr(),
@@ -381,13 +591,70 @@ def _text_block_bwd_cuda(x, dy, mask, bp, lora, heads, scaling, eps):
         ctypes.c_float(scaling), ctypes.c_float(eps),
         ctypes.c_float(_qconst(width // heads, x.dtype)), int(fp32), stream)
     check(name, rc)
-    it = iter(grads)
-    dlora = {p: {ab: next(it).to(lora[p][ab].dtype) for ab in ("A", "B")} for p in POINTS}
-    return dx, dlora
+    return dx, _lora_out(grads, lora)
+
+
+def _text_block_fwd_int8_cuda(x, mask, bp, qw, lora, heads, scaling, eps):
+    name = "text_block_fwd_int8"
+    x = x.contiguous()
+    args, dims, ranks = _int8_kernel_operands(name, x, mask, bp, qw, lora, heads)
+    lib = load_library()
+    y = torch.empty_like(x)
+    bsz, seq, width, _, mlp_dim = dims
+    ws = _scratch(lib.aiic_text_block_int8_workspace(bsz, seq, width, mlp_dim, *ranks, 1, 0),
+                  x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.aiic_text_block_int8_fwd(
+        x.data_ptr(), *[a.data_ptr() for a in args], y.data_ptr(), ws.data_ptr(), *dims,
+        *ranks, ctypes.c_float(scaling), ctypes.c_float(eps),
+        ctypes.c_float(_qconst(width // heads, x.dtype)), stream)
+    check(name, rc)
+    return y
+
+
+def _text_block_bwd_int8_cuda(x, dy, mask, bp, qw, lora, heads, scaling, eps, n_chunks):
+    name = "text_block_bwd_int8"
+    x = x.contiguous()
+    dy = _dy_arg(name, x, dy)
+    args, dims, ranks = _int8_kernel_operands(name, x, mask, bp, qw, lora, heads)
+    mlp_dim = dims[4]
+    if mlp_dim % n_chunks or (mlp_dim // n_chunks) % 32:
+        raise ValueError(f"{name}: {n_chunks} chunks of M={mlp_dim} are not multiples of 32")
+    lib = load_library()
+    dx = torch.empty_like(x)
+    grads = _grads(dims, ranks, x.device)
+    bsz, seq, width = dims[:3]
+    ws = _scratch(lib.aiic_text_block_int8_workspace(bsz, seq, width, mlp_dim, *ranks,
+                                                     n_chunks, 1), x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.aiic_text_block_int8_bwd(
+        x.data_ptr(), dy.data_ptr(), *[a.data_ptr() for a in args], dx.data_ptr(),
+        *[g.data_ptr() for g in grads], ws.data_ptr(), *dims, *ranks, n_chunks,
+        ctypes.c_float(scaling), ctypes.c_float(eps),
+        ctypes.c_float(_qconst(width // heads, x.dtype)), stream)
+    check(name, rc)
+    return dx, _lora_out(grads, lora)
+
+
+def int8_matmul_t_cuda(a: torch.Tensor, b: torch.Tensor, ksplit: int = 0) -> torch.Tensor:
+    """The int8 product of the int8 backward alone, for the card's tests:
+    (K / ksplit, M, N) int32 partial sums of a (M, K) @ b (N, K)ᵀ over depth
+    splits of ``ksplit`` (0: one split). CUDA int8 tensors only."""
+    m, k = a.shape
+    n = b.shape[0]
+    ksplit = ksplit or k
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or not a.is_cuda or b.shape[1] != k:
+        raise TypeError("int8_matmul_t_cuda takes CUDA int8 (M, K) and (N, K)")
+    out = torch.empty((k // ksplit, m, n), dtype=torch.int32, device=a.device)
+    a, b = _aligned(a), _aligned(b)
+    rc = load_library().aiic_int8_matmul_t(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+                                           ksplit, torch.cuda.current_stream(a.device).cuda_stream)
+    check("int8_matmul_t", rc)
+    return out
 
 
 # ---------------------------------------------------------------------------
-# Public wrappers (JAX signatures) and the autograd pairing
+# Public wrappers (JAX signatures) and the autograd pairings
 # ---------------------------------------------------------------------------
 
 
@@ -414,6 +681,46 @@ def text_block_bwd(x: torch.Tensor, dy: torch.Tensor, mask: Optional[torch.Tenso
     return out
 
 
+@counted
+def text_block_fwd_int8(x: torch.Tensor, mask: Optional[torch.Tensor], bp: Params, qw: Params,
+                        lora: Params, *, heads: int, scaling: float, eps: float = 1e-5,
+                        force_plan: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """(B, S, W) -> (B, S, W): the whole text block forward in int8 serving
+    numerics. ``qw``: {wqkv_q, sqkv, w1_q, s1, w2_q, s2} of this layer."""
+    n_chunks = _int8_chunks(x, qw["w1_q"].shape[-1], heads, force_plan)
+    if not route("text_block_fwd_int8", x):
+        return text_block_fwd_int8_ref(x, mask, bp, qw, lora, heads=heads, scaling=scaling,
+                                       n_chunks=n_chunks, eps=eps)
+    y = _text_block_fwd_int8_cuda(x, mask, bp, qw, lora, heads, scaling, eps)
+    text_block_fwd_int8.launches += 1
+    return y
+
+
+@counted
+def text_block_bwd_int8(x: torch.Tensor, dy: torch.Tensor, mask: Optional[torch.Tensor],
+                        bp: Params, qw: Params, lora: Params, *, heads: int, scaling: float,
+                        eps: float = 1e-5, force_plan: Optional[Tuple[int, int]] = None,
+                        ) -> Tuple[torch.Tensor, Params]:
+    """(B, S, W) x and output cotangent -> (dx, dlora) for one text block in
+    int8 serving numerics, under the straight-through estimator."""
+    n_chunks = _int8_chunks(x, qw["w1_q"].shape[-1], heads, force_plan)
+    if not route("text_block_bwd_int8", x):
+        return text_block_bwd_int8_ref(x, dy, mask, bp, qw, lora, heads=heads, scaling=scaling,
+                                       n_chunks=n_chunks, eps=eps)
+    out = _text_block_bwd_int8_cuda(x, dy, mask, bp, qw, lora, heads, scaling, eps, n_chunks)
+    text_block_bwd_int8.launches += 1
+    return out
+
+
+def _lora_tree(factors) -> Params:
+    it = iter(factors)
+    return {p: {ab: next(it) for ab in ("A", "B")} for p in POINTS}
+
+
+def _factors(lora: Params):
+    return [lora[p][ab] for p in POINTS for ab in ("A", "B")]
+
+
 class TextBlockLoRA(torch.autograd.Function):
     """One training text block whose backward is ``text_block_bwd``:
     differentiable in x and the six LoRA factors (all three attach points
@@ -430,16 +737,37 @@ class TextBlockLoRA(torch.autograd.Function):
         x, mask, *factors = ctx.saved_tensors
         dx, dl = text_block_bwd(x, dy, mask, ctx.bp, _lora_tree(factors), heads=ctx.heads,
                                 scaling=ctx.scaling)
-        return (dx, None, None, None, None, *(dl[p][ab] for p in POINTS for ab in ("A", "B")))
-
-
-def _lora_tree(factors) -> Params:
-    it = iter(factors)
-    return {p: {ab: next(it) for ab in ("A", "B")} for p in POINTS}
+        return (dx, None, None, None, None, *_factors(dl))
 
 
 def text_block_lora(x: torch.Tensor, bp: Params, lora: Params, mask: torch.Tensor, heads: int,
                     scaling: float) -> torch.Tensor:
     """The port of ``aiic_tpu.ops.block_grad.text_block_lora``."""
-    return TextBlockLoRA.apply(x, bp, mask, heads, scaling,
-                               *(lora[p][ab] for p in POINTS for ab in ("A", "B")))
+    return TextBlockLoRA.apply(x, bp, mask, heads, scaling, *_factors(lora))
+
+
+class TextBlockLoRAInt8(torch.autograd.Function):
+    """One training text block in int8 serving numerics whose backward is
+    ``text_block_bwd_int8``: differentiable in x and the six LoRA factors;
+    the int8 weights, their scales, the rest of the backbone and the mask
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, bp, qw, mask, heads, scaling, *factors):
+        ctx.bp, ctx.qw, ctx.heads, ctx.scaling = bp, qw, heads, scaling
+        ctx.save_for_backward(x, mask, *factors)
+        return text_block_fwd_int8(x, mask, bp, qw, _lora_tree(factors), heads=heads,
+                                   scaling=scaling)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mask, *factors = ctx.saved_tensors
+        dx, dl = text_block_bwd_int8(x, dy, mask, ctx.bp, ctx.qw, _lora_tree(factors),
+                                     heads=ctx.heads, scaling=ctx.scaling)
+        return (dx, None, None, None, None, None, *_factors(dl))
+
+
+def text_block_lora_int8(x: torch.Tensor, bp: Params, qw: Params, lora: Params,
+                         mask: torch.Tensor, heads: int, scaling: float) -> torch.Tensor:
+    """The port of ``aiic_tpu.ops.block_grad.text_block_lora_int8``."""
+    return TextBlockLoRAInt8.apply(x, bp, qw, mask, heads, scaling, *_factors(lora))

@@ -241,6 +241,24 @@ def quantize_mlp_blocks(blocks: Dict[str, Any]) -> Dict[str, Any]:
     return {"w1_q": w1_q, "s1": s1, "w2_q": w2_q, "s2": s2}
 
 
+def quantize_model_mlp(params: Dict[str, Any], attn: bool = False,
+                       towers: Tuple[str, ...] = ("visual", "text")) -> Dict[str, Any]:
+    """A params tree with int8 MLP weights attached as ``blocks["mlp_q"]`` on
+    the given towers (and ``blocks["attn_q"]`` with ``attn=True``); new
+    dicts, the input tree is not modified. Quantize after any LoRA fold, so
+    that the adapters are in the quantized weights."""
+    out = dict(params)
+    for tower in towers:
+        t = dict(out[tower])
+        blocks = dict(t["blocks"])
+        blocks["mlp_q"] = quantize_mlp_blocks(blocks)
+        if attn:
+            blocks["attn_q"] = quantize_attn_blocks(blocks)
+        t["blocks"] = blocks
+        out[tower] = t
+    return out
+
+
 def quantize_model(params: Dict[str, Any]) -> Dict[str, Any]:
     """Full int8 serving quantization: ``attn_q`` and ``mlp_q`` on both
     towers' blocks, plus the int8 folded patch embed for the patch-major
@@ -248,13 +266,8 @@ def quantize_model(params: Dict[str, Any]) -> Dict[str, Any]:
     fp paths use them."""
     from aiic_tpu_torch.ops.preprocess import quantize_patch_embed
 
-    out = dict(params)
-    for tower in ("visual", "text"):
-        t = dict(out[tower])
-        blocks = dict(t["blocks"])
-        blocks["mlp_q"] = quantize_mlp_blocks(blocks)
-        blocks["attn_q"] = quantize_attn_blocks(blocks)
-        t["blocks"] = blocks
-        out[tower] = t
-    out["visual"]["patch_embed_q"] = quantize_patch_embed(out["visual"]["patch_embed"])
+    out = quantize_model_mlp(params, attn=True)
+    visual = dict(out["visual"])
+    visual["patch_embed_q"] = quantize_patch_embed(visual["patch_embed"])
+    out["visual"] = visual
     return out

@@ -11,7 +11,10 @@ params with 'lora' in name" (train_lora.py:194-197).
 - text tower with the stacked adapter tree threaded through the blocks, on
   ``attn_impl`` ``pallas_vjp`` (the default on the card: the packed-QKV core
   kernel forward, autograd backward) or ``block_fused`` (the whole-block
-  forward and backward kernels of ``ops.block_grad``);
+  forward and backward kernels of ``ops.block_grad``); with
+  ``quantize_text`` the text tower's backbone goes int8 and ``block_fused``
+  becomes ``block_fused_int8``, the int8 serving numerics in bf16 (the int8
+  whole-block kernels);
 - symmetric InfoNCE with diagonal labels at ``logit_scale.exp()``
   (train_lora.py:241-246), ``logit_scale`` frozen;
 - AdamW(lr 1e-4, weight decay 0.01) on the adapters with global-norm clip 1.0
@@ -166,17 +169,6 @@ def make_optimizer(cfg: TrainConfig, steps_per_epoch: int) -> AdamW:
 # ---------------------------------------------------------------------------
 
 
-def _quantize_visual(params: Params) -> Params:
-    """int8 MLP and QKV weights on the image tower only (the JAX package's
-    ``quantize_model_mlp(params, attn=True, towers=("visual",))``)."""
-    visual = dict(params["visual"])
-    blocks = dict(visual["blocks"])
-    blocks["mlp_q"] = quant.quantize_mlp_blocks(blocks)
-    blocks["attn_q"] = quant.quantize_attn_blocks(blocks)
-    visual["blocks"] = blocks
-    return {**params, "visual": visual}
-
-
 def make_train_step(config: CLIPConfig, cfg: TrainConfig, optimizer: AdamW, mesh=None,
                     cached_image: bool = False, prompt_pool: Optional[np.ndarray] = None,
                     device="cuda") -> Tuple[Callable, Callable]:
@@ -193,7 +185,11 @@ def make_train_step(config: CLIPConfig, cfg: TrainConfig, optimizer: AdamW, mesh
     ``train_step.text_impl`` is the resolved text path: ``"auto"`` gives
     ``"pallas_vjp"`` on the card and ``"xla"`` on the CPU; ``"block_fused"``
     falls back the same way where the kernel's preconditions fail (the full
-    attach set, no dropout, quick-gelu, the JAX package's geometry gate)."""
+    attach set, no dropout, quick-gelu, the JAX package's geometry gate),
+    and becomes ``"block_fused_int8"`` with ``quantize_text`` where the int8
+    gate admits the geometry; ``quantize_text`` on any other path raises.
+    ``params`` then carries the text tower's ``attn_q``/``mlp_q``
+    (``quantize_model_mlp``, as ``train_lora`` quantizes)."""
     if mesh is not None:
         raise ValueError(NO_MESH)
     dev = torch.device(device)
@@ -216,13 +212,25 @@ def make_train_step(config: CLIPConfig, cfg: TrainConfig, optimizer: AdamW, mesh
             # the whole-block backward recomputes its forward already;
             # checkpointing it would replay the forward a third time
             text_remat = False
+            if cfg.quantize_text and block_grad.text_block_int8_supported(
+                    config.context_length, config.text.width, config.text.mlp_dim,
+                    config.text.heads):
+                text_impl = "block_fused_int8"
         else:
             text_impl = fallback
-    if cfg.quantize_text:
+    if cfg.quantize_text and text_impl != "block_fused_int8":
+        # the JAX package's refusal: silently training bf16 gradients would
+        # ship adapters trained against numerics the int8 engine never runs
         raise ValueError(
-            "quantize_text requires the int8 whole-block text kernel, which was not selected "
-            f"(resolved attn_impl={text_impl!r}): the port has no int8 text kernels yet "
-            "(ROADMAP Queue 2 rows 13-14, the next slice).")
+            "quantize_text requires the int8 whole-block text kernel, which "
+            f"was not selected (resolved attn_impl={text_impl!r}). It needs "
+            "attn_impl='block_fused', the full reference attach set, "
+            "lora_dropout=0, quick-gelu, and a text tower that fits "
+            "the kernel's VMEM budget "
+            "(ops/block_grad.text_block_int8_supported).")
+    # the int8 serving composition computes in bf16; the loss keeps the
+    # image features in cfg.dtype
+    text_dtype = torch.bfloat16 if text_impl == "block_fused_int8" else cfg.dtype
     if prompt_pool is not None and cfg.lora_dropout > 0.0:
         raise ValueError(
             "prompt_pool (dedup_prompts) requires lora_dropout == 0: a deduplicated row "
@@ -239,7 +247,7 @@ def make_train_step(config: CLIPConfig, cfg: TrainConfig, optimizer: AdamW, mesh
 
     def text_features(lora_tree, params, token_rows, generator=None):
         return normalize_features(encode_text(
-            params, token_rows, config, dtype=cfg.dtype, attn_impl=text_impl,
+            params, token_rows, config, dtype=text_dtype, attn_impl=text_impl,
             lora=lora_tree, lora_scaling=scaling,
             lora_dropout=cfg.lora_dropout if generator is not None else 0.0,
             lora_generator=generator, remat=text_remat))
@@ -406,8 +414,12 @@ def train_lora(json_path: str = "interior_dataset.json",
     if params is None:
         params = init_clip_params(config, torch.Generator(device=dev).manual_seed(cfg.seed),
                                   device=dev)
-    if cfg.quantize_image:
-        params = _quantize_visual(params)
+    towers = tuple(t for t, on in (("visual", cfg.quantize_image), ("text", cfg.quantize_text))
+                   if on)
+    if towers:
+        # int8 weights on the selected towers: the frozen image tower runs
+        # the serving kernels, the text tower the int8 whole-block kernels
+        params = quant.quantize_model_mlp(params, attn=True, towers=towers)
     if image_root is None:
         image_root = os.path.dirname(os.path.abspath(json_path))
     ds = PromptedImageDataset(load_training_data(json_path), config, image_root=image_root)

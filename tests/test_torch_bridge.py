@@ -105,7 +105,8 @@ def test_params_from_numpy_and_npz_round_trip(tmp_path):
 
 
 KERNEL_WRAPPERS = ["int8_ln_mlp", "int8_ln_qkv_attention", "fused_attention_qkv",
-                   "fused_ln_qkv_attention", "fused_ln_mlp", "text_block_fwd", "text_block_bwd"]
+                   "fused_ln_qkv_attention", "fused_ln_mlp", "text_block_fwd", "text_block_bwd",
+                   "text_block_fwd_int8", "text_block_bwd_int8"]
 
 
 @pytest.mark.parametrize("name", KERNEL_WRAPPERS)
@@ -149,12 +150,24 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting(name):
         dims = {"out_proj": (w, w), "c_fc": (w, 4 * w), "c_proj": (4 * w, w)}
         lora = {k: {"A": torch.randn(i, 2), "B": torch.randn(2, o)} for k, (i, o) in dims.items()}
         mask = torch.triu(torch.full((8, 8), float("-inf")), diagonal=1)
+        qw = {}
+        for k, (grp, wk) in {"wqkv": ("attn", "wqkv"), "w1": ("mlp", "w1"),
+                             "w2": ("mlp", "w2")}.items():
+            qw[k + "_q"], qw[{"wqkv": "sqkv", "w1": "s1", "w2": "s2"}[k]] = \
+                quant.quantize_weight(bp[grp][wk])
+        kw = dict(heads=4, scaling=2.0)
         if name == "text_block_fwd":
-            out = block_grad.text_block_fwd(x, mask, bp, lora, heads=4, scaling=2.0)
-            ref = block_grad.text_block_fwd_ref(x, mask, bp, lora, heads=4, scaling=2.0)
+            out = block_grad.text_block_fwd(x, mask, bp, lora, **kw)
+            ref = block_grad.text_block_fwd_ref(x, mask, bp, lora, **kw)
+        elif name == "text_block_bwd":
+            out = block_grad.text_block_bwd(x, x, mask, bp, lora, **kw)[0]
+            ref = block_grad.text_block_bwd_ref(x, x, mask, bp, lora, **kw)[0]
+        elif name == "text_block_fwd_int8":
+            out = block_grad.text_block_fwd_int8(x, mask, bp, qw, lora, **kw)
+            ref = block_grad.text_block_fwd_int8_ref(x, mask, bp, qw, lora, **kw)
         else:
-            out = block_grad.text_block_bwd(x, x, mask, bp, lora, heads=4, scaling=2.0)[0]
-            ref = block_grad.text_block_bwd_ref(x, x, mask, bp, lora, heads=4, scaling=2.0)[0]
+            out = block_grad.text_block_bwd_int8(x, x, mask, bp, qw, lora, **kw)[0]
+            ref = block_grad.text_block_bwd_int8_ref(x, x, mask, bp, qw, lora, **kw)[0]
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert _build.launch_counts()[name] == 0
     assert set(_build.launch_counts()) == set(KERNEL_WRAPPERS)

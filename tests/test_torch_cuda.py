@@ -270,3 +270,79 @@ def test_text_block_kernels_refuse_what_they_do_not_take(device):
     with pytest.raises(ValueError):  # W = 320: head dim 64, W % 128 != 0
         block_grad.text_block_bwd(x5, dy5, mask, bp5, lora5, heads=5, scaling=2.0)
     assert (block_grad.text_block_fwd.launches, block_grad.text_block_bwd.launches) == before
+
+
+def _int8_block_inputs(device, bsz, width=512, heads=8):
+    x, dy, bp, lora = _text_block_inputs(device, bsz, torch.bfloat16, width=width, heads=heads)
+    qw = {}
+    for key, scale, (grp, name) in (("wqkv_q", "sqkv", ("attn", "wqkv")),
+                                    ("w1_q", "s1", ("mlp", "w1")), ("w2_q", "s2", ("mlp", "w2"))):
+        qw[key], qw[scale] = quant.quantize_weight(bp[grp][name])
+    return x, dy, bp, qw, lora
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 8, None), (3, 512, 8, None), (3, 768, 12, (1, 6))],
+                         ids=["B1", "B3", "B3_L14_chunked"])
+def test_text_block_int8_kernels_match_plain(device, shape):
+    """The int8 pair against its plain versions (bars of chip_smoke.py): y
+    per row within 2 bf16 ULPs of the row's largest value and row cosine >=
+    0.9999; dx row cosine >= 0.9999 (an int8 value rounding the other way
+    moves a whole row of a cotangent product); each LoRA cotangent cosine
+    >= 0.9999."""
+    bsz, width, heads, plan = shape
+    x, dy, bp, qw, lora = _int8_block_inputs(device, bsz, width, heads)
+    mask = causal_mask(77, device=device)
+    kw = dict(heads=heads, scaling=2.0)
+    before = (block_grad.text_block_fwd_int8.launches, block_grad.text_block_bwd_int8.launches)
+    y = block_grad.text_block_fwd_int8(x, mask, bp, qw, lora, force_plan=plan, **kw)
+    dx, dl = block_grad.text_block_bwd_int8(x, dy, mask, bp, qw, lora, force_plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert (block_grad.text_block_fwd_int8.launches,
+            block_grad.text_block_bwd_int8.launches) == (before[0] + 1, before[1] + 1)
+    n_chunks = 1 if plan is None else plan[1]
+    y_ref = block_grad.text_block_fwd_int8_ref(x, mask, bp, qw, lora, n_chunks=n_chunks, **kw)
+    dx_ref, dl_ref = block_grad.text_block_bwd_int8_ref(x, dy, mask, bp, qw, lora,
+                                                        n_chunks=n_chunks, **kw)
+    assert y.dtype == dx.dtype == torch.bfloat16
+    _agree_rows(y, y_ref)
+    cos = torch.nn.functional.cosine_similarity(dx.float().flatten(0, -2),
+                                                dx_ref.float().flatten(0, -2), dim=-1)
+    assert float(cos.min()) >= 0.9999
+    for p in dl:
+        for ab in "AB":
+            got, want = dl[p][ab], dl_ref[p][ab]
+            assert got.dtype == want.dtype == torch.float32
+            cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0)
+            assert float(cos) >= 0.9999, (p, ab)
+
+
+@pytest.mark.parametrize("ksplit", [0, 512], ids=["whole", "split6"])
+def test_int8_transposed_gemm_is_exact_at_an_odd_row_count(device, ksplit):
+    """The int8 A @ B^T of the backward (WMMA signed char, col_major B tile),
+    77 rows, against the exact product; with a split depth, each split's
+    int32 partial."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    a = torch.randint(-127, 128, (77, 3072), dtype=torch.int8, device=device, generator=gen)
+    b = torch.randint(-127, 128, (768, 3072), dtype=torch.int8, device=device, generator=gen)
+    got = block_grad.int8_matmul_t_cuda(a, b, ksplit)
+    step = ksplit or 3072
+    want = torch.stack([(a[:, i:i + step].double() @ b[:, i:i + step].double().t()).int()
+                        for i in range(0, 3072, step)])
+    assert torch.equal(got, want)
+
+
+def test_text_block_int8_kernels_refuse_what_they_do_not_take(device):
+    """A non-bf16 x, an int8 weight of the wrong shape, head dim 32: each
+    raises, and nothing launches."""
+    x, dy, bp, qw, lora = _int8_block_inputs(device, 1)
+    mask = causal_mask(77, device=device)
+    kw = dict(heads=8, scaling=2.0)
+    before = (block_grad.text_block_fwd_int8.launches, block_grad.text_block_bwd_int8.launches)
+    with pytest.raises(TypeError):
+        block_grad.text_block_fwd_int8(x.float(), mask, bp, qw, lora, **kw)
+    with pytest.raises(ValueError):  # c_fc's int8 weight transposed
+        block_grad.text_block_bwd_int8(x, dy, mask, bp, dict(qw, w1_q=qw["w1_q"].t()), lora, **kw)
+    with pytest.raises(ValueError):  # head dim 32
+        block_grad.text_block_fwd_int8(x, mask, bp, qw, lora, heads=16, scaling=2.0)
+    assert (block_grad.text_block_fwd_int8.launches,
+            block_grad.text_block_bwd_int8.launches) == before

@@ -9,6 +9,10 @@ must be identical; confidences agree within 1e-3. Top-k ties may be
 ordered differently by torch.topk and lax.top_k, so indices are compared
 only where the values differ.
 
+The int8 engine with ``use_lora`` folds a rank-4 c_fc/c_proj adapter (a
+saved ``.pth``, or its loaded dict) before quantizing, in both packages; it
+is held to the same bars as the int8 engine.
+
 The JAX programs are compiled with ``xla_allow_excess_precision`` off. By
 default XLA on the CPU may keep a bf16 intermediate in fp32, while the port
 (like the Hopper kernels) rounds each bf16 result. With 100x softmax
@@ -157,6 +161,55 @@ def _check_results(got, want):
             assert g["reason"] == "Success - interior image analyzed"
         else:
             assert g["reason"].startswith(f"Nie wnętrze: {g['detected_category']} (confidence: ")
+
+
+@pytest.fixture(scope="module")
+def lora_pth(tmp_path_factory):
+    """A rank-4 c_fc/c_proj adapter with nonzero B at TINY_TEST, in the
+    reference layout, big enough to move the int8 weights."""
+    from aiic_tpu_torch.adapters import save_lora_pth
+
+    rng = np.random.default_rng(21)
+    t = TINY_TEST.text
+    f = lambda *shape: torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(np.float32))  # noqa: E731
+    path = str(tmp_path_factory.mktemp("lora") / "adapter.pth")
+    save_lora_pth({"c_fc": {"A": f(t.layers, t.width, 4), "B": f(t.layers, 4, t.mlp_dim)},
+                   "c_proj": {"A": f(t.layers, t.mlp_dim, 4), "B": f(t.layers, 4, t.width)}}, path)
+    return path
+
+
+@pytest.mark.parametrize("source", ["pth", "dict"])
+def test_int8_use_lora_engine_matches_jax(engines, lora_pth, source):
+    """``use_lora`` with the adapter as a path and as a loaded state dict:
+    text features, verdicts and top-5 as the JAX engine with the same
+    adapter; the fold happens before the quantization, so the int8 weights
+    and the text features move."""
+    jax_engine, plain = engines
+    jp = init_clip_params(jax.random.PRNGKey(0), JAX_TINY)
+    weights = torch.load(lora_pth, map_location="cpu", weights_only=True)
+    src = lora_pth if source == "pth" else weights
+    kw = dict(training_data=TRAINING, dtype=jnp.bfloat16, quantize=True, attn_impl="pallas",
+              wire_format="patch", max_batch=4, use_lora=True, lora_weights_path=src)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = JaxAnalyzer(jp, JAX_TINY, **kw)
+    ours = InteriorAnalyzer(params_from_numpy(flatten_params(jp)), TINY_TEST,
+                            **dict(kw, dtype=torch.bfloat16), device="cpu")
+    assert ours.use_lora and ref.use_lora
+    for key in ("w1_q", "w2_q"):
+        folded = ours.params["text"]["blocks"]["mlp_q"][key]
+        assert not torch.equal(folded, plain.params["text"]["blocks"]["mlp_q"][key]), key
+        np.testing.assert_array_equal(folded.numpy(),
+                                      np.asarray(ref.params["text"]["blocks"]["mlp_q"][key]))
+    assert torch.equal(ours.params["text"]["blocks"]["attn_q"]["wqkv_q"],
+                       plain.params["text"]["blocks"]["attn_q"]["wqkv_q"])  # no out_proj adapter
+    assert not torch.equal(ours.det_text, plain.det_text)
+    a = ours.det_text.numpy()
+    b = np.asarray(ref.det_text)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    assert cos.min() >= 0.9999
+    px = _pixels(5, seed=22)
+    _check_results(ours.analyze_pixels(px), _jax_results(ref, px))
 
 
 @pytest.mark.parametrize("filter_interiors", [True, False], ids=["filter", "nofilter"])

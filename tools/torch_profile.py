@@ -3,7 +3,7 @@
 
     python3 tools/torch_profile.py [--config int8|bf16|fp32] [--attn-impl pallas|pallas_mlp]
                                    [--batch 256] [--iters 3]
-    python3 tools/torch_profile.py --train fp32_auto|fp32_block_fused|bf16_block_fused
+    python3 tools/torch_profile.py --train fp32_auto|fp32_block_fused|bf16_block_fused|int8_text
                                    [--batch 256] [--iters 3]
 
 Builds a ViT-B/16 ``aiic_tpu_torch`` engine from a seeded init in one of the
@@ -46,6 +46,15 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 GROUPS = [  # (group, substring of the CUDA kernel name), first match wins
+    ("block_int8_gemm_fwd", "EpiQkv8"),
+    ("block_int8_gemm_fwd", "EpiFc8"),
+    ("block_int8_gemm_fwd", "EpiY8"),
+    ("block_int8_gemm_bwd", "EpiDfq8"),
+    ("block_int8_gemm_bwd", "EpiDh2"),
+    ("block_int8_gemm_bwd", "EpiChunkPart"),
+    ("block_int8_gemm_bwd", "EpiRowScale"),
+    ("block_row_quant", "rowquant_scaled_kernel"),
+    ("block_row_quant", "ln_rowquant_kernel"),
     ("block_core_fwd", "block_core_fwd_kernel"),
     ("block_core_bwd", "block_core_bwd_kernel"),
     ("block_simt_gemm_backbone", "sgemm_kernel"),
@@ -84,7 +93,8 @@ def main(argv=None) -> int:
     ap.add_argument("--attn-impl", choices=["pallas", "pallas_mlp"], default="pallas")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--iters", type=int, default=3)
-    ap.add_argument("--train", choices=["fp32_auto", "fp32_block_fused", "bf16_block_fused"],
+    ap.add_argument("--train", choices=["fp32_auto", "fp32_block_fused", "bf16_block_fused",
+                                        "int8_text"],
                     help="profile the LoRA train step on this path instead of serving")
     args = ap.parse_args(argv)
 
@@ -174,7 +184,7 @@ def profile_train(args) -> int:
     ``--batch`` dense text rows), profiled as the serving call is."""
     import torch
 
-    from chip_smoke import TRAIN_PATHS, _lora_init, _step_batch, _train_config
+    from chip_smoke import TRAIN_PATHS, _lora_init, _path_params, _step_batch, _train_config
     from aiic_tpu_torch.models.config import VIT_B_16
     from aiic_tpu_torch.models.init import init_clip_params
     from aiic_tpu_torch.train import make_optimizer, make_train_step
@@ -182,8 +192,8 @@ def profile_train(args) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     opts, impl = TRAIN_PATHS[args.train]
-    params = init_clip_params(VIT_B_16, torch.Generator(device="cuda").manual_seed(0),
-                              device="cuda")
+    params = _path_params(init_clip_params(VIT_B_16, torch.Generator(device="cuda").manual_seed(0),
+                                           device="cuda"), opts)
     rng = np.random.default_rng(0)
     feats, tokens = _step_batch(rng, args.batch, "cuda")
     cfg = _train_config(opts, epochs=2, batch_size=args.batch)
