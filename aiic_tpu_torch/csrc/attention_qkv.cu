@@ -1,12 +1,21 @@
-// Packed-QKV attention core for Hopper, bf16 or fp32:
+// Packed-QKV attention core for Hopper, bf16 or fp32, and its head-grouped
+// form on the head-major layout, bf16:
 //   out (B, S, W) = Attn(qkv (B, S, 3W)), columns of qkv ordered [Q | K | V]
+//   out (B, S, W) = Attn(qkv_hm (B, S, 3W)), columns [q_h | k_h | v_h] per head
 //
-// Replaces the TPU kernel aiic_tpu/ops/attention.py::_attention_qkv_kernel
-// (called from fused_attention_qkv). The plain PyTorch version is
-// aiic_tpu_torch/ops/attention.py::fused_attention_qkv_ref.
+// Replaces the TPU kernels aiic_tpu/ops/attention.py::_attention_qkv_kernel
+// (called from fused_attention_qkv, row 7) and _attention_qkv_hg_kernel
+// (fused_attention_qkv_headgroups, row 8: ViT-L/14@336's S=577). The plain
+// PyTorch versions are aiic_tpu_torch/ops/attention.py::
+// fused_attention_qkv_ref and fused_attention_qkv_headgroups_ref.
 //
-// One launch of attn_core_kernel<T> (common.cuh), the core that the int8 and
-// bf16 attention half-blocks run too. T is the rounding policy of the TPU
+// One launch of attn_core_kernel<T, 64, kHeadMajor> (common.cuh), the core
+// that the int8 and bf16 attention half-blocks run too. The head group is
+// the TPU's VMEM tiling; here it only shapes the grid (hg heads of one image
+// per grid row), and every head runs row 7's arithmetic, so at hg = H the
+// head-major core equals row 7 on the packed layout bit for bit. On the card
+// the head-major core takes bf16 only: fp32 K and V of one head at S=577
+// (295 KB) exceed a block's shared memory. T is the rounding policy of the TPU
 // kernel: in bf16, q*c with c = bf16(scale*log2 e), p before p.V and the
 // output round to bf16; in fp32, c = fp32(scale*log2 e) and nothing rounds.
 //
@@ -15,10 +24,13 @@
 // fp32 the bound is the 66.9 TFLOP/s of the CUDA cores (0.46 ms: fp32 has
 // no exact tensor-core path); in bf16 it is the memory (0.09 ms).
 //
+// At L/14@336 B=256 the head-grouped core does 349 GFLOP and moves 1.21 GB
+// (qkv in, out): 0.36 ms of bytes at 3.35 TB/s.
+//
 // What the simple design gives up: the products run as scalar fp32 FMAs
 // (no tensor cores), one thread per query row, with K and V of one head in
 // shared memory. In fp32 those take 2*S*64*4 = 100,864 B at S=197, so only
-// two blocks fit on an SM (four in bf16).
+// two blocks fit on an SM (four in bf16); at S=577 in bf16, 147,712 B: one.
 
 #include "common.cuh"
 
@@ -35,4 +47,18 @@ extern "C" int aiic_attention_qkv(const void* qkv, const void* mask, void* out, 
                             W, H, qconst, st);
   return launch_attn_core(static_cast<const bf16*>(qkv), m, static_cast<bf16*>(out), B, S, W,
                           H, qconst, st);
+}
+
+// qkv_hm (B,S,3W) head-major, out (B,S,W), both bf16; mask (S,S) f32 or null;
+// qconst = bf16(scale*log2 e). Needs W == 64*H and H % head_group == 0.
+// Returns a cudaError_t.
+extern "C" int aiic_attention_qkv_hg(const void* qkv_hm, const void* mask, void* out, int B,
+                                     int S, int W, int H, int head_group, float qconst,
+                                     void* stream) {
+  using namespace aiic;
+  if (head_group <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_attn_core<bf16, true>(static_cast<const bf16*>(qkv_hm),
+                                      static_cast<const float*>(mask), static_cast<bf16*>(out),
+                                      B, S, W, H, qconst, static_cast<cudaStream_t>(stream),
+                                      head_group);
 }

@@ -13,10 +13,11 @@
 //   fp32/int32 tile goes through shared memory to a per-element epilogue
 //   functor that does the dequant, bias, activation or residual. A transposed
 //   B (kTransB, for dy @ W^T) and a split depth (blockIdx.z) are options.
-// - attn_core_kernel<T>: the streaming no-max attention core on the packed
-//   (B, S, 3W) projection, for bf16 and fp32. Rows 1, 5 and 7 of the TPU
-//   kernel table share it; T is the rounding policy (q*c, p and the output
-//   round to T, which is a no-op for fp32).
+// - attn_core_kernel<T, D, kHeadMajor>: the streaming no-max attention core
+//   on a (B, S, 3W) projection, for bf16 and fp32, its columns packed
+//   [Q | K | V] or head-major [q_h | k_h | v_h] per head. Rows 1, 5, 7 and 8
+//   of the TPU kernel table share it; T is the rounding policy (q*c, p and
+//   the output round to T, which is a no-op for fp32).
 //
 // Built with -fmad=false so the epilogues' a*b+c round twice, as the plain
 // PyTorch versions do; the products themselves use the tensor cores or
@@ -334,29 +335,38 @@ template <> __device__ __forceinline__ void store2<float>(float* p, float a, flo
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// Grid (query tiles, H, B), one thread per query row. Scores
+// Grid (query tiles, hg, B * H/hg), one thread per query row; head
+// h = (z % (H/hg)) * hg + y of image z / (H/hg), where hg is the head group
+// (H for the packed layout, so the grid is (query tiles, H, B)). Columns of
+// head h: q, k, v at h*D, W + h*D, 2W + h*D (packed) or at 3hD, 3hD + D,
+// 3hD + 2D (kHeadMajor); the output is the head concat, h*D. Scores
 // s = (T(q*c) . k) in fp32 with c = T(scale*log2 e) (the caller rounds c);
 // s += mask*log2 e; p = exp2(min(s, 70 log2 e)); l += p; o += T(p) * v;
 // out = T(o * (1 / max(l, 1e-38))). A -inf mask entry gives p = 0. The
 // no-max softmax needs no running-max rescale, so one streaming pass over the
-// keys is exact. Dynamic shared memory: K and V of the head, 2*S*D of T.
-template <typename T, int D>
+// keys is exact. The head group only tiles the grid: every head runs the
+// same arithmetic in either layout. Dynamic shared memory: K and V of the
+// head, 2*S*D of T.
+template <typename T, int D, bool kHeadMajor>
 __global__ void __launch_bounds__(kCoreThreads)
 attn_core_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                 T* __restrict__ out, int S, int W, float qconst) {
+                 T* __restrict__ out, int S, int W, int groups, float qconst) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kVec = 16 / sizeof(T);
   T* ks = reinterpret_cast<T*>(smem_raw);
   T* vs = ks + static_cast<size_t>(S) * D;
-  const int h = blockIdx.y;
-  const size_t row0 = static_cast<size_t>(blockIdx.z) * S;
+  const int h = static_cast<int>(blockIdx.z % groups) * gridDim.y + blockIdx.y;
+  const size_t row0 = static_cast<size_t>(blockIdx.z / groups) * S;
   const size_t ld = 3 * static_cast<size_t>(W);
+  const int qo = kHeadMajor ? 3 * h * D : h * D;
+  const int ko = kHeadMajor ? qo + D : qo + W;
+  const int vo = kHeadMajor ? qo + 2 * D : qo + 2 * W;
 
   for (int idx = threadIdx.x; idx < S * (D / kVec); idx += kCoreThreads) {
     const int s = idx / (D / kVec), d = (idx % (D / kVec)) * kVec;
-    const T* src = qkv + (row0 + s) * ld + h * D + d;
-    *reinterpret_cast<uint4*>(ks + s * D + d) = *reinterpret_cast<const uint4*>(src + W);
-    *reinterpret_cast<uint4*>(vs + s * D + d) = *reinterpret_cast<const uint4*>(src + 2 * W);
+    const T* src = qkv + (row0 + s) * ld + d;
+    *reinterpret_cast<uint4*>(ks + s * D + d) = *reinterpret_cast<const uint4*>(src + ko);
+    *reinterpret_cast<uint4*>(vs + s * D + d) = *reinterpret_cast<const uint4*>(src + vo);
   }
   __syncthreads();
 
@@ -364,7 +374,7 @@ attn_core_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   if (qi >= S) return;
 
   float q[D], o[D];
-  const T* qrow = qkv + (row0 + qi) * ld + h * D;
+  const T* qrow = qkv + (row0 + qi) * ld + qo;
 #pragma unroll
   for (int d = 0; d < D; d += 2) {
     const float2 v = load2<T>(qrow + d);
@@ -404,17 +414,20 @@ attn_core_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   for (int d = 0; d < D; d += 2) store2<T>(dst + d, o[d] * inv, o[d + 1] * inv);
 }
 
-// qkv (B*S, 3W) -> out (B*S, W); mask (S, S) fp32 or null. Needs W == H*64
-// and K/V of one head within the shared memory a block may use.
-template <typename T>
+// qkv (B*S, 3W) -> out (B*S, W); mask (S, S) fp32 or null. Needs W == H*64,
+// H % head_group == 0 (head_group 0: all heads, the packed layout's grid) and
+// K/V of one head within the shared memory a block may use.
+template <typename T, bool kHeadMajor = false>
 cudaError_t launch_attn_core(const T* qkv, const float* mask, T* out, int B, int S, int W,
-                             int H, float qconst, cudaStream_t st) {
+                             int H, float qconst, cudaStream_t st, int head_group = 0) {
+  if (head_group <= 0) head_group = H;
   const int smem = 2 * S * kHeadDim * static_cast<int>(sizeof(T));
-  if (W != H * kHeadDim || smem > kMaxDynamicSmem) return cudaErrorInvalidValue;
-  AIIC_CHECK(cudaFuncSetAttribute(attn_core_kernel<T, kHeadDim>,
+  if (W != H * kHeadDim || H % head_group || smem > kMaxDynamicSmem) return cudaErrorInvalidValue;
+  AIIC_CHECK(cudaFuncSetAttribute(attn_core_kernel<T, kHeadDim, kHeadMajor>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  const dim3 grid((S + kCoreThreads - 1) / kCoreThreads, H, B);
-  attn_core_kernel<T, kHeadDim><<<grid, kCoreThreads, smem, st>>>(qkv, mask, out, S, W, qconst);
+  const dim3 grid((S + kCoreThreads - 1) / kCoreThreads, head_group, B * (H / head_group));
+  attn_core_kernel<T, kHeadDim, kHeadMajor><<<grid, kCoreThreads, smem, st>>>(
+      qkv, mask, out, S, W, H / head_group, qconst);
   return cudaGetLastError();
 }
 

@@ -5,7 +5,7 @@
 // from int8_ln_qkv_attention; its math is _int8_attn_group). The plain
 // PyTorch version is aiic_tpu_torch/ops/quant.py::int8_ln_qkv_attention_ref.
 //
-// Four launches on the caller's stream:
+// Four launches on the caller's stream (int8_attn_half, int8_halves.cuh):
 //   (a) rowquant_kernel<LN>: LN1 in fp32 + per-row int8 quantization;
 //   (b) gemm_kernel<int8_t>: hq @ wqkv_q on the int8 tensor cores, epilogue
 //       acc*hscale*sqkv + bqkv in fp32, stored bf16 (B*S, 3W);
@@ -28,25 +28,7 @@
 // so one streaming pass over the keys is exact: that is the one
 // simplification the TPU design gives for free.
 
-#include "common.cuh"
-
-namespace aiic {
-namespace {
-
-struct EpiQKV {  // qkv = bf16(acc * hscale * sqkv + bqkv)
-  const float* hs;
-  const float* s;
-  const float* b;
-  bf16* out;
-  int n_cols;
-  __device__ void operator()(int r, int n, int acc) const {
-    const float v = static_cast<float>(acc) * hs[r] * s[n] + b[n];
-    out[static_cast<size_t>(r) * n_cols + n] = __float2bfloat16_rn(v);
-  }
-};
-
-}  // namespace
-}  // namespace aiic
+#include "int8_halves.cuh"
 
 // x (B,S,W) bf16; ln_s, ln_b (W) f32; wqkv_q (W,3W) int8; sqkv, bqkv (3W)
 // f32; wo (W,W) bf16; bo (W) f32; mask (S,S) f32 or null; out (B,S,W) bf16.
@@ -58,25 +40,28 @@ extern "C" int aiic_int8_ln_qkv_attention(
     const void* mask, void* out, void* hq, void* hs, void* qkv, void* attn,
     int B, int S, int W, int H, float eps, float qconst, void* stream) {
   using namespace aiic;
-  if (W % kBN != 0 || W / H != kHeadDim || W % H != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = B * S;
-  const bf16* xb = static_cast<const bf16*>(x);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const Int8Attn a{f(ln_s), f(ln_b), static_cast<const int8_t*>(wqkv_q), f(sqkv), f(bqkv),
+                   static_cast<const bf16*>(wo), f(bo), f(mask)};
+  return int8_attn_half(static_cast<const bf16*>(x), a, static_cast<bf16*>(out),
+                        static_cast<int8_t*>(hq), static_cast<float*>(hs),
+                        static_cast<bf16*>(qkv), static_cast<bf16*>(attn), B, S, W, H, eps,
+                        qconst, static_cast<cudaStream_t>(stream));
+}
 
-  AIIC_CHECK((launch_rowquant<true, bf16>(xb, static_cast<const float*>(ln_s),
-                                          static_cast<const float*>(ln_b),
-                                          static_cast<int8_t*>(hq), static_cast<float*>(hs),
-                                          rows, W, eps, st)));
-  AIIC_CHECK(launch_gemm(static_cast<const int8_t*>(hq), static_cast<const int8_t*>(wqkv_q),
-                         rows, 3 * W, W,
-                         EpiQKV{static_cast<const float*>(hs), static_cast<const float*>(sqkv),
-                                static_cast<const float*>(bqkv), static_cast<bf16*>(qkv), 3 * W},
-                         st));
-  AIIC_CHECK(launch_attn_core(static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
-                              static_cast<bf16*>(attn), B, S, W, H, qconst, st));
-  AIIC_CHECK(launch_gemm(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo),
-                         rows, W, W,
-                         EpiOutProj{static_cast<const float*>(bo), xb, static_cast<bf16*>(out), W},
-                         st));
-  return 0;
+// The projection stage alone, launches (a) and (b): qkv (rows,3W) bf16 from
+// x (rows,W) bf16, for the large-S int8 attention path (its weight columns
+// may be permuted head-major: the stage does not care). Scratch: hq (rows,W)
+// int8, hs (rows) f32. Needs W % 128 == 0. Returns a cudaError_t.
+extern "C" int aiic_int8_ln_qkv(const void* x, const void* ln_s, const void* ln_b,
+                                const void* wqkv_q, const void* sqkv, const void* bqkv,
+                                void* qkv, void* hq, void* hs, int rows, int W, float eps,
+                                void* stream) {
+  using namespace aiic;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const Int8Attn a{f(ln_s), f(ln_b), static_cast<const int8_t*>(wqkv_q), f(sqkv), f(bqkv),
+                   nullptr, nullptr, nullptr};
+  return int8_qkv_stage(static_cast<const bf16*>(x), a, static_cast<bf16*>(qkv),
+                        static_cast<int8_t*>(hq), static_cast<float*>(hs), rows, W, eps,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -1,62 +1,49 @@
-// int8 MLP half-block for Hopper:
+// int8 MLP half-block for Hopper, full (row 2) and hidden-axis chunked (row 3):
 //   out = x + deq(int8 c_proj(rowquant(gelu_exp2(deq(int8 c_fc(rowquant(LN2 x)))))))
 //
-// Replaces the TPU kernel aiic_tpu/ops/quant.py::_int8_mlp_kernel_3d (the
-// full, unchunked mode of int8_ln_mlp; its math is _int8_mlp_rows with
-// n_chunks=1). The plain PyTorch version is
-// aiic_tpu_torch/ops/quant.py::int8_ln_mlp_ref.
+// Replaces the TPU kernels aiic_tpu/ops/quant.py::_int8_mlp_kernel_3d (the
+// full mode of int8_ln_mlp, math _int8_mlp_rows with n_chunks=1) and
+// _int8_mlp_chunk_kernel (its chunked mode, _int8_mlp_rows with n_chunks=C:
+// the gelu output quantized per (row, chunk), the c_proj partials summed in
+// chunk order onto the fp32 residual, b2 last). The plain PyTorch version is
+// aiic_tpu_torch/ops/quant.py::int8_ln_mlp_ref(n_chunks=C).
 //
-// Four launches on the caller's stream:
+// Launches on the caller's stream (int8_mlp_half, int8_halves.cuh):
 //   (a) rowquant_kernel<LN>: LN2 in fp32 + per-row int8 quantization;
 //   (b) gemm_kernel<int8_t>: hq @ w1_q, epilogue y = acc*hscale*s1 + b1,
 //       then y * 1/(1 + exp2(-1.702 log2(e) y)), stored fp32 (rows, 4W);
-//   (c) rowquant_kernel<no LN>: per-row quantization of y over the full
-//       hidden width;
-//   (d) gemm_kernel<int8_t>: yq @ w2_q, epilogue acc*yscale*s2, then + b2,
-//       then + x, then bf16 (the order of _int8_mlp_rows).
+//   (c) rowquant_kernel<no LN>: y quantized per row (C = 1) or per (row,
+//       chunk), as the (rows*C, 4W/C) matrix it is in memory;
+//   (d) C = 1: gemm_kernel<int8_t>: yq @ w2_q, epilogue acc*yscale*s2, then
+//       + b2, then + x, then bf16 (the order of _int8_mlp_rows);
+//       C > 1: the same product with its depth split by chunk across
+//       blockIdx.z, each split's acc*yscale[r, c]*s2 into its own fp32
+//       slice, and (e) a pass summing x + slice 0 + ... + slice C-1 + b2 in
+//       that order, then bf16. No atomics.
 //
 // What bounds it on the H100: at B=256 the two int8 products are
-// 2 * 50k rows x 768 x 3072 MACs, compute-bound on the int8 tensor cores;
-// the two row passes are bandwidth-bound.
+// 2 * rows x W x 4W MACs (50k rows x 768 at B/16, 66k x 1024 at L/14),
+// compute-bound on the int8 tensor cores; the row passes and the chunk sum
+// are bandwidth-bound.
 //
 // What the simple design gives up: the fp32 hidden activation (rows x 4W,
-// 620 MB at B=256) makes a round trip through device memory because the
-// row quantization of y needs the whole row's amax before the second
-// product can start; the GEMM has no TMA/wgmma pipeline.
+// 1.1 GB at L/14 B=256) makes a round trip through device memory because the
+// row quantization of y needs each row's (or chunk's) amax before the second
+// product can start, and the chunked plan adds C fp32 partial slices; the
+// GEMM has no TMA/wgmma pipeline.
 
-#include "common.cuh"
+#include "int8_halves.cuh"
 
-namespace aiic {
 namespace {
 
-struct EpiGelu {  // y = gelu_exp2(acc * hscale * s1 + b1), fp32
-  const float* hs;
-  const float* s;
-  const float* b;
-  float* y;
-  int n_cols;
-  __device__ void operator()(int r, int n, int acc) const {
-    const float v = static_cast<float>(acc) * hs[r] * s[n] + b[n];
-    y[static_cast<size_t>(r) * n_cols + n] = gelu_exp2(v);
-  }
-};
-
-struct EpiResidual {  // out = bf16(x + (acc * yscale * s2 + b2))
-  const float* ys;
-  const float* s;
-  const float* b;
-  const bf16* x;
-  bf16* out;
-  int n_cols;
-  __device__ void operator()(int r, int n, int acc) const {
-    const size_t i = static_cast<size_t>(r) * n_cols + n;
-    const float v = static_cast<float>(acc) * ys[r] * s[n] + b[n];
-    out[i] = __float2bfloat16_rn(__bfloat162float(x[i]) + v);
-  }
-};
+aiic::Int8Mlp mlp_args(const void* ln_s, const void* ln_b, const void* w1_q, const void* s1,
+                       const void* b1, const void* w2_q, const void* s2, const void* b2) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto q = [](const void* p) { return static_cast<const int8_t*>(p); };
+  return {f(ln_s), f(ln_b), q(w1_q), f(s1), f(b1), q(w2_q), f(s2), f(b2)};
+}
 
 }  // namespace
-}  // namespace aiic
 
 // x (rows,W) bf16; ln_s, ln_b (W) f32; w1_q (W,M) int8; s1, b1 (M) f32;
 // w2_q (M,W) int8; s2, b2 (W) f32; out (rows,W) bf16. Scratch: hq (rows,W)
@@ -68,21 +55,26 @@ extern "C" int aiic_int8_ln_mlp(
     const void* b2, void* out, void* hq, void* hs, void* y, void* yq, void* ys,
     int rows, int W, int M, float eps, void* stream) {
   using namespace aiic;
-  if (W % kBN != 0 || M % kBN != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const MlpScratch s{static_cast<int8_t*>(hq), static_cast<float*>(hs), static_cast<float*>(y),
+                     static_cast<int8_t*>(yq), static_cast<float*>(ys), nullptr};
+  return int8_mlp_half(static_cast<const bf16*>(x), mlp_args(ln_s, ln_b, w1_q, s1, b1, w2_q, s2, b2),
+                       static_cast<bf16*>(out), s, rows, W, M, 1, eps,
+                       static_cast<cudaStream_t>(stream));
+}
 
-  AIIC_CHECK((launch_rowquant<true, bf16>(xb, f(ln_s), f(ln_b), static_cast<int8_t*>(hq),
-                                          static_cast<float*>(hs), rows, W, eps, st)));
-  AIIC_CHECK(launch_gemm(static_cast<const int8_t*>(hq), static_cast<const int8_t*>(w1_q),
-                         rows, M, W,
-                         EpiGelu{f(hs), f(s1), f(b1), static_cast<float*>(y), M}, st));
-  AIIC_CHECK((launch_rowquant<false, float>(static_cast<const float*>(y), nullptr, nullptr,
-                                            static_cast<int8_t*>(yq), static_cast<float*>(ys),
-                                            rows, M, 0.f, st)));
-  AIIC_CHECK(launch_gemm(static_cast<const int8_t*>(yq), static_cast<const int8_t*>(w2_q),
-                         rows, W, M,
-                         EpiResidual{f(ys), f(s2), f(b2), xb, static_cast<bf16*>(out), W}, st));
-  return 0;
+// As aiic_int8_ln_mlp with the hidden axis in n_chunks >= 2 chunks: ys is
+// (rows, n_chunks) f32, part (n_chunks, rows, W) f32. Needs M / n_chunks a
+// multiple of 32. Returns a cudaError_t.
+extern "C" int aiic_int8_ln_mlp_chunked(
+    const void* x, const void* ln_s, const void* ln_b, const void* w1_q,
+    const void* s1, const void* b1, const void* w2_q, const void* s2,
+    const void* b2, void* out, void* hq, void* hs, void* y, void* yq, void* ys, void* part,
+    int rows, int W, int M, int n_chunks, float eps, void* stream) {
+  using namespace aiic;
+  if (n_chunks < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const MlpScratch s{static_cast<int8_t*>(hq), static_cast<float*>(hs), static_cast<float*>(y),
+                     static_cast<int8_t*>(yq), static_cast<float*>(ys), static_cast<float*>(part)};
+  return int8_mlp_half(static_cast<const bf16*>(x), mlp_args(ln_s, ln_b, w1_q, s1, b1, w2_q, s2, b2),
+                       static_cast<bf16*>(out), s, rows, W, M, n_chunks, eps,
+                       static_cast<cudaStream_t>(stream));
 }

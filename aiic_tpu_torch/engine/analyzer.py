@@ -11,12 +11,18 @@ The configurations users run, and the kernels each runs in every block
 (``models.clip.block``):
 
 - ``dtype=torch.bfloat16, quantize=True``: int8 serving, the two int8
-  half-block kernels;
+  half-block kernels, or the whole int8 block kernel where the JAX
+  package's auto rule takes it (every text tower at an even prompt count,
+  ViT-B/32 images at an even bucket);
 - ``dtype=torch.bfloat16, quantize=False``: the worker's default, the bf16
   attention half-block kernel and a cuBLAS bf16 MLP, or with
   ``attn_impl="pallas_mlp"`` the fused LN+MLP kernel too;
 - ``dtype=torch.float32``: the batch CLI's default, cuBLAS fp32 projections
   around the packed-QKV attention core kernel.
+
+``config`` is any preset of ``models.config``: at ViT-L/14 and L/14@336 the
+blocks follow the JAX planners to the chunked int8 MLP and the large-S
+attention (``models.clip.block``).
 
 ``use_lora`` folds a text-tower adapter (a reference ``.pth``, a loaded
 state dict, or a seeded no-op init) into the backbone before the int8

@@ -15,11 +15,15 @@ lifted to fp32, which is exact for bf16 inputs, with TF32 off.
 (``aiic_tpu.models.clip.block``):
 
 - ``"pallas"`` (the default; what JAX's ``"auto"`` gives on its
-  accelerator): bf16 blocks run the int8 half-block kernels of ``ops.quant``
-  when the tree carries ``attn_q``/``mlp_q``, else the bf16 attention
-  half-block kernel (``ops.attention.fused_ln_qkv_attention``) and the plain
-  MLP; fp32 blocks run the plain projections around the packed-QKV core
-  kernel (``ops.attention.fused_attention_qkv``);
+  accelerator): bf16 blocks run the int8 kernels of ``ops.quant`` when the
+  tree carries ``attn_q``/``mlp_q`` (the whole-block kernel ``int8_block``
+  where ``_block_plan`` gives a full plan of two images or more, as JAX's
+  auto rule takes it, and ``AIIC_FUSED_BLOCK`` = ``0``/``1`` turns it off or
+  forces the plan's best blocking; else the two half-block wrappers, which
+  follow the JAX planners to the chunked MLP or the large-S attention), else
+  the bf16 attention half-block (``ops.attention.fused_ln_qkv_attention``)
+  and the plain MLP; fp32 blocks run the plain projections around the
+  packed-QKV core kernel (``ops.attention.fused_attention_qkv``);
 - ``"pallas_mlp"``: as ``"pallas"``, and an unquantized bf16 MLP runs the
   fused LN+MLP kernel (``ops.mlp.fused_ln_mlp``);
 - ``"xla"``: the reference composition (stable softmax, no kernels);
@@ -49,6 +53,7 @@ weights (``block_cls``).
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -60,7 +65,7 @@ from aiic_tpu_torch.ops import attention as attention_ops
 from aiic_tpu_torch.ops import block_grad
 from aiic_tpu_torch.ops import mlp as mlp_ops
 from aiic_tpu_torch.ops import quant
-from aiic_tpu_torch.ops.attention import attention_qkv_ref, no_tf32
+from aiic_tpu_torch.ops.attention import _mm, attention_qkv_ref
 
 Params = Dict[str, Any]
 
@@ -79,20 +84,6 @@ def resolve_attn_impl(impl: str, x: torch.Tensor) -> str:
     if impl != "auto":
         return impl
     return "pallas_vjp" if x.is_cuda else "xla"
-
-
-def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with fp32 accumulation and an fp32 result. Two bf16 operands on
-    the card run on the bf16 tensor cores through cuBLAS with an fp32 output
-    (exact products, fp32 sums) where no gradient is asked for (that
-    overload has no derivative); anything else is lifted to fp32 with TF32
-    off, which is exact for bf16 operands too."""
-    if (a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16
-            and not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad))):
-        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return y.reshape(*a.shape[:-1], b.shape[-1])
-    no_tf32()
-    return a.float() @ b.float()
 
 
 def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
@@ -224,6 +215,22 @@ def block(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tensor],
     kernels = attn_impl in ("pallas", "pallas_mlp") and x.dtype == torch.bfloat16
     a, ln1, ln2, mlp = p["attn"], p["ln1"], p["ln2"], p["mlp"]
     gen = lora_generator if lora_dropout > 0.0 else None
+    mlp_lora = l_fc is not None or l_proj is not None
+    fused_env = os.environ.get("AIIC_FUSED_BLOCK", "auto")
+    if (fused_env != "0" and "attn_q" in p and "mlp_q" in p and kernels and quick
+            and l_out is None and not mlp_lora):
+        # The whole int8 block where JAX's auto rule takes it: a full plan of
+        # two images or more (ViT-B/32 images, every text tower at an even
+        # prompt count); AIIC_FUSED_BLOCK=1 takes any plan.
+        plan = quant._block_plan(*x.shape, mlp["w1"].shape[-1], x.element_size())
+        if fused_env == "1" or (plan is not None and plan[0] == "full" and plan[1] >= 2):
+            aq, mq = p["attn_q"], p["mlp_q"]
+            out = quant.int8_block(x, ln1["scale"], ln1["bias"], aq["wqkv_q"], aq["sqkv"],
+                                   a["bqkv"], a["wo"], a["bo"], mask, ln2["scale"], ln2["bias"],
+                                   mq["w1_q"], mq["s1"], mlp["b1"], mq["w2_q"], mq["s2"],
+                                   mlp["b2"], heads=heads)
+            if out is not None:
+                return out
     if "attn_q" in p and kernels and l_out is None:
         q = p["attn_q"]
         x = quant.int8_ln_qkv_attention(x, ln1["scale"], ln1["bias"], q["wqkv_q"], q["sqkv"],
@@ -236,7 +243,6 @@ def block(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tensor],
                           lora_scaling=lora_scaling, lora_dropout=lora_dropout,
                           lora_generator=gen)
 
-    mlp_lora = l_fc is not None or l_proj is not None
     if "mlp_q" in p and kernels and quick and not mlp_lora:
         q = p["mlp_q"]
         return quant.int8_ln_mlp(x, ln2["scale"], ln2["bias"], q["w1_q"], q["s1"], mlp["b1"],
@@ -341,18 +347,25 @@ def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, c * patch * patch)
 
 
+_EMBED_SLICE = 1024  # 128·127·1032 < 2^24: an fp32 int8 product of that depth is exact
+
+
 def _embed_patch_u8(v: Params, pixels: torch.Tensor, config: CLIPConfig,
                     dtype: torch.dtype) -> torch.Tensor:
     """Patch-major uint8 (B, N, 3·p·p) -> (B, N, W) fp32 embed."""
     if "patch_embed_q" in v:
         # int8 embed: (x_u8 ^ 0x80) read as int8 against the int8 folded
-        # weight. The product runs in fp32 (TF32 off) and is exact: every
-        # partial sum is an integer of magnitude <= 128·127·768 ≈ 1.25e7 <
-        # 2^24 at B/16.
+        # weight, an int32 product as in the JAX package. It runs in fp32
+        # (TF32 off) over depth slices of _EMBED_SLICE rows, each exact (its
+        # partial sums are integers of magnitude <= 128·127·1024 < 2^24),
+        # summed in int32: exact at every preset (K = 3·p·p is 3072 at
+        # ViT-B/32, where one fp32 product is not: 128·127·3072 > 2^24).
         q = v["patch_embed_q"]
         xs8 = (pixels ^ 0x80).view(torch.int8)
-        y = _mm(xs8, q["wq"])
-        return y * q["wsc"].float() + q["c2"].float()
+        k = xs8.shape[-1]
+        acc = sum(_mm(xs8[..., i:i + _EMBED_SLICE], q["wq"][i:i + _EMBED_SLICE]).to(torch.int32)
+                  for i in range(0, k, _EMBED_SLICE))
+        return acc.float() * q["wsc"].float() + q["c2"].float()
     from aiic_tpu_torch.ops.preprocess import patch_norm_constants
 
     s, ms = patch_norm_constants(config.patch_size)

@@ -53,8 +53,18 @@ _SIGNATURES = {
     # x, ln_s, ln_b, wqkv_q, sqkv, bqkv, wo, bo, mask, out, hq, hs, qkv, attn,
     # B, S, W, H, eps, qconst, stream
     "aiic_int8_ln_qkv_attention": [_P] * 14 + [_I, _I, _I, _I, _F, _F, _P],
+    # x, ln_s, ln_b, w1_q, s1, b1, w2_q, s2, b2, out, hq, hs, y, yq, ys, part,
+    # rows, W, M, n_chunks, eps, stream
+    "aiic_int8_ln_mlp_chunked": [_P] * 16 + [_I, _I, _I, _I, _F, _P],
+    # x, ln_s, ln_b, wqkv_q, sqkv, bqkv, qkv, hq, hs, rows, W, eps, stream
+    "aiic_int8_ln_qkv": [_P] * 9 + [_I, _I, _F, _P],
+    # x, 16 weights/vectors/mask, out, y1, hq, hs, qkv, attn, y, yq, ys, part,
+    # B, S, W, H, M, n_chunks, eps, qconst, stream
+    "aiic_int8_block": [_P] * 27 + [_I] * 6 + [_F, _F, _P],
     # qkv, mask, out, B, S, W, H, qconst, fp32, stream
     "aiic_attention_qkv": [_P] * 3 + [_I, _I, _I, _I, _F, _I, _P],
+    # qkv_hm, mask, out, B, S, W, H, head_group, qconst, stream
+    "aiic_attention_qkv_hg": [_P] * 3 + [_I] * 5 + [_F, _P],
     # x, ln_s, ln_b, wqkv, bqkv, wo, bo, mask, out, h, qkv, attn,
     # B, S, W, H, eps, qconst, stream
     "aiic_ln_qkv_attention": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P],

@@ -11,9 +11,22 @@ serving paths run, with two Hopper kernels.
 - ``fused_ln_qkv_attention``: the bf16 attention half-block (TPU kernel
   ``_ln_qkv_attention_kernel``) x + OutProj(Attn(QKV(LN x))); kernel
   ``csrc/ln_qkv_attention.cu``, plain version ``fused_ln_qkv_attention_ref``.
+- ``fused_attention_qkv_headgroups``: the same core on a HEAD-MAJOR
+  projection ([q_h | k_h | v_h] per head, ``headmajor_perm``), bf16 (TPU
+  kernel ``_attention_qkv_hg_kernel``); kernel ``csrc/attention_qkv.cu``,
+  plain version ``fused_attention_qkv_headgroups_ref``.
 - ``attention_qkv_ref``: the reference stable-softmax composition on a fused
   (B, S, 3W) projection (``_attention_qkv_xla``), the ``attn_impl="xla"``
-  path.
+  path; ``_attention_qkv_xla_chunked`` runs it in batch chunks, where the
+  JAX package finds no core that fits (fp32 at ViT-L/14@336).
+- The JAX package's VMEM planners (``qkv_core_fits``, ``ln_attn_vmem_bytes``,
+  ``pick_head_group`` and their budgets), copied: the card has no 16 MB
+  VMEM, but the plans choose the softmax (the core kernel's clamped exp2 or
+  the stable composition) and the projection's column order, so the port
+  follows them to take the JAX package's branch at every geometry. Where the
+  bf16 half-block does not fit (ViT-L/14 and L/14@336), ``fused_ln_qkv_attention``
+  runs ``_ln_qkv_attention_large_s``: cuBLAS bf16 projections around the
+  packed core (row 7) or the head-grouped one (row 8).
 - ``fused_attention_qkv_vjp``: the training text tower's ``pallas_vjp``
   core: ``fused_attention_qkv``'s kernel forward under autograd, with the
   backward differentiated through ``attention_qkv_ref`` at the saved qkv,
@@ -30,8 +43,9 @@ CUDA tensor it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from aiic_tpu_torch.ops._build import (
@@ -51,6 +65,110 @@ def no_tf32() -> None:
     float32 on the card, not TF32 (cuDNN's default is TF32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with fp32 accumulation and an fp32 result. Two bf16 operands on
+    the card run on the bf16 tensor cores through cuBLAS with an fp32 output
+    (exact products, fp32 sums) where no gradient is asked for (that
+    overload has no derivative); anything else is lifted to fp32 with TF32
+    off, which is exact for bf16 operands too."""
+    if (a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad))):
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return y.reshape(*a.shape[:-1], b.shape[-1])
+    no_tf32()
+    return a.float() @ b.float()
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's VMEM planners (aiic_tpu/ops/attention.py), copied as
+# routing: each budget is a module constant so a test can patch it on both
+# sides.
+# ---------------------------------------------------------------------------
+
+_CORE_VMEM_BUDGET = 14 * 1024 * 1024
+# Device-memory budget of the chunked reference core's (chunk, H, S, S) fp32
+# scores, and of the chunked int8 attention reference (ops.quant).
+_FALLBACK_PROBS_BUDGET = 1 << 30
+
+
+def qkv_core_vmem_bytes(group: int, seq: int, width: int, itemsize: int) -> int:
+    """The TPU packed core's VMEM estimate for one program of ``group`` images."""
+    return (2 * group * seq * 4 * width * itemsize
+            + 3 * seq * seq * 4
+            + 3 * group * seq * width * itemsize)
+
+
+def qkv_core_fits(seq: int, width: int, itemsize: int, group: int = 1) -> bool:
+    return qkv_core_vmem_bytes(group, seq, width, itemsize) <= _CORE_VMEM_BUDGET
+
+
+def ln_attn_vmem_bytes(group: int, seq: int, width: int, itemsize: int) -> int:
+    """The TPU bf16 attention half-block's VMEM estimate (the int8 one's
+    terms with the QKV weight in the compute dtype)."""
+    rows = group * seq
+    return (2 * rows * width * itemsize
+            + 3 * width * width * itemsize
+            + width * width * itemsize
+            + rows * width * 4
+            + rows * 3 * width * 4
+            + rows * 3 * width * itemsize
+            + 2 * seq * seq * 4
+            + rows * width * 4)
+
+
+def headmajor_perm(width: int, heads: int) -> np.ndarray:
+    """Column permutation of the packed [Q | K | V] projection into the
+    head-major [q_h0 | k_h0 | v_h0 | q_h1 | ...] layout (3·dim per head)."""
+    d = width // heads
+    idx = []
+    for h in range(heads):
+        idx.extend(range(h * d, (h + 1) * d))
+        idx.extend(range(width + h * d, width + (h + 1) * d))
+        idx.extend(range(2 * width + h * d, 2 * width + (h + 1) * d))
+    return np.asarray(idx, np.int32)
+
+
+def pick_head_group(seq: int, heads: int, dim: int, itemsize: int) -> Optional[int]:
+    """Largest head group whose core fits the budget (None if one head does not)."""
+    hg = heads
+    while hg >= 1:
+        if heads % hg == 0 and qkv_core_vmem_bytes(1, seq, hg * dim, itemsize) <= _CORE_VMEM_BUDGET:
+            return hg
+        hg //= 2
+    return None
+
+
+def fits_some_group(bsz: int, itemsize: int, fits: Callable[[int], bool]) -> bool:
+    """The TPU wrappers' image-group rule: start at 2 images (bf16) or 1
+    (fp32), halve until the group divides the batch and fits; whether the
+    group it ends at fits."""
+    group = 2 if itemsize <= 2 else 1
+    while bsz % group:
+        group //= 2
+    group = max(group, 1)
+    while group > 1 and not fits(group):
+        group //= 2
+    return fits(group)
+
+
+def headmajor_columns(t: torch.Tensor, width: int, heads: int,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``t`` with its last axis in ``headmajor_perm`` order (and cast to
+    ``dtype``), computed once per weight: the copy is cached on the tensor
+    that owns t's storage (the stacked weight of all layers, for a layer's
+    view), keyed by the view's offset and shape, and goes with it. The JAX
+    package permutes at trace time; serving weights are not modified in
+    place, which the cache assumes."""
+    owner = t if t._base is None else t._base
+    cache = owner.__dict__.setdefault("_aiic_headmajor", {})
+    key = (t.storage_offset(), tuple(t.shape), tuple(t.stride()), dtype, width, heads)
+    hit = cache.get(key)
+    if hit is None:
+        perm = torch.from_numpy(headmajor_perm(width, heads)).to(device=t.device, dtype=torch.long)
+        hit = cache[key] = t.index_select(-1, perm).to(dtype or t.dtype).contiguous()
+    return hit
 
 
 def exp2_rows(s: torch.Tensor) -> torch.Tensor:
@@ -106,6 +224,45 @@ def attention_qkv_ref(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     return out.to(qkv.dtype).reshape(bsz, seq, w3 // 3)
 
 
+def _fallback_chunk(bsz: int, heads: int, seq: int) -> int:
+    """The JAX package's batch chunk for a plain core: the largest divisor
+    of the batch whose fp32 (chunk, H, S, S) scores fit
+    ``_FALLBACK_PROBS_BUDGET``."""
+    chunk = max(1, min(bsz, _FALLBACK_PROBS_BUDGET // (heads * seq * seq * 4)))
+    while bsz % chunk:
+        chunk -= 1
+    return chunk
+
+
+def _attention_qkv_xla_chunked(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                               heads: int) -> torch.Tensor:
+    """``attention_qkv_ref`` in batch chunks whose fp32 (chunk, H, S, S)
+    scores stay under ``_FALLBACK_PROBS_BUDGET`` (the JAX package's chunk
+    rule); the same per-image math. Where no core fits (fp32 at S=577) the
+    JAX package runs this in XLA, and the port in plain PyTorch on the
+    tensor's device."""
+    bsz, seq, _ = qkv.shape
+    chunk = _fallback_chunk(bsz, heads, seq)
+    if chunk == bsz:
+        return attention_qkv_ref(qkv, mask, heads)
+    return torch.cat([attention_qkv_ref(qkv[i:i + chunk], mask, heads)
+                      for i in range(0, bsz, chunk)])
+
+
+def _core_ref(q, k, v, mask, dtype) -> torch.Tensor:
+    """The TPU cores' math on (B, S, H, D) q, k, v in ``dtype``; (B, S, H·D)."""
+    bsz, seq, heads, dim = q.shape
+    q = q * torch.tensor(dim ** -0.5 * LOG2E, dtype=q.dtype, device=q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if mask is not None:
+        s = s + mask.float() * LOG2E
+    p = exp2_rows(s)
+    denom = _denom_guard(p.sum(dim=-1, keepdim=True))  # (B, H, S, 1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    out = o * (1.0 / denom.permute(0, 2, 1, 3))
+    return out.to(dtype).reshape(bsz, seq, heads * dim)
+
+
 def fused_attention_qkv_ref(qkv: torch.Tensor, mask: Optional[torch.Tensor],
                             heads: int) -> torch.Tensor:
     """The TPU kernel's core (``_attention_qkv_kernel``) on a fused (B, S, 3W)
@@ -115,17 +272,19 @@ def fused_attention_qkv_ref(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     in after p·V as a reciprocal, the output rounded to the dtype. In fp32
     none of the roundings do anything."""
     no_tf32()
-    bsz, seq, w3 = qkv.shape
     q, k, v = _split_heads(qkv, heads)
-    q = q * torch.tensor(q.shape[-1] ** -0.5 * LOG2E, dtype=q.dtype, device=q.device)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    if mask is not None:
-        s = s + mask.float() * LOG2E
-    p = exp2_rows(s)
-    denom = _denom_guard(p.sum(dim=-1, keepdim=True))  # (B, H, S, 1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    out = o * (1.0 / denom.permute(0, 2, 1, 3))
-    return out.to(qkv.dtype).reshape(bsz, seq, w3 // 3)
+    return _core_ref(q, k, v, mask, qkv.dtype)
+
+
+def fused_attention_qkv_headgroups_ref(qkv_hm: torch.Tensor, mask: Optional[torch.Tensor],
+                                       heads: int) -> torch.Tensor:
+    """``fused_attention_qkv_ref`` on a head-major (B, S, 3W) projection
+    (``_attention_qkv_hg_kernel``); the output is the head concat. The head
+    group is the TPU's tiling and does not enter the math."""
+    no_tf32()
+    bsz, seq, w3 = qkv_hm.shape
+    t = qkv_hm.reshape(bsz, seq, heads, 3, w3 // 3 // heads)
+    return _core_ref(t[:, :, :, 0], t[:, :, :, 1], t[:, :, :, 2], mask, qkv_hm.dtype)
 
 
 def fused_ln_qkv_attention_ref(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask=None,
@@ -185,6 +344,30 @@ def _fused_attention_qkv_cuda(qkv, mask, heads):
     return out
 
 
+def _fused_attention_qkv_headgroups_cuda(qkv_hm, mask, heads, head_group):
+    name = "fused_attention_qkv_headgroups"
+    if qkv_hm.dtype != torch.bfloat16 or qkv_hm.dim() != 3 or qkv_hm.shape[-1] % 3:
+        raise TypeError(f"{name}: the Hopper kernel takes bf16 (B, S, 3W) (fp32 K and V of a "
+                        f"head at large S exceed shared memory), got {qkv_hm.dtype} "
+                        f"{tuple(qkv_hm.shape)}")
+    bsz, seq, w3 = qkv_hm.shape
+    width = w3 // 3
+    _check_core_shape(name, seq, width, heads, 2)
+    lib = load_library()
+    qkv_hm = qkv_hm.contiguous()
+    dev = qkv_hm.device
+    if qkv_hm.data_ptr() % 16:
+        raise ValueError(f"{name}: qkv must be 16-byte aligned")
+    mask = mask_arg(mask, seq, dev)
+    out = torch.empty((bsz, seq, width), dtype=torch.bfloat16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.aiic_attention_qkv_hg(ptr(qkv_hm), ptr(mask), ptr(out), bsz, seq, width, heads,
+                                   head_group, ctypes.c_float(_qconst(width // heads,
+                                                                      torch.bfloat16)), stream)
+    check(name, rc)
+    return out
+
+
 def _fused_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask, heads, eps):
     name = "fused_ln_qkv_attention"
     bf16_activation(name, x)
@@ -224,7 +407,13 @@ def _fused_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask,
 @counted
 def fused_attention_qkv(qkv: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
                         heads: int) -> torch.Tensor:
-    """(B, S, 3W) packed [Q|K|V] -> (B, S, W) attention output, no transposes."""
+    """(B, S, 3W) packed [Q|K|V] -> (B, S, W) attention output, no transposes.
+    Where no image group of the TPU core fits (fp32 at S=577), the
+    batch-chunked reference composition instead, as the JAX package does."""
+    bsz, seq, w3 = qkv.shape
+    itemsize = qkv.element_size()
+    if not fits_some_group(bsz, itemsize, lambda g: qkv_core_fits(seq, w3 // 3, itemsize, g)):
+        return _attention_qkv_xla_chunked(qkv, mask, heads)
     if not route("fused_attention_qkv", qkv):
         return fused_attention_qkv_ref(qkv, mask, heads)
     out = _fused_attention_qkv_cuda(qkv, mask, heads)
@@ -233,9 +422,62 @@ def fused_attention_qkv(qkv: torch.Tensor, mask: Optional[torch.Tensor] = None, 
 
 
 @counted
+def fused_attention_qkv_headgroups(qkv_hm: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                                   *, heads: int, head_group: int) -> torch.Tensor:
+    """HEAD-MAJOR (B, S, 3W) -> (B, S, W) head-concat attention output, in
+    grid rows of ``head_group`` heads."""
+    if heads % head_group:
+        raise ValueError(f"head_group {head_group} does not divide heads {heads}")
+    if not route("fused_attention_qkv_headgroups", qkv_hm):
+        return fused_attention_qkv_headgroups_ref(qkv_hm, mask, heads)
+    out = _fused_attention_qkv_headgroups_cuda(qkv_hm, mask, heads, head_group)
+    fused_attention_qkv_headgroups.launches += 1
+    return out
+
+
+def _ln_qkv_attention_large_s(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask, *,
+                              heads: int, eps: float) -> torch.Tensor:
+    """The bf16/fp32 half-block where the TPU kernel does not fit
+    (``aiic_tpu/ops/attention.py::_ln_qkv_attention_large_s``): LN and the
+    QKV product as plain ops (cuBLAS), the packed core (row 7) where it fits,
+    else the head-grouped core (row 8) on weights permuted head-major once,
+    else the chunked reference core; the out-projection and the residual as
+    plain ops."""
+    bsz, seq, width = x.shape
+    dtype, itemsize = x.dtype, x.element_size()
+    hg = None
+    head_major = not qkv_core_fits(seq, width, itemsize)
+    if head_major:
+        hg = pick_head_group(seq, heads, width // heads, itemsize)
+    if hg is not None:
+        wqkv = headmajor_columns(wqkv, width, heads, dtype)
+        bqkv = headmajor_columns(bqkv.reshape(3 * width), width, heads, torch.float32)
+    xf = x.float()
+    h = _ln_fp32(xf, ln_scale.reshape(1, width), ln_bias.reshape(1, width), eps).to(dtype)
+    qkv = (_mm(h, wqkv.to(dtype)) + bqkv.reshape(3 * width).float()).to(dtype)
+    if not head_major:
+        attn = fused_attention_qkv(qkv, mask, heads=heads)
+    elif hg is not None:
+        attn = fused_attention_qkv_headgroups(qkv, mask, heads=heads, head_group=hg)
+    else:
+        attn = _attention_qkv_xla_chunked(qkv, mask, heads)
+    out = _mm(attn, wo.to(dtype)) + bo.reshape(width).float()
+    return (xf + out).to(dtype)
+
+
+@counted
 def fused_ln_qkv_attention(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask=None, *,
                            heads: int, eps: float = 1e-5) -> torch.Tensor:
-    """(B, S, W) -> (B, S, W): x + OutProj(Attention(QKV(LN(x))))."""
+    """(B, S, W) -> (B, S, W): x + OutProj(Attention(QKV(LN(x)))). Where no
+    image group of the TPU kernel fits (ViT-L/14 and L/14@336), the large-S
+    composition of ``_ln_qkv_attention_large_s`` instead, as the JAX package
+    does."""
+    bsz, seq, width = x.shape
+    itemsize = x.element_size()
+    if not fits_some_group(bsz, itemsize, lambda g: ln_attn_vmem_bytes(
+            g, seq, width, itemsize) <= _CORE_VMEM_BUDGET):
+        return _ln_qkv_attention_large_s(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask,
+                                         heads=heads, eps=eps)
     if not route("fused_ln_qkv_attention", x):
         return fused_ln_qkv_attention_ref(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask,
                                           heads=heads, eps=eps)

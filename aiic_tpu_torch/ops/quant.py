@@ -5,6 +5,18 @@ offline (``quantize_weight``); activations quantize per row inside the
 kernels (symmetric, amax/127, ``_row_quant``); integer products accumulate
 in int32 and everything after the dequant runs in fp32.
 
+The MLP half runs the plan of the JAX package's ``_mlp_plan`` (copied here
+with the other VMEM planners, each budget a module constant): "full" is row
+2's kernel, "chunked" row 3's (``int8_ln_mlp_chunked``: the gelu output
+quantized per (row, chunk), which changes the numerics, so the chunk count
+follows the planner), "xla" the plain version on the tensor's device. The
+attention half runs row 1's kernel where the TPU kernel fits, else
+``_int8_attn_large_s`` (the int8 projection, the packed core or the
+head-grouped one on weights permuted head-major once, a bf16 out-projection)
+or, where no head fits, ``_int8_attn_rows_xla``. ``int8_block`` is the whole
+block (row 4) on ``_block_plan``'s plan; ``models.clip.block`` takes it on
+the JAX package's auto rule.
+
 Each half-block has three faces here:
 
 - a **plain version** (``int8_ln_qkv_attention_ref``, ``int8_ln_mlp_ref``):
@@ -32,7 +44,11 @@ import torch
 from aiic_tpu_torch.ops._build import (
     bf16_activation, check, counted, f32_vector, load_library, mask_arg, ptr, route, weight,
 )
-from aiic_tpu_torch.ops.attention import LOG2E, _ln_fp32, fused_attention_qkv_ref, no_tf32
+from aiic_tpu_torch.ops import attention as attention_ops
+from aiic_tpu_torch.ops.attention import (
+    LOG2E, _fallback_chunk, _ln_fp32, _mm, _qconst, fits_some_group, fused_attention_qkv_ref,
+    no_tf32,
+)
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,27 +81,143 @@ def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The JAX package's VMEM planners (aiic_tpu/ops/quant.py), copied as routing:
+# the chunk count C of "chunked" plans sets the gelu output's quantization
+# granularity, and the plans pick the branch (kernel, large S, plain).
+# ---------------------------------------------------------------------------
+
+_VMEM_BUDGET = 14 * 1024 * 1024
+
+
+def _mlp_vmem_bytes(group: int, seq: int, width: int, mlp_dim: int, itemsize: int) -> int:
+    rows = group * seq
+    return (2 * rows * width * itemsize + 2 * width * mlp_dim + rows * width * 4
+            + rows * mlp_dim * 4 + rows * mlp_dim)
+
+
+def _mlp_chunk_vmem_bytes(group: int, seq: int, width: int, mlp_dim: int, n_chunks: int,
+                          itemsize: int) -> int:
+    rows = group * seq
+    chunk = mlp_dim // n_chunks
+    return (2 * rows * width * itemsize + 2 * width * chunk + rows * width * 4
+            + rows * width * 4 + rows * width + rows * chunk * 4 + rows * chunk)
+
+
+def _mlp_plan(bsz: int, seq: int, width: int, mlp_dim: int,
+              itemsize: int) -> Tuple[str, int, int]:
+    """("full", G, 1), ("chunked", G, C) or ("xla", 1, 1), as the JAX package
+    plans the int8 MLP: the largest image group first, then the fewest
+    chunks. Note the parity rule: an even batch tries G=2 first, so ViT-L/14
+    runs C=4 at an even bucket and C=2 at one image."""
+    group = 2 if bsz % 2 == 0 else 1
+    while group > 1 and _mlp_vmem_bytes(group, seq, width, mlp_dim, itemsize) > _VMEM_BUDGET:
+        group //= 2
+    if _mlp_vmem_bytes(group, seq, width, mlp_dim, itemsize) <= _VMEM_BUDGET:
+        return ("full", group, 1)
+    for g in (2, 1):
+        if bsz % g:
+            continue
+        c = 2
+        while mlp_dim % c == 0 and mlp_dim // c >= 128:
+            if _mlp_chunk_vmem_bytes(g, seq, width, mlp_dim, c, itemsize) <= _VMEM_BUDGET:
+                return ("chunked", g, c)
+            c *= 2
+    return ("xla", 1, 1)
+
+
+def _attn_vmem_bytes(group: int, seq: int, width: int, itemsize: int) -> int:
+    rows = group * seq
+    return (2 * rows * width * itemsize + 3 * width * width + width * width * itemsize
+            + rows * width * 4 + rows * 3 * width * 4 + rows * 3 * width * itemsize
+            + 2 * seq * seq * 4 + rows * width * 4)
+
+
+def _block_vmem_bytes(group: int, seq: int, width: int, mlp_dim: int, itemsize: int) -> int:
+    rows = group * seq
+    resident = (2 * rows * width * itemsize + 3 * width * width + width * width * itemsize
+                + 2 * width * mlp_dim + rows * width * 4)
+    attn_stage = (rows * 3 * width * 4 + rows * 3 * width * itemsize + 2 * seq * seq * 4
+                  + rows * width * 4)
+    mlp_stage = rows * width * 4 + rows * mlp_dim * 4 + rows * mlp_dim
+    return resident + max(attn_stage, mlp_stage)
+
+
+def _block_chunk_vmem_bytes(group: int, seq: int, width: int, mlp_dim: int, n_chunks: int,
+                            itemsize: int) -> int:
+    rows = group * seq
+    chunk = mlp_dim // n_chunks
+    resident = (2 * rows * width * itemsize + 3 * width * width + width * width * itemsize
+                + 2 * width * chunk + rows * width * 4 + rows * width)
+    attn_stage = (rows * 3 * width * 4 + rows * 3 * width * itemsize + 2 * seq * seq * 4
+                  + rows * width * 4)
+    chunk_stage = rows * chunk * 4 + rows * chunk
+    return resident + max(attn_stage, chunk_stage)
+
+
+def _block_plan(bsz: int, seq: int, width: int, mlp_dim: int, itemsize: int):
+    """The whole int8 block's plan: ("full", G, 1), ("chunked", G, C) or None."""
+    for g in (2, 1):
+        if bsz % g == 0 and _block_vmem_bytes(g, seq, width, mlp_dim, itemsize) <= _VMEM_BUDGET:
+            return ("full", g, 1)
+    for g in (2, 1):
+        if bsz % g:
+            continue
+        c = 2
+        while mlp_dim % c == 0 and mlp_dim // c >= 128:
+            if _block_chunk_vmem_bytes(g, seq, width, mlp_dim, c, itemsize) <= _VMEM_BUDGET:
+                return ("chunked", g, c)
+            c *= 2
+    return None
+
+
+# ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
 
 def int8_ln_mlp_ref(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2,
-                    *, eps: float = 1e-5) -> torch.Tensor:
-    """(B, S, W) -> x + int8-MLP(LN(x)); ``_int8_mlp_rows`` with one chunk."""
+                    *, eps: float = 1e-5, n_chunks: int = 1) -> torch.Tensor:
+    """(B, S, W) -> x + int8-MLP(LN(x)); ``_int8_mlp_rows(n_chunks=C)``. LN
+    and its quantization once; each chunk c computes gelu(hq @ w1[:, c])
+    quantized per (row, chunk) and its c_proj partial. One chunk: partial +
+    b2, then the residual; several: the fp32 sum starts from the residual,
+    adds the partials in chunk order and b2 last."""
     no_tf32()
     bsz, seq, width = x.shape
     mlp_dim = w1_q.shape[-1]
+    chunk = mlp_dim // n_chunks
     xf = x.float().reshape(bsz * seq, width)
     h = _ln_fp32(xf, ln_scale.reshape(1, width), ln_bias.reshape(1, width), eps)
     hq, hscale = _row_quant(h)
-    acc = _int_matmul(hq, w1_q)
-    y = acc.float() * hscale * s1.reshape(1, mlp_dim).float() + b1.reshape(1, mlp_dim).float()
-    y = _gelu_exp2(y)
-    yq, yscale = _row_quant(y)
-    acc2 = _int_matmul(yq, w2_q)
-    out = acc2.float() * yscale * s2.reshape(1, width).float()
-    out = out + b2.reshape(1, width).float()
-    return (xf + out).to(x.dtype).reshape(bsz, seq, width)
+    s1, b1 = s1.reshape(1, mlp_dim).float(), b1.reshape(1, mlp_dim).float()
+    s2, b2 = s2.reshape(1, width).float(), b2.reshape(1, width).float()
+
+    def part(c):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        y = _gelu_exp2(_int_matmul(hq, w1_q[:, sl]).float() * hscale * s1[:, sl] + b1[:, sl])
+        yq, yscale = _row_quant(y)
+        return _int_matmul(yq, w2_q[sl]).float() * yscale * s2
+
+    if n_chunks == 1:
+        total = xf + (part(0) + b2)
+    else:
+        total = xf
+        for c in range(n_chunks):
+            total = total + part(c)
+        total = total + b2
+    return total.to(x.dtype).reshape(bsz, seq, width)
+
+
+def _int8_qkv_ref(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, eps):
+    """LN -> per-row int8 quantization -> int8 QKV product, dequantized as
+    ``acc·hscale·sqkv + bqkv`` and rounded to x's dtype: (B, S, 3W)."""
+    bsz, seq, width = x.shape
+    h = _ln_fp32(x.float(), ln_scale.reshape(1, width), ln_bias.reshape(1, width), eps)
+    hq, hscale = _row_quant(h.reshape(bsz * seq, width))
+    acc = _int_matmul(hq, wqkv_q)
+    qkv = (acc.float() * hscale * sqkv.reshape(1, 3 * width).float()
+           + bqkv.reshape(1, 3 * width).float())
+    return qkv.to(x.dtype).reshape(bsz, seq, 3 * width)
 
 
 def int8_ln_qkv_attention_ref(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo,
@@ -97,18 +229,37 @@ def int8_ln_qkv_attention_ref(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo,
     softmax with the denominator folded past p·V, bf16 output projection."""
     no_tf32()
     bsz, seq, width = x.shape
-    xf = x.float()
-    h = _ln_fp32(xf, ln_scale.reshape(1, width), ln_bias.reshape(1, width), eps)
-    hq, hscale = _row_quant(h.reshape(bsz * seq, width))
-    acc = _int_matmul(hq, wqkv_q)
-    qkv = (acc.float() * hscale * sqkv.reshape(1, 3 * width).float()
-           + bqkv.reshape(1, 3 * width).float())
-    qkv = qkv.to(x.dtype).reshape(bsz, seq, 3 * width)
+    qkv = _int8_qkv_ref(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, eps)
     attn = fused_attention_qkv_ref(qkv, mask, heads)
 
     out = attn.float().reshape(bsz * seq, width) @ wo.to(x.dtype).float()
     out = out + bo.reshape(1, width).float()
-    return (xf + out.reshape(bsz, seq, width)).to(x.dtype)
+    return (x.float() + out.reshape(bsz, seq, width)).to(x.dtype)
+
+
+def int8_block_ref(x, ln1_scale, ln1_bias, wqkv_q, sqkv, bqkv, wo, bo, mask, ln2_scale,
+                   ln2_bias, w1_q, s1, b1, w2_q, s2, b2, *, heads: int, eps: float = 1e-5,
+                   plan=("full", 1, 1)) -> torch.Tensor:
+    """The whole int8 block (``_int8_block_kernel`` / ``_int8_block_chunk_kernel``):
+    the attention half, its output in x's dtype, then the MLP half on it
+    with one chunk ("full") or the plan's C ("chunked": the fp32 sum seeded
+    with y1f, the chunks' partials in order, b2 last)."""
+    y1 = int8_ln_qkv_attention_ref(x, ln1_scale, ln1_bias, wqkv_q, sqkv, bqkv, wo, bo, mask,
+                                   heads=heads, eps=eps)
+    return int8_ln_mlp_ref(y1, ln2_scale, ln2_bias, w1_q, s1, b1, w2_q, s2, b2, eps=eps,
+                           n_chunks=plan[2] if plan[0] == "chunked" else 1)
+
+
+def _int8_attn_rows_xla(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo, mask, *,
+                        heads: int, eps: float) -> torch.Tensor:
+    """``int8_ln_qkv_attention_ref`` in batch chunks whose fp32 scores stay
+    under ``_FALLBACK_PROBS_BUDGET``: where not even one head's core fits,
+    the JAX package runs this in XLA, the port in plain PyTorch on the
+    tensor's device."""
+    chunk = _fallback_chunk(x.shape[0], heads, x.shape[1])
+    return torch.cat([int8_ln_qkv_attention_ref(x[i:i + chunk], ln_scale, ln_bias, wqkv_q, sqkv,
+                                                bqkv, wo, bo, mask, heads=heads, eps=eps)
+                      for i in range(0, x.shape[0], chunk)])
 
 
 # ---------------------------------------------------------------------------
@@ -127,65 +278,129 @@ def _check_inputs(name: str, x: torch.Tensor, *weights) -> None:
                             f"got {w.dtype} {tuple(w.shape)} on {w.device}")
 
 
-def _int8_ln_mlp_cuda(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps):
+def _mlp_args(name, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, n_chunks):
+    """The MLP half's checked arguments and scratch (rows = B·S): x, LN
+    vectors, w1_q, s1, b1, w2_q, s2, b2, out, hq, hs, y, yq, ys (rows·C)."""
     bsz, seq, width = x.shape
     mlp_dim = w1_q.shape[-1]
-    _check_inputs("int8_ln_mlp", x, (w1_q, (width, mlp_dim)), (w2_q, (mlp_dim, width)))
-    if width % 128 or mlp_dim % 128:
-        raise ValueError(f"int8_ln_mlp kernel needs W and 4W multiples of 128, got {width}, {mlp_dim}")
+    _check_inputs(name, x, (w1_q, (width, mlp_dim)), (w2_q, (mlp_dim, width)))
+    if width % 128 or mlp_dim % 128 or mlp_dim % n_chunks or (mlp_dim // n_chunks) % 32:
+        raise ValueError(f"{name} kernel needs W and 4W multiples of 128 and 4W/C of 32, got "
+                         f"{width}, {mlp_dim}, C={n_chunks}")
+    rows, dev = bsz * seq, x.device
+    return [x.contiguous(), f32_vector(ln_scale, width, dev), f32_vector(ln_bias, width, dev),
+            w1_q, f32_vector(s1, mlp_dim, dev), f32_vector(b1, mlp_dim, dev), w2_q,
+            f32_vector(s2, width, dev), f32_vector(b2, width, dev), torch.empty_like(x),
+            torch.empty((rows, width), dtype=torch.int8, device=dev),
+            torch.empty((rows,), dtype=torch.float32, device=dev),
+            torch.empty((rows, mlp_dim), dtype=torch.float32, device=dev),
+            torch.empty((rows, mlp_dim), dtype=torch.int8, device=dev),
+            torch.empty((rows * n_chunks,), dtype=torch.float32, device=dev)]
+
+
+def _int8_ln_mlp_cuda(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps, n_chunks=1):
+    bsz, seq, width = x.shape
+    mlp_dim = w1_q.shape[-1]
+    name = "int8_ln_mlp" if n_chunks == 1 else "int8_ln_mlp_chunked"
+    args = _mlp_args(name, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, n_chunks)
     lib = load_library()
-    rows = bsz * seq
-    x = x.contiguous()
-    dev = x.device
-    out = torch.empty_like(x)
-    hq = torch.empty((rows, width), dtype=torch.int8, device=dev)
-    hs = torch.empty((rows,), dtype=torch.float32, device=dev)
-    y = torch.empty((rows, mlp_dim), dtype=torch.float32, device=dev)
-    yq = torch.empty((rows, mlp_dim), dtype=torch.int8, device=dev)
-    ys = torch.empty((rows,), dtype=torch.float32, device=dev)
-    args = [x, f32_vector(ln_scale, width, dev), f32_vector(ln_bias, width, dev), w1_q,
-            f32_vector(s1, mlp_dim, dev), f32_vector(b1, mlp_dim, dev), w2_q, f32_vector(s2, width, dev),
-            f32_vector(b2, width, dev), out, hq, hs, y, yq, ys]
     # The scratch tensors are freed when this returns, before the kernels
     # run: PyTorch's caching allocator reuses their memory only for work
     # queued later on this same (current) stream, so that is safe.
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.aiic_int8_ln_mlp(*[ptr(a) for a in args], rows, width, mlp_dim,
-                              ctypes.c_float(eps), stream)
-    check("int8_ln_mlp", rc)
-    return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if n_chunks == 1:
+        rc = lib.aiic_int8_ln_mlp(*[ptr(a) for a in args], bsz * seq, width, mlp_dim,
+                                  ctypes.c_float(eps), stream)
+    else:
+        part = torch.empty((n_chunks, bsz * seq, width), dtype=torch.float32, device=x.device)
+        rc = lib.aiic_int8_ln_mlp_chunked(*[ptr(a) for a in args], ptr(part), bsz * seq, width,
+                                          mlp_dim, n_chunks, ctypes.c_float(eps), stream)
+    check(name, rc)
+    return args[9]
+
+
+def _attn_args(name, x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo, mask, heads):
+    """The attention half's checked arguments: x, LN vectors, wqkv_q, sqkv,
+    bqkv, wo (bf16), bo, mask."""
+    bsz, seq, width = x.shape
+    _check_inputs(name, x, (wqkv_q, (width, 3 * width)))
+    if width % heads or width // heads != 64 or width % 128:
+        raise ValueError(f"{name} kernel needs head_dim 64 and W % 128 == 0, "
+                         f"got W={width}, H={heads}")
+    dev = x.device
+    return [x.contiguous(), f32_vector(ln_scale, width, dev), f32_vector(ln_bias, width, dev),
+            wqkv_q, f32_vector(sqkv, 3 * width, dev), f32_vector(bqkv, 3 * width, dev),
+            weight(name, wo, (width, width), torch.bfloat16, dev), f32_vector(bo, width, dev),
+            mask_arg(mask, seq, dev)]
 
 
 def _int8_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo,
                                 bo, mask, heads, eps):
     bsz, seq, width = x.shape
-    _check_inputs("int8_ln_qkv_attention", x, (wqkv_q, (width, 3 * width)))
-    dim = width // heads
-    if dim != 64 or width % 128:
-        raise ValueError(f"int8_ln_qkv_attention kernel needs head_dim 64 and W % 128 == 0, "
-                         f"got W={width}, H={heads}")
+    args = _attn_args("int8_ln_qkv_attention", x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo,
+                      mask, heads)
     lib = load_library()
-    rows = bsz * seq
-    x = x.contiguous()
-    dev = x.device
-    wo = weight("int8_ln_qkv_attention", wo, (width, width), torch.bfloat16, dev)
-    mask = mask_arg(mask, seq, dev)
+    rows, dev = bsz * seq, x.device
     out = torch.empty_like(x)
     hq = torch.empty((rows, width), dtype=torch.int8, device=dev)
     hs = torch.empty((rows,), dtype=torch.float32, device=dev)
     qkv = torch.empty((rows, 3 * width), dtype=torch.bfloat16, device=dev)
     attn = torch.empty((rows, width), dtype=torch.bfloat16, device=dev)
-    # The bf16-rounded scale·log2(e) constant, as jnp.asarray(.., q.dtype).
-    qconst = float(torch.tensor(dim ** -0.5 * LOG2E, dtype=torch.bfloat16))
-    args = [x, f32_vector(ln_scale, width, dev), f32_vector(ln_bias, width, dev), wqkv_q,
-            f32_vector(sqkv, 3 * width, dev), f32_vector(bqkv, 3 * width, dev), wo, f32_vector(bo, width, dev),
-            mask, out, hq, hs, qkv, attn]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.aiic_int8_ln_qkv_attention(
-        *[ptr(a) for a in args], bsz, seq, width, heads,
-        ctypes.c_float(eps), ctypes.c_float(qconst), stream)
+        *[ptr(a) for a in args + [out, hq, hs, qkv, attn]], bsz, seq, width, heads,
+        ctypes.c_float(eps), ctypes.c_float(_qconst(width // heads, torch.bfloat16)), stream)
     check("int8_ln_qkv_attention", rc)
     return out
+
+
+def _int8_qkv(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, eps):
+    """The int8 QKV projection of the large-S path, (B, S, 3W) in x's dtype:
+    on the card row 1's first two launches (LN row quantizer, int8 WMMA
+    product with the dequant epilogue), on the CPU ``_int8_qkv_ref``. JAX
+    runs this stage in XLA, so it is not a TPU kernel and counts no launch."""
+    if not route("int8_qkv", x):
+        return _int8_qkv_ref(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, eps)
+    bsz, seq, width = x.shape
+    _check_inputs("int8_qkv", x, (wqkv_q, (width, 3 * width)))
+    if width % 128:
+        raise ValueError(f"int8_qkv kernel needs W % 128 == 0, got {width}")
+    lib = load_library()
+    rows, dev = bsz * seq, x.device
+    qkv = torch.empty((bsz, seq, 3 * width), dtype=torch.bfloat16, device=dev)
+    hq = torch.empty((rows, width), dtype=torch.int8, device=dev)
+    hs = torch.empty((rows,), dtype=torch.float32, device=dev)
+    args = [x.contiguous(), f32_vector(ln_scale, width, dev), f32_vector(ln_bias, width, dev),
+            wqkv_q, f32_vector(sqkv, 3 * width, dev), f32_vector(bqkv, 3 * width, dev), qkv, hq,
+            hs]
+    rc = lib.aiic_int8_ln_qkv(*[ptr(a) for a in args], rows, width, ctypes.c_float(eps),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    check("int8_qkv", rc)
+    return qkv
+
+
+def _int8_block_cuda(x, attn_w, mlp_w, heads, eps, n_chunks):
+    name = "int8_block"
+    bsz, seq, width = x.shape
+    a = _attn_args(name, x, *attn_w, heads)
+    m = _mlp_args(name, x, *mlp_w, n_chunks)
+    lib = load_library()
+    rows, dev = bsz * seq, x.device
+    mlp_dim = m[3].shape[-1]
+    y1 = torch.empty_like(a[0])
+    qkv = torch.empty((rows, 3 * width), dtype=torch.bfloat16, device=dev)
+    attn = torch.empty((rows, width), dtype=torch.bfloat16, device=dev)
+    part = (torch.empty((n_chunks, rows, width), dtype=torch.float32, device=dev)
+            if n_chunks > 1 else None)
+    # a: x, ln1, wqkv_q, sqkv, bqkv, wo, bo, mask; m[1:9]: ln2, w1_q, s1, b1,
+    # w2_q, s2, b2; m[9:]: out, hq, hs, y, yq, ys
+    ptrs = [ptr(t) for t in a + m[1:9] + [m[9], y1] + m[10:12] + [qkv, attn] + m[12:] + [part]]
+    qconst = _qconst(width // heads, torch.bfloat16)
+    rc = lib.aiic_int8_block(*ptrs, bsz, seq, width, heads, mlp_dim, n_chunks,
+                             ctypes.c_float(eps), ctypes.c_float(qconst),
+                             torch.cuda.current_stream(dev).cuda_stream)
+    check(name, rc)
+    return m[9]
 
 
 # ---------------------------------------------------------------------------
@@ -196,25 +411,98 @@ def _int8_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo,
 @counted
 def int8_ln_mlp(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2,
                 *, eps: float = 1e-5) -> torch.Tensor:
-    """(B, S, W) -> (B, S, W): x + int8-MLP(LN(x))."""
-    if not route("int8_ln_mlp", x):
-        return int8_ln_mlp_ref(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps=eps)
-    out = _int8_ln_mlp_cuda(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps)
+    """(B, S, W) -> (B, S, W): x + int8-MLP(LN(x)), on ``_mlp_plan``'s plan:
+    row 2's kernel ("full"), ``int8_ln_mlp_chunked`` ("chunked"), or the
+    plain version on the tensor's device ("xla")."""
+    bsz, seq, width = x.shape
+    mode, _, n_chunks = _mlp_plan(bsz, seq, width, w1_q.shape[-1], x.element_size())
+    args = (x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2)
+    if mode == "chunked":
+        return int8_ln_mlp_chunked(*args, n_chunks=n_chunks, eps=eps)
+    if mode == "xla" or not route("int8_ln_mlp", x):
+        return int8_ln_mlp_ref(*args, eps=eps)
+    out = _int8_ln_mlp_cuda(*args, eps)
     int8_ln_mlp.launches += 1
     return out
+
+
+@counted
+def int8_ln_mlp_chunked(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, *, n_chunks: int,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """(B, S, W) -> (B, S, W): the int8 MLP half with the hidden axis in
+    ``n_chunks`` chunks, the gelu output quantized per (row, chunk)."""
+    args = (x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2)
+    if not route("int8_ln_mlp_chunked", x):
+        return int8_ln_mlp_ref(*args, eps=eps, n_chunks=n_chunks)
+    out = _int8_ln_mlp_cuda(*args, eps, n_chunks)
+    int8_ln_mlp_chunked.launches += 1
+    return out
+
+
+def _int8_attn_large_s(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo, mask, *,
+                       heads: int, eps: float) -> torch.Tensor:
+    """The int8 attention half where the TPU kernel does not fit
+    (``aiic_tpu/ops/quant.py::_int8_attn_large_s``): the int8 projection
+    (``_int8_qkv``), the packed core (row 7) where it fits, else the
+    head-grouped core (row 8) on wqkv_q, sqkv and bqkv permuted head-major
+    once per weight; the bf16 out-projection, bias and residual as plain
+    ops."""
+    bsz, seq, width = x.shape
+    itemsize = x.element_size()
+    head_major = not attention_ops.qkv_core_fits(seq, width, itemsize)
+    if head_major:
+        wqkv_q, sqkv, bqkv = (attention_ops.headmajor_columns(t, width, heads)
+                              for t in (wqkv_q, sqkv, bqkv))
+    qkv = _int8_qkv(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, eps)
+    if head_major:
+        hg = attention_ops.pick_head_group(seq, heads, width // heads, itemsize)
+        attn = attention_ops.fused_attention_qkv_headgroups(qkv, mask, heads=heads, head_group=hg)
+    else:
+        attn = attention_ops.fused_attention_qkv(qkv, mask, heads=heads)
+    out = _mm(attn, wo.to(x.dtype)) + bo.reshape(width).float()
+    return (x.float() + out).to(x.dtype)
 
 
 @counted
 def int8_ln_qkv_attention(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo,
                           mask=None, *, heads: int,
                           eps: float = 1e-5) -> torch.Tensor:
-    """(B, S, W) -> (B, S, W): x + OutProj_bf16(Attn(QKV_int8(LN(x))))."""
+    """(B, S, W) -> (B, S, W): x + OutProj_bf16(Attn(QKV_int8(LN(x)))). Where
+    no image group of the TPU kernel fits, ``_int8_attn_large_s`` (a head
+    group of the core fits) or ``_int8_attn_rows_xla``, as the JAX package
+    does."""
+    bsz, seq, width = x.shape
+    itemsize = x.element_size()
+    args = (x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo, mask)
+    if not fits_some_group(bsz, itemsize, lambda g: _attn_vmem_bytes(
+            g, seq, width, itemsize) <= _VMEM_BUDGET):
+        if attention_ops.pick_head_group(seq, heads, width // heads, itemsize) is not None:
+            return _int8_attn_large_s(*args, heads=heads, eps=eps)
+        return _int8_attn_rows_xla(*args, heads=heads, eps=eps)
     if not route("int8_ln_qkv_attention", x):
-        return int8_ln_qkv_attention_ref(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
-                                         wo, bo, mask, heads=heads, eps=eps)
-    out = _int8_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv,
-                                      wo, bo, mask, heads, eps)
+        return int8_ln_qkv_attention_ref(*args, heads=heads, eps=eps)
+    out = _int8_ln_qkv_attention_cuda(*args, heads, eps)
     int8_ln_qkv_attention.launches += 1
+    return out
+
+
+@counted
+def int8_block(x, ln1_scale, ln1_bias, wqkv_q, sqkv, bqkv, wo, bo, mask, ln2_scale, ln2_bias,
+               w1_q, s1, b1, w2_q, s2, b2, *, heads: int, eps: float = 1e-5,
+               plan_override=None):
+    """(B, S, W) -> (B, S, W): one whole int8 block, on ``_block_plan``'s
+    plan (or ``plan_override``, a ("full"|"chunked", G, C) tuple); None when
+    no plan fits, as the JAX package's ``int8_block`` returns."""
+    bsz, seq, width = x.shape
+    plan = plan_override or _block_plan(bsz, seq, width, w1_q.shape[-1], x.element_size())
+    if plan is None:
+        return None
+    attn_w = (ln1_scale, ln1_bias, wqkv_q, sqkv, bqkv, wo, bo, mask)
+    mlp_w = (ln2_scale, ln2_bias, w1_q, s1, b1, w2_q, s2, b2)
+    if not route("int8_block", x):
+        return int8_block_ref(x, *attn_w, *mlp_w, heads=heads, eps=eps, plan=plan)
+    out = _int8_block_cuda(x, attn_w, mlp_w, heads, eps, plan[2] if plan[0] == "chunked" else 1)
+    int8_block.launches += 1
     return out
 
 

@@ -9,13 +9,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
 2. the Hopper kernels built with nvcc from ``aiic_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes (ViT-B/16 image and text half-blocks, B=1, an odd
-   B, and an all-zero LN row); the packed-QKV core in fp32 and bf16;
+   B, and an all-zero LN row); the packed-QKV core in fp32 and bf16; the
+   zoo's kernels: the chunked int8 MLP at the ViT-L/14 widths (C=2 and 4)
+   and at L/14@336 (C=4), the whole int8 block (full at ViT-B/32 and at the
+   text shape with the causal mask; chunked at ViT-B/16 on (2, 4) and at
+   L/14 on (1, 16)), the head-grouped core at S=577 (hg=8; hg=16 bit for
+   bit the packed core);
 4. the paths: four full-width ViT-B/16 ``InteriorAnalyzer`` engines from
    one seeded init (int8 serving on the patch wire; bf16 unquantized, the
    worker's default; bf16 with ``attn_impl="pallas_mlp"``; fp32, the batch
    CLI's default; the last three on the HWC uint8 wire), each answering
    requests of 1, 7 and 64 images with every kernel's launch count set to 0
-   before and checked exactly after;
+   before and checked exactly after against the launches that the copied
+   JAX planners give each tower at each bucket;
 5. the same weights and 4 images through the int8 and the bf16 unquantized
    engines on the CPU (plain path): feature cosine, verdicts and top-1
    categories against the card;
@@ -47,7 +53,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
    single-image p50 latency of the int8 and the bf16 unquantized engines;
    train-step ms at batch 256 (cached image features, dense text rows) on
    the four training paths; the steady-state images/s of a ``train_lora``
-   epoch.
+   epoch;
+10. the zoo: full-width, full-depth engines from one seeded init per preset
+   (int8 ViT-B/32, ViT-L/14 and ViT-L/14@336 on the patch wire; bf16 L/14
+   and L/14@336 and fp32 L/14@336 on the HWC wire), each answering 1, 7 and
+   64 images with exact launch counts as in phase 4; each against its CPU
+   run on 2 images; each int8 engine's image features against the bf16
+   ``attn_impl="xla"`` path on the card (the twin of
+   ``tools/zoo_cosine.py``); then the zoo kernels timed at B=256 (row 3 at
+   L/14, row 4 at B/32, row 8 at L/14@336 beside
+   ``scaled_dot_product_attention``) and images/s at B=256 and single-image
+   p50 of the three int8 engines.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -130,23 +146,45 @@ KERNELS = {
         "source": "aiic_tpu_torch/csrc/text_block_int8.cu",
         "replaces": "aiic_tpu/ops/block_grad.py:1104 and :1542",
     },
+    "int8_ln_mlp_chunked": {
+        "source": "aiic_tpu_torch/csrc/int8_mlp.cu",
+        "replaces": "aiic_tpu/ops/quant.py:190",
+    },
+    "int8_block": {
+        "source": "aiic_tpu_torch/csrc/int8_block.cu",
+        "replaces": "aiic_tpu/ops/quant.py:673 and :782",
+    },
+    "fused_attention_qkv_headgroups": {
+        "source": "aiic_tpu_torch/csrc/attention_qkv.cu",
+        "replaces": "aiic_tpu/ops/attention.py:563",
+    },
 }
 
 # NVIDIA H100 SXM5 data sheet: dense peaks by operand type, and HBM3.
 PEAK_OPS = {"bf16": 989.4e12, "int8": 1978.9e12, "fp32": 66.9e12}
 HBM_BYTES_PER_S = 3.35e12
 
-# The paths of phase 4: engine options, and the kernels each runs.
-PATHS = {
-    "int8": (dict(dtype="bfloat16", quantize=True, wire_format="patch", attn_impl="pallas"),
-             ("int8_ln_qkv_attention", "int8_ln_mlp")),
-    "bf16": (dict(dtype="bfloat16", quantize=False, wire_format="hwc", attn_impl="pallas"),
-             ("fused_ln_qkv_attention",)),
-    "bf16_pallas_mlp": (dict(dtype="bfloat16", quantize=False, wire_format="hwc",
-                             attn_impl="pallas_mlp"), ("fused_ln_qkv_attention", "fused_ln_mlp")),
-    "fp32": (dict(dtype="float32", quantize=False, wire_format="hwc", attn_impl="pallas"),
-             ("fused_attention_qkv",)),
+# The serving configurations: engine options.
+CONFIGS = {
+    "int8": dict(dtype="bfloat16", quantize=True, wire_format="patch", attn_impl="pallas"),
+    "bf16": dict(dtype="bfloat16", quantize=False, wire_format="hwc", attn_impl="pallas"),
+    "bf16_pallas_mlp": dict(dtype="bfloat16", quantize=False, wire_format="hwc",
+                            attn_impl="pallas_mlp"),
+    "fp32": dict(dtype="float32", quantize=False, wire_format="hwc", attn_impl="pallas"),
 }
+# The paths of phase 4 (ViT-B/16) and of the zoo (phase 10): configuration, preset.
+PATHS = {label: (label, "VIT_B_16") for label in CONFIGS}
+ZOO_PATHS = {  # in preset order: one seeded init per preset
+    "int8_b32": ("int8", "VIT_B_32"),
+    "int8_l14": ("int8", "VIT_L_14"),
+    "bf16_l14": ("bf16", "VIT_L_14"),
+    "int8_l14_336": ("int8", "VIT_L_14_336"),
+    "bf16_l14_336": ("bf16", "VIT_L_14_336"),
+    "fp32_l14_336": ("fp32", "VIT_L_14_336"),
+}
+# tools/zoo_cosine.py's bar: an int8 engine's image features against the
+# bf16 reference composition (attn_impl="xla") on the same weights.
+ZOO_COS_MIN = 0.999
 
 # The vocabulary of tests/test_engine.py's engine fixture.
 TRAINING_DATA = [
@@ -339,6 +377,113 @@ def phase_kernels(device) -> dict:
     return worst
 
 
+def _zoo_calls(p, plan=None, head_group=None):
+    """check name -> (kernel call, plain call, tensors the kernel reads, ops
+    by operand type) for the zoo's kernels on one input set: the int8 MLP on
+    ``_mlp_plan``'s chunked plan through the public wrapper, the whole int8
+    block on ``plan`` (``_block_plan``'s when None), the head-grouped core
+    on the head-major permutation of ``p["qkv_b"]``."""
+    import torch
+
+    from aiic_tpu_torch.ops import attention, quant
+
+    bsz, seq, width = p["x"].shape
+    heads, mlp_dim = p["heads"], p["w1"].shape[-1]
+    rows, dim = bsz * seq, width // heads
+    core = 4 * bsz * heads * seq * seq * dim
+    attn_q = (p["x"], p["ln_s"], p["ln_b"], p["wqkv_q"], p["sqkv"], p["bqkv"], p["wo"], p["bo"],
+              p["mask"])
+    mlp_q = (p["ln_s"], p["ln_b"], p["w1_q"], p["s1"], p["b1"], p["w2_q"], p["s2"], p["b2"])
+    calls = {}
+    mode, _, n_chunks = quant._mlp_plan(bsz, seq, width, mlp_dim, 2)
+    if mode == "chunked":
+        calls["int8_ln_mlp_chunked"] = (
+            lambda: quant.int8_ln_mlp(p["x"], *mlp_q),
+            lambda: quant.int8_ln_mlp_ref(p["x"], *mlp_q, n_chunks=n_chunks), (p["x"], *mlp_q),
+            {"int8": 4 * rows * width * mlp_dim})
+    block_plan = plan or quant._block_plan(bsz, seq, width, mlp_dim, 2)
+    if block_plan is not None:
+        h = dict(heads=heads)
+        calls["int8_block"] = (
+            lambda: quant.int8_block(*attn_q, *mlp_q, **h, plan_override=plan),
+            lambda: quant.int8_block_ref(*attn_q, *mlp_q, **h, plan=block_plan),
+            attn_q + mlp_q, {"int8": 2 * rows * width * 3 * width + 4 * rows * width * mlp_dim,
+                             "bf16": core + 2 * rows * width * width})
+    if head_group is not None:
+        if "qkv_hm" not in p:
+            perm = torch.from_numpy(attention.headmajor_perm(width, heads)).long()
+            p["qkv_hm"] = p["qkv_b"][..., perm.to(p["qkv_b"].device)].contiguous()
+        calls["fused_attention_qkv_headgroups"] = (
+            lambda: attention.fused_attention_qkv_headgroups(p["qkv_hm"], p["mask"], heads=heads,
+                                                             head_group=head_group),
+            lambda: attention.fused_attention_qkv_headgroups_ref(p["qkv_hm"], p["mask"], heads),
+            (p["qkv_hm"], p["mask"]), {"bf16": core})
+    return calls
+
+
+ZOO_KERNEL_CASES = [  # label, inputs, block plan override, head group
+    ("L/14 B=1 (MLP C=2)", dict(bsz=1, seq=257, width=1024, heads=16), None, None),
+    ("L/14 B=3 (MLP C=2)", dict(bsz=3, seq=257, width=1024, heads=16), None, None),
+    ("L/14 B=8 (MLP C=4)", dict(bsz=8, seq=257, width=1024, heads=16), None, None),
+    ("L/14 B=2 zero row", dict(bsz=2, seq=257, width=1024, heads=16, zero_row=True), None, None),
+    ("L/14 B=3 block (1,16)", dict(bsz=3, seq=257, width=1024, heads=16), ("chunked", 1, 16),
+     None),
+    ("L/14@336 B=1", dict(bsz=1, seq=577, width=1024, heads=16), None, 8),
+    ("L/14@336 B=3", dict(bsz=3, seq=577, width=1024, heads=16), None, 8),
+    ("L/14@336 B=8", dict(bsz=8, seq=577, width=1024, heads=16), None, 8),
+    ("B/32 B=8", dict(bsz=8, seq=50, width=768, heads=12), None, None),
+    ("B/32 B=1", dict(bsz=1, seq=50, width=768, heads=12), None, None),
+    ("B/32 B=3", dict(bsz=3, seq=50, width=768, heads=12), None, None),
+    ("B/32 B=2 zero row", dict(bsz=2, seq=50, width=768, heads=12, zero_row=True), None, None),
+    ("text B=52 causal", dict(bsz=52, seq=77, width=512, heads=8, mask=True), None, None),
+    ("L/14 text B=7 causal", dict(bsz=7, seq=77, width=768, heads=12, mask=True), None, None),
+    ("B/16 B=8 block (2,4)", dict(bsz=8, seq=197, width=768, heads=12), ("chunked", 2, 4), None),
+]
+
+
+def phase_zoo_kernels(device) -> dict:
+    """Phase 3, the zoo's kernels: rows 3, 4 and 8 against their plain
+    versions, and row 8 at hg=16 against row 7's kernel on the packed layout
+    of the same q, k, v (bit for bit)."""
+    import torch
+
+    from aiic_tpu_torch.ops import attention
+
+    rng = np.random.default_rng(20)
+    worst, results = {}, []
+    for label, kw, plan, hg in ZOO_KERNEL_CASES:
+        kw = dict(dict(mask=False, zero_row=False), **kw)
+        p = _half_block_inputs(rng, device=device, **kw)
+        for name, (kernel, plain, _, _) in _zoo_calls(p, plan, hg).items():
+            out = kernel()
+            torch.cuda.synchronize()
+            a = _agreement(out, plain())
+            a.update(kernel=name, case=label)
+            results.append(a)
+            log(f"[kernels] {name:30s} {label:24s} {a['dtype']:8s} max_abs_err={a['max_abs_err']:.6g} "
+                f"within_2ulp={a['within_2ulp']:.6f} min_row_cos={a['min_row_cos']:.8f}")
+            if not a["ok"]:
+                raise AssertionError(f"{name} disagrees with its plain version on {label}: {a}")
+            worst[name] = max(worst.get(name, 0.0), a["max_abs_err"])
+        if hg is not None:
+            heads = kw["heads"]
+            all_heads = attention.fused_attention_qkv_headgroups(p["qkv_hm"], heads=heads,
+                                                                 head_group=heads)
+            row7 = attention._fused_attention_qkv_cuda(p["qkv_b"], None, heads)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(all_heads, row7))
+            log(f"[kernels] fused_attention_qkv_headgroups hg={heads} vs row 7 {label}: "
+                f"bit-identical {same}")
+            results.append({"kernel": "fused_attention_qkv_headgroups", "case": f"{label} hg=H",
+                            "bit_identical_to_row7": same})
+            if not same:
+                raise AssertionError(f"row 8 at hg={heads} differs from row 7 on {label}")
+        del p
+    torch.cuda.empty_cache()
+    REPORT["zoo_kernel_checks"] = results
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-5: the slice, and the CPU comparison
 # ---------------------------------------------------------------------------
@@ -348,53 +493,118 @@ def _pixels(rng, n, size):
     return rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
 
 
-def _engine(params, device, opts, **kw):
+def _engine(params, device, opts, config, **kw):
     import torch
 
     from aiic_tpu_torch.engine.analyzer import InteriorAnalyzer
-    from aiic_tpu_torch.models.config import VIT_B_16
 
     opts = dict(opts, dtype=getattr(torch, opts["dtype"]))
-    return InteriorAnalyzer(params, VIT_B_16, training_data=TRAINING_DATA, device=device,
+    return InteriorAnalyzer(params, config, training_data=TRAINING_DATA, device=device,
                             **opts, **kw)
 
 
-def phase_path(label: str, params, device, requests, tag: str = "", **engine_kw):
+def _large_s_core(seq: int, width: int, heads: int) -> list:
+    """The core of the large-S attention half (int8 or bf16): the packed
+    core where it fits, else the head-grouped one, else none (plain)."""
+    from aiic_tpu_torch.ops import attention as A
+
+    if A.qkv_core_fits(seq, width, 2):
+        return ["fused_attention_qkv"]
+    return (["fused_attention_qkv_headgroups"]
+            if A.pick_head_group(seq, heads, width // heads, 2) is not None else [])
+
+
+def _block_kernels(opts: dict, seq: int, width: int, heads: int, bsz: int) -> list:
+    """The kernels one block of ``models.clip.block`` launches in this
+    configuration at this geometry and batch, derived from the copied JAX
+    planners in the JAX package's branch order (tests/test_torch_zoo.py
+    pins the planners and the branches to JAX's)."""
+    from aiic_tpu_torch.ops import attention as A
+    from aiic_tpu_torch.ops import quant as Q
+
+    mlp_dim = 4 * width
+    if opts["dtype"] == "float32":  # plain projections around the packed core, if it fits
+        return (["fused_attention_qkv"]
+                if A.fits_some_group(bsz, 4, lambda g: A.qkv_core_fits(seq, width, 4, g)) else [])
+    if opts["quantize"]:
+        plan = Q._block_plan(bsz, seq, width, mlp_dim, 2)
+        if plan is not None and plan[0] == "full" and plan[1] >= 2:  # the auto rule
+            return ["int8_block"]
+        if A.fits_some_group(bsz, 2, lambda g: Q._attn_vmem_bytes(g, seq, width, 2)
+                             <= Q._VMEM_BUDGET):
+            names = ["int8_ln_qkv_attention"]
+        else:
+            names = _large_s_core(seq, width, heads)
+        mode = Q._mlp_plan(bsz, seq, width, mlp_dim, 2)[0]
+        return names + {"full": ["int8_ln_mlp"], "chunked": ["int8_ln_mlp_chunked"],
+                        "xla": []}[mode]
+    if A.fits_some_group(bsz, 2, lambda g: A.ln_attn_vmem_bytes(g, seq, width, 2)
+                         <= A._CORE_VMEM_BUDGET):
+        names = ["fused_ln_qkv_attention"]
+    else:
+        names = _large_s_core(seq, width, heads)
+    return names + (["fused_ln_mlp"] if opts["attn_impl"] == "pallas_mlp" else [])
+
+
+def _expected_launches(opts: dict, config, n_prompts: int, buckets) -> tuple:
+    """(launches at build, launches in all) of every kernel: the text tower
+    once at build over all prompts, then the image tower once per request
+    chunk at its bucket (the last image block is the CLS-row block, no
+    kernel)."""
+    build: dict = {}
+    t, v = config.text, config.vision
+    for name in _block_kernels(opts, config.context_length, t.width, t.heads, n_prompts):
+        build[name] = build.get(name, 0) + t.layers
+    total = dict(build)
+    for b in buckets:
+        for name in _block_kernels(opts, config.vision_seq_len, v.width, v.heads, b):
+            total[name] = total.get(name, 0) + v.layers - 1
+    return build, total
+
+
+def phase_path(label: str, params, device, requests, tag: str = "", paths=PATHS,
+               **engine_kw):
     """One path: every count set to 0, the engine built (text features
     through the text tower) and asked three requests; then every kernel's
-    launches must be exactly what the path runs (12 text layers at build,
-    11 image layers per chunk: the last image block is the CLS-row block)
-    and 0 for the others. ``engine_kw`` (``use_lora`` ...) go to the engine
-    of ``PATHS[label]``, reported as ``label + tag``."""
+    launches must be exactly what ``_expected_launches`` derives for the
+    text batch at build and each request's bucket, and 0 for the others.
+    ``engine_kw`` (``use_lora`` ...) go to the engine of ``paths[label]``,
+    reported as ``label + tag``."""
     import torch
 
-    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.models import config as configs
     from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+    from aiic_tpu_torch.utils.batching import bucket_size
 
-    opts, kernels = PATHS[label]
+    conf, preset = paths[label]
+    opts, config = CONFIGS[conf], getattr(configs, preset)
     reset_launch_counts()
     t0 = time.perf_counter()
-    engine = _engine(params, device, opts, **engine_kw)
+    engine = _engine(params, device, opts, config, **engine_kw)
     label = label + tag
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     at_build = launch_counts()
     # the 7-image request unfiltered, so the attribute branch runs too
+    t0 = time.perf_counter()
     answers = [engine.analyze_pixels(px, filter_interiors=len(px) != 7) for px in requests]
     torch.cuda.synchronize()
+    answer_s = time.perf_counter() - t0
     launches = launch_counts()
 
-    want_build = VIT_B_16.text.layers  # one text batch of all prompts
-    chunks = sum(-(-len(px) // engine.max_batch) for px in requests)
-    want = want_build + (VIT_B_16.vision.layers - 1) * chunks
-    log(f"[path {label}] {opts}: engine built in {build_s:.3f} s; launches at build "
-        f"{at_build}, after requests {launches} (expected {want_build} and {want} for "
-        f"{list(kernels)}, 0 for the others)")
+    n_prompts = engine.det_text.shape[0] + int(engine.cat_mask.sum())
+    buckets = [bucket_size(len(px[i:i + engine.max_batch]), engine.max_batch)
+               for px in requests for i in range(0, len(px), engine.max_batch)]
+    want_build, want = _expected_launches(opts, config, n_prompts, buckets)
+    log(f"[path {label}] {config.name} {opts}: engine built in {build_s:.3f} s, requests "
+        f"answered in {answer_s:.3f} s; launches at build {at_build}, after requests "
+        f"{launches} (expected {want_build} and {want} for {n_prompts} prompts and buckets "
+        f"{buckets}, 0 for the others)")
     for name in launches:
-        exp_build, exp = (want_build, want) if name in kernels else (0, 0)
-        if at_build[name] != exp_build or launches[name] != exp:
+        if at_build[name] != want_build.get(name, 0) or launches[name] != want.get(name, 0):
             raise AssertionError(f"path {label}: {name} launched {at_build[name]} times at build "
-                                 f"and {launches[name]} in all, expected {exp_build} and {exp}")
+                                 f"and {launches[name]} in all, expected "
+                                 f"{want_build.get(name, 0)} and {want.get(name, 0)}")
     for px, res in zip(requests, answers):
         if len(res) != len(px):
             raise AssertionError(f"{len(res)} answers for {len(px)} images")
@@ -406,7 +616,7 @@ def phase_path(label: str, params, device, requests, tag: str = "", **engine_kw)
     for k, v in raw.items():
         if v.dtype.kind == "f" and not np.isfinite(v).all():
             raise AssertionError(f"non-finite {k}")
-    if raw["features"].shape != (64, VIT_B_16.embed_dim):
+    if raw["features"].shape != (len(requests[2]), config.embed_dim):
         raise AssertionError(f"features shape {raw['features'].shape}")
     if not all(r["is_interior"] and len(r["analysis"]) == len(engine.category_names)
                for r in answers[1]):
@@ -415,9 +625,10 @@ def phase_path(label: str, params, device, requests, tag: str = "", **engine_kw)
     log(f"[path {label}] answered {[len(px) for px in requests]} images; {sum(verdicts)} of "
         f"{len(verdicts)} filtered ones judged interior; all outputs finite")
     REPORT.setdefault("paths", {})[label] = {
-        "options": opts, "build_s": build_s, "launches_at_build": at_build,
-        "launches": launches, "expected": want}
-    return engine, {name: launches[name] for name in kernels}
+        "preset": config.name, "options": opts, "build_s": build_s, "answer_s": answer_s,
+        "launches_at_build": at_build, "launches": launches, "expected_at_build": want_build,
+        "expected": want, "buckets": buckets, "prompts": n_prompts}
+    return engine, {name: n for name, n in launches.items() if n}
 
 
 def phase_slice(device):
@@ -434,13 +645,19 @@ def phase_slice(device):
     engines, launches = {}, {}
     for label in PATHS:
         engine, counts = phase_path(label, params, device, requests)
-        launches.update(counts)
+        _add(launches, counts)
         if label in ("int8", "bf16"):  # compared with the CPU and timed below
             engines[label] = engine
     return engines, params, launches
 
 
-def phase_cpu_compare(label: str, engine, params, tag: str = "", **engine_kw) -> None:
+def _add(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def phase_cpu_compare(label: str, engine, params, tag: str = "", paths=PATHS, n_images=4,
+                      **engine_kw) -> None:
     """Phase 5: the same weights and pixels through the engine's plain
     versions on the CPU."""
     import torch
@@ -449,9 +666,9 @@ def phase_cpu_compare(label: str, engine, params, tag: str = "", **engine_kw) ->
 
     cpu_params = tree_map(lambda t: t.cpu(), params)
     t0 = time.perf_counter()
-    cpu = _engine(cpu_params, "cpu", PATHS[label][0], **engine_kw)
+    cpu = _engine(cpu_params, "cpu", CONFIGS[paths[label][0]], engine.config, **engine_kw)
     label = label + tag
-    px = _pixels(np.random.default_rng(2), 4, engine.config.image_size)
+    px = _pixels(np.random.default_rng(2), n_images, engine.config.image_size)
     a = engine.classify_pixels(px)
     b = cpu.classify_pixels(px)
     fa, fb = a["features"], b["features"]
@@ -461,7 +678,8 @@ def phase_cpu_compare(label: str, engine, params, tag: str = "", **engine_kw) ->
     verdict = lambda r: (r["interior_mass"] > r["non_interior_mass"]) & (r["top_conf"] > 0.3)  # noqa: E731
     same_verdict = bool((verdict(a) == verdict(b)).all())
     same_top1 = bool((a["top_idx"] == b["top_idx"]).all())
-    log(f"[cpu {label}] plain CPU path vs card on 4 images ({time.perf_counter() - t0:.1f} s): "
+    log(f"[cpu {label}] plain CPU path vs card on {n_images} images "
+        f"({time.perf_counter() - t0:.1f} s): "
         f"min feature cosine {cos.min():.6f}, min detector-text cosine {text_cos:.6f}, "
         f"verdicts equal {same_verdict}, top-1 equal {same_top1}; "
         f"top_conf card {np.round(a['top_conf'], 5).tolist()} cpu {np.round(b['top_conf'], 5).tolist()}")
@@ -518,6 +736,104 @@ def phase_lora_engines(params, device, base, root: str) -> None:
             raise AssertionError(f"use_lora {tag}: the adapter left the text features unchanged")
         phase_cpu_compare("int8", engine, params, tag=tag, use_lora=True, **kw)
         del engine
+
+
+def _zoo_cosine(label: str, engine, params) -> None:
+    """The twin of tools/zoo_cosine.py: the int8 engine's image features
+    against the bf16 reference composition (``attn_impl="xla"``, no
+    kernels, unquantized weights) on the card, at full depth."""
+    import torch
+
+    from aiic_tpu_torch.models.clip import encode_image, normalize_features
+    from aiic_tpu_torch.ops.preprocess import normalize_u8
+
+    config = engine.config
+    px = _pixels(np.random.default_rng(22), 2, config.image_size)
+    feats = engine.classify_pixels(px)["features"]
+    with torch.inference_mode():
+        x = normalize_u8(torch.from_numpy(px).to(engine.device), dtype=torch.bfloat16)
+        base = normalize_features(encode_image(params, x, config, dtype=torch.bfloat16,
+                                               attn_impl="xla")).cpu().numpy()
+    cos = (feats * base).sum(-1)
+    log(f"[zoo-cosine {label}] {config.name} int8 engine vs bf16 xla on the card, 2 images: "
+        f"cosine {np.round(cos, 6).tolist()}")
+    REPORT.setdefault("zoo_cosine", {})[label] = cos.tolist()
+    if cos.min() < ZOO_COS_MIN:
+        raise AssertionError(f"{label}: int8 features {cos.min():.6f} from the bf16 xla path")
+
+
+def phase_zoo(device):
+    """Phase 10: the zoo's paths, each with exact launch counts, against its
+    CPU run, and (int8) against the bf16 xla path; returns the int8 engines
+    (timed below) and the launches of all paths."""
+    import torch
+
+    from aiic_tpu_torch.models import config as configs
+    from aiic_tpu_torch.models.init import init_clip_params
+
+    engines, launches, params, preset_of = {}, {}, None, None
+    for label, (conf, preset) in ZOO_PATHS.items():
+        config = getattr(configs, preset)
+        if preset != preset_of:
+            params, preset_of = None, preset
+            torch.cuda.empty_cache()
+            params = init_clip_params(config, torch.Generator(device=device).manual_seed(0),
+                                      device=device)
+        rng = np.random.default_rng(21)
+        requests = [_pixels(rng, n, config.image_size) for n in (1, 7, 64)]
+        engine, counts = phase_path(label, params, device, requests, paths=ZOO_PATHS)
+        _add(launches, counts)
+        phase_cpu_compare(label, engine, params, paths=ZOO_PATHS, n_images=2)
+        if conf == "int8":
+            _zoo_cosine(label, engine, params)
+            engines[label] = engine
+        del engine
+    torch.cuda.empty_cache()
+    return engines, launches
+
+
+def phase_zoo_timing(device, card: str, engines) -> dict:
+    """Phase 10's timings: row 3 at ViT-L/14 B=256 (C=4), row 4 at ViT-B/32
+    B=256 (full), row 8 at ViT-L/14@336 B=256 (hg=8) beside
+    scaled_dot_product_attention on the same q, k, v; images/s at B=256 and
+    single-image p50 of the int8 zoo engines. Launch counts are put back."""
+    import torch
+
+    from aiic_tpu_torch.ops import _build, attention
+
+    saved = _build.launch_counts()
+    times = {}
+    rng = np.random.default_rng(23)
+    for label, kw, name in (("B=256 S=257 W=1024 (L/14, C=4)",
+                             dict(bsz=256, seq=257, width=1024, heads=16), "int8_ln_mlp_chunked"),
+                            ("B=256 S=50 W=768 (B/32, full)",
+                             dict(bsz=256, seq=50, width=768, heads=12), "int8_block")):
+        p = _half_block_inputs(rng, mask=False, zero_row=False, device=device, **kw)
+        _kernel_times({name: _zoo_calls(p)[name]}, times, label, card)
+        del p
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(23)
+    qkv_hm = torch.randn((256, 577, 3072), generator=gen, device=device).to(torch.bfloat16)
+    calls = {"fused_attention_qkv_headgroups": (
+        lambda: attention.fused_attention_qkv_headgroups(qkv_hm, heads=16, head_group=8),
+        lambda: attention.fused_attention_qkv_headgroups_ref(qkv_hm, None, 16), (qkv_hm,),
+        {"bf16": 4 * 256 * 16 * 577 * 577 * 64})}
+    _kernel_times(calls, times, "B=256 S=577 W=1024 hg=8 (L/14@336)", card)
+    times["fused_attention_qkv_headgroups"].update(_sdpa_times(qkv_hm, 16, head_major=True))
+    log(f"[timing] fused_attention_qkv_headgroups SDPA "
+        f"{times['fused_attention_qkv_headgroups']['library_ms']:.3f} ms, transposes "
+        f"{times['fused_attention_qkv_headgroups']['transpose_ms']:.3f} ms ({card})")
+    del calls, qkv_hm
+    torch.cuda.empty_cache()
+    for fn in _build._COUNTED.values():
+        fn.launches = saved[fn.__name__]
+    rng = np.random.default_rng(24)
+    for label, engine in engines.items():
+        times[f"classify_{label}"] = r = _engine_rate(engine, rng)
+        log(f"[timing] classify_pixels {label} B=256: {r['images_per_s_b256']:.1f} images/s; "
+            f"single image p50 {r['single_image_p50_ms']:.3f} ms ({card})")
+    REPORT.setdefault("timing", {}).update(times)
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -1055,16 +1371,19 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _sdpa_times(p) -> dict:
-    """The one PyTorch call that computes the packed core's function:
-    ``scaled_dot_product_attention`` on q/k/v as (B, H, S, D), with the
-    transposes into and out of that layout timed apart from the call."""
+def _sdpa_times(qkv, heads: int, head_major: bool = False) -> dict:
+    """The one PyTorch call that computes the core's function:
+    ``scaled_dot_product_attention`` on the same q/k/v as (B, H, S, D), with
+    the transposes out of the packed (or head-major) layout and back timed
+    apart from the call."""
     import torch
 
-    qkv = p["qkv"]
     bsz, seq, w3 = qkv.shape
-    heads = p["heads"]
-    split = lambda: qkv.view(bsz, seq, 3, heads, w3 // 3 // heads).permute(2, 0, 3, 1, 4).contiguous()  # noqa: E731
+    dim = w3 // 3 // heads
+    if head_major:
+        split = lambda: qkv.view(bsz, seq, heads, 3, dim).permute(3, 0, 2, 1, 4).contiguous()  # noqa: E731
+    else:
+        split = lambda: qkv.view(bsz, seq, 3, heads, dim).permute(2, 0, 3, 1, 4).contiguous()  # noqa: E731
     q, k, v = split()
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)  # noqa: E731
     o = sdpa()
@@ -1121,7 +1440,7 @@ def phase_timing(device, card: str, engines, params) -> dict:
     calls = _calls(p)
     _kernel_times(calls, times, "B=256 S=197 W=768", card)
     for name in ("fused_attention_qkv", "fused_attention_qkv_bf16"):
-        times[name].update(_sdpa_times(dict(p, qkv=calls[name][2][0])))
+        times[name].update(_sdpa_times(calls[name][2][0], p["heads"]))
         log(f"[timing] {name:24s} SDPA {times[name]['library_ms']:.3f} ms, transposes "
             f"{times[name]['transpose_ms']:.3f} ms ({card})")
     del p, calls
@@ -1171,6 +1490,7 @@ def main() -> int:
     REPORT["build"] = dict(BUILD_INFO)
 
     worst = phase_kernels(device)
+    worst.update(phase_zoo_kernels(device))
     worst.update(phase_text_block_kernels(device))
     engines, params, launches = phase_slice(device)
     for label, engine in engines.items():
@@ -1182,7 +1502,12 @@ def main() -> int:
         phase_lora_engines(params, device, engines["int8"], root)
     times = phase_timing(device, card, engines, params)
     times["train_lora_epoch_images_per_s"] = epoch_rates
+    del engines, params
+    zoo_engines, zoo_launches = phase_zoo(device)
+    _add(launches, zoo_launches)
+    times.update(phase_zoo_timing(device, card, zoo_engines))
     REPORT["wall_s"] = time.perf_counter() - T0
+    log(f"[wall] chip_smoke.py took {REPORT['wall_s']:.1f} s ({card})")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", **meta, "launches": launches[name],

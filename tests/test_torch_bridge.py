@@ -106,7 +106,8 @@ def test_params_from_numpy_and_npz_round_trip(tmp_path):
 
 KERNEL_WRAPPERS = ["int8_ln_mlp", "int8_ln_qkv_attention", "fused_attention_qkv",
                    "fused_ln_qkv_attention", "fused_ln_mlp", "text_block_fwd", "text_block_bwd",
-                   "text_block_fwd_int8", "text_block_bwd_int8"]
+                   "text_block_fwd_int8", "text_block_bwd_int8", "int8_ln_mlp_chunked",
+                   "int8_block", "fused_attention_qkv_headgroups"]
 
 
 @pytest.mark.parametrize("name", KERNEL_WRAPPERS)
@@ -135,6 +136,24 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting(name):
         args = (x, ones, zeros, torch.randn(w, 3 * w), torch.zeros(3 * w), torch.randn(w, w), zeros)
         out = attention.fused_ln_qkv_attention(*args, heads=4)
         ref = attention.fused_ln_qkv_attention_ref(*args, heads=4)
+    elif name == "int8_ln_mlp_chunked":
+        w1_q, s1 = quant.quantize_weight(torch.randn(w, 4 * w))
+        w2_q, s2 = quant.quantize_weight(torch.randn(4 * w, w))
+        args = (x, ones, zeros, w1_q, s1, torch.zeros(4 * w), w2_q, s2, zeros)
+        out = quant.int8_ln_mlp_chunked(*args, n_chunks=2)
+        ref = quant.int8_ln_mlp_ref(*args, n_chunks=2)
+    elif name == "int8_block":
+        wq, sq = quant.quantize_weight(torch.randn(w, 3 * w))
+        w1_q, s1 = quant.quantize_weight(torch.randn(w, 4 * w))
+        w2_q, s2 = quant.quantize_weight(torch.randn(4 * w, w))
+        args = (x, ones, zeros, wq, sq, torch.zeros(3 * w), torch.randn(w, w), zeros, None, ones,
+                zeros, w1_q, s1, torch.zeros(4 * w), w2_q, s2, zeros)
+        out = quant.int8_block(*args, heads=4, plan_override=("chunked", 1, 2))
+        ref = quant.int8_block_ref(*args, heads=4, plan=("chunked", 1, 2))
+    elif name == "fused_attention_qkv_headgroups":
+        qkv = torch.randn(2, 8, 3 * w).to(torch.bfloat16)
+        out = attention.fused_attention_qkv_headgroups(qkv, heads=4, head_group=2)
+        ref = attention.fused_attention_qkv_headgroups_ref(qkv, None, 4)
     elif name == "fused_ln_mlp":
         args = (x, ones, zeros, torch.randn(w, 4 * w), torch.zeros(4 * w), torch.randn(4 * w, w),
                 zeros)

@@ -346,3 +346,88 @@ def test_text_block_int8_kernels_refuse_what_they_do_not_take(device):
         block_grad.text_block_fwd_int8(x, mask, bp, qw, lora, heads=16, scaling=2.0)
     assert (block_grad.text_block_fwd_int8.launches,
             block_grad.text_block_bwd_int8.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The zoo's kernels: rows 3 (chunked int8 MLP), 4 (whole int8 block), 8
+# (head-grouped core), and the large-S routes around them
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 257, 2), (2, 257, 4), (1, 577, 4)],
+                         ids=["L14_B1_C2", "L14_B2_C4", "L14_336_B1_C4"])
+def test_int8_mlp_chunked_kernel_matches_plain(device, shape):
+    """int8_ln_mlp at the ViT-L/14 widths takes the chunked kernel with the
+    JAX planner's chunk count (C=2 at one image, 4 at an even batch)."""
+    bsz, seq, n_chunks = shape
+    x, _, mlp_w = _inputs(device, bsz, seq, 1024)
+    assert quant._mlp_plan(bsz, seq, 1024, 4096, 2) == ("chunked", min(bsz, 2) if seq == 257
+                                                        else 1, n_chunks)
+    before = (quant.int8_ln_mlp.launches, quant.int8_ln_mlp_chunked.launches)
+    out = quant.int8_ln_mlp(x, *mlp_w)
+    torch.cuda.synchronize()
+    assert (quant.int8_ln_mlp.launches, quant.int8_ln_mlp_chunked.launches) == (
+        before[0], before[1] + 1)
+    _agree(out, quant.int8_ln_mlp_ref(x, *mlp_w, n_chunks=n_chunks))
+
+
+@pytest.mark.parametrize("case", [(2, 50, 768, 12, False, None), (4, 77, 512, 8, True, None),
+                                  (2, 197, 768, 12, False, ("chunked", 2, 4)),
+                                  (1, 257, 1024, 16, False, ("chunked", 1, 16))],
+                         ids=["B32_full", "text_full_causal", "B16_chunked", "L14_chunked"])
+def test_int8_block_kernel_matches_plain(device, case):
+    bsz, seq, width, heads, masked, override = case
+    x, attn, mlp_w = _inputs(device, bsz, seq, width)
+    mask = causal_mask(seq, device=device) if masked else None
+    plan = override or quant._block_plan(bsz, seq, width, 4 * width, 2)
+    before = quant.int8_block.launches
+    out = quant.int8_block(x, *attn, mask, *mlp_w, heads=heads, plan_override=override)
+    torch.cuda.synchronize()
+    assert quant.int8_block.launches == before + 1
+    _agree(out, quant.int8_block_ref(x, *attn, mask, *mlp_w, heads=heads, plan=plan))
+
+
+def test_headgroups_kernel_matches_plain_and_row7(device):
+    """Row 8 at ViT-L/14@336 (S=577, W=1024, H=16) at hg=8 against its plain
+    version; at hg=16 bit for bit the packed core (row 7) on the packed
+    layout of the same q, k, v."""
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.standard_normal((2, 577, 3072)).astype(np.float32)).to(
+        device, torch.bfloat16)
+    hm = qkv[..., torch.from_numpy(attention.headmajor_perm(1024, 16)).long().to(device)]
+    hm = hm.contiguous()
+    before = attention.fused_attention_qkv_headgroups.launches
+    out = attention.fused_attention_qkv_headgroups(hm, heads=16, head_group=8)
+    torch.cuda.synchronize()
+    _agree(out, attention.fused_attention_qkv_headgroups_ref(hm, None, 16))
+    row7 = attention.fused_attention_qkv(qkv[:, :257].contiguous(), heads=16)
+    all16 = attention.fused_attention_qkv_headgroups(hm[:, :257].contiguous(), heads=16,
+                                                     head_group=16)
+    assert torch.equal(all16, row7)
+    assert attention.fused_attention_qkv_headgroups.launches == before + 2
+    with pytest.raises(TypeError):  # fp32 K and V of a head at S=577 exceed shared memory
+        attention.fused_attention_qkv_headgroups(hm.float(), heads=16, head_group=8)
+
+
+def test_large_s_routes_match_plain_on_the_card(device):
+    """ViT-L/14@336's attention halves: the int8 one (int8 projection, row 8
+    on weights permuted head-major once) and the bf16 one (cuBLAS
+    projections around row 8) against their plain versions; fp32's packed
+    core overflows to the chunked reference on the card, no launch."""
+    x, attn, _ = _inputs(device, 1, 577, 1024)
+    before = attention.fused_attention_qkv_headgroups.launches
+    out = quant.int8_ln_qkv_attention(x, *attn, heads=16)
+    torch.cuda.synchronize()
+    assert attention.fused_attention_qkv_headgroups.launches == before + 1
+    _agree(out, quant.int8_ln_qkv_attention_ref(x, *attn, heads=16))
+    rng = np.random.default_rng(8)
+    wqkv = torch.from_numpy(rng.standard_normal((1024, 3072)).astype(np.float32) / 32).to(device)
+    args = (attn[0], attn[1], wqkv, attn[4], attn[5], attn[6])
+    out = attention.fused_ln_qkv_attention(x, *args, heads=16)
+    assert attention.fused_attention_qkv_headgroups.launches == before + 2
+    _agree(out, attention.fused_ln_qkv_attention_ref(x, *args, heads=16))
+    qkv = torch.from_numpy(rng.standard_normal((2, 577, 3072)).astype(np.float32)).to(device)
+    launches = attention.fused_attention_qkv.launches
+    out = attention.fused_attention_qkv(qkv, heads=16)
+    assert attention.fused_attention_qkv.launches == launches
+    _f32_agree(out, attention.attention_qkv_ref(qkv, None, 16))

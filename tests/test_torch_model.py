@@ -141,9 +141,9 @@ def test_bf16_unquantized_towers_match_jax(weights, tower, attn_impl):
     assert _row_cos(out.numpy(), ref).min() >= 0.9999
 
 
-BRANCHES = [  # (dtype, quantized tree, attn_impl) -> (attention half, MLP half)
-    ("bfloat16", True, "pallas", ("int8_ln_qkv_attention", "int8_ln_mlp")),
-    ("bfloat16", True, "pallas_mlp", ("int8_ln_qkv_attention", "int8_ln_mlp")),
+BRANCHES = [  # (dtype, quantized tree, attn_impl) -> (attention half, MLP half) or the block
+    ("bfloat16", True, "pallas", ("int8_block",)),
+    ("bfloat16", True, "pallas_mlp", ("int8_block",)),
     ("bfloat16", True, "xla", ("xla", "plain")),
     ("bfloat16", False, "pallas", ("fused_ln_qkv_attention", "plain")),
     ("bfloat16", False, "pallas_mlp", ("fused_ln_qkv_attention", "fused_ln_mlp")),
@@ -164,7 +164,7 @@ def test_block_takes_the_jax_branch(quantized, weights, monkeypatch, dtype, attn
     _, tp = weights
     tree = quant.quantize_model(tp) if quantized else tp
     calls = []
-    for mod, name in ((quant, "int8_ln_qkv_attention"), (quant, "int8_ln_mlp"),
+    for mod, name in ((quant, "int8_block"), (quant, "int8_ln_qkv_attention"), (quant, "int8_ln_mlp"),
                       (attention, "fused_ln_qkv_attention"), (attention, "fused_attention_qkv"),
                       (mlp, "fused_ln_mlp")):
         fn = getattr(mod, name)
@@ -175,7 +175,7 @@ def test_block_takes_the_jax_branch(quantized, weights, monkeypatch, dtype, attn
     out = clip.block(x.to(getattr(torch, dtype)), clip._layer(tree["visual"]["blocks"], 0), 4,
                      None, "quick_gelu", attn_impl)
     assert out.dtype == getattr(torch, dtype) and torch.isfinite(out.float()).all()
-    assert tuple(calls) + ("plain",) * (2 - len(calls)) == want
+    assert tuple(calls) + ("plain",) * (len(want) - len(calls)) == want
     with pytest.raises(ValueError, match="attn_impl"):
         clip.block(x, clip._layer(tree["visual"]["blocks"], 0), 4, None, "quick_gelu", "flash")
     # "auto" is the JAX trainer's resolution: the reference composition on

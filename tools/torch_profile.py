@@ -2,11 +2,13 @@
 """Where the time goes in the PyTorch port's classify path on one CUDA card.
 
     python3 tools/torch_profile.py [--config int8|bf16|fp32] [--attn-impl pallas|pallas_mlp]
+                                   [--model vit_b_16|vit_b_32|vit_l_14|vit_l_14_336]
                                    [--batch 256] [--iters 3]
     python3 tools/torch_profile.py --train fp32_auto|fp32_block_fused|bf16_block_fused|int8_text
                                    [--batch 256] [--iters 3]
 
-Builds a ViT-B/16 ``aiic_tpu_torch`` engine from a seeded init in one of the
+Builds an ``aiic_tpu_torch`` engine (``--model``, ViT-B/16 by default) from
+a seeded init in one of the
 serving configurations (``int8``: bf16 with int8 weights on the patch-major
 wire, the default; ``bf16``: bf16 without int8 weights, the worker's default;
 ``fp32``: the batch CLI's default; the last two on the HWC uint8 wire), warms
@@ -63,12 +65,15 @@ GROUPS = [  # (group, substring of the CUDA kernel name), first match wins
     ("block_ln_fwd", "ln_fwd_rows_kernel"),
     ("block_ln_bwd", "ln_bwd_rows_kernel"),
     ("attn_core_fp32", "attn_core_kernel<float"),
+    ("attn_core_headmajor", "64, true>"),
     ("attn_core_bf16", "attn_core_kernel"),
     ("int8_gemm_qkv", "EpiQKV"),
     ("bf16_gemm_qkv", "EpiBiasQKV"),
     ("bf16_gemm_out_proj", "EpiOutProj"),
     ("int8_gemm_c_fc_gelu", "EpiGelu"),
     ("int8_gemm_c_proj", "EpiResidual"),
+    ("int8_gemm_c_proj_chunked", "EpiMlpChunk"),
+    ("int8_mlp_chunk_sum", "mlp_chunk_sum_kernel"),
     ("bf16_gemm_c_fc_gelu", "EpiBiasGelu"),
     ("bf16_gemm_c_proj", "EpiMlpOut"),
     ("block_wmma_gemm_bf16", "gemm_kernel<__nv_bfloat16"),
@@ -80,6 +85,8 @@ GROUPS = [  # (group, substring of the CUDA kernel name), first match wins
     ("cublas_gemm", "gemm"),
     ("cublas_gemm", "sm90_"),
 ]
+MODELS = {"vit_b_16": "VIT_B_16", "vit_b_32": "VIT_B_32", "vit_l_14": "VIT_L_14",
+          "vit_l_14_336": "VIT_L_14_336"}
 CONFIGS = {  # engine options of each serving configuration
     "int8": dict(dtype="bfloat16", quantize=True, wire_format="patch"),
     "bf16": dict(dtype="bfloat16", quantize=False, wire_format="hwc"),
@@ -91,6 +98,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(CONFIGS), default="int8")
     ap.add_argument("--attn-impl", choices=["pallas", "pallas_mlp"], default="pallas")
+    ap.add_argument("--model", choices=sorted(MODELS), default="vit_b_16")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--train", choices=["fp32_auto", "fp32_block_fused", "bf16_block_fused",
@@ -106,22 +114,23 @@ def main(argv=None) -> int:
         return profile_train(args)
     from chip_smoke import TRAINING_DATA
     from aiic_tpu_torch.engine.analyzer import InteriorAnalyzer
-    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.models import config as configs
     from aiic_tpu_torch.ops.preprocess import to_patch_major
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     opts = dict(CONFIGS[args.config])
     opts["dtype"] = getattr(torch, opts["dtype"])
-    engine = InteriorAnalyzer(None, VIT_B_16, training_data=TRAINING_DATA, device="cuda",
+    model = getattr(configs, MODELS[args.model])
+    engine = InteriorAnalyzer(None, model, training_data=TRAINING_DATA, device="cuda",
                               attn_impl=args.attn_impl, **opts)
-    size = VIT_B_16.image_size
+    size = model.image_size
     px = np.random.default_rng(0).integers(0, 256, (args.batch, size, size, 3), dtype=np.uint8)
     engine.classify_pixels(px)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    wire = to_patch_major(px, VIT_B_16.patch_size) if opts["wire_format"] == "patch" else px
+    wire = to_patch_major(px, model.patch_size) if opts["wire_format"] == "patch" else px
     repack_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     torch.from_numpy(wire).to("cuda")
@@ -134,9 +143,9 @@ def main(argv=None) -> int:
     call_ms = (time.perf_counter() - t0) * 1e3 / args.iters
 
     traced = _trace(lambda: engine.classify_pixels(px), args.iters,
-                    f"{args.config}_{args.attn_impl}_b{args.batch}")
+                    f"{args.model}_{args.config}_{args.attn_impl}_b{args.batch}")
     print(json.dumps({
-        "card": card, "config": args.config, "attn_impl": args.attn_impl,
+        "card": card, "model": model.name, "config": args.config, "attn_impl": args.attn_impl,
         "batch": args.batch, "call_ms": call_ms,
         "images_per_s": args.batch / call_ms * 1e3,
         "host_repack_ms": repack_ms, "host_to_device_ms": h2d_ms, **traced,
