@@ -15,6 +15,9 @@ module names so each counterpart is easy to find:
 - ``train``   — LoRA fine-tuning of the text tower (``train_lora``), its
                 optimizer, state checkpoints and evaluation; ``cli`` holds
                 its command line (``python -m aiic_tpu_torch.cli.train_lora``).
+- ``probes``  — probes that answer the TPU tools' questions on the card
+                (``python -m aiic_tpu_torch.probes.mxu_probe``: the
+                tensor-core rate of the port's own WMMA product).
 - ``data``, ``utils`` — the port's own copies of the JAX-free host helpers it
                 needs (tokenizer, dataset and prompts, preprocessing,
                 normalization constants, batch buckets), each held to its

@@ -13,11 +13,15 @@
 //   fp32/int32 tile goes through shared memory to a per-element epilogue
 //   functor that does the dequant, bias, activation or residual. A transposed
 //   B (kTransB, for dy @ W^T) and a split depth (blockIdx.z) are options.
-// - attn_core_kernel<T, D, kHeadMajor>: the streaming no-max attention core
-//   on a (B, S, 3W) projection, for bf16 and fp32, its columns packed
-//   [Q | K | V] or head-major [q_h | k_h | v_h] per head. Rows 1, 5, 7 and 8
-//   of the TPU kernel table share it; T is the rounding policy (q*c, p and
-//   the output round to T, which is a no-op for fp32).
+// - attn_core_kernel<T, D, L>: the streaming no-max attention core, for
+//   bf16 and fp32, on a (B, S, 3W) projection whose columns are packed
+//   [Q | K | V] or head-major [q_h | k_h | v_h] per head, or on three
+//   separate (B, S, H, D) arrays. Rows 1, 5, 6, 7 and 8 of the TPU kernel
+//   table share it; T is the rounding policy (q*c, p and the output round to
+//   T, which is a no-op for fp32).
+// - block_core_bwd_kernel<T, TO>: the attention-core backward with the
+//   S x S probabilities in shared memory, one block per (head, image), for
+//   S <= 128 (rows 9, 12 and 14).
 //
 // Built with -fmad=false so the epilogues' a*b+c round twice, as the plain
 // PyTorch versions do; the products themselves use the tensor cores or
@@ -158,6 +162,51 @@ template <typename T> struct GemmTypes;
 template <> struct GemmTypes<int8_t> { using frag = signed char; using acc = int; };
 template <> struct GemmTypes<bf16> { using frag = __nv_bfloat16; using acc = float; };
 
+template <typename T>
+using GemmAcc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
+                                       typename GemmTypes<T>::acc>;
+
+// The B tile of k-step k0 (rows k0..k0+kBK of a row-major (K, N) B, columns
+// n0..n0+kBN) into Bs[n/16][k][16], one 16-byte vector per load.
+template <typename T>
+__device__ __forceinline__ void load_b_tile(T (*Bs)[kBK][16], const T* __restrict__ B, int N,
+                                            int n0, int k0, int tid) {
+  constexpr int kVec = 16 / sizeof(T);
+  for (int c = tid; c < kBK * kBN / kVec; c += kGemmThreads) {
+    const int kr = c / (kBN / kVec), nc = (c % (kBN / kVec)) * kVec;
+    *reinterpret_cast<uint4*>(&Bs[nc / 16][kr][nc % 16]) =
+        *reinterpret_cast<const uint4*>(B + static_cast<size_t>(k0 + kr) * N + n0 + nc);
+  }
+}
+
+// One k-step of the block tile: warp (wm, wn)'s 4x2 fragments += As . Bs
+// (Bs read as the transposed view [k/16][n][16] when kTransB).
+template <typename T, bool kTransB>
+__device__ __forceinline__ void mma_ktile(T (*As)[kBM][16], T (*Bs)[kBK][16],
+                                          GemmAcc<T> (&acc)[4][2], int wm, int wn) {
+  using namespace nvcuda;
+  using FragT = typename GemmTypes<T>::frag;
+  using BLayout = typename std::conditional<kTransB, wmma::col_major, wmma::row_major>::type;
+  T (*const Bt)[kBN][16] = reinterpret_cast<T (*)[kBN][16]>(&Bs[0][0][0]);
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, FragT, wmma::row_major> a[4];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, FragT, BLayout> b[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      wmma::load_matrix_sync(a[i], reinterpret_cast<const FragT*>(&As[kk][wm * 64 + i * 16][0]), 16);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const T* bj = kTransB ? &Bt[kk][(wn * 2 + j) * 16][0] : &Bs[wn * 2 + j][kk * 16][0];
+      wmma::load_matrix_sync(b[j], reinterpret_cast<const FragT*>(bj), 16);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+  }
+}
+
 // Block tile 128x128, k-step 32; 8 warps as 2 (rows) x 4 (cols), each warp
 // 64x32 = 4x2 fragments. Shared tiles are stored as 16-wide planes
 // (As[k/16][m][16], Bs[n/16][k][16]) so every fragment pointer is 256-bit
@@ -175,9 +224,7 @@ __global__ void __launch_bounds__(kGemmThreads)
 gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int K, int ksplit,
             Epi epi) {
   using namespace nvcuda;
-  using FragT = typename GemmTypes<T>::frag;
   using Acc = typename GemmTypes<T>::acc;
-  using BLayout = typename std::conditional<kTransB, wmma::col_major, wmma::row_major>::type;
   constexpr int kVec = 16 / sizeof(T);
   __shared__ __align__(128) T As[kBK / 16][kBM][16];
   __shared__ __align__(128) T Bs[kBN / 16][kBK][16];
@@ -189,7 +236,7 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int 
   const int kb = blockIdx.z * ksplit, ke = min(K, kb + ksplit);
   T (*const Bt)[kBN][16] = reinterpret_cast<T (*)[kBN][16]>(&Bs[0][0][0]);  // kTransB view
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[4][2];
+  GemmAcc<T> acc[4][2];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -210,30 +257,10 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int 
             *reinterpret_cast<const uint4*>(B + static_cast<size_t>(n0 + nr) * K + k0 + kc);
       }
     } else {
-      for (int c = tid; c < kBK * kBN / kVec; c += kGemmThreads) {
-        const int kr = c / (kBN / kVec), nc = (c % (kBN / kVec)) * kVec;
-        *reinterpret_cast<uint4*>(&Bs[nc / 16][kr][nc % 16]) =
-            *reinterpret_cast<const uint4*>(B + static_cast<size_t>(k0 + kr) * N + n0 + nc);
-      }
+      load_b_tile(Bs, B, N, n0, k0, tid);
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, FragT, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, FragT, BLayout> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], reinterpret_cast<const FragT*>(&As[kk][wm * 64 + i * 16][0]), 16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const T* bj = kTransB ? &Bt[kk][(wn * 2 + j) * 16][0] : &Bs[wn * 2 + j][kk * 16][0];
-        wmma::load_matrix_sync(b[j], reinterpret_cast<const FragT*>(bj), 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
+    mma_ktile<T, kTransB>(As, Bs, acc, wm, wn);
     __syncthreads();
   }
 
@@ -335,21 +362,29 @@ template <> __device__ __forceinline__ void store2<float>(float* p, float a, flo
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
+// Where the core finds q, k and v: one (B, S, 3W) projection with columns
+// [Q | K | V] (kPacked) or [q_h | k_h | v_h] per head (kHeadMajor), or three
+// separate (B, S, W) arrays, W = H*D, head h at columns h*D (kSeparate).
+enum class QKVLayout { kPacked, kHeadMajor, kSeparate };
+
 // Grid (query tiles, hg, B * H/hg), one thread per query row; head
 // h = (z % (H/hg)) * hg + y of image z / (H/hg), where hg is the head group
-// (H for the packed layout, so the grid is (query tiles, H, B)). Columns of
-// head h: q, k, v at h*D, W + h*D, 2W + h*D (packed) or at 3hD, 3hD + D,
-// 3hD + 2D (kHeadMajor); the output is the head concat, h*D. Scores
+// (H for the other layouts, so the grid is (query tiles, H, B)). Columns of
+// head h: q, k, v at h*D, W + h*D, 2W + h*D of one row of 3W (kPacked), at
+// 3hD, 3hD + D, 3hD + 2D (kHeadMajor), or at h*D of a row of W in q, k and
+// v (kSeparate); the packed layouts pass the projection as q, k and v. The
+// output is the head concat, h*D of a row of W. Scores
 // s = (T(q*c) . k) in fp32 with c = T(scale*log2 e) (the caller rounds c);
 // s += mask*log2 e; p = exp2(min(s, 70 log2 e)); l += p; o += T(p) * v;
 // out = T(o * (1 / max(l, 1e-38))). A -inf mask entry gives p = 0. The
 // no-max softmax needs no running-max rescale, so one streaming pass over the
-// keys is exact. The head group only tiles the grid: every head runs the
-// same arithmetic in either layout. Dynamic shared memory: K and V of the
-// head, 2*S*D of T.
-template <typename T, int D, bool kHeadMajor>
+// keys is exact. The head group only tiles the grid and the layout only
+// moves the columns: every head runs the same arithmetic. Dynamic shared
+// memory: K and V of the head, 2*S*D of T.
+template <typename T, int D, QKVLayout L>
 __global__ void __launch_bounds__(kCoreThreads)
-attn_core_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+attn_core_kernel(const T* __restrict__ qsrc, const T* __restrict__ ksrc,
+                 const T* __restrict__ vsrc, const float* __restrict__ mask,
                  T* __restrict__ out, int S, int W, int groups, float qconst) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kVec = 16 / sizeof(T);
@@ -357,16 +392,16 @@ attn_core_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   T* vs = ks + static_cast<size_t>(S) * D;
   const int h = static_cast<int>(blockIdx.z % groups) * gridDim.y + blockIdx.y;
   const size_t row0 = static_cast<size_t>(blockIdx.z / groups) * S;
-  const size_t ld = 3 * static_cast<size_t>(W);
-  const int qo = kHeadMajor ? 3 * h * D : h * D;
-  const int ko = kHeadMajor ? qo + D : qo + W;
-  const int vo = kHeadMajor ? qo + 2 * D : qo + 2 * W;
+  const size_t ld = L == QKVLayout::kSeparate ? static_cast<size_t>(W) : 3 * static_cast<size_t>(W);
+  const int qo = L == QKVLayout::kHeadMajor ? 3 * h * D : h * D;
+  const int ko = L == QKVLayout::kPacked ? qo + W : L == QKVLayout::kHeadMajor ? qo + D : qo;
+  const int vo = L == QKVLayout::kPacked ? qo + 2 * W : L == QKVLayout::kHeadMajor ? qo + 2 * D : qo;
 
   for (int idx = threadIdx.x; idx < S * (D / kVec); idx += kCoreThreads) {
     const int s = idx / (D / kVec), d = (idx % (D / kVec)) * kVec;
-    const T* src = qkv + (row0 + s) * ld + d;
-    *reinterpret_cast<uint4*>(ks + s * D + d) = *reinterpret_cast<const uint4*>(src + ko);
-    *reinterpret_cast<uint4*>(vs + s * D + d) = *reinterpret_cast<const uint4*>(src + vo);
+    const size_t at = (row0 + s) * ld + d;
+    *reinterpret_cast<uint4*>(ks + s * D + d) = *reinterpret_cast<const uint4*>(ksrc + at + ko);
+    *reinterpret_cast<uint4*>(vs + s * D + d) = *reinterpret_cast<const uint4*>(vsrc + at + vo);
   }
   __syncthreads();
 
@@ -374,7 +409,7 @@ attn_core_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   if (qi >= S) return;
 
   float q[D], o[D];
-  const T* qrow = qkv + (row0 + qi) * ld + qo;
+  const T* qrow = qsrc + (row0 + qi) * ld + qo;
 #pragma unroll
   for (int d = 0; d < D; d += 2) {
     const float2 v = load2<T>(qrow + d);
@@ -420,14 +455,178 @@ attn_core_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
 template <typename T, bool kHeadMajor = false>
 cudaError_t launch_attn_core(const T* qkv, const float* mask, T* out, int B, int S, int W,
                              int H, float qconst, cudaStream_t st, int head_group = 0) {
+  constexpr QKVLayout L = kHeadMajor ? QKVLayout::kHeadMajor : QKVLayout::kPacked;
   if (head_group <= 0) head_group = H;
   const int smem = 2 * S * kHeadDim * static_cast<int>(sizeof(T));
   if (W != H * kHeadDim || H % head_group || smem > kMaxDynamicSmem) return cudaErrorInvalidValue;
-  AIIC_CHECK(cudaFuncSetAttribute(attn_core_kernel<T, kHeadDim, kHeadMajor>,
+  AIIC_CHECK(cudaFuncSetAttribute(attn_core_kernel<T, kHeadDim, L>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   const dim3 grid((S + kCoreThreads - 1) / kCoreThreads, head_group, B * (H / head_group));
-  attn_core_kernel<T, kHeadDim, kHeadMajor><<<grid, kCoreThreads, smem, st>>>(
-      qkv, mask, out, S, W, H / head_group, qconst);
+  attn_core_kernel<T, kHeadDim, L><<<grid, kCoreThreads, smem, st>>>(
+      qkv, qkv, qkv, mask, out, S, W, H / head_group, qconst);
+  return cudaGetLastError();
+}
+
+// q, k, v, out (B*S, H*D) each, mask (S, S) fp32 or null. Needs K/V of one
+// head within the shared memory a block may use.
+template <typename T, int D>
+cudaError_t launch_attn_core_bshd(const T* q, const T* k, const T* v, const float* mask, T* out,
+                                  int B, int S, int H, float qconst, cudaStream_t st) {
+  const int smem = 2 * S * D * static_cast<int>(sizeof(T));
+  if (B <= 0 || S <= 0 || H <= 0 || smem > kMaxDynamicSmem) return cudaErrorInvalidValue;
+  AIIC_CHECK(cudaFuncSetAttribute(attn_core_kernel<T, D, QKVLayout::kSeparate>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  const dim3 grid((S + kCoreThreads - 1) / kCoreThreads, H, B);
+  attn_core_kernel<T, D, QKVLayout::kSeparate><<<grid, kCoreThreads, smem, st>>>(
+      q, k, v, mask, out, S, H * D, 1, qconst);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Attention-core backward, one block per (head, image), one thread per row
+// ---------------------------------------------------------------------------
+
+constexpr int kBlockCoreThreads = 128;  // one thread per query row: S <= 128
+
+template <typename T> __device__ __forceinline__ void store_as(T* p, float v);
+template <> __device__ __forceinline__ void store_as<float>(float* p, float v) { *p = v; }
+template <> __device__ __forceinline__ void store_as<bf16>(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Row i of the normalized probabilities into prow: s_j = q . k_j (q already
+// scaled and rounded), + mask*log2 e, p = exp2(min(s, 70 log2 e)),
+// p *= 1 / max(sum p, 1e-38).
+__device__ __forceinline__ void probs_row(const float* q, const float* Ks, const float* mrow,
+                                          float* prow, int S) {
+  float l = 0.f;
+  for (int j = 0; j < S; ++j) {
+    const float* kr = Ks + j * kHeadDim;
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < kHeadDim; ++d) s = fmaf(q[d], kr[d], s);
+    s = s + mrow[j] * kLog2e;
+    const float p = exp2f(fminf(s, kExp2Clamp));
+    prow[j] = p;
+    l += p;
+  }
+  const float inv = 1.0f / fmaxf(l, 1e-38f);
+  for (int j = 0; j < S; ++j) prow[j] = prow[j] * inv;
+}
+
+// dqkv = TO([dq | dk | dv]) of one head from qkv and g = da, the
+// probabilities recomputed as in the forward:
+//   dv = T(p)^T g;  dp = g v^T;  ds = T((p (dp - rowsum(dp p))) scale);
+//   dq = ds k;  dk = ds^T q.
+// TO is T where dqkv only feeds a product that rounds it to T, fp32 where it
+// feeds a row quantizer (the int8 block).
+// Dynamic shared memory: Q, K, V, G (S x 64) and P (S x S, then ds), fp32.
+template <typename T, typename TO>
+__global__ void __launch_bounds__(kBlockCoreThreads)
+block_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
+                      const float* __restrict__ mask, TO* __restrict__ dqkv, int S, int W,
+                      float qconst, float scale) {
+  extern __shared__ float sm[];
+  float* Qs = sm;
+  float* Ks = Qs + S * kHeadDim;
+  float* Vs = Ks + S * kHeadDim;
+  float* Gs = Vs + S * kHeadDim;
+  float* P = Gs + S * kHeadDim;
+  const int h = blockIdx.x;
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * S, ld = 3 * static_cast<size_t>(W);
+  for (int idx = threadIdx.x; idx < S * kHeadDim; idx += kBlockCoreThreads) {
+    const size_t r = row0 + idx / kHeadDim;
+    const int c = h * kHeadDim + idx % kHeadDim;
+    const T* src = qkv + r * ld + c;
+    Qs[idx] = to_f32(src[0]);
+    Ks[idx] = to_f32(src[W]);
+    Vs[idx] = to_f32(src[2 * W]);
+    Gs[idx] = to_f32(da[r * W + c]);
+  }
+  __syncthreads();
+  const int i = threadIdx.x;
+  const bool live = i < S;
+  float acc[kHeadDim];
+  if (live) {
+#pragma unroll
+    for (int d = 0; d < kHeadDim; ++d) acc[d] = round_as<T>(Qs[i * kHeadDim + d] * qconst);
+    probs_row(acc, Ks, mask + static_cast<size_t>(i) * S, P + i * S, S);
+  }
+  __syncthreads();
+  TO* out = dqkv + (row0 + i) * ld + h * kHeadDim;
+  if (live) {  // dv for key row i
+#pragma unroll
+    for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
+    for (int r = 0; r < S; ++r) {
+      const float pr = round_as<T>(P[r * S + i]);
+      const float* gr = Gs + r * kHeadDim;
+#pragma unroll
+      for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(pr, gr[d], acc[d]);
+    }
+#pragma unroll
+    for (int d = 0; d < kHeadDim; ++d) store_as<TO>(out + 2 * W + d, acc[d]);
+  }
+  __syncthreads();  // every column of P is read; row i may now become ds
+  if (live) {
+    // g row i into registers: read from shared memory in the loops below,
+    // the 64-float row stride would put all 32 lanes on one bank.
+#pragma unroll
+    for (int d = 0; d < kHeadDim; ++d) acc[d] = Gs[i * kHeadDim + d];
+    float* prow = P + i * S;
+    float rs = 0.f;
+    for (int j = 0; j < S; ++j) {
+      const float* vr = Vs + j * kHeadDim;
+      float dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < kHeadDim; ++d) dp = fmaf(acc[d], vr[d], dp);
+      rs += dp * prow[j];
+    }
+    for (int j = 0; j < S; ++j) {  // dp again, in the same order
+      const float* vr = Vs + j * kHeadDim;
+      float dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < kHeadDim; ++d) dp = fmaf(acc[d], vr[d], dp);
+      prow[j] = round_as<T>((prow[j] * (dp - rs)) * scale);
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+#pragma unroll
+  for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
+  for (int j = 0; j < S; ++j) {  // dq = ds k
+    const float ds = P[i * S + j];
+    const float* kr = Ks + j * kHeadDim;
+#pragma unroll
+    for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(ds, kr[d], acc[d]);
+  }
+#pragma unroll
+  for (int d = 0; d < kHeadDim; ++d) store_as<TO>(out + d, acc[d]);
+#pragma unroll
+  for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
+  for (int r = 0; r < S; ++r) {  // dk = ds^T q
+    const float ds = P[r * S + i];
+    const float* qr = Qs + r * kHeadDim;
+#pragma unroll
+    for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(ds, qr[d], acc[d]);
+  }
+#pragma unroll
+  for (int d = 0; d < kHeadDim; ++d) store_as<TO>(out + W + d, acc[d]);
+}
+
+// Needs 0 < S <= kBlockCoreThreads, W == H*64 and the (4 S 64 + S^2) fp32
+// of shared memory within what a block may use (S <= 128 always is: 196,608
+// B at S=128).
+template <typename T, typename TO>
+cudaError_t launch_core_bwd(const T* qkv, const T* da, const float* mask, TO* dqkv, int B, int S,
+                            int W, int H, float qconst, cudaStream_t st) {
+  const int smem = (4 * S * kHeadDim + S * S) * static_cast<int>(sizeof(float));
+  if (S <= 0 || S > kBlockCoreThreads || W != H * kHeadDim || smem > kMaxDynamicSmem)
+    return cudaErrorInvalidValue;
+  AIIC_CHECK(cudaFuncSetAttribute(block_core_bwd_kernel<T, TO>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));  // dim ** -0.5, exact for 64
+  block_core_bwd_kernel<T, TO><<<dim3(H, B), kBlockCoreThreads, smem, st>>>(
+      qkv, da, mask, dqkv, S, W, qconst, scale);
   return cudaGetLastError();
 }
 

@@ -38,7 +38,9 @@
 //   so a run repeats bit for bit;
 // - the attention core: one block per (image, head), one thread per query
 //   row, q/k/v (and g in the backward) and the S x S probabilities in shared
-//   memory (the backward's opt-in is 102,564 B at S=77 in fp32).
+//   memory (the backward's opt-in is 102,564 B at S=77 in fp32); the
+//   backward is common.cuh's block_core_bwd_kernel, which row 9
+//   (attention_qkv_bwd.cu) launches too.
 //
 // What bounds it on the H100: at B=256 text rows (S=77, W=512, M=2048, H=8,
 // rank 16) the forward does 131.0 GFLOP and the backward 227.3 (it recomputes
@@ -98,13 +100,6 @@ namespace {
 constexpr float kGeluK = 1.702f;
 constexpr int kRowChunk = 256;        // rows per partial of a LoRA cotangent
 constexpr int kDepthChunk = 256;      // depth per partial of a rank-r down-projection
-constexpr int kBlockCoreThreads = 128;  // one thread per query row: S <= 128
-
-template <typename T> __device__ __forceinline__ void store_as(T* p, float v);
-template <> __device__ __forceinline__ void store_as<float>(float* p, float v) { *p = v; }
-template <> __device__ __forceinline__ void store_as<bf16>(bf16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // sigmoid(1.702 f) in fp32, as 1 / (1 + exp(-y)).
 __device__ __forceinline__ float sigmoid_gelu(float f) {
@@ -552,27 +547,8 @@ cudaError_t launch_ln_bwd(const TIn* xin, const float* dh, const float* s, const
 
 // ---------------------------------------------------------------------------
 // Attention core: one block per (head, image), one thread per query row
+// (the backward, block_core_bwd_kernel, and probs_row are in common.cuh)
 // ---------------------------------------------------------------------------
-
-// Row i of the normalized probabilities into prow: s_j = q . k_j (q already
-// scaled and rounded), + mask*log2 e, p = exp2(min(s, 70 log2 e)),
-// p *= 1 / max(sum p, 1e-38).
-__device__ __forceinline__ void probs_row(const float* q, const float* Ks, const float* mrow,
-                                          float* prow, int S) {
-  float l = 0.f;
-  for (int j = 0; j < S; ++j) {
-    const float* kr = Ks + j * kHeadDim;
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) s = fmaf(q[d], kr[d], s);
-    s = s + mrow[j] * kLog2e;
-    const float p = exp2f(fminf(s, kExp2Clamp));
-    prow[j] = p;
-    l += p;
-  }
-  const float inv = 1.0f / fmaxf(l, 1e-38f);
-  for (int j = 0; j < S; ++j) prow[j] = prow[j] * inv;
-}
 
 // a = T(T(p) . v) per row. Dynamic shared memory: K, V (S x 64) and P (S x S), fp32.
 template <typename T>
@@ -613,105 +589,6 @@ block_core_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   for (int d = 0; d < kHeadDim; ++d) store_as<T>(dst + d, o[d]);
 }
 
-// dqkv = TO([dq | dk | dv]) of one head from qkv and g = da, the
-// probabilities recomputed as in the forward:
-//   dv = T(p)^T g;  dp = g v^T;  ds = T((p (dp - rowsum(dp p))) scale);
-//   dq = ds k;  dk = ds^T q.
-// TO is T where dqkv only feeds a product that rounds it to T, fp32 where it
-// feeds a row quantizer (the int8 block).
-// Dynamic shared memory: Q, K, V, G (S x 64) and P (S x S, then ds), fp32.
-template <typename T, typename TO>
-__global__ void __launch_bounds__(kBlockCoreThreads)
-block_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
-                      const float* __restrict__ mask, TO* __restrict__ dqkv, int S, int W,
-                      float qconst, float scale) {
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* Ks = Qs + S * kHeadDim;
-  float* Vs = Ks + S * kHeadDim;
-  float* Gs = Vs + S * kHeadDim;
-  float* P = Gs + S * kHeadDim;
-  const int h = blockIdx.x;
-  const size_t row0 = static_cast<size_t>(blockIdx.y) * S, ld = 3 * static_cast<size_t>(W);
-  for (int idx = threadIdx.x; idx < S * kHeadDim; idx += kBlockCoreThreads) {
-    const size_t r = row0 + idx / kHeadDim;
-    const int c = h * kHeadDim + idx % kHeadDim;
-    const T* src = qkv + r * ld + c;
-    Qs[idx] = to_f32(src[0]);
-    Ks[idx] = to_f32(src[W]);
-    Vs[idx] = to_f32(src[2 * W]);
-    Gs[idx] = to_f32(da[r * W + c]);
-  }
-  __syncthreads();
-  const int i = threadIdx.x;
-  const bool live = i < S;
-  float acc[kHeadDim];
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) acc[d] = round_as<T>(Qs[i * kHeadDim + d] * qconst);
-    probs_row(acc, Ks, mask + static_cast<size_t>(i) * S, P + i * S, S);
-  }
-  __syncthreads();
-  TO* out = dqkv + (row0 + i) * ld + h * kHeadDim;
-  if (live) {  // dv for key row i
-#pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
-    for (int r = 0; r < S; ++r) {
-      const float pr = round_as<T>(P[r * S + i]);
-      const float* gr = Gs + r * kHeadDim;
-#pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(pr, gr[d], acc[d]);
-    }
-#pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) store_as<TO>(out + 2 * W + d, acc[d]);
-  }
-  __syncthreads();  // every column of P is read; row i may now become ds
-  if (live) {
-    // g row i into registers: read from shared memory in the loops below,
-    // the 64-float row stride would put all 32 lanes on one bank.
-#pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) acc[d] = Gs[i * kHeadDim + d];
-    float* prow = P + i * S;
-    float rs = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float* vr = Vs + j * kHeadDim;
-      float dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) dp = fmaf(acc[d], vr[d], dp);
-      rs += dp * prow[j];
-    }
-    for (int j = 0; j < S; ++j) {  // dp again, in the same order
-      const float* vr = Vs + j * kHeadDim;
-      float dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) dp = fmaf(acc[d], vr[d], dp);
-      prow[j] = round_as<T>((prow[j] * (dp - rs)) * scale);
-    }
-  }
-  __syncthreads();
-  if (!live) return;
-#pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
-  for (int j = 0; j < S; ++j) {  // dq = ds k
-    const float ds = P[i * S + j];
-    const float* kr = Ks + j * kHeadDim;
-#pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(ds, kr[d], acc[d]);
-  }
-#pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) store_as<TO>(out + d, acc[d]);
-#pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
-  for (int r = 0; r < S; ++r) {  // dk = ds^T q
-    const float ds = P[r * S + i];
-    const float* qr = Qs + r * kHeadDim;
-#pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(ds, qr[d], acc[d]);
-  }
-#pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) store_as<TO>(out + W + d, acc[d]);
-}
-
 template <typename T>
 cudaError_t launch_core_fwd(const T* qkv, const float* mask, T* a, int B, int S, int W, int H,
                             float qconst, cudaStream_t st) {
@@ -719,18 +596,6 @@ cudaError_t launch_core_fwd(const T* qkv, const float* mask, T* a, int B, int S,
   AIIC_CHECK(cudaFuncSetAttribute(block_core_fwd_kernel<T>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   block_core_fwd_kernel<T><<<dim3(H, B), kBlockCoreThreads, smem, st>>>(qkv, mask, a, S, W, qconst);
-  return cudaGetLastError();
-}
-
-template <typename T, typename TO>
-cudaError_t launch_core_bwd(const T* qkv, const T* da, const float* mask, TO* dqkv, int B, int S,
-                            int W, int H, float qconst, cudaStream_t st) {
-  const int smem = (4 * S * kHeadDim + S * S) * static_cast<int>(sizeof(float));
-  AIIC_CHECK(cudaFuncSetAttribute(block_core_bwd_kernel<T, TO>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));  // dim ** -0.5, exact for 64
-  block_core_bwd_kernel<T, TO><<<dim3(H, B), kBlockCoreThreads, smem, st>>>(
-      qkv, da, mask, dqkv, S, W, qconst, scale);
   return cudaGetLastError();
 }
 

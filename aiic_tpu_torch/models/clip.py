@@ -14,8 +14,8 @@ lifted to fp32, which is exact for bf16 inputs, with TF32 off.
 ``attn_impl`` takes the JAX package's values and branch order
 (``aiic_tpu.models.clip.block``):
 
-- ``"pallas"`` (the default; what JAX's ``"auto"`` gives on its
-  accelerator): bf16 blocks run the int8 kernels of ``ops.quant`` when the
+- ``"pallas"`` (the default; what ``"auto"`` gives on the card, as JAX's
+  does on its accelerator): bf16 blocks run the int8 kernels of ``ops.quant`` when the
   tree carries ``attn_q``/``mlp_q`` (the whole-block kernel ``int8_block``
   where ``_block_plan`` gives a full plan of two images or more, as JAX's
   auto rule takes it, and ``AIIC_FUSED_BLOCK`` = ``0``/``1`` turns it off or
@@ -40,8 +40,10 @@ lifted to fp32, which is exact for bf16 inputs, with TF32 off.
   (``ops.block_grad.text_block_lora_int8``) where the tree carries
   ``attn_q``/``mlp_q``, the preconditions of ``"block_fused"`` hold and the
   JAX package's int8 gate admits the geometry; otherwise ``"block_fused"``;
-- ``"auto"``: ``"pallas_vjp"`` on a CUDA tensor, ``"xla"`` on the CPU (the
-  JAX trainer's resolution on its accelerator and elsewhere).
+- ``"auto"``: ``"pallas"`` on a CUDA tensor, ``"xla"`` on the CPU, as
+  JAX's ``resolve_attn_impl`` resolves it on its accelerator and elsewhere
+  (the trainer resolves its own ``"auto"`` to ``"pallas_vjp"`` on the card
+  before it calls a block).
 
 LoRA adapters ride along as a stacked tree (``adapters.lora``) on the
 ``out_proj``, ``c_fc`` and ``c_proj`` linears (``lora_delta``); with
@@ -79,11 +81,12 @@ ATTN_IMPLS = ("auto", "pallas", "pallas_mlp", "pallas_vjp", "block_fused", "bloc
               "xla")
 
 
-def resolve_attn_impl(impl: str, x: torch.Tensor) -> str:
-    """``"auto"`` -> ``"pallas_vjp"`` for a CUDA tensor, ``"xla"`` on the CPU."""
+def resolve_attn_impl(impl: str, device_type: str) -> str:
+    """``"auto"`` -> ``"pallas"`` for a tensor on the card (``device_type``
+    ``"cuda"``), ``"xla"`` elsewhere."""
     if impl != "auto":
         return impl
-    return "pallas_vjp" if x.is_cuda else "xla"
+    return "pallas" if device_type == "cuda" else "xla"
 
 
 def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
@@ -157,7 +160,7 @@ def attention(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tenso
     autograd with the stable-softmax backward under ``pallas_vjp``, the
     stable-softmax composition under ``xla``. ``lora_out`` adapts the
     output projection."""
-    attn_impl = resolve_attn_impl(attn_impl, x)
+    attn_impl = resolve_attn_impl(attn_impl, x.device.type)
     qkv = linear(x, p["wqkv"], p["bqkv"])
     if attn_impl in ("pallas", "pallas_mlp"):
         out = attention_ops.fused_attention_qkv(qkv, mask, heads=heads)
@@ -187,7 +190,7 @@ def block(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tensor],
     c_fc, c_proj."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    attn_impl = resolve_attn_impl(attn_impl, x)
+    attn_impl = resolve_attn_impl(attn_impl, x.device.type)
     quick = gelu_type == "quick_gelu"
     lora = lora or {}
     l_out, l_fc, l_proj = (lora.get(k) for k in ATTACH_POINTS)

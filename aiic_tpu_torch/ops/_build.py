@@ -87,6 +87,12 @@ _SIGNATURES = {
     "aiic_text_block_int8_bwd": [_P] * 32 + [_I] * 9 + [_F] * 3 + [_P],
     # A, B, out, M, N, K, ksplit, stream (the int8 A @ B^T alone, for tests)
     "aiic_int8_matmul_t": [_P] * 3 + [_I] * 4 + [_P],
+    # q, k, v, mask, out, B, S, H, D, qconst, fp32, stream
+    "aiic_attention_bshd": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    # qkv, mask, g, dqkv, ws, B, S, W, H, qconst, fp32, streaming, stream
+    "aiic_attention_qkv_bwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+    # x, w, out, rows, W, M, inner, body, stream
+    "aiic_mxu_probe": [_P] * 3 + [_I] * 5 + [_P],
 }
 _RESTYPES = {"aiic_text_block_workspace": ctypes.c_longlong,
              "aiic_text_block_int8_workspace": ctypes.c_longlong}

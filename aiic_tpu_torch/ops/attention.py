@@ -1,5 +1,4 @@
-"""Attention: the port of the parts of ``aiic_tpu.ops.attention`` that the
-serving paths run, with two Hopper kernels.
+"""Attention: the port of ``aiic_tpu.ops.attention``, with its Hopper kernels.
 
 - ``exp2_rows`` / ``_denom_guard``: the clamped no-max softmax in the log2
   domain that every attention kernel runs (``scale·log2(e)`` is folded into
@@ -15,6 +14,16 @@ serving paths run, with two Hopper kernels.
   projection ([q_h | k_h | v_h] per head, ``headmajor_perm``), bf16 (TPU
   kernel ``_attention_qkv_hg_kernel``); kernel ``csrc/attention_qkv.cu``,
   plain version ``fused_attention_qkv_headgroups_ref``.
+- ``fused_attention`` / ``flash_attention``: the same core on three separate
+  (B, S, H, D) q, k, v (TPU kernel ``_attention_kernel``, row 6), bf16 or
+  fp32, head dim 64 or 8; kernel ``csrc/attention.cu``, plain version
+  ``fused_attention_ref``. No engine reaches it, as in the JAX package.
+- ``fused_attention_qkv_bwd``: the hand-written core backward on the packed
+  projection (TPU kernel ``_attention_qkv_bwd_kernel``, row 9), bf16 or
+  fp32; kernel ``csrc/attention_qkv_bwd.cu`` (one tile at S <= 128, two
+  streaming passes above), plain version ``fused_attention_qkv_bwd_ref``.
+  No engine or trainer reaches it: ``fused_attention_qkv_vjp`` keeps the JAX
+  package's autograd backward.
 - ``attention_qkv_ref``: the reference stable-softmax composition on a fused
   (B, S, 3W) projection (``_attention_qkv_xla``), the ``attn_impl="xla"``
   path; ``_attention_qkv_xla_chunked`` runs it in batch chunks, where the
@@ -56,7 +65,9 @@ from aiic_tpu_torch.ops._build import (
 # unnormalized fp32 p@v accumulation bounded (197 · e^70 · |v| ≪ fp32 max).
 LOG2E = 1.4426950408889634
 _EXP2_CLAMP = 70.0 * LOG2E
-_HEAD_DIM = 64  # the only head dim the Hopper kernels take
+_HEAD_DIM = 64  # the head dim of the kernels on the packed projection
+_BSHD_DIMS = (8, 64)  # the head dims row 6's kernel (separate q, k, v) is built for
+_BWD_TILE_ROWS = 128  # row 9 holds the S x S tile up to this S (faster there), then streams
 _MAX_SMEM = 232448  # dynamic shared memory a block may opt into on sm_90
 
 
@@ -303,6 +314,46 @@ def fused_ln_qkv_attention_ref(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask=No
     return (xf + out).to(x.dtype)
 
 
+def fused_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The TPU kernel's core (``_attention_kernel``) on (B, S, H, D) q, k, v,
+    in q's dtype: the math of ``fused_attention_qkv_ref`` on separate
+    arrays. The TPU kernel's padding of S and D to 128 (padded keys masked
+    with -inf, padded D columns zero) is layout and does not enter it."""
+    no_tf32()
+    return _core_ref(q, k, v, mask, q.dtype).reshape(q.shape)
+
+
+def fused_attention_qkv_bwd_ref(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                                g: torch.Tensor, *, heads: int) -> torch.Tensor:
+    """The TPU kernel's core backward (``_attention_qkv_bwd_kernel``) on a
+    fused (B, S, 3W) projection and a (B, S, W) cotangent, in qkv's dtype T:
+    p recomputed with the forward's clamped no-max exp2 (q·T(scale·log2 e)
+    rounded to T, fp32 scores plus mask·log2 e) and normalized in fp32;
+    dv = T(p)ᵀ·T(g); dp = T(g)·vᵀ; ds = T(p∘(dp − rowsum(dp∘p))·scale);
+    dq = ds·k; dk = dsᵀ·q; products in fp32. ``mask`` None is no mask."""
+    no_tf32()
+    dtype = qkv.dtype
+    bsz, seq, w3 = qkv.shape
+    dim = w3 // 3 // heads
+    scale = dim ** -0.5
+    q, k, v = _split_heads(qkv, heads)
+    gh = g.to(dtype).reshape(bsz, seq, heads, dim).float()
+    qs = q * torch.tensor(scale * LOG2E, dtype=dtype, device=q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    if mask is not None:
+        s = s + mask.float() * LOG2E
+    p = exp2_rows(s)
+    p = p * (1.0 / _denom_guard(p.sum(dim=-1, keepdim=True)))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dtype).float(), gh)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, v.float())
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = (ds * scale).to(dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return torch.cat([t.reshape(bsz, seq, w3 // 3) for t in (dq, dk, dv)], dim=-1).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Hopper kernels (aiic_tpu_torch/csrc), launched through ctypes
 # ---------------------------------------------------------------------------
@@ -399,6 +450,68 @@ def _fused_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask,
     return out
 
 
+def _fused_attention_cuda(q, k, v, mask):
+    name = "fused_attention"
+    if (q.dtype not in (torch.float32, torch.bfloat16) or q.dim() != 4
+            or any(t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                   for t in (k, v))):
+        raise ValueError(f"{name}: the Hopper kernel takes fp32 or bf16 (B, S, H, D) q, k, v of "
+                         f"one shape, type and device, got {q.dtype} {tuple(q.shape)}, "
+                         f"{k.dtype} {tuple(k.shape)}, {v.dtype} {tuple(v.shape)}")
+    bsz, seq, heads, dim = q.shape
+    if dim not in _BSHD_DIMS:
+        raise ValueError(f"{name}: the Hopper kernel is built for head dims {_BSHD_DIMS}, got {dim}")
+    if seq < 1 or 2 * seq * dim * q.element_size() > _MAX_SMEM:
+        raise ValueError(f"{name}: K and V of one head at S={seq} do not fit shared memory")
+    lib = load_library()
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
+    dev = q.device
+    mask = mask_arg(mask, seq, dev)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.aiic_attention_bshd(ptr(q), ptr(k), ptr(v), ptr(mask), ptr(out), bsz, seq, heads,
+                                 dim, ctypes.c_float(_qconst(dim, q.dtype)),
+                                 int(q.dtype == torch.float32), stream)
+    check(name, rc)
+    return out
+
+
+def _fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, streaming: bool):
+    """Row 9 on the card: the one-tile kernel, or with ``streaming`` the
+    two-pass form (the public wrapper takes it above S = 128; both routes
+    agree bit for bit where both apply)."""
+    name = "fused_attention_qkv_bwd"
+    if qkv.dtype not in (torch.float32, torch.bfloat16) or qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"{name}: the Hopper kernel takes fp32 or bf16 (B, S, 3W), got "
+                         f"{qkv.dtype} {tuple(qkv.shape)}")
+    bsz, seq, w3 = qkv.shape
+    width = w3 // 3
+    if width % heads or width // heads != _HEAD_DIM:
+        raise ValueError(f"{name}: the Hopper kernel needs head_dim {_HEAD_DIM}, got W={width}, "
+                         f"H={heads}")
+    if seq < 1 or (not streaming and seq > _BWD_TILE_ROWS):
+        raise ValueError(f"{name}: the one-tile kernel takes 1 <= S <= {_BWD_TILE_ROWS}, got {seq}")
+    if g.shape != (bsz, seq, width) or g.device != qkv.device:
+        raise ValueError(f"{name}: g must be {(bsz, seq, width)} on {qkv.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    lib = load_library()
+    dev = qkv.device
+    qkv, g = qkv.contiguous(), g.to(qkv.dtype).contiguous()
+    mask = mask_arg(mask, seq, dev)
+    if mask is None:
+        mask = torch.zeros((seq, seq), dtype=torch.float32, device=dev)
+    out = torch.empty_like(qkv)
+    ws = torch.empty(2 * bsz * heads * seq, dtype=torch.float32, device=dev) if streaming else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.aiic_attention_qkv_bwd(ptr(qkv), ptr(mask), ptr(g), ptr(out), ptr(ws), bsz, seq,
+                                    width, heads, ctypes.c_float(_qconst(_HEAD_DIM, qkv.dtype)),
+                                    int(qkv.dtype == torch.float32), int(streaming), stream)
+    check(name, rc)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Public wrappers (JAX signatures)
 # ---------------------------------------------------------------------------
@@ -484,6 +597,43 @@ def fused_ln_qkv_attention(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask=None, 
     out = _fused_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask,
                                        heads, eps)
     fused_ln_qkv_attention.launches += 1
+    return out
+
+
+@counted
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None, *, block_pairs: int = 8) -> torch.Tensor:
+    """(B, S, H, D) q, k, v -> (B, S, H, D) in q's dtype; ``mask`` an
+    additive (S, S) float or None. ``block_pairs`` is the TPU grid's
+    (batch, head) pairs per step: accepted for the signature, it does not
+    enter the math."""
+    del block_pairs
+    if not route("fused_attention", q):
+        return fused_attention_ref(q, k, v, mask)
+    out = _fused_attention_cuda(q, k, v, mask)
+    fused_attention.launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's dispatch: the kernel for a CUDA tensor, the plain
+    version for a CPU one, so it is valid on every device."""
+    return fused_attention(q, k, v, mask)
+
+
+@counted
+def fused_attention_qkv_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor], g: torch.Tensor, *,
+                            heads: int) -> torch.Tensor:
+    """(B, S, 3W) qkv, (S, S) additive mask (None: none) and (B, S, W) output
+    cotangent -> (B, S, 3W) qkv cotangent in qkv's dtype; g is cast to qkv's
+    dtype, as ``_fa_vjp_bwd`` casts it. On the card: the one-tile kernel up
+    to S = 128, the two-pass streaming form above."""
+    g = g.to(qkv.dtype)
+    if not route("fused_attention_qkv_bwd", qkv):
+        return fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads)
+    out = _fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, streaming=qkv.shape[1] > _BWD_TILE_ROWS)
+    fused_attention_qkv_bwd.launches += 1
     return out
 
 

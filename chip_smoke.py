@@ -14,14 +14,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and at L/14@336 (C=4), the whole int8 block (full at ViT-B/32 and at the
    text shape with the causal mask; chunked at ViT-B/16 on (2, 4) and at
    L/14 on (1, 16)), the head-grouped core at S=577 (hg=8; hg=16 bit for
-   bit the packed core);
-4. the paths: four full-width ViT-B/16 ``InteriorAnalyzer`` engines from
-   one seeded init (int8 serving on the patch wire; bf16 unquantized, the
-   worker's default; bf16 with ``attn_impl="pallas_mlp"``; fp32, the batch
-   CLI's default; the last three on the HWC uint8 wire), each answering
-   requests of 1, 7 and 64 images with every kernel's launch count set to 0
-   before and checked exactly after against the launches that the copied
-   JAX planners give each tower at each bucket;
+   bit the packed core); the attention-core ops no engine reaches: row 6
+   (``flash_attention``) at ViT-B/16 (B=2 and 256), at the text shape
+   (causal) and at D=8, row 9 (``fused_attention_qkv_bwd``) at S=77 causal
+   (one tile; its streaming form bit for bit the same) and S=197 (two
+   streaming passes) for B = 1, 7, 64 and 256, both in fp32 and bf16, and
+   the three tensor-core probe kernels (row 17) at INNER=3 and at the
+   probe's INNER=64, each with the counts set to 0 before and exactly one
+   launch after;
+4. the paths: five full-width ViT-B/16 ``InteriorAnalyzer`` engines from
+   one seeded init (int8 serving on the patch wire; the same with
+   ``attn_impl="auto"``, which must launch exactly what the int8 engine
+   does; bf16 unquantized, the worker's default; bf16 with
+   ``attn_impl="pallas_mlp"``; fp32, the batch CLI's default; the last
+   three on the HWC uint8 wire), each answering requests of 1, 7 and 64
+   images with every kernel's launch count set to 0 before and checked
+   exactly after against the launches that the copied JAX planners give
+   each tower at each bucket (0 of rows 6, 9 and 17, as in the JAX
+   package);
 5. the same weights and 4 images through the int8 and the bf16 unquantized
    engines on the CPU (plain path): feature cosine, verdicts and top-1
    categories against the card;
@@ -53,7 +63,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    single-image p50 latency of the int8 and the bf16 unquantized engines;
    train-step ms at batch 256 (cached image features, dense text rows) on
    the four training paths; the steady-state images/s of a ``train_lora``
-   epoch;
+   epoch; row 6 at B=256 ViT-B/16 beside ``scaled_dot_product_attention``;
+   row 9 at 256 text rows and 256 ViT-B/16 images beside the autograd
+   backward that ``pallas_vjp`` runs and SDPA's backward; the fp32
+   ``pallas_vjp`` step at 256 rows as shipped and with row 9 as its core
+   backward (held to the shipped step at the fp32 step bar); the three
+   probe kernels beside ``torch.matmul`` / ``torch._int_mm``;
 10. the zoo: full-width, full-depth engines from one seeded init per preset
    (int8 ViT-B/32, ViT-L/14 and ViT-L/14@336 on the patch wire; bf16 L/14
    and L/14@336 and fp32 L/14@336 on the HWC wire), each answering 1, 7 and
@@ -63,7 +78,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``tools/zoo_cosine.py``); then the zoo kernels timed at B=256 (row 3 at
    L/14, row 4 at B/32, row 8 at L/14@336 beside
    ``scaled_dot_product_attention``) and images/s at B=256 and single-image
-   p50 of the three int8 engines.
+   p50 of the three int8 engines;
+11. this slice's path: rows 6, 9 and 17 through the entry points a user
+   calls (``flash_attention`` on 256 ViT-B/16 images in fp32 and bf16,
+   ``fused_attention_qkv_bwd`` on 256 text rows and 256 ViT-B/16 images,
+   ``python -m aiic_tpu_torch.probes.mxu_probe 5``'s run), every count set
+   to 0 before and checked exactly after.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -158,6 +178,26 @@ KERNELS = {
         "source": "aiic_tpu_torch/csrc/attention_qkv.cu",
         "replaces": "aiic_tpu/ops/attention.py:563",
     },
+    "fused_attention": {
+        "source": "aiic_tpu_torch/csrc/attention.cu",
+        "replaces": "aiic_tpu/ops/attention.py:313",
+    },
+    "fused_attention_qkv_bwd": {
+        "source": "aiic_tpu_torch/csrc/attention_qkv_bwd.cu",
+        "replaces": "aiic_tpu/ops/attention.py:728",
+    },
+    "mxu_bf16": {
+        "source": "aiic_tpu_torch/csrc/mxu_probe.cu",
+        "replaces": "tools/mxu_probe.py:38",
+    },
+    "mxu_i8": {
+        "source": "aiic_tpu_torch/csrc/mxu_probe.cu",
+        "replaces": "tools/mxu_probe.py:51",
+    },
+    "mxu_i8_quant": {
+        "source": "aiic_tpu_torch/csrc/mxu_probe.cu",
+        "replaces": "tools/mxu_probe.py:62",
+    },
 }
 
 # NVIDIA H100 SXM5 data sheet: dense peaks by operand type, and HBM3.
@@ -171,6 +211,8 @@ CONFIGS = {
     "bf16_pallas_mlp": dict(dtype="bfloat16", quantize=False, wire_format="hwc",
                             attn_impl="pallas_mlp"),
     "fp32": dict(dtype="float32", quantize=False, wire_format="hwc", attn_impl="pallas"),
+    # the JAX engine's default attn_impl: on the card it must be the int8 path
+    "int8_auto": dict(dtype="bfloat16", quantize=True, wire_format="patch", attn_impl="auto"),
 }
 # The paths of phase 4 (ViT-B/16) and of the zoo (phase 10): configuration, preset.
 PATHS = {label: (label, "VIT_B_16") for label in CONFIGS}
@@ -484,6 +526,113 @@ def phase_zoo_kernels(device) -> dict:
     return worst
 
 
+# Row 6: label, (B, S, H, D, causal); row 9: label, (B, S, H, causal).
+ROW6_CASES = [("ViT-B/16 B=2", (2, 197, 12, 64, False)), ("ViT-B/16 B=256", (256, 197, 12, 64, False)),
+              ("text B=7 causal", (7, 77, 8, 64, True)), ("D=8 B=2 causal", (2, 16, 4, 8, True))]
+ROW9_CASES = ([(f"S=77 causal B={b}", (b, 77, 8, True)) for b in (1, 7, 64, 256)]
+              + [(f"S=197 B={b}", (b, 197, 12, False)) for b in (1, 7, 64, 256)])
+PROBE_CHECK_INNER = 3  # the probe kernels against their plain versions at a small INNER
+
+
+def _randn(gen, shape, dtype, device):
+    import torch
+
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def _one_launch(name: str, fn):
+    """fn() with every launch count set to 0 before; afterwards exactly one
+    launch of ``name`` and none of any other kernel."""
+    import torch
+
+    from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = launch_counts()
+    if got != {n: int(n == name) for n in got}:
+        raise AssertionError(f"expected one launch of {name} alone, got "
+                             f"{ {n: c for n, c in got.items() if c} }")
+    return out
+
+
+def _row9_inputs(gen, bsz, seq, heads, causal, dtype, device):
+    from aiic_tpu_torch.models.clip import causal_mask
+
+    w = 64 * heads
+    return (_randn(gen, (bsz, seq, 3 * w), dtype, device), _randn(gen, (bsz, seq, w), dtype, device),
+            causal_mask(seq, device=device) if causal else None)
+
+
+def phase_core_ops_kernels(device) -> dict:
+    """Phase 3, rows 6, 9 and 17 against their plain versions, each call
+    with the counts at 0 before and one launch after. Row 9 at S=77 runs the
+    one-tile kernel, the text-block backward's core (common.cuh's
+    block_core_bwd_kernel, the same instantiation ``text_block_bwd``
+    launches); its two-pass streaming form must repeat it bit for bit. The
+    probe's int8 body must be exact, at a small INNER and at the INNER that
+    ``mxu_probe.run`` launches."""
+    import torch
+
+    from aiic_tpu_torch.models.clip import causal_mask
+    from aiic_tpu_torch.ops import attention
+    from aiic_tpu_torch.probes import mxu_probe
+
+    gen = torch.Generator(device=device).manual_seed(30)
+    worst, results = {}, []
+
+    def record(name, label, out, ref, key=None, **extra):
+        a = _agreement(out, ref)
+        a.update(kernel=name, case=label, **extra)
+        results.append(a)
+        log(f"[kernels] {name:24s} {label:20s} {a['dtype']:8s} max_abs_err={a['max_abs_err']:.6g} "
+            f"max_rel_err={a['max_rel_err']:.3g} within_2ulp={a['within_2ulp']:.6f} "
+            f"min_row_cos={a['min_row_cos']:.8f}"
+            + "".join(f" {k}={v}" for k, v in extra.items()))
+        if not a["ok"]:
+            raise AssertionError(f"{name} disagrees with its plain version on {label}: {a}")
+        key = key or name + ("" if out.dtype == torch.float32 else "_bf16")
+        worst[key] = max(worst.get(key, 0.0), a["max_abs_err"])
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, (bsz, seq, heads, dim, causal) in ROW6_CASES:
+            q, k, v = (_randn(gen, (bsz, seq, heads, dim), dtype, device) for _ in range(3))
+            mask = causal_mask(seq, device=device) if causal else None
+            out = _one_launch("fused_attention", lambda: attention.flash_attention(q, k, v, mask))
+            record("fused_attention", label, out, attention.fused_attention_ref(q, k, v, mask))
+            del q, k, v, out
+        for label, (bsz, seq, heads, causal) in ROW9_CASES:
+            qkv, g, mask = _row9_inputs(gen, bsz, seq, heads, causal, dtype, device)
+            out = _one_launch("fused_attention_qkv_bwd", lambda: attention.fused_attention_qkv_bwd(
+                qkv, mask, g, heads=heads))
+            extra = {}
+            if seq <= attention._BWD_TILE_ROWS:
+                streamed = attention._fused_attention_qkv_bwd_cuda(qkv, mask, g, heads,
+                                                                   streaming=True)
+                extra["streaming_bit_identical"] = bool(torch.equal(streamed, out))
+                if not extra["streaming_bit_identical"]:
+                    raise AssertionError(f"row 9's streaming form differs from its one-tile "
+                                         f"kernel on {label} {dtype}")
+            record("fused_attention_qkv_bwd", label, out,
+                   attention.fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads), **extra)
+    x_bf, x_i8, w_bf, w_i8 = mxu_probe.inputs(device)
+    for inner in (PROBE_CHECK_INNER, mxu_probe.INNER):
+        for name, (x, w) in (("mxu_bf16", (x_bf, w_bf)), ("mxu_i8", (x_i8, w_i8)),
+                             ("mxu_i8_quant", (x_bf, w_i8))):
+            out = _one_launch(name, lambda: getattr(mxu_probe, name)(x, w, inner))
+            ref = getattr(mxu_probe, name + "_ref")(x, w, inner)
+            exact = bool(torch.equal(out, ref))
+            if name == "mxu_i8" and not exact:
+                raise AssertionError(f"the int8 probe kernel is not exact at INNER={inner}")
+            record(name, f"rows={x.shape[0]} INNER={inner}", out, ref, key=name,
+                   bit_identical=exact)
+            del out, ref
+    torch.cuda.empty_cache()
+    REPORT["core_ops_kernel_checks"] = results
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-5: the slice, and the CPU comparison
 # ---------------------------------------------------------------------------
@@ -648,6 +797,12 @@ def phase_slice(device):
         _add(launches, counts)
         if label in ("int8", "bf16"):  # compared with the CPU and timed below
             engines[label] = engine
+    paths = REPORT["paths"]
+    same = all(paths["int8_auto"][k] == paths["int8"][k] for k in ("launches_at_build", "launches"))
+    log(f"[path int8_auto] launches equal to the int8 (pallas) engine's: {same}")
+    if not same:
+        raise AssertionError(f"attn_impl='auto' launched {paths['int8_auto']['launches']}, the "
+                             f"int8 engine {paths['int8']['launches']}")
     return engines, params, launches
 
 
@@ -1426,6 +1581,206 @@ def _kernel_times(calls, times, label: str, card: str) -> None:
             f"library {t['library_ms']} ms ({card})")
 
 
+def _sdpa_bshd_times(q, k, v, mask) -> dict:
+    """``scaled_dot_product_attention`` on the same (B, S, H, D) q, k, v as
+    (B, H, S, D) with the additive mask in q's dtype; the transposes there
+    and back timed apart."""
+    import torch
+
+    split = lambda: [t.transpose(1, 2).contiguous() for t in (q, k, v)]  # noqa: E731
+    qh, kh, vh = split()
+    m = None if mask is None else mask.to(q.dtype)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=m)  # noqa: E731
+    o = sdpa()
+    merge = lambda: o.transpose(1, 2).contiguous()  # noqa: E731
+    return {"library_ms": min(_time_ms(sdpa, 10), _time_ms(sdpa, 10)),
+            "transpose_ms": _time_ms(split, 10) + _time_ms(merge, 10)}
+
+
+def _bwd_yardsticks(qkv, mask, g, heads: int) -> dict:
+    """Row 9's two comparisons: the backward that ``pallas_vjp`` runs today
+    (``_AttentionQKVVJP.backward``: the stable composition recomputed at qkv
+    and differentiated by autograd), and ``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` on the same q, k, v with the additive
+    mask (its forward kept; the transposes out of and back into the packed
+    layout timed apart)."""
+    import torch
+
+    from aiic_tpu_torch.ops import attention
+
+    bsz, seq, w3 = qkv.shape
+    dim = w3 // 3 // heads
+
+    def autograd():
+        with torch.enable_grad():
+            t = qkv.detach().requires_grad_()
+            return torch.autograd.grad(attention.attention_qkv_ref(t, mask, heads), t, g)[0]
+
+    split = lambda: [t.contiguous() for t in qkv.view(bsz, seq, 3, heads, dim).permute(2, 0, 3, 1, 4)]  # noqa: E731
+    go_split = lambda: g.view(bsz, seq, heads, dim).transpose(1, 2).contiguous()  # noqa: E731
+    with torch.enable_grad():
+        qh, kh, vh = (t.detach().requires_grad_() for t in split())
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=None if mask is None else mask.to(qkv.dtype))
+    go = go_split()
+    bwd = lambda: torch.autograd.grad(o, (qh, kh, vh), go, retain_graph=True)  # noqa: E731
+    grads = bwd()
+    merge = lambda: torch.stack(grads, 2).permute(0, 3, 2, 1, 4).reshape(bsz, seq, w3)  # noqa: E731
+    res = {"autograd_ms": min(_time_ms(autograd, 3), _time_ms(autograd, 3)),
+           "library_ms": min(_time_ms(bwd, 10), _time_ms(bwd, 10)),
+           "transpose_ms": _time_ms(split, 10) + _time_ms(go_split, 10) + _time_ms(merge, 10)}
+    del o, grads
+    return res
+
+
+def _row9_step_times(params, device, card: str) -> dict:
+    """One fp32 ``pallas_vjp`` train step at 256 dense text rows (cached
+    image features) as shipped and with row 9 as the core's backward, in
+    turns (shipped, row 9, row 9, shipped; 3 timed steps after one each);
+    the first row 9 step launches exactly 24 row 7 forwards (12 and 12
+    recomputed under remat) and 11 row 9 backwards (the first block's qkv
+    needs no gradient: its input carries none and LoRA attaches after the
+    core), and its loss, gradient and update agree with the shipped step's
+    at the fp32 step bar."""
+    import torch
+
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.ops import attention
+    from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+    from aiic_tpu_torch.train import make_optimizer, make_train_step
+
+    class Row9VJP(torch.autograd.Function):
+        """The ``pallas_vjp`` core with row 9 as its backward, made here to
+        time the swap; the package keeps the JAX pairing."""
+
+        @staticmethod
+        def forward(ctx, qkv, mask, heads):
+            ctx.heads = heads
+            ctx.save_for_backward(qkv, mask)
+            return attention.fused_attention_qkv(qkv, mask, heads=heads)
+
+        @staticmethod
+        def backward(ctx, g):
+            qkv, mask = ctx.saved_tensors
+            return attention.fused_attention_qkv_bwd(qkv, mask, g, heads=ctx.heads), None, None
+
+    rng = np.random.default_rng(11)
+    feats, tokens = _step_batch(rng, 256, device)
+    lora = _lora_init(rng, device)
+    cfg = _train_config(TRAIN_PATHS["fp32_auto"][0], epochs=2, batch_size=256)
+    opt = make_optimizer(cfg, steps_per_epoch=4)
+    step, _ = make_train_step(VIT_B_16, cfg, opt, cached_image=True, device=device)
+    shipped = attention.fused_attention_qkv_vjp
+    first, ms = {}, {"shipped": [], "row9": []}
+    for variant in ("shipped", "row9", "row9", "shipped"):
+        attention.fused_attention_qkv_vjp = Row9VJP.apply if variant == "row9" else shipped
+        try:
+            reset_launch_counts()
+            loss, tree, state = step(params, lora, opt.init(lora), feats, tokens)
+            torch.cuda.synchronize()
+            counts = {n: c for n, c in launch_counts().items() if c}
+            first.setdefault(variant, ((float(loss), tree, state, cfg.lr), counts))
+            for _ in range(3):
+                t0 = time.perf_counter()
+                loss, tree, state = step(params, tree, state, feats, tokens)
+                float(loss)
+                ms[variant].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            attention.fused_attention_qkv_vjp = shipped
+    want = {"fused_attention_qkv": 24, "fused_attention_qkv_bwd": 11}
+    if first["row9"][1] != want or first["shipped"][1] != {"fused_attention_qkv": 24}:
+        raise AssertionError(f"row 9 step launches {first['row9'][1]} (want {want}), shipped "
+                             f"{first['shipped'][1]}")
+    agree = _step_agreement(first["row9"][0], first["shipped"][0], True)
+    res = {"train_step_fp32_pallas_vjp_shipped": {"ms": min(ms["shipped"]), "all_ms": ms["shipped"]},
+           "train_step_fp32_pallas_vjp_row9": {"ms": min(ms["row9"]), "all_ms": ms["row9"],
+                                               "launches": first["row9"][1], "vs_shipped": agree}}
+    log(f"[timing] train step fp32 pallas_vjp B=256: shipped {res['train_step_fp32_pallas_vjp_shipped']['ms']:.2f} "
+        f"ms {ms['shipped']}, row 9 backward {res['train_step_fp32_pallas_vjp_row9']['ms']:.2f} ms "
+        f"{ms['row9']}; row 9 step vs shipped: loss rel {agree['loss_rel']:.3g}, moment "
+        f"{agree['moment']} ({card})")
+    if not agree["ok"]:
+        raise AssertionError(f"the step with row 9 disagrees with the shipped one: {agree}")
+    return res
+
+
+def phase_core_ops_timing(device, card: str, params) -> dict:
+    """Phase 9 for rows 6, 9 and 17: row 6 at 256 ViT-B/16 images beside
+    SDPA; row 9 at 256 text rows (S=77, causal: the train step's shape) and
+    at 256 ViT-B/16 images beside the autograd backward and SDPA's; the
+    probe kernels at the TPU probe's geometry beside the library's
+    products; the ``pallas_vjp`` step with and without row 9. Launch
+    counts are put back."""
+    import torch
+
+    from aiic_tpu_torch.ops import _build, attention
+    from aiic_tpu_torch.probes import mxu_probe
+
+    saved = _build.launch_counts()
+    gen = torch.Generator(device=device).manual_seed(31)
+    times = {}
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        shape, kind = (256, 197, 12, 64), ("fp32" if dtype == torch.float32 else "bf16")
+        q, k, v = (_randn(gen, shape, dtype, device) for _ in range(3))
+        name = "fused_attention" + suffix
+        _kernel_times({name: (lambda: attention.flash_attention(q, k, v),
+                              lambda: attention.fused_attention_ref(q, k, v), (q, k, v),
+                              {kind: 4 * 256 * 12 * 197 * 197 * 64})},
+                      times, f"B=256 S=197 H=12 D=64 {kind}", card)
+        times[name].update(_sdpa_bshd_times(q, k, v, None))
+        log(f"[timing] {name:24s} SDPA {times[name]['library_ms']:.3f} ms, transposes "
+            f"{times[name]['transpose_ms']:.3f} ms ({card})")
+        del q, k, v
+        for tag, (bsz, seq, heads, causal) in (("_text", (256, 77, 8, True)),
+                                               ("_vit", (256, 197, 12, False))):
+            qkv, g, mask = _row9_inputs(gen, bsz, seq, heads, causal, dtype, device)
+            name = "fused_attention_qkv_bwd" + tag + suffix
+            _kernel_times({name: (
+                lambda: attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads),
+                lambda: attention.fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads),
+                (qkv, mask, g), {kind: 10 * bsz * heads * seq * seq * 64})},
+                times, f"B={bsz} S={seq} H={heads} {kind}", card)
+            times[name].update(_bwd_yardsticks(qkv, mask, g, heads))
+            t = times[name]
+            log(f"[timing] {name:24s} autograd backward (pallas_vjp) {t['autograd_ms']:.3f} ms, "
+                f"SDPA backward {t['library_ms']:.3f} ms, transposes {t['transpose_ms']:.3f} ms "
+                f"({card})")
+            if seq <= attention._BWD_TILE_ROWS:
+                # The two-pass form where the one-tile kernel also applies,
+                # so that the two routes are compared within this run.
+                streamed = lambda: attention._fused_attention_qkv_bwd_cuda(  # noqa: E731
+                    qkv, mask, g, heads, streaming=True)
+                t["streaming_ms"] = min(_time_ms(streamed, 10), _time_ms(streamed, 10))
+                t["one_tile_ms"] = min(_time_ms(lambda: attention.fused_attention_qkv_bwd(
+                    qkv, mask, g, heads=heads), 10) for _ in range(2))
+                log(f"[timing] {name:24s} streaming form {t['streaming_ms']:.3f} ms, the one-tile "
+                    f"kernel timed after it {t['one_tile_ms']:.3f} ms ({card})")
+            del qkv, g
+            torch.cuda.empty_cache()
+    times["fused_attention_qkv_bwd"] = times["fused_attention_qkv_bwd_text"]
+    x_bf, x_i8, w_bf, w_i8 = mxu_probe.inputs(device)
+    operands = {"mxu_bf16": (x_bf, w_bf), "mxu_i8": (x_i8, w_i8), "mxu_i8_quant": (x_bf, w_i8)}
+    ops = 2 * x_bf.shape[0] * mxu_probe.W * mxu_probe.M * mxu_probe.INNER
+    for name, (kernel, libraries, kind) in mxu_probe.bodies(x_bf, x_i8, w_bf, w_i8).items():
+        x, w = operands[name]
+        plain = getattr(mxu_probe, name + "_ref")
+        _kernel_times({name: (kernel, lambda: plain(x, w, mxu_probe.INNER), (x, w), {kind: ops})},
+                      times, f"{x.shape[0]} rows x {mxu_probe.INNER} products", card)
+        t = times[name]
+        t["tera_ops_per_s"] = ops / t["ms"] / 1e9
+        t["library_ms_by_w_layout"] = {layout: min(_time_ms(lib, 2), _time_ms(lib, 2))
+                                       for layout, lib in libraries.items()}
+        t["library_ms"] = min(t["library_ms_by_w_layout"].values(), default=None)
+        log(f"[timing] {name:24s} {t['tera_ops_per_s']:.1f} T(FL)OP/s of the {kind} peak "
+            f"{mxu_probe.PEAK_OPS[kind] / 1e12:.1f}; library by w layout "
+            f"{t['library_ms_by_w_layout']} ms ({card})")
+    times.update(_row9_step_times(params, device, card))
+    for fn in _build._COUNTED.values():
+        fn.launches = saved[fn.__name__]
+    REPORT.setdefault("timing", {}).update(times)
+    return times
+
+
 def phase_timing(device, card: str, engines, params) -> dict:
     """Phase 9. Launches made here are not the paths': the counts are
     saved before and put back after."""
@@ -1468,6 +1823,65 @@ def phase_timing(device, card: str, engines, params) -> dict:
     return times
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: rows 6, 9 and 17 through their entry points
+# ---------------------------------------------------------------------------
+
+
+def phase_core_ops(device) -> dict:
+    """This slice's path: the public entry points of rows 6, 9 and 17 at the
+    shapes their users give them, every count set to 0 before and checked
+    exactly after: ``flash_attention`` on 256 ViT-B/16 images in fp32 and
+    bf16 (2 launches), ``fused_attention_qkv_bwd`` on 256 text rows (S=77,
+    causal, the one-tile kernel) and 256 ViT-B/16 images (S=197, the
+    streaming form) in fp32 (2), and ``python -m
+    aiic_tpu_torch.probes.mxu_probe 5``'s ``run(5)`` (1 + 5 launches of each
+    probe kernel). The outputs are finite and of their shapes, the probe's
+    rates positive."""
+    import torch
+
+    from aiic_tpu_torch.ops import attention
+    from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+    from aiic_tpu_torch.probes import mxu_probe
+
+    gen = torch.Generator(device=device).manual_seed(32)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (_randn(gen, (256, 197, 12, 64), dtype, device) for _ in range(3))
+        outs.append((attention.flash_attention(q, k, v), q.shape))
+        del q, k, v
+    for bsz, seq, heads, causal in ((256, 77, 8, True), (256, 197, 12, False)):
+        qkv, g, mask = _row9_inputs(gen, bsz, seq, heads, causal, torch.float32, device)
+        outs.append((attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads), qkv.shape))
+        del qkv, g
+    probe = mxu_probe.run(5)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launch_counts()
+    want = {"fused_attention": 2, "fused_attention_qkv_bwd": 2, "mxu_bf16": 6, "mxu_i8": 6,
+            "mxu_i8_quant": 6}
+    log(f"[path core_ops] {seconds:.2f} s; launches {({n: c for n, c in got.items() if c})} "
+        f"(expected {want}, 0 for the others)")
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"core ops path: {name} launched {n} times, expected "
+                                 f"{want.get(name, 0)}")
+    for out, shape in outs:
+        if out.shape != shape or not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"core ops path: an output of shape {tuple(out.shape)} "
+                                 f"(want {tuple(shape)}) or not finite")
+    for name, r in probe["bodies"].items():
+        if not (np.isfinite(r["ms"]) and r["ms"] > 0 and r["tera_ops_per_s"] > 0):
+            raise AssertionError(f"probe {name}: {r}")
+    del outs
+    torch.cuda.empty_cache()
+    REPORT["core_ops_path"] = {"seconds": seconds, "launches": got, "expected": want}
+    REPORT["mxu_probe"] = probe
+    return {name: n for name, n in got.items() if n}
+
+
 def main() -> int:
     import torch
 
@@ -1492,6 +1906,7 @@ def main() -> int:
     worst = phase_kernels(device)
     worst.update(phase_zoo_kernels(device))
     worst.update(phase_text_block_kernels(device))
+    worst.update(phase_core_ops_kernels(device))
     engines, params, launches = phase_slice(device)
     for label, engine in engines.items():
         phase_cpu_compare(label, engine, params)
@@ -1501,11 +1916,14 @@ def main() -> int:
         phase_train_compare(params, device)
         phase_lora_engines(params, device, engines["int8"], root)
     times = phase_timing(device, card, engines, params)
+    times.update(phase_core_ops_timing(device, card, params))
     times["train_lora_epoch_images_per_s"] = epoch_rates
     del engines, params
     zoo_engines, zoo_launches = phase_zoo(device)
     _add(launches, zoo_launches)
     times.update(phase_zoo_timing(device, card, zoo_engines))
+    del zoo_engines
+    _add(launches, phase_core_ops(device))
     REPORT["wall_s"] = time.perf_counter() - T0
     log(f"[wall] chip_smoke.py took {REPORT['wall_s']:.1f} s ({card})")
 

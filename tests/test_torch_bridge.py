@@ -35,6 +35,7 @@ from aiic_tpu_torch.models.init import (
     save_clip_weights,
 )
 from aiic_tpu_torch.ops import _build, attention, block_grad, mlp, quant
+from aiic_tpu_torch.probes import mxu_probe
 from aiic_tpu_torch.utils import batching
 
 torch.set_num_threads(2)
@@ -107,7 +108,8 @@ def test_params_from_numpy_and_npz_round_trip(tmp_path):
 KERNEL_WRAPPERS = ["int8_ln_mlp", "int8_ln_qkv_attention", "fused_attention_qkv",
                    "fused_ln_qkv_attention", "fused_ln_mlp", "text_block_fwd", "text_block_bwd",
                    "text_block_fwd_int8", "text_block_bwd_int8", "int8_ln_mlp_chunked",
-                   "int8_block", "fused_attention_qkv_headgroups"]
+                   "int8_block", "fused_attention_qkv_headgroups", "fused_attention",
+                   "fused_attention_qkv_bwd", "mxu_bf16", "mxu_i8", "mxu_i8_quant"]
 
 
 @pytest.mark.parametrize("name", KERNEL_WRAPPERS)
@@ -154,6 +156,20 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting(name):
         qkv = torch.randn(2, 8, 3 * w).to(torch.bfloat16)
         out = attention.fused_attention_qkv_headgroups(qkv, heads=4, head_group=2)
         ref = attention.fused_attention_qkv_headgroups_ref(qkv, None, 4)
+    elif name == "fused_attention":
+        q = torch.randn(2, 8, 4, 16).to(torch.bfloat16)
+        out = attention.fused_attention(q, q, q)
+        ref = attention.fused_attention_ref(q, q, q)
+    elif name == "fused_attention_qkv_bwd":
+        qkv = torch.randn(2, 8, 3 * w).to(torch.bfloat16)
+        out = attention.fused_attention_qkv_bwd(qkv, None, x.float(), heads=4)
+        ref = attention.fused_attention_qkv_bwd_ref(qkv, None, x, heads=4)
+    elif name.startswith("mxu_"):
+        x_bf, x_i8, w_bf, w_i8 = (t[:8, :32] if t.shape[0] == 128 else t[:32, :16]
+                                  for t in mxu_probe.inputs("cpu", steps=1))
+        xw = {"mxu_bf16": (x_bf, w_bf), "mxu_i8": (x_i8, w_i8), "mxu_i8_quant": (x_bf, w_i8)}
+        out = getattr(mxu_probe, name)(*xw[name], 2)
+        ref = getattr(mxu_probe, name + "_ref")(*xw[name], 2)
     elif name == "fused_ln_mlp":
         args = (x, ones, zeros, torch.randn(w, 4 * w), torch.zeros(4 * w), torch.randn(4 * w, w),
                 zeros)
@@ -204,6 +220,7 @@ def test_batching_helpers_are_jax_free_and_reused():
         "import aiic_tpu_torch, aiic_tpu_torch.engine.analyzer, aiic_tpu_torch.models.clip\n"
         "import aiic_tpu_torch.train, aiic_tpu_torch.cli.train_lora, aiic_tpu_torch.adapters\n"
         "import aiic_tpu_torch.ops.quant, aiic_tpu_torch.ops.attention, aiic_tpu_torch.ops.mlp\n"
+        "import aiic_tpu_torch.probes.mxu_probe\n"
         "import chip_smoke, torch_profile\n"
         "from aiic_tpu_torch.utils.batching import bucket_size\n"
         "assert bucket_size(3, 8) == 4\n"

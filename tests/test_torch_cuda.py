@@ -14,7 +14,11 @@ fp32 max |kernel - plain| <= 1e-5 * max |plain| per factor, bf16 cosine
 >= 0.9999 per factor. The text-block kernels' bf16 outputs go through a
 chain of eleven bf16 roundings, so their bar is per row (as in
 chip_smoke.py): cosine >= 0.9999 and every element within 2 bf16 ULPs of the
-row's largest |plain| value.
+row's largest |plain| value. The attention-core backward (row 9) takes the
+fp32 bar above and the bf16 one; its two routes on the card (one tile, two
+streaming passes) agree bit for bit. The probe's int8 body is exact, its
+bf16 and quantized bodies take the bf16 bar (fp32 sums in another order
+before one bf16 rounding).
 """
 
 import numpy as np
@@ -23,7 +27,8 @@ import torch
 
 from aiic_tpu_torch.models import clip
 from aiic_tpu_torch.models.clip import causal_mask
-from aiic_tpu_torch.ops import attention, block_grad, mlp, quant
+from aiic_tpu_torch.ops import _build, attention, block_grad, mlp, quant
+from aiic_tpu_torch.probes import mxu_probe
 
 torch.set_num_threads(2)
 
@@ -431,3 +436,101 @@ def test_large_s_routes_match_plain_on_the_card(device):
     out = attention.fused_attention_qkv(qkv, heads=16)
     assert attention.fused_attention_qkv.launches == launches
     _f32_agree(out, attention.attention_qkv_ref(qkv, None, 16))
+
+
+def _randn(device, *shape, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 197, 12, 64, False), (3, 77, 8, 64, True),
+                                   (2, 16, 4, 8, True)], ids=["vit", "text_causal", "tiny"])
+def test_fused_attention_kernel_matches_plain(device, shape, dtype):
+    bsz, seq, heads, dim, masked = shape
+    q, k, v = (_randn(device, bsz, seq, heads, dim, dtype=dtype, seed=s) for s in (1, 2, 3))
+    mask = causal_mask(seq, device=device) if masked else None
+    before = attention.fused_attention.launches
+    out = attention.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert attention.fused_attention.launches == before + 1 and out.shape == q.shape
+    ref = attention.fused_attention_ref(q, k, v, mask)
+    _f32_agree(out, ref) if dtype == torch.float32 else _agree(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(3, 77, 8, True), (2, 197, 12, False)],
+                         ids=["text_causal_one_tile", "vit_streaming"])
+def test_attention_qkv_bwd_kernel_matches_plain(device, shape, dtype):
+    bsz, seq, heads, masked = shape
+    qkv = _randn(device, bsz, seq, 3 * 64 * heads, dtype=dtype, seed=4)
+    g = _randn(device, bsz, seq, 64 * heads, dtype=dtype, seed=5)
+    mask = causal_mask(seq, device=device) if masked else None
+    before = attention.fused_attention_qkv_bwd.launches
+    out = attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads)
+    torch.cuda.synchronize()
+    assert attention.fused_attention_qkv_bwd.launches == before + 1
+    ref = attention.fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads)
+    _f32_agree(out, ref) if dtype == torch.float32 else _agree(out, ref)
+    if seq <= 128:  # the streaming form repeats the one-tile kernel bit for bit
+        streamed = attention._fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, streaming=True)
+        assert torch.equal(streamed, out)
+
+
+def test_attention_core_ops_refuse_what_they_do_not_take(device):
+    before = (attention.fused_attention.launches, attention.fused_attention_qkv_bwd.launches)
+    q = torch.zeros((1, 17, 2, 32), device=device)
+    with pytest.raises(ValueError):  # head dim 32: built for 8 and 64
+        attention.flash_attention(q, q, q)
+    q = torch.zeros((1, 577, 16, 64), device=device)
+    with pytest.raises(ValueError):  # fp32 K and V of a head at S=577 exceed shared memory
+        attention.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        attention.flash_attention(q.half(), q.half(), q.half())
+    qkv, g = torch.zeros((1, 17, 3 * 768), device=device), torch.zeros((1, 17, 768), device=device)
+    with pytest.raises(ValueError):  # head dim 48
+        attention.fused_attention_qkv_bwd(qkv, None, g, heads=16)
+    qkv, g = torch.zeros((1, 129, 3 * 512), device=device), torch.zeros((1, 129, 512), device=device)
+    with pytest.raises(ValueError):  # the one-tile kernel holds S <= 128
+        attention._fused_attention_qkv_bwd_cuda(qkv, None, g, 8, streaming=False)
+    assert (attention.fused_attention.launches,
+            attention.fused_attention_qkv_bwd.launches) == before
+
+
+@pytest.mark.parametrize("body", ["mxu_bf16", "mxu_i8", "mxu_i8_quant"])
+def test_mxu_probe_kernels_match_plain(device, body):
+    x_bf, x_i8, w_bf, w_i8 = mxu_probe.inputs(device, steps=2)
+    x, w = {"mxu_bf16": (x_bf, w_bf), "mxu_i8": (x_i8, w_i8), "mxu_i8_quant": (x_bf, w_i8)}[body]
+    fn = getattr(mxu_probe, body)
+    before = fn.launches
+    out = fn(x, w, 3)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = getattr(mxu_probe, body + "_ref")(x, w, 3)
+    if body == "mxu_i8":
+        assert torch.equal(out, ref)
+    else:
+        _agree(out, ref)
+
+
+def test_auto_int8_engine_launches_as_pallas(device):
+    """``attn_impl="auto"`` gives the serving kernels on the card: the int8
+    engine launches exactly what the ``"pallas"`` one does."""
+    from aiic_tpu_torch.engine.analyzer import InteriorAnalyzer
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.models.init import init_clip_params
+
+    params = init_clip_params(VIT_B_16, torch.Generator(device=device).manual_seed(0),
+                              device=device)
+    vocab = [{"image_path": "x.jpg", "style": "nowoczesny", "characteristics": ["jasne"],
+              "materials": ["drewno"], "colors": ["biały"], "room_type": "kuchnia"}]
+    px = np.random.default_rng(9).integers(0, 256, (3, 224, 224, 3), dtype=np.uint8)
+    counts = {}
+    for impl in ("auto", "pallas"):
+        _build.reset_launch_counts()
+        engine = InteriorAnalyzer(params, VIT_B_16, training_data=vocab, device=device,
+                                  dtype=torch.bfloat16, quantize=True, attn_impl=impl)
+        engine.classify_pixels(px)
+        counts[impl] = _build.launch_counts()
+    assert counts["auto"] == counts["pallas"]
+    assert counts["auto"]["int8_ln_qkv_attention"] > 0 and counts["auto"]["int8_ln_mlp"] > 0

@@ -178,8 +178,8 @@ def test_block_takes_the_jax_branch(quantized, weights, monkeypatch, dtype, attn
     assert tuple(calls) + ("plain",) * (len(want) - len(calls)) == want
     with pytest.raises(ValueError, match="attn_impl"):
         clip.block(x, clip._layer(tree["visual"]["blocks"], 0), 4, None, "quick_gelu", "flash")
-    # "auto" is the JAX trainer's resolution: the reference composition on
-    # the CPU ("pallas_vjp" on a CUDA tensor)
+    # "auto" is JAX's resolve_attn_impl: the reference composition on the
+    # CPU ("pallas" on a CUDA tensor)
     calls.clear()
     clip.block(x, clip._layer(tree["visual"]["blocks"], 0), 4, None, "quick_gelu", "auto")
     assert calls == ["xla"]
