@@ -126,17 +126,17 @@ __device__ __forceinline__ void quantize_row(const float* h, int8_t* __restrict_
   if (threadIdx.x == 0) *qscale = scale;
 }
 
-// x (rows, W) -> q (rows, W) int8 and qscale (rows,). Dynamic shared memory:
-// W floats (the row, normalized in place).
+// x (rows, W), row stride ld -> q (rows, W) int8 and qscale (rows,).
+// Dynamic shared memory: W floats (the row, normalized in place).
 template <bool kLN, typename TIn>
 __global__ void __launch_bounds__(kRowThreads)
 rowquant_kernel(const TIn* __restrict__ x, const float* __restrict__ ln_s,
                 const float* __restrict__ ln_b, int8_t* __restrict__ q,
-                float* __restrict__ qscale, int W, float eps) {
+                float* __restrict__ qscale, int W, float eps, int ld) {
   extern __shared__ float h[];
   __shared__ float red[kRowThreads / 32 + 1];
   const size_t row = blockIdx.x;
-  load_row<kLN>(x + row * W, ln_s, ln_b, h, red, W, eps);
+  load_row<kLN>(x + row * ld, ln_s, ln_b, h, red, W, eps);
   quantize_row(h, q + row * W, qscale + row, W, red);
 }
 
@@ -290,11 +290,13 @@ cudaError_t launch_gemm(const T* A, const T* B, int M, int N, int K, Epi epi, cu
   return cudaGetLastError();
 }
 
+// ld: x's row stride, 0 for W.
 template <bool kLN, typename TIn>
 cudaError_t launch_rowquant(const TIn* x, const float* ln_s, const float* ln_b, int8_t* q,
-                            float* qscale, int rows, int W, float eps, cudaStream_t st) {
+                            float* qscale, int rows, int W, float eps, cudaStream_t st,
+                            int ld = 0) {
   rowquant_kernel<kLN, TIn><<<rows, kRowThreads, W * sizeof(float), st>>>(
-      x, ln_s, ln_b, q, qscale, W, eps);
+      x, ln_s, ln_b, q, qscale, W, eps, ld > 0 ? ld : W);
   return cudaGetLastError();
 }
 

@@ -93,6 +93,12 @@ _SIGNATURES = {
     "aiic_attention_qkv_bwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     # x, w, out, rows, W, M, inner, body, stream
     "aiic_mxu_probe": [_P] * 3 + [_I] * 5 + [_P],
+    # variant, x, ln_s, ln_b, wqkv_q, sqkv, bqkv, wo_q, so, wo, bo, out, hq, hs,
+    # amax, qkv, attn, aq, as, B, S, W, H, eps, qconst, stream
+    "aiic_attn_variant": [_I] + [_P] * 18 + [_I] * 4 + [_F, _F, _P],
+    # variant, x, ln_s, ln_b, w1_q, s1, b1, w2_q, s2, b2, w1, w2, out, hq, hb,
+    # hs, y, yb, yq, ys, rows, W, M, eps, stream
+    "aiic_mlp_variant": [_I] + [_P] * 19 + [_I] * 3 + [_F, _P],
 }
 _RESTYPES = {"aiic_text_block_workspace": ctypes.c_longlong,
              "aiic_text_block_int8_workspace": ctypes.c_longlong}

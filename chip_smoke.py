@@ -20,7 +20,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (one tile; its streaming form bit for bit the same) and S=197 (two
    streaming passes) for B = 1, 7, 64 and 256, both in fp32 and bf16, and
    the three tensor-core probe kernels (row 17) at INNER=3 and at the
-   probe's INNER=64, each with the counts set to 0 before and exactly one
+   probe's INNER=64; the kernel-experiment variants (rows 15-16: the 25
+   variants of ``probes/variants.py``'s seven wrappers) at ViT-B/16, B = 2
+   and 64 (and 1 for the two kernel_experiments.py functions, 1024 for the
+   three kernel_experiments7.py variants), x with an all-zero row,
+   maconly exact and the three kernel_experiments5.py schedules bit for
+   bit row 1's kernel; each with the counts set to 0 before and exactly one
    launch after;
 4. the paths: five full-width ViT-B/16 ``InteriorAnalyzer`` engines from
    one seeded init (int8 serving on the patch wire; the same with
@@ -68,7 +73,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    backward that ``pallas_vjp`` runs and SDPA's backward; the fp32
    ``pallas_vjp`` step at 256 rows as shipped and with row 9 as its core
    backward (held to the shipped step at the fp32 step bar); the three
-   probe kernels beside ``torch.matmul`` / ``torch._int_mm``;
+   probe kernels beside ``torch.matmul`` / ``torch._int_mm``; each
+   kernel-experiment variant, one launch at B=256, beside its plain version
+   with its bound (no PyTorch call computes any of them), and that launch's
+   output held against the plain version at phase 3's bars;
 10. the zoo: full-width, full-depth engines from one seeded init per preset
    (int8 ViT-B/32, ViT-L/14 and ViT-L/14@336 on the patch wire; bf16 L/14
    and L/14@336 and fp32 L/14@336 on the HWC wire), each answering 1, 7 and
@@ -83,7 +91,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    calls (``flash_attention`` on 256 ViT-B/16 images in fp32 and bf16,
    ``fused_attention_qkv_bwd`` on 256 text rows and 256 ViT-B/16 images,
    ``python -m aiic_tpu_torch.probes.mxu_probe 5``'s run), every count set
-   to 0 before and checked exactly after.
+   to 0 before and checked exactly after;
+12. rows 15-16's path: ``kernel_experiments.run_experiment`` (``python -m
+   aiic_tpu_torch.probes.kernel_experiments N``) for experiments 1-5 and 7
+   at the tools' batches (256; 1024 for 7), one timed stack a variant, the
+   int8 classify program at B=256 and 512 in experiment 1, every count set
+   to 0 before and checked exactly after (12 launches a 12-layer stack, 11
+   of rows 1 and 2 a classify call), each REAL candidate's cosine against
+   prod finite.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -197,6 +212,35 @@ KERNELS = {
     "mxu_i8_quant": {
         "source": "aiic_tpu_torch/csrc/mxu_probe.cu",
         "replaces": "tools/mxu_probe.py:62",
+    },
+    # The kernel-experiment variants (rows 15-16): one wrapper per TPU function.
+    "int8_attn_nomax": {
+        "source": "aiic_tpu_torch/csrc/attn_variants.cu",
+        "replaces": "tools/kernel_experiments.py:92",
+    },
+    "mlp_var": {
+        "source": "aiic_tpu_torch/csrc/mlp_variants.cu",
+        "replaces": "tools/kernel_experiments.py:163",
+    },
+    "attn_var2": {
+        "source": "aiic_tpu_torch/csrc/attn_variants.cu",
+        "replaces": "tools/kernel_experiments2.py:55",
+    },
+    "mlp_var3": {
+        "source": "aiic_tpu_torch/csrc/mlp_variants.cu",
+        "replaces": "tools/kernel_experiments3.py:67",
+    },
+    "attn_var4": {
+        "source": "aiic_tpu_torch/csrc/attn_variants.cu",
+        "replaces": "tools/kernel_experiments4.py:68",
+    },
+    "attn_var5": {
+        "source": "aiic_tpu_torch/csrc/attn_variants.cu",
+        "replaces": "tools/kernel_experiments5.py:55",
+    },
+    "attn_var7": {
+        "source": "aiic_tpu_torch/csrc/attn_variants.cu",
+        "replaces": "tools/kernel_experiments7.py:107",
     },
 }
 
@@ -1882,6 +1926,214 @@ def phase_core_ops(device) -> dict:
     return {name: n for name, n in got.items() if n}
 
 
+# ---------------------------------------------------------------------------
+# Rows 15-16: the kernel-experiment variants (phases 3, 9 and 12)
+# ---------------------------------------------------------------------------
+
+# Phase 12's repetitions: one timed stack a variant (the runner's defaults,
+# iters 5 and inner 8 or 4, are for `python -m
+# aiic_tpu_torch.probes.kernel_experiments N`).
+EXPERIMENT_ITERS, EXPERIMENT_INNER = 1, 1
+
+
+def _variant_layer(device, built):
+    """Layer 0 of the seeded ViT-B/16 model of the runner, with seeded biases
+    and LN scales (the LN bias stays 0: an all-zero x row is an all-zero LN
+    row)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(40)
+    lp = dict(built[1][0])
+    for key in ("bqkv", "bo", "b1", "b2"):
+        lp[key] = (0.1 * torch.randn(lp[key].shape, generator=gen, device=device)).to(lp[key].dtype)
+    for key in ("ln1_s", "ln2_s"):
+        lp[key] = (1 + 0.1 * torch.randn(lp[key].shape, generator=gen, device=device)).to(
+            lp[key].dtype)
+    return lp
+
+
+def _variant_x(gen, bsz, device):
+    import torch
+
+    x = torch.randn((bsz, 197, 768), generator=gen, device=device)
+    x[0, 0] = 0.0
+    return x.to(torch.bfloat16)
+
+
+def _variant_agreement(out, ref) -> dict:
+    """The bf16 bar, with rows that are zero in the plain version (macbf16
+    maps the zero x row to zero) held to equality instead of a cosine."""
+    import torch
+
+    zero = ~ref.reshape(-1, ref.shape[-1]).bool().any(dim=-1)
+    o, r = out.reshape(-1, out.shape[-1]), ref.reshape(-1, ref.shape[-1])
+    a = _agreement(o[~zero], r[~zero])
+    a["zero_rows_equal"] = bool(torch.equal(o[zero], r[zero]))
+    a["ok"] = a["ok"] and a["zero_rows_equal"]
+    return a
+
+
+def _variant_check(wrapper: str, v: str, x, lp, out, ref) -> dict:
+    """The bars of rows 15-16: the bf16 bar, maconly exact, the 16d
+    schedules bit for bit row 1's kernel (the same arithmetic without the
+    1e-38 guard)."""
+    import torch
+
+    from aiic_tpu_torch.ops import quant
+
+    a = _variant_agreement(out, ref)
+    if v == "maconly":
+        a["bit_identical"] = bool(torch.equal(out, ref))
+        a["ok"] = a["ok"] and a["bit_identical"]
+    if wrapper == "attn_var5":
+        row1 = quant.int8_ln_qkv_attention(
+            x, lp["ln1_s"], lp["ln1_b"], lp["wqkv_q"], lp["sqkv"], lp["bqkv"],
+            lp["wo"], lp["bo"], None, heads=lp["heads"])
+        a["bit_identical_to_row1"] = bool(torch.equal(out, row1))
+        a["ok"] = a["ok"] and a["bit_identical_to_row1"]
+    return a
+
+
+def _hold_variant(results: list, wrapper: str, v: str, x, lp, out, ref) -> dict:
+    a = _variant_check(wrapper, v, x, lp, out, ref)
+    bsz = x.shape[0]
+    a.update(kernel=wrapper, variant=v, case=f"ViT-B/16 B={bsz}")
+    results.append(a)
+    log(f"[kernels] {wrapper:16s} {v:9s} B={bsz:<4d} max_abs_err={a['max_abs_err']:.6g} "
+        f"within_2ulp={a['within_2ulp']:.6f} min_row_cos={a['min_row_cos']:.8f}"
+        + "".join(f" {k}={a[k]}" for k in ("bit_identical", "bit_identical_to_row1") if k in a))
+    if not a["ok"]:
+        raise AssertionError(f"{wrapper}[{v}] disagrees with its plain version at B={bsz}: {a}")
+    return a
+
+
+def phase_variant_kernels(device, built) -> dict:
+    """Phase 3 for rows 15-16: every variant of each wrapper against its
+    plain version at the ViT-B/16 shapes, B = 2 and 64 (and 1 for the two
+    kernel_experiments.py functions; and 1024, experiment 7's batch, for the
+    three int8-core variants), x with an all-zero row; counts at 0 before
+    and one launch after each call (``_variant_check``'s bars)."""
+    import torch
+
+    from aiic_tpu_torch.probes import variants
+
+    lp = _variant_layer(device, built)
+    gen = torch.Generator(device=device).manual_seed(41)
+    worst, results = {}, []
+    for wrapper, names in variants.WRAPPER_VARIANTS.items():
+        batches = {"int8_attn_nomax": (1, 2, 64), "mlp_var": (1, 2, 64),
+                   "attn_var7": (2, 64, 1024)}.get(wrapper, (2, 64))
+        for bsz in batches:
+            x = _variant_x(gen, bsz, device)
+            for v in names:
+                fn = variants.WRAPPERS[wrapper]
+                out = _one_launch(wrapper, lambda: fn(x, lp, v))
+                ref = variants.PLAIN[wrapper](x, lp, v)
+                a = _hold_variant(results, wrapper, v, x, lp, out, ref)
+                worst[wrapper] = max(worst.get(wrapper, 0.0), a["max_abs_err"])
+                del out, ref
+            del x
+            torch.cuda.empty_cache()
+    REPORT["variant_kernel_checks"] = results
+    return worst
+
+
+def phase_variant_timing(device, card: str, built, worst: dict) -> dict:
+    """Phase 9 for rows 15-16: one launch of each variant at B=256 beside its
+    plain version (plain, kernel, kernel, plain), with its bound from the
+    tensors the variant reads and its products' operations; then the timed
+    launch's output held against the plain version (``_variant_check``'s
+    bars, one launch counted). The kernels line carries each wrapper's first
+    variant; the report has them all. Launch counts are put back."""
+    import torch
+
+    from aiic_tpu_torch.ops import _build
+    from aiic_tpu_torch.probes import variants
+
+    saved = _build.launch_counts()
+    lp = _variant_layer(device, built)
+    x = _variant_x(torch.Generator(device=device).manual_seed(42), 256, device)
+    times, per_variant, checks = {}, {}, []
+    for wrapper, names in variants.WRAPPER_VARIANTS.items():
+        for v in names:
+            fn, plain = variants.WRAPPERS[wrapper], variants.PLAIN[wrapper]
+            ops = variants.ops(wrapper, v, 256, 197, 768, 3072)
+            inputs = [x] + [lp[k] for k in variants.reads(wrapper, v)]
+            t: dict = {}
+            _kernel_times({wrapper: (lambda: fn(x, lp, v), lambda: plain(x, lp, v), inputs, ops)},
+                          t, f"[{v}] B=256 S=197 W=768", card)
+            out = _one_launch(wrapper, lambda: fn(x, lp, v))
+            a = _hold_variant(checks, wrapper, v, x, lp, out, plain(x, lp, v))
+            per_variant[f"{wrapper}[{v}]"] = dict(t[wrapper], max_abs_err=a["max_abs_err"])
+            worst[wrapper] = max(worst[wrapper], a["max_abs_err"])
+            times.setdefault(wrapper, dict(t[wrapper], variant=v))
+            del out
+            torch.cuda.empty_cache()
+    for fn in _build._COUNTED.values():
+        fn.launches = saved[fn.__name__]
+    REPORT.setdefault("timing", {}).update(times)
+    REPORT["variant_timing"] = per_variant
+    REPORT["variant_kernel_checks"] += checks
+    return times
+
+
+def phase_experiments(device, built) -> dict:
+    """Phase 12, rows 15-16's path: ``kernel_experiments.run_experiment`` for
+    experiments 1-5 and 7 (the entry point of ``python -m
+    aiic_tpu_torch.probes.kernel_experiments N``) at the tools' batches, every
+    count set to 0 before and checked exactly after: 12 launches of the
+    variant's wrapper for each 12-layer stack the runner reports, 12 of rows
+    1 or 2 for each prod stack, and 11 of each for every classify call (the
+    last block runs on the CLS row). Every stack's time is finite and each
+    REAL candidate's cosine against prod is reported."""
+    import torch
+
+    from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+    from aiic_tpu_torch.probes import kernel_experiments as ke
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    want: dict = {}
+    out = {}
+    layers = len(built[1])
+    for exp, e in ke.EXPERIMENTS.items():
+        res = out[exp] = ke.run_experiment(exp, EXPERIMENT_ITERS, EXPERIMENT_INNER, device=device,
+                                           built=built)
+        for v in e["variants"]:
+            if v in ("prod", "prod_attn", "prod_mlp"):
+                half = ("mlp" if v == "prod_mlp" or e.get("wrapper", "").startswith("mlp")
+                        else "attn")
+                name = "int8_ln_mlp" if half == "mlp" else "int8_ln_qkv_attention"
+            else:
+                name = e.get("wrapper") or ke._EXP1[v][1]
+            want[name] = want.get(name, 0) + layers * res[v]["stacks"]
+            if not np.isfinite(res[v]["ms"]) or res[v]["ms"] <= 0:
+                raise AssertionError(f"experiment {exp} [{v}]: {res[v]}")
+        if res.get("prod_check_stacks"):
+            name = "int8_ln_mlp" if e["wrapper"].startswith("mlp") else "int8_ln_qkv_attention"
+            want[name] += layers * res["prod_check_stacks"]
+        for r in res.get("classify", {}).values():
+            for name in ("int8_ln_qkv_attention", "int8_ln_mlp"):
+                want[name] += (layers - 1) * r["calls"]
+            if not r["finite"]:
+                raise AssertionError(f"experiment 1's classify program gave a non-finite sum: {r}")
+        for v in e["real"]:
+            if not np.isfinite(res[v].get("cosine", np.nan)):
+                raise AssertionError(f"experiment {exp} [{v}]: no finite cosine against prod")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launch_counts()
+    log(f"[path experiments] {seconds:.2f} s; launches {({n: c for n, c in got.items() if c})} "
+        f"(expected {want}, 0 for the others)")
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"experiments path: {name} launched {n} times, expected "
+                                 f"{want.get(name, 0)}")
+    REPORT["experiments_path"] = {"seconds": seconds, "launches": got, "expected": want,
+                                  "results": out}
+    return {name: n for name, n in got.items() if n}
+
+
 def main() -> int:
     import torch
 
@@ -1907,6 +2159,10 @@ def main() -> int:
     worst.update(phase_zoo_kernels(device))
     worst.update(phase_text_block_kernels(device))
     worst.update(phase_core_ops_kernels(device))
+    from aiic_tpu_torch.probes import kernel_experiments
+
+    built = kernel_experiments.model(device)
+    worst.update(phase_variant_kernels(device, built))
     engines, params, launches = phase_slice(device)
     for label, engine in engines.items():
         phase_cpu_compare(label, engine, params)
@@ -1917,6 +2173,7 @@ def main() -> int:
         phase_lora_engines(params, device, engines["int8"], root)
     times = phase_timing(device, card, engines, params)
     times.update(phase_core_ops_timing(device, card, params))
+    times.update(phase_variant_timing(device, card, built, worst))
     times["train_lora_epoch_images_per_s"] = epoch_rates
     del engines, params
     zoo_engines, zoo_launches = phase_zoo(device)
@@ -1924,12 +2181,15 @@ def main() -> int:
     times.update(phase_zoo_timing(device, card, zoo_engines))
     del zoo_engines
     _add(launches, phase_core_ops(device))
+    _add(launches, phase_experiments(device, built))
+    del built
     REPORT["wall_s"] = time.perf_counter() - T0
     log(f"[wall] chip_smoke.py took {REPORT['wall_s']:.1f} s ({card})")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", **meta, "launches": launches[name],
-                "max_abs_err": worst[name], **{k: times[name][k] for k in keys}}
+                "max_abs_err": worst[name], **{k: times[name][k] for k in keys},
+                **({"variant": times[name]["variant"]} if "variant" in times[name] else {})}
                for name, meta in KERNELS.items()]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -35,7 +35,7 @@ from aiic_tpu_torch.models.init import (
     save_clip_weights,
 )
 from aiic_tpu_torch.ops import _build, attention, block_grad, mlp, quant
-from aiic_tpu_torch.probes import mxu_probe
+from aiic_tpu_torch.probes import mxu_probe, variants
 from aiic_tpu_torch.utils import batching
 
 torch.set_num_threads(2)
@@ -109,7 +109,9 @@ KERNEL_WRAPPERS = ["int8_ln_mlp", "int8_ln_qkv_attention", "fused_attention_qkv"
                    "fused_ln_qkv_attention", "fused_ln_mlp", "text_block_fwd", "text_block_bwd",
                    "text_block_fwd_int8", "text_block_bwd_int8", "int8_ln_mlp_chunked",
                    "int8_block", "fused_attention_qkv_headgroups", "fused_attention",
-                   "fused_attention_qkv_bwd", "mxu_bf16", "mxu_i8", "mxu_i8_quant"]
+                   "fused_attention_qkv_bwd", "mxu_bf16", "mxu_i8", "mxu_i8_quant",
+                   "int8_attn_nomax", "mlp_var", "attn_var2", "mlp_var3", "attn_var4", "attn_var5",
+                   "attn_var7"]
 
 
 @pytest.mark.parametrize("name", KERNEL_WRAPPERS)
@@ -170,6 +172,20 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting(name):
         xw = {"mxu_bf16": (x_bf, w_bf), "mxu_i8": (x_i8, w_i8), "mxu_i8_quant": (x_bf, w_i8)}
         out = getattr(mxu_probe, name)(*xw[name], 2)
         ref = getattr(mxu_probe, name + "_ref")(*xw[name], 2)
+    elif name in variants.WRAPPER_VARIANTS:
+        # scaled as init_clip_params: the no-clamp cores overflow on N(0, 1) weights
+        wqkv_q, sqkv = quant.quantize_weight(torch.randn(w, 3 * w) * w ** -0.5)
+        wo = torch.randn(w, w) * 0.1
+        wo_q, so = quant.quantize_weight(wo)
+        w1, w2 = torch.randn(w, 4 * w) * 0.1, torch.randn(4 * w, w) * 0.1
+        (w1_q, s1), (w2_q, s2) = quant.quantize_weight(w1), quant.quantize_weight(w2)
+        lp = {"ln1_s": ones, "ln1_b": zeros, "wqkv_q": wqkv_q, "sqkv": sqkv,
+              "bqkv": torch.zeros(3 * w), "wo": wo, "bo": zeros, "wo_q": wo_q, "so": so,
+              "ln2_s": ones, "ln2_b": zeros, "w1_q": w1_q, "s1": s1, "b1": torch.zeros(4 * w),
+              "w2_q": w2_q, "s2": s2, "b2": zeros, "w1": w1, "w2": w2, "heads": 1}
+        variant = variants.WRAPPER_VARIANTS[name][-1]
+        out = variants.WRAPPERS[name](x, lp, variant)
+        ref = variants.PLAIN[name](x, lp, variant)
     elif name == "fused_ln_mlp":
         args = (x, ones, zeros, torch.randn(w, 4 * w), torch.zeros(4 * w), torch.randn(4 * w, w),
                 zeros)
@@ -220,7 +236,8 @@ def test_batching_helpers_are_jax_free_and_reused():
         "import aiic_tpu_torch, aiic_tpu_torch.engine.analyzer, aiic_tpu_torch.models.clip\n"
         "import aiic_tpu_torch.train, aiic_tpu_torch.cli.train_lora, aiic_tpu_torch.adapters\n"
         "import aiic_tpu_torch.ops.quant, aiic_tpu_torch.ops.attention, aiic_tpu_torch.ops.mlp\n"
-        "import aiic_tpu_torch.probes.mxu_probe\n"
+        "import aiic_tpu_torch.probes.mxu_probe, aiic_tpu_torch.probes.variants\n"
+        "import aiic_tpu_torch.probes.kernel_experiments\n"
         "import chip_smoke, torch_profile\n"
         "from aiic_tpu_torch.utils.batching import bucket_size\n"
         "assert bucket_size(3, 8) == 4\n"

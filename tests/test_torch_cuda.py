@@ -18,7 +18,10 @@ row's largest |plain| value. The attention-core backward (row 9) takes the
 fp32 bar above and the bf16 one; its two routes on the card (one tile, two
 streaming passes) agree bit for bit. The probe's int8 body is exact, its
 bf16 and quantized bodies take the bf16 bar (fp32 sums in another order
-before one bf16 rounding).
+before one bf16 rounding). The kernel-experiment variants (rows 15-16)
+take the bf16 bar, rows that are zero in the plain version equal; maconly
+is exact (integer products and one fp32 add), and the three schedules of
+kernel_experiments5.py give row 1's kernel output bit for bit.
 """
 
 import numpy as np
@@ -28,7 +31,7 @@ import torch
 from aiic_tpu_torch.models import clip
 from aiic_tpu_torch.models.clip import causal_mask
 from aiic_tpu_torch.ops import _build, attention, block_grad, mlp, quant
-from aiic_tpu_torch.probes import mxu_probe
+from aiic_tpu_torch.probes import kernel_experiments, mxu_probe, variants
 
 torch.set_num_threads(2)
 
@@ -534,3 +537,47 @@ def test_auto_int8_engine_launches_as_pallas(device):
         counts[impl] = _build.launch_counts()
     assert counts["auto"] == counts["pallas"]
     assert counts["auto"]["int8_ln_qkv_attention"] > 0 and counts["auto"]["int8_ln_mlp"] > 0
+
+
+@pytest.fixture(scope="module")
+def variant_layer():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernels have no CPU mode")
+    return kernel_experiments.model(torch.device("cuda", 0))[1][0]
+
+
+VARIANT_CASES = [(w, v) for w, vs in variants.WRAPPER_VARIANTS.items() for v in vs]
+
+
+@pytest.mark.parametrize("wrapper,variant", VARIANT_CASES, ids=[f"{w}-{v}" for w, v in VARIANT_CASES])
+def test_variant_kernels_match_plain(device, variant_layer, wrapper, variant):
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn((2, 197, 768), generator=gen, device=device)
+    x[0, 0] = 0.0
+    x = x.to(torch.bfloat16)
+    fn = variants.WRAPPERS[wrapper]
+    before = fn.launches
+    out = fn(x, variant_layer, variant)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = variants.PLAIN[wrapper](x, variant_layer, variant)
+    if variant == "maconly":
+        assert torch.equal(out, ref)
+        return
+    o, r = out.flatten(0, -2), ref.flatten(0, -2)
+    zero = ~r.bool().any(dim=-1)
+    assert torch.equal(o[zero], r[zero])
+    _agree(o[~zero], r[~zero])
+    if wrapper == "attn_var5":
+        lp = variant_layer
+        row1 = quant.int8_ln_qkv_attention(x, lp["ln1_s"], lp["ln1_b"], lp["wqkv_q"], lp["sqkv"],
+                                           lp["bqkv"], lp["wo"], lp["bo"], None, heads=lp["heads"])
+        assert torch.equal(out, row1)
+
+
+def test_variant_kernels_refuse_what_they_do_not_take(device, variant_layer):
+    x = torch.zeros((3, 197, 768), dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="odd batch"):
+        variants.attn_var2(x, variant_layer, "v4")
+    with pytest.raises(TypeError, match="bf16"):
+        variants.mlp_var(x.float(), variant_layer)
