@@ -13,12 +13,12 @@
 //   fp32/int32 tile goes through shared memory to a per-element epilogue
 //   functor that does the dequant, bias, activation or residual. A transposed
 //   B (kTransB, for dy @ W^T) and a split depth (blockIdx.z) are options.
-// - attn_core_kernel<T, D, L>: the streaming no-max attention core, for
-//   bf16 and fp32, on a (B, S, 3W) projection whose columns are packed
-//   [Q | K | V] or head-major [q_h | k_h | v_h] per head, or on three
-//   separate (B, S, H, D) arrays. Rows 1, 5, 6, 7 and 8 of the TPU kernel
-//   table share it; T is the rounding policy (q*c, p and the output round to
-//   T, which is a no-op for fp32).
+// - attn_core_kernel<T, D, L>: the scalar streaming no-max attention core,
+//   for bf16 and fp32, on a (B, S, 3W) projection whose columns are packed
+//   [Q | K | V], or on three separate (B, S, H, D) arrays. Rows 1, 5, 6 and
+//   fp32 row 7 of the TPU kernel table share it (bf16 rows 7 and 8 run the
+//   tensor-core core of attn_core_mma.cuh); T is the rounding policy (q*c, p
+//   and the output round to T, which is a no-op for fp32).
 // - block_core_bwd_kernel<T, TO>: the attention-core backward with the
 //   S x S probabilities in shared memory, one block per (head, image), for
 //   S <= 128 (rows 9, 12 and 14).
@@ -364,40 +364,38 @@ template <> __device__ __forceinline__ void store2<float>(float* p, float a, flo
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// Where the core finds q, k and v: one (B, S, 3W) projection with columns
-// [Q | K | V] (kPacked) or [q_h | k_h | v_h] per head (kHeadMajor), or three
-// separate (B, S, W) arrays, W = H*D, head h at columns h*D (kSeparate).
+// Where a core finds q, k and v: one (B, S, 3W) projection with columns
+// [Q | K | V] (kPacked) or [q_h | k_h | v_h] per head (kHeadMajor, the
+// tensor-core core's only), or three separate (B, S, W) arrays, W = H*D, head
+// h at columns h*D (kSeparate).
 enum class QKVLayout { kPacked, kHeadMajor, kSeparate };
 
-// Grid (query tiles, hg, B * H/hg), one thread per query row; head
-// h = (z % (H/hg)) * hg + y of image z / (H/hg), where hg is the head group
-// (H for the other layouts, so the grid is (query tiles, H, B)). Columns of
-// head h: q, k, v at h*D, W + h*D, 2W + h*D of one row of 3W (kPacked), at
-// 3hD, 3hD + D, 3hD + 2D (kHeadMajor), or at h*D of a row of W in q, k and
-// v (kSeparate); the packed layouts pass the projection as q, k and v. The
-// output is the head concat, h*D of a row of W. Scores
-// s = (T(q*c) . k) in fp32 with c = T(scale*log2 e) (the caller rounds c);
+// Grid (query tiles, H, B), one thread per query row; head h = y of image z.
+// Columns of head h: q, k, v at h*D, W + h*D, 2W + h*D of one row of 3W
+// (kPacked; the projection is passed as q, k and v), or at h*D of a row of W
+// in q, k and v (kSeparate). The output is the head concat, h*D of a row of
+// W. Scores s = (T(q*c) . k) in fp32 with c = T(scale*log2 e) (the caller rounds c);
 // s += mask*log2 e; p = exp2(min(s, 70 log2 e)); l += p; o += T(p) * v;
 // out = T(o * (1 / max(l, 1e-38))). A -inf mask entry gives p = 0. The
 // no-max softmax needs no running-max rescale, so one streaming pass over the
-// keys is exact. The head group only tiles the grid and the layout only
-// moves the columns: every head runs the same arithmetic. Dynamic shared
-// memory: K and V of the head, 2*S*D of T.
+// keys is exact. The layout only moves the columns: every head runs the
+// same arithmetic. Dynamic shared memory: K and V of the head, 2*S*D of T.
 template <typename T, int D, QKVLayout L>
 __global__ void __launch_bounds__(kCoreThreads)
 attn_core_kernel(const T* __restrict__ qsrc, const T* __restrict__ ksrc,
                  const T* __restrict__ vsrc, const float* __restrict__ mask,
-                 T* __restrict__ out, int S, int W, int groups, float qconst) {
+                 T* __restrict__ out, int S, int W, float qconst) {
+  static_assert(L != QKVLayout::kHeadMajor, "the head-major layout runs on attn_core_mma.cuh");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kVec = 16 / sizeof(T);
   T* ks = reinterpret_cast<T*>(smem_raw);
   T* vs = ks + static_cast<size_t>(S) * D;
-  const int h = static_cast<int>(blockIdx.z % groups) * gridDim.y + blockIdx.y;
-  const size_t row0 = static_cast<size_t>(blockIdx.z / groups) * S;
+  const int h = blockIdx.y;
+  const size_t row0 = static_cast<size_t>(blockIdx.z) * S;
   const size_t ld = L == QKVLayout::kSeparate ? static_cast<size_t>(W) : 3 * static_cast<size_t>(W);
-  const int qo = L == QKVLayout::kHeadMajor ? 3 * h * D : h * D;
-  const int ko = L == QKVLayout::kPacked ? qo + W : L == QKVLayout::kHeadMajor ? qo + D : qo;
-  const int vo = L == QKVLayout::kPacked ? qo + 2 * W : L == QKVLayout::kHeadMajor ? qo + 2 * D : qo;
+  const int qo = h * D;
+  const int ko = L == QKVLayout::kPacked ? qo + W : qo;
+  const int vo = L == QKVLayout::kPacked ? qo + 2 * W : qo;
 
   for (int idx = threadIdx.x; idx < S * (D / kVec); idx += kCoreThreads) {
     const int s = idx / (D / kVec), d = (idx % (D / kVec)) * kVec;
@@ -451,21 +449,19 @@ attn_core_kernel(const T* __restrict__ qsrc, const T* __restrict__ ksrc,
   for (int d = 0; d < D; d += 2) store2<T>(dst + d, o[d] * inv, o[d + 1] * inv);
 }
 
-// qkv (B*S, 3W) -> out (B*S, W); mask (S, S) fp32 or null. Needs W == H*64,
-// H % head_group == 0 (head_group 0: all heads, the packed layout's grid) and
-// K/V of one head within the shared memory a block may use.
-template <typename T, bool kHeadMajor = false>
+// qkv (B*S, 3W) packed [Q | K | V] -> out (B*S, W); mask (S, S) fp32 or null.
+// Needs W == H*64 and K/V of one head within the shared memory a block may use.
+template <typename T>
 cudaError_t launch_attn_core(const T* qkv, const float* mask, T* out, int B, int S, int W,
-                             int H, float qconst, cudaStream_t st, int head_group = 0) {
-  constexpr QKVLayout L = kHeadMajor ? QKVLayout::kHeadMajor : QKVLayout::kPacked;
-  if (head_group <= 0) head_group = H;
+                             int H, float qconst, cudaStream_t st) {
+  constexpr QKVLayout L = QKVLayout::kPacked;
   const int smem = 2 * S * kHeadDim * static_cast<int>(sizeof(T));
-  if (W != H * kHeadDim || H % head_group || smem > kMaxDynamicSmem) return cudaErrorInvalidValue;
+  if (W != H * kHeadDim || smem > kMaxDynamicSmem) return cudaErrorInvalidValue;
   AIIC_CHECK(cudaFuncSetAttribute(attn_core_kernel<T, kHeadDim, L>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  const dim3 grid((S + kCoreThreads - 1) / kCoreThreads, head_group, B * (H / head_group));
-  attn_core_kernel<T, kHeadDim, L><<<grid, kCoreThreads, smem, st>>>(
-      qkv, qkv, qkv, mask, out, S, W, H / head_group, qconst);
+  const dim3 grid((S + kCoreThreads - 1) / kCoreThreads, H, B);
+  attn_core_kernel<T, kHeadDim, L><<<grid, kCoreThreads, smem, st>>>(qkv, qkv, qkv, mask, out, S,
+                                                                     W, qconst);
   return cudaGetLastError();
 }
 
@@ -480,7 +476,7 @@ cudaError_t launch_attn_core_bshd(const T* q, const T* k, const T* v, const floa
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   const dim3 grid((S + kCoreThreads - 1) / kCoreThreads, H, B);
   attn_core_kernel<T, D, QKVLayout::kSeparate><<<grid, kCoreThreads, smem, st>>>(
-      q, k, v, mask, out, S, H * D, 1, qconst);
+      q, k, v, mask, out, S, H * D, qconst);
   return cudaGetLastError();
 }
 

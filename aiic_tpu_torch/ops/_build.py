@@ -65,6 +65,8 @@ _SIGNATURES = {
     "aiic_attention_qkv": [_P] * 3 + [_I, _I, _I, _I, _F, _I, _P],
     # qkv_hm, mask, out, B, S, W, H, head_group, qconst, stream
     "aiic_attention_qkv_hg": [_P] * 3 + [_I] * 5 + [_F, _P],
+    # blocks (int*)
+    "aiic_attention_qkv_mma_occupancy": [_P],
     # x, ln_s, ln_b, wqkv, bqkv, wo, bo, mask, out, h, qkv, attn,
     # B, S, W, H, eps, qconst, stream
     "aiic_ln_qkv_attention": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P],

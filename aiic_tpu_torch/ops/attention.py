@@ -5,15 +5,16 @@
   Q before Q·Kᵀ; the denominator divides once after p·V).
 - ``fused_attention_qkv``: the packed-QKV core (TPU kernel
   ``_attention_qkv_kernel``) on the projection's raw (B, S, 3W) layout, bf16
-  or fp32; kernel ``csrc/attention_qkv.cu``, plain version
-  ``fused_attention_qkv_ref``.
+  or fp32; kernel ``csrc/attention_qkv.cu`` (bf16 on the tensor-core core of
+  ``csrc/attn_core_mma.cuh``, fp32 on ``common.cuh``'s scalar core), plain
+  version ``fused_attention_qkv_ref``.
 - ``fused_ln_qkv_attention``: the bf16 attention half-block (TPU kernel
   ``_ln_qkv_attention_kernel``) x + OutProj(Attn(QKV(LN x))); kernel
   ``csrc/ln_qkv_attention.cu``, plain version ``fused_ln_qkv_attention_ref``.
 - ``fused_attention_qkv_headgroups``: the same core on a HEAD-MAJOR
   projection ([q_h | k_h | v_h] per head, ``headmajor_perm``), bf16 (TPU
-  kernel ``_attention_qkv_hg_kernel``); kernel ``csrc/attention_qkv.cu``,
-  plain version ``fused_attention_qkv_headgroups_ref``.
+  kernel ``_attention_qkv_hg_kernel``); kernel ``csrc/attention_qkv.cu``
+  (the tensor-core core), plain version ``fused_attention_qkv_headgroups_ref``.
 - ``fused_attention`` / ``flash_attention``: the same core on three separate
   (B, S, H, D) q, k, v (TPU kernel ``_attention_kernel``, row 6), bf16 or
   fp32, head dim 64 or 8; kernel ``csrc/attention.cu``, plain version
@@ -365,10 +366,14 @@ def _qconst(dim: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(dim ** -0.5 * LOG2E, dtype=dtype))
 
 
-def _check_core_shape(name: str, seq: int, width: int, heads: int, itemsize: int) -> None:
+def _check_core_shape(name: str, seq: int, width: int, heads: int, itemsize: int,
+                      tiled: bool = False) -> None:
+    """Head dim 64; for the scalar core (not ``tiled``) K and V of one head
+    within a block's shared memory. The bf16 tensor-core core of rows 7 and
+    8 (``tiled``) streams K and V in fixed tiles and takes any S."""
     if width % heads or width // heads != _HEAD_DIM:
         raise ValueError(f"{name} kernel needs head_dim {_HEAD_DIM}, got W={width}, H={heads}")
-    if 2 * seq * _HEAD_DIM * itemsize > _MAX_SMEM:
+    if not tiled and 2 * seq * _HEAD_DIM * itemsize > _MAX_SMEM:
         raise ValueError(f"{name} kernel: K and V of one head at S={seq} exceed shared memory")
 
 
@@ -378,7 +383,8 @@ def _fused_attention_qkv_cuda(qkv, mask, heads):
                         f"got {qkv.dtype} {tuple(qkv.shape)}")
     bsz, seq, w3 = qkv.shape
     width = w3 // 3
-    _check_core_shape("fused_attention_qkv", seq, width, heads, qkv.element_size())
+    _check_core_shape("fused_attention_qkv", seq, width, heads, qkv.element_size(),
+                      tiled=qkv.dtype == torch.bfloat16)
     lib = load_library()
     qkv = qkv.contiguous()
     dev = qkv.device
@@ -398,12 +404,12 @@ def _fused_attention_qkv_cuda(qkv, mask, heads):
 def _fused_attention_qkv_headgroups_cuda(qkv_hm, mask, heads, head_group):
     name = "fused_attention_qkv_headgroups"
     if qkv_hm.dtype != torch.bfloat16 or qkv_hm.dim() != 3 or qkv_hm.shape[-1] % 3:
-        raise TypeError(f"{name}: the Hopper kernel takes bf16 (B, S, 3W) (fp32 K and V of a "
-                        f"head at large S exceed shared memory), got {qkv_hm.dtype} "
+        raise TypeError(f"{name}: the Hopper kernel takes bf16 (B, S, 3W) (fp32 has no "
+                        f"tensor-core path that holds its 1e-5 bar), got {qkv_hm.dtype} "
                         f"{tuple(qkv_hm.shape)}")
     bsz, seq, w3 = qkv_hm.shape
     width = w3 // 3
-    _check_core_shape(name, seq, width, heads, 2)
+    _check_core_shape(name, seq, width, heads, 2, tiled=True)
     lib = load_library()
     qkv_hm = qkv_hm.contiguous()
     dev = qkv_hm.device
@@ -417,6 +423,16 @@ def _fused_attention_qkv_headgroups_cuda(qkv_hm, mask, heads, head_group):
                                                                       torch.bfloat16)), stream)
     check(name, rc)
     return out
+
+
+def mma_core_occupancy() -> int:
+    """Blocks of the bf16 tensor-core core (rows 7 and 8) resident on one SM
+    of the current card, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    gives them."""
+    blocks = ctypes.c_int(0)
+    check("attn_core_mma occupancy", load_library().aiic_attention_qkv_mma_occupancy(
+        ctypes.byref(blocks)))
+    return blocks.value
 
 
 def _fused_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask, heads, eps):

@@ -6,7 +6,8 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. the Hopper kernels built with nvcc from ``aiic_tpu_torch/csrc``;
+2. the Hopper kernels built with nvcc from ``aiic_tpu_torch/csrc``; the
+   registers, spills and blocks per SM of the bf16 tensor-core core;
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes (ViT-B/16 image and text half-blocks, B=1, an odd
    B, and an all-zero LN row); the packed-QKV core in fp32 and bf16; the
@@ -18,7 +19,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (``flash_attention``) at ViT-B/16 (B=2 and 256), at the text shape
    (causal) and at D=8, row 9 (``fused_attention_qkv_bwd``) at S=77 causal
    (one tile; its streaming form bit for bit the same) and S=197 (two
-   streaming passes) for B = 1, 7, 64 and 256, both in fp32 and bf16, and
+   streaming passes) for B = 1, 7, 64 and 256, both in fp32 and bf16; the
+   bf16 tensor-core core of rows 7 and 8 at its tile edges (S = 1, 13, 63,
+   64, 65, 77 causal, 197, 257, 577 at B = 1 and 3, a row the mask removes
+   whole, which must be zero, and a row whose scores pass the clamp; row 8
+   at hg = 1, 8 and 16, every group bit for bit the same and hg=16 bit for
+   bit row 7's kernel); and
    the three tensor-core probe kernels (row 17) at INNER=3 and at the
    probe's INNER=64; the kernel-experiment variants (rows 15-16: the 25
    variants of ``probes/variants.py``'s seven wrappers) at ViT-B/16, B = 2
@@ -64,7 +70,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
 9. timings: each kernel against its plain version (serving kernels at B=256
    image rows, the text-block kernels at B=256 text rows in fp32, bf16 and
    int8), with its bound (and the packed core against
-   ``scaled_dot_product_attention``); classify images/s at B=256 and
+   ``scaled_dot_product_attention``, in bf16 also at the L/14 shape B=256,
+   S=257, W=1024; rows 7 and 8 held against their plain versions at the
+   timed shapes, one counted launch each); classify images/s at B=256 and
    single-image p50 latency of the int8 and the bf16 unquantized engines;
    train-step ms at batch 256 (cached image features, dense text rows) on
    the four training paths; the steady-state images/s of a ``train_lora``
@@ -190,7 +198,7 @@ KERNELS = {
         "replaces": "aiic_tpu/ops/quant.py:673 and :782",
     },
     "fused_attention_qkv_headgroups": {
-        "source": "aiic_tpu_torch/csrc/attention_qkv.cu",
+        "source": "aiic_tpu_torch/csrc/attn_core_mma.cuh",
         "replaces": "aiic_tpu/ops/attention.py:563",
     },
     "fused_attention": {
@@ -568,6 +576,123 @@ def phase_zoo_kernels(device) -> dict:
     torch.cuda.empty_cache()
     REPORT["zoo_kernel_checks"] = results
     return worst
+
+
+# The bf16 tensor-core core of rows 7 and 8 (csrc/attn_core_mma.cuh) at its
+# tile edges (64 query rows a block, 64-key tiles): B, S, mask kind (False,
+# True for causal, "dead_row": causal with rows 0 and S-1 all -inf,
+# "clamp": query row 0 scaled by 100 so its scores pass 70 log2 e). Row 7
+# runs at W=256, H=4 (at S=577 the copied planner sends the all-heads core
+# at W=1024 to the reference composition) and at the L/14 widths where the
+# engines run it; row 8 at the L/14@336 width (W=1024, H=16) at hg = 1, 8
+# and 16, every group bit for bit the same and hg=16 row 7's kernel.
+CORE_EDGE_CASES = ([(b, s, False) for s in (1, 13, 63, 64, 65, 197, 257, 577) for b in (1, 3)]
+                   + [(1, 77, True), (3, 77, True), (3, 77, "dead_row"), (2, 577, "dead_row"),
+                      (2, 197, "clamp"), (1, 577, "clamp")])
+CORE_EDGE_ROW7_WIDTHS = {77: (768, 12), 257: (1024, 16)}  # else (256, 4)
+
+
+def _core_edge_inputs(gen, bsz, seq, width, kind, device):
+    """bf16 (B, S, 3W) qkv, the mask and the rows the mask removes whole."""
+    import torch
+
+    from aiic_tpu_torch.models.clip import causal_mask
+
+    qkv = torch.randn((bsz, seq, 3 * width), generator=gen, device=device)
+    if kind == "clamp":
+        qkv[:, 0, :width] *= 100.0
+    mask, dead = None, []
+    if kind in (True, "dead_row"):
+        mask = causal_mask(seq, device=device)
+    if kind == "dead_row":
+        dead = sorted({0, seq - 1})
+        mask[dead] = float("-inf")
+    return qkv.to(torch.bfloat16), mask, dead
+
+
+def _core_edge_agreement(out, ref, dead) -> dict:
+    """The bf16 bar on the rows the mask leaves keys in; the rows it removes
+    whole exactly zero in kernel and plain version."""
+    import torch
+
+    live = [i for i in range(out.shape[1]) if i not in dead]
+    a = _agreement(out[:, live], ref[:, live])
+    if dead:
+        a["dead_rows_zero"] = bool((out[:, dead] == 0).all() and (ref[:, dead] == 0).all())
+        a["ok"] = a["ok"] and a["dead_rows_zero"] and bool(torch.isfinite(out.float()).all())
+    return a
+
+
+def mma_core_resources(build_log: str) -> dict:
+    """The bf16 tensor-core core's registers, spills and shared memory per
+    layout from the build's ``-Xptxas -v`` report, and its blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    from aiic_tpu_torch.ops import attention
+
+    res, lines = {}, build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "attn_core_mma_kernel" in line:
+            layout = "head_major" if "QKVLayoutE1" in line else "packed"
+            for nxt in lines[i + 1:i + 5]:
+                if "spill" in nxt:
+                    res[layout + "_spills"] = nxt.strip()
+                if "Used" in nxt:
+                    res[layout + "_ptxas"] = nxt.split(":", 1)[-1].strip()
+                    break
+    res["blocks_per_sm"] = attention.mma_core_occupancy()
+    return res
+
+
+def phase_core_edge_kernels(device, worst: dict) -> None:
+    """Phase 3, rows 7 (bf16) and 8 at the tensor-core core's tile edges,
+    each launch through its wrapper with the counts at 0 before and one
+    launch after; row 8 at hg = 1, 8 and 16 bit for bit the same, and at
+    hg=16 bit for bit row 7's kernel on the packed layout. ``worst`` takes
+    the largest error of each."""
+    import torch
+
+    from aiic_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=device).manual_seed(25)
+    results = []
+    perm = torch.from_numpy(attention.headmajor_perm(1024, 16)).long().to(device)
+
+    def hold(name, key, label, out, ref, dead, **extra):
+        a = _core_edge_agreement(out, ref, dead)
+        a.update(kernel=name, case=label, **extra)
+        results.append(a)
+        log(f"[kernels] {name:30s} {label:26s} max_abs_err={a['max_abs_err']:.6g} "
+            f"within_2ulp={a['within_2ulp']:.6f} min_row_cos={a['min_row_cos']:.8f}"
+            + "".join(f" {k}={v}" for k, v in extra.items()))
+        if not a["ok"]:
+            raise AssertionError(f"{name} disagrees with its plain version on {label}: {a}")
+        worst[key] = max(worst.get(key, 0.0), a["max_abs_err"])
+
+    for bsz, seq, kind in CORE_EDGE_CASES:
+        width, heads = CORE_EDGE_ROW7_WIDTHS.get(seq, (256, 4))
+        qkv, mask, dead = _core_edge_inputs(gen, bsz, seq, width, kind, device)
+        label = f"B={bsz} S={seq} W={width} {kind}"
+        out = _one_launch("fused_attention_qkv",
+                          lambda: attention.fused_attention_qkv(qkv, mask, heads=heads))
+        hold("fused_attention_qkv", "fused_attention_qkv_bf16", label, out,
+             attention.fused_attention_qkv_ref(qkv, mask, heads), dead)
+        qkv, mask, dead = _core_edge_inputs(gen, bsz, seq, 1024, kind, device)
+        hm = qkv[..., perm].contiguous()
+        ref = attention.fused_attention_qkv_headgroups_ref(hm, mask, 16)
+        outs = {hg: _one_launch("fused_attention_qkv_headgroups",
+                                lambda: attention.fused_attention_qkv_headgroups(
+                                    hm, mask, heads=16, head_group=hg))
+                for hg in (1, 8, 16)}
+        same = all(torch.equal(outs[hg], outs[8]) for hg in (1, 16))
+        row7 = bool(torch.equal(outs[16], attention._fused_attention_qkv_cuda(qkv, mask, 16)))
+        hold("fused_attention_qkv_headgroups", "fused_attention_qkv_headgroups",
+             f"B={bsz} S={seq} W=1024 {kind}", outs[8], ref, dead, hg_bit_identical=same,
+             hg16_bit_identical_to_row7=row7)
+        if not (same and row7):
+            raise AssertionError(f"row 8 on {label}: head groups bit for bit {same}, hg=16 as "
+                                 f"row 7 {row7}")
+        del qkv, hm, outs, ref
+    REPORT["core_edge_checks"] = results
 
 
 # Row 6: label, (B, S, H, D, causal); row 9: label, (B, S, H, causal).
@@ -991,11 +1116,13 @@ def phase_zoo(device):
     return engines, launches
 
 
-def phase_zoo_timing(device, card: str, engines) -> dict:
+def phase_zoo_timing(device, card: str, engines, worst: dict) -> dict:
     """Phase 10's timings: row 3 at ViT-L/14 B=256 (C=4), row 4 at ViT-B/32
     B=256 (full), row 8 at ViT-L/14@336 B=256 (hg=8) beside
-    scaled_dot_product_attention on the same q, k, v; images/s at B=256 and
-    single-image p50 of the int8 zoo engines. Launch counts are put back."""
+    scaled_dot_product_attention on the same q, k, v, and row 8 held against
+    its plain version there (``worst`` takes the error); images/s at B=256
+    and single-image p50 of the int8 zoo engines. Launch counts are put
+    back."""
     import torch
 
     from aiic_tpu_torch.ops import _build, attention
@@ -1017,7 +1144,8 @@ def phase_zoo_timing(device, card: str, engines) -> dict:
         lambda: attention.fused_attention_qkv_headgroups(qkv_hm, heads=16, head_group=8),
         lambda: attention.fused_attention_qkv_headgroups_ref(qkv_hm, None, 16), (qkv_hm,),
         {"bf16": 4 * 256 * 16 * 577 * 577 * 64})}
-    _kernel_times(calls, times, "B=256 S=577 W=1024 hg=8 (L/14@336)", card)
+    _kernel_times(calls, times, "B=256 S=577 W=1024 hg=8 (L/14@336)", card, worst=worst,
+                  hold={"fused_attention_qkv_headgroups": "fused_attention_qkv_headgroups"})
     times["fused_attention_qkv_headgroups"].update(_sdpa_times(qkv_hm, 16, head_major=True))
     log(f"[timing] fused_attention_qkv_headgroups SDPA "
         f"{times['fused_attention_qkv_headgroups']['library_ms']:.3f} ms, transposes "
@@ -1609,13 +1737,20 @@ def _engine_rate(engine, rng) -> dict:
     return {"images_per_s_b256": ips, "single_image_p50_ms": float(np.percentile(lat, 50))}
 
 
-def _kernel_times(calls, times, label: str, card: str) -> None:
-    """plain, kernel, kernel, plain on one card, for each call."""
+def _kernel_times(calls, times, label: str, card: str, hold=None, worst=None) -> None:
+    """plain, kernel, kernel, plain on one card, for each call. Each call
+    named in ``hold`` (check name -> wrapper name) is then launched once
+    more (``_one_launch``: counts at 0 before, that one launch after) and
+    held against its plain version on the same inputs at the bar of
+    ``_agreement``; the error goes into ``worst[name]``."""
+    import torch
+
+    hold = hold or {}
     for name, (kernel, plain, inputs, ops) in calls.items():
         t_plain = [_time_ms(plain, 3)]
         t_kernel = [_time_ms(kernel, 10), _time_ms(kernel, 10)]
         t_plain.append(_time_ms(plain, 3))
-        out = kernel()
+        out = _one_launch(hold[name], kernel) if name in hold else kernel()
         out = out[0] if isinstance(out, tuple) else out
         times[name] = {"ms": min(t_kernel), "plain_ms": min(t_plain), "library_ms": None,
                        **_bound(inputs, out, ops)}
@@ -1623,6 +1758,17 @@ def _kernel_times(calls, times, label: str, card: str) -> None:
         log(f"[timing] {name:24s} {label}: kernel {t['ms']:.3f} ms, plain "
             f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
             f"library {t['library_ms']} ms ({card})")
+        if name in hold:
+            a = _agreement(out, plain())
+            a.update(kernel=name, case=label)
+            REPORT.setdefault("timed_shape_checks", []).append(a)
+            log(f"[kernels] {name:24s} {label} (timed launch) max_abs_err={a['max_abs_err']:.6g} "
+                f"within_2ulp={a['within_2ulp']:.6f} min_row_cos={a['min_row_cos']:.8f}")
+            if not a["ok"]:
+                raise AssertionError(f"{name} disagrees with its plain version on {label}: {a}")
+            worst[name] = max(worst.get(name, 0.0), a["max_abs_err"])
+        del out
+        torch.cuda.empty_cache()
 
 
 def _sdpa_bshd_times(q, k, v, mask) -> dict:
@@ -1825,24 +1971,42 @@ def phase_core_ops_timing(device, card: str, params) -> dict:
     return times
 
 
-def phase_timing(device, card: str, engines, params) -> dict:
+def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
     """Phase 9. Launches made here are not the paths': the counts are
-    saved before and put back after."""
+    saved before and put back after. Row 7 (fp32 and bf16, at B/16 and L/14)
+    is held against its plain version at the timed shapes; ``worst`` takes
+    the errors."""
     import torch
 
-    from aiic_tpu_torch.ops import _build
+    from aiic_tpu_torch.ops import _build, attention
 
     p = _half_block_inputs(np.random.default_rng(3), 256, 197, 768, 12,
                            mask=False, zero_row=False, device=device)
     times = {}
     saved = _build.launch_counts()
     calls = _calls(p)
-    _kernel_times(calls, times, "B=256 S=197 W=768", card)
+    _kernel_times(calls, times, "B=256 S=197 W=768", card, worst=worst,
+                  hold={"fused_attention_qkv": "fused_attention_qkv",
+                        "fused_attention_qkv_bf16": "fused_attention_qkv"})
     for name in ("fused_attention_qkv", "fused_attention_qkv_bf16"):
         times[name].update(_sdpa_times(calls[name][2][0], p["heads"]))
         log(f"[timing] {name:24s} SDPA {times[name]['library_ms']:.3f} ms, transposes "
             f"{times[name]['transpose_ms']:.3f} ms ({card})")
     del p, calls
+    # Row 7 bf16 at the shape the bf16 L/14 engine runs it (the large-S half).
+    gen = torch.Generator(device=device).manual_seed(7)
+    qkv = torch.randn((256, 257, 3072), generator=gen, device=device).to(torch.bfloat16)
+    name = "fused_attention_qkv_bf16_l14"
+    _kernel_times({name: (lambda: attention.fused_attention_qkv(qkv, heads=16),
+                          lambda: attention.fused_attention_qkv_ref(qkv, None, 16), (qkv,),
+                          {"bf16": 4 * 256 * 16 * 257 * 257 * 64})},
+                  times, "B=256 S=257 W=1024 (L/14)", card, worst=worst,
+                  hold={name: "fused_attention_qkv"})
+    times[name].update(_sdpa_times(qkv, 16))
+    log(f"[timing] {name} SDPA {times[name]['library_ms']:.3f} ms, transposes "
+        f"{times[name]['transpose_ms']:.3f} ms ({card})")
+    del qkv
+    torch.cuda.empty_cache()
     rng = np.random.default_rng(6)
     for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         calls = _block_calls(_text_block_inputs(rng, 256, dtype, device))
@@ -2154,9 +2318,12 @@ def main() -> int:
         f"(nvcc {BUILD_INFO['seconds']:.2f} s; by source {BUILD_INFO['per_source_s']}): "
         f"{BUILD_INFO['path']}")
     REPORT["build"] = dict(BUILD_INFO)
+    REPORT["attn_core_mma"] = mma_core_resources(BUILD_INFO["log"])
+    log(f"[build] attn_core_mma (rows 7 bf16, 8): {REPORT['attn_core_mma']}")
 
     worst = phase_kernels(device)
     worst.update(phase_zoo_kernels(device))
+    phase_core_edge_kernels(device, worst)
     worst.update(phase_text_block_kernels(device))
     worst.update(phase_core_ops_kernels(device))
     from aiic_tpu_torch.probes import kernel_experiments
@@ -2171,14 +2338,14 @@ def main() -> int:
         launches.update(train_launches)
         phase_train_compare(params, device)
         phase_lora_engines(params, device, engines["int8"], root)
-    times = phase_timing(device, card, engines, params)
+    times = phase_timing(device, card, engines, params, worst)
     times.update(phase_core_ops_timing(device, card, params))
     times.update(phase_variant_timing(device, card, built, worst))
     times["train_lora_epoch_images_per_s"] = epoch_rates
     del engines, params
     zoo_engines, zoo_launches = phase_zoo(device)
     _add(launches, zoo_launches)
-    times.update(phase_zoo_timing(device, card, zoo_engines))
+    times.update(phase_zoo_timing(device, card, zoo_engines, worst))
     del zoo_engines
     _add(launches, phase_core_ops(device))
     _add(launches, phase_experiments(device, built))
@@ -2191,6 +2358,14 @@ def main() -> int:
                 "max_abs_err": worst[name], **{k: times[name][k] for k in keys},
                 **({"variant": times[name]["variant"]} if "variant" in times[name] else {})}
                for name, meta in KERNELS.items()]
+    # Row 7's entry is its fp32 form (the scalar core); its bf16 form runs on
+    # the tensor-core core, timed at the B/16 and L/14 shapes.
+    row7 = next(k for k in kernels if k["name"] == "fused_attention_qkv")
+    row7["bf16"] = {"source": KERNELS["fused_attention_qkv_headgroups"]["source"],
+                    **{k: times["fused_attention_qkv_bf16"][k] for k in keys}}
+    row7["bf16"]["max_abs_err"] = worst["fused_attention_qkv_bf16"]
+    row7["bf16_l14"] = {k: times["fused_attention_qkv_bf16_l14"][k] for k in keys}
+    row7["bf16_l14"]["max_abs_err"] = worst["fused_attention_qkv_bf16_l14"]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1, default=str)

@@ -33,7 +33,8 @@ def _both(a, dtype):
 
 def _close(out, ref, dtype):
     o = out.float().numpy().reshape(-1, out.shape[-1])
-    r = np.asarray(ref.astype(jnp.float32)).reshape(o.shape)
+    r = np.asarray(jnp.asarray(ref).astype(jnp.float32)).reshape(o.shape)
+    assert np.isfinite(o).all()
     if dtype == "float32":
         np.testing.assert_allclose(o, r, rtol=1e-5, atol=1e-5)
         return

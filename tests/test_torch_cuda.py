@@ -14,7 +14,11 @@ fp32 max |kernel - plain| <= 1e-5 * max |plain| per factor, bf16 cosine
 >= 0.9999 per factor. The text-block kernels' bf16 outputs go through a
 chain of eleven bf16 roundings, so their bar is per row (as in
 chip_smoke.py): cosine >= 0.9999 and every element within 2 bf16 ULPs of the
-row's largest |plain| value. The attention-core backward (row 9) takes the
+row's largest |plain| value. The bf16 tensor-core attention core of rows 7
+and 8 takes the bf16 bar at its tile edges, on the rows the mask leaves keys
+in; a row the mask removes whole is exactly zero in kernel and plain
+version; row 8 gives the same output bit for bit at every head group, and at
+hg=H row 7's. The attention-core backward (row 9) takes the
 fp32 bar above and the bf16 one; its two routes on the card (one tile, two
 streaming passes) agree bit for bit. The probe's int8 body is exact, its
 bf16 and quantized bodies take the bf16 bar (fp32 sums in another order
@@ -114,21 +118,66 @@ def _f32_agree(out, ref):
     assert float(((out - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= 1e-5
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 197, 768, 12, False), (4, 77, 512, 8, True)],
-                         ids=["image", "text_causal"])
+def _core_qkv(device, bsz, seq, width, heads, kind, dtype, seed=1):
+    """(B, S, 3W) packed qkv, the mask and the rows every key of which the
+    mask removes, for a core test of ``kind``: False (no mask), True
+    (causal), "dead_row" (causal with rows 0 and S-1 all -inf: a zero row)
+    or "clamp" (query row 0 of every head scaled by 100, so its scores pass
+    the 70 log2 e clamp)."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((bsz, seq, 3 * width)).astype(np.float32)
+    if kind == "clamp":
+        a[:, 0, :width] *= 100.0
+    mask, dead = None, []
+    if kind in (True, "dead_row"):
+        mask = causal_mask(seq, device=device)
+    if kind == "dead_row":
+        dead = sorted({0, seq - 1})
+        mask[dead] = float("-inf")
+    return torch.from_numpy(a).to(device=device, dtype=dtype), mask, dead
+
+
+def _core_agree(out, ref, dead):
+    """The bar of the dtype on the live rows; rows the mask removes whole
+    are exactly zero in the kernel and in the plain version."""
+    assert bool(torch.isfinite(out.float()).all())
+    live = [i for i in range(out.shape[1]) if i not in dead]
+    if dead:
+        assert bool((out[:, dead] == 0).all()) and bool((ref[:, dead] == 0).all())
+    if live:
+        o, r = out[:, live], ref[:, live]
+        _f32_agree(o, r) if out.dtype == torch.float32 else _agree(o, r)
+
+
+# (B, S, W, H, mask kind): the bf16 tensor-core core's tile edges (64 query
+# rows a block, 64-key tiles), the L/14 text and image shapes, a row the
+# mask removes whole, a row whose scores pass the clamp.
+CORE_EDGES = [(b, s, 256, 4, False) for s in (1, 13, 63, 64, 65, 197, 577) for b in (1, 3)] + [
+    (1, 77, 256, 4, True), (3, 77, 768, 12, True), (1, 257, 1024, 16, False),
+    (3, 257, 1024, 16, False), (3, 77, 512, 8, "dead_row"), (2, 130, 256, 4, "dead_row"),
+    (2, 197, 768, 12, "clamp"), (1, 577, 256, 4, "clamp")]
+CORE_CASES = ([pytest.param(s, torch.bfloat16, id=f"bf16_B{s[0]}_S{s[1]}_W{s[2]}_{s[4]}")
+               for s in CORE_EDGES]
+              + [pytest.param(s, torch.float32, id=f"fp32_B{s[0]}_S{s[1]}_{s[4]}")
+                 for s in [(1, 1, 256, 4, False), (3, 64, 256, 4, False), (3, 65, 256, 4, True),
+                           (2, 130, 256, 4, "dead_row"), (2, 197, 768, 12, "clamp")]])
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    pytest.param(s, d, id=f"{i}-{n}") for s, i in ((
+        (2, 197, 768, 12, False), "image"), ((4, 77, 512, 8, True), "text_causal"))
+    for d, n in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))] + CORE_CASES)
 def test_attention_qkv_kernel_matches_plain(device, shape, dtype):
-    bsz, seq, width, heads, masked = shape
-    rng = np.random.default_rng(1)
-    qkv = torch.from_numpy(rng.standard_normal((bsz, seq, 3 * width)).astype(np.float32))
-    qkv = qkv.to(device=device, dtype=dtype)
-    mask = causal_mask(seq, device=device) if masked else None
+    """Row 7 against its plain version: fp32 on the scalar core at 1e-5, bf16
+    on the tensor-core core at the bf16 bar, at the serving shapes and the
+    new core's tile edges; all-masked rows zero, clamped rows finite."""
+    bsz, seq, width, heads, kind = shape
+    qkv, mask, dead = _core_qkv(device, bsz, seq, width, heads, kind, dtype)
     before = attention.fused_attention_qkv.launches
     out = attention.fused_attention_qkv(qkv, mask, heads=heads)
     torch.cuda.synchronize()
     assert attention.fused_attention_qkv.launches == before + 1
-    ref = attention.fused_attention_qkv_ref(qkv, mask, heads)
-    _f32_agree(out, ref) if dtype == torch.float32 else _agree(out, ref)
+    _core_agree(out, attention.fused_attention_qkv_ref(qkv, mask, heads), dead)
 
 
 @pytest.mark.parametrize("shape", [(2, 197, 768, 12, False), (4, 77, 512, 8, True)],
@@ -395,25 +444,27 @@ def test_int8_block_kernel_matches_plain(device, case):
     _agree(out, quant.int8_block_ref(x, *attn, mask, *mlp_w, heads=heads, plan=plan))
 
 
-def test_headgroups_kernel_matches_plain_and_row7(device):
-    """Row 8 at ViT-L/14@336 (S=577, W=1024, H=16) at hg=8 against its plain
-    version; at hg=16 bit for bit the packed core (row 7) on the packed
-    layout of the same q, k, v."""
-    rng = np.random.default_rng(7)
-    qkv = torch.from_numpy(rng.standard_normal((2, 577, 3072)).astype(np.float32)).to(
-        device, torch.bfloat16)
+@pytest.mark.parametrize("bsz,seq,kind", [
+    (b, s, False) for s in (1, 13, 63, 64, 65, 197, 257, 577) for b in (1, 3)] + [
+    (2, 577, False), (3, 77, True), (2, 577, "dead_row"), (2, 577, "clamp")])
+def test_headgroups_kernel_matches_plain_and_row7(device, bsz, seq, kind):
+    """Row 8 at the ViT-L/14@336 width (W=1024, H=16) at hg = 1, 8 and 16
+    against its plain version, at the tensor-core core's tile edges; every
+    head group gives the same output bit for bit, and hg=16 is the packed
+    core (row 7) on the packed layout of the same q, k, v."""
+    qkv, mask, dead = _core_qkv(device, bsz, seq, 1024, 16, kind, torch.bfloat16, seed=7)
     hm = qkv[..., torch.from_numpy(attention.headmajor_perm(1024, 16)).long().to(device)]
     hm = hm.contiguous()
+    ref = attention.fused_attention_qkv_headgroups_ref(hm, mask, 16)
     before = attention.fused_attention_qkv_headgroups.launches
-    out = attention.fused_attention_qkv_headgroups(hm, heads=16, head_group=8)
+    outs = {hg: attention.fused_attention_qkv_headgroups(hm, mask, heads=16, head_group=hg)
+            for hg in (1, 8, 16)}
     torch.cuda.synchronize()
-    _agree(out, attention.fused_attention_qkv_headgroups_ref(hm, None, 16))
-    row7 = attention.fused_attention_qkv(qkv[:, :257].contiguous(), heads=16)
-    all16 = attention.fused_attention_qkv_headgroups(hm[:, :257].contiguous(), heads=16,
-                                                     head_group=16)
-    assert torch.equal(all16, row7)
-    assert attention.fused_attention_qkv_headgroups.launches == before + 2
-    with pytest.raises(TypeError):  # fp32 K and V of a head at S=577 exceed shared memory
+    assert attention.fused_attention_qkv_headgroups.launches == before + 3
+    _core_agree(outs[8], ref, dead)
+    assert torch.equal(outs[1], outs[8]) and torch.equal(outs[16], outs[8])
+    assert torch.equal(outs[16], attention._fused_attention_qkv_cuda(qkv, mask, 16))
+    with pytest.raises(TypeError):  # fp32 has no tensor-core path that holds its 1e-5 bar
         attention.fused_attention_qkv_headgroups(hm.float(), heads=16, head_group=8)
 
 
