@@ -49,8 +49,9 @@ extern "C" int aiic_attention_qkv(const void* qkv, const void* mask, void* out, 
   if (fp32)
     return launch_attn_core(static_cast<const float*>(qkv), m, static_cast<float*>(out), B, S,
                             W, H, qconst, st);
-  return launch_attn_core_mma<false>(static_cast<const bf16*>(qkv), m, static_cast<bf16*>(out),
-                                     B, S, W, H, qconst, st);
+  const bf16* x = static_cast<const bf16*>(qkv);
+  return launch_attn_core_mma<QKVLayout::kPacked>(x, x, x, m, static_cast<bf16*>(out), B, S, W,
+                                                  H, qconst, st);
 }
 
 // qkv_hm (B,S,3W) head-major, out (B,S,W), both bf16; mask (S,S) f32 or null;
@@ -61,14 +62,15 @@ extern "C" int aiic_attention_qkv_hg(const void* qkv_hm, const void* mask, void*
                                      void* stream) {
   using namespace aiic;
   if (head_group <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_attn_core_mma<true>(static_cast<const bf16*>(qkv_hm),
-                                    static_cast<const float*>(mask), static_cast<bf16*>(out), B,
-                                    S, W, H, qconst, static_cast<cudaStream_t>(stream),
-                                    head_group);
+  const bf16* x = static_cast<const bf16*>(qkv_hm);
+  return launch_attn_core_mma<QKVLayout::kHeadMajor>(x, x, x, static_cast<const float*>(mask),
+                                                     static_cast<bf16*>(out), B, S, W, H, qconst,
+                                                     static_cast<cudaStream_t>(stream),
+                                                     head_group);
 }
 
 // Blocks of the bf16 core resident on one SM (cudaOccupancyMaxActiveBlocks-
-// PerMultiprocessor) into *blocks; the two layouts are one kernel body.
+// PerMultiprocessor) into *blocks; the three layouts are one kernel body.
 // Returns a cudaError_t.
 extern "C" int aiic_attention_qkv_mma_occupancy(int* blocks) {
   using namespace aiic;

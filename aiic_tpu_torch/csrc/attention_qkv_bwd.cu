@@ -10,13 +10,14 @@
 //   dq = ds k;  dk = ds^T q;
 // T is the rounding policy (the element type; a no-op in fp32).
 //
-// Two routes, chosen by the wrapper from S:
-// - S <= 128 (the text tower of every preset): block_core_bwd_kernel
-//   (common.cuh), the whole-text-block backward's core (rows 12 and 14), one
-//   block per (head, image) with Q, K, V, G and the S x S tile in fp32 shared
-//   memory (102,564 B at S=77).
-// - larger S (ViT-B/16's 197, L/14's 257), where the S x S tile does not fit
-//   (356,964 B at S=197): two streaming passes with no atomics, one thread
+// Three forms; the wrapper takes the tensor-core one for bf16 at every S,
+// and for fp32 the one-tile form up to S = 128 and the streaming one above:
+// - bf16, tensor cores (attn_core_bwd_mma.cuh): two wgmma passes, 64 query
+//   rows a block for dq, then 64 key rows a block for dk and dv.
+// - S <= 128, one tile: block_core_bwd_kernel (common.cuh), the whole-text-
+//   block backward's core (rows 12 and 14), one block per (head, image) with
+//   Q, K, V, G and the S x S tile in fp32 shared memory (102,564 B at S=77).
+// - any S, streaming (below): two scalar passes with no atomics, one thread
 //   per row. Pass 1, over (query tile, head, image): the keys streamed
 //   through shared memory three times, for l = sum p, for
 //   delta = sum p dp, and for dq; l and delta go to a small fp32 workspace.
@@ -24,8 +25,11 @@
 //   recomputed from the saved l, for dv and then dk. Every sum runs over the
 //   same operands in the same order as in the one-tile form (s over d, l and
 //   delta over keys, dv and dk over queries, each p from the same fp32 s and
-//   l), so the two routes agree bit for bit wherever both apply; a run
+//   l), so the two scalar forms agree bit for bit wherever both apply; a run
 //   repeats bit for bit.
+// The bf16 one-tile and streaming forms stay reachable (the wrapper's
+// private form argument) so that they can be timed beside the tensor-core
+// form.
 //
 // What bounds it on the H100: 10*B*H*S^2*D operations (recomputed scores, dv,
 // dp, dq, dk) against 7*B*S*W elements moved (qkv and dqkv, g). At 256 text
@@ -33,17 +37,17 @@
 // 0.042 ms in bf16 (bytes); at 256 ViT-B/16 images (S=197, W=768, H=12)
 // 76.3 GFLOP, 1.14 ms fp32, and 542 MB, 0.162 ms bf16.
 //
-// What the simple design gives up: scalar fp32 FMAs (no tensor cores); the
+// What the scalar forms give up: scalar fp32 FMAs (no tensor cores); the
 // streaming form recomputes each score five times (three sweeps in pass 1,
 // two in pass 2), feeds every FMA from shared memory, runs at the 255
 // registers a thread may hold (pass 1 spills a little) and re-reads K/V
 // (pass 1) or Q/G (pass 2) from L2 per row tile; one thread per row leaves
 // S=197 at two tiles of 128 with 59 idle threads. On an H100 it is slower
 // than the plain PyTorch version at 256 ViT-B/16 images, and at 256 text
-// rows (S=77) it takes 1.8x the one-tile kernel's time, so the wrapper
-// keeps the one-tile route wherever it applies.
+// rows (S=77) it takes 1.8x the one-tile kernel's time, so fp32 keeps the
+// one-tile route wherever it applies.
 
-#include "common.cuh"
+#include "attn_core_bwd_mma.cuh"  // and common.cuh
 
 namespace aiic {
 namespace {
@@ -287,17 +291,27 @@ cudaError_t launch_core_bwd_streaming(const T* qkv, const T* g, const float* mas
   return cudaGetLastError();
 }
 
+enum BwdForm { kOneTile = 0, kStreaming = 1, kTensorCores = 2 };
+
 template <typename T>
 cudaError_t attention_qkv_bwd(const void* qkv, const void* mask, const void* g, void* dqkv,
-                              void* ws, int B, int S, int W, int H, float qconst, int streaming,
+                              void* ws, int B, int S, int W, int H, float qconst, int form,
                               cudaStream_t st) {
   const T* x = static_cast<const T*>(qkv);
   const T* gt = static_cast<const T*>(g);
   const float* m = static_cast<const float*>(mask);
+  if (form == kTensorCores) {
+    if constexpr (std::is_same<T, bf16>::value)
+      return launch_core_bwd_mma(x, gt, m, static_cast<bf16*>(dqkv), static_cast<float*>(ws), B,
+                                 S, W, H, qconst, st);
+    else
+      return cudaErrorInvalidValue;  // tensor cores would compute fp32 in TF32
+  }
   if (!m) return cudaErrorInvalidValue;
-  if (streaming)
+  if (form == kStreaming)
     return launch_core_bwd_streaming(x, gt, m, static_cast<T*>(dqkv), static_cast<float*>(ws), B,
                                      S, W, H, qconst, st);
+  if (form != kOneTile) return cudaErrorInvalidValue;
   return launch_core_bwd(x, gt, m, static_cast<T*>(dqkv), B, S, W, H, qconst, st);
 }
 
@@ -305,17 +319,24 @@ cudaError_t attention_qkv_bwd(const void* qkv, const void* mask, const void* g, 
 }  // namespace aiic
 
 // qkv (B,S,3W), g (B,S,W), dqkv (B,S,3W), all bf16 (fp32 == 0) or fp32
-// (fp32 == 1); mask (S,S) f32 (zeros for none); qconst = scale*log2 e rounded
-// to the element type; streaming == 0 takes the one-tile kernel (S <= 128),
-// 1 the two-pass form with ws of 2*B*H*S floats. Needs W == 64*H. Returns a
-// cudaError_t.
+// (fp32 == 1); mask (S,S) f32 (the scalar forms: zeros for none; the
+// tensor-core form: null for none); qconst = scale*log2 e rounded to the
+// element type; form 0 takes the one-tile kernel (S <= 128), 1 the scalar
+// two-pass form, 2 the tensor-core form (bf16 only); forms 1 and 2 need ws
+// of 2*B*H*S floats. Needs W == 64*H. Returns a cudaError_t.
 extern "C" int aiic_attention_qkv_bwd(const void* qkv, const void* mask, const void* g,
                                       void* dqkv, void* ws, int B, int S, int W, int H,
-                                      float qconst, int fp32, int streaming, void* stream) {
+                                      float qconst, int fp32, int form, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (fp32)
-    return aiic::attention_qkv_bwd<float>(qkv, mask, g, dqkv, ws, B, S, W, H, qconst, streaming,
-                                          st);
-  return aiic::attention_qkv_bwd<aiic::bf16>(qkv, mask, g, dqkv, ws, B, S, W, H, qconst,
-                                             streaming, st);
+    return aiic::attention_qkv_bwd<float>(qkv, mask, g, dqkv, ws, B, S, W, H, qconst, form, st);
+  return aiic::attention_qkv_bwd<aiic::bf16>(qkv, mask, g, dqkv, ws, B, S, W, H, qconst, form,
+                                             st);
+}
+
+// Blocks of the tensor-core form's two passes resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into blocks[0] (pass 1,
+// query rows) and blocks[1] (pass 2, key rows). Returns a cudaError_t.
+extern "C" int aiic_attention_qkv_bwd_mma_occupancy(int* blocks) {
+  return static_cast<int>(aiic::core_bwd_mma_occupancy(blocks));
 }

@@ -1,11 +1,14 @@
 // Tensor-core attention core for Hopper (sm_90a), bf16, on the packed or the
-// head-major (B, S, 3W) projection: rows 7 (bf16) and 8 of the TPU kernel
-// table.
+// head-major (B, S, 3W) projection, or on three separate (B, S, H, 64) q, k,
+// v: rows 7 (bf16), 8 and 6 (bf16, D = 64) of the TPU kernel table.
 //
-// Replaces, with attention_qkv.cu's two bf16 entries, the TPU kernels
-// aiic_tpu/ops/attention.py::_attention_qkv_kernel (row 7, bf16) and
-// _attention_qkv_hg_kernel (row 8). The fp32 row 7 and rows 1, 5 and 6 keep
-// common.cuh's scalar attn_core_kernel.
+// Replaces, with attention_qkv.cu's two bf16 entries and attention.cu's bf16
+// D = 64 one, the TPU kernels aiic_tpu/ops/attention.py::
+// _attention_qkv_kernel (row 7, bf16), _attention_qkv_hg_kernel (row 8) and
+// _attention_kernel (row 6, bf16). The fp32 rows 6 and 7, row 6 at D = 8 and
+// rows 1 and 5 keep common.cuh's scalar attn_core_kernel. The tiles, wgmma
+// and cp.async pieces are mma_tiles.cuh's, shared with the backward
+// (attn_core_bwd_mma.cuh).
 //
 // What bounds it on the H100: the bytes. At B=256, S=577, W=1024, hg=8 (row 8,
 // ViT-L/14@336) it reads qkv and writes the output, 1.21 GB: 0.361 ms at 3.35
@@ -50,128 +53,28 @@
 // versions': s = q'.k in fp32 (+ mask * log2 e, two roundings under
 // -fmad=false), p = exp2f(min(s, 70 log2 e)), l += p in fp32 on the
 // unrounded p, o += bf16(p) . v in fp32, out = bf16(o * (1 / max(l, 1e-38))).
-// Only the order of the fp32 sums differs. The layout only moves columns,
-// so head-major at hg = H equals packed bit for bit.
+// Only the order of the fp32 sums differs. The layout only moves addresses,
+// so head-major at hg = H equals packed bit for bit, and separate q, k, v
+// equal the packed projection that holds them.
 
 #pragma once
 
-#include "common.cuh"
+#include "mma_tiles.cuh"
 
 namespace aiic {
 namespace {
 
-constexpr int kMmaRows = 64;      // query rows of a block: 4 warps x 16
-constexpr int kMmaKeys = 64;      // keys per K/V tile
-constexpr int kMmaThreads = 128;  // one warpgroup
-constexpr int kTileElems = kMmaKeys * kHeadDim;  // one 64 x 64 bf16 tile, 8 KB
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Element offset of (row, 16-B chunk) in a 128-B swizzled 64 x 64 bf16 tile.
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * kHeadDim + ((chunk ^ (row & 7)) << 3);
-}
-
-// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-// Orders this thread's shared-memory writes before the tensor cores' reads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// Descriptor of a 128-B swizzled tile at addr (rows of 128 B, 8-row groups
-// 1024 B apart; the leading offset is unused by this layout).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-// d += a . b on the warpgroup: a 64x16 bf16 from registers (each warp's 16
-// rows as the m16n8k16 A fragment), b 16x64 bf16 in shared memory (kTransB:
-// stored N-major), d 64x64 fp32 (each warp's 16 rows as eight m16n8 C
-// fragments).
-template <int kTransB>
-__device__ __forceinline__ void wgmma_64x64x16(float (&d)[8][4], const uint32_t (&a)[4],
-                                               uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" :::
-                   "memory");
-}
-// The accumulators are written by the tensor cores until the wait: keeps the
-// compiler from reading them before it.
-__device__ __forceinline__ void fence_regs(float (&d)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {  // exact: bf16 is fp32's top half
-  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 64 rows x 64 columns of bf16 from src (row r at src + r*ld) into a
-// swizzled tile; rows at index >= n_rows are zero-filled. 4 chunks a thread.
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, size_t ld,
-                                                int n_rows, int tid) {
-#pragma unroll
-  for (int i = 0; i < kTileElems / 8 / kMmaThreads; ++i) {
-    const int c = tid + i * kMmaThreads, r = c >> 3, ch = c & 7;
-    const bool live = r < n_rows;
-    cp_async16(smem_addr(dst + swz(r, ch)), src + (live ? r : 0) * ld + ch * 8, live ? 16 : 0);
-  }
-}
-
 // Grid (ceil(S/64), hg, B * H/hg); head h = (z % (H/hg)) * hg + y of image
-// z / (H/hg), columns as attn_core_kernel's (common.cuh) for the layout L.
+// z / (H/hg). Columns of head h in a row: q, k, v at h*64, W + h*64,
+// 2W + h*64 of one row of 3W (kPacked; q, k and v are the same projection),
+// at 3h*64, 3h*64 + 64, 3h*64 + 128 of it (kHeadMajor), or at h*64 of a row
+// of W in three separate arrays (kSeparate, row 6's (B, S, H, 64) q, k, v).
+// The output is the head concat, h*64 of a row of W, in every layout.
 template <QKVLayout L>
 __global__ void __launch_bounds__(kMmaThreads, 4)
-attn_core_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
+attn_core_mma_kernel(const bf16* __restrict__ qsrc, const bf16* __restrict__ ksrc,
+                     const bf16* __restrict__ vsrc, const float* __restrict__ mask,
                      bf16* __restrict__ out, int S, int W, int groups, float qconst) {
-  static_assert(L != QKVLayout::kSeparate, "the mma core reads one (B, S, 3W) projection");
   __shared__ __align__(1024) bf16 sq[kTileElems];  // Q, later the output rows
   __shared__ __align__(1024) bf16 sk[2][kTileElems];
   __shared__ __align__(1024) bf16 sv[2][kTileElems];
@@ -180,25 +83,28 @@ attn_core_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
   const int g = lane >> 2, tig = lane & 3;  // the fragments' row group and column pair
   const int h = static_cast<int>(blockIdx.z % groups) * gridDim.y + blockIdx.y;
   const size_t row0 = static_cast<size_t>(blockIdx.z / groups) * S;
-  const size_t ld = 3 * static_cast<size_t>(W);
+  const size_t ld = L == QKVLayout::kSeparate ? static_cast<size_t>(W) : 3 * static_cast<size_t>(W);
   const int qo = L == QKVLayout::kHeadMajor ? 3 * h * kHeadDim : h * kHeadDim;
-  const int ko = L == QKVLayout::kPacked ? qo + W : qo + kHeadDim;
-  const int vo = L == QKVLayout::kPacked ? qo + 2 * W : qo + 2 * kHeadDim;
+  const int ko = L == QKVLayout::kPacked ? qo + W : L == QKVLayout::kHeadMajor ? qo + kHeadDim : qo;
+  const int vo = L == QKVLayout::kPacked      ? qo + 2 * W
+                 : L == QKVLayout::kHeadMajor ? qo + 2 * kHeadDim
+                                              : qo;
   const int q0 = blockIdx.x * kMmaRows;
   const int wrow = warp * 16;  // the warp's first row in the tile
   const int n_tiles = (S + kMmaKeys - 1) / kMmaKeys;
-  const bf16* base = qkv + row0 * ld;
+  const bf16* qb = qsrc + row0 * ld + qo;
+  const bf16* kb = ksrc + row0 * ld + ko;
+  const bf16* vb = vsrc + row0 * ld + vo;
 
-  load_tile_async(sq, base + static_cast<size_t>(q0) * ld + qo, ld, S - q0, tid);
-  load_tile_async(sk[0], base + ko, ld, S, tid);
-  load_tile_async(sv[0], base + vo, ld, S, tid);
+  load_tile_async(sq, qb + static_cast<size_t>(q0) * ld, ld, S - q0, tid);
+  load_tile_async(sk[0], kb, ld, S, tid);
+  load_tile_async(sv[0], vb, ld, S, tid);
   cp_async_commit();
 
   uint32_t qa[4][4];  // q' as A fragments, one per 16-wide depth step
   float o[8][4];      // the warp's 16 rows x 64 columns of the output, fp32
   float l[2] = {0.f, 0.f};  // the row sums of p for rows g and g + 8 (this thread's columns)
-#pragma unroll
-  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  zero_acc(o);
   const uint32_t k_addr = smem_addr(sk[0]), v_addr = smem_addr(sv[0]);
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -209,30 +115,20 @@ attn_core_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
     fence_proxy_async();
     __syncthreads();
     if (t + 1 < n_tiles) {
-      const int k1 = (t + 1) * kMmaKeys;
-      load_tile_async(sk[st ^ 1], base + static_cast<size_t>(k1) * ld + ko, ld, S - k1, tid);
-      load_tile_async(sv[st ^ 1], base + static_cast<size_t>(k1) * ld + vo, ld, S - k1, tid);
+      const size_t k1 = static_cast<size_t>(t + 1) * kMmaKeys;
+      load_tile_async(sk[st ^ 1], kb + k1 * ld, ld, S - static_cast<int>(k1), tid);
+      load_tile_async(sv[st ^ 1], vb + k1 * ld, ld, S - static_cast<int>(k1), tid);
     }
     cp_async_commit();
 
     if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int r = wrow + (lane & 15);
-        ldsm_x4(qa[kk], smem_addr(sq + swz(r, 2 * kk + (lane >> 4))));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 v = unpack_bf16(qa[kk][i]);
-          qa[kk][i] = pack_bf16(v.x * qconst, v.y * qconst);
-        }
-      }
+      load_a_frags(qa, sq, wrow, lane);
+      scale_a_frags(qa, qconst);
     }
 
-    // s = q' . k^T: 64 rows x 64 keys, depth 64 in four steps of 16 (32 B
-    // further into each swizzled row).
+    // s = q' . k^T: 64 rows x 64 keys, depth 64 in four steps of 16.
     float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    zero_acc(s);
     const uint64_t kd = sw128_desc(k_addr + st * kTileElems * 2);
     wgmma_fence();
 #pragma unroll
@@ -277,8 +173,7 @@ attn_core_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
       }
     }
 
-    // o += bf16(p) . v: 64 rows x 64 columns, 64 keys in four steps of 16
-    // (16 rows, 2048 B, further into the tile).
+    // o += bf16(p) . v: 64 rows x 64 columns, 64 keys in four steps of 16.
     const uint64_t vd = sw128_desc(v_addr + st * kTileElems * 2);
     wgmma_fence();
 #pragma unroll
@@ -294,43 +189,27 @@ attn_core_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  const float inv0 = 1.0f / fmaxf(l[0], 1e-38f), inv1 = 1.0f / fmaxf(l[1], 1e-38f);
+  const float inv[2] = {1.0f / fmaxf(l[0], 1e-38f), 1.0f / fmaxf(l[1], 1e-38f)};
   // Each warp stages its own 16 rows in the Q tile (only it read them).
-  const int r0 = wrow + g, r1 = r0 + 8;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    *reinterpret_cast<__nv_bfloat162*>(sq + swz(r0, n) + 2 * tig) =
-        __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    *reinterpret_cast<__nv_bfloat162*>(sq + swz(r1, n) + 2 * tig) =
-        __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
-  }
-  __syncwarp();
-  bf16* dst = out + (row0 + q0) * W + h * kHeadDim;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = lane + 32 * i, r = wrow + (c >> 3), ch = c & 7;
-    if (q0 + r < S)
-      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * W + ch * 8) =
-          *reinterpret_cast<const uint4*>(sq + swz(r, ch));
-  }
+  store_rows(sq, o, inv, out + (row0 + q0) * W + h * kHeadDim, W, S - q0, wrow, lane);
 }
 
-// qkv (B*S, 3W) bf16 -> out (B*S, W) bf16; mask (S, S) fp32 or null. Packed
-// [Q | K | V] columns, or head-major [q_h | k_h | v_h] with kHeadMajor.
-// Needs W == H*64 and H % head_group == 0 (head_group 0: all heads). Shared
-// memory does not depend on S.
-template <bool kHeadMajor>
-cudaError_t launch_attn_core_mma(const bf16* qkv, const float* mask, bf16* out, int B, int S,
-                                 int W, int H, float qconst, cudaStream_t st,
-                                 int head_group = 0) {
-  constexpr QKVLayout L = kHeadMajor ? QKVLayout::kHeadMajor : QKVLayout::kPacked;
+// out (B*S, W) bf16 = Attn of q, k, v bf16 in the layout L (kPacked and
+// kHeadMajor: q = k = v = the (B*S, 3W) projection; kSeparate: three
+// (B*S, W) arrays); mask (S, S) fp32 or null. Needs W == H*64 and
+// H % head_group == 0 (head_group 0: all heads). Shared memory does not
+// depend on S.
+template <QKVLayout L>
+cudaError_t launch_attn_core_mma(const bf16* q, const bf16* k, const bf16* v, const float* mask,
+                                 bf16* out, int B, int S, int W, int H, float qconst,
+                                 cudaStream_t st, int head_group = 0) {
   if (head_group <= 0) head_group = H;
   if (B <= 0 || S <= 0 || H <= 0 || W != H * kHeadDim || H % head_group)
     return cudaErrorInvalidValue;
   const dim3 grid((S + kMmaRows - 1) / kMmaRows, head_group, B * (H / head_group));
   if (grid.z > 65535u) return cudaErrorInvalidValue;
-  attn_core_mma_kernel<L><<<grid, kMmaThreads, 0, st>>>(qkv, mask, out, S, W, H / head_group,
-                                                        qconst);
+  attn_core_mma_kernel<L><<<grid, kMmaThreads, 0, st>>>(q, k, v, mask, out, S, W,
+                                                        H / head_group, qconst);
   return cudaGetLastError();
 }
 

@@ -15,13 +15,15 @@
 //   B (kTransB, for dy @ W^T) and a split depth (blockIdx.z) are options.
 // - attn_core_kernel<T, D, L>: the scalar streaming no-max attention core,
 //   for bf16 and fp32, on a (B, S, 3W) projection whose columns are packed
-//   [Q | K | V], or on three separate (B, S, H, D) arrays. Rows 1, 5, 6 and
-//   fp32 row 7 of the TPU kernel table share it (bf16 rows 7 and 8 run the
-//   tensor-core core of attn_core_mma.cuh); T is the rounding policy (q*c, p
-//   and the output round to T, which is a no-op for fp32).
+//   [Q | K | V], or on three separate (B, S, H, D) arrays. Rows 1, 5, fp32
+//   row 7 and row 6 in fp32 or at D = 8 of the TPU kernel table share it
+//   (bf16 rows 7 and 8, and bf16 row 6 at D = 64, run the tensor-core core
+//   of attn_core_mma.cuh); T is the rounding policy (q*c, p and the output
+//   round to T, which is a no-op for fp32).
 // - block_core_bwd_kernel<T, TO>: the attention-core backward with the
 //   S x S probabilities in shared memory, one block per (head, image), for
-//   S <= 128 (rows 9, 12 and 14).
+//   S <= 128 (rows 12 and 14, and fp32 row 9; bf16 row 9 runs the
+//   tensor-core backward of attn_core_bwd_mma.cuh).
 //
 // Built with -fmad=false so the epilogues' a*b+c round twice, as the plain
 // PyTorch versions do; the products themselves use the tensor cores or
@@ -367,7 +369,7 @@ template <> __device__ __forceinline__ void store2<float>(float* p, float a, flo
 // Where a core finds q, k and v: one (B, S, 3W) projection with columns
 // [Q | K | V] (kPacked) or [q_h | k_h | v_h] per head (kHeadMajor, the
 // tensor-core core's only), or three separate (B, S, W) arrays, W = H*D, head
-// h at columns h*D (kSeparate).
+// h at columns h*D (kSeparate, both cores).
 enum class QKVLayout { kPacked, kHeadMajor, kSeparate };
 
 // Grid (query tiles, H, B), one thread per query row; head h = y of image z.

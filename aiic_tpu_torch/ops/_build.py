@@ -91,8 +91,10 @@ _SIGNATURES = {
     "aiic_int8_matmul_t": [_P] * 3 + [_I] * 4 + [_P],
     # q, k, v, mask, out, B, S, H, D, qconst, fp32, stream
     "aiic_attention_bshd": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
-    # qkv, mask, g, dqkv, ws, B, S, W, H, qconst, fp32, streaming, stream
+    # qkv, mask, g, dqkv, ws, B, S, W, H, qconst, fp32, form, stream
     "aiic_attention_qkv_bwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+    # blocks (int[2]: pass 1, pass 2)
+    "aiic_attention_qkv_bwd_mma_occupancy": [_P],
     # x, w, out, rows, W, M, inner, body, stream
     "aiic_mxu_probe": [_P] * 3 + [_I] * 5 + [_P],
     # variant, x, ln_s, ln_b, wqkv_q, sqkv, bqkv, wo_q, so, wo, bo, out, hq, hs,

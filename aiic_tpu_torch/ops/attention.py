@@ -17,14 +17,17 @@
   (the tensor-core core), plain version ``fused_attention_qkv_headgroups_ref``.
 - ``fused_attention`` / ``flash_attention``: the same core on three separate
   (B, S, H, D) q, k, v (TPU kernel ``_attention_kernel``, row 6), bf16 or
-  fp32, head dim 64 or 8; kernel ``csrc/attention.cu``, plain version
-  ``fused_attention_ref``. No engine reaches it, as in the JAX package.
+  fp32, head dim 64 or 8; kernel ``csrc/attention.cu`` (bf16 at D=64 on the
+  tensor-core core of ``csrc/attn_core_mma.cuh``, any S; fp32 and D=8 on
+  ``common.cuh``'s scalar core), plain version ``fused_attention_ref``. No
+  engine reaches it, as in the JAX package.
 - ``fused_attention_qkv_bwd``: the hand-written core backward on the packed
   projection (TPU kernel ``_attention_qkv_bwd_kernel``, row 9), bf16 or
-  fp32; kernel ``csrc/attention_qkv_bwd.cu`` (one tile at S <= 128, two
-  streaming passes above), plain version ``fused_attention_qkv_bwd_ref``.
-  No engine or trainer reaches it: ``fused_attention_qkv_vjp`` keeps the JAX
-  package's autograd backward.
+  fp32; kernel ``csrc/attention_qkv_bwd.cu`` (bf16: the two tensor-core
+  passes of ``csrc/attn_core_bwd_mma.cuh`` at every S; fp32: one tile at
+  S <= 128, two scalar streaming passes above), plain version
+  ``fused_attention_qkv_bwd_ref``. No engine or trainer reaches it:
+  ``fused_attention_qkv_vjp`` keeps the JAX package's autograd backward.
 - ``attention_qkv_ref``: the reference stable-softmax composition on a fused
   (B, S, 3W) projection (``_attention_qkv_xla``), the ``attn_impl="xla"``
   path; ``_attention_qkv_xla_chunked`` runs it in batch chunks, where the
@@ -68,7 +71,10 @@ LOG2E = 1.4426950408889634
 _EXP2_CLAMP = 70.0 * LOG2E
 _HEAD_DIM = 64  # the head dim of the kernels on the packed projection
 _BSHD_DIMS = (8, 64)  # the head dims row 6's kernel (separate q, k, v) is built for
-_BWD_TILE_ROWS = 128  # row 9 holds the S x S tile up to this S (faster there), then streams
+_BWD_TILE_ROWS = 128  # fp32 row 9 holds the S x S tile up to this S (faster there), then streams
+# Row 9's forms on the card (the C entry's ``form``): the bf16 route, and the
+# scalar one-tile and streaming forms (fp32's routes; in bf16 kept for timing).
+_BWD_FORMS = {"one_tile": 0, "streaming": 1, "mma": 2}
 _MAX_SMEM = 232448  # dynamic shared memory a block may opt into on sm_90
 
 
@@ -426,13 +432,22 @@ def _fused_attention_qkv_headgroups_cuda(qkv_hm, mask, heads, head_group):
 
 
 def mma_core_occupancy() -> int:
-    """Blocks of the bf16 tensor-core core (rows 7 and 8) resident on one SM
-    of the current card, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-    gives them."""
+    """Blocks of the bf16 tensor-core core (rows 6 bf16, 7 bf16 and 8)
+    resident on one SM of the current card, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them."""
     blocks = ctypes.c_int(0)
     check("attn_core_mma occupancy", load_library().aiic_attention_qkv_mma_occupancy(
         ctypes.byref(blocks)))
     return blocks.value
+
+
+def mma_bwd_occupancy() -> tuple:
+    """Blocks of the bf16 tensor-core backward's two passes (row 9: query
+    rows, key rows) resident on one SM of the current card."""
+    blocks = (ctypes.c_int * 2)()
+    check("attn_core_bwd_mma occupancy",
+          load_library().aiic_attention_qkv_bwd_mma_occupancy(blocks))
+    return blocks[0], blocks[1]
 
 
 def _fused_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask, heads, eps):
@@ -477,7 +492,10 @@ def _fused_attention_cuda(q, k, v, mask):
     bsz, seq, heads, dim = q.shape
     if dim not in _BSHD_DIMS:
         raise ValueError(f"{name}: the Hopper kernel is built for head dims {_BSHD_DIMS}, got {dim}")
-    if seq < 1 or 2 * seq * dim * q.element_size() > _MAX_SMEM:
+    # bf16 at D=64 runs the tensor-core core, which streams K and V in tiles
+    # and takes any S; the scalar core holds K and V of a head.
+    tiled = q.dtype == torch.bfloat16 and dim == _HEAD_DIM
+    if seq < 1 or (not tiled and 2 * seq * dim * q.element_size() > _MAX_SMEM):
         raise ValueError(f"{name}: K and V of one head at S={seq} do not fit shared memory")
     lib = load_library()
     q, k, v = (t.contiguous() for t in (q, k, v))
@@ -494,20 +512,25 @@ def _fused_attention_cuda(q, k, v, mask):
     return out
 
 
-def _fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, streaming: bool):
-    """Row 9 on the card: the one-tile kernel, or with ``streaming`` the
-    two-pass form (the public wrapper takes it above S = 128; both routes
-    agree bit for bit where both apply)."""
+def _fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, form: str):
+    """Row 9 on the card in one of its forms: ``"mma"`` the tensor-core
+    passes (bf16, any S; the public wrapper's bf16 route), ``"one_tile"``
+    common.cuh's one-tile kernel (S <= 128) or ``"streaming"`` the two
+    scalar passes (fp32's routes at and above S = 128; the two agree bit for
+    bit where both apply)."""
     name = "fused_attention_qkv_bwd"
     if qkv.dtype not in (torch.float32, torch.bfloat16) or qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"{name}: the Hopper kernel takes fp32 or bf16 (B, S, 3W), got "
                          f"{qkv.dtype} {tuple(qkv.shape)}")
+    if form not in _BWD_FORMS or (form == "mma" and qkv.dtype != torch.bfloat16):
+        raise ValueError(f"{name}: no {form!r} form for {qkv.dtype} (forms {list(_BWD_FORMS)}; "
+                         f"the tensor-core one takes bf16)")
     bsz, seq, w3 = qkv.shape
     width = w3 // 3
     if width % heads or width // heads != _HEAD_DIM:
         raise ValueError(f"{name}: the Hopper kernel needs head_dim {_HEAD_DIM}, got W={width}, "
                          f"H={heads}")
-    if seq < 1 or (not streaming and seq > _BWD_TILE_ROWS):
+    if seq < 1 or (form == "one_tile" and seq > _BWD_TILE_ROWS):
         raise ValueError(f"{name}: the one-tile kernel takes 1 <= S <= {_BWD_TILE_ROWS}, got {seq}")
     if g.shape != (bsz, seq, width) or g.device != qkv.device:
         raise ValueError(f"{name}: g must be {(bsz, seq, width)} on {qkv.device}, got "
@@ -515,15 +538,18 @@ def _fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, streaming: bool):
     lib = load_library()
     dev = qkv.device
     qkv, g = qkv.contiguous(), g.to(qkv.dtype).contiguous()
+    if form == "mma" and (qkv.data_ptr() % 16 or g.data_ptr() % 16):
+        raise ValueError(f"{name}: qkv and g must be 16-byte aligned for the tensor-core form")
     mask = mask_arg(mask, seq, dev)
-    if mask is None:
+    if mask is None and form != "mma":  # the scalar forms read a mask always
         mask = torch.zeros((seq, seq), dtype=torch.float32, device=dev)
     out = torch.empty_like(qkv)
-    ws = torch.empty(2 * bsz * heads * seq, dtype=torch.float32, device=dev) if streaming else None
+    ws = (torch.empty(2 * bsz * heads * seq, dtype=torch.float32, device=dev)
+          if form != "one_tile" else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.aiic_attention_qkv_bwd(ptr(qkv), ptr(mask), ptr(g), ptr(out), ptr(ws), bsz, seq,
                                     width, heads, ctypes.c_float(_qconst(_HEAD_DIM, qkv.dtype)),
-                                    int(qkv.dtype == torch.float32), int(streaming), stream)
+                                    int(qkv.dtype == torch.float32), _BWD_FORMS[form], stream)
     check(name, rc)
     return out
 
@@ -643,12 +669,15 @@ def fused_attention_qkv_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor], g: 
                             heads: int) -> torch.Tensor:
     """(B, S, 3W) qkv, (S, S) additive mask (None: none) and (B, S, W) output
     cotangent -> (B, S, 3W) qkv cotangent in qkv's dtype; g is cast to qkv's
-    dtype, as ``_fa_vjp_bwd`` casts it. On the card: the one-tile kernel up
-    to S = 128, the two-pass streaming form above."""
+    dtype, as ``_fa_vjp_bwd`` casts it. On the card: bf16 on the tensor-core
+    passes at every S; fp32 on the one-tile kernel up to S = 128 and the
+    two-pass streaming form above."""
     g = g.to(qkv.dtype)
     if not route("fused_attention_qkv_bwd", qkv):
         return fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads)
-    out = _fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, streaming=qkv.shape[1] > _BWD_TILE_ROWS)
+    form = ("mma" if qkv.dtype == torch.bfloat16
+            else "streaming" if qkv.shape[1] > _BWD_TILE_ROWS else "one_tile")
+    out = _fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, form)
     fused_attention_qkv_bwd.launches += 1
     return out
 

@@ -7,7 +7,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. the Hopper kernels built with nvcc from ``aiic_tpu_torch/csrc``; the
-   registers, spills and blocks per SM of the bf16 tensor-core core;
+   registers, spills and blocks per SM of the bf16 tensor-core core (each
+   layout) and of the two passes of the bf16 tensor-core core backward;
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes (ViT-B/16 image and text half-blocks, B=1, an odd
    B, and an all-zero LN row); the packed-QKV core in fp32 and bf16; the
@@ -18,13 +19,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bit the packed core); the attention-core ops no engine reaches: row 6
    (``flash_attention``) at ViT-B/16 (B=2 and 256), at the text shape
    (causal) and at D=8, row 9 (``fused_attention_qkv_bwd``) at S=77 causal
-   (one tile; its streaming form bit for bit the same) and S=197 (two
-   streaming passes) for B = 1, 7, 64 and 256, both in fp32 and bf16; the
-   bf16 tensor-core core of rows 7 and 8 at its tile edges (S = 1, 13, 63,
-   64, 65, 77 causal, 197, 257, 577 at B = 1 and 3, a row the mask removes
-   whole, which must be zero, and a row whose scores pass the clamp; row 8
-   at hg = 1, 8 and 16, every group bit for bit the same and hg=16 bit for
-   bit row 7's kernel); and
+   (fp32: one tile, its streaming form bit for bit the same; bf16: the
+   tensor-core passes) and S=197 (fp32: two scalar streaming passes) for
+   B = 1, 7, 64 and 256, both in fp32 and bf16; the bf16 tensor-core core
+   of rows 7 and 8 at its tile edges (S = 1, 13, 63, 64, 65, 77 causal,
+   197, 257, 577 at B = 1 and 3, a row the mask removes whole, which must
+   be zero, and a row whose scores pass the clamp; row 8 at hg = 1, 8 and
+   16, every group bit for bit the same and hg=16 bit for bit row 7's
+   kernel); bf16 row 9 (the tensor-core backward) at its tile edges (S = 1,
+   13, 63, 64, 65, 77 causal, 128, 129, 197, 257 at B = 1 and 3, rows the
+   mask removes whole, a row whose scores pass the clamp; against its old
+   one-tile form at S=77) and bf16 row 6 (rows 7-8's core on separate q, k, v)
+   at S = 1, 63, 65, 77 causal, 197 at B = 1 and 3, a removed row, a
+   clamped row; and
    the three tensor-core probe kernels (row 17) at INNER=3 and at the
    probe's INNER=64; the kernel-experiment variants (rows 15-16: the 25
    variants of ``probes/variants.py``'s seven wrappers) at ViT-B/16, B = 2
@@ -78,7 +85,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the four training paths; the steady-state images/s of a ``train_lora``
    epoch; row 6 at B=256 ViT-B/16 beside ``scaled_dot_product_attention``;
    row 9 at 256 text rows and 256 ViT-B/16 images beside the autograd
-   backward that ``pallas_vjp`` runs and SDPA's backward; the fp32
+   backward that ``pallas_vjp`` runs and SDPA's backward (bf16 also beside
+   the scalar forms it replaced; the bf16 rows 6 and 9 held against their
+   plain versions at the timed shapes); the fp32
    ``pallas_vjp`` step at 256 rows as shipped and with row 9 as its core
    backward (held to the shipped step at the fp32 step bar); the three
    probe kernels beside ``torch.matmul`` / ``torch._int_mm``; each
@@ -97,7 +106,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    p50 of the three int8 engines;
 11. this slice's path: rows 6, 9 and 17 through the entry points a user
    calls (``flash_attention`` on 256 ViT-B/16 images in fp32 and bf16,
-   ``fused_attention_qkv_bwd`` on 256 text rows and 256 ViT-B/16 images,
+   ``fused_attention_qkv_bwd`` on 256 text rows and 256 ViT-B/16 images in
+   fp32 and bf16,
    ``python -m aiic_tpu_torch.probes.mxu_probe 5``'s run), every count set
    to 0 before and checked exactly after;
 12. rows 15-16's path: ``kernel_experiments.run_experiment`` (``python -m
@@ -624,22 +634,32 @@ def _core_edge_agreement(out, ref, dead) -> dict:
 
 
 def mma_core_resources(build_log: str) -> dict:
-    """The bf16 tensor-core core's registers, spills and shared memory per
-    layout from the build's ``-Xptxas -v`` report, and its blocks per SM
+    """The bf16 tensor-core kernels' registers, spills and shared memory from
+    the build's ``-Xptxas -v`` report: the core of rows 6-8 per layout and
+    the two passes of row 9's backward; and their blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     from aiic_tpu_torch.ops import attention
 
+    kernels = {"attn_core_mma_kernel": {"QKVLayoutE0": "packed", "QKVLayoutE1": "head_major",
+                                        "QKVLayoutE2": "separate"},
+               "core_bwd_mma_query_kernel": {"": "bwd_pass1"},
+               "core_bwd_mma_key_kernel": {"": "bwd_pass2"}}
     res, lines = {}, build_log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "attn_core_mma_kernel" in line:
-            layout = "head_major" if "QKVLayoutE1" in line else "packed"
-            for nxt in lines[i + 1:i + 5]:
-                if "spill" in nxt:
-                    res[layout + "_spills"] = nxt.strip()
-                if "Used" in nxt:
-                    res[layout + "_ptxas"] = nxt.split(":", 1)[-1].strip()
-                    break
+        if "Compiling entry function" not in line:
+            continue
+        kernel = next((k for k in kernels if k in line), None)
+        if kernel is None:
+            continue
+        tag = next(t for key, t in kernels[kernel].items() if key in line)
+        for nxt in lines[i + 1:i + 5]:
+            if "spill" in nxt:
+                res[tag + "_spills"] = nxt.strip()
+            if "Used" in nxt:
+                res[tag + "_ptxas"] = nxt.split(":", 1)[-1].strip()
+                break
     res["blocks_per_sm"] = attention.mma_core_occupancy()
+    res["bwd_blocks_per_sm"] = list(attention.mma_bwd_occupancy())
     return res
 
 
@@ -695,6 +715,100 @@ def phase_core_edge_kernels(device, worst: dict) -> None:
     REPORT["core_edge_checks"] = results
 
 
+# The bf16 tensor-core forms of rows 9 (the core backward: 64 query rows,
+# then 64 key rows a block, K/V or Q/G streamed in 64-row tiles) and 6 (the
+# core of rows 7-8 on separate q, k, v) at their tile edges: (B, S, mask
+# kind) as CORE_EDGE_CASES; W, H from the S (the text shape at 77, ViT-B/16
+# at 197, else W=256, H=4).
+BWD_EDGE_CASES = ([(b, s, False) for s in (1, 13, 63, 64, 65, 128, 129, 197, 257) for b in (1, 3)]
+                  + [(1, 77, True), (3, 77, True), (3, 77, "dead_row"), (2, 130, "dead_row"),
+                     (2, 197, "clamp")])
+ROW6_EDGE_CASES = ([(b, s, False) for s in (1, 63, 65, 197) for b in (1, 3)]
+                   + [(1, 77, True), (3, 77, True), (3, 77, "dead_row"), (2, 197, "clamp")])
+EDGE_WIDTHS = {77: (512, 8), 197: (768, 12)}  # else (256, 4)
+
+
+def _bwd_edge_agreement(out, ref, dead, width) -> dict:
+    """Row 9 in bf16 at the bar per row of the cotangent (the text-block
+    kernels' bar: row cosine >= COS_MIN, every element within 2 bf16 ULPs of
+    its row's largest |plain| value), on the rows where the plain cotangent
+    is not all zero; those are all zero in the kernel too, and so is dq of a
+    row the mask removes whole. Per element, dq and dk at S=1 are the fp32
+    rounding noise of ds = p (dp - p dp) with p = 1, in kernel and plain
+    version alike, which no 2-ULP share can hold; ``within_2ulp`` is kept as
+    a figure."""
+    import torch
+
+    zero = (ref == 0).all(dim=-1).all(dim=0)  # (S,): rows all zero in every image
+    a = _agreement(out[:, ~zero], ref[:, ~zero], row_scale=True)
+    a["zero_rows_zero"] = bool((out[:, zero] == 0).all()) if bool(zero.any()) else None
+    a["ok"] = a["ok"] and a["zero_rows_zero"] is not False
+    if dead:
+        a["dead_rows_dq_zero"] = bool((out[:, dead, :width] == 0).all()
+                                      and (ref[:, dead, :width] == 0).all())
+        a["ok"] = a["ok"] and a["dead_rows_dq_zero"]
+    return a
+
+
+def phase_core_bwd_edge_kernels(device, worst: dict) -> None:
+    """Phase 3, bf16 rows 9 and 6 at the tile edges of their tensor-core
+    kernels, each launch through its public wrapper with the counts at 0
+    before and one launch after; row 9 at S=77 also against its old bf16
+    one-tile form at the bf16 bar. ``worst`` takes the largest error of
+    each."""
+    import torch
+
+    from aiic_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=device).manual_seed(26)
+    results = []
+
+    def hold(name, label, a, **extra):
+        a.update(kernel=name, case=label, **extra)
+        results.append(a)
+        log(f"[kernels] {name:30s} {label:26s} max_abs_err={a['max_abs_err']:.6g} "
+            f"within_2ulp={a['within_2ulp']:.6f} min_row_cos={a['min_row_cos']:.8f}"
+            + "".join(f" {k}={v}" for k, v in extra.items()))
+        if not a["ok"]:
+            raise AssertionError(f"{name} disagrees with its plain version on {label}: {a}")
+        key = name + "_bf16"
+        worst[key] = max(worst.get(key, 0.0), a["max_abs_err"])
+
+    for bsz, seq, kind in BWD_EDGE_CASES:
+        width, heads = EDGE_WIDTHS.get(seq, (256, 4))
+        qkv, mask, dead = _core_edge_inputs(gen, bsz, seq, width, kind, device)
+        g = _randn(gen, (bsz, seq, width), torch.bfloat16, device)
+        label = f"B={bsz} S={seq} W={width} {kind}"
+        out = _one_launch("fused_attention_qkv_bwd",
+                          lambda: attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads))
+        a = _bwd_edge_agreement(out, attention.fused_attention_qkv_bwd_ref(qkv, mask, g,
+                                                                           heads=heads),
+                                dead, width)
+        extra = {}
+        if seq == 77 and kind is True:
+            old = _agreement(out, attention._fused_attention_qkv_bwd_cuda(qkv, mask, g, heads,
+                                                                          "one_tile"))
+            extra = {"vs_one_tile_within_2ulp": round(old["within_2ulp"], 6),
+                     "vs_one_tile_min_row_cos": round(old["min_row_cos"], 8)}
+            if not old["ok"]:
+                raise AssertionError(f"row 9's tensor-core form disagrees with its one-tile "
+                                     f"form on {label}: {old}")
+        hold("fused_attention_qkv_bwd", label, a, **extra)
+        del qkv, g, out
+    for bsz, seq, kind in ROW6_EDGE_CASES:
+        width, heads = EDGE_WIDTHS.get(seq, (256, 4))
+        qkv, mask, dead = _core_edge_inputs(gen, bsz, seq, width, kind, device)
+        q, k, v = (t.reshape(bsz, seq, heads, 64).contiguous() for t in qkv.split(width, -1))
+        out = _one_launch("fused_attention", lambda: attention.flash_attention(q, k, v, mask))
+        ref = attention.fused_attention_ref(q, k, v, mask)
+        hold("fused_attention", f"B={bsz} S={seq} H={heads} {kind}",
+             _core_edge_agreement(out.reshape(bsz, seq, width), ref.reshape(bsz, seq, width),
+                                  dead))
+        del qkv, q, k, v, out, ref
+    torch.cuda.empty_cache()
+    REPORT["core_bwd_edge_checks"] = results
+
+
 # Row 6: label, (B, S, H, D, causal); row 9: label, (B, S, H, causal).
 ROW6_CASES = [("ViT-B/16 B=2", (2, 197, 12, 64, False)), ("ViT-B/16 B=256", (256, 197, 12, 64, False)),
               ("text B=7 causal", (7, 77, 8, 64, True)), ("D=8 B=2 causal", (2, 16, 4, 8, True))]
@@ -736,10 +850,11 @@ def _row9_inputs(gen, bsz, seq, heads, causal, dtype, device):
 
 def phase_core_ops_kernels(device) -> dict:
     """Phase 3, rows 6, 9 and 17 against their plain versions, each call
-    with the counts at 0 before and one launch after. Row 9 at S=77 runs the
-    one-tile kernel, the text-block backward's core (common.cuh's
+    with the counts at 0 before and one launch after. Row 9 in fp32 at S=77
+    runs the one-tile kernel, the text-block backward's core (common.cuh's
     block_core_bwd_kernel, the same instantiation ``text_block_bwd``
-    launches); its two-pass streaming form must repeat it bit for bit. The
+    launches); its two-pass streaming form must repeat it bit for bit. In
+    bf16 rows 6 and 9 run their tensor-core kernels at every S. The
     probe's int8 body must be exact, at a small INNER and at the INNER that
     ``mxu_probe.run`` launches."""
     import torch
@@ -776,9 +891,9 @@ def phase_core_ops_kernels(device) -> dict:
             out = _one_launch("fused_attention_qkv_bwd", lambda: attention.fused_attention_qkv_bwd(
                 qkv, mask, g, heads=heads))
             extra = {}
-            if seq <= attention._BWD_TILE_ROWS:
+            if seq <= attention._BWD_TILE_ROWS and dtype == torch.float32:
                 streamed = attention._fused_attention_qkv_bwd_cuda(qkv, mask, g, heads,
-                                                                   streaming=True)
+                                                                   "streaming")
                 extra["streaming_bit_identical"] = bool(torch.equal(streamed, out))
                 if not extra["streaming_bit_identical"]:
                     raise AssertionError(f"row 9's streaming form differs from its one-tile "
@@ -1787,6 +1902,29 @@ def _sdpa_bshd_times(q, k, v, mask) -> dict:
             "transpose_ms": _time_ms(split, 10) + _time_ms(merge, 10)}
 
 
+def _device_ms_by_kernel(fn, needles: dict, iters: int = 5) -> dict:
+    """Device ms per call of fn() spent in the CUDA kernels whose names hold
+    each needle, from ``torch.profiler`` over ``iters`` warm calls (None
+    where the trace shows no such kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {k: None for k in needles}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k, needle in needles.items():
+            if needle in ev.key:
+                out[k] = (out[k] or 0.0) + ev.self_device_time_total / 1e3 / iters
+    return out
+
+
 def _bwd_yardsticks(qkv, mask, g, heads: int) -> dict:
     """Row 9's two comparisons: the backward that ``pallas_vjp`` runs today
     (``_AttentionQKVVJP.backward``: the stable composition recomputed at qkv
@@ -1894,13 +2032,16 @@ def _row9_step_times(params, device, card: str) -> dict:
     return res
 
 
-def phase_core_ops_timing(device, card: str, params) -> dict:
+def phase_core_ops_timing(device, card: str, params, worst: dict) -> dict:
     """Phase 9 for rows 6, 9 and 17: row 6 at 256 ViT-B/16 images beside
     SDPA; row 9 at 256 text rows (S=77, causal: the train step's shape) and
-    at 256 ViT-B/16 images beside the autograd backward and SDPA's; the
-    probe kernels at the TPU probe's geometry beside the library's
-    products; the ``pallas_vjp`` step with and without row 9. Launch
-    counts are put back."""
+    at 256 ViT-B/16 images beside the autograd backward and SDPA's, in bf16
+    also beside the scalar forms the tensor-core one replaced (the one-tile
+    form at S=77, the streaming form at both); the bf16 rows 6 and 9 held
+    against their plain versions at the timed shapes (``worst`` takes the
+    errors); the probe kernels at the TPU probe's geometry beside the
+    library's products; the ``pallas_vjp`` step with and without row 9.
+    Launch counts are put back."""
     import torch
 
     from aiic_tpu_torch.ops import _build, attention
@@ -1913,10 +2054,11 @@ def phase_core_ops_timing(device, card: str, params) -> dict:
         shape, kind = (256, 197, 12, 64), ("fp32" if dtype == torch.float32 else "bf16")
         q, k, v = (_randn(gen, shape, dtype, device) for _ in range(3))
         name = "fused_attention" + suffix
+        hold = {name: "fused_attention"} if dtype == torch.bfloat16 else None
         _kernel_times({name: (lambda: attention.flash_attention(q, k, v),
                               lambda: attention.fused_attention_ref(q, k, v), (q, k, v),
                               {kind: 4 * 256 * 12 * 197 * 197 * 64})},
-                      times, f"B=256 S=197 H=12 D=64 {kind}", card)
+                      times, f"B=256 S=197 H=12 D=64 {kind}", card, hold=hold, worst=worst)
         times[name].update(_sdpa_bshd_times(q, k, v, None))
         log(f"[timing] {name:24s} SDPA {times[name]['library_ms']:.3f} ms, transposes "
             f"{times[name]['transpose_ms']:.3f} ms ({card})")
@@ -1925,21 +2067,38 @@ def phase_core_ops_timing(device, card: str, params) -> dict:
                                                ("_vit", (256, 197, 12, False))):
             qkv, g, mask = _row9_inputs(gen, bsz, seq, heads, causal, dtype, device)
             name = "fused_attention_qkv_bwd" + tag + suffix
+            hold = {name: "fused_attention_qkv_bwd"} if dtype == torch.bfloat16 else None
             _kernel_times({name: (
                 lambda: attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads),
                 lambda: attention.fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads),
                 (qkv, mask, g), {kind: 10 * bsz * heads * seq * seq * 64})},
-                times, f"B={bsz} S={seq} H={heads} {kind}", card)
+                times, f"B={bsz} S={seq} H={heads} {kind}", card, hold=hold, worst=worst)
             times[name].update(_bwd_yardsticks(qkv, mask, g, heads))
             t = times[name]
             log(f"[timing] {name:24s} autograd backward (pallas_vjp) {t['autograd_ms']:.3f} ms, "
                 f"SDPA backward {t['library_ms']:.3f} ms, transposes {t['transpose_ms']:.3f} ms "
                 f"({card})")
-            if seq <= attention._BWD_TILE_ROWS:
+            if dtype == torch.bfloat16:
+                # The scalar forms the tensor-core one replaced, then the
+                # tensor-core one again, in this run.
+                forms = ("one_tile", "streaming") if seq <= attention._BWD_TILE_ROWS else (
+                    "streaming",)
+                t["replaced_forms_ms"] = {
+                    form: min(_time_ms(lambda: attention._fused_attention_qkv_bwd_cuda(
+                        qkv, mask, g, heads, form), 5) for _ in range(2)) for form in forms}
+                t["mma_ms_after"] = min(_time_ms(lambda: attention.fused_attention_qkv_bwd(
+                    qkv, mask, g, heads=heads), 10) for _ in range(2))
+                t["pass_device_ms"] = _device_ms_by_kernel(
+                    lambda: attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads),
+                    {"query_pass": "core_bwd_mma_query_kernel", "key_pass": "core_bwd_mma_key_kernel"})
+                log(f"[timing] {name:24s} replaced scalar forms {t['replaced_forms_ms']} ms, the "
+                    f"tensor-core form timed after them {t['mma_ms_after']:.3f} ms; device ms by "
+                    f"pass (profiler) {t['pass_device_ms']} ({card})")
+            elif seq <= attention._BWD_TILE_ROWS:
                 # The two-pass form where the one-tile kernel also applies,
                 # so that the two routes are compared within this run.
                 streamed = lambda: attention._fused_attention_qkv_bwd_cuda(  # noqa: E731
-                    qkv, mask, g, heads, streaming=True)
+                    qkv, mask, g, heads, "streaming")
                 t["streaming_ms"] = min(_time_ms(streamed, 10), _time_ms(streamed, 10))
                 t["one_tile_ms"] = min(_time_ms(lambda: attention.fused_attention_qkv_bwd(
                     qkv, mask, g, heads=heads), 10) for _ in range(2))
@@ -2041,8 +2200,9 @@ def phase_core_ops(device) -> dict:
     shapes their users give them, every count set to 0 before and checked
     exactly after: ``flash_attention`` on 256 ViT-B/16 images in fp32 and
     bf16 (2 launches), ``fused_attention_qkv_bwd`` on 256 text rows (S=77,
-    causal, the one-tile kernel) and 256 ViT-B/16 images (S=197, the
-    streaming form) in fp32 (2), and ``python -m
+    causal: fp32's one-tile kernel, bf16's tensor-core passes) and 256
+    ViT-B/16 images (S=197: fp32's streaming form, the bf16 tensor-core
+    passes) in fp32 and bf16 (4), and ``python -m
     aiic_tpu_torch.probes.mxu_probe 5``'s ``run(5)`` (1 + 5 launches of each
     probe kernel). The outputs are finite and of their shapes, the probe's
     rates positive."""
@@ -2060,15 +2220,16 @@ def phase_core_ops(device) -> dict:
         q, k, v = (_randn(gen, (256, 197, 12, 64), dtype, device) for _ in range(3))
         outs.append((attention.flash_attention(q, k, v), q.shape))
         del q, k, v
-    for bsz, seq, heads, causal in ((256, 77, 8, True), (256, 197, 12, False)):
-        qkv, g, mask = _row9_inputs(gen, bsz, seq, heads, causal, torch.float32, device)
-        outs.append((attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads), qkv.shape))
-        del qkv, g
+    for dtype in (torch.float32, torch.bfloat16):
+        for bsz, seq, heads, causal in ((256, 77, 8, True), (256, 197, 12, False)):
+            qkv, g, mask = _row9_inputs(gen, bsz, seq, heads, causal, dtype, device)
+            outs.append((attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads), qkv.shape))
+            del qkv, g
     probe = mxu_probe.run(5)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got = launch_counts()
-    want = {"fused_attention": 2, "fused_attention_qkv_bwd": 2, "mxu_bf16": 6, "mxu_i8": 6,
+    want = {"fused_attention": 2, "fused_attention_qkv_bwd": 4, "mxu_bf16": 6, "mxu_i8": 6,
             "mxu_i8_quant": 6}
     log(f"[path core_ops] {seconds:.2f} s; launches {({n: c for n, c in got.items() if c})} "
         f"(expected {want}, 0 for the others)")
@@ -2319,13 +2480,15 @@ def main() -> int:
         f"{BUILD_INFO['path']}")
     REPORT["build"] = dict(BUILD_INFO)
     REPORT["attn_core_mma"] = mma_core_resources(BUILD_INFO["log"])
-    log(f"[build] attn_core_mma (rows 7 bf16, 8): {REPORT['attn_core_mma']}")
+    log(f"[build] attn_core_mma (rows 6-8 bf16) and core_bwd_mma (row 9 bf16): "
+        f"{REPORT['attn_core_mma']}")
 
     worst = phase_kernels(device)
     worst.update(phase_zoo_kernels(device))
     phase_core_edge_kernels(device, worst)
     worst.update(phase_text_block_kernels(device))
     worst.update(phase_core_ops_kernels(device))
+    phase_core_bwd_edge_kernels(device, worst)
     from aiic_tpu_torch.probes import kernel_experiments
 
     built = kernel_experiments.model(device)
@@ -2339,7 +2502,7 @@ def main() -> int:
         phase_train_compare(params, device)
         phase_lora_engines(params, device, engines["int8"], root)
     times = phase_timing(device, card, engines, params, worst)
-    times.update(phase_core_ops_timing(device, card, params))
+    times.update(phase_core_ops_timing(device, card, params, worst))
     times.update(phase_variant_timing(device, card, built, worst))
     times["train_lora_epoch_images_per_s"] = epoch_rates
     del engines, params
@@ -2366,6 +2529,19 @@ def main() -> int:
     row7["bf16"]["max_abs_err"] = worst["fused_attention_qkv_bf16"]
     row7["bf16_l14"] = {k: times["fused_attention_qkv_bf16_l14"][k] for k in keys}
     row7["bf16_l14"]["max_abs_err"] = worst["fused_attention_qkv_bf16_l14"]
+    # Rows 6 and 9 likewise: their entries are the fp32 forms (the scalar
+    # cores); bf16 runs the tensor-core kernels, row 9 timed at 256 text rows
+    # (bf16) and 256 ViT-B/16 images (bf16_vit).
+    row6 = next(k for k in kernels if k["name"] == "fused_attention")
+    row6["bf16"] = {"source": KERNELS["fused_attention_qkv_headgroups"]["source"],
+                    **{k: times["fused_attention_bf16"][k] for k in keys},
+                    "max_abs_err": worst["fused_attention_bf16"]}
+    row9 = next(k for k in kernels if k["name"] == "fused_attention_qkv_bwd")
+    for tag, shape in (("bf16", "text"), ("bf16_vit", "vit")):
+        row9[tag] = {"source": "aiic_tpu_torch/csrc/attn_core_bwd_mma.cuh",
+                     **{k: times[f"fused_attention_qkv_bwd_{shape}_bf16"][k] for k in keys},
+                     "max_abs_err": max(worst["fused_attention_qkv_bwd_bf16"],
+                                        worst[f"fused_attention_qkv_bwd_{shape}_bf16"])}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1, default=str)

@@ -19,8 +19,15 @@ and 8 takes the bf16 bar at its tile edges, on the rows the mask leaves keys
 in; a row the mask removes whole is exactly zero in kernel and plain
 version; row 8 gives the same output bit for bit at every head group, and at
 hg=H row 7's. The attention-core backward (row 9) takes the
-fp32 bar above and the bf16 one; its two routes on the card (one tile, two
-streaming passes) agree bit for bit. The probe's int8 body is exact, its
+fp32 bar above and the bf16 one; its two fp32 routes on the card (one tile,
+two streaming passes) agree bit for bit. Its bf16 tensor-core form at the
+tile edges takes the per-row bar of the text-block kernels on every row of
+the cotangent that is not all zero (at S=1, dq and dk are the fp32 rounding
+noise of ds = p (dp - p dp) with p = 1, in kernel and plain version alike),
+and those rows are zero in the kernel too. Row 6 in bf16 at D=64 runs the
+tensor-core core of rows 7-8 and takes the bf16 bar at its tile edges;
+which kernels each route launches is read from the profiler's trace. The
+probe's int8 body is exact, its
 bf16 and quantized bodies take the bf16 bar (fp32 sums in another order
 before one bf16 rounding). The kernel-experiment variants (rows 15-16)
 take the bf16 bar, rows that are zero in the plain version equal; maconly
@@ -516,6 +523,10 @@ def test_fused_attention_kernel_matches_plain(device, shape, dtype):
 @pytest.mark.parametrize("shape", [(3, 77, 8, True), (2, 197, 12, False)],
                          ids=["text_causal_one_tile", "vit_streaming"])
 def test_attention_qkv_bwd_kernel_matches_plain(device, shape, dtype):
+    """Row 9 against its plain version: fp32 on the one-tile kernel (S=77)
+    or the streaming passes (S=197), which repeat each other bit for bit;
+    bf16 on the tensor-core passes at both shapes, held to the old bf16
+    one-tile form at S=77 at the bf16 bar."""
     bsz, seq, heads, masked = shape
     qkv = _randn(device, bsz, seq, 3 * 64 * heads, dtype=dtype, seed=4)
     g = _randn(device, bsz, seq, 64 * heads, dtype=dtype, seed=5)
@@ -526,9 +537,129 @@ def test_attention_qkv_bwd_kernel_matches_plain(device, shape, dtype):
     assert attention.fused_attention_qkv_bwd.launches == before + 1
     ref = attention.fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads)
     _f32_agree(out, ref) if dtype == torch.float32 else _agree(out, ref)
-    if seq <= 128:  # the streaming form repeats the one-tile kernel bit for bit
-        streamed = attention._fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, streaming=True)
+    if seq <= 128 and dtype == torch.float32:  # the streaming form repeats the one-tile kernel
+        streamed = attention._fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, "streaming")
         assert torch.equal(streamed, out)
+    elif seq <= 128:
+        _agree(out, attention._fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, "one_tile"))
+
+
+def _cuda_kernels(fn) -> set:
+    """Names of the CUDA kernels that fn() launches, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _launched(names: set, needle: str) -> bool:
+    return any(needle in n for n in names)
+
+
+def _bwd_agree_rows(out, ref, dead, width):
+    """Row 9's bf16 edge bar: per row of the cotangent (chip_smoke.py's
+    ``_bwd_edge_agreement``) on the rows whose plain value is not all zero,
+    those rows zero in the kernel too, and dq of a removed row zero."""
+    zero = (ref == 0).all(dim=-1).all(dim=0)
+    assert bool((out[:, zero] == 0).all())
+    _agree_rows(out[:, ~zero], ref[:, ~zero])
+    if dead:
+        assert bool((out[:, dead, :width] == 0).all()) and bool((ref[:, dead, :width] == 0).all())
+
+
+# (B, S, mask kind) at the tile edges of the bf16 tensor-core forms of rows 9
+# and 6; W, H from S as chip_smoke.py's EDGE_WIDTHS.
+BWD_EDGES = ([(b, s, False) for s in (1, 13, 63, 64, 65, 128, 129, 197, 257) for b in (1, 3)]
+             + [(1, 77, True), (3, 77, True), (3, 77, "dead_row"), (2, 130, "dead_row"),
+                (2, 197, "clamp")])
+ROW6_EDGES = ([(b, s, False) for s in (1, 63, 65, 197) for b in (1, 3)]
+              + [(1, 77, True), (3, 77, True), (3, 77, "dead_row"), (2, 197, "clamp")])
+EDGE_WIDTHS = {77: (512, 8), 197: (768, 12)}
+
+
+@pytest.mark.parametrize("bsz,seq,kind", BWD_EDGES)
+def test_attention_qkv_bwd_tensor_core_edges(device, bsz, seq, kind):
+    """bf16 row 9 on the tensor-core passes at their tile edges, one counted
+    launch, against its plain version; a run repeats bit for bit."""
+    width, heads = EDGE_WIDTHS.get(seq, (256, 4))
+    qkv, mask, dead = _core_qkv(device, bsz, seq, width, heads, kind, torch.bfloat16, seed=9)
+    g = _randn(device, bsz, seq, width, dtype=torch.bfloat16, seed=10)
+    before = attention.fused_attention_qkv_bwd.launches
+    out = attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads)
+    torch.cuda.synchronize()
+    assert attention.fused_attention_qkv_bwd.launches == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    _bwd_agree_rows(out, attention.fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads), dead,
+                    width)
+    assert torch.equal(attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads), out)
+
+
+@pytest.mark.parametrize("bsz,seq,kind", ROW6_EDGES)
+def test_fused_attention_tensor_core_edges(device, bsz, seq, kind):
+    """bf16 row 6 at D=64 on the tensor-core core of rows 7-8 (separate q, k,
+    v) at its tile edges, one counted launch, against its plain version and
+    bit for bit row 7's kernel on the packed projection of the same q, k, v."""
+    width, heads = EDGE_WIDTHS.get(seq, (256, 4))
+    qkv, mask, dead = _core_qkv(device, bsz, seq, width, heads, kind, torch.bfloat16, seed=11)
+    q, k, v = (t.reshape(bsz, seq, heads, 64).contiguous() for t in qkv.split(width, -1))
+    before = attention.fused_attention.launches
+    out = attention.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert attention.fused_attention.launches == before + 1 and out.shape == q.shape
+    ref = attention.fused_attention_ref(q, k, v, mask)
+    _core_agree(out.reshape(bsz, seq, width), ref.reshape(bsz, seq, width), dead)
+    assert torch.equal(out.reshape(bsz, seq, width),
+                       attention._fused_attention_qkv_cuda(qkv, mask, heads))
+
+
+def test_attention_core_op_routes(device):
+    """Which kernels each route of rows 6 and 9 launches: bf16 D=64 row 6 the
+    tensor-core core, fp32 and D=8 the scalar one; bf16 row 9 the two
+    tensor-core passes at every S, fp32 the one-tile kernel at S=77 and the
+    scalar streaming passes at S=197."""
+    mask = causal_mask(77, device=device)
+    for dtype, dim, want, not_want in ((torch.bfloat16, 64, "attn_core_mma_kernel", "attn_core_kernel"),
+                                       (torch.float32, 64, "attn_core_kernel<float", "mma"),
+                                       (torch.bfloat16, 8, "attn_core_kernel<__nv_bfloat16, 8", "mma")):
+        q = _randn(device, 2, 77, 4, dim, dtype=dtype, seed=12)
+        names = _cuda_kernels(lambda: attention.flash_attention(q, q, q, mask))
+        assert _launched(names, want) and not _launched(names, not_want), (dtype, dim, names)
+    for dtype, seq, want, not_want in ((torch.bfloat16, 77, "core_bwd_mma_query_kernel", "block_core"),
+                                       (torch.bfloat16, 197, "core_bwd_mma_key_kernel", "core_bwd_query"),
+                                       (torch.float32, 77, "block_core_bwd_kernel", "mma"),
+                                       (torch.float32, 197, "core_bwd_key_kernel<float", "mma")):
+        qkv = _randn(device, 2, seq, 3 * 256, dtype=dtype, seed=13)
+        g = _randn(device, 2, seq, 256, dtype=dtype, seed=14)
+        m = mask if seq == 77 else None
+        names = _cuda_kernels(lambda: attention.fused_attention_qkv_bwd(qkv, m, g, heads=4))
+        assert _launched(names, want) and not _launched(names, not_want), (dtype, seq, names)
+
+
+@pytest.mark.parametrize("path", ["bf16", "int8"])
+def test_text_block_backwards_keep_their_core(device, path):
+    """Rows 12 and 14 (text_block_bwd, text_block_bwd_int8) still run
+    common.cuh's block_core_bwd_kernel, not the tensor-core backward, and
+    repeat themselves bit for bit across two calls."""
+    mask = causal_mask(77, device=device)
+    kw = dict(heads=8, scaling=2.0)
+    if path == "bf16":
+        x, dy, bp, lora = _text_block_inputs(device, 3, torch.bfloat16)
+        call = lambda: block_grad.text_block_bwd(x, dy, mask, bp, lora, **kw)  # noqa: E731
+    else:
+        x, dy, bp, qw, lora = _int8_block_inputs(device, 3)
+        call = lambda: block_grad.text_block_bwd_int8(x, dy, mask, bp, qw, lora, **kw)  # noqa: E731
+    first = call()
+    names = _cuda_kernels(call)
+    assert _launched(names, "block_core_bwd_kernel") and not _launched(names, "core_bwd_mma")
+    second = call()
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    for p in first[1]:
+        for ab in "AB":
+            assert torch.equal(first[1][p][ab], second[1][p][ab])
 
 
 def test_attention_core_ops_refuse_what_they_do_not_take(device):
@@ -546,7 +677,9 @@ def test_attention_core_ops_refuse_what_they_do_not_take(device):
         attention.fused_attention_qkv_bwd(qkv, None, g, heads=16)
     qkv, g = torch.zeros((1, 129, 3 * 512), device=device), torch.zeros((1, 129, 512), device=device)
     with pytest.raises(ValueError):  # the one-tile kernel holds S <= 128
-        attention._fused_attention_qkv_bwd_cuda(qkv, None, g, 8, streaming=False)
+        attention._fused_attention_qkv_bwd_cuda(qkv, None, g, 8, "one_tile")
+    with pytest.raises(ValueError):  # the tensor-core form takes bf16
+        attention._fused_attention_qkv_bwd_cuda(qkv, None, g, 8, "mma")
     assert (attention.fused_attention.launches,
             attention.fused_attention_qkv_bwd.launches) == before
 

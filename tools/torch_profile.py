@@ -64,7 +64,8 @@ GROUPS = [  # (group, substring of the CUDA kernel name), first match wins
     ("block_rank_r_sums", "sum_partials_kernel"),
     ("block_ln_fwd", "ln_fwd_rows_kernel"),
     ("block_ln_bwd", "ln_bwd_rows_kernel"),
-    ("attn_core_mma", "attn_core_mma_kernel"),  # rows 7 (bf16) and 8, tensor cores
+    ("attn_core_mma", "attn_core_mma_kernel"),  # rows 6-7 (bf16) and 8, tensor cores
+    ("attn_core_bwd_mma", "core_bwd_mma_"),  # row 9 (bf16), tensor cores
     ("attn_core_fp32", "attn_core_kernel<float"),
     ("attn_core_bf16", "attn_core_kernel"),
     ("int8_gemm_qkv", "EpiQKV"),
