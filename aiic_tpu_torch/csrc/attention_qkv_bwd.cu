@@ -10,10 +10,13 @@
 //   dq = ds k;  dk = ds^T q;
 // T is the rounding policy (the element type; a no-op in fp32).
 //
-// Three forms; the wrapper takes the tensor-core one for bf16 at every S,
-// and for fp32 the one-tile form up to S = 128 and the streaming one above:
+// Four forms; the wrapper takes the tensor-core one for bf16 and the
+// register-tiled one for fp32, at every S:
 // - bf16, tensor cores (attn_core_bwd_mma.cuh): two wgmma passes, 64 query
 //   rows a block for dq, then 64 key rows a block for dk and dv.
+// - fp32, register-tiled (attn_core_bwd_f32.cuh): two SIMT passes of the
+//   same shape, a 4x4 micro-tile of every product a thread, nine products
+//   a tile pair, delta summed beside l.
 // - S <= 128, one tile: block_core_bwd_kernel (common.cuh), the whole-text-
 //   block backward's core (rows 12 and 14), one block per (head, image) with
 //   Q, K, V, G and the S x S tile in fp32 shared memory (102,564 B at S=77).
@@ -27,9 +30,9 @@
 //   delta over keys, dv and dk over queries, each p from the same fp32 s and
 //   l), so the two scalar forms agree bit for bit wherever both apply; a run
 //   repeats bit for bit.
-// The bf16 one-tile and streaming forms stay reachable (the wrapper's
-// private form argument) so that they can be timed beside the tensor-core
-// form.
+// The one-tile and streaming forms stay reachable (the wrapper's private
+// form argument) so that they can be timed beside the forms that replaced
+// them.
 //
 // What bounds it on the H100: 10*B*H*S^2*D operations (recomputed scores, dv,
 // dp, dq, dk) against 7*B*S*W elements moved (qkv and dqkv, g). At 256 text
@@ -44,9 +47,9 @@
 // (pass 1) or Q/G (pass 2) from L2 per row tile; one thread per row leaves
 // S=197 at two tiles of 128 with 59 idle threads. On an H100 it is slower
 // than the plain PyTorch version at 256 ViT-B/16 images, and at 256 text
-// rows (S=77) it takes 1.8x the one-tile kernel's time, so fp32 keeps the
-// one-tile route wherever it applies.
+// rows (S=77) it takes 1.8x the one-tile kernel's time.
 
+#include "attn_core_bwd_f32.cuh"
 #include "attn_core_bwd_mma.cuh"  // and common.cuh
 
 namespace aiic {
@@ -291,7 +294,7 @@ cudaError_t launch_core_bwd_streaming(const T* qkv, const T* g, const float* mas
   return cudaGetLastError();
 }
 
-enum BwdForm { kOneTile = 0, kStreaming = 1, kTensorCores = 2 };
+enum BwdForm { kOneTile = 0, kStreaming = 1, kTensorCores = 2, kTiled = 3 };
 
 template <typename T>
 cudaError_t attention_qkv_bwd(const void* qkv, const void* mask, const void* g, void* dqkv,
@@ -307,6 +310,13 @@ cudaError_t attention_qkv_bwd(const void* qkv, const void* mask, const void* g, 
     else
       return cudaErrorInvalidValue;  // tensor cores would compute fp32 in TF32
   }
+  if (form == kTiled) {
+    if constexpr (std::is_same<T, float>::value)
+      return launch_core_bwd_tiled(x, gt, m, static_cast<float*>(dqkv), static_cast<float*>(ws), B,
+                                   S, W, H, qconst, st);
+    else
+      return cudaErrorInvalidValue;  // the register-tiled form is fp32's
+  }
   if (!m) return cudaErrorInvalidValue;
   if (form == kStreaming)
     return launch_core_bwd_streaming(x, gt, m, static_cast<T*>(dqkv), static_cast<float*>(ws), B,
@@ -320,10 +330,11 @@ cudaError_t attention_qkv_bwd(const void* qkv, const void* mask, const void* g, 
 
 // qkv (B,S,3W), g (B,S,W), dqkv (B,S,3W), all bf16 (fp32 == 0) or fp32
 // (fp32 == 1); mask (S,S) f32 (the scalar forms: zeros for none; the
-// tensor-core form: null for none); qconst = scale*log2 e rounded to the
-// element type; form 0 takes the one-tile kernel (S <= 128), 1 the scalar
-// two-pass form, 2 the tensor-core form (bf16 only); forms 1 and 2 need ws
-// of 2*B*H*S floats. Needs W == 64*H. Returns a cudaError_t.
+// tensor-core and register-tiled forms: null for none); qconst =
+// scale*log2 e rounded to the element type; form 0 takes the one-tile kernel
+// (S <= 128), 1 the scalar two-pass form, 2 the tensor-core form (bf16
+// only), 3 the register-tiled form (fp32 only); forms 1-3 need ws of
+// 2*B*H*S floats. Needs W == 64*H. Returns a cudaError_t.
 extern "C" int aiic_attention_qkv_bwd(const void* qkv, const void* mask, const void* g,
                                       void* dqkv, void* ws, int B, int S, int W, int H,
                                       float qconst, int fp32, int form, void* stream) {
@@ -339,4 +350,10 @@ extern "C" int aiic_attention_qkv_bwd(const void* qkv, const void* mask, const v
 // query rows) and blocks[1] (pass 2, key rows). Returns a cudaError_t.
 extern "C" int aiic_attention_qkv_bwd_mma_occupancy(int* blocks) {
   return static_cast<int>(aiic::core_bwd_mma_occupancy(blocks));
+}
+
+// Blocks of the fp32 register-tiled form's two passes resident on one SM
+// into blocks[0] (pass 1) and blocks[1] (pass 2). Returns a cudaError_t.
+extern "C" int aiic_attention_qkv_bwd_tiled_occupancy(int* blocks) {
+  return static_cast<int>(aiic::core_bwd_tiled_occupancy(blocks));
 }

@@ -1,7 +1,10 @@
-// Tensor-core rate probe: what rate the port's own WMMA product reaches on
-// this card, for the three bodies of the TPU probe tools/mxu_probe.py
-// (`build` :77, pallas_call :78; row 17), at its geometry: rows of R=128 per
-// grid step, W=768, M=3072, STEPS=64 steps, INNER=64 products per step.
+// Tensor-core rate probe, WMMA form: what rate the port's own WMMA product
+// reaches on this card, for the three bodies of the TPU probe
+// tools/mxu_probe.py (`build` :77, pallas_call :78; row 17), at its
+// geometry: rows of R=128 per grid step, W=768, M=3072, STEPS=64 steps,
+// INNER=64 products per step. The public wrappers run the wgmma form
+// (mxu_probe_wgmma.cu); this one, the form it replaced, stays reachable
+// (mxu_probe.py's _probe_cuda(..., form="wmma")) and is timed beside it.
 //
 //   bf16:     acc += bf16(x + i) . w, bf16 operands into fp32 (each product
 //             summed on its own, then added to acc), out = bf16(acc)

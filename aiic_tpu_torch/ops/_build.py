@@ -95,8 +95,13 @@ _SIGNATURES = {
     "aiic_attention_qkv_bwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     # blocks (int[2]: pass 1, pass 2)
     "aiic_attention_qkv_bwd_mma_occupancy": [_P],
+    "aiic_attention_qkv_bwd_tiled_occupancy": [_P],
     # x, w, out, rows, W, M, inner, body, stream
     "aiic_mxu_probe": [_P] * 3 + [_I] * 5 + [_P],
+    # x, w (bf16) or w^T (int8), out, xq, scales, rows, W, M, inner, body, stream
+    "aiic_mxu_probe_wgmma": [_P] * 5 + [_I] * 5 + [_P],
+    # blocks (int[3]: bf16, i8, i8_quant)
+    "aiic_mxu_probe_wgmma_occupancy": [_P],
     # variant, x, ln_s, ln_b, wqkv_q, sqkv, bqkv, wo_q, so, wo, bo, out, hq, hs,
     # amax, qkv, attn, aq, as, B, S, W, H, eps, qconst, stream
     "aiic_attn_variant": [_I] + [_P] * 18 + [_I] * 4 + [_F, _F, _P],

@@ -24,10 +24,12 @@
 - ``fused_attention_qkv_bwd``: the hand-written core backward on the packed
   projection (TPU kernel ``_attention_qkv_bwd_kernel``, row 9), bf16 or
   fp32; kernel ``csrc/attention_qkv_bwd.cu`` (bf16: the two tensor-core
-  passes of ``csrc/attn_core_bwd_mma.cuh`` at every S; fp32: one tile at
-  S <= 128, two scalar streaming passes above), plain version
-  ``fused_attention_qkv_bwd_ref``. No engine or trainer reaches it:
-  ``fused_attention_qkv_vjp`` keeps the JAX package's autograd backward.
+  passes of ``csrc/attn_core_bwd_mma.cuh``; fp32: the two register-tiled
+  passes of ``csrc/attn_core_bwd_f32.cuh``; both at every S), plain version
+  ``fused_attention_qkv_bwd_ref``; ``fused_attention_qkv_bwd_ul_ref``
+  renders in plain PyTorch how the fp32 kernel takes delta. No engine or
+  trainer reaches it: ``fused_attention_qkv_vjp`` keeps the JAX package's
+  autograd backward.
 - ``attention_qkv_ref``: the reference stable-softmax composition on a fused
   (B, S, 3W) projection (``_attention_qkv_xla``), the ``attn_impl="xla"``
   path; ``_attention_qkv_xla_chunked`` runs it in batch chunks, where the
@@ -71,10 +73,12 @@ LOG2E = 1.4426950408889634
 _EXP2_CLAMP = 70.0 * LOG2E
 _HEAD_DIM = 64  # the head dim of the kernels on the packed projection
 _BSHD_DIMS = (8, 64)  # the head dims row 6's kernel (separate q, k, v) is built for
-_BWD_TILE_ROWS = 128  # fp32 row 9 holds the S x S tile up to this S (faster there), then streams
-# Row 9's forms on the card (the C entry's ``form``): the bf16 route, and the
-# scalar one-tile and streaming forms (fp32's routes; in bf16 kept for timing).
-_BWD_FORMS = {"one_tile": 0, "streaming": 1, "mma": 2}
+_BWD_TILE_ROWS = 128  # row 9's one-tile form holds the S x S tile up to this S
+# Row 9's forms on the card (the C entry's ``form``): the scalar one-tile and
+# streaming forms (kept to be timed beside the forms that replaced them), the
+# bf16 route and the fp32 route.
+_BWD_FORMS = {"one_tile": 0, "streaming": 1, "mma": 2, "tiled": 3}
+_BWD_FORM_DTYPE = {"mma": torch.bfloat16, "tiled": torch.float32}  # forms of one dtype
 _MAX_SMEM = 232448  # dynamic shared memory a block may opt into on sm_90
 
 
@@ -366,6 +370,36 @@ def fused_attention_qkv_bwd_ref(qkv: torch.Tensor, mask: Optional[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
+def fused_attention_qkv_bwd_ul_ref(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                                   g: torch.Tensor, *, heads: int) -> torch.Tensor:
+    """``fused_attention_qkv_bwd_ref`` in fp32 as the register-tiled kernel
+    takes it: delta = rowsum(e∘dp)·inv, summed beside l = rowsum(e) (e the
+    clamped exp2 numerators, inv = 1/max(l, 1e-38)), in place of
+    rowsum(p∘dp) after l; p = e·inv. The two differ by fp32 rounding."""
+    if qkv.dtype != torch.float32:
+        raise ValueError(f"the u/l form is fp32's, got {qkv.dtype}")
+    no_tf32()
+    bsz, seq, w3 = qkv.shape
+    dim = w3 // 3 // heads
+    scale = dim ** -0.5
+    q, k, v = _split_heads(qkv, heads)
+    gh = g.float().reshape(bsz, seq, heads, dim)
+    qs = q * torch.tensor(scale * LOG2E, dtype=torch.float32, device=q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k)
+    if mask is not None:
+        s = s + mask.float() * LOG2E
+    e = exp2_rows(s)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, v)
+    inv = 1.0 / _denom_guard(e.sum(dim=-1, keepdim=True))
+    delta = (e * dp).sum(dim=-1, keepdim=True) * inv
+    p = e * inv
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gh)
+    ds = (p * (dp - delta)) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    return torch.cat([t.reshape(bsz, seq, w3 // 3) for t in (dq, dk, dv)], dim=-1)
+
+
 def _qconst(dim: int, dtype: torch.dtype) -> float:
     """``scale·log2 e`` rounded to the compute dtype, as
     ``jnp.asarray(scale * LOG2E, q.dtype)``."""
@@ -450,6 +484,15 @@ def mma_bwd_occupancy() -> tuple:
     return blocks[0], blocks[1]
 
 
+def tiled_bwd_occupancy() -> tuple:
+    """Blocks of the fp32 register-tiled backward's two passes (row 9)
+    resident on one SM of the current card."""
+    blocks = (ctypes.c_int * 2)()
+    check("attn_core_bwd_f32 occupancy",
+          load_library().aiic_attention_qkv_bwd_tiled_occupancy(blocks))
+    return blocks[0], blocks[1]
+
+
 def _fused_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask, heads, eps):
     name = "fused_ln_qkv_attention"
     bf16_activation(name, x)
@@ -514,17 +557,19 @@ def _fused_attention_cuda(q, k, v, mask):
 
 def _fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, form: str):
     """Row 9 on the card in one of its forms: ``"mma"`` the tensor-core
-    passes (bf16, any S; the public wrapper's bf16 route), ``"one_tile"``
+    passes (bf16, any S; the public wrapper's bf16 route), ``"tiled"`` the
+    register-tiled passes (fp32, any S; the fp32 route), ``"one_tile"``
     common.cuh's one-tile kernel (S <= 128) or ``"streaming"`` the two
-    scalar passes (fp32's routes at and above S = 128; the two agree bit for
-    bit where both apply)."""
+    scalar passes (the two scalar forms agree bit for bit where both apply).
+    Raises ValueError on what a form does not take, before the library
+    loads."""
     name = "fused_attention_qkv_bwd"
     if qkv.dtype not in (torch.float32, torch.bfloat16) or qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"{name}: the Hopper kernel takes fp32 or bf16 (B, S, 3W), got "
                          f"{qkv.dtype} {tuple(qkv.shape)}")
-    if form not in _BWD_FORMS or (form == "mma" and qkv.dtype != torch.bfloat16):
+    if form not in _BWD_FORMS or _BWD_FORM_DTYPE.get(form, qkv.dtype) != qkv.dtype:
         raise ValueError(f"{name}: no {form!r} form for {qkv.dtype} (forms {list(_BWD_FORMS)}; "
-                         f"the tensor-core one takes bf16)")
+                         f"the tensor-core one takes bf16, the register-tiled one fp32)")
     bsz, seq, w3 = qkv.shape
     width = w3 // 3
     if width % heads or width // heads != _HEAD_DIM:
@@ -538,10 +583,10 @@ def _fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, form: str):
     lib = load_library()
     dev = qkv.device
     qkv, g = qkv.contiguous(), g.to(qkv.dtype).contiguous()
-    if form == "mma" and (qkv.data_ptr() % 16 or g.data_ptr() % 16):
-        raise ValueError(f"{name}: qkv and g must be 16-byte aligned for the tensor-core form")
+    if form in _BWD_FORM_DTYPE and (qkv.data_ptr() % 16 or g.data_ptr() % 16):
+        raise ValueError(f"{name}: qkv and g must be 16-byte aligned for the {form} form")
     mask = mask_arg(mask, seq, dev)
-    if mask is None and form != "mma":  # the scalar forms read a mask always
+    if mask is None and form not in _BWD_FORM_DTYPE:  # the scalar forms read a mask always
         mask = torch.zeros((seq, seq), dtype=torch.float32, device=dev)
     out = torch.empty_like(qkv)
     ws = (torch.empty(2 * bsz * heads * seq, dtype=torch.float32, device=dev)
@@ -670,13 +715,11 @@ def fused_attention_qkv_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor], g: 
     """(B, S, 3W) qkv, (S, S) additive mask (None: none) and (B, S, W) output
     cotangent -> (B, S, 3W) qkv cotangent in qkv's dtype; g is cast to qkv's
     dtype, as ``_fa_vjp_bwd`` casts it. On the card: bf16 on the tensor-core
-    passes at every S; fp32 on the one-tile kernel up to S = 128 and the
-    two-pass streaming form above."""
+    passes, fp32 on the register-tiled passes, at every S."""
     g = g.to(qkv.dtype)
     if not route("fused_attention_qkv_bwd", qkv):
         return fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads)
-    form = ("mma" if qkv.dtype == torch.bfloat16
-            else "streaming" if qkv.shape[1] > _BWD_TILE_ROWS else "one_tile")
+    form = "mma" if qkv.dtype == torch.bfloat16 else "tiled"
     out = _fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, form)
     fused_attention_qkv_bwd.launches += 1
     return out

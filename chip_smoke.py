@@ -8,7 +8,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. the Hopper kernels built with nvcc from ``aiic_tpu_torch/csrc``; the
    registers, spills and blocks per SM of the bf16 tensor-core core (each
-   layout) and of the two passes of the bf16 tensor-core core backward;
+   layout), of the two passes of the bf16 tensor-core and the fp32
+   register-tiled core backward, and of row 17's wgmma products and row
+   pass;
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes (ViT-B/16 image and text half-blocks, B=1, an odd
    B, and an all-zero LN row); the packed-QKV core in fp32 and bf16; the
@@ -18,10 +20,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    L/14 on (1, 16)), the head-grouped core at S=577 (hg=8; hg=16 bit for
    bit the packed core); the attention-core ops no engine reaches: row 6
    (``flash_attention``) at ViT-B/16 (B=2 and 256), at the text shape
-   (causal) and at D=8, row 9 (``fused_attention_qkv_bwd``) at S=77 causal
-   (fp32: one tile, its streaming form bit for bit the same; bf16: the
-   tensor-core passes) and S=197 (fp32: two scalar streaming passes) for
-   B = 1, 7, 64 and 256, both in fp32 and bf16; the bf16 tensor-core core
+   (causal) and at D=8, row 9 (``fused_attention_qkv_bwd``: fp32 the
+   register-tiled passes, bf16 the tensor-core passes; fp32's scalar forms
+   beside, the streaming one bit for bit the one-tile kernel at S=77) at
+   S=77 causal and S=197 for B = 1, 7, 64 and 256, both in fp32 and bf16;
+   the bf16 tensor-core core
    of rows 7 and 8 at its tile edges (S = 1, 13, 63, 64, 65, 77 causal,
    197, 257, 577 at B = 1 and 3, a row the mask removes whole, which must
    be zero, and a row whose scores pass the clamp; row 8 at hg = 1, 8 and
@@ -29,11 +32,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    kernel); bf16 row 9 (the tensor-core backward) at its tile edges (S = 1,
    13, 63, 64, 65, 77 causal, 128, 129, 197, 257 at B = 1 and 3, rows the
    mask removes whole, a row whose scores pass the clamp; against its old
-   one-tile form at S=77) and bf16 row 6 (rows 7-8's core on separate q, k, v)
-   at S = 1, 63, 65, 77 causal, 197 at B = 1 and 3, a removed row, a
+   one-tile form at S=77), fp32 row 9 (the register-tiled passes) at S = 1,
+   13, 31, 32, 33, 63, 64, 65, 77 causal, 128, 129, 197, 257 at B = 1 and 3,
+   removed and clamped rows, and bf16 row 6 (rows 7-8's core on separate q,
+   k, v) at S = 1, 63, 65, 77 causal, 197 at B = 1 and 3, a removed row, a
    clamped row; and
-   the three tensor-core probe kernels (row 17) at INNER=3 and at the
-   probe's INNER=64; the kernel-experiment variants (rows 15-16: the 25
+   the three tensor-core probe kernels (row 17, the wgmma form, and the
+   WMMA form it replaced) at INNER=3 and at the probe's INNER=64; the
+   kernel-experiment variants (rows 15-16: the 25
    variants of ``probes/variants.py``'s seven wrappers) at ViT-B/16, B = 2
    and 64 (and 1 for the two kernel_experiments.py functions, 1024 for the
    three kernel_experiments7.py variants), x with an all-zero row,
@@ -85,12 +91,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the four training paths; the steady-state images/s of a ``train_lora``
    epoch; row 6 at B=256 ViT-B/16 beside ``scaled_dot_product_attention``;
    row 9 at 256 text rows and 256 ViT-B/16 images beside the autograd
-   backward that ``pallas_vjp`` runs and SDPA's backward (bf16 also beside
-   the scalar forms it replaced; the bf16 rows 6 and 9 held against their
-   plain versions at the timed shapes); the fp32
+   backward that ``pallas_vjp`` runs and SDPA's backward and beside the
+   scalar forms its bf16 and fp32 forms replaced, with device ms by pass
+   (bf16 row 6 and row 9 in both types held against their plain versions at
+   the timed shapes); the fp32
    ``pallas_vjp`` step at 256 rows as shipped and with row 9 as its core
    backward (held to the shipped step at the fp32 step bar); the three
-   probe kernels beside ``torch.matmul`` / ``torch._int_mm``; each
+   probe kernels (wgmma) beside the WMMA form they replaced and
+   ``torch.matmul`` / ``torch._int_mm``, held against their plain
+   versions, with device ms by stage; each
    kernel-experiment variant, one launch at B=256, beside its plain version
    with its bound (no PyTorch call computes any of them), and that launch's
    output held against the plain version at phase 3's bars;
@@ -216,19 +225,19 @@ KERNELS = {
         "replaces": "aiic_tpu/ops/attention.py:313",
     },
     "fused_attention_qkv_bwd": {
-        "source": "aiic_tpu_torch/csrc/attention_qkv_bwd.cu",
+        "source": "aiic_tpu_torch/csrc/attn_core_bwd_f32.cuh",
         "replaces": "aiic_tpu/ops/attention.py:728",
     },
     "mxu_bf16": {
-        "source": "aiic_tpu_torch/csrc/mxu_probe.cu",
+        "source": "aiic_tpu_torch/csrc/mxu_probe_wgmma.cu",
         "replaces": "tools/mxu_probe.py:38",
     },
     "mxu_i8": {
-        "source": "aiic_tpu_torch/csrc/mxu_probe.cu",
+        "source": "aiic_tpu_torch/csrc/mxu_probe_wgmma.cu",
         "replaces": "tools/mxu_probe.py:51",
     },
     "mxu_i8_quant": {
-        "source": "aiic_tpu_torch/csrc/mxu_probe.cu",
+        "source": "aiic_tpu_torch/csrc/mxu_probe_wgmma.cu",
         "replaces": "tools/mxu_probe.py:62",
     },
     # The kernel-experiment variants (rows 15-16): one wrapper per TPU function.
@@ -602,8 +611,9 @@ CORE_EDGE_CASES = ([(b, s, False) for s in (1, 13, 63, 64, 65, 197, 257, 577) fo
 CORE_EDGE_ROW7_WIDTHS = {77: (768, 12), 257: (1024, 16)}  # else (256, 4)
 
 
-def _core_edge_inputs(gen, bsz, seq, width, kind, device):
-    """bf16 (B, S, 3W) qkv, the mask and the rows the mask removes whole."""
+def _core_edge_inputs(gen, bsz, seq, width, kind, device, dtype=None):
+    """(B, S, 3W) qkv in ``dtype`` (bf16 by default), the mask and the rows
+    the mask removes whole."""
     import torch
 
     from aiic_tpu_torch.models.clip import causal_mask
@@ -617,7 +627,7 @@ def _core_edge_inputs(gen, bsz, seq, width, kind, device):
     if kind == "dead_row":
         dead = sorted({0, seq - 1})
         mask[dead] = float("-inf")
-    return qkv.to(torch.bfloat16), mask, dead
+    return qkv.to(dtype or torch.bfloat16), mask, dead
 
 
 def _core_edge_agreement(out, ref, dead) -> dict:
@@ -634,16 +644,23 @@ def _core_edge_agreement(out, ref, dead) -> dict:
 
 
 def mma_core_resources(build_log: str) -> dict:
-    """The bf16 tensor-core kernels' registers, spills and shared memory from
-    the build's ``-Xptxas -v`` report: the core of rows 6-8 per layout and
-    the two passes of row 9's backward; and their blocks per SM
+    """The redesigned kernels' registers, spills and shared memory from the
+    build's ``-Xptxas -v`` report: the bf16 core of rows 6-8 per layout, the
+    two passes of row 9's bf16 and fp32 backward, row 17's wgmma products
+    and its i8_quant row pass; and their blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     from aiic_tpu_torch.ops import attention
+    from aiic_tpu_torch.probes import mxu_probe
 
     kernels = {"attn_core_mma_kernel": {"QKVLayoutE0": "packed", "QKVLayoutE1": "head_major",
                                         "QKVLayoutE2": "separate"},
                "core_bwd_mma_query_kernel": {"": "bwd_pass1"},
-               "core_bwd_mma_key_kernel": {"": "bwd_pass2"}}
+               "core_bwd_mma_key_kernel": {"": "bwd_pass2"},
+               "core_bwd_tiled_query_kernel": {"": "bwd_f32_pass1"},
+               "core_bwd_tiled_key_kernel": {"": "bwd_f32_pass2"},
+               "mxu_wgmma_kernel": {"ILb0": "mxu_bf16", "ILb1": "mxu_i8"},
+               "mxu_wgmma_quant_kernel": {"": "mxu_i8_quant"},
+               "mxu_quant_rows_kernel": {"": "mxu_i8_quant_row_pass"}}
     res, lines = {}, build_log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" not in line:
@@ -660,6 +677,8 @@ def mma_core_resources(build_log: str) -> dict:
                 break
     res["blocks_per_sm"] = attention.mma_core_occupancy()
     res["bwd_blocks_per_sm"] = list(attention.mma_bwd_occupancy())
+    res["bwd_f32_blocks_per_sm"] = list(attention.tiled_bwd_occupancy())
+    res["mxu_wgmma_blocks_per_sm"] = mxu_probe.wgmma_occupancy()
     return res
 
 
@@ -723,6 +742,13 @@ def phase_core_edge_kernels(device, worst: dict) -> None:
 BWD_EDGE_CASES = ([(b, s, False) for s in (1, 13, 63, 64, 65, 128, 129, 197, 257) for b in (1, 3)]
                   + [(1, 77, True), (3, 77, True), (3, 77, "dead_row"), (2, 130, "dead_row"),
                      (2, 197, "clamp")])
+# fp32 row 9's register-tiled form (64 query rows, then 64 key rows a block,
+# the other operand streamed in 64-row tiles, the work cut to the tile's live
+# 16-row groups) at its edges: the bf16 ones and a tile of 31, 32 and 33 rows.
+BWD_F32_EDGE_CASES = ([(b, s, False) for s in (1, 13, 31, 32, 33, 63, 64, 65, 128, 129, 197, 257)
+                       for b in (1, 3)]
+                      + [(1, 77, True), (3, 77, True), (3, 77, "dead_row"), (2, 130, "dead_row"),
+                         (2, 197, "clamp")])
 ROW6_EDGE_CASES = ([(b, s, False) for s in (1, 63, 65, 197) for b in (1, 3)]
                    + [(1, 77, True), (3, 77, True), (3, 77, "dead_row"), (2, 197, "clamp")])
 EDGE_WIDTHS = {77: (512, 8), 197: (768, 12)}  # else (256, 4)
@@ -731,12 +757,12 @@ EDGE_WIDTHS = {77: (512, 8), 197: (768, 12)}  # else (256, 4)
 def _bwd_edge_agreement(out, ref, dead, width) -> dict:
     """Row 9 in bf16 at the bar per row of the cotangent (the text-block
     kernels' bar: row cosine >= COS_MIN, every element within 2 bf16 ULPs of
-    its row's largest |plain| value), on the rows where the plain cotangent
-    is not all zero; those are all zero in the kernel too, and so is dq of a
-    row the mask removes whole. Per element, dq and dk at S=1 are the fp32
-    rounding noise of ds = p (dp - p dp) with p = 1, in kernel and plain
-    version alike, which no 2-ULP share can hold; ``within_2ulp`` is kept as
-    a figure."""
+    its row's largest |plain| value), in fp32 at the fp32 bar, on the rows
+    where the plain cotangent is not all zero; those are all zero in the
+    kernel too, and so is dq of a row the mask removes whole. Per element,
+    bf16 dq and dk at S=1 are the fp32 rounding noise of ds = p (dp - p dp)
+    with p = 1, in kernel and plain version alike, which no 2-ULP share can
+    hold; ``within_2ulp`` is kept as a figure."""
     import torch
 
     zero = (ref == 0).all(dim=-1).all(dim=0)  # (S,): rows all zero in every image
@@ -752,10 +778,10 @@ def _bwd_edge_agreement(out, ref, dead, width) -> dict:
 
 def phase_core_bwd_edge_kernels(device, worst: dict) -> None:
     """Phase 3, bf16 rows 9 and 6 at the tile edges of their tensor-core
-    kernels, each launch through its public wrapper with the counts at 0
-    before and one launch after; row 9 at S=77 also against its old bf16
-    one-tile form at the bf16 bar. ``worst`` takes the largest error of
-    each."""
+    kernels, and fp32 row 9 at the edges of its register-tiled form, each
+    launch through its public wrapper with the counts at 0 before and one
+    launch after; bf16 row 9 at S=77 also against its old bf16 one-tile form
+    at the bf16 bar. ``worst`` takes the largest error of each."""
     import torch
 
     from aiic_tpu_torch.ops import attention
@@ -766,12 +792,12 @@ def phase_core_bwd_edge_kernels(device, worst: dict) -> None:
     def hold(name, label, a, **extra):
         a.update(kernel=name, case=label, **extra)
         results.append(a)
-        log(f"[kernels] {name:30s} {label:26s} max_abs_err={a['max_abs_err']:.6g} "
-            f"within_2ulp={a['within_2ulp']:.6f} min_row_cos={a['min_row_cos']:.8f}"
-            + "".join(f" {k}={v}" for k, v in extra.items()))
+        log(f"[kernels] {name:30s} {label:26s} {a['dtype']:8s} max_abs_err={a['max_abs_err']:.6g} "
+            f"max_rel_err={a['max_rel_err']:.3g} within_2ulp={a['within_2ulp']:.6f} "
+            f"min_row_cos={a['min_row_cos']:.8f}" + "".join(f" {k}={v}" for k, v in extra.items()))
         if not a["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version on {label}: {a}")
-        key = name + "_bf16"
+        key = name + ("" if a["dtype"] == "float32" else "_bf16")
         worst[key] = max(worst.get(key, 0.0), a["max_abs_err"])
 
     for bsz, seq, kind in BWD_EDGE_CASES:
@@ -794,6 +820,17 @@ def phase_core_bwd_edge_kernels(device, worst: dict) -> None:
                 raise AssertionError(f"row 9's tensor-core form disagrees with its one-tile "
                                      f"form on {label}: {old}")
         hold("fused_attention_qkv_bwd", label, a, **extra)
+        del qkv, g, out
+    for bsz, seq, kind in BWD_F32_EDGE_CASES:
+        width, heads = EDGE_WIDTHS.get(seq, (256, 4))
+        qkv, mask, dead = _core_edge_inputs(gen, bsz, seq, width, kind, device, torch.float32)
+        g = _randn(gen, (bsz, seq, width), torch.float32, device)
+        out = _one_launch("fused_attention_qkv_bwd",
+                          lambda: attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads))
+        hold("fused_attention_qkv_bwd", f"B={bsz} S={seq} W={width} {kind}",
+             _bwd_edge_agreement(out, attention.fused_attention_qkv_bwd_ref(qkv, mask, g,
+                                                                            heads=heads),
+                                 dead, width))
         del qkv, g, out
     for bsz, seq, kind in ROW6_EDGE_CASES:
         width, heads = EDGE_WIDTHS.get(seq, (256, 4))
@@ -850,13 +887,16 @@ def _row9_inputs(gen, bsz, seq, heads, causal, dtype, device):
 
 def phase_core_ops_kernels(device) -> dict:
     """Phase 3, rows 6, 9 and 17 against their plain versions, each call
-    with the counts at 0 before and one launch after. Row 9 in fp32 at S=77
-    runs the one-tile kernel, the text-block backward's core (common.cuh's
-    block_core_bwd_kernel, the same instantiation ``text_block_bwd``
-    launches); its two-pass streaming form must repeat it bit for bit. In
-    bf16 rows 6 and 9 run their tensor-core kernels at every S. The
-    probe's int8 body must be exact, at a small INNER and at the INNER that
-    ``mxu_probe.run`` launches."""
+    through the public wrapper with the counts at 0 before and one launch
+    after. Row 9 runs its register-tiled form in fp32 and its tensor-core
+    form in bf16, at every S; fp32's scalar forms that the tiled one
+    replaced are held too: the one-tile kernel at S=77 (the text-block
+    backward's core, common.cuh's block_core_bwd_kernel) and the two-pass
+    streaming form, which must repeat the one-tile kernel bit for bit. Row
+    6 in bf16 runs the tensor-core core at every S. Row 17's bodies run
+    their wgmma form, beside the WMMA form it replaced on the same inputs;
+    the int8 body must be exact in both, at a small INNER and at the INNER
+    that ``mxu_probe.run`` launches."""
     import torch
 
     from aiic_tpu_torch.models.clip import causal_mask
@@ -890,28 +930,41 @@ def phase_core_ops_kernels(device) -> dict:
             qkv, g, mask = _row9_inputs(gen, bsz, seq, heads, causal, dtype, device)
             out = _one_launch("fused_attention_qkv_bwd", lambda: attention.fused_attention_qkv_bwd(
                 qkv, mask, g, heads=heads))
+            ref = attention.fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads)
+            record("fused_attention_qkv_bwd", label, out, ref)
+            if dtype == torch.bfloat16:
+                continue
+            # fp32's scalar forms, which the register-tiled one replaced: each
+            # against the plain version, and the streaming form bit for bit
+            # the one-tile kernel where both apply.
+            streamed = attention._fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, "streaming")
             extra = {}
-            if seq <= attention._BWD_TILE_ROWS and dtype == torch.float32:
-                streamed = attention._fused_attention_qkv_bwd_cuda(qkv, mask, g, heads,
-                                                                   "streaming")
-                extra["streaming_bit_identical"] = bool(torch.equal(streamed, out))
+            if seq <= attention._BWD_TILE_ROWS:
+                one_tile = attention._fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, "one_tile")
+                extra["streaming_bit_identical"] = bool(torch.equal(streamed, one_tile))
                 if not extra["streaming_bit_identical"]:
                     raise AssertionError(f"row 9's streaming form differs from its one-tile "
                                          f"kernel on {label} {dtype}")
-            record("fused_attention_qkv_bwd", label, out,
-                   attention.fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads), **extra)
+                record("fused_attention_qkv_bwd", label + " one-tile form", one_tile, ref,
+                       key="fused_attention_qkv_bwd_one_tile")
+            record("fused_attention_qkv_bwd", label + " streaming form", streamed, ref,
+                   key="fused_attention_qkv_bwd_streaming", **extra)
     x_bf, x_i8, w_bf, w_i8 = mxu_probe.inputs(device)
     for inner in (PROBE_CHECK_INNER, mxu_probe.INNER):
         for name, (x, w) in (("mxu_bf16", (x_bf, w_bf)), ("mxu_i8", (x_i8, w_i8)),
                              ("mxu_i8_quant", (x_bf, w_i8))):
             out = _one_launch(name, lambda: getattr(mxu_probe, name)(x, w, inner))
             ref = getattr(mxu_probe, name + "_ref")(x, w, inner)
-            exact = bool(torch.equal(out, ref))
-            if name == "mxu_i8" and not exact:
-                raise AssertionError(f"the int8 probe kernel is not exact at INNER={inner}")
-            record(name, f"rows={x.shape[0]} INNER={inner}", out, ref, key=name,
-                   bit_identical=exact)
-            del out, ref
+            # The WMMA form the wgmma one replaced (uncounted), on the same inputs.
+            old = mxu_probe._probe_cuda(name, x, w, inner, "wmma")
+            for form, o in (("wgmma", out), ("wmma", old)):
+                exact = bool(torch.equal(o, ref))
+                if name == "mxu_i8" and not exact:
+                    raise AssertionError(f"the int8 probe's {form} form is not exact at "
+                                         f"INNER={inner}")
+                record(name, f"rows={x.shape[0]} INNER={inner} {form}", o, ref,
+                       key=name if form == "wgmma" else name + "_wmma", bit_identical=exact)
+            del out, old, ref
     torch.cuda.empty_cache()
     REPORT["core_ops_kernel_checks"] = results
     return worst
@@ -2035,12 +2088,14 @@ def _row9_step_times(params, device, card: str) -> dict:
 def phase_core_ops_timing(device, card: str, params, worst: dict) -> dict:
     """Phase 9 for rows 6, 9 and 17: row 6 at 256 ViT-B/16 images beside
     SDPA; row 9 at 256 text rows (S=77, causal: the train step's shape) and
-    at 256 ViT-B/16 images beside the autograd backward and SDPA's, in bf16
-    also beside the scalar forms the tensor-core one replaced (the one-tile
-    form at S=77, the streaming form at both); the bf16 rows 6 and 9 held
-    against their plain versions at the timed shapes (``worst`` takes the
-    errors); the probe kernels at the TPU probe's geometry beside the
-    library's products; the ``pallas_vjp`` step with and without row 9.
+    at 256 ViT-B/16 images beside the autograd backward and SDPA's, and
+    beside the scalar forms the tensor-core (bf16) and register-tiled (fp32)
+    ones replaced (the one-tile form at S=77, the streaming form at both),
+    with device ms by pass; bf16 row 6 and row 9 in both types held against
+    their plain versions at the timed shapes (``worst`` takes the errors); the probe
+    kernels (wgmma) at the TPU probe's geometry beside the WMMA form they
+    replaced and the library's products, held against their plain versions,
+    with device ms by stage; the ``pallas_vjp`` step with and without row 9.
     Launch counts are put back."""
     import torch
 
@@ -2067,62 +2122,64 @@ def phase_core_ops_timing(device, card: str, params, worst: dict) -> dict:
                                                ("_vit", (256, 197, 12, False))):
             qkv, g, mask = _row9_inputs(gen, bsz, seq, heads, causal, dtype, device)
             name = "fused_attention_qkv_bwd" + tag + suffix
-            hold = {name: "fused_attention_qkv_bwd"} if dtype == torch.bfloat16 else None
             _kernel_times({name: (
                 lambda: attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads),
                 lambda: attention.fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads),
                 (qkv, mask, g), {kind: 10 * bsz * heads * seq * seq * 64})},
-                times, f"B={bsz} S={seq} H={heads} {kind}", card, hold=hold, worst=worst)
+                times, f"B={bsz} S={seq} H={heads} {kind}", card,
+                hold={name: "fused_attention_qkv_bwd"}, worst=worst)
             times[name].update(_bwd_yardsticks(qkv, mask, g, heads))
             t = times[name]
             log(f"[timing] {name:24s} autograd backward (pallas_vjp) {t['autograd_ms']:.3f} ms, "
                 f"SDPA backward {t['library_ms']:.3f} ms, transposes {t['transpose_ms']:.3f} ms "
                 f"({card})")
-            if dtype == torch.bfloat16:
-                # The scalar forms the tensor-core one replaced, then the
-                # tensor-core one again, in this run.
-                forms = ("one_tile", "streaming") if seq <= attention._BWD_TILE_ROWS else (
-                    "streaming",)
-                t["replaced_forms_ms"] = {
-                    form: min(_time_ms(lambda: attention._fused_attention_qkv_bwd_cuda(
-                        qkv, mask, g, heads, form), 5) for _ in range(2)) for form in forms}
-                t["mma_ms_after"] = min(_time_ms(lambda: attention.fused_attention_qkv_bwd(
-                    qkv, mask, g, heads=heads), 10) for _ in range(2))
-                t["pass_device_ms"] = _device_ms_by_kernel(
-                    lambda: attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads),
-                    {"query_pass": "core_bwd_mma_query_kernel", "key_pass": "core_bwd_mma_key_kernel"})
-                log(f"[timing] {name:24s} replaced scalar forms {t['replaced_forms_ms']} ms, the "
-                    f"tensor-core form timed after them {t['mma_ms_after']:.3f} ms; device ms by "
-                    f"pass (profiler) {t['pass_device_ms']} ({card})")
-            elif seq <= attention._BWD_TILE_ROWS:
-                # The two-pass form where the one-tile kernel also applies,
-                # so that the two routes are compared within this run.
-                streamed = lambda: attention._fused_attention_qkv_bwd_cuda(  # noqa: E731
-                    qkv, mask, g, heads, "streaming")
-                t["streaming_ms"] = min(_time_ms(streamed, 10), _time_ms(streamed, 10))
-                t["one_tile_ms"] = min(_time_ms(lambda: attention.fused_attention_qkv_bwd(
-                    qkv, mask, g, heads=heads), 10) for _ in range(2))
-                log(f"[timing] {name:24s} streaming form {t['streaming_ms']:.3f} ms, the one-tile "
-                    f"kernel timed after it {t['one_tile_ms']:.3f} ms ({card})")
+            # The scalar forms the tensor-core (bf16) or register-tiled (fp32)
+            # one replaced, then that one again, in this run; its device ms
+            # by pass.
+            form, kernel_name = (("mma", "core_bwd_mma") if dtype == torch.bfloat16
+                                 else ("tiled", "core_bwd_tiled"))
+            forms = ("one_tile", "streaming") if seq <= attention._BWD_TILE_ROWS else (
+                "streaming",)
+            t["replaced_forms_ms"] = {
+                f: min(_time_ms(lambda: attention._fused_attention_qkv_bwd_cuda(
+                    qkv, mask, g, heads, f), 5) for _ in range(2)) for f in forms}
+            t[form + "_ms_after"] = min(_time_ms(lambda: attention.fused_attention_qkv_bwd(
+                qkv, mask, g, heads=heads), 10) for _ in range(2))
+            t["pass_device_ms"] = _device_ms_by_kernel(
+                lambda: attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads),
+                {"query_pass": kernel_name + "_query_kernel", "key_pass": kernel_name + "_key_kernel"})
+            log(f"[timing] {name:24s} replaced scalar forms {t['replaced_forms_ms']} ms, the "
+                f"{form} form timed after them {t[form + '_ms_after']:.3f} ms; device ms by pass "
+                f"(profiler) {t['pass_device_ms']} ({card})")
             del qkv, g
             torch.cuda.empty_cache()
     times["fused_attention_qkv_bwd"] = times["fused_attention_qkv_bwd_text"]
     x_bf, x_i8, w_bf, w_i8 = mxu_probe.inputs(device)
     operands = {"mxu_bf16": (x_bf, w_bf), "mxu_i8": (x_i8, w_i8), "mxu_i8_quant": (x_bf, w_i8)}
+    stages = {"mxu_bf16": {"products": "mxu_wgmma_kernel"},
+              "mxu_i8": {"products": "mxu_wgmma_kernel"},
+              "mxu_i8_quant": {"row_pass": "mxu_quant_rows_kernel",
+                               "products": "mxu_wgmma_quant_kernel"}}
     ops = 2 * x_bf.shape[0] * mxu_probe.W * mxu_probe.M * mxu_probe.INNER
-    for name, (kernel, libraries, kind) in mxu_probe.bodies(x_bf, x_i8, w_bf, w_i8).items():
+    for name, (kernel, wmma, libraries, kind) in mxu_probe.bodies(x_bf, x_i8, w_bf, w_i8).items():
         x, w = operands[name]
         plain = getattr(mxu_probe, name + "_ref")
         _kernel_times({name: (kernel, lambda: plain(x, w, mxu_probe.INNER), (x, w), {kind: ops})},
-                      times, f"{x.shape[0]} rows x {mxu_probe.INNER} products", card)
+                      times, f"{x.shape[0]} rows x {mxu_probe.INNER} products", card,
+                      hold={name: name}, worst=worst)
         t = times[name]
         t["tera_ops_per_s"] = ops / t["ms"] / 1e9
+        # The WMMA form the wgmma one replaced, then the wgmma one again.
+        t["wmma_ms"] = min(_time_ms(wmma, 2), _time_ms(wmma, 2))
+        t["wgmma_ms_after"] = min(_time_ms(kernel, 3), _time_ms(kernel, 3))
+        t["stage_device_ms"] = _device_ms_by_kernel(kernel, stages[name], iters=3)
         t["library_ms_by_w_layout"] = {layout: min(_time_ms(lib, 2), _time_ms(lib, 2))
                                        for layout, lib in libraries.items()}
         t["library_ms"] = min(t["library_ms_by_w_layout"].values(), default=None)
         log(f"[timing] {name:24s} {t['tera_ops_per_s']:.1f} T(FL)OP/s of the {kind} peak "
-            f"{mxu_probe.PEAK_OPS[kind] / 1e12:.1f}; library by w layout "
-            f"{t['library_ms_by_w_layout']} ms ({card})")
+            f"{mxu_probe.PEAK_OPS[kind] / 1e12:.1f}; WMMA form {t['wmma_ms']:.3f} ms, the wgmma "
+            f"form after it {t['wgmma_ms_after']:.3f} ms; device ms by stage (profiler) "
+            f"{t['stage_device_ms']}; library by w layout {t['library_ms_by_w_layout']} ms ({card})")
     times.update(_row9_step_times(params, device, card))
     for fn in _build._COUNTED.values():
         fn.launches = saved[fn.__name__]
@@ -2200,12 +2257,12 @@ def phase_core_ops(device) -> dict:
     shapes their users give them, every count set to 0 before and checked
     exactly after: ``flash_attention`` on 256 ViT-B/16 images in fp32 and
     bf16 (2 launches), ``fused_attention_qkv_bwd`` on 256 text rows (S=77,
-    causal: fp32's one-tile kernel, bf16's tensor-core passes) and 256
-    ViT-B/16 images (S=197: fp32's streaming form, the bf16 tensor-core
-    passes) in fp32 and bf16 (4), and ``python -m
+    causal) and 256 ViT-B/16 images (S=197) in fp32 (the register-tiled
+    passes) and bf16 (the tensor-core passes) (4), and ``python -m
     aiic_tpu_torch.probes.mxu_probe 5``'s ``run(5)`` (1 + 5 launches of each
-    probe kernel). The outputs are finite and of their shapes, the probe's
-    rates positive."""
+    probe wrapper, the wgmma form; its timings of the WMMA form go through
+    the private route and count nothing). The outputs are finite and of
+    their shapes, the probe's rates positive."""
     import torch
 
     from aiic_tpu_torch.ops import attention
@@ -2480,8 +2537,8 @@ def main() -> int:
         f"{BUILD_INFO['path']}")
     REPORT["build"] = dict(BUILD_INFO)
     REPORT["attn_core_mma"] = mma_core_resources(BUILD_INFO["log"])
-    log(f"[build] attn_core_mma (rows 6-8 bf16) and core_bwd_mma (row 9 bf16): "
-        f"{REPORT['attn_core_mma']}")
+    log(f"[build] attn_core_mma (rows 6-8 bf16), core_bwd_mma (row 9 bf16), core_bwd_tiled "
+        f"(row 9 fp32) and mxu_wgmma (row 17): {REPORT['attn_core_mma']}")
 
     worst = phase_kernels(device)
     worst.update(phase_zoo_kernels(device))
@@ -2536,12 +2593,26 @@ def main() -> int:
     row6["bf16"] = {"source": KERNELS["fused_attention_qkv_headgroups"]["source"],
                     **{k: times["fused_attention_bf16"][k] for k in keys},
                     "max_abs_err": worst["fused_attention_bf16"]}
+    # Row 9's entry is its fp32 form at 256 text rows (the register-tiled
+    # passes); fp32 at 256 ViT-B/16 images and bf16 (the tensor-core passes)
+    # at both shapes beside it, each with the scalar forms it replaced.
     row9 = next(k for k in kernels if k["name"] == "fused_attention_qkv_bwd")
-    for tag, shape in (("bf16", "text"), ("bf16_vit", "vit")):
-        row9[tag] = {"source": "aiic_tpu_torch/csrc/attn_core_bwd_mma.cuh",
-                     **{k: times[f"fused_attention_qkv_bwd_{shape}_bf16"][k] for k in keys},
-                     "max_abs_err": max(worst["fused_attention_qkv_bwd_bf16"],
-                                        worst[f"fused_attention_qkv_bwd_{shape}_bf16"])}
+    row9["replaced_forms_ms"] = times["fused_attention_qkv_bwd_text"]["replaced_forms_ms"]
+    for tag, shape, suffix, source in (
+            ("fp32_vit", "vit", "", KERNELS["fused_attention_qkv_bwd"]["source"]),
+            ("bf16", "text", "_bf16", "aiic_tpu_torch/csrc/attn_core_bwd_mma.cuh"),
+            ("bf16_vit", "vit", "_bf16", "aiic_tpu_torch/csrc/attn_core_bwd_mma.cuh")):
+        t = times[f"fused_attention_qkv_bwd_{shape}{suffix}"]
+        row9[tag] = {"source": source, **{k: t[k] for k in keys},
+                     "replaced_forms_ms": t["replaced_forms_ms"],
+                     "max_abs_err": max(worst["fused_attention_qkv_bwd" + suffix],
+                                        worst[f"fused_attention_qkv_bwd_{shape}{suffix}"])}
+    # Row 17's entries are the wgmma form; the WMMA form it replaced beside.
+    for k in kernels:
+        if k["name"].startswith("mxu_"):
+            k["wmma"] = {"source": "aiic_tpu_torch/csrc/mxu_probe.cu",
+                         "ms": times[k["name"]]["wmma_ms"],
+                         "max_abs_err": worst[k["name"] + "_wmma"]}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1, default=str)

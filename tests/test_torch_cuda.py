@@ -19,16 +19,18 @@ and 8 takes the bf16 bar at its tile edges, on the rows the mask leaves keys
 in; a row the mask removes whole is exactly zero in kernel and plain
 version; row 8 gives the same output bit for bit at every head group, and at
 hg=H row 7's. The attention-core backward (row 9) takes the
-fp32 bar above and the bf16 one; its two fp32 routes on the card (one tile,
-two streaming passes) agree bit for bit. Its bf16 tensor-core form at the
-tile edges takes the per-row bar of the text-block kernels on every row of
-the cotangent that is not all zero (at S=1, dq and dk are the fp32 rounding
-noise of ds = p (dp - p dp) with p = 1, in kernel and plain version alike),
-and those rows are zero in the kernel too. Row 6 in bf16 at D=64 runs the
+fp32 bar above and the bf16 one; its two scalar fp32 forms on the card (one
+tile, two streaming passes) agree bit for bit. Its bf16 tensor-core form at
+the tile edges takes the per-row bar of the text-block kernels on every row
+of the cotangent that is not all zero (at S=1, dq and dk are the fp32
+rounding noise of ds = p (dp - p dp) with p = 1, in kernel and plain version
+alike), and those rows are zero in the kernel too; its fp32 register-tiled
+form (the fp32 route) takes the fp32 bar at its tile edges, the same rows
+zero. Row 6 in bf16 at D=64 runs the
 tensor-core core of rows 7-8 and takes the bf16 bar at its tile edges;
 which kernels each route launches is read from the profiler's trace. The
-probe's int8 body is exact, its
-bf16 and quantized bodies take the bf16 bar (fp32 sums in another order
+probe's int8 body is exact in both its forms (wgmma, the route, and WMMA),
+its bf16 and quantized bodies take the bf16 bar (fp32 sums in another order
 before one bf16 rounding). The kernel-experiment variants (rows 15-16)
 take the bf16 bar, rows that are zero in the plain version equal; maconly
 is exact (integer products and one fp32 add), and the three schedules of
@@ -523,10 +525,10 @@ def test_fused_attention_kernel_matches_plain(device, shape, dtype):
 @pytest.mark.parametrize("shape", [(3, 77, 8, True), (2, 197, 12, False)],
                          ids=["text_causal_one_tile", "vit_streaming"])
 def test_attention_qkv_bwd_kernel_matches_plain(device, shape, dtype):
-    """Row 9 against its plain version: fp32 on the one-tile kernel (S=77)
-    or the streaming passes (S=197), which repeat each other bit for bit;
-    bf16 on the tensor-core passes at both shapes, held to the old bf16
-    one-tile form at S=77 at the bf16 bar."""
+    """Row 9 against its plain version: fp32 on the register-tiled passes,
+    its scalar forms (one tile at S=77, streaming) beside, which repeat each
+    other bit for bit; bf16 on the tensor-core passes at both shapes, held
+    to the old bf16 one-tile form at S=77 at the bf16 bar."""
     bsz, seq, heads, masked = shape
     qkv = _randn(device, bsz, seq, 3 * 64 * heads, dtype=dtype, seed=4)
     g = _randn(device, bsz, seq, 64 * heads, dtype=dtype, seed=5)
@@ -537,9 +539,12 @@ def test_attention_qkv_bwd_kernel_matches_plain(device, shape, dtype):
     assert attention.fused_attention_qkv_bwd.launches == before + 1
     ref = attention.fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads)
     _f32_agree(out, ref) if dtype == torch.float32 else _agree(out, ref)
-    if seq <= 128 and dtype == torch.float32:  # the streaming form repeats the one-tile kernel
+    if dtype == torch.float32:
         streamed = attention._fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, "streaming")
-        assert torch.equal(streamed, out)
+        _f32_agree(streamed, ref)
+        if seq <= 128:  # the streaming form repeats the one-tile kernel
+            assert torch.equal(streamed, attention._fused_attention_qkv_bwd_cuda(
+                qkv, mask, g, heads, "one_tile"))
     elif seq <= 128:
         _agree(out, attention._fused_attention_qkv_bwd_cuda(qkv, mask, g, heads, "one_tile"))
 
@@ -597,6 +602,36 @@ def test_attention_qkv_bwd_tensor_core_edges(device, bsz, seq, kind):
     assert torch.equal(attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads), out)
 
 
+# fp32 row 9's register-tiled form at its edges (chip_smoke.py's
+# BWD_F32_EDGE_CASES): the bf16 ones and a tile of 31, 32 and 33 rows.
+BWD_F32_EDGES = ([(b, s, False) for s in (1, 13, 31, 32, 33, 63, 64, 65, 128, 129, 197, 257)
+                  for b in (1, 3)]
+                 + [(1, 77, True), (3, 77, True), (3, 77, "dead_row"), (2, 130, "dead_row"),
+                    (2, 197, "clamp")])
+
+
+@pytest.mark.parametrize("bsz,seq,kind", BWD_F32_EDGES)
+def test_attention_qkv_bwd_register_tiled_edges(device, bsz, seq, kind):
+    """fp32 row 9 on the register-tiled passes at their tile edges, one
+    counted launch, against its plain version at the fp32 bar on the rows
+    whose plain cotangent is not all zero (those zero in the kernel too, and
+    dq of a removed row zero); a run repeats bit for bit."""
+    width, heads = EDGE_WIDTHS.get(seq, (256, 4))
+    qkv, mask, dead = _core_qkv(device, bsz, seq, width, heads, kind, torch.float32, seed=15)
+    g = _randn(device, bsz, seq, width, seed=16)
+    before = attention.fused_attention_qkv_bwd.launches
+    out = attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads)
+    torch.cuda.synchronize()
+    assert attention.fused_attention_qkv_bwd.launches == before + 1
+    ref = attention.fused_attention_qkv_bwd_ref(qkv, mask, g, heads=heads)
+    zero = (ref == 0).all(dim=-1).all(dim=0)
+    assert bool((out[:, zero] == 0).all())
+    _f32_agree(out[:, ~zero], ref[:, ~zero])
+    if dead:
+        assert bool((out[:, dead, :width] == 0).all())
+    assert torch.equal(attention.fused_attention_qkv_bwd(qkv, mask, g, heads=heads), out)
+
+
 @pytest.mark.parametrize("bsz,seq,kind", ROW6_EDGES)
 def test_fused_attention_tensor_core_edges(device, bsz, seq, kind):
     """bf16 row 6 at D=64 on the tensor-core core of rows 7-8 (separate q, k,
@@ -618,8 +653,9 @@ def test_fused_attention_tensor_core_edges(device, bsz, seq, kind):
 def test_attention_core_op_routes(device):
     """Which kernels each route of rows 6 and 9 launches: bf16 D=64 row 6 the
     tensor-core core, fp32 and D=8 the scalar one; bf16 row 9 the two
-    tensor-core passes at every S, fp32 the one-tile kernel at S=77 and the
-    scalar streaming passes at S=197."""
+    tensor-core passes at every S, fp32 the two register-tiled passes at
+    every S (not the one-tile kernel at S=77, not the scalar streaming
+    passes at S=197)."""
     mask = causal_mask(77, device=device)
     for dtype, dim, want, not_want in ((torch.bfloat16, 64, "attn_core_mma_kernel", "attn_core_kernel"),
                                        (torch.float32, 64, "attn_core_kernel<float", "mma"),
@@ -629,8 +665,8 @@ def test_attention_core_op_routes(device):
         assert _launched(names, want) and not _launched(names, not_want), (dtype, dim, names)
     for dtype, seq, want, not_want in ((torch.bfloat16, 77, "core_bwd_mma_query_kernel", "block_core"),
                                        (torch.bfloat16, 197, "core_bwd_mma_key_kernel", "core_bwd_query"),
-                                       (torch.float32, 77, "block_core_bwd_kernel", "mma"),
-                                       (torch.float32, 197, "core_bwd_key_kernel<float", "mma")):
+                                       (torch.float32, 77, "core_bwd_tiled_query_kernel", "block_core"),
+                                       (torch.float32, 197, "core_bwd_tiled_key_kernel", "core_bwd_key_kernel<float")):
         qkv = _randn(device, 2, seq, 3 * 256, dtype=dtype, seed=13)
         g = _randn(device, 2, seq, 256, dtype=dtype, seed=14)
         m = mask if seq == 77 else None
@@ -680,6 +716,8 @@ def test_attention_core_ops_refuse_what_they_do_not_take(device):
         attention._fused_attention_qkv_bwd_cuda(qkv, None, g, 8, "one_tile")
     with pytest.raises(ValueError):  # the tensor-core form takes bf16
         attention._fused_attention_qkv_bwd_cuda(qkv, None, g, 8, "mma")
+    with pytest.raises(ValueError):  # the register-tiled form takes fp32
+        attention._fused_attention_qkv_bwd_cuda(qkv.bfloat16(), None, g.bfloat16(), 8, "tiled")
     assert (attention.fused_attention.launches,
             attention.fused_attention_qkv_bwd.launches) == before
 
@@ -765,3 +803,24 @@ def test_variant_kernels_refuse_what_they_do_not_take(device, variant_layer):
         variants.attn_var2(x, variant_layer, "v4")
     with pytest.raises(TypeError, match="bf16"):
         variants.mlp_var(x.float(), variant_layer)
+
+
+@pytest.mark.parametrize("form", mxu_probe.FORMS)
+@pytest.mark.parametrize("inner", [3, 64])
+@pytest.mark.parametrize("body", ["mxu_bf16", "mxu_i8", "mxu_i8_quant"])
+def test_mxu_probe_forms_match_plain(device, body, inner, form):
+    """Row 17's two forms on two row blocks: the wgmma form through the
+    public wrapper (one counted launch), the WMMA form it replaced through
+    the private route (none); int8 exact, the others at the bf16 bar."""
+    x_bf, x_i8, w_bf, w_i8 = mxu_probe.inputs(device, steps=2)
+    x, w = {"mxu_bf16": (x_bf, w_bf), "mxu_i8": (x_i8, w_i8), "mxu_i8_quant": (x_bf, w_i8)}[body]
+    fn = getattr(mxu_probe, body)
+    before = fn.launches
+    out = fn(x, w, inner) if form == "wgmma" else mxu_probe._probe_cuda(body, x, w, inner, form)
+    torch.cuda.synchronize()
+    assert fn.launches == before + (form == "wgmma")
+    ref = getattr(mxu_probe, body + "_ref")(x, w, inner)
+    if body == "mxu_i8":
+        assert torch.equal(out, ref)
+    else:
+        _agree(out, ref)
