@@ -5,8 +5,9 @@
     python -m aiic_tpu_torch.cli.train_lora --json-path data.json \\
         --save-path out/adapters.pth --epochs 20 --batch-size 8 [--device cuda]
 
-``--weights`` takes a backbone ``.npz`` (``models.init.save_clip_weights``, or
-the JAX package's ``flatten_params`` layout); without it the backbone is a
+``--weights`` takes backbone weights in any format of
+``models.init.load_clip_weights`` (``.npz``, an OpenAI or HF ``.pt``/``.pth``
+state dict, an HF checkpoint directory); without it the backbone is a
 seeded random init. ``--quantize-text`` (with ``--attn-impl block_fused``)
 trains the text tower in the int8 serving numerics on the int8 whole-block
 kernels. ``--mesh``/``--tp`` are parsed and refused: multi-device training
@@ -47,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test", action="store_true", help="evaluate a trained adapter")
     p.add_argument("--model", default="vit_b_16",
                    choices=["vit_b_16", "vit_b_32", "vit_l_14", "vit_l_14_336", "tiny"])
-    p.add_argument("--weights", type=str, help="backbone weights (.npz)")
+    p.add_argument("--weights", type=str, help="backbone weights (.npz / .pt / HF)")
     p.add_argument("--image-root", type=str, help="base dir for dataset image paths")
     p.add_argument("--resume", action="store_true",
                    help="continue from {save-path}.state.npz (full state)")
@@ -74,7 +75,7 @@ def main(argv=None) -> int:
     from aiic_tpu_torch.models.init import load_clip_weights
 
     config = model_presets()[args.model]
-    params = load_clip_weights(args.weights, device=args.device) if args.weights else None
+    params = load_clip_weights(args.weights, config, device=args.device) if args.weights else None
 
     if args.test:
         from aiic_tpu_torch.train import test_trained_lora

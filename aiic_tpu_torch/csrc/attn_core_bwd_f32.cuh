@@ -31,19 +31,10 @@
 //
 // The design: two passes, no atomics, so a run repeats bit for bit; 256
 // threads a block over 64 rows of one (image, head), each thread a 4x4
-// register micro-tile of every product, fed by float4 reads of shared
-// memory (16 fused multiply-adds per two 16-B reads):
-// - products over d (scores s = a.b^T, dp): the thread's rows
-//   ty + 16r of A and tx + 16c of B, both stored row-major, four 16-B
-//   chunks of d at a time;
-// - products over rows (dq = ds.k, dv = p^T.g, dk = ds^T.q): the thread's
-//   output rows ty + 16r and columns 4tx .. 4tx+3 of d; the row operand
-//   (ds, p) is written by the threads that computed it into a transposed
-//   tile whose row holds the thread's four rows side by side, so that both
-//   operands are one float4 a step.
-// Tiles are 64 rows of 64 fp32 in 16-B chunks XOR-swizzled by row
-// (chunk ^ row % 8): the four rows (A) and eight rows (B) a warp reads at
-// one chunk lie in distinct banks, as do the chunks of one row.
+// register micro-tile of every product on f32_tiles.cuh's swizzled tiles
+// (shared with the fp32 forward, attn_core_f32.cuh): products over d
+// (s = q'.k^T, dp = g.v^T) by tile_nt, products over rows (dq = ds.k,
+// dv = p^T.g, dk = ds^T.q) by tile_tn with ds and p written transposed.
 // - Pass 1, grid (ceil(S/64), H, B), 64 query rows: q' (q scaled in place
 //   by the threads that loaded it) and g stay in shared memory; K and V
 //   tiles stream twice through a 2-stage cp.async ring. Sweep 1: s, dp,
@@ -65,87 +56,17 @@
 
 #pragma once
 
-#include "mma_tiles.cuh"  // and common.cuh: cp.async, smem_addr
+#include "f32_tiles.cuh"  // the tiles, micro-tile products, with_groups, any_live
 
 namespace aiic {
 namespace {
 
-constexpr int kTRows = 64;                   // rows of a block and of a streamed tile
-constexpr int kTThreads = 256;               // 16 x 16 threads, a 4x4 micro-tile each
-constexpr int kTTile = kTRows * kHeadDim;    // floats of one tile, 16 KB
 constexpr int kTBlocks1 = 2, kTBlocks2 = 1;  // blocks per SM the passes are built for
 // Dynamic shared memory: pass 1 q', g, two K and two V stages, ds^T (its
 // space also takes the l/u partial sums), and the rows' inv and delta;
 // pass 2 k, v, two q and two g stages, p^T and ds^T.
 constexpr int kTSmem1 = (7 * kTTile + 2 * kTRows) * static_cast<int>(sizeof(float));
 constexpr int kTSmem2 = 8 * kTTile * static_cast<int>(sizeof(float));
-
-// Float offset of chunk ch (4 floats) of row r in a swizzled tile.
-__device__ __forceinline__ int tsw(int r, int ch) { return r * kHeadDim + ((ch ^ (r & 7)) << 2); }
-
-// Rows [0, n) of a 64-row tile from src (row r at src + r*ld) into dst by
-// cp.async, rows at or past n zero-filled; 4 chunks a thread.
-__device__ __forceinline__ void load_f32_tile(float* dst, const float* src, size_t ld, int n,
-                                              int tid) {
-#pragma unroll
-  for (int i = 0; i < kTTile / 4 / kTThreads; ++i) {
-    const int c = tid + i * kTThreads, r = c >> 4, ch = c & 15;
-    const bool live = r < n;
-    cp_async16(smem_addr(dst + tsw(r, ch)), src + (live ? r : 0) * ld + ch * 4, live ? 16 : 0);
-  }
-}
-
-// acc[r][c] += sum_d A[ty + 16r][d] * B[tx + 16c][d] for r < NR, c < NC,
-// d ascending (the order of the scalar forms' dot products); B's values
-// times bmul first where kScaleB (q' = q*c as pass 2 reads q).
-template <int NR, int NC, bool kScaleB>
-__device__ __forceinline__ void tile_nt(float (&acc)[4][4], const float* A, const float* B,
-                                        int ty, int tx, float bmul) {
-#pragma unroll 4
-  for (int ch = 0; ch < kHeadDim / 4; ++ch) {
-    float4 a[NR], b[NC];
-#pragma unroll
-    for (int r = 0; r < NR; ++r) a[r] = *reinterpret_cast<const float4*>(A + tsw(ty + 16 * r, ch));
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      b[c] = *reinterpret_cast<const float4*>(B + tsw(tx + 16 * c, ch));
-      if (kScaleB) {
-        b[c].x = b[c].x * bmul;
-        b[c].y = b[c].y * bmul;
-        b[c].z = b[c].z * bmul;
-        b[c].w = b[c].w * bmul;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < NR; ++r)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        acc[r][c] = fmaf(a[r].x, b[c].x, acc[r][c]);
-        acc[r][c] = fmaf(a[r].y, b[c].y, acc[r][c]);
-        acc[r][c] = fmaf(a[r].z, b[c].z, acc[r][c]);
-        acc[r][c] = fmaf(a[r].w, b[c].w, acc[r][c]);
-      }
-  }
-}
-
-// acc[r][c] += sum_{j < n} AT[j][4ty + r] * B[j][4tx + c] for r < NR, j
-// ascending: AT holds a row operand transposed (write_t), B is row-major.
-// kUnroll: steps of j unrolled (pass 1 at its 128-register cap takes 4; 8
-// spills there).
-template <int NR, int kUnroll>
-__device__ __forceinline__ void tile_tn(float (&acc)[4][4], const float* AT, const float* B,
-                                        int ty, int tx, int n) {
-#pragma unroll(kUnroll)
-  for (int j = 0; j < n; ++j) {
-    const float4 a = *reinterpret_cast<const float4*>(AT + tsw(j, ty));
-    const float4 b = *reinterpret_cast<const float4*>(B + tsw(j, tx));
-    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int r = 0; r < NR; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-  }
-}
 
 // tile_tn of two products over the same rows in one loop: acc1 += AT1^T.B1,
 // acc2 += AT2^T.B2 (pass 2's dv and dk).
@@ -169,56 +90,6 @@ __device__ __forceinline__ void tile_tn2(float (&acc1)[4][4], const float* AT1, 
         acc2[r][c] = fmaf(av2[r], bv2[c], acc2[r][c]);
       }
   }
-}
-
-// v[r][c] (row ty + 16r, column tx + 16c of a micro-tile) into AT[tx + 16c]
-// at the chunk ty for c < NC: the four rows side by side, one float4 per c.
-template <int NC>
-__device__ __forceinline__ void write_t(float* AT, const float (&v)[4][4], int ty, int tx) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-    *reinterpret_cast<float4*>(AT + tsw(tx + 16 * c, ty)) =
-        make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
-}
-
-// Live 16-row groups of a 64-row tile that starts at row r0 of S: 4 but at
-// the tile past the last whole one.
-__device__ __forceinline__ int live_groups(int S, int r0) { return min(4, (S - r0 + 15) >> 4); }
-
-// f(NR, NC) with NR and NC as compile-time constants (std::integral_constant)
-// for nr, nc in 1..4: a micro-tile's work shrinks with the tile's live rows
-// and columns (at S=197 the last tile has 5 rows: one group of four).
-template <typename F>
-__device__ __forceinline__ void with_groups(int nr, int nc, F&& f) {
-#define AIIC_GROUPS(R, C)                                              \
-  case 4 * (R) + (C):                                                \
-    f(std::integral_constant<int, R>(), std::integral_constant<int, C>()); \
-    break;
-  switch (4 * nr + nc) {
-    AIIC_GROUPS(1, 1) AIIC_GROUPS(1, 2) AIIC_GROUPS(1, 3) AIIC_GROUPS(1, 4)
-    AIIC_GROUPS(2, 1) AIIC_GROUPS(2, 2) AIIC_GROUPS(2, 3) AIIC_GROUPS(2, 4)
-    AIIC_GROUPS(3, 1) AIIC_GROUPS(3, 2) AIIC_GROUPS(3, 3) AIIC_GROUPS(3, 4)
-    AIIC_GROUPS(4, 1) AIIC_GROUPS(4, 2) AIIC_GROUPS(4, 3) AIIC_GROUPS(4, 4)
-  }
-#undef AIIC_GROUPS
-}
-
-// Whether any entry (i, j) of this thread's micro-tile is a live score: i
-// and j below S and mask[i][j] > -inf (no mask: every entry below S). The
-// micro-tile's rows are query rows (pass 1) or key rows (pass 2).
-__device__ __forceinline__ bool any_live(const float* mask, int S, int i0, int j0, int ty, int tx,
-                                         bool rows_are_queries) {
-  bool live = false;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int a = (rows_are_queries ? i0 : j0) + ty + 16 * r;
-      const int b = (rows_are_queries ? j0 : i0) + tx + 16 * c;
-      const int i = rows_are_queries ? a : b, j = rows_are_queries ? b : a;
-      if (i < S && j < S) live |= !mask || mask[static_cast<size_t>(i) * S + j] != -INFINITY;
-    }
-  return live;
 }
 
 // Pass 1, grid (ceil(S/64), H, B): dq of 64 query rows, and inv and delta of
@@ -251,17 +122,7 @@ core_bwd_tiled_query_kernel(const float* __restrict__ qkv, const float* __restri
   load_f32_tile(Vs, vb, ld, S, tid);
   cp_async_commit();
   cp_async_wait_all();
-#pragma unroll
-  for (int i = 0; i < kTTile / 4 / kTThreads; ++i) {  // q' = q*c on the chunks this thread loaded
-    const int c = tid + i * kTThreads;
-    float4* p = reinterpret_cast<float4*>(Qs + tsw(c >> 4, c & 15));
-    float4 v = *p;
-    v.x = v.x * qconst;
-    v.y = v.y * qconst;
-    v.z = v.z * qconst;
-    v.w = v.w * qconst;
-    *p = v;
-  }
+  scale_f32_tile(Qs, qconst, tid);  // q' = q*c
 
   // Step t runs key tile t % ntiles from stage t % 2: sweep 1 for t <
   // ntiles, sweep 2 after. At its start stage t % 2 is complete and visible,

@@ -5,8 +5,9 @@
 // Replaces, with attention_qkv.cu's two bf16 entries and attention.cu's bf16
 // D = 64 one, the TPU kernels aiic_tpu/ops/attention.py::
 // _attention_qkv_kernel (row 7, bf16), _attention_qkv_hg_kernel (row 8) and
-// _attention_kernel (row 6, bf16). The fp32 rows 6 and 7, row 6 at D = 8 and
-// rows 1 and 5 keep common.cuh's scalar attn_core_kernel. The tiles, wgmma
+// _attention_kernel (row 6, bf16). The fp32 rows 6 and 7 run the
+// register-tiled core of attn_core_f32.cuh; row 6 at D = 8 and rows 1 and 5
+// keep common.cuh's scalar attn_core_kernel. The tiles, wgmma
 // and cp.async pieces are mma_tiles.cuh's, shared with the backward
 // (attn_core_bwd_mma.cuh).
 //

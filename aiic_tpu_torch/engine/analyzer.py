@@ -57,6 +57,10 @@ from aiic_tpu_torch.utils.batching import bucket_size, pad_batch
 class InteriorAnalyzer:
     """Detector + multi-label attribute analyzer over one CLIP backbone.
 
+    The options both packages share default as in the JAX engine: fp32, no
+    int8 weights, the HWC wire, ``attn_impl="auto"`` (``"pallas"`` on the
+    card: the fp32 engine runs the packed-QKV core kernel).
+
     ``device`` is explicit and defaults to the first CUDA card: on a machine
     without one the engine fails instead of running on the CPU. Pass
     ``device="cpu"`` for the plain PyTorch path (every kernel's CPU version).
@@ -72,10 +76,10 @@ class InteriorAnalyzer:
         lora_weights_path: Union[str, Mapping[str, Any], None] = None,
         lora_rank: int = 4,
         lora_alpha: int = 8,
-        dtype: torch.dtype = torch.bfloat16,
-        quantize: bool = True,
-        wire_format: str = "patch",
-        attn_impl: str = "pallas",
+        dtype: torch.dtype = torch.float32,
+        quantize: bool = False,
+        wire_format: str = "hwc",
+        attn_impl: str = "auto",
         max_batch: int = 512,
         seed: int = 0,
         device="cuda",

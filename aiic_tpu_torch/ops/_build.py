@@ -61,12 +61,13 @@ _SIGNATURES = {
     # x, 16 weights/vectors/mask, out, y1, hq, hs, qkv, attn, y, yq, ys, part,
     # B, S, W, H, M, n_chunks, eps, qconst, stream
     "aiic_int8_block": [_P] * 27 + [_I] * 6 + [_F, _F, _P],
-    # qkv, mask, out, B, S, W, H, qconst, fp32, stream
-    "aiic_attention_qkv": [_P] * 3 + [_I, _I, _I, _I, _F, _I, _P],
+    # qkv, mask, out, B, S, W, H, qconst, fp32, scalar, stream
+    "aiic_attention_qkv": [_P] * 3 + [_I, _I, _I, _I, _F, _I, _I, _P],
     # qkv_hm, mask, out, B, S, W, H, head_group, qconst, stream
     "aiic_attention_qkv_hg": [_P] * 3 + [_I] * 5 + [_F, _P],
     # blocks (int*)
     "aiic_attention_qkv_mma_occupancy": [_P],
+    "aiic_attention_f32_occupancy": [_P],
     # x, ln_s, ln_b, wqkv, bqkv, wo, bo, mask, out, h, qkv, attn,
     # B, S, W, H, eps, qconst, stream
     "aiic_ln_qkv_attention": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P],
@@ -89,8 +90,8 @@ _SIGNATURES = {
     "aiic_text_block_int8_bwd": [_P] * 32 + [_I] * 9 + [_F] * 3 + [_P],
     # A, B, out, M, N, K, ksplit, stream (the int8 A @ B^T alone, for tests)
     "aiic_int8_matmul_t": [_P] * 3 + [_I] * 4 + [_P],
-    # q, k, v, mask, out, B, S, H, D, qconst, fp32, stream
-    "aiic_attention_bshd": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    # q, k, v, mask, out, B, S, H, D, qconst, fp32, scalar, stream
+    "aiic_attention_bshd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     # qkv, mask, g, dqkv, ws, B, S, W, H, qconst, fp32, form, stream
     "aiic_attention_qkv_bwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     # blocks (int[2]: pass 1, pass 2)

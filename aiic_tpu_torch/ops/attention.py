@@ -6,8 +6,9 @@
 - ``fused_attention_qkv``: the packed-QKV core (TPU kernel
   ``_attention_qkv_kernel``) on the projection's raw (B, S, 3W) layout, bf16
   or fp32; kernel ``csrc/attention_qkv.cu`` (bf16 on the tensor-core core of
-  ``csrc/attn_core_mma.cuh``, fp32 on ``common.cuh``'s scalar core), plain
-  version ``fused_attention_qkv_ref``.
+  ``csrc/attn_core_mma.cuh``, fp32 on the register-tiled core of
+  ``csrc/attn_core_f32.cuh``; both at any S), plain version
+  ``fused_attention_qkv_ref``.
 - ``fused_ln_qkv_attention``: the bf16 attention half-block (TPU kernel
   ``_ln_qkv_attention_kernel``) x + OutProj(Attn(QKV(LN x))); kernel
   ``csrc/ln_qkv_attention.cu``, plain version ``fused_ln_qkv_attention_ref``.
@@ -17,9 +18,9 @@
   (the tensor-core core), plain version ``fused_attention_qkv_headgroups_ref``.
 - ``fused_attention`` / ``flash_attention``: the same core on three separate
   (B, S, H, D) q, k, v (TPU kernel ``_attention_kernel``, row 6), bf16 or
-  fp32, head dim 64 or 8; kernel ``csrc/attention.cu`` (bf16 at D=64 on the
-  tensor-core core of ``csrc/attn_core_mma.cuh``, any S; fp32 and D=8 on
-  ``common.cuh``'s scalar core), plain version ``fused_attention_ref``. No
+  fp32, head dim 64 or 8; kernel ``csrc/attention.cu`` (at D=64 row 7's
+  cores at any S: bf16 the tensor-core one, fp32 the register-tiled one; D=8
+  on ``common.cuh``'s scalar core), plain version ``fused_attention_ref``. No
   engine reaches it, as in the JAX package.
 - ``fused_attention_qkv_bwd``: the hand-written core backward on the packed
   projection (TPU kernel ``_attention_qkv_bwd_kernel``, row 9), bf16 or
@@ -406,37 +407,57 @@ def _qconst(dim: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(dim ** -0.5 * LOG2E, dtype=dtype))
 
 
+def _scalar_form(name: str, dtype: torch.dtype, form: Optional[str], dim: int = _HEAD_DIM) -> bool:
+    """Whether ``form`` runs fp32 rows 6-7 at head dim 64 on the scalar core
+    that the register-tiled one (the route, ``None``) replaced: ``"scalar"``,
+    the C entries' ``scalar`` flag, kept to be timed beside it. ValueError
+    on any other form, or where fp32 at head dim 64 is not asked."""
+    if form is None:
+        return False
+    if form != "scalar" or dtype != torch.float32 or dim != _HEAD_DIM:
+        raise ValueError(f"{name}: no {form!r} form for {dtype} at head dim {dim} (fp32 at head "
+                         f"dim {_HEAD_DIM} has the 'scalar' one)")
+    return True
+
+
 def _check_core_shape(name: str, seq: int, width: int, heads: int, itemsize: int,
                       tiled: bool = False) -> None:
     """Head dim 64; for the scalar core (not ``tiled``) K and V of one head
-    within a block's shared memory. The bf16 tensor-core core of rows 7 and
-    8 (``tiled``) streams K and V in fixed tiles and takes any S."""
+    within a block's shared memory. The tensor-core (bf16) and
+    register-tiled (fp32) cores of rows 6-8 (``tiled``) stream K and V in
+    fixed tiles and take any S."""
     if width % heads or width // heads != _HEAD_DIM:
         raise ValueError(f"{name} kernel needs head_dim {_HEAD_DIM}, got W={width}, H={heads}")
     if not tiled and 2 * seq * _HEAD_DIM * itemsize > _MAX_SMEM:
         raise ValueError(f"{name} kernel: K and V of one head at S={seq} exceed shared memory")
 
 
-def _fused_attention_qkv_cuda(qkv, mask, heads):
+def _fused_attention_qkv_cuda(qkv, mask, heads, form: Optional[str] = None):
+    """Row 7 on the card: bf16 on the tensor-core core, fp32 on the
+    register-tiled core, both at any S; ``form="scalar"`` runs fp32 on the
+    scalar core that the register-tiled one replaced (K and V of a head
+    within shared memory). Raises ValueError on what a form does not take,
+    before the library loads."""
     if qkv.dtype not in (torch.float32, torch.bfloat16) or qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise TypeError(f"fused_attention_qkv: the Hopper kernel takes fp32 or bf16 (B, S, 3W), "
                         f"got {qkv.dtype} {tuple(qkv.shape)}")
     bsz, seq, w3 = qkv.shape
     width = w3 // 3
+    scalar = _scalar_form("fused_attention_qkv", qkv.dtype, form)
     _check_core_shape("fused_attention_qkv", seq, width, heads, qkv.element_size(),
-                      tiled=qkv.dtype == torch.bfloat16)
-    lib = load_library()
+                      tiled=not scalar)
     qkv = qkv.contiguous()
     dev = qkv.device
     if qkv.data_ptr() % 16:
         raise ValueError("fused_attention_qkv: qkv must be 16-byte aligned")
+    lib = load_library()
     mask = mask_arg(mask, seq, dev)
     out = torch.empty((bsz, seq, width), dtype=qkv.dtype, device=dev)
     fp32 = qkv.dtype == torch.float32
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.aiic_attention_qkv(ptr(qkv), ptr(mask), ptr(out), bsz, seq, width, heads,
                                 ctypes.c_float(_qconst(width // heads, qkv.dtype)), int(fp32),
-                                stream)
+                                int(scalar), stream)
     check("fused_attention_qkv", rc)
     return out
 
@@ -484,6 +505,15 @@ def mma_bwd_occupancy() -> tuple:
     return blocks[0], blocks[1]
 
 
+def f32_core_occupancy() -> int:
+    """Blocks of the fp32 register-tiled core (rows 6 and 7) resident on one
+    SM of the current card."""
+    blocks = ctypes.c_int(0)
+    check("attn_core_f32 occupancy", load_library().aiic_attention_f32_occupancy(
+        ctypes.byref(blocks)))
+    return blocks.value
+
+
 def tiled_bwd_occupancy() -> tuple:
     """Blocks of the fp32 register-tiled backward's two passes (row 9)
     resident on one SM of the current card."""
@@ -524,7 +554,12 @@ def _fused_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask,
     return out
 
 
-def _fused_attention_cuda(q, k, v, mask):
+def _fused_attention_cuda(q, k, v, mask, form: Optional[str] = None):
+    """Row 6 on the card: at D=64 bf16 on the tensor-core core and fp32 on
+    the register-tiled core (any S), at D=8 the scalar core; ``form="scalar"``
+    runs fp32 at D=64 on the scalar core that the register-tiled one
+    replaced. Raises ValueError on what a form does not take, before the
+    library loads."""
     name = "fused_attention"
     if (q.dtype not in (torch.float32, torch.bfloat16) or q.dim() != 4
             or any(t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
@@ -535,22 +570,23 @@ def _fused_attention_cuda(q, k, v, mask):
     bsz, seq, heads, dim = q.shape
     if dim not in _BSHD_DIMS:
         raise ValueError(f"{name}: the Hopper kernel is built for head dims {_BSHD_DIMS}, got {dim}")
-    # bf16 at D=64 runs the tensor-core core, which streams K and V in tiles
-    # and takes any S; the scalar core holds K and V of a head.
-    tiled = q.dtype == torch.bfloat16 and dim == _HEAD_DIM
+    # At D=64 the tensor-core (bf16) and register-tiled (fp32) cores stream K
+    # and V in tiles and take any S; the scalar core holds K and V of a head.
+    scalar = _scalar_form(name, q.dtype, form, dim)
+    tiled = dim == _HEAD_DIM and not scalar
     if seq < 1 or (not tiled and 2 * seq * dim * q.element_size() > _MAX_SMEM):
         raise ValueError(f"{name}: K and V of one head at S={seq} do not fit shared memory")
-    lib = load_library()
     q, k, v = (t.contiguous() for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
+    lib = load_library()
     dev = q.device
     mask = mask_arg(mask, seq, dev)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.aiic_attention_bshd(ptr(q), ptr(k), ptr(v), ptr(mask), ptr(out), bsz, seq, heads,
                                  dim, ctypes.c_float(_qconst(dim, q.dtype)),
-                                 int(q.dtype == torch.float32), stream)
+                                 int(q.dtype == torch.float32), int(scalar), stream)
     check(name, rc)
     return out
 

@@ -7,10 +7,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. the Hopper kernels built with nvcc from ``aiic_tpu_torch/csrc``; the
-   registers, spills and blocks per SM of the bf16 tensor-core core (each
-   layout), of the two passes of the bf16 tensor-core and the fp32
-   register-tiled core backward, and of row 17's wgmma products and row
-   pass;
+   registers, spills and blocks per SM of the bf16 tensor-core core and the
+   fp32 register-tiled core (each layout), of the two passes of the bf16
+   tensor-core and the fp32 register-tiled core backward, and of row 17's
+   wgmma products and row pass;
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes (ViT-B/16 image and text half-blocks, B=1, an odd
    B, and an all-zero LN row); the packed-QKV core in fp32 and bf16; the
@@ -36,7 +36,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    13, 31, 32, 33, 63, 64, 65, 77 causal, 128, 129, 197, 257 at B = 1 and 3,
    removed and clamped rows, and bf16 row 6 (rows 7-8's core on separate q,
    k, v) at S = 1, 63, 65, 77 causal, 197 at B = 1 and 3, a removed row, a
-   clamped row; and
+   clamped row; fp32 rows 7 and 6 (the register-tiled core) at S = 1, 13,
+   31, 32, 33, 63, 64, 65, 128, 129, 197, 257 at B = 1 and 3, 77 causal, 77
+   and 130 with removed rows, 197 with a clamped row, row 6 bit for bit row
+   7 and also at S=577, the scalar core it replaced beside where it fits;
+   and
    the three tensor-core probe kernels (row 17, the wgmma form, and the
    WMMA form it replaced) at INNER=3 and at the probe's INNER=64; the
    kernel-experiment variants (rows 15-16: the 25
@@ -84,12 +88,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    image rows, the text-block kernels at B=256 text rows in fp32, bf16 and
    int8), with its bound (and the packed core against
    ``scaled_dot_product_attention``, in bf16 also at the L/14 shape B=256,
-   S=257, W=1024; rows 7 and 8 held against their plain versions at the
-   timed shapes, one counted launch each); classify images/s at B=256 and
+   S=257, W=1024, in fp32 also at 256 text rows, causal, and beside the
+   scalar core it replaced; rows 7 and 8 held against their plain versions
+   at the timed shapes, one counted launch each; every SDPA time, forward
+   and backward, the median of 5 repeats with its spread); classify images/s at B=256 and
    single-image p50 latency of the int8 and the bf16 unquantized engines;
    train-step ms at batch 256 (cached image features, dense text rows) on
    the four training paths; the steady-state images/s of a ``train_lora``
-   epoch; row 6 at B=256 ViT-B/16 beside ``scaled_dot_product_attention``;
+   epoch; row 6 at B=256 ViT-B/16 beside ``scaled_dot_product_attention``
+   (fp32 also beside the scalar core it replaced);
    row 9 at 256 text rows and 256 ViT-B/16 images beside the autograd
    backward that ``pallas_vjp`` runs and SDPA's backward and beside the
    scalar forms its bf16 and fp32 forms replaced, with device ms by pass
@@ -185,7 +192,7 @@ KERNELS = {
         "replaces": "aiic_tpu/ops/attention.py:133",
     },
     "fused_attention_qkv": {
-        "source": "aiic_tpu_torch/csrc/attention_qkv.cu",
+        "source": "aiic_tpu_torch/csrc/attn_core_f32.cuh",
         "replaces": "aiic_tpu/ops/attention.py:426",
     },
     "fused_ln_mlp": {
@@ -221,7 +228,7 @@ KERNELS = {
         "replaces": "aiic_tpu/ops/attention.py:563",
     },
     "fused_attention": {
-        "source": "aiic_tpu_torch/csrc/attention.cu",
+        "source": "aiic_tpu_torch/csrc/attn_core_f32.cuh",
         "replaces": "aiic_tpu/ops/attention.py:313",
     },
     "fused_attention_qkv_bwd": {
@@ -645,9 +652,10 @@ def _core_edge_agreement(out, ref, dead) -> dict:
 
 def mma_core_resources(build_log: str) -> dict:
     """The redesigned kernels' registers, spills and shared memory from the
-    build's ``-Xptxas -v`` report: the bf16 core of rows 6-8 per layout, the
-    two passes of row 9's bf16 and fp32 backward, row 17's wgmma products
-    and its i8_quant row pass; and their blocks per SM
+    build's ``-Xptxas -v`` report: the bf16 core of rows 6-8 and the fp32
+    core of rows 6-7 per layout, the two passes of row 9's bf16 and fp32
+    backward, row 17's wgmma products and its i8_quant row pass; and their
+    blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     from aiic_tpu_torch.ops import attention
     from aiic_tpu_torch.probes import mxu_probe
@@ -656,6 +664,7 @@ def mma_core_resources(build_log: str) -> dict:
                                         "QKVLayoutE2": "separate"},
                "core_bwd_mma_query_kernel": {"": "bwd_pass1"},
                "core_bwd_mma_key_kernel": {"": "bwd_pass2"},
+               "attn_core_f32_kernel": {"QKVLayoutE0": "f32_packed", "QKVLayoutE2": "f32_separate"},
                "core_bwd_tiled_query_kernel": {"": "bwd_f32_pass1"},
                "core_bwd_tiled_key_kernel": {"": "bwd_f32_pass2"},
                "mxu_wgmma_kernel": {"ILb0": "mxu_bf16", "ILb1": "mxu_i8"},
@@ -678,6 +687,7 @@ def mma_core_resources(build_log: str) -> dict:
     res["blocks_per_sm"] = attention.mma_core_occupancy()
     res["bwd_blocks_per_sm"] = list(attention.mma_bwd_occupancy())
     res["bwd_f32_blocks_per_sm"] = list(attention.tiled_bwd_occupancy())
+    res["f32_blocks_per_sm"] = attention.f32_core_occupancy()
     res["mxu_wgmma_blocks_per_sm"] = mxu_probe.wgmma_occupancy()
     return res
 
@@ -844,6 +854,71 @@ def phase_core_bwd_edge_kernels(device, worst: dict) -> None:
         del qkv, q, k, v, out, ref
     torch.cuda.empty_cache()
     REPORT["core_bwd_edge_checks"] = results
+
+
+# fp32 rows 7 and 6 (D=64) on the register-tiled core (csrc/attn_core_f32.cuh:
+# 64 query rows a block, K and V streamed in 64-key tiles, each product cut
+# to the tile pair's live 16-row groups) at its edges, which are fp32 row 9's
+# (the same tiles and groups); W, H from EDGE_WIDTHS. Row 6 also at S=577
+# (B=2, H=16), where the scalar core it replaced refused.
+FWD_F32_EDGE_CASES = BWD_F32_EDGE_CASES
+ROW6_F32_WIDE = (2, 577, 16)  # B, S, H
+
+
+def phase_core_f32_edge_kernels(device, worst: dict) -> None:
+    """Phase 3, fp32 rows 7 and 6 at the register-tiled core's tile edges,
+    each launch through its public wrapper with the counts at 0 before and
+    one launch after, at the fp32 bar on the rows the mask leaves keys in
+    (rows it removes whole exactly zero); row 6 bit for bit row 7 on the
+    same q, k, v (one kernel body), a second row 7 launch bit for bit the
+    first; the scalar core the tiled one replaced (``form="scalar"``,
+    uncounted) held too where K and V fit its shared memory. ``worst``
+    takes the largest error of each."""
+    import torch
+
+    from aiic_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=device).manual_seed(27)
+    results = []
+
+    def hold(name, label, out, ref, dead, key=None, **extra):
+        a = _core_edge_agreement(out, ref, dead)
+        a.update(kernel=name, case=label, **extra)
+        results.append(a)
+        log(f"[kernels] {name:30s} {label:26s} {a['dtype']:8s} max_abs_err={a['max_abs_err']:.6g} "
+            f"max_rel_err={a['max_rel_err']:.3g}" + "".join(f" {k}={v}" for k, v in extra.items()))
+        if not (a["ok"] and all(v is not False for v in extra.values())):
+            raise AssertionError(f"{name} on {label}: {a}")
+        key = key or name
+        worst[key] = max(worst.get(key, 0.0), a["max_abs_err"])
+
+    for bsz, seq, kind in FWD_F32_EDGE_CASES:
+        width, heads = EDGE_WIDTHS.get(seq, (256, 4))
+        qkv, mask, dead = _core_edge_inputs(gen, bsz, seq, width, kind, device, torch.float32)
+        label = f"B={bsz} S={seq} W={width} {kind}"
+        ref = attention.fused_attention_qkv_ref(qkv, mask, heads)
+        out = _one_launch("fused_attention_qkv",
+                          lambda: attention.fused_attention_qkv(qkv, mask, heads=heads))
+        hold("fused_attention_qkv", label, out, ref, dead, repeats_bit_for_bit=bool(
+            torch.equal(attention._fused_attention_qkv_cuda(qkv, mask, heads), out)))
+        q, k, v = (t.reshape(bsz, seq, heads, 64).contiguous() for t in qkv.split(width, -1))
+        out6 = _one_launch("fused_attention",
+                           lambda: attention.flash_attention(q, k, v, mask)).reshape(bsz, seq, width)
+        hold("fused_attention", label, out6, ref, dead,
+             row7_bit_identical=bool(torch.equal(out6, out)))
+        if 2 * seq * 64 * 4 <= attention._MAX_SMEM:
+            hold("fused_attention_qkv", label + " scalar form",
+                 attention._fused_attention_qkv_cuda(qkv, mask, heads, "scalar"), ref, dead,
+                 key="fused_attention_qkv_scalar")
+        del qkv, q, k, v, out, out6, ref
+    bsz, seq, heads = ROW6_F32_WIDE
+    q, k, v = (_randn(gen, (bsz, seq, heads, 64), torch.float32, device) for _ in range(3))
+    out = _one_launch("fused_attention", lambda: attention.flash_attention(q, k, v))
+    hold("fused_attention", f"B={bsz} S={seq} H={heads}", out.reshape(bsz, seq, -1),
+         attention.fused_attention_ref(q, k, v).reshape(bsz, seq, -1), [])
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    REPORT["core_f32_edge_checks"] = results
 
 
 # Row 6: label, (B, S, H, D, causal); row 9: label, (B, S, H, causal).
@@ -1866,11 +1941,23 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _sdpa_times(qkv, heads: int, head_major: bool = False) -> dict:
+# SDPA's time moved between runs of the same code: each library time is the
+# median of this many repeats (10 calls each), kept with its spread.
+LIBRARY_REPEATS = 5
+
+
+def _library_ms(fn, iters: int = 10) -> dict:
+    """The median of LIBRARY_REPEATS timings of fn, with the spread."""
+    ms = sorted(_time_ms(fn, iters) for _ in range(LIBRARY_REPEATS))
+    return {"library_ms": float(np.median(ms)), "library_ms_spread": [ms[0], ms[-1]],
+            "library_ms_repeats": ms}
+
+
+def _sdpa_times(qkv, heads: int, head_major: bool = False, mask=None) -> dict:
     """The one PyTorch call that computes the core's function:
-    ``scaled_dot_product_attention`` on the same q/k/v as (B, H, S, D), with
-    the transposes out of the packed (or head-major) layout and back timed
-    apart from the call."""
+    ``scaled_dot_product_attention`` on the same q/k/v as (B, H, S, D) (and
+    the additive mask in qkv's dtype), with the transposes out of the packed
+    (or head-major) layout and back timed apart from the call."""
     import torch
 
     bsz, seq, w3 = qkv.shape
@@ -1880,11 +1967,11 @@ def _sdpa_times(qkv, heads: int, head_major: bool = False) -> dict:
     else:
         split = lambda: qkv.view(bsz, seq, 3, heads, dim).permute(2, 0, 3, 1, 4).contiguous()  # noqa: E731
     q, k, v = split()
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    m = None if mask is None else mask.to(qkv.dtype)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=m)  # noqa: E731
     o = sdpa()
     merge = lambda: o.transpose(1, 2).reshape(bsz, seq, w3 // 3)  # noqa: E731
-    return {"library_ms": min(_time_ms(sdpa, 10), _time_ms(sdpa, 10)),
-            "transpose_ms": _time_ms(split, 10) + _time_ms(merge, 10)}
+    return {**_library_ms(sdpa), "transpose_ms": _time_ms(split, 10) + _time_ms(merge, 10)}
 
 
 def _engine_rate(engine, rng) -> dict:
@@ -1951,8 +2038,7 @@ def _sdpa_bshd_times(q, k, v, mask) -> dict:
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=m)  # noqa: E731
     o = sdpa()
     merge = lambda: o.transpose(1, 2).contiguous()  # noqa: E731
-    return {"library_ms": min(_time_ms(sdpa, 10), _time_ms(sdpa, 10)),
-            "transpose_ms": _time_ms(split, 10) + _time_ms(merge, 10)}
+    return {**_library_ms(sdpa), "transpose_ms": _time_ms(split, 10) + _time_ms(merge, 10)}
 
 
 def _device_ms_by_kernel(fn, needles: dict, iters: int = 5) -> dict:
@@ -2007,8 +2093,7 @@ def _bwd_yardsticks(qkv, mask, g, heads: int) -> dict:
     bwd = lambda: torch.autograd.grad(o, (qh, kh, vh), go, retain_graph=True)  # noqa: E731
     grads = bwd()
     merge = lambda: torch.stack(grads, 2).permute(0, 3, 2, 1, 4).reshape(bsz, seq, w3)  # noqa: E731
-    res = {"autograd_ms": min(_time_ms(autograd, 3), _time_ms(autograd, 3)),
-           "library_ms": min(_time_ms(bwd, 10), _time_ms(bwd, 10)),
+    res = {"autograd_ms": min(_time_ms(autograd, 3), _time_ms(autograd, 3)), **_library_ms(bwd),
            "transpose_ms": _time_ms(split, 10) + _time_ms(go_split, 10) + _time_ms(merge, 10)}
     del o, grads
     return res
@@ -2109,14 +2194,18 @@ def phase_core_ops_timing(device, card: str, params, worst: dict) -> dict:
         shape, kind = (256, 197, 12, 64), ("fp32" if dtype == torch.float32 else "bf16")
         q, k, v = (_randn(gen, shape, dtype, device) for _ in range(3))
         name = "fused_attention" + suffix
-        hold = {name: "fused_attention"} if dtype == torch.bfloat16 else None
+        hold = {name: "fused_attention"}
         _kernel_times({name: (lambda: attention.flash_attention(q, k, v),
                               lambda: attention.fused_attention_ref(q, k, v), (q, k, v),
                               {kind: 4 * 256 * 12 * 197 * 197 * 64})},
                       times, f"B=256 S=197 H=12 D=64 {kind}", card, hold=hold, worst=worst)
         times[name].update(_sdpa_bshd_times(q, k, v, None))
-        log(f"[timing] {name:24s} SDPA {times[name]['library_ms']:.3f} ms, transposes "
-            f"{times[name]['transpose_ms']:.3f} ms ({card})")
+        log(f"[timing] {name:24s} SDPA median {times[name]['library_ms']:.3f} ms (spread "
+            f"{times[name]['library_ms_spread']}), transposes {times[name]['transpose_ms']:.3f} ms "
+            f"({card})")
+        if dtype == torch.float32:
+            _f32_core_forms(times[name], name, card,
+                            lambda form: attention._fused_attention_cuda(q, k, v, None, form))
         del q, k, v
         for tag, (bsz, seq, heads, causal) in (("_text", (256, 77, 8, True)),
                                                ("_vit", (256, 197, 12, False))):
@@ -2131,7 +2220,8 @@ def phase_core_ops_timing(device, card: str, params, worst: dict) -> dict:
             times[name].update(_bwd_yardsticks(qkv, mask, g, heads))
             t = times[name]
             log(f"[timing] {name:24s} autograd backward (pallas_vjp) {t['autograd_ms']:.3f} ms, "
-                f"SDPA backward {t['library_ms']:.3f} ms, transposes {t['transpose_ms']:.3f} ms "
+                f"SDPA backward median {t['library_ms']:.3f} ms (spread {t['library_ms_spread']}), "
+                f"transposes {t['transpose_ms']:.3f} ms "
                 f"({card})")
             # The scalar forms the tensor-core (bf16) or register-tiled (fp32)
             # one replaced, then that one again, in this run; its device ms
@@ -2187,13 +2277,26 @@ def phase_core_ops_timing(device, card: str, params, worst: dict) -> dict:
     return times
 
 
+def _f32_core_forms(t: dict, name: str, card: str, call) -> None:
+    """fp32 rows 6-7: the scalar core that the register-tiled one replaced
+    (``call("scalar")``, uncounted), then the register-tiled one again
+    (``call(None)``), in this run; min of two runs of 10 each."""
+    t["scalar_ms"] = min(_time_ms(lambda: call("scalar"), 10) for _ in range(2))
+    t["tiled_ms_after"] = min(_time_ms(lambda: call(None), 10) for _ in range(2))
+    log(f"[timing] {name:24s} scalar core it replaced {t['scalar_ms']:.3f} ms, the register-tiled "
+        f"core timed after it {t['tiled_ms_after']:.3f} ms ({card})")
+
+
 def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
     """Phase 9. Launches made here are not the paths': the counts are
-    saved before and put back after. Row 7 (fp32 and bf16, at B/16 and L/14)
-    is held against its plain version at the timed shapes; ``worst`` takes
-    the errors."""
+    saved before and put back after. Row 7 (fp32 and bf16 at B/16, fp32 at
+    256 text rows, bf16 at L/14) is held against its plain version at the
+    timed shapes; ``worst`` takes the errors. fp32 row 7 is timed beside the
+    scalar core it replaced, and every SDPA time is a median with its
+    spread."""
     import torch
 
+    from aiic_tpu_torch.models.clip import causal_mask
     from aiic_tpu_torch.ops import _build, attention
 
     p = _half_block_inputs(np.random.default_rng(3), 256, 197, 768, 12,
@@ -2206,11 +2309,31 @@ def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
                         "fused_attention_qkv_bf16": "fused_attention_qkv"})
     for name in ("fused_attention_qkv", "fused_attention_qkv_bf16"):
         times[name].update(_sdpa_times(calls[name][2][0], p["heads"]))
-        log(f"[timing] {name:24s} SDPA {times[name]['library_ms']:.3f} ms, transposes "
-            f"{times[name]['transpose_ms']:.3f} ms ({card})")
+        log(f"[timing] {name:24s} SDPA median {times[name]['library_ms']:.3f} ms (spread "
+            f"{times[name]['library_ms_spread']}), transposes {times[name]['transpose_ms']:.3f} ms "
+            f"({card})")
+    _f32_core_forms(times["fused_attention_qkv"], "fused_attention_qkv", card,
+                    lambda form: attention._fused_attention_qkv_cuda(p["qkv"], None, 12, form))
     del p, calls
+    # fp32 row 7 at the pallas_vjp step's shape (256 text rows, causal).
+    gen = torch.Generator(device=device).manual_seed(8)
+    qkv = torch.randn((256, 77, 1536), generator=gen, device=device)
+    mask = causal_mask(77, device=device)
+    name = "fused_attention_qkv_text"
+    _kernel_times({name: (lambda: attention.fused_attention_qkv(qkv, mask, heads=8),
+                          lambda: attention.fused_attention_qkv_ref(qkv, mask, 8), (qkv, mask),
+                          {"fp32": 4 * 256 * 8 * 77 * 77 * 64})},
+                  times, "B=256 S=77 W=512 causal fp32", card, worst=worst,
+                  hold={name: "fused_attention_qkv"})
+    times[name].update(_sdpa_times(qkv, 8, mask=mask))
+    log(f"[timing] {name} SDPA median {times[name]['library_ms']:.3f} ms (spread "
+        f"{times[name]['library_ms_spread']}), transposes {times[name]['transpose_ms']:.3f} ms "
+        f"({card})")
+    _f32_core_forms(times[name], name, card,
+                    lambda form: attention._fused_attention_qkv_cuda(qkv, mask, 8, form))
+    del qkv
     # Row 7 bf16 at the shape the bf16 L/14 engine runs it (the large-S half).
-    gen = torch.Generator(device=device).manual_seed(7)
+    gen.manual_seed(7)
     qkv = torch.randn((256, 257, 3072), generator=gen, device=device).to(torch.bfloat16)
     name = "fused_attention_qkv_bf16_l14"
     _kernel_times({name: (lambda: attention.fused_attention_qkv(qkv, heads=16),
@@ -2537,8 +2660,9 @@ def main() -> int:
         f"{BUILD_INFO['path']}")
     REPORT["build"] = dict(BUILD_INFO)
     REPORT["attn_core_mma"] = mma_core_resources(BUILD_INFO["log"])
-    log(f"[build] attn_core_mma (rows 6-8 bf16), core_bwd_mma (row 9 bf16), core_bwd_tiled "
-        f"(row 9 fp32) and mxu_wgmma (row 17): {REPORT['attn_core_mma']}")
+    log(f"[build] attn_core_mma (rows 6-8 bf16), attn_core_f32 (rows 6-7 fp32), core_bwd_mma "
+        f"(row 9 bf16), core_bwd_tiled (row 9 fp32) and mxu_wgmma (row 17): "
+        f"{REPORT['attn_core_mma']}")
 
     worst = phase_kernels(device)
     worst.update(phase_zoo_kernels(device))
@@ -2546,6 +2670,7 @@ def main() -> int:
     worst.update(phase_text_block_kernels(device))
     worst.update(phase_core_ops_kernels(device))
     phase_core_bwd_edge_kernels(device, worst)
+    phase_core_f32_edge_kernels(device, worst)
     from aiic_tpu_torch.probes import kernel_experiments
 
     built = kernel_experiments.model(device)
@@ -2578,18 +2703,24 @@ def main() -> int:
                 "max_abs_err": worst[name], **{k: times[name][k] for k in keys},
                 **({"variant": times[name]["variant"]} if "variant" in times[name] else {})}
                for name, meta in KERNELS.items()]
-    # Row 7's entry is its fp32 form (the scalar core); its bf16 form runs on
-    # the tensor-core core, timed at the B/16 and L/14 shapes.
+    # Row 7's entry is its fp32 form (the register-tiled core, with the
+    # scalar core it replaced beside, and at 256 text rows); its bf16 form
+    # runs on the tensor-core core, timed at the B/16 and L/14 shapes.
     row7 = next(k for k in kernels if k["name"] == "fused_attention_qkv")
+    row7["scalar_ms"] = times["fused_attention_qkv"]["scalar_ms"]
+    row7["text"] = {k: times["fused_attention_qkv_text"][k] for k in keys + ("scalar_ms",)}
+    row7["text"]["max_abs_err"] = worst["fused_attention_qkv_text"]
     row7["bf16"] = {"source": KERNELS["fused_attention_qkv_headgroups"]["source"],
                     **{k: times["fused_attention_qkv_bf16"][k] for k in keys}}
     row7["bf16"]["max_abs_err"] = worst["fused_attention_qkv_bf16"]
     row7["bf16_l14"] = {k: times["fused_attention_qkv_bf16_l14"][k] for k in keys}
     row7["bf16_l14"]["max_abs_err"] = worst["fused_attention_qkv_bf16_l14"]
-    # Rows 6 and 9 likewise: their entries are the fp32 forms (the scalar
-    # cores); bf16 runs the tensor-core kernels, row 9 timed at 256 text rows
-    # (bf16) and 256 ViT-B/16 images (bf16_vit).
+    # Rows 6 and 9 likewise: their entries are the fp32 forms (row 6 on the
+    # register-tiled core, the scalar core beside); bf16 runs the tensor-core
+    # kernels, row 9 timed at 256 text rows (bf16) and 256 ViT-B/16 images
+    # (bf16_vit).
     row6 = next(k for k in kernels if k["name"] == "fused_attention")
+    row6["scalar_ms"] = times["fused_attention"]["scalar_ms"]
     row6["bf16"] = {"source": KERNELS["fused_attention_qkv_headgroups"]["source"],
                     **{k: times["fused_attention_bf16"][k] for k in keys},
                     "max_abs_err": worst["fused_attention_bf16"]}

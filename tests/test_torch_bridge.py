@@ -94,14 +94,14 @@ def test_params_from_numpy_and_npz_round_trip(tmp_path):
         np.testing.assert_array_equal(v.numpy(), flat[k])
     path = str(tmp_path / "w.npz")
     save_clip_weights(params, path)
-    back = load_clip_weights(path, dtype=torch.bfloat16)
+    back = load_clip_weights(path, config.TINY_TEST, dtype=torch.bfloat16)
     for k, v in _flat_torch(back).items():
         assert v.dtype == torch.bfloat16
         np.testing.assert_array_equal(
             v.float().numpy(), torch.from_numpy(np.array(flat[k])).to(torch.bfloat16).float().numpy())
     # a JAX-written npz reads back unchanged with numpy alone
     np.savez(str(tmp_path / "jax.npz"), **flat)
-    for k, v in _flat_torch(load_clip_weights(str(tmp_path / "jax.npz"))).items():
+    for k, v in _flat_torch(load_clip_weights(str(tmp_path / "jax.npz"), config.TINY_TEST)).items():
         np.testing.assert_array_equal(v.numpy(), flat[k])
 
 

@@ -18,7 +18,15 @@ argument checks.
   block, for every i < 64.
 - The forms' argument checks raise ValueError before the kernel library is
   loaded (here it cannot be: there is no nvcc), as the checks of the older
-  forms do.
+  forms do. That covers fp32 rows 6 and 7's forms: the register-tiled core
+  (the route, any S) and the scalar core it replaced (``form="scalar"``,
+  fp32 at D=64 only, K and V of a head within shared memory).
+- Routing, with the card route forced: fp32 row 6 at D=64 reaches the
+  register-tiled form at any S (S=257, 577), and the copied JAX planner
+  still routes fp32 row 7: fp32 ``fused_attention_qkv`` at S=577, W=1024
+  returns the batch-chunked reference composition (as JAX's does, which it
+  is held to at 1e-5) and never calls the kernel, while S=257 at the same
+  width calls it once.
 """
 
 import functools
@@ -82,7 +90,25 @@ def _probe(name, form, rows=128, depth=768, cols=256, xdtype=None):
                                          torch.zeros((depth, cols), dtype=wdt), 3, form)
 
 
+def _row7(dtype, form, seq=197, heads=12, width=768):
+    return lambda: attention._fused_attention_qkv_cuda(
+        torch.zeros((1, seq, 3 * width), dtype=dtype), None, heads, form)
+
+
+def _row6(dtype, form, seq=197, heads=12, dim=64):
+    q = torch.zeros((1, seq, heads, dim), dtype=dtype)
+    return lambda: attention._fused_attention_cuda(q, q, q, None, form)
+
+
 REFUSED = {
+    "row7_scalar_bf16": _row7(torch.bfloat16, "scalar"),  # the scalar form is fp32's
+    "row7_unknown_form": _row7(torch.float32, "mma"),
+    "row7_scalar_s577": _row7(torch.float32, "scalar", seq=577),  # K, V exceed shared memory
+    "row7_tiled_head_dim_32": _row7(torch.float32, None, heads=24),
+    "row6_scalar_bf16": _row6(torch.bfloat16, "scalar"),
+    "row6_scalar_d8": _row6(torch.float32, "scalar", dim=8),  # D=8 has the scalar core alone
+    "row6_scalar_s577": _row6(torch.float32, "scalar", seq=577),
+    "row6_unknown_form": _row6(torch.float32, "tiled_v2"),
     "bwd_tiled_bf16": _bwd(torch.bfloat16, "tiled"),  # the register-tiled form is fp32's
     "bwd_mma_fp32": _bwd(torch.float32, "mma"),  # the tensor-core form is bf16's
     "bwd_unknown_form": _bwd(torch.float32, "wgmma"),
@@ -112,3 +138,51 @@ def test_probe_forms_take_the_probe_geometry(monkeypatch):
         for rows in ((64, 128) if name == "mxu_i8_quant" else (128,)):
             with pytest.raises(AssertionError, match="before the library loads"):
                 _probe(name, "wgmma", rows=rows, cols=mxu_probe.M)()
+
+
+@pytest.mark.parametrize("row", ["row7", "row6"])
+def test_f32_tiled_core_takes_any_seq(monkeypatch, row):
+    """fp32 at D=64 on the register-tiled core passes its checks at S=577
+    (no shared-memory refusal), and so does the scalar form at S=197: each
+    call gets as far as the library."""
+    monkeypatch.setattr(attention, "load_library", _no_library)
+    make = _row7 if row == "row7" else _row6
+    for call in (make(torch.float32, None, seq=577, heads=16, **(
+            {"width": 1024} if row == "row7" else {})), make(torch.float32, "scalar")):
+        with pytest.raises(AssertionError, match="before the library loads"):
+            call()
+
+
+def test_fp32_row7_routing_follows_the_jax_planner(monkeypatch):
+    calls = []
+    monkeypatch.setattr(attention, "route", lambda name, x: True)
+    monkeypatch.setattr(attention, "_fused_attention_qkv_cuda",
+                        lambda qkv, mask, heads: calls.append(qkv.shape[1]) or
+                        torch.zeros(qkv.shape[:2] + (qkv.shape[2] // 3,)))
+    rng = np.random.default_rng(577)
+    qkv = rng.standard_normal((2, 577, 3 * 1024)).astype(np.float32)
+    before = attention.fused_attention_qkv.launches
+    out = attention.fused_attention_qkv(torch.from_numpy(qkv), None, heads=16)
+    assert calls == [] and attention.fused_attention_qkv.launches == before
+    assert torch.equal(out, attention._attention_qkv_xla_chunked(torch.from_numpy(qkv), None, 16))
+    ref = np.asarray(jax_attention.fused_attention_qkv(jnp.asarray(qkv), None, heads=16))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    attention.fused_attention_qkv(torch.zeros((2, 257, 3 * 1024)), None, heads=16)
+    assert calls == [257] and attention.fused_attention_qkv.launches == before + 1
+
+
+@pytest.mark.parametrize("seq", [257, 577])
+def test_fp32_row6_takes_the_kernel_at_any_seq(monkeypatch, seq):
+    """JAX's row 6 has no planner: with the card route forced, fp32
+    ``flash_attention`` at D=64 reaches the register-tiled form (no form
+    asked) once, counted, at S past the scalar core's shared memory too."""
+    calls = []
+    monkeypatch.setattr(attention, "route", lambda name, x: True)
+    monkeypatch.setattr(attention, "_fused_attention_cuda",
+                        lambda q, k, v, mask, form=None: calls.append((q.shape[1], form)) or
+                        torch.zeros_like(q))
+    q = torch.zeros((1, seq, 2, 64))
+    before = attention.fused_attention.launches
+    out = attention.flash_attention(q, q, q, causal_mask(seq))
+    assert calls == [(seq, None)] and attention.fused_attention.launches == before + 1
+    assert out.shape == q.shape

@@ -18,7 +18,10 @@ row's largest |plain| value. The bf16 tensor-core attention core of rows 7
 and 8 takes the bf16 bar at its tile edges, on the rows the mask leaves keys
 in; a row the mask removes whole is exactly zero in kernel and plain
 version; row 8 gives the same output bit for bit at every head group, and at
-hg=H row 7's. The attention-core backward (row 9) takes the
+hg=H row 7's. fp32 rows 7 and 6 at D=64 run the register-tiled core and
+take the fp32 bar at its tile edges, row 6 bit for bit row 7 (one body on
+two layouts); its scalar predecessor (row 7's private scalar form) holds the
+same bar. The attention-core backward (row 9) takes the
 fp32 bar above and the bf16 one; its two scalar fp32 forms on the card (one
 tile, two streaming passes) agree bit for bit. Its bf16 tensor-core form at
 the tile edges takes the per-row bar of the text-block kernels on every row
@@ -177,7 +180,7 @@ CORE_CASES = ([pytest.param(s, torch.bfloat16, id=f"bf16_B{s[0]}_S{s[1]}_W{s[2]}
         (2, 197, 768, 12, False), "image"), ((4, 77, 512, 8, True), "text_causal"))
     for d, n in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))] + CORE_CASES)
 def test_attention_qkv_kernel_matches_plain(device, shape, dtype):
-    """Row 7 against its plain version: fp32 on the scalar core at 1e-5, bf16
+    """Row 7 against its plain version: fp32 on the register-tiled core at 1e-5, bf16
     on the tensor-core core at the bf16 bar, at the serving shapes and the
     new core's tile edges; all-masked rows zero, clamped rows finite."""
     bsz, seq, width, heads, kind = shape
@@ -650,19 +653,54 @@ def test_fused_attention_tensor_core_edges(device, bsz, seq, kind):
                        attention._fused_attention_qkv_cuda(qkv, mask, heads))
 
 
+# fp32 rows 7 and 6 (D=64) on the register-tiled core at its edges, fp32 row
+# 9's (the same 64-row tiles and 16-row groups; chip_smoke.py's
+# FWD_F32_EDGE_CASES).
+@pytest.mark.parametrize("bsz,seq,kind", BWD_F32_EDGES)
+def test_f32_core_edges(device, bsz, seq, kind):
+    """fp32 row 7 and row 6 on the register-tiled core at its tile edges, one
+    counted launch each, at the fp32 bar on the rows the mask leaves keys in
+    (rows it removes whole zero); row 6 bit for bit row 7 on the same q, k,
+    v, a run repeats bit for bit, and the scalar form it replaced holds the
+    same bar where K and V fit its shared memory."""
+    width, heads = EDGE_WIDTHS.get(seq, (256, 4))
+    qkv, mask, dead = _core_qkv(device, bsz, seq, width, heads, kind, torch.float32, seed=21)
+    ref = attention.fused_attention_qkv_ref(qkv, mask, heads)
+    before = (attention.fused_attention_qkv.launches, attention.fused_attention.launches)
+    out = attention.fused_attention_qkv(qkv, mask, heads=heads)
+    q, k, v = (t.reshape(bsz, seq, heads, 64).contiguous() for t in qkv.split(width, -1))
+    out6 = attention.flash_attention(q, k, v, mask).reshape(bsz, seq, width)
+    torch.cuda.synchronize()
+    assert (attention.fused_attention_qkv.launches,
+            attention.fused_attention.launches) == (before[0] + 1, before[1] + 1)
+    _core_agree(out, ref, dead)
+    assert torch.equal(out6, out)
+    assert torch.equal(attention.fused_attention_qkv(qkv, mask, heads=heads), out)
+    if seq <= 454:
+        _core_agree(attention._fused_attention_qkv_cuda(qkv, mask, heads, "scalar"), ref, dead)
+
+
 def test_attention_core_op_routes(device):
-    """Which kernels each route of rows 6 and 9 launches: bf16 D=64 row 6 the
-    tensor-core core, fp32 and D=8 the scalar one; bf16 row 9 the two
+    """Which kernels each route of rows 6, 7 and 9 launches: bf16 D=64 row 6
+    the tensor-core core, fp32 D=64 rows 6 and 7 the register-tiled core (the
+    scalar one only as row 7's private scalar form), D=8 the scalar core;
+    bf16 row 9 the two
     tensor-core passes at every S, fp32 the two register-tiled passes at
     every S (not the one-tile kernel at S=77, not the scalar streaming
     passes at S=197)."""
     mask = causal_mask(77, device=device)
     for dtype, dim, want, not_want in ((torch.bfloat16, 64, "attn_core_mma_kernel", "attn_core_kernel"),
-                                       (torch.float32, 64, "attn_core_kernel<float", "mma"),
+                                       (torch.float32, 64, "attn_core_f32_kernel", "attn_core_kernel<"),
+                                       (torch.float32, 8, "attn_core_kernel<float, 8", "f32"),
                                        (torch.bfloat16, 8, "attn_core_kernel<__nv_bfloat16, 8", "mma")):
         q = _randn(device, 2, 77, 4, dim, dtype=dtype, seed=12)
         names = _cuda_kernels(lambda: attention.flash_attention(q, q, q, mask))
         assert _launched(names, want) and not _launched(names, not_want), (dtype, dim, names)
+    qkv = _randn(device, 2, 77, 3 * 256, seed=20)
+    names = _cuda_kernels(lambda: attention.fused_attention_qkv(qkv, mask, heads=4))
+    assert _launched(names, "attn_core_f32_kernel") and not _launched(names, "attn_core_kernel<")
+    names = _cuda_kernels(lambda: attention._fused_attention_qkv_cuda(qkv, mask, 4, "scalar"))
+    assert _launched(names, "attn_core_kernel<float, 64") and not _launched(names, "f32"), names
     for dtype, seq, want, not_want in ((torch.bfloat16, 77, "core_bwd_mma_query_kernel", "block_core"),
                                        (torch.bfloat16, 197, "core_bwd_mma_key_kernel", "core_bwd_query"),
                                        (torch.float32, 77, "core_bwd_tiled_query_kernel", "block_core"),
@@ -703,9 +741,16 @@ def test_attention_core_ops_refuse_what_they_do_not_take(device):
     q = torch.zeros((1, 17, 2, 32), device=device)
     with pytest.raises(ValueError):  # head dim 32: built for 8 and 64
         attention.flash_attention(q, q, q)
-    q = torch.zeros((1, 577, 16, 64), device=device)
-    with pytest.raises(ValueError):  # fp32 K and V of a head at S=577 exceed shared memory
-        attention.flash_attention(q, q, q)
+    # fp32 at S=577, which the scalar core refused (K and V of a head exceed
+    # shared memory), runs the register-tiled core: one launch at the fp32 bar
+    q, k, v = (_randn(device, 1, 577, 16, 64, seed=s) for s in (17, 18, 19))
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.fused_attention.launches == before[0] + 1
+    _f32_agree(out, attention.fused_attention_ref(q, k, v))
+    before = (before[0] + 1, before[1])
+    with pytest.raises(ValueError):  # the scalar form keeps its shared-memory limit
+        attention._fused_attention_cuda(q, k, v, None, "scalar")
     with pytest.raises(ValueError):
         attention.flash_attention(q.half(), q.half(), q.half())
     qkv, g = torch.zeros((1, 17, 3 * 768), device=device), torch.zeros((1, 17, 768), device=device)
@@ -754,7 +799,8 @@ def test_auto_int8_engine_launches_as_pallas(device):
     for impl in ("auto", "pallas"):
         _build.reset_launch_counts()
         engine = InteriorAnalyzer(params, VIT_B_16, training_data=vocab, device=device,
-                                  dtype=torch.bfloat16, quantize=True, attn_impl=impl)
+                                  dtype=torch.bfloat16, quantize=True, wire_format="patch",
+                                  attn_impl=impl)
         engine.classify_pixels(px)
         counts[impl] = _build.launch_counts()
     assert counts["auto"] == counts["pallas"]

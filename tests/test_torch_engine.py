@@ -13,6 +13,13 @@ The int8 engine with ``use_lora`` folds a rank-4 c_fc/c_proj adapter (a
 saved ``.pth``, or its loaded dict) before quantizing, in both packages; it
 is held to the same bars as the int8 engine.
 
+The constructor's options shared with the JAX engine default as JAX's
+(fp32, no int8 weights, HWC wire, ``attn_impl="auto"``): the signatures are
+compared, and the two default engines (fp32, ``"auto"`` is ``"xla"`` on the
+CPU in both) give the same results, features to a cosine of 0.99999 and
+confidences within 1e-4 (fp32 sums in another order, amplified by the 100x
+softmax temperatures).
+
 The JAX programs are compiled with ``xla_allow_excess_precision`` off. By
 default XLA on the CPU may keep a bf16 intermediate in fp32, while the port
 (like the Hopper kernels) rounds each bf16 result. With 100x softmax
@@ -20,8 +27,9 @@ temperatures at the tiny test width, that alone moves confidences by ~1e-2;
 with every bf16 rounding kept, the two engines agree to ~1e-6.
 """
 
+import dataclasses
 import functools
-
+import inspect
 import warnings
 
 import jax
@@ -63,7 +71,7 @@ def engines():
     _build.reset_launch_counts()
     ours = InteriorAnalyzer(params_from_numpy(flatten_params(jp)), TINY_TEST,
                             training_data=TRAINING, dtype=torch.bfloat16, quantize=True,
-                            wire_format="patch", max_batch=4, device="cpu")
+                            wire_format="patch", attn_impl="pallas", max_batch=4, device="cpu")
     return ref, ours
 
 
@@ -286,3 +294,46 @@ def test_detector_and_topk_programs_match_jax():
     rvals, ridx = jax_programs.analyze_topk(jnp.asarray(feats), jnp.asarray(cat), jnp.asarray(mask), k=5)
     _topk_close(vals.numpy(), idx.numpy(), np.asarray(rvals), np.asarray(ridx), 1e-5)
     assert (vals.numpy()[:, 1, 3:] == 0).all() and (vals.numpy()[:, 2, 1:] == 0).all()
+
+
+def _default_name(value):
+    """A default as comparable across the packages: dtypes by name, the
+    config dataclasses (one per package) by their fields."""
+    if dataclasses.is_dataclass(value):
+        return dataclasses.asdict(value)
+    if isinstance(value, torch.dtype):
+        return str(value).removeprefix("torch.")
+    if isinstance(value, type):  # jnp.float32 and the like
+        return np.dtype(getattr(value, "dtype", value)).name
+    return value
+
+
+def test_analyzer_shared_defaults_equal_jax():
+    ours = inspect.signature(InteriorAnalyzer.__init__).parameters
+    ref = inspect.signature(JaxAnalyzer.__init__).parameters
+    shared = (set(ours) & set(ref)) - {"self"}
+    assert {"dtype", "quantize", "wire_format", "attn_impl", "max_batch", "seed"} <= shared
+    for name in sorted(shared):
+        assert _default_name(ours[name].default) == _default_name(ref[name].default), name
+    assert "device" in ours and "device" not in ref  # the port's own option
+
+
+def test_default_engines_match_jax():
+    """``InteriorAnalyzer(params, config, training_data=...)`` builds the same
+    engine in both packages: the fp32 one on the HWC wire."""
+    jp = init_clip_params(jax.random.PRNGKey(2), JAX_TINY)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = JaxAnalyzer(jp, JAX_TINY, training_data=TRAINING, max_batch=4)
+    ours = InteriorAnalyzer(params_from_numpy(flatten_params(jp)), TINY_TEST,
+                            training_data=TRAINING, max_batch=4, device="cpu")
+    assert (ours.dtype, ours.quantized, ours.wire_format, ours.attn_impl) == (
+        torch.float32, False, "hwc", "auto")
+    assert ref.dtype == jnp.float32 and ref.wire_format == "hwc"
+    px = _pixels(5, seed=4)
+    got, want = ours.classify_pixels(px), {k: np.asarray(v) for k, v in ref.classify_pixels(px).items()}
+    assert set(got) == set(want)
+    assert ((got["features"] * want["features"]).sum(-1)).min() >= 0.99999
+    for k in ("top_conf", "interior_mass", "non_interior_mass"):
+        np.testing.assert_allclose(got[k], want[k], atol=1e-4)
+    _topk_close(got["topk_vals"], got["topk_idx"], want["topk_vals"], want["topk_idx"], 1e-4)

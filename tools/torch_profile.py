@@ -66,6 +66,7 @@ GROUPS = [  # (group, substring of the CUDA kernel name), first match wins
     ("block_ln_bwd", "ln_bwd_rows_kernel"),
     ("attn_core_mma", "attn_core_mma_kernel"),  # rows 6-7 (bf16) and 8, tensor cores
     ("attn_core_bwd_mma", "core_bwd_mma_"),  # row 9 (bf16), tensor cores
+    ("attn_core_f32", "attn_core_f32_kernel"),  # rows 6-7 (fp32), register-tiled
     ("attn_core_fp32", "attn_core_kernel<float"),
     ("attn_core_bf16", "attn_core_kernel"),
     ("int8_gemm_qkv", "EpiQKV"),
