@@ -15,9 +15,10 @@
 //   B (kTransB, for dy @ W^T) and a split depth (blockIdx.z) are options.
 // - attn_core_kernel<T, D, L>: the scalar streaming no-max attention core,
 //   for bf16 and fp32, on a (B, S, 3W) projection whose columns are packed
-//   [Q | K | V], or on three separate (B, S, H, D) arrays. Rows 1 and 5,
-//   and row 6 at D = 8, of the TPU kernel table run it (bf16 rows 7 and 8,
-//   and bf16 row 6 at D = 64, run the tensor-core core of attn_core_mma.cuh;
+//   [Q | K | V], or on three separate (B, S, H, D) arrays. Row 5, row 6 at
+//   D = 8 and the WMMA form of rows 1 and 4 (int8_halves.cuh) of the TPU
+//   kernel table run it (row 1, bf16 rows 7 and 8, and bf16 row 6 at D =
+//   64, run the tensor-core core of attn_core_mma.cuh;
 //   fp32 rows 7 and 6 at D = 64 the register-tiled core of
 //   attn_core_f32.cuh, which keeps this one's fp32 form only to be timed
 //   beside it); T is the rounding policy (q*c, p and the output round to T,

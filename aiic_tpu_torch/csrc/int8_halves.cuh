@@ -1,17 +1,17 @@
-// The int8 half-block sequences (sm_90a), shared by the kernels of rows 1-4
-// of the TPU kernel table:
+// The int8 half-block sequences (sm_90a) on common.cuh's WMMA gemm_kernel
+// and scalar attn_core_kernel: the form of rows 3, 4 and 15-16 of the TPU
+// kernel table, and the WMMA form (form 1) of rows 1 and 2, which run on
+// the wgmma stage of wgmma_serving_gemm.cuh:
 //
 //   int8_qkv_stage   LN1 -> per-row int8 quantization -> int8 QKV product,
-//                    qkv = bf16(acc*hscale*sqkv + bqkv). Alone it is the
-//                    projection of the large-S int8 attention path (the JAX
-//                    package runs it in XLA around the row 7 / row 8 core);
+//                    qkv = bf16(acc*hscale*sqkv + bqkv);
 //   int8_attn_half   the stage, the streaming core, the bf16 out-projection
-//                    with bias and residual (row 1, int8_attention.cu);
+//                    with bias and residual (int8_attention.cu's form 1);
 //   int8_mlp_half    LN2 -> int8 c_fc with gelu -> int8 c_proj, the gelu
-//                    output quantized per row (C = 1: row 2) or per (row,
-//                    chunk) over C chunks of the hidden axis (row 3), both
-//                    in int8_mlp.cu; row 4 (int8_block.cu) runs the two
-//                    halves back to back.
+//                    output quantized per row (C = 1: row 2's form 1) or
+//                    per (row, chunk) over C chunks of the hidden axis (row
+//                    3), both in int8_mlp.cu; row 4 (int8_block.cu) runs the
+//                    two halves back to back.
 //
 // The chunked MLP half follows _int8_mlp_rows(n_chunks=C) of the JAX
 // package: the gelu output y (rows, M) is quantized as the (rows*C, M/C)

@@ -8,31 +8,41 @@
 // chunk order onto the fp32 residual, b2 last). The plain PyTorch version is
 // aiic_tpu_torch/ops/quant.py::int8_ln_mlp_ref(n_chunks=C).
 //
-// Launches on the caller's stream (int8_mlp_half, int8_halves.cuh):
+// Launches on the caller's stream. Full mode (row 2), form 0, the route
+// (int8_mlp_half_wgmma, wgmma_serving_gemm.cuh):
 //   (a) rowquant_kernel<LN>: LN2 in fp32 + per-row int8 quantization;
-//   (b) gemm_kernel<int8_t>: hq @ w1_q, epilogue y = acc*hscale*s1 + b1,
-//       then y * 1/(1 + exp2(-1.702 log2(e) y)), stored fp32 (rows, 4W);
-//   (c) rowquant_kernel<no LN>: y quantized per row (C = 1) or per (row,
-//       chunk), as the (rows*C, 4W/C) matrix it is in memory;
-//   (d) C = 1: gemm_kernel<int8_t>: yq @ w2_q, epilogue acc*yscale*s2, then
-//       + b2, then + x, then bf16 (the order of _int8_mlp_rows);
-//       C > 1: the same product with its depth split by chunk across
-//       blockIdx.z, each split's acc*yscale[r, c]*s2 into its own fp32
-//       slice, and (e) a pass summing x + slice 0 + ... + slice C-1 + b2 in
-//       that order, then bf16. No atomics.
+//   (b) wgmma_stage_kernel<int8_t, EpiGelu>: hq @ w1_q on the int8 tensor
+//       cores through TMA and wgmma (w1^T, K-major), epilogue y =
+//       acc*hscale*s1 + b1, then y * 1/(1 + exp2(-1.702 log2(e) y)), stored
+//       fp32 (rows, 4W);
+//   (c) rowquant_kernel<no LN>: y quantized per row;
+//   (d) wgmma_stage_kernel<int8_t, EpiResidual>: yq @ w2_q (w2^T), epilogue
+//       acc*yscale*s2, then + b2, then + x, then bf16 (the order of
+//       _int8_mlp_rows).
+// The int8 products are exact in int32 and the epilogues are the WMMA
+// form's functors, so form 0 gives form 1's bits.
+// Form 1 (int8_mlp_half, int8_halves.cuh) runs (b) and (d) on common.cuh's
+// WMMA gemm_kernel; it stays for the side-by-side time and the bit-for-bit
+// check. The chunked mode (row 3) runs it with C > 1:
+//   (b), (c) as form 1, with y quantized per (row, chunk), as the
+//       (rows*C, 4W/C) matrix it is in memory;
+//   (d) the WMMA product with its depth split by chunk across blockIdx.z,
+//       each split's acc*yscale[r, c]*s2 into its own fp32 slice, and (e) a
+//       pass summing x + slice 0 + ... + slice C-1 + b2 in that order, then
+//       bf16. No atomics.
 //
 // What bounds it on the H100: at B=256 the two int8 products are
 // 2 * rows x W x 4W MACs (50k rows x 768 at B/16, 66k x 1024 at L/14),
 // compute-bound on the int8 tensor cores; the row passes and the chunk sum
 // are bandwidth-bound.
 //
-// What the simple design gives up: the fp32 hidden activation (rows x 4W,
-// 1.1 GB at L/14 B=256) makes a round trip through device memory because the
-// row quantization of y needs each row's (or chunk's) amax before the second
-// product can start, and the chunked plan adds C fp32 partial slices; the
-// GEMM has no TMA/wgmma pipeline.
+// What the design gives up: the fp32 hidden activation (rows x 4W, 620 MB
+// at B/16 B=256, 1.1 GB at L/14) makes a round trip through device memory
+// because the row quantization of y needs each row's (or chunk's) amax
+// before the second product can start, and the chunked plan adds C fp32
+// partial slices.
 
-#include "int8_halves.cuh"
+#include "wgmma_serving_gemm.cuh"
 
 namespace {
 
@@ -45,21 +55,31 @@ aiic::Int8Mlp mlp_args(const void* ln_s, const void* ln_b, const void* w1_q, con
 
 }  // namespace
 
-// x (rows,W) bf16; ln_s, ln_b (W) f32; w1_q (W,M) int8; s1, b1 (M) f32;
-// w2_q (M,W) int8; s2, b2 (W) f32; out (rows,W) bf16. Scratch: hq (rows,W)
-// int8, hs (rows) f32, y (rows,M) f32, yq (rows,M) int8, ys (rows) f32.
-// Needs W and M multiples of 128. Returns a cudaError_t.
+// x (rows,W) bf16; ln_s, ln_b (W) f32; w1_q (W,M) int8 and its K-major copy
+// w1_t (M,W); s1, b1 (M) f32; w2_q (M,W) int8 and w2_t (W,M); s2, b2 (W)
+// f32; out (rows,W) bf16. Scratch: hq (rows,W) int8, hs (rows) f32, y
+// (rows,M) f32, yq (rows,M) int8, ys (rows) f32. form 0: the wgmma stage
+// (reads w1_t, w2_t); 1: the WMMA form (reads w1_q, w2_q). Needs W and M
+// multiples of 128. Returns a cudaError_t.
 extern "C" int aiic_int8_ln_mlp(
-    const void* x, const void* ln_s, const void* ln_b, const void* w1_q,
-    const void* s1, const void* b1, const void* w2_q, const void* s2,
-    const void* b2, void* out, void* hq, void* hs, void* y, void* yq, void* ys,
-    int rows, int W, int M, float eps, void* stream) {
+    const void* x, const void* ln_s, const void* ln_b, const void* w1_q, const void* w1_t,
+    const void* s1, const void* b1, const void* w2_q, const void* w2_t, const void* s2,
+    const void* b2, void* out, void* hq, void* hs, void* y, void* yq, void* ys, int rows, int W,
+    int M, float eps, int form, void* stream) {
   using namespace aiic;
   const MlpScratch s{static_cast<int8_t*>(hq), static_cast<float*>(hs), static_cast<float*>(y),
                      static_cast<int8_t*>(yq), static_cast<float*>(ys), nullptr};
-  return int8_mlp_half(static_cast<const bf16*>(x), mlp_args(ln_s, ln_b, w1_q, s1, b1, w2_q, s2, b2),
-                       static_cast<bf16*>(out), s, rows, W, M, 1, eps,
-                       static_cast<cudaStream_t>(stream));
+  const Int8Mlp m = mlp_args(ln_s, ln_b, w1_q, s1, b1, w2_q, s2, b2);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (form == 0) {
+    if (!w1_t || !w2_t) return static_cast<int>(cudaErrorInvalidValue);
+    return int8_mlp_half_wgmma(static_cast<const bf16*>(x), m, static_cast<const int8_t*>(w1_t),
+                               static_cast<const int8_t*>(w2_t), static_cast<bf16*>(out), s, rows,
+                               W, M, eps, st);
+  }
+  if (form != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return int8_mlp_half(static_cast<const bf16*>(x), m, static_cast<bf16*>(out), s, rows, W, M, 1,
+                       eps, st);
 }
 
 // As aiic_int8_ln_mlp with the hidden axis in n_chunks >= 2 chunks: ys is

@@ -1,8 +1,8 @@
 // Hopper GEMM mainloop pieces (sm_90a): TMA-fed, mbarrier-ringed shared
 // memory and warpgroup products (wgmma) in bf16 and int8, for any kernel of
 // the port that runs a dense product: today the tensor-core probe of row 17
-// (mxu_probe_wgmma.cu); the GEMM stages of rows 1-4 can take them as they
-// are.
+// (mxu_probe_wgmma.cu) and the GEMM stage of rows 1 and 2
+// (wgmma_serving_gemm.cuh).
 //
 // - tensor_map_2d (host): a 2-D TMA tensor map with the 128-B swizzle, built
 //   by the driver's cuTensorMapEncodeTiled, which the library reaches
@@ -22,7 +22,9 @@
 // - wgmma wrappers through inline PTX: bf16 m64n256k16 with A from
 //   registers (B K- or MN-major), s8 m64n256k32 with A from registers
 //   (8-bit wgmma takes K-major operands only, so B is w^T), s8 m64n128k32
-//   with both operands from shared memory. A register A fragment of a warp's
+//   with both operands from shared memory, and bf16 m64n128k16 with both
+//   from shared memory (A K-major, B MN-major): the last two are the
+//   serving GEMM stage's (wgmma_serving_gemm.cuh). A register A fragment of a warp's
 //   16 rows is the mma.sync m16k16 bf16 / m16k32 s8 fragment, which one
 //   ldmatrix.x4 of a swizzled K-major tile gives in both types (the same
 //   bytes: mma_tiles.cuh's load_a_frags). The accumulators are written by the tensor cores until
@@ -261,6 +263,30 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32_ss(int (&d)[64], uint64_t de
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128 fp32) += a . b: a 64x16 bf16 K-major and b 16x128 bf16
+// MN-major (two 64-column atoms atom_bytes apart), both by descriptor.
+__device__ __forceinline__ void wgmma_bf16_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 }  // namespace

@@ -26,7 +26,11 @@ Each half-block has three faces here:
   path on the card.
 - a **Hopper kernel** in ``aiic_tpu_torch/csrc`` (CUDA C++ for sm_90a, built
   by ``ops._build``), launched by ``_int8_ln_qkv_attention_cuda`` /
-  ``_int8_ln_mlp_cuda``.
+  ``_int8_ln_mlp_cuda``: their products on the ``wgmma`` + TMA GEMM stage
+  (``csrc/wgmma_serving_gemm.cuh``, reachable alone as ``gemm_stage``), row
+  1's core on the tensor-core core of rows 6-8. Their WMMA forms (the first
+  design, which rows 3 and 4 keep) stay reachable as ``form="wmma"``,
+  uncounted, for timing and the bit-for-bit check of the int8 stages.
 - a **public wrapper** with the JAX signature. It takes the plain version
   only for tensors on the CPU; for a CUDA tensor it launches the kernel or
   raises. ``wrapper.launches`` counts kernel launches and nothing else
@@ -78,6 +82,54 @@ def _gelu_exp2(y: torch.Tensor) -> torch.Tensor:
 def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int8 x int8 -> int32 product through float64."""
     return (a.double() @ b.double()).to(torch.int32)
+
+
+def kmajor(w: torch.Tensor) -> torch.Tensor:
+    """The K-major copy w^T (out, in) of an (in, out) weight, contiguous: the
+    B operand of the int8 ``wgmma`` stage, which takes a K-major B only.
+    Computed once per weight and cached as ``attention.headmajor_columns``
+    caches: on the tensor that owns w's storage (the stacked weight of all
+    layers, for a layer's view), keyed by the view's offset, shape, strides
+    and version, so that the parameter tree keeps its keys and an in-place
+    change of the weight makes a new copy. An inference tensor (a weight
+    made under ``torch.inference_mode``, as the large-S path's head-major
+    copy is) keeps no version: its key has none."""
+    owner = w if w._base is None else w._base
+    cache = owner.__dict__.setdefault("_aiic_kmajor", {})
+    key = (w.storage_offset(), tuple(w.shape), tuple(w.stride()),
+           None if w.is_inference() else w._version)
+    hit = cache.get(key)
+    if hit is None:
+        hit = cache[key] = w.t().contiguous()
+    return hit
+
+
+# The epilogues of the GEMM stage (gemm_stage) and their C codes.
+STAGE_EPILOGUES = {"qkv": 0, "gelu": 1, "residual": 2, "out_proj": 3}
+# The forms of rows 1 and 2 (and of the stage) on the card: the route, and
+# the first (WMMA) design, kept for timing and the bit-for-bit check.
+FORMS = {"wgmma": 0, "wmma": 1}
+
+
+def gemm_stage_ref(a, w, epilogue: str, *, row_scale=None, col_scale=None, bias=None,
+                   x=None) -> torch.Tensor:
+    """One product of rows 1-2 with its epilogue, as their plain versions
+    compute it: a (rows, K) . w (K, N), int8 exact in int32 (qkv, gelu,
+    residual) or bf16 with fp32 sums (out_proj), then
+    qkv: bf16(acc·rs·cs + b); gelu: gelu_exp2(acc·rs·cs + b) in fp32;
+    residual: bf16(x + (acc·rs·cs + b)); out_proj: bf16(x + (acc + b))."""
+    no_tf32()
+    n = w.shape[-1]
+    b = bias.reshape(1, n).float()
+    if epilogue == "out_proj":
+        return (x.float() + (a.float() @ w.float() + b)).to(torch.bfloat16)
+    v = (_int_matmul(a, w).float() * row_scale.reshape(-1, 1).float()
+         * col_scale.reshape(1, n).float() + b)
+    if epilogue == "qkv":
+        return v.to(torch.bfloat16)
+    if epilogue == "gelu":
+        return _gelu_exp2(v)
+    return (x.float() + v).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +350,11 @@ def _mlp_args(name, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, n_chunks):
             torch.empty((rows * n_chunks,), dtype=torch.float32, device=dev)]
 
 
-def _int8_ln_mlp_cuda(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps, n_chunks=1):
+def _int8_ln_mlp_cuda(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps, n_chunks=1,
+                      form="wgmma"):
+    """Row 2 (``n_chunks`` 1) in ``form`` ("wgmma", the route: the products
+    on the wgmma stage, reading the K-major copies; "wmma", the first design),
+    or row 3 (``n_chunks`` > 1, the WMMA form)."""
     bsz, seq, width = x.shape
     mlp_dim = w1_q.shape[-1]
     name = "int8_ln_mlp" if n_chunks == 1 else "int8_ln_mlp_chunked"
@@ -309,8 +365,10 @@ def _int8_ln_mlp_cuda(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps, n_c
     # queued later on this same (current) stream, so that is safe.
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if n_chunks == 1:
-        rc = lib.aiic_int8_ln_mlp(*[ptr(a) for a in args], bsz * seq, width, mlp_dim,
-                                  ctypes.c_float(eps), stream)
+        kt = [kmajor(args[3]), kmajor(args[6])] if form == "wgmma" else [None, None]
+        p = [ptr(a) for a in args]
+        rc = lib.aiic_int8_ln_mlp(*p[:4], ptr(kt[0]), *p[4:7], ptr(kt[1]), *p[7:], bsz * seq,
+                                  width, mlp_dim, ctypes.c_float(eps), FORMS[form], stream)
     else:
         part = torch.empty((n_chunks, bsz * seq, width), dtype=torch.float32, device=x.device)
         rc = lib.aiic_int8_ln_mlp_chunked(*[ptr(a) for a in args], ptr(part), bsz * seq, width,
@@ -335,7 +393,10 @@ def _attn_args(name, x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo, mask, hea
 
 
 def _int8_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo,
-                                bo, mask, heads, eps):
+                                bo, mask, heads, eps, form="wgmma"):
+    """Row 1 in ``form``: "wgmma" (the route: the QKV product and the
+    out-projection on the wgmma stage, the tensor-core core) or "wmma" (the
+    first design: WMMA products, the scalar core)."""
     bsz, seq, width = x.shape
     args = _attn_args("int8_ln_qkv_attention", x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo,
                       mask, heads)
@@ -347,18 +408,22 @@ def _int8_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo,
     qkv = torch.empty((rows, 3 * width), dtype=torch.bfloat16, device=dev)
     attn = torch.empty((rows, width), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    p = [ptr(a) for a in args + [out, hq, hs, qkv, attn]]
+    wqkv_t = kmajor(wqkv_q) if form == "wgmma" else None
     rc = lib.aiic_int8_ln_qkv_attention(
-        *[ptr(a) for a in args + [out, hq, hs, qkv, attn]], bsz, seq, width, heads,
-        ctypes.c_float(eps), ctypes.c_float(_qconst(width // heads, torch.bfloat16)), stream)
+        *p[:4], ptr(wqkv_t), *p[4:], bsz, seq, width, heads, ctypes.c_float(eps),
+        ctypes.c_float(_qconst(width // heads, torch.bfloat16)), FORMS[form], stream)
     check("int8_ln_qkv_attention", rc)
     return out
 
 
-def _int8_qkv(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, eps):
+def _int8_qkv(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, eps, form="wgmma"):
     """The int8 QKV projection of the large-S path, (B, S, 3W) in x's dtype:
-    on the card row 1's first two launches (LN row quantizer, int8 WMMA
-    product with the dequant epilogue), on the CPU ``_int8_qkv_ref``. JAX
-    runs this stage in XLA, so it is not a TPU kernel and counts no launch."""
+    on the card row 1's first two launches (LN row quantizer, the int8
+    product on the wgmma stage with the dequant epilogue; ``form="wmma"``
+    the WMMA product), on the CPU ``_int8_qkv_ref``. JAX runs this stage in
+    XLA, so it is not a TPU kernel: the route counts one launch of the GEMM
+    stage (``gemm_stage``) and none of its own."""
     if not route("int8_qkv", x):
         return _int8_qkv_ref(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, eps)
     bsz, seq, width = x.shape
@@ -371,12 +436,56 @@ def _int8_qkv(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, eps):
     hq = torch.empty((rows, width), dtype=torch.int8, device=dev)
     hs = torch.empty((rows,), dtype=torch.float32, device=dev)
     args = [x.contiguous(), f32_vector(ln_scale, width, dev), f32_vector(ln_bias, width, dev),
-            wqkv_q, f32_vector(sqkv, 3 * width, dev), f32_vector(bqkv, 3 * width, dev), qkv, hq,
-            hs]
+            wqkv_q, kmajor(wqkv_q) if form == "wgmma" else None,
+            f32_vector(sqkv, 3 * width, dev), f32_vector(bqkv, 3 * width, dev), qkv, hq, hs]
     rc = lib.aiic_int8_ln_qkv(*[ptr(a) for a in args], rows, width, ctypes.c_float(eps),
-                              torch.cuda.current_stream(dev).cuda_stream)
+                              FORMS[form], torch.cuda.current_stream(dev).cuda_stream)
     check("int8_qkv", rc)
+    if form == "wgmma":
+        gemm_stage.launches += 1
     return qkv
+
+
+def stage_occupancy() -> list:
+    """Blocks of the GEMM stage resident on one SM: [int8 (c_fc's), bf16
+    (the out-projection's)], as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    gives them."""
+    blocks = (ctypes.c_int * 2)()
+    check("gemm_stage_occupancy", load_library().aiic_gemm_stage_occupancy(blocks))
+    return list(blocks)
+
+
+def _gemm_stage_cuda(a, w, epilogue, row_scale, col_scale, bias, x, form="wgmma"):
+    """The stage alone on the card (``aiic_gemm_stage``): the checked
+    arguments, the output ((rows, N) fp32 for gelu, bf16 otherwise), the
+    launch."""
+    name = "gemm_stage"
+    int8 = epilogue != "out_proj"
+    dtype = torch.int8 if int8 else torch.bfloat16
+    if a.dim() != 2 or w.dim() != 2 or a.dtype != dtype or w.dtype != dtype:
+        raise TypeError(f"{name}[{epilogue}]: takes 2-D {dtype} a and w, got {a.dtype} "
+                        f"{tuple(a.shape)} and {w.dtype} {tuple(w.shape)}")
+    rows, k = a.shape
+    n, dev = w.shape[1], a.device
+    if w.shape[0] != k or n % 128 or k % (128 if int8 else 64) or w.device != dev:
+        raise ValueError(f"{name}[{epilogue}]: needs w (K, N) on {dev} with N % 128 == 0 and K "
+                         f"a multiple of {128 if int8 else 64}, got a {tuple(a.shape)}, w "
+                         f"{tuple(w.shape)} on {w.device}")
+    a, w = a.contiguous(), w.contiguous()
+    wk = kmajor(w) if int8 and form == "wgmma" else w
+    rs = f32_vector(row_scale, rows, dev) if int8 else None
+    cs = f32_vector(col_scale, n, dev) if int8 else None
+    xr = x.to(torch.bfloat16).reshape(rows, n).contiguous() if x is not None else None
+    if epilogue in ("residual", "out_proj") and xr is None:
+        raise ValueError(f"{name}[{epilogue}]: needs the residual x")
+    out = torch.empty((rows, n), dtype=torch.float32 if epilogue == "gelu" else torch.bfloat16,
+                      device=dev)
+    rc = load_library().aiic_gemm_stage(
+        ptr(a), ptr(wk), ptr(rs), ptr(cs), ptr(f32_vector(bias, n, dev)), ptr(xr), ptr(out),
+        rows, n, k, STAGE_EPILOGUES[epilogue], FORMS[form],
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(name, rc)
+    return out
 
 
 def _int8_block_cuda(x, attn_w, mlp_w, heads, eps, n_chunks):
@@ -423,6 +532,28 @@ def int8_ln_mlp(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2,
         return int8_ln_mlp_ref(*args, eps=eps)
     out = _int8_ln_mlp_cuda(*args, eps)
     int8_ln_mlp.launches += 1
+    gemm_stage.launches += 2  # c_fc and c_proj
+    return out
+
+
+@counted
+def gemm_stage(a, w, epilogue: str, *, row_scale=None, col_scale=None, bias=None,
+               x=None) -> torch.Tensor:
+    """(rows, K) . w (K, N) -> (rows, N) through one of rows 1-2's epilogues
+    (``STAGE_EPILOGUES``; ``gemm_stage_ref`` says what each computes): on
+    the card the wgmma + TMA stage those rows run (an int8 w read through
+    its cached K-major copy), on the CPU the plain version. ``launches``
+    also counts the stage's launches inside rows 1 and 2 (two each) and the
+    large-S int8 projection (one): their wrappers add them where they
+    launch."""
+    if epilogue not in STAGE_EPILOGUES:
+        raise ValueError(f"gemm_stage: epilogue must be one of {sorted(STAGE_EPILOGUES)}, "
+                         f"got {epilogue!r}")
+    kw = dict(row_scale=row_scale, col_scale=col_scale, bias=bias, x=x)
+    if not route("gemm_stage", a):
+        return gemm_stage_ref(a, w, epilogue, **kw)
+    out = _gemm_stage_cuda(a, w, epilogue, row_scale, col_scale, bias, x)
+    gemm_stage.launches += 1
     return out
 
 
@@ -483,6 +614,7 @@ def int8_ln_qkv_attention(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo, bo,
         return int8_ln_qkv_attention_ref(*args, heads=heads, eps=eps)
     out = _int8_ln_qkv_attention_cuda(*args, heads, eps)
     int8_ln_qkv_attention.launches += 1
+    gemm_stage.launches += 2  # the QKV product and the out-projection
     return out
 
 

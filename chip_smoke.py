@@ -9,15 +9,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
 2. the Hopper kernels built with nvcc from ``aiic_tpu_torch/csrc``; the
    registers, spills and blocks per SM of the bf16 tensor-core core and the
    fp32 register-tiled core (each layout), of the two passes of the bf16
-   tensor-core and the fp32 register-tiled core backward, and of row 17's
-   wgmma products and row pass;
+   tensor-core and the fp32 register-tiled core backward, of row 17's
+   wgmma products and row pass, and of the wgmma GEMM stage of rows 1-2
+   (per epilogue);
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes (ViT-B/16 image and text half-blocks, B=1, an odd
-   B, and an all-zero LN row); the packed-QKV core in fp32 and bf16; the
+   B, and an all-zero LN row; rows 1 and 2 on the wgmma GEMM stage, row 2
+   and row 1's QKV stage bit for bit their WMMA forms, each bit for bit a
+   second run, and the stage alone on each of the four products, the int8
+   ones bit for bit the WMMA stage); the packed-QKV core in fp32 and bf16; the
    zoo's kernels: the chunked int8 MLP at the ViT-L/14 widths (C=2 and 4)
    and at L/14@336 (C=4), the whole int8 block (full at ViT-B/32 and at the
    text shape with the causal mask; chunked at ViT-B/16 on (2, 4) and at
-   L/14 on (1, 16)), the head-grouped core at S=577 (hg=8; hg=16 bit for
+   L/14 on (1, 16); each bit for bit row 1's WMMA form followed by row 2's
+   WMMA form or row 3), the head-grouped core at S=577 (hg=8; hg=16 bit for
    bit the packed core); the attention-core ops no engine reaches: row 6
    (``flash_attention``) at ViT-B/16 (B=2 and 256), at the text shape
    (causal) and at D=8, row 9 (``fused_attention_qkv_bwd``: fp32 the
@@ -48,7 +53,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and 64 (and 1 for the two kernel_experiments.py functions, 1024 for the
    three kernel_experiments7.py variants), x with an all-zero row,
    maconly exact and the three kernel_experiments5.py schedules bit for
-   bit row 1's kernel; each with the counts set to 0 before and exactly one
+   bit row 1's WMMA form; each with the counts set to 0 before and exactly one
    launch after;
 4. the paths: five full-width ViT-B/16 ``InteriorAnalyzer`` engines from
    one seeded init (int8 serving on the patch wire; the same with
@@ -86,7 +91,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    text features moved by the adapter and held against their CPU runs;
 9. timings: each kernel against its plain version (serving kernels at B=256
    image rows, the text-block kernels at B=256 text rows in fp32, bf16 and
-   int8), with its bound (and the packed core against
+   int8), with its bound (rows 1 and 2 beside their WMMA forms, the stage
+   yardstick and device ms by stage of both forms, held against their plain
+   versions; the GEMM stage alone on each product beside the WMMA stage and
+   ``torch._int_mm`` / ``torch.matmul``; the int8 engine's 8-image call
+   launching the wgmma stage and the tensor-core core and no WMMA GEMM or
+   scalar core; and the packed core against
    ``scaled_dot_product_attention``, in bf16 also at the L/14 shape B=256,
    S=257, W=1024, in fp32 also at 256 text rows, causal, and beside the
    scalar core it replaced; rows 7 and 8 held against their plain versions
@@ -186,6 +196,11 @@ KERNELS = {
     "int8_ln_mlp": {
         "source": "aiic_tpu_torch/csrc/int8_mlp.cu",
         "replaces": "aiic_tpu/ops/quant.py:102",
+    },
+    # The wgmma + TMA GEMM stage of rows 1 and 2 (their four products).
+    "gemm_stage": {
+        "source": "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh",
+        "replaces": "aiic_tpu/ops/quant.py:353 and :102",
     },
     "fused_ln_qkv_attention": {
         "source": "aiic_tpu_torch/csrc/ln_qkv_attention.cu",
@@ -416,6 +431,74 @@ def _calls(p):
     }
 
 
+def _stage_products(p) -> dict:
+    """The four products of rows 1 and 2 for the GEMM stage alone
+    (``quant.gemm_stage``): name -> (a, w, epilogue, keywords, ops), on
+    operands made from one input set by the plain pieces: hq, hs = the row
+    quantizer of LN(x); qkv and y = the plain stage; attn = the plain core
+    of qkv; yq, ys = the row quantizer of y."""
+    from aiic_tpu_torch.ops import attention, quant
+
+    x = p["x"]
+    bsz, seq, width = x.shape
+    rows, mlp_dim = bsz * seq, p["w1"].shape[-1]
+    xr = x.reshape(rows, width)
+    h = attention._ln_fp32(x.float().reshape(rows, width), p["ln_s"].reshape(1, width),
+                           p["ln_b"].reshape(1, width), 1e-5)
+    hq, hs = quant._row_quant(h)
+    qkv_kw = dict(row_scale=hs, col_scale=p["sqkv"], bias=p["bqkv"])
+    fc_kw = dict(row_scale=hs, col_scale=p["s1"], bias=p["b1"])
+    qkv = quant.gemm_stage_ref(hq, p["wqkv_q"], "qkv", **qkv_kw)
+    attn = attention.fused_attention_qkv_ref(qkv.reshape(bsz, seq, 3 * width), p["mask"],
+                                             p["heads"]).reshape(rows, width)
+    yq, ys = quant._row_quant(quant.gemm_stage_ref(hq, p["w1_q"], "gelu", **fc_kw))
+    return {
+        "gemm_stage_qkv": (hq, p["wqkv_q"], "qkv", qkv_kw, {"int8": 2 * rows * width * 3 * width}),
+        "gemm_stage_c_fc": (hq, p["w1_q"], "gelu", fc_kw, {"int8": 2 * rows * width * mlp_dim}),
+        "gemm_stage_c_proj": (yq, p["w2_q"], "residual",
+                              dict(row_scale=ys, col_scale=p["s2"], bias=p["b2"], x=xr),
+                              {"int8": 2 * rows * mlp_dim * width}),
+        "gemm_stage_out_proj": (attn, p["wo"], "out_proj", dict(bias=p["bo"], x=xr),
+                                {"bf16": 2 * rows * width * width}),
+    }
+
+
+def _stage_calls(products) -> dict:
+    """check name -> (kernel call, plain call, tensors the kernel reads, ops)
+    of each product of ``_stage_products``."""
+    from aiic_tpu_torch.ops import quant
+
+    return {name: (lambda a=a, w=w, e=e, kw=kw: quant.gemm_stage(a, w, e, **kw),
+                   lambda a=a, w=w, e=e, kw=kw: quant.gemm_stage_ref(a, w, e, **kw),
+                   (a, w) + tuple(kw.values()), ops)
+            for name, (a, w, e, kw, ops) in products.items()}
+
+
+def _stage_wmma(product):
+    """One product of ``_stage_products`` on the WMMA gemm_kernel the stage
+    replaced (``_gemm_stage_cuda(form="wmma")``, uncounted)."""
+    from aiic_tpu_torch.ops import quant
+
+    a, w, e, kw, _ = product
+    return quant._gemm_stage_cuda(a, w, e, kw.get("row_scale"), kw.get("col_scale"), kw["bias"],
+                                  kw.get("x"), "wmma")
+
+
+def _stage_library(product):
+    """The stage yardstick of one product: ``torch._int_mm`` of the int8
+    operands (w^T read column-major, the layout its fast kernels take), or
+    ``torch.matmul`` of the bf16 ones; no epilogue."""
+    import torch
+
+    from aiic_tpu_torch.ops import quant
+
+    a, w, e, _, _ = product
+    if e == "out_proj":
+        return lambda: torch.matmul(a, w)
+    wt = quant.kmajor(w)
+    return lambda: torch._int_mm(a, wt.t())
+
+
 def _bound(inputs, out, ops) -> dict:
     """The least time the card could take: the larger of the bytes moved
     (each input read once, the output written once) over HBM bandwidth and
@@ -465,6 +548,63 @@ def _agreement(out, ref, row_scale: bool = False) -> dict:
     return a
 
 
+def _hold_forms(p, label: str, results: list, worst: dict) -> None:
+    """Phase 3 for rows 1 and 2 beside the WMMA forms they replaced: row 2
+    bit for bit its WMMA form, row 1's QKV stage bit for bit the WMMA stage,
+    each row bit for bit a second run of itself, the WMMA form of row 1
+    against the plain version (recorded); then the GEMM stage alone on each
+    of the four products against its plain version, the int8 ones also bit
+    for bit the WMMA stage. ``worst["gemm_stage"]`` takes the stage's
+    largest error."""
+    import torch
+
+    from aiic_tpu_torch.ops import quant
+
+    h = p["heads"]
+    attn_q = (p["x"], p["ln_s"], p["ln_b"], p["wqkv_q"], p["sqkv"], p["bqkv"], p["wo"], p["bo"],
+              p["mask"])
+    mlp_q = (p["x"], p["ln_s"], p["ln_b"], p["w1_q"], p["s1"], p["b1"], p["w2_q"], p["s2"],
+             p["b2"])
+    new2, again2 = quant.int8_ln_mlp(*mlp_q), quant.int8_ln_mlp(*mlp_q)
+    old2 = quant._int8_ln_mlp_cuda(*mlp_q, 1e-5, 1, "wmma")
+    new1 = quant.int8_ln_qkv_attention(*attn_q, heads=h)
+    again1 = quant.int8_ln_qkv_attention(*attn_q, heads=h)
+    old1 = quant._int8_ln_qkv_attention_cuda(*attn_q, h, 1e-5, "wmma")
+    qkv_new = quant._int8_qkv(*attn_q[:6], 1e-5)
+    qkv_old = quant._int8_qkv(*attn_q[:6], 1e-5, "wmma")
+    torch.cuda.synchronize()
+    r = {"kernel": "int8 rows 1-2 forms", "case": label,
+         "row2_bit_identical_to_wmma": bool(torch.equal(new2, old2)),
+         "row2_repeat_bit_identical": bool(torch.equal(new2, again2)),
+         "row1_qkv_stage_bit_identical_to_wmma": bool(torch.equal(qkv_new, qkv_old)),
+         "row1_repeat_bit_identical": bool(torch.equal(new1, again1)),
+         "row1_wmma_vs_plain": _agreement(old1, quant.int8_ln_qkv_attention_ref(*attn_q, heads=h))}
+    results.append(r)
+    flags = {k: v for k, v in r.items() if k.endswith("identical") or k.endswith("wmma")}
+    log(f"[kernels] rows 1-2 forms {label:20s} {flags}; the WMMA form of row 1 vs plain "
+        f"min_row_cos={r['row1_wmma_vs_plain']['min_row_cos']:.8f}")
+    if not all(flags.values()):
+        raise AssertionError(f"rows 1-2 on {label}: {r}")
+    for name, prod in _stage_products(p).items():
+        kernel, plain, _, _ = _stage_calls({name: prod})[name]
+        out, wmma = kernel(), _stage_wmma(prod)
+        torch.cuda.synchronize()
+        a = _agreement(out, plain())
+        if prod[2] != "out_proj":
+            a["bit_identical_to_wmma"] = bool(torch.equal(out, wmma))
+            a["ok"] = a["ok"] and a["bit_identical_to_wmma"]
+        a.update(kernel="gemm_stage", product=name, case=label)
+        results.append(a)
+        log(f"[kernels] {name:24s} {label:20s} {a['dtype']:8s} max_abs_err={a['max_abs_err']:.6g} "
+            f"within_2ulp={a['within_2ulp']:.6f} min_row_cos={a['min_row_cos']:.8f}"
+            + (f" bit_identical_to_wmma={a['bit_identical_to_wmma']}"
+               if "bit_identical_to_wmma" in a else ""))
+        if not a["ok"]:
+            raise AssertionError(f"{name} disagrees on {label}: {a}")
+        worst["gemm_stage"] = max(worst.get("gemm_stage", 0.0), a["max_abs_err"])
+        del out, wmma
+
+
 def phase_kernels(device) -> dict:
     import torch
 
@@ -493,6 +633,7 @@ def phase_kernels(device) -> dict:
             if not a["ok"]:
                 raise AssertionError(f"{name} disagrees with its plain version on {label}: {a}")
             worst[name] = max(worst.get(name, 0.0), a["max_abs_err"])
+        _hold_forms(p, label, results, worst)
     REPORT["kernel_checks"] = results
     return worst
 
@@ -541,6 +682,36 @@ def _zoo_calls(p, plan=None, head_group=None):
     return calls
 
 
+def _hold_block_wmma(p, plan, out, label: str, results: list) -> None:
+    """Rows 3 and 4 keep the WMMA form of rows 1-2: the whole int8 block
+    (row 4) equals, bit for bit, row 1's WMMA form followed by row 2's WMMA
+    form (a full plan) or by row 3 (``int8_ln_mlp_chunked``, a chunked
+    plan) on the block's own chunk count."""
+    import torch
+
+    from aiic_tpu_torch.ops import quant
+
+    bsz, seq, width = p["x"].shape
+    mlp_dim = p["w1"].shape[-1]
+    plan = plan or quant._block_plan(bsz, seq, width, mlp_dim, 2)
+    y1 = quant._int8_ln_qkv_attention_cuda(p["x"], p["ln_s"], p["ln_b"], p["wqkv_q"], p["sqkv"],
+                                           p["bqkv"], p["wo"], p["bo"], p["mask"], p["heads"],
+                                           1e-5, "wmma")
+    mlp_q = (p["ln_s"], p["ln_b"], p["w1_q"], p["s1"], p["b1"], p["w2_q"], p["s2"], p["b2"])
+    if plan[0] == "chunked":
+        want = quant.int8_ln_mlp_chunked(y1, *mlp_q, n_chunks=plan[2])
+    else:
+        want = quant._int8_ln_mlp_cuda(y1, *mlp_q, 1e-5, 1, "wmma")
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out, want))
+    log(f"[kernels] int8_block {label} ({plan}) vs the WMMA forms of rows 1-2 "
+        f"{'and row 3 ' if plan[0] == 'chunked' else ''}in turn: bit-identical {same}")
+    results.append({"kernel": "int8_block", "case": label, "plan": list(plan),
+                    "bit_identical_to_wmma_rows": same})
+    if not same:
+        raise AssertionError(f"row 4 on {label} is not the WMMA rows 1-2 (3) in turn")
+
+
 ZOO_KERNEL_CASES = [  # label, inputs, block plan override, head group
     ("L/14 B=1 (MLP C=2)", dict(bsz=1, seq=257, width=1024, heads=16), None, None),
     ("L/14 B=3 (MLP C=2)", dict(bsz=3, seq=257, width=1024, heads=16), None, None),
@@ -577,6 +748,8 @@ def phase_zoo_kernels(device) -> dict:
         for name, (kernel, plain, _, _) in _zoo_calls(p, plan, hg).items():
             out = kernel()
             torch.cuda.synchronize()
+            if name == "int8_block":
+                _hold_block_wmma(p, plan, out, label, results)
             a = _agreement(out, plain())
             a.update(kernel=name, case=label)
             results.append(a)
@@ -654,10 +827,10 @@ def mma_core_resources(build_log: str) -> dict:
     """The redesigned kernels' registers, spills and shared memory from the
     build's ``-Xptxas -v`` report: the bf16 core of rows 6-8 and the fp32
     core of rows 6-7 per layout, the two passes of row 9's bf16 and fp32
-    backward, row 17's wgmma products and its i8_quant row pass; and their
-    blocks per SM
+    backward, row 17's wgmma products and its i8_quant row pass, the GEMM
+    stage of rows 1-2 per epilogue; and their blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    from aiic_tpu_torch.ops import attention
+    from aiic_tpu_torch.ops import attention, quant
     from aiic_tpu_torch.probes import mxu_probe
 
     kernels = {"attn_core_mma_kernel": {"QKVLayoutE0": "packed", "QKVLayoutE1": "head_major",
@@ -668,6 +841,9 @@ def mma_core_resources(build_log: str) -> dict:
                "core_bwd_tiled_query_kernel": {"": "bwd_f32_pass1"},
                "core_bwd_tiled_key_kernel": {"": "bwd_f32_pass2"},
                "mxu_wgmma_kernel": {"ILb0": "mxu_bf16", "ILb1": "mxu_i8"},
+               "wgmma_stage_kernel": {"EpiQKV": "stage_qkv", "EpiGelu": "stage_c_fc",
+                                      "EpiResidual": "stage_c_proj",
+                                      "EpiOutProj": "stage_out_proj"},
                "mxu_wgmma_quant_kernel": {"": "mxu_i8_quant"},
                "mxu_quant_rows_kernel": {"": "mxu_i8_quant_row_pass"}}
     res, lines = {}, build_log.splitlines()
@@ -689,6 +865,7 @@ def mma_core_resources(build_log: str) -> dict:
     res["bwd_f32_blocks_per_sm"] = list(attention.tiled_bwd_occupancy())
     res["f32_blocks_per_sm"] = attention.f32_core_occupancy()
     res["mxu_wgmma_blocks_per_sm"] = mxu_probe.wgmma_occupancy()
+    res["stage_blocks_per_sm"] = quant.stage_occupancy()
     return res
 
 
@@ -935,9 +1112,15 @@ def _randn(gen, shape, dtype, device):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
+# The GEMM stage launches inside each launch of rows 1 and 2 (their two
+# products each); the stage's own count says so.
+STAGE_LAUNCHES = {"int8_ln_qkv_attention": 2, "int8_ln_mlp": 2}
+
+
 def _one_launch(name: str, fn):
     """fn() with every launch count set to 0 before; afterwards exactly one
-    launch of ``name`` and none of any other kernel."""
+    launch of ``name`` (and the GEMM stage's launches inside it, for rows 1
+    and 2) and none of any other kernel."""
     import torch
 
     from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
@@ -946,7 +1129,9 @@ def _one_launch(name: str, fn):
     out = fn()
     torch.cuda.synchronize()
     got = launch_counts()
-    if got != {n: int(n == name) for n in got}:
+    want = {n: int(n == name) for n in got}
+    want["gemm_stage"] += STAGE_LAUNCHES.get(name, 0)
+    if got != want:
         raise AssertionError(f"expected one launch of {name} alone, got "
                              f"{ {n: c for n, c in got.items() if c} }")
     return out
@@ -1091,14 +1276,17 @@ def _block_kernels(opts: dict, seq: int, width: int, heads: int, bsz: int) -> li
         plan = Q._block_plan(bsz, seq, width, mlp_dim, 2)
         if plan is not None and plan[0] == "full" and plan[1] >= 2:  # the auto rule
             return ["int8_block"]
+        # Rows 1 and 2 launch the GEMM stage twice each, the large-S int8
+        # projection once.
         if A.fits_some_group(bsz, 2, lambda g: Q._attn_vmem_bytes(g, seq, width, 2)
                              <= Q._VMEM_BUDGET):
-            names = ["int8_ln_qkv_attention"]
+            names = ["int8_ln_qkv_attention", "gemm_stage", "gemm_stage"]
         else:
-            names = _large_s_core(seq, width, heads)
+            core = _large_s_core(seq, width, heads)
+            names = core + ["gemm_stage"] if core else []
         mode = Q._mlp_plan(bsz, seq, width, mlp_dim, 2)[0]
-        return names + {"full": ["int8_ln_mlp"], "chunked": ["int8_ln_mlp_chunked"],
-                        "xla": []}[mode]
+        return names + {"full": ["int8_ln_mlp", "gemm_stage", "gemm_stage"],
+                        "chunked": ["int8_ln_mlp_chunked"], "xla": []}[mode]
     if A.fits_some_group(bsz, 2, lambda g: A.ln_attn_vmem_bytes(g, seq, width, 2)
                          <= A._CORE_VMEM_BUDGET):
         names = ["fused_ln_qkv_attention"]
@@ -1675,8 +1863,8 @@ def _expected_train_launches(opts: dict, text_impl: str, n_items: int) -> dict:
     - the image-feature precompute runs the frozen tower once per chunk of
       TRAIN_BATCH unique images (the last padded): 11 launches per chunk of
       the packed core (fp32), of the bf16 attention half-block, or (with
-      ``quantize_image``) of each int8 half-block (the last image block is
-      the CLS-row block, no kernel);
+      ``quantize_image``) of each int8 half-block and four of the GEMM stage
+      inside them (the last image block is the CLS-row block, no kernel);
     - pallas_vjp (remat on): the packed core 12 times per text encode, and
       12 more per train step where the backward recomputes each block: 24
       per train step, 12 per eval step;
@@ -1693,6 +1881,8 @@ def _expected_train_launches(opts: dict, text_impl: str, n_items: int) -> dict:
     else:
         image = ("fused_attention_qkv" if opts["dtype"] == "float32" else "fused_ln_qkv_attention",)
     want = {name: 11 * chunks for name in image}
+    if opts.get("quantize_image"):
+        want["gemm_stage"] = 11 * chunks * sum(STAGE_LAUNCHES.values())
     if text_impl == "pallas_vjp":
         want["fused_attention_qkv"] = want.get("fused_attention_qkv", 0) + 24 * train_steps \
             + 12 * eval_steps
@@ -2287,6 +2477,67 @@ def _f32_core_forms(t: dict, name: str, card: str, call) -> None:
         f"core timed after it {t['tiled_ms_after']:.3f} ms ({card})")
 
 
+# Device time of rows 1-2 by stage: kernel-name needles of both forms.
+ROW_STAGE_NEEDLES = {"row_pass": "rowquant_kernel", "wgmma_stage": "wgmma_stage_kernel",
+                     "wmma_gemm": "gemm_kernel<", "core_mma": "attn_core_mma_kernel",
+                     "core_scalar": "attn_core_kernel<"}
+
+
+def _row_forms_times(p, calls, times: dict, card: str, worst: dict) -> None:
+    """Phase 9 for rows 1 and 2 and their GEMM stage, at B=256 ViT-B/16:
+    the stage alone on each of the four products (``_kernel_times``: plain,
+    kernel, kernel, plain; the bound of the product and its epilogue's
+    bytes; held against its plain version) beside the WMMA stage it replaced
+    and the stage yardstick (``torch._int_mm``, ``torch.matmul``: the product
+    without the epilogue, the median of 5), with its rate; then beside each
+    row's new form (timed by the caller) its WMMA form, the sum of its two
+    products' yardsticks, and both forms' device ms by stage
+    (``torch.profiler``). The new forms must launch no WMMA GEMM and no
+    scalar core."""
+    from aiic_tpu_torch.ops import quant
+
+    h = p["heads"]
+    attn_q = calls["int8_ln_qkv_attention"][2]
+    mlp_q = calls["int8_ln_mlp"][2]
+    products = _stage_products(p)
+    stage: dict = {}
+    _kernel_times(_stage_calls(products), stage, "B=256 S=197 W=768 (stage)", card,
+                  hold={name: "gemm_stage" for name in products}, worst=worst)
+    for name, prod in products.items():
+        t = stage[name]
+        t["wmma_ms"] = min(_time_ms(lambda: _stage_wmma(prod), 10) for _ in range(2))
+        lib = _library_ms(_stage_library(prod))
+        t["yardstick_ms"], t["yardstick_ms_spread"] = lib["library_ms"], lib["library_ms_spread"]
+        t["rate_t_per_s"] = sum(prod[4].values()) / t["ms"] / 1e9
+        log(f"[timing] {name:24s} wgmma stage {t['ms']:.3f} ms ({t['rate_t_per_s']:.1f} T/s on "
+            f"its operations), WMMA stage {t['wmma_ms']:.3f} ms, yardstick "
+            f"({'torch.matmul' if prod[2] == 'out_proj' else 'torch._int_mm'}, no epilogue) "
+            f"{t['yardstick_ms']:.3f} ms ({card})")
+    times.update(stage)
+    c_fc = times["gemm_stage_c_fc"]  # the kernels line's entry: the largest product
+    times["gemm_stage"] = dict(c_fc, products={k: {f: stage[k][f] for f in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "wmma_ms", "yardstick_ms", "rate_t_per_s")}
+        for k in products})
+    forms = {"int8_ln_qkv_attention": (
+                 lambda: quant._int8_ln_qkv_attention_cuda(*attn_q, h, 1e-5, "wmma"),
+                 ("gemm_stage_qkv", "gemm_stage_out_proj")),
+             "int8_ln_mlp": (lambda: quant._int8_ln_mlp_cuda(*mlp_q, 1e-5, 1, "wmma"),
+                             ("gemm_stage_c_fc", "gemm_stage_c_proj"))}
+    for name, (wmma, prods) in forms.items():
+        t = times[name]
+        t["wmma_ms"] = min(_time_ms(wmma, 10) for _ in range(2))
+        t["stage_yardstick_ms"] = sum(stage[k]["yardstick_ms"] for k in prods)
+        t["device_ms_by_stage"] = _device_ms_by_kernel(calls[name][0], ROW_STAGE_NEEDLES)
+        t["wmma_device_ms_by_stage"] = _device_ms_by_kernel(wmma, ROW_STAGE_NEEDLES)
+        log(f"[timing] {name:24s} new form {t['ms']:.3f} ms, WMMA form {t['wmma_ms']:.3f} ms, "
+            f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms, stage yardstick "
+            f"{t['stage_yardstick_ms']:.3f} ms; device ms by stage {t['device_ms_by_stage']}, "
+            f"WMMA form {t['wmma_device_ms_by_stage']} ({card})")
+        d = t["device_ms_by_stage"]
+        if d["wmma_gemm"] is not None or d["core_scalar"] is not None or d["wgmma_stage"] is None:
+            raise AssertionError(f"{name}: the new form launched {d}")
+
+
 def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
     """Phase 9. Launches made here are not the paths': the counts are
     saved before and put back after. Row 7 (fp32 and bf16 at B/16, fp32 at
@@ -2306,7 +2557,10 @@ def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
     calls = _calls(p)
     _kernel_times(calls, times, "B=256 S=197 W=768", card, worst=worst,
                   hold={"fused_attention_qkv": "fused_attention_qkv",
-                        "fused_attention_qkv_bf16": "fused_attention_qkv"})
+                        "fused_attention_qkv_bf16": "fused_attention_qkv",
+                        "int8_ln_qkv_attention": "int8_ln_qkv_attention",
+                        "int8_ln_mlp": "int8_ln_mlp"})
+    _row_forms_times(p, calls, times, card, worst)
     for name in ("fused_attention_qkv", "fused_attention_qkv_bf16"):
         times[name].update(_sdpa_times(calls[name][2][0], p["heads"]))
         log(f"[timing] {name:24s} SDPA median {times[name]['library_ms']:.3f} ms (spread "
@@ -2366,6 +2620,16 @@ def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
         times[f"classify_{label}"] = r = _engine_rate(engine, rng)
         log(f"[timing] classify_pixels {label} B=256: {r['images_per_s_b256']:.1f} images/s; "
             f"single image p50 {r['single_image_p50_ms']:.3f} ms ({card})")
+    # Per image chunk the int8 engine runs rows 1-2 on the wgmma stage and row
+    # 1's core on the tensor-core core: no WMMA GEMM, no scalar core.
+    engine = engines["int8"]
+    px = _pixels(rng, 8, engine.config.image_size)
+    d = _device_ms_by_kernel(lambda: engine.classify_pixels(px), ROW_STAGE_NEEDLES, iters=1)
+    REPORT["int8_engine_kernels_per_chunk"] = d
+    log(f"[path int8] one 8-image classify call, device ms by kernel kind: {d}")
+    if (d["wgmma_stage"] is None or d["core_mma"] is None or d["wmma_gemm"] is not None
+            or d["core_scalar"] is not None):
+        raise AssertionError(f"the int8 engine's image chunk launched {d}")
     REPORT["timing"] = times
     return times
 
@@ -2480,8 +2744,9 @@ def _variant_agreement(out, ref) -> dict:
 
 def _variant_check(wrapper: str, v: str, x, lp, out, ref) -> dict:
     """The bars of rows 15-16: the bf16 bar, maconly exact, the 16d
-    schedules bit for bit row 1's kernel (the same arithmetic without the
-    1e-38 guard)."""
+    schedules bit for bit row 1's WMMA form (the same arithmetic without the
+    1e-38 guard; row 1 itself now runs the wgmma stage and the tensor-core
+    core)."""
     import torch
 
     from aiic_tpu_torch.ops import quant
@@ -2491,9 +2756,9 @@ def _variant_check(wrapper: str, v: str, x, lp, out, ref) -> dict:
         a["bit_identical"] = bool(torch.equal(out, ref))
         a["ok"] = a["ok"] and a["bit_identical"]
     if wrapper == "attn_var5":
-        row1 = quant.int8_ln_qkv_attention(
+        row1 = quant._int8_ln_qkv_attention_cuda(
             x, lp["ln1_s"], lp["ln1_b"], lp["wqkv_q"], lp["sqkv"], lp["bqkv"],
-            lp["wo"], lp["bo"], None, heads=lp["heads"])
+            lp["wo"], lp["bo"], None, lp["heads"], 1e-5, "wmma")
         a["bit_identical_to_row1"] = bool(torch.equal(out, row1))
         a["ok"] = a["ok"] and a["bit_identical_to_row1"]
     return a
@@ -2589,7 +2854,8 @@ def phase_experiments(device, built) -> dict:
     count set to 0 before and checked exactly after: 12 launches of the
     variant's wrapper for each 12-layer stack the runner reports, 12 of rows
     1 or 2 for each prod stack, and 11 of each for every classify call (the
-    last block runs on the CLS row). Every stack's time is finite and each
+    last block runs on the CLS row), with the GEMM stage's two launches
+    inside each of theirs. Every stack's time is finite and each
     REAL candidate's cosine against prod is reported."""
     import torch
 
@@ -2612,14 +2878,20 @@ def phase_experiments(device, built) -> dict:
             else:
                 name = e.get("wrapper") or ke._EXP1[v][1]
             want[name] = want.get(name, 0) + layers * res[v]["stacks"]
+            want["gemm_stage"] = (want.get("gemm_stage", 0)
+                                  + STAGE_LAUNCHES.get(name, 0) * layers * res[v]["stacks"])
             if not np.isfinite(res[v]["ms"]) or res[v]["ms"] <= 0:
                 raise AssertionError(f"experiment {exp} [{v}]: {res[v]}")
         if res.get("prod_check_stacks"):
             name = "int8_ln_mlp" if e["wrapper"].startswith("mlp") else "int8_ln_qkv_attention"
             want[name] += layers * res["prod_check_stacks"]
+            want["gemm_stage"] = (want.get("gemm_stage", 0)
+                                  + STAGE_LAUNCHES[name] * layers * res["prod_check_stacks"])
         for r in res.get("classify", {}).values():
             for name in ("int8_ln_qkv_attention", "int8_ln_mlp"):
                 want[name] += (layers - 1) * r["calls"]
+                want["gemm_stage"] = (want.get("gemm_stage", 0)
+                                      + STAGE_LAUNCHES[name] * (layers - 1) * r["calls"])
             if not r["finite"]:
                 raise AssertionError(f"experiment 1's classify program gave a non-finite sum: {r}")
         for v in e["real"]:
@@ -2661,7 +2933,8 @@ def main() -> int:
     REPORT["build"] = dict(BUILD_INFO)
     REPORT["attn_core_mma"] = mma_core_resources(BUILD_INFO["log"])
     log(f"[build] attn_core_mma (rows 6-8 bf16), attn_core_f32 (rows 6-7 fp32), core_bwd_mma "
-        f"(row 9 bf16), core_bwd_tiled (row 9 fp32) and mxu_wgmma (row 17): "
+        f"(row 9 bf16), core_bwd_tiled (row 9 fp32), mxu_wgmma (row 17) and wgmma_stage (rows "
+        f"1-2's GEMM stage): "
         f"{REPORT['attn_core_mma']}")
 
     worst = phase_kernels(device)
@@ -2738,6 +3011,13 @@ def main() -> int:
                      "replaced_forms_ms": t["replaced_forms_ms"],
                      "max_abs_err": max(worst["fused_attention_qkv_bwd" + suffix],
                                         worst[f"fused_attention_qkv_bwd_{shape}{suffix}"])}
+    # Rows 1 and 2: the WMMA form they replaced and the stage yardstick beside;
+    # the GEMM stage's entry is its c_fc product, every product beside.
+    for k in kernels:
+        if k["name"] in ("int8_ln_qkv_attention", "int8_ln_mlp"):
+            k.update({f: times[k["name"]][f] for f in ("wmma_ms", "stage_yardstick_ms")})
+        elif k["name"] == "gemm_stage":
+            k["products"] = times["gemm_stage"]["products"]
     # Row 17's entries are the wgmma form; the WMMA form it replaced beside.
     for k in kernels:
         if k["name"].startswith("mxu_"):

@@ -111,7 +111,7 @@ KERNEL_WRAPPERS = ["int8_ln_mlp", "int8_ln_qkv_attention", "fused_attention_qkv"
                    "int8_block", "fused_attention_qkv_headgroups", "fused_attention",
                    "fused_attention_qkv_bwd", "mxu_bf16", "mxu_i8", "mxu_i8_quant",
                    "int8_attn_nomax", "mlp_var", "attn_var2", "mlp_var3", "attn_var4", "attn_var5",
-                   "attn_var7"]
+                   "attn_var7", "gemm_stage"]
 
 
 @pytest.mark.parametrize("name", KERNEL_WRAPPERS)
@@ -132,6 +132,12 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting(name):
         args = (x, ones, zeros, wq, sq, torch.zeros(3 * w), torch.randn(w, w), zeros)
         out = quant.int8_ln_qkv_attention(*args, heads=4)
         ref = quant.int8_ln_qkv_attention_ref(*args, heads=4)
+    elif name == "gemm_stage":
+        a = torch.from_numpy(rng.integers(-127, 128, (16, w)).astype(np.int8))
+        wq, sq = quant.quantize_weight(torch.randn(w, 3 * w))
+        kw = dict(row_scale=torch.rand(16), col_scale=sq, bias=torch.zeros(3 * w))
+        out = quant.gemm_stage(a, wq, "qkv", **kw)
+        ref = quant.gemm_stage_ref(a, wq, "qkv", **kw)
     elif name == "fused_attention_qkv":
         qkv = torch.randn(2, 8, 3 * w).to(torch.bfloat16)
         out = attention.fused_attention_qkv(qkv, heads=4)

@@ -37,7 +37,14 @@ its bf16 and quantized bodies take the bf16 bar (fp32 sums in another order
 before one bf16 rounding). The kernel-experiment variants (rows 15-16)
 take the bf16 bar, rows that are zero in the plain version equal; maconly
 is exact (integer products and one fp32 add), and the three schedules of
-kernel_experiments5.py give row 1's kernel output bit for bit.
+kernel_experiments5.py give row 1's WMMA form's output bit for bit.
+Rows 1 and 2 run their products on the wgmma GEMM stage and row 1's core on
+the tensor-core core: their int8 products are exact in int32 and their
+epilogues are the WMMA form's, so row 2 and row 1's QKV stage equal the
+WMMA forms bit for bit, and each int8 product of the stage alone equals the
+WMMA stage bit for bit; rows 1 and 2 and the bf16 out-projection take the
+bf16 bar against their plain versions; rows 3 and 4 keep the WMMA form of
+rows 1-2 bit for bit.
 """
 
 import numpy as np
@@ -553,14 +560,21 @@ def test_attention_qkv_bwd_kernel_matches_plain(device, shape, dtype):
 
 
 def _cuda_kernels(fn) -> set:
-    """Names of the CUDA kernels that fn() launches, from the profiler."""
+    """Names of the CUDA kernels that fn() launches, from the profiler. The
+    first profiler trace of a process has come back with no kernel at all on
+    the card (for a route that passes alone), so an empty trace is taken once
+    more: a call that launches nothing gives an empty set both times."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {ev.key for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA}
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {ev.key for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            break
+    return names
 
 
 def _launched(names: set, needle: str) -> bool:
@@ -836,10 +850,11 @@ def test_variant_kernels_match_plain(device, variant_layer, wrapper, variant):
     zero = ~r.bool().any(dim=-1)
     assert torch.equal(o[zero], r[zero])
     _agree(o[~zero], r[~zero])
-    if wrapper == "attn_var5":
+    if wrapper == "attn_var5":  # the schedules share the arithmetic of row 1's WMMA form
         lp = variant_layer
-        row1 = quant.int8_ln_qkv_attention(x, lp["ln1_s"], lp["ln1_b"], lp["wqkv_q"], lp["sqkv"],
-                                           lp["bqkv"], lp["wo"], lp["bo"], None, heads=lp["heads"])
+        row1 = quant._int8_ln_qkv_attention_cuda(x, lp["ln1_s"], lp["ln1_b"], lp["wqkv_q"],
+                                                 lp["sqkv"], lp["bqkv"], lp["wo"], lp["bo"], None,
+                                                 lp["heads"], 1e-5, "wmma")
         assert torch.equal(out, row1)
 
 
@@ -870,3 +885,148 @@ def test_mxu_probe_forms_match_plain(device, body, inner, form):
         assert torch.equal(out, ref)
     else:
         _agree(out, ref)
+
+
+# Phase 3's cases of rows 1-2 (chip_smoke.py): images B = 1, 3, 8, text B=48
+# causal, an all-zero LN row.
+ROW12_CASES = [(1, 197, 768, 12, False, False), (3, 197, 768, 12, False, False),
+               (8, 197, 768, 12, False, False), (48, 77, 512, 8, True, False),
+               (2, 197, 768, 12, False, True)]
+ROW12_IDS = ["image_B1", "image_B3", "image_B8", "text_B48_causal", "image_B2_zero_row"]
+
+
+def _row12_inputs(device, bsz, seq, width, zero_row):
+    x, attn, mlp_w = _inputs(device, bsz, seq, width, seed=bsz)
+    if zero_row:  # an all-zero LN output row: the 1e-6 scale floor
+        x[0, 0] = 0.0
+        attn = (attn[0], torch.zeros_like(attn[1])) + attn[2:]
+        mlp_w = (mlp_w[0], torch.zeros_like(mlp_w[1])) + mlp_w[2:]
+    return x, attn, mlp_w
+
+
+@pytest.mark.parametrize("case", ROW12_CASES, ids=ROW12_IDS)
+def test_int8_rows_on_the_wgmma_stage_match_plain_and_wmma(device, case):
+    """Rows 1 and 2 on the wgmma stage (and row 1 on the tensor-core core):
+    the bf16 bar against the plain versions; row 2 and row 1's QKV stage bit
+    for bit the WMMA forms; a second run bit for bit the first; one counted
+    launch each, two of the stage inside each."""
+    bsz, seq, width, heads, masked, zero_row = case
+    x, attn, mlp_w = _row12_inputs(device, bsz, seq, width, zero_row)
+    mask = causal_mask(seq, device=device) if masked else None
+    before = (quant.int8_ln_qkv_attention.launches, quant.int8_ln_mlp.launches,
+              quant.gemm_stage.launches)
+    out1 = quant.int8_ln_qkv_attention(x, *attn, mask, heads=heads)
+    out2 = quant.int8_ln_mlp(x, *mlp_w)
+    torch.cuda.synchronize()
+    assert (quant.int8_ln_qkv_attention.launches, quant.int8_ln_mlp.launches,
+            quant.gemm_stage.launches) == (before[0] + 1, before[1] + 1, before[2] + 4)
+    _agree(out1, quant.int8_ln_qkv_attention_ref(x, *attn, mask, heads=heads))
+    _agree(out2, quant.int8_ln_mlp_ref(x, *mlp_w))
+    assert torch.equal(out2, quant._int8_ln_mlp_cuda(x, *mlp_w, 1e-5, 1, "wmma"))
+    assert torch.equal(quant._int8_qkv(x, *attn[:5], 1e-5),
+                       quant._int8_qkv(x, *attn[:5], 1e-5, "wmma"))
+    assert torch.equal(out1, quant.int8_ln_qkv_attention(x, *attn, mask, heads=heads))
+    assert torch.equal(out2, quant.int8_ln_mlp(x, *mlp_w))
+
+
+@pytest.mark.parametrize("rows", [1, 591, 50432 // 64])
+@pytest.mark.parametrize("epilogue", sorted(quant.STAGE_EPILOGUES))
+def test_gemm_stage_matches_plain_and_wmma(device, epilogue, rows):
+    """The stage alone: the bf16 bar (fp32's for gelu's fp32 y) against its
+    plain version, an int8 product bit for bit the WMMA stage, one counted
+    launch; rows past the last 128-row tile untouched."""
+    rng = np.random.default_rng(rows)
+    k, n = (3072, 768) if epilogue == "residual" else (768, 2304)
+    x = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(device,
+                                                                               torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device)
+    if epilogue == "out_proj":
+        a = _randn(device, rows, k, dtype=torch.bfloat16, seed=rows)
+        w = (_randn(device, k, n, seed=rows + 1) / 32).to(torch.bfloat16)
+        kw = dict(bias=bias, x=x)
+    else:
+        a = torch.from_numpy(rng.integers(-127, 128, (rows, k)).astype(np.int8)).to(device)
+        w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(device)
+        kw = dict(row_scale=torch.rand(rows, device=device) / 100,
+                  col_scale=torch.rand(n, device=device) / 100, bias=bias, x=x)
+    before = quant.gemm_stage.launches
+    out = quant.gemm_stage(a, w, epilogue, **kw)
+    torch.cuda.synchronize()
+    assert quant.gemm_stage.launches == before + 1
+    ref = quant.gemm_stage_ref(a, w, epilogue, **kw)
+    if epilogue == "gelu":
+        _f32_agree(out, ref)
+    else:
+        _agree(out, ref)
+    if epilogue != "out_proj":
+        wmma = quant._gemm_stage_cuda(a, w, epilogue, kw["row_scale"], kw["col_scale"], bias, x,
+                                      "wmma")
+        assert torch.equal(out, wmma)
+
+
+def test_gemm_stage_refuses_what_it_does_not_take(device):
+    a = torch.zeros((4, 768), dtype=torch.int8, device=device)
+    w = torch.zeros((768, 2304), dtype=torch.int8, device=device)
+    with pytest.raises(ValueError):  # N % 128
+        quant.gemm_stage(a, w[:, :200], "qkv", row_scale=torch.ones(4, device=device),
+                         col_scale=torch.ones(200, device=device),
+                         bias=torch.zeros(200, device=device))
+    with pytest.raises(TypeError):  # a bf16 operand to an int8 epilogue
+        quant.gemm_stage(a.to(torch.bfloat16), w, "gelu")
+    with pytest.raises(ValueError):  # the residual without x
+        quant.gemm_stage(a, w, "residual", row_scale=torch.ones(4, device=device),
+                         col_scale=torch.ones(2304, device=device),
+                         bias=torch.zeros(2304, device=device))
+
+
+def test_int8_engine_chunk_runs_the_wgmma_stage_and_the_mma_core(device):
+    """Per image chunk the int8 ViT-B/16 engine launches rows 1 and 2 on the
+    wgmma stage and row 1's core as attn_core_mma_kernel, and no WMMA
+    gemm_kernel or scalar attn_core_kernel; rows 1-2 launch none either."""
+    from aiic_tpu_torch.engine.analyzer import InteriorAnalyzer
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.models.init import init_clip_params
+
+    params = init_clip_params(VIT_B_16, torch.Generator(device=device).manual_seed(0),
+                              device=device)
+    vocab = [{"image_path": "x.jpg", "style": "nowoczesny", "characteristics": ["jasne"],
+              "materials": ["drewno"], "colors": ["biały"], "room_type": "kuchnia"}]
+    engine = InteriorAnalyzer(params, VIT_B_16, training_data=vocab, device=device,
+                              dtype=torch.bfloat16, quantize=True, wire_format="patch")
+    px = np.random.default_rng(10).integers(0, 256, (3, 224, 224, 3), dtype=np.uint8)
+    engine.classify_pixels(px)
+    names = _cuda_kernels(lambda: engine.classify_pixels(px))
+    assert _launched(names, "wgmma_stage_kernel") and _launched(names, "attn_core_mma_kernel")
+    assert not _launched(names, "gemm_kernel<") and not _launched(names, "attn_core_kernel<")
+    x, attn, mlp_w = _inputs(device, 2, 197, 768)
+    for call in (lambda: quant.int8_ln_qkv_attention(x, *attn, heads=12),
+                 lambda: quant.int8_ln_mlp(x, *mlp_w)):
+        names = _cuda_kernels(call)
+        assert _launched(names, "wgmma_stage_kernel") and _launched(names, "rowquant_kernel")
+        assert not _launched(names, "gemm_kernel<") and not _launched(names, "attn_core_kernel<")
+
+
+@pytest.mark.parametrize("case", [(2, 50, 768, 12, False, None), (4, 77, 512, 8, True, None),
+                                  (2, 197, 768, 12, False, ("chunked", 2, 4)),
+                                  (1, 257, 1024, 16, False, ("chunked", 1, 16))],
+                         ids=["B32_full", "text_full_causal", "B16_chunked", "L14_chunked"])
+def test_rows_3_and_4_keep_the_wmma_forms(device, case):
+    """Row 4 is row 1's WMMA form, then row 2's WMMA form (full) or row 3
+    (chunked), bit for bit; both launch the WMMA gemm_kernel and the scalar
+    core and not the wgmma stage."""
+    bsz, seq, width, heads, masked, override = case
+    x, attn, mlp_w = _inputs(device, bsz, seq, width)
+    mask = causal_mask(seq, device=device) if masked else None
+    plan = override or quant._block_plan(bsz, seq, width, 4 * width, 2)
+    out = quant.int8_block(x, *attn, mask, *mlp_w, heads=heads, plan_override=override)
+    y1 = quant._int8_ln_qkv_attention_cuda(x, *attn, mask, heads, 1e-5, "wmma")
+    if plan[0] == "chunked":
+        want = quant.int8_ln_mlp_chunked(y1, *mlp_w, n_chunks=plan[2])
+    else:
+        want = quant._int8_ln_mlp_cuda(y1, *mlp_w, 1e-5, 1, "wmma")
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    names = _cuda_kernels(lambda: quant.int8_block(x, *attn, mask, *mlp_w, heads=heads,
+                                                   plan_override=override))
+    assert _launched(names, "gemm_kernel<") and _launched(names, "attn_core_kernel<")
+    assert not _launched(names, "wgmma_stage_kernel")

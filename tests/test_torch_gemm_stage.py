@@ -1,0 +1,198 @@
+"""The GEMM stage of rows 1 and 2 (``quant.gemm_stage``) and the K-major int8
+copies its ``wgmma`` form reads, on the CPU.
+
+- ``quant.kmajor`` makes w^T once per weight and caches it on the tensor
+  that owns the weight's storage: the copy equals the transpose exactly,
+  a layer's fresh view of a stacked weight finds the same copy, an in-place
+  change makes a new one, and the parameter tree keeps JAX's keys.
+- The stage's plain version, composed as rows 1 and 2 compose it (row
+  quantizer, product with its epilogue, core, product), gives the rows'
+  plain versions bit for bit, and holds the JAX kernels (Pallas in
+  interpret mode, as tests/test_ops.py runs them) at the bars of
+  tests/test_torch_quant.py: >= 99% of bf16 elements within 1 bf16 ULP and
+  every row's cosine >= 0.9999.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aiic_tpu.models.clip import causal_mask as jax_causal_mask
+from aiic_tpu.models.config import TINY_TEST
+from aiic_tpu.models.init import flatten_params, init_clip_params
+from aiic_tpu.ops import quant as jax_quant
+from aiic_tpu_torch.models.clip import causal_mask
+from aiic_tpu_torch.models.init import params_from_numpy
+from aiic_tpu_torch.ops import attention, quant
+
+torch.set_num_threads(2)
+
+
+def _bf16_close(ours, ref):
+    o = ours.float().numpy().reshape(-1, ours.shape[-1])
+    r = np.asarray(ref.astype(jnp.float32)).reshape(o.shape)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(r), 2.0 ** -126))) - 7)
+    assert (np.abs(o - r) <= ulp).mean() >= 0.99
+    cos = (o * r).sum(-1) / (np.linalg.norm(o, axis=-1) * np.linalg.norm(r, axis=-1))
+    assert cos.min() >= 0.9999, cos.min()
+
+
+def _int8(rng, *shape):
+    return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+
+
+@pytest.mark.parametrize("layout", ["stacked", "alone"])
+def test_kmajor_copies_are_the_transposes(layout):
+    rng = np.random.default_rng(0)
+    stacked = _int8(rng, 3, 64, 256)
+    weights = [stacked[i] for i in range(3)] if layout == "stacked" else [_int8(rng, 64, 256)]
+    for w in weights:
+        wt = quant.kmajor(w)
+        assert wt.dtype == torch.int8 and wt.is_contiguous() and tuple(wt.shape) == (256, 64)
+        assert torch.equal(wt, w.t())
+        assert quant.kmajor(w) is wt
+    if layout == "stacked":  # a layer's fresh view finds its copy; each layer has its own
+        assert quant.kmajor(stacked[1]) is quant.kmajor(weights[1])
+        assert quant.kmajor(stacked[0]) is not quant.kmajor(stacked[2])
+    w = weights[0]
+    first = quant.kmajor(w)
+    w.add_(1)  # an in-place change: a new copy, equal to the new transpose
+    again = quant.kmajor(w)
+    assert again is not first and torch.equal(again, w.t())
+
+
+def test_kmajor_takes_inference_tensors():
+    """A weight made under inference_mode (the large-S path's head-major
+    copy of wqkv_q is) keeps no version counter; its copy is cached all the
+    same."""
+    with torch.inference_mode():
+        w = _int8(np.random.default_rng(1), 64, 384).clone()
+        wt = quant.kmajor(w)
+        assert torch.equal(wt, w.t()) and quant.kmajor(w) is wt
+    assert quant.kmajor(w) is wt
+
+
+def test_kmajor_keeps_the_parameter_tree_keys():
+    """The bridged tree and quantize_model's output equal JAX's key for key
+    after every int8 weight of every layer has its K-major copy."""
+    jp = init_clip_params(jax.random.PRNGKey(0), TINY_TEST)
+    bridged = params_from_numpy(flatten_params(jp))
+    ours = quant.quantize_model(bridged)
+    for tower in ("visual", "text"):
+        blocks = ours[tower]["blocks"]
+        for i in range(blocks["ln1"]["scale"].shape[0]):
+            for w in (blocks["attn_q"]["wqkv_q"][i], blocks["mlp_q"]["w1_q"][i],
+                      blocks["mlp_q"]["w2_q"][i]):
+                assert torch.equal(quant.kmajor(w), w.t())
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+        return out
+
+    assert set(flat(bridged)) == set(flatten_params(jp))
+    assert set(flat(ours)) == set(flatten_params(jax_quant.quantize_model(jp)))
+
+
+def _weights(rng, w, m):
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return {"ln_s": 1 + 0.1 * f(w), "ln_b": 0.1 * f(w), "wqkv": 0.1 * f(w, 3 * w),
+            "bqkv": 0.1 * f(3 * w), "wo": 0.1 * f(w, w), "bo": 0.1 * f(w), "w1": 0.08 * f(w, m),
+            "b1": 0.1 * f(m), "w2": 0.08 * f(m, w), "b2": 0.1 * f(w)}
+
+
+def _row_quant_ln(x, ln_s, ln_b):
+    rows, width = x.shape[0] * x.shape[1], x.shape[2]
+    h = attention._ln_fp32(x.float().reshape(rows, width), ln_s.reshape(1, width),
+                           ln_b.reshape(1, width), 1e-5)
+    return quant._row_quant(h)
+
+
+@pytest.mark.parametrize("bsz", [1, 3])
+def test_stage_composes_row2(bsz):
+    rng = np.random.default_rng(1)
+    s, w, m = 16, 64, 256
+    p = _weights(rng, w, m)
+    x = torch.from_numpy(rng.standard_normal((bsz, s, w)).astype(np.float32)).to(torch.bfloat16)
+    w1_q, s1 = jax_quant.quantize_weight(jnp.asarray(p["w1"]))
+    w2_q, s2 = jax_quant.quantize_weight(jnp.asarray(p["w2"]))
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    args = (t(p["ln_s"]), t(p["ln_b"]), t(w1_q), t(s1), t(p["b1"]), t(w2_q), t(s2), t(p["b2"]))
+    hq, hs = _row_quant_ln(x, args[0], args[1])
+    y = quant.gemm_stage(hq, args[2], "gelu", row_scale=hs, col_scale=args[3], bias=args[4])
+    assert y.dtype == torch.float32
+    yq, ys = quant._row_quant(y)
+    out = quant.gemm_stage(yq, args[5], "residual", row_scale=ys, col_scale=args[6],
+                           bias=args[7], x=x.reshape(bsz * s, w)).reshape(x.shape)
+    assert torch.equal(out, quant.int8_ln_mlp(x, *args))
+    ref = jax_quant.int8_ln_mlp(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16), p["ln_s"],
+                                p["ln_b"], w1_q, s1, p["b1"], w2_q, s2, p["b2"], interpret=True)
+    _bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("use_mask", [False, True], ids=["nomask", "causal"])
+def test_stage_composes_row1(use_mask):
+    rng = np.random.default_rng(2)
+    b, s, w, h = 2, 77, 64, 4
+    p = _weights(rng, w, 4 * w)
+    x = torch.from_numpy(rng.standard_normal((b, s, w)).astype(np.float32)).to(torch.bfloat16)
+    wq, sq = jax_quant.quantize_weight(jnp.asarray(p["wqkv"]))
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    mask = causal_mask(s) if use_mask else None
+    wo = t(p["wo"]).to(torch.bfloat16)
+    hq, hs = _row_quant_ln(x, t(p["ln_s"]), t(p["ln_b"]))
+    qkv = quant.gemm_stage(hq, t(wq), "qkv", row_scale=hs, col_scale=t(sq), bias=t(p["bqkv"]))
+    core = attention.fused_attention_qkv(qkv.reshape(b, s, 3 * w), mask, heads=h)
+    out = quant.gemm_stage(core.reshape(b * s, w), wo, "out_proj", bias=t(p["bo"]),
+                           x=x.reshape(b * s, w)).reshape(x.shape)
+    want = quant.int8_ln_qkv_attention(x, t(p["ln_s"]), t(p["ln_b"]), t(wq), t(sq),
+                                       t(p["bqkv"]), wo, t(p["bo"]), mask, heads=h)
+    assert torch.equal(out, want)
+    ref = jax_quant.int8_ln_qkv_attention(
+        jnp.asarray(x.float().numpy()).astype(jnp.bfloat16), p["ln_s"], p["ln_b"], wq, sq,
+        p["bqkv"], p["wo"], p["bo"], jax_causal_mask(s) if use_mask else None, heads=h,
+        interpret=True)
+    _bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("epilogue", sorted(quant.STAGE_EPILOGUES))
+def test_stage_plain_version_matches_numpy(epilogue):
+    """Each epilogue against float64 numpy on the same product: int8 exact
+    before the epilogue, every result within one rounding of its type."""
+    rng = np.random.default_rng(3)
+    rows, k, n = 13, 256, 128
+    x = rng.standard_normal((rows, n)).astype(np.float32)
+    bias = rng.standard_normal(n).astype(np.float32)
+    if epilogue == "out_proj":
+        a = rng.standard_normal((rows, k)).astype(np.float32)
+        w = (rng.standard_normal((k, n)) / 16).astype(np.float32)
+        at = torch.from_numpy(a).to(torch.bfloat16)
+        wt = torch.from_numpy(w).to(torch.bfloat16)
+        out = quant.gemm_stage(at, wt, epilogue, bias=torch.from_numpy(bias),
+                               x=torch.from_numpy(x).to(torch.bfloat16))
+        xb = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+        ref = xb + at.double().numpy() @ wt.double().numpy() + bias
+    else:
+        a, w = _int8(rng, rows, k), _int8(rng, k, n)
+        rs = rng.random(rows).astype(np.float32) / 100
+        cs = rng.random(n).astype(np.float32) / 100
+        xb = torch.from_numpy(x).to(torch.bfloat16)
+        out = quant.gemm_stage(a, w, epilogue, row_scale=torch.from_numpy(rs),
+                               col_scale=torch.from_numpy(cs), bias=torch.from_numpy(bias), x=xb)
+        v = (a.numpy().astype(np.float64) @ w.numpy().astype(np.float64)) * rs[:, None] \
+            * cs[None] + bias
+        ref = {"qkv": v, "gelu": v / (1 + np.exp(-1.702 * v)),
+               "residual": xb.double().numpy() + v}[epilogue]
+    assert out.shape == (rows, n)
+    assert out.dtype == (torch.float32 if epilogue == "gelu" else torch.bfloat16)
+    tol = 2.0 ** -23 * 8 if epilogue == "gelu" else 2.0 ** -8
+    np.testing.assert_allclose(out.double().numpy(), ref, rtol=tol, atol=1e-5)
+
+
+def test_stage_refuses_an_unknown_epilogue():
+    a = torch.zeros((4, 128), dtype=torch.int8)
+    with pytest.raises(ValueError, match="epilogue"):
+        quant.gemm_stage(a, torch.zeros((128, 128), dtype=torch.int8), "relu")

@@ -47,7 +47,13 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-GROUPS = [  # (group, substring of the CUDA kernel name), first match wins
+GROUPS = [  # (group, substring(s) of the CUDA kernel name, all present), first match wins
+    # rows 1-2's products on the wgmma + TMA stage (wgmma_serving_gemm.cuh);
+    # the WMMA gemm_kernel's groups (int8_gemm_*, bf16_gemm_*) below
+    ("wgmma_int8_gemm_qkv", ("wgmma_stage_kernel", "EpiQKV")),
+    ("wgmma_int8_gemm_c_fc_gelu", ("wgmma_stage_kernel", "EpiGelu")),
+    ("wgmma_int8_gemm_c_proj", ("wgmma_stage_kernel", "EpiResidual")),
+    ("wgmma_bf16_gemm_out_proj", ("wgmma_stage_kernel", "EpiOutProj")),
     ("block_int8_gemm_fwd", "EpiQkv8"),
     ("block_int8_gemm_fwd", "EpiFc8"),
     ("block_int8_gemm_fwd", "EpiY8"),
@@ -87,6 +93,11 @@ GROUPS = [  # (group, substring of the CUDA kernel name), first match wins
     ("cublas_gemm", "gemm"),
     ("cublas_gemm", "sm90_"),
 ]
+def _matches(key, name: str) -> bool:
+    """A GROUPS key (one substring or a tuple of them) against a kernel name."""
+    return all(k in name for k in ((key,) if isinstance(key, str) else key))
+
+
 MODELS = {"vit_b_16": "VIT_B_16", "vit_b_32": "VIT_B_32", "vit_l_14": "VIT_L_14",
           "vit_l_14_336": "VIT_L_14_336"}
 CONFIGS = {  # engine options of each serving configuration
@@ -174,7 +185,7 @@ def _trace(fn, iters: int, tag: str) -> dict:
             continue
         us = ev.self_device_time_total
         busy_us += us
-        name = next((g for g, key in GROUPS if key in ev.key), "elementwise_and_other")
+        name = next((g for g, key in GROUPS if _matches(key, ev.key)), "elementwise_and_other")
         groups[name] = groups.get(name, 0.0) + us / 1e3 / iters
     if busy_us == 0:
         raise SystemExit("torch_profile: the trace shows no device time")
