@@ -19,7 +19,7 @@
 // Form 1 runs the first design (int8_attn_half, int8_halves.cuh): the same
 // row pass, common.cuh's WMMA gemm_kernel for (b) and (d) and the scalar
 // attn_core_kernel for (c). It stays for the side-by-side time and the
-// bit-for-bit check of (b); rows 3, 4 and 15-16 run it.
+// bit-for-bit check of (b); rows 15-16 run it.
 //
 // What bounds it on the H100: at B=256 the image half-block is ~50k rows of
 // width 768. The two projections (2*rows*W*4W operations, 0.181 ms at the

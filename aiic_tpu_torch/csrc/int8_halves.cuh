@@ -1,7 +1,9 @@
 // The int8 half-block sequences (sm_90a) on common.cuh's WMMA gemm_kernel
-// and scalar attn_core_kernel: the form of rows 3, 4 and 15-16 of the TPU
-// kernel table, and the WMMA form (form 1) of rows 1 and 2, which run on
-// the wgmma stage of wgmma_serving_gemm.cuh:
+// and scalar attn_core_kernel: the first design of rows 1-4 of the TPU
+// kernel table, which now run on the wgmma stage of wgmma_serving_gemm.cuh
+// and keep this one as their form 1 (uncounted, for the side-by-side time
+// and the bit-for-bit check), and the form that rows 15-16 (the
+// kernel-experiment variants) still run:
 //
 //   int8_qkv_stage   LN1 -> per-row int8 quantization -> int8 QKV product,
 //                    qkv = bf16(acc*hscale*sqkv + bqkv);
@@ -10,8 +12,8 @@
 //   int8_mlp_half    LN2 -> int8 c_fc with gelu -> int8 c_proj, the gelu
 //                    output quantized per row (C = 1: row 2's form 1) or
 //                    per (row, chunk) over C chunks of the hidden axis (row
-//                    3), both in int8_mlp.cu; row 4 (int8_block.cu) runs the
-//                    two halves back to back.
+//                    3's form 1), both in int8_mlp.cu; row 4's form 1
+//                    (int8_block.cu) runs the two halves back to back.
 //
 // The chunked MLP half follows _int8_mlp_rows(n_chunks=C) of the JAX
 // package: the gelu output y (rows, M) is quantized as the (rows*C, M/C)
@@ -19,7 +21,8 @@
 // splits its depth by chunk across blockIdx.z, each split dequantizing its
 // partial with its own row scale, and a second pass sums the partials in
 // chunk order onto the fp32 residual and adds b2 last. No atomics: a run
-// repeats bit for bit.
+// repeats bit for bit. (Form 0 folds the same sums into the stage's
+// mainloop: EpiChunkResidual.)
 
 #pragma once
 

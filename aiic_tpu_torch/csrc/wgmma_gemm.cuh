@@ -1,7 +1,7 @@
 // Hopper GEMM mainloop pieces (sm_90a): TMA-fed, mbarrier-ringed shared
 // memory and warpgroup products (wgmma) in bf16 and int8, for any kernel of
 // the port that runs a dense product: today the tensor-core probe of row 17
-// (mxu_probe_wgmma.cu) and the GEMM stage of rows 1 and 2
+// (mxu_probe_wgmma.cu) and the GEMM stage of rows 1-4
 // (wgmma_serving_gemm.cuh).
 //
 // - tensor_map_2d (host): a 2-D TMA tensor map with the 128-B swizzle, built

@@ -1,5 +1,5 @@
 // The Hopper GEMM stage of the int8 serving half-blocks (sm_90a), and the
-// sequences of rows 1 and 2 of the TPU kernel table that run on it:
+// sequences of rows 1-4 of the TPU kernel table that run on it:
 //
 //   int8_qkv_stage_wgmma  LN1 -> per-row int8 quantization -> the int8 QKV
 //                         product on this stage (EpiQKV): row 1's first two
@@ -9,15 +9,20 @@
 //                         (attn_core_mma.cuh, packed layout), the bf16
 //                         out-projection on this stage (EpiOutProj): row 1;
 //   int8_mlp_half_wgmma   LN2 -> int8 c_fc on this stage (EpiGelu) -> the
-//                         row quantizer of y -> int8 c_proj on this stage
-//                         (EpiResidual): row 2.
+//                         row quantizer of y -> int8 c_proj on this stage:
+//                         with C = 1 (EpiResidual) row 2; with the hidden
+//                         axis in C chunks, y quantized per (row, chunk) and
+//                         the chunk sums folded into c_proj's mainloop
+//                         (EpiChunkResidual), row 3.
 //
-// They replace, with int8_attention.cu and int8_mlp.cu, the TPU kernels
-// aiic_tpu/ops/quant.py::_int8_attn_kernel (int8_ln_qkv_attention) and
-// _int8_mlp_kernel_3d (int8_ln_mlp, full mode). The WMMA forms of
-// int8_halves.cuh (int8_attn_half, int8_mlp_half: common.cuh's gemm_kernel
-// and scalar attn_core_kernel) stay, reachable through the same C entries
-// with form 1, and are what rows 3, 4 and 15-16 run.
+// They replace, with int8_attention.cu, int8_mlp.cu and int8_block.cu, the
+// TPU kernels aiic_tpu/ops/quant.py::_int8_attn_kernel
+// (int8_ln_qkv_attention), _int8_mlp_kernel_3d and _int8_mlp_chunk_kernel
+// (int8_ln_mlp, full and chunked) and _int8_block_kernel /
+// _int8_block_chunk_kernel (int8_block: row 1, then row 2 or row 3). The
+// WMMA forms of int8_halves.cuh (int8_attn_half, int8_mlp_half: common.cuh's
+// gemm_kernel and scalar attn_core_kernel) stay, reachable through the same
+// C entries with form 1; rows 15-16 run them.
 //
 // What bounds the stage on the H100: at B=256 ViT-B/16 (50,432 rows, K = W =
 // 768) the int8 products are 2*rows*K*N operations, 0.060 ms (QKV), 0.080
@@ -56,6 +61,19 @@
 // - The short K streams (K = W: six 128-B slices in int8, twelve in bf16;
 //   c_proj K = 4W) are the open question: each slice feeds one 64x128
 //   product a warpgroup, not the probe's 64.
+// - Row 3's c_proj folds the chunk sums the way the TPU kernel does
+//   (_int8_mlp_chunk_kernel's fp32 accumulator seeded with x): each
+//   consumer thread keeps its int32 fragment of the current chunk (M/C deep,
+//   a whole number of 128-B slices) and an fp32 running total of the same
+//   64 elements, seeded with x. At a chunk's last slice it waits for its
+//   products (wgmma_wait<0>), adds float(acc) * ys[r, c] * s2[n] to the
+//   total (EpiMlpChunk's expression, added in mlp_chunk_sum_kernel's order)
+//   and restarts the fragment; b2 is added last and the sum rounded to bf16
+//   once. The WMMA form's C fp32 partial slices (C x rows x W, 1.08 GB at
+//   L/14 B=256 C=4) and its sum pass are gone. The 64 extra fp32 registers
+//   do not fit the 112 a thread that two 288-thread blocks an SM leave, so
+//   the folded kernel is bounded to one block an SM (__launch_bounds__(288,
+//   1)): its epilogue no longer overlaps a second block's products.
 
 #pragma once
 
@@ -89,17 +107,76 @@ template <typename Epi> struct StagedEpilogue { static constexpr bool value = fa
 template <> struct StagedEpilogue<EpiQKV> { static constexpr bool value = true; };
 template <> struct StagedEpilogue<EpiGelu<Gelu::kExp2>> { static constexpr bool value = true; };
 
+// Row 3's c_proj with the chunk sums folded in: out = bf16((((x + p_0) +
+// p_1) + ... + p_{C-1}) + b2), p_c = float(acc_c) * ys[r, c] * s2[n] with
+// acc_c the product over chunk c's M/C-deep slice of the depth. Not a
+// per-element functor like the others: the kernel keeps the running total
+// (ChunkFold) and calls seed, fold and store on a consumer thread's
+// fragment: rows r0 and r0 + 8, column pairs col + 8j (j < 16), laid out as
+// the m64n128 accumulator is (acc[4j + {0, 1}] at r0, acc[4j + {2, 3}] at
+// r0 + 8). Rows past M read nothing and store nothing.
+struct EpiChunkResidual {
+  const float* ys;  // (rows, n_chunks): y's scale per (row, chunk)
+  const float* s;
+  const float* b;
+  const bf16* x;
+  bf16* out;
+  int n_cols, n_chunks;
+
+  __device__ __forceinline__ void seed(float (&t)[64], int r0, int col, int M) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const bf16* xr = x + static_cast<size_t>(r) * n_cols + col;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        t[4 * j + 2 * h] = r < M ? __bfloat162float(xr[8 * j]) : 0.f;
+        t[4 * j + 2 * h + 1] = r < M ? __bfloat162float(xr[8 * j + 1]) : 0.f;
+      }
+    }
+  }
+  __device__ __forceinline__ void fold(float (&t)[64], const int (&acc)[64], int c, int r0,
+                                       int col, int M) const {
+    const float y0 = r0 < M ? ys[static_cast<size_t>(r0) * n_chunks + c] : 0.f;
+    const float y1 = r0 + 8 < M ? ys[static_cast<size_t>(r0 + 8) * n_chunks + c] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float s0 = s[col + 8 * j], s1 = s[col + 8 * j + 1];
+      t[4 * j] = t[4 * j] + static_cast<float>(acc[4 * j]) * y0 * s0;
+      t[4 * j + 1] = t[4 * j + 1] + static_cast<float>(acc[4 * j + 1]) * y0 * s1;
+      t[4 * j + 2] = t[4 * j + 2] + static_cast<float>(acc[4 * j + 2]) * y1 * s0;
+      t[4 * j + 3] = t[4 * j + 3] + static_cast<float>(acc[4 * j + 3]) * y1 * s1;
+    }
+  }
+  __device__ __forceinline__ void store(const float (&t)[64], int r0, int col, int M) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= M) continue;
+      bf16* o = out + static_cast<size_t>(r) * n_cols + col;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[8 * j] = __float2bfloat16_rn(t[4 * j + 2 * h] + b[col + 8 * j]);
+        o[8 * j + 1] = __float2bfloat16_rn(t[4 * j + 2 * h + 1] + b[col + 8 * j + 1]);
+      }
+    }
+  }
+};
+template <typename Epi> struct ChunkFold { static constexpr bool value = false; };
+template <> struct ChunkFold<EpiChunkResidual> { static constexpr bool value = true; };
+
 // Waits until `count` threads (whole warps) have arrived at barrier `id`
 // (1-15: 0 is __syncthreads', which the exited producer warp never reaches).
 __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// C (M, N) = A (M, K) . B through epi(r, n, acc) for r < M. int8: A (M, K)
-// and B = w^T (N, K), both K-major; bf16: A (M, K) K-major and B = w (K, N),
-// MN-major. Grid (N / 128, ceil(M / 128)).
+// C (M, N) = A (M, K) . B through epi(r, n, acc) for r < M (or, for
+// EpiChunkResidual, the chunk sums folded as it says). int8: A (M, K) and B
+// = w^T (N, K), both K-major; bf16: A (M, K) K-major and B = w (K, N),
+// MN-major. Grid (N / 128, ceil(M / 128)). Two blocks an SM, the fold one.
 template <typename T, typename Epi>
-__global__ void __launch_bounds__(kSThreads, 2)
+__global__ void __launch_bounds__(kSThreads, ChunkFold<Epi>::value ? 1 : 2)
 wgmma_stage_kernel(__grid_constant__ const CUtensorMap tma, __grid_constant__ const CUtensorMap tmb,
                    int M, int K, Epi epi) {
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
@@ -142,10 +219,20 @@ wgmma_stage_kernel(__grid_constant__ const CUtensorMap tma, __grid_constant__ co
   }
 
   using Acc = typename std::conditional<kInt8, int, float>::type;
+  constexpr bool kFold = ChunkFold<Epi>::value;
   const int wg = warp >> 2;
   Acc acc[64];
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc[e] = 0;
+  // The fold's fp32 running total of the fragment (rows fr, fr + 8, column
+  // pairs fc + 8j), seeded with x; its chunk and the slices left in it.
+  float total[kFold ? 64 : 1];
+  int chunk = 0, left = 0;
+  const int fr = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2), fc = n0 + 2 * (lane & 3);
+  if constexpr (kFold) {
+    epi.seed(total, fr, fc, M);
+    left = kslices / epi.n_chunks;
+  }
   Ring<kSStages> ring;
   int prev = -1;
   for (int kt = 0; kt < kslices; ++kt, ring.advance()) {
@@ -168,6 +255,17 @@ wgmma_stage_kernel(__grid_constant__ const CUtensorMap tma, __grid_constant__ co
       if (lane == 0) mbar_arrive(&empty[prev]);
     }
     prev = ring.stage;
+    if constexpr (kFold) {
+      if (--left == 0) {  // the chunk's products are all issued: fold them in
+        wgmma_wait<0>();
+        fence_acc(acc);
+        epi.fold(total, acc, chunk, fr, fc, M);
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[e] = 0;
+        ++chunk;
+        left = kslices / epi.n_chunks;
+      }
+    }
   }
   wgmma_wait<0>();
   fence_acc(acc);
@@ -175,7 +273,9 @@ wgmma_stage_kernel(__grid_constant__ const CUtensorMap tma, __grid_constant__ co
   // The m64n128 accumulator holds acc[4j + {0, 1}] at row g, columns
   // 8j + 2 t4 + {0, 1} of the warp's 16 rows, acc[4j + {2, 3}] at row g + 8.
   const int g = lane >> 2, t4 = lane & 3, wr = 16 * (warp & 3) + g;
-  if constexpr (StagedEpilogue<Epi>::value) {
+  if constexpr (kFold) {
+    epi.store(total, fr, fc, M);
+  } else if constexpr (StagedEpilogue<Epi>::value) {
     // Through shared memory (the ring, idle once both warpgroups' products
     // are done), so that a warp calls epi on 32 consecutive columns of one
     // row and its loads of the column vectors and its stores coalesce.
@@ -217,13 +317,17 @@ wgmma_stage_kernel(__grid_constant__ const CUtensorMap tma, __grid_constant__ co
 
 // The stage on the caller's stream: int8 A (M, K) with B = w^T (N, K), or
 // bf16 A (M, K) with B = w (K, N). Needs N % 128 == 0 and K a multiple of
-// the 128-B slice (128 int8, 64 bf16); rows and weights 16-B aligned.
+// the 128-B slice (128 int8, 64 bf16), for the fold each chunk's K / C too;
+// rows and weights 16-B aligned.
 template <typename T, typename Epi>
 cudaError_t launch_wgmma_stage(const T* A, const T* B, int M, int N, int K, Epi epi,
                                cudaStream_t st) {
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   if (M <= 0 || N <= 0 || N % kSBN || K <= 0 || K % (kInt8 ? 128 : 64))
     return cudaErrorInvalidValue;
+  if constexpr (ChunkFold<Epi>::value) {
+    if (epi.n_chunks < 1 || K % (128 * epi.n_chunks)) return cudaErrorInvalidValue;
+  }
   const unsigned grid_y = static_cast<unsigned>((M + kSBM - 1) / kSBM);
   if (grid_y > 65535u) return cudaErrorInvalidValue;
   CUtensorMap tma, tmb;
@@ -241,20 +345,24 @@ cudaError_t launch_wgmma_stage(const T* A, const T* B, int M, int N, int K, Epi 
   return cudaGetLastError();
 }
 
-// Blocks of the int8 (EpiGelu, c_fc's) and bf16 (EpiOutProj) stage kernels
-// resident on one SM into blocks[0..1].
+// Blocks of the int8 (EpiGelu, c_fc's), bf16 (EpiOutProj) and folded
+// (EpiChunkResidual, row 3's c_proj) stage kernels resident on one SM into
+// blocks[0..2].
 inline cudaError_t wgmma_stage_occupancy(int* blocks) {
   const auto k8 = wgmma_stage_kernel<int8_t, EpiGelu<Gelu::kExp2>>;
   const auto kb = wgmma_stage_kernel<bf16, EpiOutProj>;
+  const auto kf = wgmma_stage_kernel<int8_t, EpiChunkResidual>;
   AIIC_CHECK(cudaFuncSetAttribute(k8, cudaFuncAttributeMaxDynamicSharedMemorySize, kSSmem));
   AIIC_CHECK(cudaFuncSetAttribute(kb, cudaFuncAttributeMaxDynamicSharedMemorySize, kSSmem));
+  AIIC_CHECK(cudaFuncSetAttribute(kf, cudaFuncAttributeMaxDynamicSharedMemorySize, kSSmem));
   AIIC_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k8, kSThreads, kSSmem));
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 1, kb, kSThreads, kSSmem);
+  AIIC_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 1, kb, kSThreads, kSSmem));
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 2, kf, kSThreads, kSSmem);
 }
 
 // ---------------------------------------------------------------------------
-// Rows 1 and 2 on the stage. wqkv_t, w1_t, w2_t: the K-major int8 copies
-// (w^T) of the Int8Attn / Int8Mlp weights.
+// Rows 1-3 on the stage (row 4 runs row 1, then row 2 or 3). wqkv_t, w1_t,
+// w2_t: the K-major int8 copies (w^T) of the Int8Attn / Int8Mlp weights.
 // ---------------------------------------------------------------------------
 
 inline cudaError_t int8_qkv_stage_wgmma(const bf16* x, const Int8Attn& a, const int8_t* wqkv_t,
@@ -280,17 +388,25 @@ inline cudaError_t int8_attn_half_wgmma(const bf16* x, const Int8Attn& a, const 
                             EpiOutProj{a.bo, x, out, W}, st);
 }
 
+// Row 2 (C = 1) or row 3 (the hidden axis in C chunks: y quantized as the
+// (rows*C, M/C) matrix it is in memory, so each (row, chunk) gets its own
+// scale, and c_proj folding the chunks in order). Needs W % 128 == 0 and
+// M / C a multiple of 128 (a whole number of c_proj's 128-B K-slices); the
+// scratch's part is not read.
 inline cudaError_t int8_mlp_half_wgmma(const bf16* x, const Int8Mlp& m, const int8_t* w1_t,
                                        const int8_t* w2_t, bf16* out, const MlpScratch& s,
-                                       int rows, int W, int M, float eps, cudaStream_t st) {
-  if (W % kSBN != 0 || M % kSBN != 0) return cudaErrorInvalidValue;
+                                       int rows, int W, int M, int C, float eps, cudaStream_t st) {
+  if (W % kSBN != 0 || C < 1 || M % (C * 128) != 0) return cudaErrorInvalidValue;
   AIIC_CHECK((launch_rowquant<true, bf16>(x, m.ln_s, m.ln_b, s.hq, s.hs, rows, W, eps, st)));
   AIIC_CHECK(launch_wgmma_stage(static_cast<const int8_t*>(s.hq), w1_t, rows, M, W,
                                 EpiGelu<Gelu::kExp2>{s.hs, m.s1, m.b1, s.y, M}, st));
   AIIC_CHECK((launch_rowquant<false, float>(static_cast<const float*>(s.y), nullptr, nullptr,
-                                            s.yq, s.ys, rows, M, 0.f, st)));
-  return launch_wgmma_stage(static_cast<const int8_t*>(s.yq), w2_t, rows, W, M,
-                            EpiResidual{s.ys, m.s2, m.b2, x, out, W}, st);
+                                            s.yq, s.ys, rows * C, M / C, 0.f, st)));
+  const int8_t* yq = s.yq;
+  if (C == 1)
+    return launch_wgmma_stage(yq, w2_t, rows, W, M, EpiResidual{s.ys, m.s2, m.b2, x, out, W}, st);
+  return launch_wgmma_stage(yq, w2_t, rows, W, M,
+                            EpiChunkResidual{s.ys, m.s2, m.b2, x, out, W, C}, st);
 }
 
 }  // namespace

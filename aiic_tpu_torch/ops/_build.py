@@ -53,19 +53,19 @@ _SIGNATURES = {
     # x, ln_s, ln_b, wqkv_q, wqkv_t, sqkv, bqkv, wo, bo, mask, out, hq, hs,
     # qkv, attn, B, S, W, H, eps, qconst, form, stream
     "aiic_int8_ln_qkv_attention": [_P] * 15 + [_I, _I, _I, _I, _F, _F, _I, _P],
-    # x, ln_s, ln_b, w1_q, s1, b1, w2_q, s2, b2, out, hq, hs, y, yq, ys, part,
-    # rows, W, M, n_chunks, eps, stream
-    "aiic_int8_ln_mlp_chunked": [_P] * 16 + [_I, _I, _I, _I, _F, _P],
+    # x, ln_s, ln_b, w1_q, w1_t, s1, b1, w2_q, w2_t, s2, b2, out, hq, hs, y,
+    # yq, ys, part, rows, W, M, n_chunks, eps, form, stream
+    "aiic_int8_ln_mlp_chunked": [_P] * 18 + [_I, _I, _I, _I, _F, _I, _P],
     # x, ln_s, ln_b, wqkv_q, wqkv_t, sqkv, bqkv, qkv, hq, hs, rows, W, eps,
     # form, stream
     "aiic_int8_ln_qkv": [_P] * 10 + [_I, _I, _F, _I, _P],
-    # a, w, rs, cs, b, x, out, rows, N, K, epi, form, stream
-    "aiic_gemm_stage": [_P] * 7 + [_I] * 5 + [_P],
-    # blocks (int[2]: int8, bf16)
+    # a, w, rs, cs, b, x, out, rows, N, K, n_chunks, epi, form, stream
+    "aiic_gemm_stage": [_P] * 7 + [_I] * 6 + [_P],
+    # blocks (int[3]: int8, bf16, folded int8)
     "aiic_gemm_stage_occupancy": [_P],
-    # x, 16 weights/vectors/mask, out, y1, hq, hs, qkv, attn, y, yq, ys, part,
-    # B, S, W, H, M, n_chunks, eps, qconst, stream
-    "aiic_int8_block": [_P] * 27 + [_I] * 6 + [_F, _F, _P],
+    # x, 19 weights/K-major copies/vectors/mask, out, y1, hq, hs, qkv, attn, y,
+    # yq, ys, part, B, S, W, H, M, n_chunks, eps, qconst, form, stream
+    "aiic_int8_block": [_P] * 30 + [_I] * 6 + [_F, _F, _I, _P],
     # qkv, mask, out, B, S, W, H, qconst, fp32, scalar, stream
     "aiic_attention_qkv": [_P] * 3 + [_I, _I, _I, _I, _F, _I, _I, _P],
     # qkv_hm, mask, out, B, S, W, H, head_group, qconst, stream

@@ -26,10 +26,11 @@ Each half-block has three faces here:
   path on the card.
 - a **Hopper kernel** in ``aiic_tpu_torch/csrc`` (CUDA C++ for sm_90a, built
   by ``ops._build``), launched by ``_int8_ln_qkv_attention_cuda`` /
-  ``_int8_ln_mlp_cuda``: their products on the ``wgmma`` + TMA GEMM stage
-  (``csrc/wgmma_serving_gemm.cuh``, reachable alone as ``gemm_stage``), row
-  1's core on the tensor-core core of rows 6-8. Their WMMA forms (the first
-  design, which rows 3 and 4 keep) stay reachable as ``form="wmma"``,
+  ``_int8_ln_mlp_cuda`` / ``_int8_block_cuda``: the products of rows 1-4 on
+  the ``wgmma`` + TMA GEMM stage (``csrc/wgmma_serving_gemm.cuh``, reachable
+  alone as ``gemm_stage``; row 3's c_proj with the chunk sums folded into
+  its mainloop), row 1's core on the tensor-core core of rows 6-8. Their
+  WMMA forms (the first design) stay reachable as ``form="wmma"``,
   uncounted, for timing and the bit-for-bit check of the int8 stages.
 - a **public wrapper** with the JAX signature. It takes the plain version
   only for tensors on the CPU; for a CUDA tensor it launches the kernel or
@@ -105,24 +106,39 @@ def kmajor(w: torch.Tensor) -> torch.Tensor:
 
 
 # The epilogues of the GEMM stage (gemm_stage) and their C codes.
-STAGE_EPILOGUES = {"qkv": 0, "gelu": 1, "residual": 2, "out_proj": 3}
-# The forms of rows 1 and 2 (and of the stage) on the card: the route, and
-# the first (WMMA) design, kept for timing and the bit-for-bit check.
+STAGE_EPILOGUES = {"qkv": 0, "gelu": 1, "residual": 2, "out_proj": 3, "chunk_residual": 4}
+# The forms of rows 1-4 (and of the stage) on the card: the route, and the
+# first (WMMA) design, kept for timing and the bit-for-bit check.
 FORMS = {"wgmma": 0, "wmma": 1}
+# The depth of one K-slice of the wgmma stage in int8 (128 B): row 3's chunk
+# of the hidden axis must be a whole number of them.
+STAGE_SLICE = 128
 
 
 def gemm_stage_ref(a, w, epilogue: str, *, row_scale=None, col_scale=None, bias=None,
-                   x=None) -> torch.Tensor:
-    """One product of rows 1-2 with its epilogue, as their plain versions
+                   x=None, n_chunks: int = 1) -> torch.Tensor:
+    """One product of rows 1-4 with its epilogue, as their plain versions
     compute it: a (rows, K) . w (K, N), int8 exact in int32 (qkv, gelu,
-    residual) or bf16 with fp32 sums (out_proj), then
+    residual, chunk_residual) or bf16 with fp32 sums (out_proj), then
     qkv: bf16(acc·rs·cs + b); gelu: gelu_exp2(acc·rs·cs + b) in fp32;
-    residual: bf16(x + (acc·rs·cs + b)); out_proj: bf16(x + (acc + b))."""
+    residual: bf16(x + (acc·rs·cs + b)); out_proj: bf16(x + (acc + b));
+    chunk_residual (row 3's c_proj, K in ``n_chunks`` chunks, rs (rows, C)):
+    the fp32 sum seeded with x, each chunk's acc_c·rs[:, c]·cs added in
+    order, b last, then bf16."""
     no_tf32()
     n = w.shape[-1]
     b = bias.reshape(1, n).float()
     if epilogue == "out_proj":
         return (x.float() + (a.float() @ w.float() + b)).to(torch.bfloat16)
+    if epilogue == "chunk_residual":
+        chunk = w.shape[0] // n_chunks
+        rs = row_scale.reshape(-1, n_chunks).float()
+        cs = col_scale.reshape(1, n).float()
+        total = x.float()
+        for c in range(n_chunks):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            total = total + _int_matmul(a[:, sl], w[sl]).float() * rs[:, c:c + 1] * cs
+        return (total + b).to(torch.bfloat16)
     v = (_int_matmul(a, w).float() * row_scale.reshape(-1, 1).float()
          * col_scale.reshape(1, n).float() + b)
     if epilogue == "qkv":
@@ -330,15 +346,19 @@ def _check_inputs(name: str, x: torch.Tensor, *weights) -> None:
                             f"got {w.dtype} {tuple(w.shape)} on {w.device}")
 
 
-def _mlp_args(name, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, n_chunks):
+def _mlp_args(name, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, n_chunks, form):
     """The MLP half's checked arguments and scratch (rows = B·S): x, LN
-    vectors, w1_q, s1, b1, w2_q, s2, b2, out, hq, hs, y, yq, ys (rows·C)."""
+    vectors, w1_q, s1, b1, w2_q, s2, b2, out, hq, hs, y, yq, ys (rows·C).
+    Raises, before anything is launched, on a chunk of the hidden axis that
+    the form cannot take: the wgmma stage folds whole 128-B K-slices
+    (``STAGE_SLICE``), the WMMA form 32-deep tiles."""
     bsz, seq, width = x.shape
     mlp_dim = w1_q.shape[-1]
     _check_inputs(name, x, (w1_q, (width, mlp_dim)), (w2_q, (mlp_dim, width)))
-    if width % 128 or mlp_dim % 128 or mlp_dim % n_chunks or (mlp_dim // n_chunks) % 32:
-        raise ValueError(f"{name} kernel needs W and 4W multiples of 128 and 4W/C of 32, got "
-                         f"{width}, {mlp_dim}, C={n_chunks}")
+    depth = STAGE_SLICE if form == "wgmma" else 32
+    if width % 128 or mlp_dim % 128 or mlp_dim % n_chunks or (mlp_dim // n_chunks) % depth:
+        raise ValueError(f"{name} kernel ({form}) needs W and 4W multiples of 128 and the chunk "
+                         f"4W/C a multiple of {depth}, got W={width}, 4W={mlp_dim}, C={n_chunks}")
     rows, dev = bsz * seq, x.device
     return [x.contiguous(), f32_vector(ln_scale, width, dev), f32_vector(ln_bias, width, dev),
             w1_q, f32_vector(s1, mlp_dim, dev), f32_vector(b1, mlp_dim, dev), w2_q,
@@ -352,27 +372,31 @@ def _mlp_args(name, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, n_chunks):
 
 def _int8_ln_mlp_cuda(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps, n_chunks=1,
                       form="wgmma"):
-    """Row 2 (``n_chunks`` 1) in ``form`` ("wgmma", the route: the products
-    on the wgmma stage, reading the K-major copies; "wmma", the first design),
-    or row 3 (``n_chunks`` > 1, the WMMA form)."""
+    """Row 2 (``n_chunks`` 1) or row 3 (``n_chunks`` > 1) in ``form``:
+    "wgmma" (the route: the products on the wgmma stage, reading the
+    K-major copies; row 3's c_proj folding the chunk sums) or "wmma" (the
+    first design; row 3's c_proj split by chunk into fp32 slices and a sum
+    pass)."""
     bsz, seq, width = x.shape
-    mlp_dim = w1_q.shape[-1]
+    rows, mlp_dim = bsz * seq, w1_q.shape[-1]
     name = "int8_ln_mlp" if n_chunks == 1 else "int8_ln_mlp_chunked"
-    args = _mlp_args(name, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, n_chunks)
+    args = _mlp_args(name, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, n_chunks, form)
     lib = load_library()
     # The scratch tensors are freed when this returns, before the kernels
     # run: PyTorch's caching allocator reuses their memory only for work
     # queued later on this same (current) stream, so that is safe.
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    kt = [kmajor(args[3]), kmajor(args[6])] if form == "wgmma" else [None, None]
+    p = [ptr(a) for a in args]
+    p = [*p[:4], ptr(kt[0]), *p[4:7], ptr(kt[1]), *p[7:]]
+    eps = ctypes.c_float(eps)
     if n_chunks == 1:
-        kt = [kmajor(args[3]), kmajor(args[6])] if form == "wgmma" else [None, None]
-        p = [ptr(a) for a in args]
-        rc = lib.aiic_int8_ln_mlp(*p[:4], ptr(kt[0]), *p[4:7], ptr(kt[1]), *p[7:], bsz * seq,
-                                  width, mlp_dim, ctypes.c_float(eps), FORMS[form], stream)
+        rc = lib.aiic_int8_ln_mlp(*p, rows, width, mlp_dim, eps, FORMS[form], stream)
     else:
-        part = torch.empty((n_chunks, bsz * seq, width), dtype=torch.float32, device=x.device)
-        rc = lib.aiic_int8_ln_mlp_chunked(*[ptr(a) for a in args], ptr(part), bsz * seq, width,
-                                          mlp_dim, n_chunks, ctypes.c_float(eps), stream)
+        part = (torch.empty((n_chunks, rows, width), dtype=torch.float32, device=x.device)
+                if form == "wmma" else None)
+        rc = lib.aiic_int8_ln_mlp_chunked(*p, ptr(part), rows, width, mlp_dim, n_chunks, eps,
+                                          FORMS[form], stream)
     check(name, rc)
     return args[9]
 
@@ -448,17 +472,18 @@ def _int8_qkv(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, eps, form="wgmma"):
 
 def stage_occupancy() -> list:
     """Blocks of the GEMM stage resident on one SM: [int8 (c_fc's), bf16
-    (the out-projection's)], as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-    gives them."""
-    blocks = (ctypes.c_int * 2)()
+    (the out-projection's), folded int8 (row 3's c_proj)], as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them."""
+    blocks = (ctypes.c_int * 3)()
     check("gemm_stage_occupancy", load_library().aiic_gemm_stage_occupancy(blocks))
     return list(blocks)
 
 
-def _gemm_stage_cuda(a, w, epilogue, row_scale, col_scale, bias, x, form="wgmma"):
+def _gemm_stage_cuda(a, w, epilogue, row_scale, col_scale, bias, x, form="wgmma", n_chunks=1):
     """The stage alone on the card (``aiic_gemm_stage``): the checked
     arguments, the output ((rows, N) fp32 for gelu, bf16 otherwise), the
-    launch."""
+    launch. chunk_residual runs in the wgmma form only, on K in
+    ``n_chunks`` chunks of whole 128-B slices."""
     name = "gemm_stage"
     int8 = epilogue != "out_proj"
     dtype = torch.int8 if int8 else torch.bfloat16
@@ -467,32 +492,40 @@ def _gemm_stage_cuda(a, w, epilogue, row_scale, col_scale, bias, x, form="wgmma"
                         f"{tuple(a.shape)} and {w.dtype} {tuple(w.shape)}")
     rows, k = a.shape
     n, dev = w.shape[1], a.device
-    if w.shape[0] != k or n % 128 or k % (128 if int8 else 64) or w.device != dev:
+    depth = STAGE_SLICE if int8 else 64
+    if w.shape[0] != k or n % 128 or k % (depth * n_chunks) or w.device != dev:
         raise ValueError(f"{name}[{epilogue}]: needs w (K, N) on {dev} with N % 128 == 0 and K "
-                         f"a multiple of {128 if int8 else 64}, got a {tuple(a.shape)}, w "
-                         f"{tuple(w.shape)} on {w.device}")
+                         f"(each of its {n_chunks} chunks) a multiple of {depth}, got a "
+                         f"{tuple(a.shape)}, w {tuple(w.shape)} on {w.device}")
+    chunked = epilogue == "chunk_residual"
+    if n_chunks < 1 or (n_chunks > 1 and not chunked) or (chunked and form != "wgmma"):
+        raise ValueError(f"{name}[{epilogue}]: chunks of K go with chunk_residual in the wgmma "
+                         f"form alone, got n_chunks={n_chunks}, form {form!r}")
     a, w = a.contiguous(), w.contiguous()
     wk = kmajor(w) if int8 and form == "wgmma" else w
-    rs = f32_vector(row_scale, rows, dev) if int8 else None
+    rs = f32_vector(row_scale, rows * n_chunks, dev) if int8 else None
     cs = f32_vector(col_scale, n, dev) if int8 else None
     xr = x.to(torch.bfloat16).reshape(rows, n).contiguous() if x is not None else None
-    if epilogue in ("residual", "out_proj") and xr is None:
+    if epilogue in ("residual", "out_proj", "chunk_residual") and xr is None:
         raise ValueError(f"{name}[{epilogue}]: needs the residual x")
     out = torch.empty((rows, n), dtype=torch.float32 if epilogue == "gelu" else torch.bfloat16,
                       device=dev)
     rc = load_library().aiic_gemm_stage(
         ptr(a), ptr(wk), ptr(rs), ptr(cs), ptr(f32_vector(bias, n, dev)), ptr(xr), ptr(out),
-        rows, n, k, STAGE_EPILOGUES[epilogue], FORMS[form],
+        rows, n, k, n_chunks, STAGE_EPILOGUES[epilogue], FORMS[form],
         torch.cuda.current_stream(dev).cuda_stream)
     check(name, rc)
     return out
 
 
-def _int8_block_cuda(x, attn_w, mlp_w, heads, eps, n_chunks):
+def _int8_block_cuda(x, attn_w, mlp_w, heads, eps, n_chunks, form="wgmma"):
+    """Row 4 in ``form``: "wgmma" (the route: row 1's form 0, then row 2's
+    or row 3's on the wgmma stage, reading the K-major copies) or "wmma"
+    (the first design: the WMMA rows in turn)."""
     name = "int8_block"
     bsz, seq, width = x.shape
     a = _attn_args(name, x, *attn_w, heads)
-    m = _mlp_args(name, x, *mlp_w, n_chunks)
+    m = _mlp_args(name, x, *mlp_w, n_chunks, form)
     lib = load_library()
     rows, dev = bsz * seq, x.device
     mlp_dim = m[3].shape[-1]
@@ -500,13 +533,16 @@ def _int8_block_cuda(x, attn_w, mlp_w, heads, eps, n_chunks):
     qkv = torch.empty((rows, 3 * width), dtype=torch.bfloat16, device=dev)
     attn = torch.empty((rows, width), dtype=torch.bfloat16, device=dev)
     part = (torch.empty((n_chunks, rows, width), dtype=torch.float32, device=dev)
-            if n_chunks > 1 else None)
+            if n_chunks > 1 and form == "wmma" else None)
+    kt = [kmajor(w) if form == "wgmma" else None for w in (a[3], m[3], m[6])]
     # a: x, ln1, wqkv_q, sqkv, bqkv, wo, bo, mask; m[1:9]: ln2, w1_q, s1, b1,
-    # w2_q, s2, b2; m[9:]: out, hq, hs, y, yq, ys
-    ptrs = [ptr(t) for t in a + m[1:9] + [m[9], y1] + m[10:12] + [qkv, attn] + m[12:] + [part]]
+    # w2_q, s2, b2; m[9:]: out, hq, hs, y, yq, ys; each int8 weight followed
+    # by its K-major copy
+    ptrs = [ptr(t) for t in a[:4] + kt[:1] + a[4:] + m[1:4] + kt[1:2] + m[4:7] + kt[2:]
+            + m[7:9] + [m[9], y1] + m[10:12] + [qkv, attn] + m[12:] + [part]]
     qconst = _qconst(width // heads, torch.bfloat16)
     rc = lib.aiic_int8_block(*ptrs, bsz, seq, width, heads, mlp_dim, n_chunks,
-                             ctypes.c_float(eps), ctypes.c_float(qconst),
+                             ctypes.c_float(eps), ctypes.c_float(qconst), FORMS[form],
                              torch.cuda.current_stream(dev).cuda_stream)
     check(name, rc)
     return m[9]
@@ -538,21 +574,21 @@ def int8_ln_mlp(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2,
 
 @counted
 def gemm_stage(a, w, epilogue: str, *, row_scale=None, col_scale=None, bias=None,
-               x=None) -> torch.Tensor:
-    """(rows, K) . w (K, N) -> (rows, N) through one of rows 1-2's epilogues
-    (``STAGE_EPILOGUES``; ``gemm_stage_ref`` says what each computes): on
-    the card the wgmma + TMA stage those rows run (an int8 w read through
-    its cached K-major copy), on the CPU the plain version. ``launches``
-    also counts the stage's launches inside rows 1 and 2 (two each) and the
-    large-S int8 projection (one): their wrappers add them where they
-    launch."""
+               x=None, n_chunks: int = 1) -> torch.Tensor:
+    """(rows, K) . w (K, N) -> (rows, N) through one of rows 1-4's epilogues
+    (``STAGE_EPILOGUES``; ``gemm_stage_ref`` says what each computes; K in
+    ``n_chunks`` chunks for chunk_residual): on the card the wgmma + TMA
+    stage those rows run (an int8 w read through its cached K-major copy),
+    on the CPU the plain version. ``launches`` also counts the stage's
+    launches inside rows 1-3 (two each), row 4 (four) and the large-S int8
+    projection (one): their wrappers add them where they launch."""
     if epilogue not in STAGE_EPILOGUES:
         raise ValueError(f"gemm_stage: epilogue must be one of {sorted(STAGE_EPILOGUES)}, "
                          f"got {epilogue!r}")
     kw = dict(row_scale=row_scale, col_scale=col_scale, bias=bias, x=x)
     if not route("gemm_stage", a):
-        return gemm_stage_ref(a, w, epilogue, **kw)
-    out = _gemm_stage_cuda(a, w, epilogue, row_scale, col_scale, bias, x)
+        return gemm_stage_ref(a, w, epilogue, n_chunks=n_chunks, **kw)
+    out = _gemm_stage_cuda(a, w, epilogue, row_scale, col_scale, bias, x, n_chunks=n_chunks)
     gemm_stage.launches += 1
     return out
 
@@ -561,12 +597,18 @@ def gemm_stage(a, w, epilogue: str, *, row_scale=None, col_scale=None, bias=None
 def int8_ln_mlp_chunked(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, *, n_chunks: int,
                         eps: float = 1e-5) -> torch.Tensor:
     """(B, S, W) -> (B, S, W): the int8 MLP half with the hidden axis in
-    ``n_chunks`` chunks, the gelu output quantized per (row, chunk)."""
+    ``n_chunks`` chunks, the gelu output quantized per (row, chunk). On the
+    card each chunk must be a whole number of the wgmma stage's 128-B
+    K-slices (4W/C % 128 == 0; every plan of the copied planners is): any
+    other raises ValueError before a launch. The WMMA form took any 4W/C
+    that is a multiple of 32, and the plain version on the CPU still takes
+    any, so a direct caller with such a depth works on the CPU alone."""
     args = (x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2)
     if not route("int8_ln_mlp_chunked", x):
         return int8_ln_mlp_ref(*args, eps=eps, n_chunks=n_chunks)
     out = _int8_ln_mlp_cuda(*args, eps, n_chunks)
     int8_ln_mlp_chunked.launches += 1
+    gemm_stage.launches += 2  # c_fc and the folded c_proj
     return out
 
 
@@ -624,7 +666,10 @@ def int8_block(x, ln1_scale, ln1_bias, wqkv_q, sqkv, bqkv, wo, bo, mask, ln2_sca
                plan_override=None):
     """(B, S, W) -> (B, S, W): one whole int8 block, on ``_block_plan``'s
     plan (or ``plan_override``, a ("full"|"chunked", G, C) tuple); None when
-    no plan fits, as the JAX package's ``int8_block`` returns."""
+    no plan fits, as the JAX package's ``int8_block`` returns. On the card
+    rows 1 and 2 (or 3) in turn, in one C call; a chunked plan's 4W/C must
+    be a multiple of 128 there (on the CPU any), as ``int8_ln_mlp_chunked``
+    says."""
     bsz, seq, width = x.shape
     plan = plan_override or _block_plan(bsz, seq, width, w1_q.shape[-1], x.element_size())
     if plan is None:
@@ -635,6 +680,7 @@ def int8_block(x, ln1_scale, ln1_bias, wqkv_q, sqkv, bqkv, wo, bo, mask, ln2_sca
         return int8_block_ref(x, *attn_w, *mlp_w, heads=heads, eps=eps, plan=plan)
     out = _int8_block_cuda(x, attn_w, mlp_w, heads, eps, plan[2] if plan[0] == "chunked" else 1)
     int8_block.launches += 1
+    gemm_stage.launches += 4  # QKV, out-projection, c_fc, c_proj
     return out
 
 

@@ -10,20 +10,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
    registers, spills and blocks per SM of the bf16 tensor-core core and the
    fp32 register-tiled core (each layout), of the two passes of the bf16
    tensor-core and the fp32 register-tiled core backward, of row 17's
-   wgmma products and row pass, and of the wgmma GEMM stage of rows 1-2
-   (per epilogue);
+   wgmma products and row pass, and of the wgmma GEMM stage of rows 1-4
+   (per epilogue, row 3's folded c_proj among them);
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes (ViT-B/16 image and text half-blocks, B=1, an odd
    B, and an all-zero LN row; rows 1 and 2 on the wgmma GEMM stage, row 2
    and row 1's QKV stage bit for bit their WMMA forms, each bit for bit a
    second run, and the stage alone on each of the four products, the int8
    ones bit for bit the WMMA stage); the packed-QKV core in fp32 and bf16; the
-   zoo's kernels: the chunked int8 MLP at the ViT-L/14 widths (C=2 and 4)
-   and at L/14@336 (C=4), the whole int8 block (full at ViT-B/32 and at the
-   text shape with the causal mask; chunked at ViT-B/16 on (2, 4) and at
-   L/14 on (1, 16); each bit for bit row 1's WMMA form followed by row 2's
-   WMMA form or row 3), the head-grouped core at S=577 (hg=8; hg=16 bit for
-   bit the packed core); the attention-core ops no engine reaches: row 6
+   zoo's kernels: the chunked int8 MLP (row 3, on the wgmma stage with its
+   chunk sums folded into c_proj) at the ViT-L/14 widths (C=2 and 4, a zero
+   LN row) and at L/14@336 (C=4), each bit for bit its WMMA form; the whole
+   int8 block (row 4: full at ViT-B/32 and at the text shapes with the
+   causal mask; chunked at ViT-B/16 on (2, 4) and at L/14 on (1, 16)), each
+   bit for bit row 1's form 0 followed by row 2's or row 3's form 0, its
+   WMMA form bit for bit the WMMA rows in turn; the head-grouped core at
+   S=577 (hg=8; hg=16 bit for bit the packed core); the attention-core ops no engine reaches: row 6
    (``flash_attention``) at ViT-B/16 (B=2 and 256), at the text shape
    (causal) and at D=8, row 9 (``fused_attention_qkv_bwd``: fp32 the
    register-tiled passes, bf16 the tensor-core passes; fp32's scalar forms
@@ -127,9 +129,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    run on 2 images; each int8 engine's image features against the bf16
    ``attn_impl="xla"`` path on the card (the twin of
    ``tools/zoo_cosine.py``); then the zoo kernels timed at B=256 (row 3 at
-   L/14, row 4 at B/32, row 8 at L/14@336 beside
-   ``scaled_dot_product_attention``) and images/s at B=256 and single-image
-   p50 of the three int8 engines;
+   L/14 and L/14@336, row 4 at B/32 and at the text tower's 52 prompts, each
+   held against its plain version and beside its WMMA form and the stage
+   yardstick; both forms' device ms by stage, form 0 on the wgmma stage
+   alone and bit for bit its WMMA form (row 4: rows 1 and 2 in turn);
+   row 3's folded c_proj
+   alone beside ``torch._int_mm``, both forms' peak memory; row 8 at
+   L/14@336 beside ``scaled_dot_product_attention``); each int8 engine's
+   8-image call launching the wgmma stage and no WMMA GEMM or chunk-sum
+   pass; images/s at B=256 and single-image p50 of the three int8 engines;
 11. this slice's path: rows 6, 9 and 17 through the entry points a user
    calls (``flash_attention`` on 256 ViT-B/16 images in fp32 and bf16,
    ``fused_attention_qkv_bwd`` on 256 text rows and 256 ViT-B/16 images in
@@ -197,10 +205,10 @@ KERNELS = {
         "source": "aiic_tpu_torch/csrc/int8_mlp.cu",
         "replaces": "aiic_tpu/ops/quant.py:102",
     },
-    # The wgmma + TMA GEMM stage of rows 1 and 2 (their four products).
+    # The wgmma + TMA GEMM stage of rows 1-4 (their products).
     "gemm_stage": {
         "source": "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh",
-        "replaces": "aiic_tpu/ops/quant.py:353 and :102",
+        "replaces": "aiic_tpu/ops/quant.py:353, :102 and :190",
     },
     "fused_ln_qkv_attention": {
         "source": "aiic_tpu_torch/csrc/ln_qkv_attention.cu",
@@ -682,34 +690,68 @@ def _zoo_calls(p, plan=None, head_group=None):
     return calls
 
 
-def _hold_block_wmma(p, plan, out, label: str, results: list) -> None:
-    """Rows 3 and 4 keep the WMMA form of rows 1-2: the whole int8 block
-    (row 4) equals, bit for bit, row 1's WMMA form followed by row 2's WMMA
-    form (a full plan) or by row 3 (``int8_ln_mlp_chunked``, a chunked
-    plan) on the block's own chunk count."""
-    import torch
+def _zoo_weights(p):
+    """The attention half's and the MLP half's int8 weights of one input set."""
+    return ((p["ln_s"], p["ln_b"], p["wqkv_q"], p["sqkv"], p["bqkv"], p["wo"], p["bo"],
+             p["mask"]),
+            (p["ln_s"], p["ln_b"], p["w1_q"], p["s1"], p["b1"], p["w2_q"], p["s2"], p["b2"]))
 
+
+def _row34_chunks(p, name: str, plan=None) -> int:
+    """The chunk count of row 3 (``_mlp_plan``'s) or of row 4 on ``plan``
+    (``_block_plan``'s when None; 1 for a full plan)."""
     from aiic_tpu_torch.ops import quant
 
     bsz, seq, width = p["x"].shape
     mlp_dim = p["w1"].shape[-1]
+    if name == "int8_ln_mlp_chunked":
+        return quant._mlp_plan(bsz, seq, width, mlp_dim, 2)[2]
     plan = plan or quant._block_plan(bsz, seq, width, mlp_dim, 2)
-    y1 = quant._int8_ln_qkv_attention_cuda(p["x"], p["ln_s"], p["ln_b"], p["wqkv_q"], p["sqkv"],
-                                           p["bqkv"], p["wo"], p["bo"], p["mask"], p["heads"],
-                                           1e-5, "wmma")
-    mlp_q = (p["ln_s"], p["ln_b"], p["w1_q"], p["s1"], p["b1"], p["w2_q"], p["s2"], p["b2"])
-    if plan[0] == "chunked":
-        want = quant.int8_ln_mlp_chunked(y1, *mlp_q, n_chunks=plan[2])
+    return plan[2] if plan[0] == "chunked" else 1
+
+
+def _row34_wmma(p, name: str, n_chunks: int):
+    """Row 3's or row 4's WMMA form (form 1, uncounted) on one input set."""
+    from aiic_tpu_torch.ops import quant
+
+    attn_w, mlp_w = _zoo_weights(p)
+    if name == "int8_ln_mlp_chunked":
+        return lambda: quant._int8_ln_mlp_cuda(p["x"], *mlp_w, 1e-5, n_chunks, "wmma")
+    return lambda: quant._int8_block_cuda(p["x"], attn_w, mlp_w, p["heads"], 1e-5, n_chunks,
+                                          "wmma")
+
+
+def _hold_row34_forms(p, plan, name: str, out, label: str, results: list) -> None:
+    """Rows 3 and 4 on the wgmma stage beside their WMMA forms, on ``out``,
+    the public wrapper's output: row 3 (``int8_ln_mlp_chunked``) bit for bit
+    its form 1; row 4 (``int8_block``) bit for bit row 1's form 0 followed by
+    row 2's (full plan) or row 3's (chunked) form 0, and its form 1 bit for
+    bit the WMMA rows in turn."""
+    import torch
+
+    from aiic_tpu_torch.ops import quant
+
+    attn_w, mlp_w = _zoo_weights(p)
+    n_chunks = _row34_chunks(p, name, plan)
+    r = {"kernel": name, "case": label, "n_chunks": n_chunks}
+    old = _row34_wmma(p, name, n_chunks)()
+    if name == "int8_ln_mlp_chunked":
+        torch.cuda.synchronize()
+        r["form0_bit_identical_to_form1"] = bool(torch.equal(out, old))
     else:
-        want = quant._int8_ln_mlp_cuda(y1, *mlp_q, 1e-5, 1, "wmma")
-    torch.cuda.synchronize()
-    same = bool(torch.equal(out, want))
-    log(f"[kernels] int8_block {label} ({plan}) vs the WMMA forms of rows 1-2 "
-        f"{'and row 3 ' if plan[0] == 'chunked' else ''}in turn: bit-identical {same}")
-    results.append({"kernel": "int8_block", "case": label, "plan": list(plan),
-                    "bit_identical_to_wmma_rows": same})
-    if not same:
-        raise AssertionError(f"row 4 on {label} is not the WMMA rows 1-2 (3) in turn")
+        h = p["heads"]
+        y1 = quant._int8_ln_qkv_attention_cuda(p["x"], *attn_w, h, 1e-5)
+        rows = quant._int8_ln_mlp_cuda(y1, *mlp_w, 1e-5, n_chunks)
+        y1w = quant._int8_ln_qkv_attention_cuda(p["x"], *attn_w, h, 1e-5, "wmma")
+        rows_w = quant._int8_ln_mlp_cuda(y1w, *mlp_w, 1e-5, n_chunks, "wmma")
+        torch.cuda.synchronize()
+        r["form0_bit_identical_to_rows_in_turn"] = bool(torch.equal(out, rows))
+        r["form1_bit_identical_to_wmma_rows"] = bool(torch.equal(old, rows_w))
+    results.append(r)
+    flags = {k: v for k, v in r.items() if "identical" in k}
+    log(f"[kernels] {name} {label} (C={n_chunks}) forms: {flags}")
+    if not all(flags.values()):
+        raise AssertionError(f"{name} on {label}: {r}")
 
 
 ZOO_KERNEL_CASES = [  # label, inputs, block plan override, head group
@@ -748,8 +790,8 @@ def phase_zoo_kernels(device) -> dict:
         for name, (kernel, plain, _, _) in _zoo_calls(p, plan, hg).items():
             out = kernel()
             torch.cuda.synchronize()
-            if name == "int8_block":
-                _hold_block_wmma(p, plan, out, label, results)
+            if name in ("int8_ln_mlp_chunked", "int8_block"):
+                _hold_row34_forms(p, plan, name, out, label, results)
             a = _agreement(out, plain())
             a.update(kernel=name, case=label)
             results.append(a)
@@ -843,7 +885,8 @@ def mma_core_resources(build_log: str) -> dict:
                "mxu_wgmma_kernel": {"ILb0": "mxu_bf16", "ILb1": "mxu_i8"},
                "wgmma_stage_kernel": {"EpiQKV": "stage_qkv", "EpiGelu": "stage_c_fc",
                                       "EpiResidual": "stage_c_proj",
-                                      "EpiOutProj": "stage_out_proj"},
+                                      "EpiOutProj": "stage_out_proj",
+                                      "EpiChunkResidual": "stage_c_proj_folded"},
                "mxu_wgmma_quant_kernel": {"": "mxu_i8_quant"},
                "mxu_quant_rows_kernel": {"": "mxu_i8_quant_row_pass"}}
     res, lines = {}, build_log.splitlines()
@@ -1112,15 +1155,16 @@ def _randn(gen, shape, dtype, device):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
-# The GEMM stage launches inside each launch of rows 1 and 2 (their two
-# products each); the stage's own count says so.
-STAGE_LAUNCHES = {"int8_ln_qkv_attention": 2, "int8_ln_mlp": 2}
+# The GEMM stage launches inside each launch of rows 1-3 (their two products
+# each) and row 4 (four); the stage's own count says so.
+STAGE_LAUNCHES = {"int8_ln_qkv_attention": 2, "int8_ln_mlp": 2, "int8_ln_mlp_chunked": 2,
+                  "int8_block": 4}
 
 
 def _one_launch(name: str, fn):
     """fn() with every launch count set to 0 before; afterwards exactly one
-    launch of ``name`` (and the GEMM stage's launches inside it, for rows 1
-    and 2) and none of any other kernel."""
+    launch of ``name`` (and the GEMM stage's launches inside it, for rows
+    1-4) and none of any other kernel."""
     import torch
 
     from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
@@ -1275,8 +1319,8 @@ def _block_kernels(opts: dict, seq: int, width: int, heads: int, bsz: int) -> li
     if opts["quantize"]:
         plan = Q._block_plan(bsz, seq, width, mlp_dim, 2)
         if plan is not None and plan[0] == "full" and plan[1] >= 2:  # the auto rule
-            return ["int8_block"]
-        # Rows 1 and 2 launch the GEMM stage twice each, the large-S int8
+            return ["int8_block"] + ["gemm_stage"] * STAGE_LAUNCHES["int8_block"]
+        # Rows 1-3 launch the GEMM stage twice each, the large-S int8
         # projection once.
         if A.fits_some_group(bsz, 2, lambda g: Q._attn_vmem_bytes(g, seq, width, 2)
                              <= Q._VMEM_BUDGET):
@@ -1286,7 +1330,8 @@ def _block_kernels(opts: dict, seq: int, width: int, heads: int, bsz: int) -> li
             names = core + ["gemm_stage"] if core else []
         mode = Q._mlp_plan(bsz, seq, width, mlp_dim, 2)[0]
         return names + {"full": ["int8_ln_mlp", "gemm_stage", "gemm_stage"],
-                        "chunked": ["int8_ln_mlp_chunked"], "xla": []}[mode]
+                        "chunked": ["int8_ln_mlp_chunked", "gemm_stage", "gemm_stage"],
+                        "xla": []}[mode]
     if A.fits_some_group(bsz, 2, lambda g: A.ln_attn_vmem_bytes(g, seq, width, 2)
                          <= A._CORE_VMEM_BUDGET):
         names = ["fused_ln_qkv_attention"]
@@ -1547,13 +1592,137 @@ def phase_zoo(device):
     return engines, launches
 
 
+# Rows 3 and 4 timed at B=256 (and row 4 at the text tower's 52 prompts):
+# times key, label, inputs, the wrapper.
+ZOO_TIMED = [
+    ("int8_ln_mlp_chunked", "B=256 S=257 W=1024 (L/14, C=4)",
+     dict(bsz=256, seq=257, width=1024, heads=16), "int8_ln_mlp_chunked"),
+    ("int8_ln_mlp_chunked_l14_336", "B=256 S=577 W=1024 (L/14@336, C=4)",
+     dict(bsz=256, seq=577, width=1024, heads=16), "int8_ln_mlp_chunked"),
+    ("int8_block", "B=256 S=50 W=768 (B/32, full)", dict(bsz=256, seq=50, width=768, heads=12),
+     "int8_block"),
+    ("int8_block_text", "B=52 S=77 W=512 causal (text, full)",
+     dict(bsz=52, seq=77, width=512, heads=8, mask=True), "int8_block"),
+]
+# Device time of rows 1-4 by stage: kernel-name needles of both forms (the
+# folded c_proj also alone).
+ZOO_STAGE_NEEDLES = {"row_pass": "rowquant_kernel", "wgmma_stage": "wgmma_stage_kernel",
+                     "wmma_gemm": "gemm_kernel<", "core_mma": "attn_core_mma_kernel",
+                     "core_scalar": "attn_core_kernel<", "folded_c_proj": "EpiChunkResidual",
+                     "chunk_sum": "mlp_chunk_sum_kernel"}
+
+
+def _chunk_products(p, n_chunks: int) -> dict:
+    """Row 3's two products for ``gemm_stage`` (``_stage_products``' tuples):
+    c_fc, and c_proj with the chunk sums folded in on yq and its (rows, C)
+    scales, made by the plain pieces (LN row quantizer, c_fc with gelu, y
+    quantized per (row, chunk))."""
+    from aiic_tpu_torch.ops import attention, quant
+
+    x = p["x"]
+    bsz, seq, width = x.shape
+    rows, mlp_dim = bsz * seq, p["w1"].shape[-1]
+    h = attention._ln_fp32(x.float().reshape(rows, width), p["ln_s"].reshape(1, width),
+                           p["ln_b"].reshape(1, width), 1e-5)
+    hq, hs = quant._row_quant(h)
+    fc_kw = dict(row_scale=hs, col_scale=p["s1"], bias=p["b1"])
+    y = quant.gemm_stage_ref(hq, p["w1_q"], "gelu", **fc_kw)
+    yq, ys = quant._row_quant(y.reshape(rows * n_chunks, mlp_dim // n_chunks))
+    del h, y
+    ops = {"int8": 2 * rows * mlp_dim * width}
+    return {"gemm_stage_c_fc": (hq, p["w1_q"], "gelu", fc_kw, ops),
+            "gemm_stage_c_proj_folded": (
+                yq.reshape(rows, mlp_dim), p["w2_q"], "chunk_residual",
+                dict(row_scale=ys.reshape(rows, n_chunks), col_scale=p["s2"], bias=p["b2"],
+                     x=x.reshape(rows, width), n_chunks=n_chunks), ops)}
+
+
+def _row34_times(t: dict, p, key: str, name: str, card: str, worst: dict) -> None:
+    """Beside row 3's or row 4's new form (timed by the caller): the stage
+    yardstick (``torch._int_mm`` per int8 product, ``torch.matmul`` for
+    the bf16 out-projection, no epilogue: the median of 5 each) and, for
+    row 3, the folded c_proj alone (``gemm_stage``, held against its plain
+    version) beside ``torch._int_mm`` on the same operands."""
+    t["n_chunks"] = _row34_chunks(p, name)
+    if name == "int8_ln_mlp_chunked":
+        products = _chunk_products(p, t["n_chunks"])
+        fold = "gemm_stage_c_proj_folded"
+        stage: dict = {}
+        _kernel_times(_stage_calls({fold: products[fold]}), stage, f"{key} (folded c_proj)",
+                      card, hold={fold: "gemm_stage"}, worst=worst)
+        f = t["folded_c_proj"] = stage[fold]
+        f["yardstick_ms"] = _library_ms(_stage_library(products[fold]))["library_ms"]
+        log(f"[timing] {fold:24s} {key}: folded c_proj alone {f['ms']:.3f} ms, torch._int_mm "
+            f"on the same operands {f['yardstick_ms']:.3f} ms ({card})")
+    else:
+        products = _stage_products(p)
+    t["stage_yardstick_ms"] = sum(_library_ms(_stage_library(prod))["library_ms"]
+                                  for prod in products.values())
+    del products
+    log(f"[timing] {key:24s} stage yardstick {t['stage_yardstick_ms']:.3f} ms ({card})")
+
+
+def _peak_mb(fn) -> float:
+    """Device memory fn() takes at its peak beyond what was allocated before,
+    in MB (``torch.cuda.max_memory_allocated``)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - before) / 1e6
+
+
+def _row34_forms(t: dict, p, key: str, label: str, name: str, card: str) -> None:
+    """Row 3's or row 4's two forms on the inputs its new form was timed on
+    (by the caller, ``_kernel_times``): the WMMA form timed the same way
+    (the best of two 10-call runs), both forms' device ms by stage
+    (``_device_ms_by_kernel``; c_fc apart) and peak memory; form 0 on the
+    wgmma stage with no WMMA GEMM, scalar core or chunk-sum pass, and held
+    to its form 1 (``_hold_row34_forms``)."""
+    new, wmma = _zoo_calls(p)[name][0], _row34_wmma(p, name, t["n_chunks"])
+    t["wmma_ms"] = min(_time_ms(wmma, 10) for _ in range(2))
+    needles = {**ZOO_STAGE_NEEDLES, "c_fc": "EpiGelu"}
+    for tag, fn in (("", new), ("wmma_", wmma)):
+        t[tag + "device_ms_by_stage"] = _device_ms_by_kernel(fn, needles)
+        t[tag + "peak_mb"] = _peak_mb(fn)
+    log(f"[timing] {key:24s} new form {t['ms']:.3f} ms, device ms by stage "
+        f"{t['device_ms_by_stage']}, peak {t['peak_mb']:.1f} MB; WMMA form {t['wmma_ms']:.3f} ms, "
+        f"{t['wmma_device_ms_by_stage']}, peak {t['wmma_peak_mb']:.1f} MB ({card})")
+    d = t["device_ms_by_stage"]
+    if d["wgmma_stage"] is None or any(d[k] is not None
+                                       for k in ("wmma_gemm", "core_scalar", "chunk_sum")):
+        raise AssertionError(f"{key}: the new form launched {d}")
+    _hold_row34_forms(p, None, name, new(), label, REPORT.setdefault("zoo_timed_form_checks", []))
+
+
+def _engine_kernels(label: str, engine, rng) -> None:
+    """One 8-image classify call of an int8 zoo engine launches the wgmma
+    stage and no WMMA gemm_kernel or chunk-sum pass (rows 1-4 on the
+    stage)."""
+    px = _pixels(rng, 8, engine.config.image_size)
+    d = _device_ms_by_kernel(lambda: engine.classify_pixels(px), ZOO_STAGE_NEEDLES)
+    REPORT.setdefault("zoo_engine_kernels_per_chunk", {})[label] = d
+    log(f"[path {label}] one 8-image classify call, device ms by kernel kind: {d}")
+    if d["wgmma_stage"] is None or d["wmma_gemm"] is not None or d["chunk_sum"] is not None:
+        raise AssertionError(f"the {label} engine's image chunk launched {d}")
+
+
 def phase_zoo_timing(device, card: str, engines, worst: dict) -> dict:
-    """Phase 10's timings: row 3 at ViT-L/14 B=256 (C=4), row 4 at ViT-B/32
-    B=256 (full), row 8 at ViT-L/14@336 B=256 (hg=8) beside
-    scaled_dot_product_attention on the same q, k, v, and row 8 held against
-    its plain version there (``worst`` takes the error); images/s at B=256
-    and single-image p50 of the int8 zoo engines. Launch counts are put
-    back."""
+    """Phase 10's timings: rows 3 and 4 at ``ZOO_TIMED``'s shapes (plain,
+    kernel, kernel, plain; held against their plain versions with one
+    counted launch each) beside the stage yardstick and, for row 3, the
+    folded c_proj alone (``_row34_times``); their WMMA forms timed the same
+    way, both forms' device ms by stage and peak memory, form 0 held to its
+    form 1 (``_row34_forms``);
+    row 8 at ViT-L/14@336 B=256 (hg=8) beside scaled_dot_product_attention
+    on the same q, k, v, held against its plain version there (``worst``
+    takes the errors); each int8 zoo engine's chunk on the stage
+    (``_engine_kernels``), its images/s at B=256 and single-image p50.
+    Launch counts are put back."""
     import torch
 
     from aiic_tpu_torch.ops import _build, attention
@@ -1561,12 +1730,12 @@ def phase_zoo_timing(device, card: str, engines, worst: dict) -> dict:
     saved = _build.launch_counts()
     times = {}
     rng = np.random.default_rng(23)
-    for label, kw, name in (("B=256 S=257 W=1024 (L/14, C=4)",
-                             dict(bsz=256, seq=257, width=1024, heads=16), "int8_ln_mlp_chunked"),
-                            ("B=256 S=50 W=768 (B/32, full)",
-                             dict(bsz=256, seq=50, width=768, heads=12), "int8_block")):
-        p = _half_block_inputs(rng, mask=False, zero_row=False, device=device, **kw)
-        _kernel_times({name: _zoo_calls(p)[name]}, times, label, card)
+    for key, label, kw, name in ZOO_TIMED:
+        p = _half_block_inputs(rng, **dict(dict(mask=False, zero_row=False), **kw), device=device)
+        _kernel_times({key: _zoo_calls(p)[name]}, times, label, card, hold={key: name},
+                      worst=worst)
+        _row34_times(times[key], p, key, name, card, worst)
+        _row34_forms(times[key], p, key, label, name, card)
         del p
         torch.cuda.empty_cache()
     gen = torch.Generator(device=device).manual_seed(23)
@@ -1587,6 +1756,7 @@ def phase_zoo_timing(device, card: str, engines, worst: dict) -> dict:
         fn.launches = saved[fn.__name__]
     rng = np.random.default_rng(24)
     for label, engine in engines.items():
+        _engine_kernels(label, engine, rng)
         times[f"classify_{label}"] = r = _engine_rate(engine, rng)
         log(f"[timing] classify_pixels {label} B=256: {r['images_per_s_b256']:.1f} images/s; "
             f"single image p50 {r['single_image_p50_ms']:.3f} ms ({card})")
@@ -1882,7 +2052,7 @@ def _expected_train_launches(opts: dict, text_impl: str, n_items: int) -> dict:
         image = ("fused_attention_qkv" if opts["dtype"] == "float32" else "fused_ln_qkv_attention",)
     want = {name: 11 * chunks for name in image}
     if opts.get("quantize_image"):
-        want["gemm_stage"] = 11 * chunks * sum(STAGE_LAUNCHES.values())
+        want["gemm_stage"] = 11 * chunks * sum(STAGE_LAUNCHES[name] for name in image)
     if text_impl == "pallas_vjp":
         want["fused_attention_qkv"] = want.get("fused_attention_qkv", 0) + 24 * train_steps \
             + 12 * eval_steps
@@ -2231,26 +2401,73 @@ def _sdpa_bshd_times(q, k, v, mask) -> dict:
     return {**_library_ms(sdpa), "transpose_ms": _time_ms(split, 10) + _time_ms(merge, 10)}
 
 
-def _device_ms_by_kernel(fn, needles: dict, iters: int = 5) -> dict:
-    """Device ms per call of fn() spent in the CUDA kernels whose names hold
-    each needle, from ``torch.profiler`` over ``iters`` warm calls (None
-    where the trace shows no such kernel)."""
+# torch.profiler (PyTorch 2.11, CUDA 12.8, on an H100) drops the first kernel
+# records of a trace, the more the older the process, and now and then many
+# more: ``tools/profiler_loss.py`` shows it. Each trace opens with
+# PROFILE_LEAD_IN throwaway spin kernels (about 22 ms of device time), which
+# take the loss in most traces; ``_device_ms_by_kernel`` uses a trace only
+# when it is whole and the one before it counted the same kernels, and fails
+# the run after PROFILE_TRIES traces.
+PROFILE_ITERS = 3
+PROFILE_LEAD_IN = 400
+PROFILE_TRIES = 5
+
+
+def _trace(fn, lead_in: int = PROFILE_LEAD_IN) -> list:
+    """The CUDA kernel events (``key_averages``) of one ``torch.profiler``
+    trace of PROFILE_ITERS calls of fn(), opened by ``lead_in`` spin
+    kernels, whose events are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+        for _ in range(lead_in):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        for _ in range(PROFILE_ITERS):
             fn()
         torch.cuda.synchronize()
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in ev.key]
+
+
+def _device_ms_by_kernel(fn, needles: dict) -> dict:
+    """Device ms per call of fn() spent in the CUDA kernels whose names hold
+    each needle, from ``_trace`` (None where the trace shows no such
+    kernel). A trace is whole when it shows device time, every kernel's
+    count is a multiple of the calls, and it holds as many
+    ``wgmma_stage_kernel`` launches as ``quant.gemm_stage`` counted in it;
+    the one used is whole and counts what the whole trace before it
+    counted."""
+    import torch
+
+    from aiic_tpu_torch.ops import quant
+
+    fn()
+    torch.cuda.synchronize()
+    before = None
+    for _ in range(PROFILE_TRIES):
+        counted = quant.gemm_stage.launches
+        events = _trace(fn)
+        counted = quant.gemm_stage.launches - counted
+        stage = sum(ev.count for ev in events if "wgmma_stage_kernel" in ev.key)
+        counts = {ev.key: ev.count for ev in events}
+        whole = bool(events) and stage == counted and all(
+            n % PROFILE_ITERS == 0 for n in counts.values())
+        if whole and counts == before:
+            break
+        if not whole:
+            log(f"[profile] a trace that is not whole: {counted} stage launches counted, {stage} "
+                f"traced, counts {list(counts.values())} over {PROFILE_ITERS} calls")
+        before = counts if whole else None
+    else:
+        raise AssertionError(f"{PROFILE_TRIES} traces of one call: no two whole ones in a row "
+                             f"agree; the last counted {counts}")
     out = {k: None for k in needles}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for ev in events:
         for k, needle in needles.items():
             if needle in ev.key:
-                out[k] = (out[k] or 0.0) + ev.self_device_time_total / 1e3 / iters
+                out[k] = (out[k] or 0.0) + ev.self_device_time_total / 1e3 / PROFILE_ITERS
     return out
 
 
@@ -2452,7 +2669,7 @@ def phase_core_ops_timing(device, card: str, params, worst: dict) -> dict:
         # The WMMA form the wgmma one replaced, then the wgmma one again.
         t["wmma_ms"] = min(_time_ms(wmma, 2), _time_ms(wmma, 2))
         t["wgmma_ms_after"] = min(_time_ms(kernel, 3), _time_ms(kernel, 3))
-        t["stage_device_ms"] = _device_ms_by_kernel(kernel, stages[name], iters=3)
+        t["stage_device_ms"] = _device_ms_by_kernel(kernel, stages[name])
         t["library_ms_by_w_layout"] = {layout: min(_time_ms(lib, 2), _time_ms(lib, 2))
                                        for layout, lib in libraries.items()}
         t["library_ms"] = min(t["library_ms_by_w_layout"].values(), default=None)
@@ -2624,7 +2841,7 @@ def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
     # 1's core on the tensor-core core: no WMMA GEMM, no scalar core.
     engine = engines["int8"]
     px = _pixels(rng, 8, engine.config.image_size)
-    d = _device_ms_by_kernel(lambda: engine.classify_pixels(px), ROW_STAGE_NEEDLES, iters=1)
+    d = _device_ms_by_kernel(lambda: engine.classify_pixels(px), ROW_STAGE_NEEDLES)
     REPORT["int8_engine_kernels_per_chunk"] = d
     log(f"[path int8] one 8-image classify call, device ms by kernel kind: {d}")
     if (d["wgmma_stage"] is None or d["core_mma"] is None or d["wmma_gemm"] is not None
@@ -2934,7 +3151,7 @@ def main() -> int:
     REPORT["attn_core_mma"] = mma_core_resources(BUILD_INFO["log"])
     log(f"[build] attn_core_mma (rows 6-8 bf16), attn_core_f32 (rows 6-7 fp32), core_bwd_mma "
         f"(row 9 bf16), core_bwd_tiled (row 9 fp32), mxu_wgmma (row 17) and wgmma_stage (rows "
-        f"1-2's GEMM stage): "
+        f"1-4's GEMM stage; its folded c_proj, row 3's): "
         f"{REPORT['attn_core_mma']}")
 
     worst = phase_kernels(device)
@@ -3011,11 +3228,22 @@ def main() -> int:
                      "replaced_forms_ms": t["replaced_forms_ms"],
                      "max_abs_err": max(worst["fused_attention_qkv_bwd" + suffix],
                                         worst[f"fused_attention_qkv_bwd_{shape}{suffix}"])}
-    # Rows 1 and 2: the WMMA form they replaced and the stage yardstick beside;
-    # the GEMM stage's entry is its c_fc product, every product beside.
+    # Rows 1-4: the WMMA form each replaced and the stage yardstick beside
+    # (rows 3 and 4 also at their second shape, row 3 with its folded c_proj
+    # alone); the GEMM stage's entry is its c_fc product, every product
+    # beside.
     for k in kernels:
-        if k["name"] in ("int8_ln_qkv_attention", "int8_ln_mlp"):
+        if k["name"] in ("int8_ln_qkv_attention", "int8_ln_mlp", "int8_ln_mlp_chunked",
+                         "int8_block"):
             k.update({f: times[k["name"]][f] for f in ("wmma_ms", "stage_yardstick_ms")})
+        if k["name"] in ("int8_ln_mlp_chunked", "int8_block"):
+            second = "l14_336" if k["name"] == "int8_ln_mlp_chunked" else "text"
+            t = times[f"{k['name']}_{second}"]
+            k[second] = {**{f: t[f] for f in keys + ("wmma_ms", "stage_yardstick_ms")},
+                         "max_abs_err": worst[f"{k['name']}_{second}"]}
+        if k["name"] == "int8_ln_mlp_chunked":
+            k["folded_c_proj"] = {f: times[k["name"]]["folded_c_proj"][f] for f in (
+                "ms", "bound_ms", "bound_by", "yardstick_ms")}
         elif k["name"] == "gemm_stage":
             k["products"] = times["gemm_stage"]["products"]
     # Row 17's entries are the wgmma form; the WMMA form it replaced beside.

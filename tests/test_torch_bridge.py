@@ -244,7 +244,7 @@ def test_batching_helpers_are_jax_free_and_reused():
         "import aiic_tpu_torch.ops.quant, aiic_tpu_torch.ops.attention, aiic_tpu_torch.ops.mlp\n"
         "import aiic_tpu_torch.probes.mxu_probe, aiic_tpu_torch.probes.variants\n"
         "import aiic_tpu_torch.probes.kernel_experiments\n"
-        "import chip_smoke, torch_profile\n"
+        "import chip_smoke, torch_profile, profiler_loss\n"
         "from aiic_tpu_torch.utils.batching import bucket_size\n"
         "assert bucket_size(3, 8) == 4\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
@@ -452,3 +452,57 @@ def test_chip_smoke_fails_without_cuda_or_repo(tmp_path, alone):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+class _KernelEvent:
+    """A CUDA kernel's line of ``key_averages()``: name, count, device us."""
+    device_type = torch.autograd.DeviceType.CUDA
+
+    def __init__(self, key, count):
+        self.key, self.count, self.self_device_time_total = key, count, 10.0 * count
+
+
+_WHOLE = [_KernelEvent("void wgmma_stage_kernel<EpiGelu>", 6), _KernelEvent("rowquant_kernel", 3)]
+_WHOLE_B = [_KernelEvent("void wgmma_stage_kernel<EpiGelu>", 6), _KernelEvent("rowquant_kernel", 6)]
+_LOST_STAGE = [_KernelEvent("void wgmma_stage_kernel<EpiGelu>", 3), _KernelEvent("rowquant_kernel", 3)]
+_LOST_ROW = [_KernelEvent("void wgmma_stage_kernel<EpiGelu>", 6), _KernelEvent("rowquant_kernel", 2)]
+
+
+@pytest.mark.parametrize("traces, row_ms", [
+    ([_LOST_STAGE, _WHOLE, _WHOLE], 0.01),
+    ([_WHOLE, _LOST_ROW, _WHOLE, _WHOLE], 0.01),
+    ([_WHOLE, _WHOLE_B, _WHOLE_B], 0.02),
+    ([_LOST_STAGE, _LOST_ROW, _WHOLE, _LOST_STAGE, _WHOLE], None),
+    ([[], []], None),
+], ids=["lost_stage_first", "lost_row_between", "counts_changed", "never_two_whole", "empty"])
+def test_device_ms_by_kernel_uses_only_agreeing_whole_traces(monkeypatch, traces, row_ms):
+    """chip_smoke's one profiler path: a trace with fewer stage kernels than
+    ``quant.gemm_stage`` counted, or a count that is not a multiple of the
+    calls, is not used; the trace used is whole and counts what the whole
+    trace before it counted; else the run fails."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    from aiic_tpu_torch.ops import quant
+
+    left = list(traces)
+
+    def trace(fn, lead_in=chip_smoke.PROFILE_LEAD_IN):
+        for _ in range(chip_smoke.PROFILE_ITERS):
+            fn()
+        return left.pop(0)
+
+    def two_stage_launches():
+        quant.gemm_stage.launches += 2
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(quant.gemm_stage, "launches", 0)
+    monkeypatch.setattr(chip_smoke, "_trace", trace)
+    monkeypatch.setattr(chip_smoke, "PROFILE_TRIES", len(traces))
+    needles = {"stage": "wgmma_stage_kernel", "row_pass": "rowquant_kernel", "core": "attn_core"}
+    if row_ms is None:
+        with pytest.raises(AssertionError, match="no two whole ones in a row"):
+            chip_smoke._device_ms_by_kernel(two_stage_launches, needles)
+        return
+    got = chip_smoke._device_ms_by_kernel(two_stage_launches, needles)
+    assert not left
+    assert got == {"stage": pytest.approx(0.02), "row_pass": pytest.approx(row_ms), "core": None}

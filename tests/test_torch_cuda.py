@@ -43,8 +43,12 @@ the tensor-core core: their int8 products are exact in int32 and their
 epilogues are the WMMA form's, so row 2 and row 1's QKV stage equal the
 WMMA forms bit for bit, and each int8 product of the stage alone equals the
 WMMA stage bit for bit; rows 1 and 2 and the bf16 out-projection take the
-bf16 bar against their plain versions; rows 3 and 4 keep the WMMA form of
-rows 1-2 bit for bit.
+bf16 bar against their plain versions. Rows 3 and 4 run on the same stage
+(row 3's c_proj folding the chunk sums, EpiChunkResidual): row 3's form 0
+equals its WMMA form 1 bit for bit, row 4's form 0 equals rows 1 and 2 (or
+3) in turn, its form 1 the WMMA rows in turn; the folded c_proj alone takes
+the bf16 bar against its plain version; a chunk of the hidden axis that is
+not a whole number of 128-deep K-slices is refused before a launch.
 """
 
 import numpy as np
@@ -930,7 +934,7 @@ def test_int8_rows_on_the_wgmma_stage_match_plain_and_wmma(device, case):
 
 
 @pytest.mark.parametrize("rows", [1, 591, 50432 // 64])
-@pytest.mark.parametrize("epilogue", sorted(quant.STAGE_EPILOGUES))
+@pytest.mark.parametrize("epilogue", sorted(set(quant.STAGE_EPILOGUES) - {"chunk_residual"}))
 def test_gemm_stage_matches_plain_and_wmma(device, epilogue, rows):
     """The stage alone: the bf16 bar (fp32's for gelu's fp32 y) against its
     plain version, an int8 product bit for bit the WMMA stage, one counted
@@ -962,6 +966,28 @@ def test_gemm_stage_matches_plain_and_wmma(device, epilogue, rows):
         wmma = quant._gemm_stage_cuda(a, w, epilogue, kw["row_scale"], kw["col_scale"], bias, x,
                                       "wmma")
         assert torch.equal(out, wmma)
+
+
+@pytest.mark.parametrize("n_chunks", [2, 4, 16])
+@pytest.mark.parametrize("rows", [1, 591, 50432 // 64])
+def test_gemm_stage_chunk_residual_matches_plain(device, rows, n_chunks):
+    """Row 3's folded c_proj alone (K = 4096, N = 1024: L/14's c_proj): the
+    bf16 bar against its plain version, one counted launch, a second run
+    bit for bit the first; rows past the last 128-row tile untouched."""
+    rng = np.random.default_rng(rows + n_chunks)
+    k, n = 4096, 1024
+    a = torch.from_numpy(rng.integers(-127, 128, (rows, k)).astype(np.int8)).to(device)
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(device)
+    kw = dict(row_scale=torch.rand(rows, n_chunks, device=device) / 100,
+              col_scale=torch.rand(n, device=device) / 1000,
+              bias=_randn(device, n, seed=rows), x=_randn(device, rows, n, dtype=torch.bfloat16),
+              n_chunks=n_chunks)
+    before = quant.gemm_stage.launches
+    out = quant.gemm_stage(a, w, "chunk_residual", **kw)
+    torch.cuda.synchronize()
+    assert quant.gemm_stage.launches == before + 1
+    _agree(out, quant.gemm_stage_ref(a, w, "chunk_residual", **kw))
+    assert torch.equal(out, quant.gemm_stage(a, w, "chunk_residual", **kw))
 
 
 def test_gemm_stage_refuses_what_it_does_not_take(device):
@@ -1006,27 +1032,78 @@ def test_int8_engine_chunk_runs_the_wgmma_stage_and_the_mma_core(device):
         assert not _launched(names, "gemm_kernel<") and not _launched(names, "attn_core_kernel<")
 
 
-@pytest.mark.parametrize("case", [(2, 50, 768, 12, False, None), (4, 77, 512, 8, True, None),
-                                  (2, 197, 768, 12, False, ("chunked", 2, 4)),
-                                  (1, 257, 1024, 16, False, ("chunked", 1, 16))],
-                         ids=["B32_full", "text_full_causal", "B16_chunked", "L14_chunked"])
-def test_rows_3_and_4_keep_the_wmma_forms(device, case):
-    """Row 4 is row 1's WMMA form, then row 2's WMMA form (full) or row 3
-    (chunked), bit for bit; both launch the WMMA gemm_kernel and the scalar
-    core and not the wgmma stage."""
+ROW4_CASES = [(2, 50, 768, 12, False, None), (4, 77, 512, 8, True, None),
+              (2, 197, 768, 12, False, ("chunked", 2, 4)),
+              (1, 257, 1024, 16, False, ("chunked", 1, 16))]
+ROW4_IDS = ["B32_full", "text_full_causal", "B16_chunked", "L14_chunked"]
+
+
+def _row4_args(device, case):
     bsz, seq, width, heads, masked, override = case
     x, attn, mlp_w = _inputs(device, bsz, seq, width)
     mask = causal_mask(seq, device=device) if masked else None
     plan = override or quant._block_plan(bsz, seq, width, 4 * width, 2)
-    out = quant.int8_block(x, *attn, mask, *mlp_w, heads=heads, plan_override=override)
-    y1 = quant._int8_ln_qkv_attention_cuda(x, *attn, mask, heads, 1e-5, "wmma")
-    if plan[0] == "chunked":
-        want = quant.int8_ln_mlp_chunked(y1, *mlp_w, n_chunks=plan[2])
-    else:
-        want = quant._int8_ln_mlp_cuda(y1, *mlp_w, 1e-5, 1, "wmma")
+    n_chunks = plan[2] if plan[0] == "chunked" else 1
+    return x, attn + (mask,), mlp_w, heads, override, n_chunks
+
+
+@pytest.mark.parametrize("case", ROW4_CASES, ids=ROW4_IDS)
+def test_rows_3_and_4_keep_the_wmma_forms(device, case):
+    """Row 4's form 1 (uncounted) is row 1's WMMA form, then row 2's WMMA
+    form (full) or row 3's (chunked), bit for bit; it launches the WMMA
+    gemm_kernel and the scalar core and not the wgmma stage."""
+    x, attn, mlp_w, heads, override, n_chunks = _row4_args(device, case)
+    out = quant._int8_block_cuda(x, attn, mlp_w, heads, 1e-5, n_chunks, "wmma")
+    y1 = quant._int8_ln_qkv_attention_cuda(x, *attn, heads, 1e-5, "wmma")
+    want = quant._int8_ln_mlp_cuda(y1, *mlp_w, 1e-5, n_chunks, "wmma")
     torch.cuda.synchronize()
     assert torch.equal(out, want)
-    names = _cuda_kernels(lambda: quant.int8_block(x, *attn, mask, *mlp_w, heads=heads,
-                                                   plan_override=override))
+    names = _cuda_kernels(lambda: quant._int8_block_cuda(x, attn, mlp_w, heads, 1e-5, n_chunks,
+                                                         "wmma"))
     assert _launched(names, "gemm_kernel<") and _launched(names, "attn_core_kernel<")
     assert not _launched(names, "wgmma_stage_kernel")
+
+
+@pytest.mark.parametrize("case", ROW4_CASES, ids=ROW4_IDS)
+def test_rows_3_and_4_on_the_wgmma_stage(device, case):
+    """Row 4 through its wrapper (one counted launch, four of the stage) is
+    row 1's form 0, then row 2's (full) or row 3's (chunked) form 0, bit for
+    bit; row 3's form 0 (two of the stage) is its WMMA form 1 bit for bit,
+    on y1; both launch the wgmma stage and the tensor-core core and no WMMA
+    gemm_kernel, scalar core or chunk-sum pass."""
+    x, attn, mlp_w, heads, override, n_chunks = _row4_args(device, case)
+    before = (quant.int8_block.launches, quant.gemm_stage.launches)
+    out = quant.int8_block(x, *attn, *mlp_w, heads=heads, plan_override=override)
+    torch.cuda.synchronize()
+    assert (quant.int8_block.launches, quant.gemm_stage.launches) == (before[0] + 1,
+                                                                       before[1] + 4)
+    y1 = quant._int8_ln_qkv_attention_cuda(x, *attn, heads, 1e-5)
+    row23 = quant._int8_ln_mlp_cuda(y1, *mlp_w, 1e-5, n_chunks)
+    torch.cuda.synchronize()
+    assert torch.equal(out, row23)
+    if n_chunks > 1:
+        before = (quant.int8_ln_mlp_chunked.launches, quant.gemm_stage.launches)
+        row3 = quant.int8_ln_mlp_chunked(y1, *mlp_w, n_chunks=n_chunks)
+        torch.cuda.synchronize()
+        assert (quant.int8_ln_mlp_chunked.launches, quant.gemm_stage.launches) == (
+            before[0] + 1, before[1] + 2)
+        assert torch.equal(row3, row23)
+        assert torch.equal(row3, quant._int8_ln_mlp_cuda(y1, *mlp_w, 1e-5, n_chunks, "wmma"))
+    for call in (lambda: quant.int8_block(x, *attn, *mlp_w, heads=heads, plan_override=override),
+                 lambda: quant._int8_ln_mlp_cuda(y1, *mlp_w, 1e-5, n_chunks)):
+        names = _cuda_kernels(call)
+        assert _launched(names, "wgmma_stage_kernel")
+        for needle in ("gemm_kernel<", "attn_core_kernel<", "mlp_chunk_sum_kernel"):
+            assert not _launched(names, needle)
+
+
+def test_rows_3_and_4_refuse_a_chunk_off_the_stage_slices(device):
+    """B/16's hidden axis in 16 chunks (4W/C = 192) is not a whole number of
+    the stage's 128-deep K-slices: the wrappers raise before a launch."""
+    x, attn, mlp_w = _inputs(device, 1, 197, 768)
+    before = dict(_build.launch_counts())
+    with pytest.raises(ValueError, match="multiple of 128"):
+        quant.int8_ln_mlp_chunked(x, *mlp_w, n_chunks=16)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        quant.int8_block(x, *attn, None, *mlp_w, heads=12, plan_override=("chunked", 1, 16))
+    assert _build.launch_counts() == before

@@ -1,4 +1,4 @@
-"""The GEMM stage of rows 1 and 2 (``quant.gemm_stage``) and the K-major int8
+"""The GEMM stage of rows 1-4 (``quant.gemm_stage``) and the K-major int8
 copies its ``wgmma`` form reads, on the CPU.
 
 - ``quant.kmajor`` makes w^T once per weight and caches it on the tensor
@@ -11,7 +11,17 @@ copies its ``wgmma`` form reads, on the CPU.
   interpret mode, as tests/test_ops.py runs them) at the bars of
   tests/test_torch_quant.py: >= 99% of bf16 elements within 1 bf16 ULP and
   every row's cosine >= 0.9999.
+- Row 3's c_proj with the chunk sums folded in (``chunk_residual``): its
+  plain version is numpy's float32 sum in chunk order bit for bit; row 3
+  composed from the stage's plain calls (LN row quantizer, gelu, the
+  per-(row, chunk) quantizer, chunk_residual) is ``int8_ln_mlp_chunked`` bit
+  for bit and holds JAX's ``_int8_mlp_rows(n_chunks=C)`` (compiled with
+  excess precision off) at the bar above; the kernel wrappers refuse a chunk
+  of the hidden axis that is not a whole number of the stage's 128-B
+  K-slices before anything is built or launched.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -158,7 +168,12 @@ def test_stage_composes_row1(use_mask):
     _bf16_close(out, ref)
 
 
-@pytest.mark.parametrize("epilogue", sorted(quant.STAGE_EPILOGUES))
+# The per-element epilogues; chunk_residual has its own tests below.
+PER_ELEMENT = sorted(set(quant.STAGE_EPILOGUES) - {"chunk_residual"})
+EXACT_BF16 = {"xla_allow_excess_precision": False}
+
+
+@pytest.mark.parametrize("epilogue", PER_ELEMENT)
 def test_stage_plain_version_matches_numpy(epilogue):
     """Each epilogue against float64 numpy on the same product: int8 exact
     before the epilogue, every result within one rounding of its type."""
@@ -196,3 +211,104 @@ def test_stage_refuses_an_unknown_epilogue():
     a = torch.zeros((4, 128), dtype=torch.int8)
     with pytest.raises(ValueError, match="epilogue"):
         quant.gemm_stage(a, torch.zeros((128, 128), dtype=torch.int8), "relu")
+
+
+@pytest.mark.parametrize("n_chunks", [2, 4])
+def test_chunk_residual_plain_version_matches_numpy(n_chunks):
+    """x + sum over c of acc_c·ys[:, c]·s2, in chunk order, then + b2: numpy's
+    float32 ops in that order give the plain version's bits (each int32
+    acc_c exact), and float64 agrees within one bf16 rounding."""
+    rng = np.random.default_rng(4 + n_chunks)
+    rows, k, n = 13, 512, 128
+    chunk = k // n_chunks
+    a, w = _int8(rng, rows, k), _int8(rng, k, n)
+    ys = (rng.random((rows, n_chunks)) / 100).astype(np.float32)
+    s2 = (rng.random(n) / 100).astype(np.float32)
+    b2 = rng.standard_normal(n).astype(np.float32)
+    xb = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(torch.bfloat16)
+    out = quant.gemm_stage(a, w, "chunk_residual", row_scale=torch.from_numpy(ys),
+                           col_scale=torch.from_numpy(s2), bias=torch.from_numpy(b2), x=xb,
+                           n_chunks=n_chunks)
+    assert out.shape == (rows, n) and out.dtype == torch.bfloat16
+    an, wn = a.numpy().astype(np.int64), w.numpy().astype(np.int64)
+    total = xb.float().numpy()
+    total64 = xb.double().numpy()
+    for c in range(n_chunks):
+        acc = an[:, c * chunk:(c + 1) * chunk] @ wn[c * chunk:(c + 1) * chunk]
+        total = total + acc.astype(np.float32) * ys[:, c:c + 1] * s2
+        total64 = total64 + acc * ys[:, c:c + 1].astype(np.float64) * s2
+    assert torch.equal(out, torch.from_numpy(total + b2).to(torch.bfloat16))
+    np.testing.assert_allclose(out.double().numpy(), total64 + b2, rtol=2.0 ** -8, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_chunks", [2, 4])
+def test_stage_composes_row3(n_chunks):
+    """Row 3 from the stage's plain calls: the LN row quantizer, c_fc with
+    gelu, y quantized per (row, chunk) as the (rows·C, 4W/C) matrix it is,
+    then chunk_residual; bit for bit ``int8_ln_mlp_chunked`` and at the bf16
+    bar of JAX's _int8_mlp_rows(n_chunks=C)."""
+    rng = np.random.default_rng(6)
+    b, s, w, m = 3, 16, 128, 512
+    p = _weights(rng, w, m)
+    x = rng.standard_normal((b, s, w)).astype(np.float32)
+    x[1, 2] = 0.0  # with ln_b = 0 an all-zero LN row: the 1e-6 scale floor
+    p["ln_b"][:] = 0.0
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    w1_q, s1 = jax_quant.quantize_weight(jnp.asarray(p["w1"]))
+    w2_q, s2 = jax_quant.quantize_weight(jnp.asarray(p["w2"]))
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    args = (t(p["ln_s"]), t(p["ln_b"]), t(w1_q), t(s1), t(p["b1"]), t(w2_q), t(s2), t(p["b2"]))
+    rows = b * s
+    hq, hs = _row_quant_ln(xb, args[0], args[1])
+    y = quant.gemm_stage(hq, args[2], "gelu", row_scale=hs, col_scale=args[3], bias=args[4])
+    yq, ys = quant._row_quant(y.reshape(rows * n_chunks, m // n_chunks))
+    out = quant.gemm_stage(yq.reshape(rows, m), args[5], "chunk_residual",
+                           row_scale=ys.reshape(rows, n_chunks), col_scale=args[6], bias=args[7],
+                           x=xb.reshape(rows, w), n_chunks=n_chunks).reshape(xb.shape)
+    assert torch.equal(out, quant.int8_ln_mlp_chunked(xb, *args, n_chunks=n_chunks))
+    run = jax.jit(functools.partial(jax_quant._int8_mlp_rows, eps=1e-5, n_chunks=n_chunks),
+                  compiler_options=EXACT_BF16)
+    ref = run(jnp.asarray(x.reshape(rows, w)).astype(jnp.bfloat16), p["ln_s"].reshape(1, w),
+              p["ln_b"].reshape(1, w), w1_q, s1.reshape(1, m), p["b1"].reshape(1, m), w2_q,
+              s2.reshape(1, w), p["b2"].reshape(1, w))
+    _bf16_close(out.reshape(rows, w), ref)
+
+
+def _refused_before_a_launch(monkeypatch, call):
+    """call() raises ValueError naming the 128-deep chunk, and nothing was
+    built or launched first."""
+    def no_library():
+        raise AssertionError("the kernel library was reached before the check")
+
+    monkeypatch.setattr(quant, "load_library", no_library)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        call()
+
+
+@pytest.mark.parametrize("kernel", ["int8_ln_mlp_chunked", "int8_block", "gemm_stage"])
+def test_wgmma_forms_refuse_a_chunk_off_the_slices(monkeypatch, kernel):
+    """4W/C = 64: not a whole number of the wgmma stage's 128-B K-slices.
+    The launch functions that the public wrappers call for a CUDA tensor
+    refuse it with a clear error, before the library is loaded; they do not
+    fall back."""
+    rng = np.random.default_rng(7)
+    w, m, n_chunks = 128, 512, 8
+    p = _weights(rng, w, m)
+    xb = torch.from_numpy(rng.standard_normal((1, 16, w)).astype(np.float32)).to(torch.bfloat16)
+    t = torch.from_numpy
+    w1_q, s1 = quant.quantize_weight(t(p["w1"]))
+    w2_q, s2 = quant.quantize_weight(t(p["w2"]))
+    mlp_w = (t(p["ln_s"]), t(p["ln_b"]), w1_q, s1, t(p["b1"]), w2_q, s2, t(p["b2"]))
+    if kernel == "int8_ln_mlp_chunked":
+        call = lambda: quant._int8_ln_mlp_cuda(xb, *mlp_w, 1e-5, n_chunks)  # noqa: E731
+    elif kernel == "int8_block":
+        wqkv_q, sqkv = quant.quantize_weight(t(p["wqkv"]))
+        attn_w = (t(p["ln_s"]), t(p["ln_b"]), wqkv_q, sqkv, t(p["bqkv"]),
+                  t(p["wo"]).to(torch.bfloat16), t(p["bo"]), None)
+        call = lambda: quant._int8_block_cuda(xb, attn_w, mlp_w, 2, 1e-5, n_chunks)  # noqa: E731
+    else:
+        yq = _int8(rng, 16, m)
+        call = lambda: quant._gemm_stage_cuda(  # noqa: E731
+            yq, w2_q, "chunk_residual", torch.ones(16, n_chunks), s2, t(p["b2"]),
+            xb.reshape(16, w), n_chunks=n_chunks)
+    _refused_before_a_launch(monkeypatch, call)

@@ -223,6 +223,48 @@ def test_int8_block_plain_matches_jax_kernel(plan):
         torch.testing.assert_close(out, quant.int8_ln_mlp_ref(y1, *targs[8:]), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("plan", [("full", 2, 1), ("chunked", 1, 2), ("chunked", 2, 4)],
+                         ids=["full", "chunked_C2", "chunked_C4"])
+def test_int8_block_is_rows_1_then_2_or_3(plan):
+    """Row 4 on the CPU is, bit for bit, the public wrappers of row 1 and
+    then row 2 (full: ``int8_ln_mlp`` takes its full plan at this size) or
+    row 3 (``int8_ln_mlp_chunked`` with the plan's C): the composition its
+    card form runs (row 1's form 0, then row 2's or row 3's)."""
+    rng = np.random.default_rng(33)
+    b, s, w, h = 2, 16, 128, 2
+    xt, _, attn, mlp = _block_inputs(rng, b, s, w, "bfloat16")
+    targs = [torch.from_numpy(a) for a in attn] + [causal_mask(s)] + \
+        [torch.from_numpy(a) for a in mlp]
+    out = quant.int8_block(xt, *targs, heads=h, plan_override=plan)
+    y1 = quant.int8_ln_qkv_attention(xt, *targs[:8], heads=h)
+    if plan[0] == "full":
+        assert quant._mlp_plan(b, s, w, 4 * w, 2)[0] == "full"
+        want = quant.int8_ln_mlp(y1, *targs[8:])
+    else:
+        want = quant.int8_ln_mlp_chunked(y1, *targs[8:], n_chunks=plan[2])
+    assert torch.equal(out, want)
+
+
+def test_every_planned_chunk_fills_whole_stage_slices():
+    """Each chunked plan that the copied planners reach for a preset's towers
+    (bf16 activations, every batch of BATCHES and every bucket up to 256)
+    splits 4W into chunks of whole 128-deep K-slices, which the wgmma forms
+    of rows 3 and 4 need: L/14 (1, 2), (2, 4), L/14@336 (1, 4), row 4's L/14
+    (1, 16)."""
+    seen = set()
+    for preset in PRESETS:
+        cfg = getattr(config, preset)
+        for tower, seq in (("vision", cfg.vision_seq_len), ("text", cfg.context_length)):
+            t = getattr(cfg, tower)
+            for bsz in sorted(set(BATCHES) | {2 ** i for i in range(9)}):
+                for plan in (quant._mlp_plan(bsz, seq, t.width, t.mlp_dim, 2),
+                             quant._block_plan(bsz, seq, t.width, t.mlp_dim, 2)):
+                    if plan is not None and plan[0] == "chunked":
+                        assert (t.mlp_dim // plan[2]) % quant.STAGE_SLICE == 0, (preset, plan)
+                        seen.add(t.mlp_dim // plan[2])
+    assert seen == {2048, 1024, 256}, seen
+
+
 def test_int8_block_returns_none_without_a_plan(monkeypatch):
     rng = np.random.default_rng(32)
     xt, xj, attn, mlp = _block_inputs(rng, 2, 16, 64, "bfloat16")
