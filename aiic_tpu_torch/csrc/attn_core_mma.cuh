@@ -1,14 +1,15 @@
 // Tensor-core attention core for Hopper (sm_90a), bf16, on the packed or the
 // head-major (B, S, 3W) projection, or on three separate (B, S, H, 64) q, k,
 // v: rows 7 (bf16), 8 and 6 (bf16, D = 64) of the TPU kernel table, and the
-// core stage of row 1 (wgmma_serving_gemm.cuh, packed layout).
+// core stage of rows 1 (wgmma_serving_gemm.cuh) and 5 (ln_qkv_attention.cu),
+// packed layout.
 //
 // Replaces, with attention_qkv.cu's two bf16 entries and attention.cu's bf16
 // D = 64 one, the TPU kernels aiic_tpu/ops/attention.py::
 // _attention_qkv_kernel (row 7, bf16), _attention_qkv_hg_kernel (row 8) and
 // _attention_kernel (row 6, bf16). The fp32 rows 6 and 7 run the
-// register-tiled core of attn_core_f32.cuh; row 6 at D = 8, row 5 and the
-// WMMA form of rows 1 and 4 keep common.cuh's scalar attn_core_kernel. The tiles, wgmma
+// register-tiled core of attn_core_f32.cuh; row 6 at D = 8 and the WMMA
+// forms of rows 1, 4 and 5 keep common.cuh's scalar attn_core_kernel. The tiles, wgmma
 // and cp.async pieces are mma_tiles.cuh's, shared with the backward
 // (attn_core_bwd_mma.cuh).
 //

@@ -15,10 +15,10 @@
 //   B (kTransB, for dy @ W^T) and a split depth (blockIdx.z) are options.
 // - attn_core_kernel<T, D, L>: the scalar streaming no-max attention core,
 //   for bf16 and fp32, on a (B, S, 3W) projection whose columns are packed
-//   [Q | K | V], or on three separate (B, S, H, D) arrays. Row 5, row 6 at
-//   D = 8 and the WMMA form of rows 1 and 4 (int8_halves.cuh) of the TPU
-//   kernel table run it (row 1, bf16 rows 7 and 8, and bf16 row 6 at D =
-//   64, run the tensor-core core of attn_core_mma.cuh;
+//   [Q | K | V], or on three separate (B, S, H, D) arrays. Row 6 at D = 8
+//   and the WMMA forms of rows 1, 4 (int8_halves.cuh) and 5 of the TPU
+//   kernel table run it (rows 1 and 5, bf16 rows 7 and 8, and bf16 row 6
+//   at D = 64, run the tensor-core core of attn_core_mma.cuh;
 //   fp32 rows 7 and 6 at D = 64 the register-tiled core of
 //   attn_core_f32.cuh, which keeps this one's fp32 form only to be timed
 //   beside it); T is the rounding policy (q*c, p and the output round to T,
@@ -337,6 +337,24 @@ struct EpiOutProj {  // out = bf16(x + (acc + b)): bias, then the fp32 residual
 // The same epilogue for the MLP's second product; a type of its own so that
 // a profile tells the two GEMMs apart by name.
 struct EpiMlpOut : EpiOutProj {};
+
+struct EpiBiasQKV {  // row 5's QKV product: qkv = bf16(acc + bqkv)
+  const float* b;
+  bf16* out;
+  int n_cols;
+  __device__ void operator()(int r, int n, float acc) const {
+    out[static_cast<size_t>(r) * n_cols + n] = __float2bfloat16_rn(acc + b[n]);
+  }
+};
+
+struct EpiBiasGelu {  // row 10's c_fc: y = bf16(gelu_exp2(acc + b1)), fp32 through the gelu
+  const float* b;
+  bf16* y;
+  int n_cols;
+  __device__ void operator()(int r, int n, float acc) const {
+    y[static_cast<size_t>(r) * n_cols + n] = __float2bfloat16_rn(gelu_exp2(acc + b[n]));
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Attention core on the packed (B, S, 3W) projection

@@ -1,11 +1,13 @@
-// The GEMM stage of rows 1-4 alone (wgmma_serving_gemm.cuh, or the WMMA
-// gemm_kernel of common.cuh it replaced), with one of the five epilogues
-// those rows run, so that a test and chip_smoke.py can hold each product
-// against its plain version and time it beside torch._int_mm and
+// The GEMM stage of rows 1-5 and 10 alone (wgmma_serving_gemm.cuh, or the
+// WMMA gemm_kernel of common.cuh it replaced), with one of the seven
+// epilogues those rows run, so that a test and chip_smoke.py can hold each
+// product against its plain version and time it beside torch._int_mm and
 // torch.matmul. Replaces no TPU kernel of its own: it is the product stage
 // of aiic_tpu/ops/quant.py::_int8_attn_kernel, _int8_mlp_kernel_3d and
-// _int8_mlp_chunk_kernel (and so of the int8_block kernels). The plain
-// PyTorch version is aiic_tpu_torch/ops/quant.py::gemm_stage_ref.
+// _int8_mlp_chunk_kernel (and so of the int8_block kernels), and of
+// aiic_tpu/ops/attention.py::_ln_qkv_attention_kernel and
+// aiic_tpu/ops/mlp.py::_mlp_kernel. The plain PyTorch version is
+// aiic_tpu_torch/ops/quant.py::gemm_stage_ref.
 
 #include "wgmma_serving_gemm.cuh"
 
@@ -33,6 +35,8 @@ cudaError_t run(int form, const void* a, const void* w, int rows, int N, int K, 
 //               out bf16 = bf16((x + sum over c in order of acc_c * rs[r, c]
 //               * cs[n]) + b[n]), the sums folded in the mainloop
 //               (EpiChunkResidual; form 0 only)
+//   5 bias:     bf16 a, out bf16 = bf16(acc + b[n])                     (EpiBiasQKV)
+//   6 bias_gelu: bf16 a, out bf16 = bf16(gelu_exp2(acc + b[n]))         (EpiBiasGelu)
 // form 0 (the wgmma stage): an int8 w is w^T (N, K), a bf16 one (K, N);
 // form 1 (the WMMA gemm_kernel): w is (K, N). rs, cs, x unused where the
 // epilogue reads none. Needs N % 128 == 0 and K % 128 (int8) or 64 (bf16)
@@ -64,13 +68,20 @@ extern "C" int aiic_gemm_stage(const void* a, const void* w, const void* rs, con
       return static_cast<int>(launch_wgmma_stage(
           static_cast<const int8_t*>(a), static_cast<const int8_t*>(w), rows, N, K,
           EpiChunkResidual{f(rs), f(cs), f(b), xb, static_cast<bf16*>(out), N, n_chunks}, st));
+    case 5:
+      return static_cast<int>(
+          run<bf16>(form, a, w, rows, N, K, EpiBiasQKV{f(b), static_cast<bf16*>(out), N}, st));
+    case 6:
+      return static_cast<int>(
+          run<bf16>(form, a, w, rows, N, K, EpiBiasGelu{f(b), static_cast<bf16*>(out), N}, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Blocks of the int8, bf16 and folded (chunk_residual) wgmma stage kernels
-// resident on one SM into blocks[0..2]. Returns a cudaError_t.
+// Blocks of the int8 (gelu), bf16 (out_proj), folded (chunk_residual),
+// bias and bias_gelu wgmma stage kernels resident on one SM into
+// blocks[0..4]. Returns a cudaError_t.
 extern "C" int aiic_gemm_stage_occupancy(int* blocks) {
   return static_cast<int>(aiic::wgmma_stage_occupancy(blocks));
 }

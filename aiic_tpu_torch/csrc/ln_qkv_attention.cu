@@ -6,60 +6,81 @@
 // int8 weights). The plain PyTorch version is
 // aiic_tpu_torch/ops/attention.py::fused_ln_qkv_attention_ref.
 //
-// Four launches on the caller's stream:
+// Four launches on the caller's stream. Form 0, the route (row 1's design in
+// bf16, on wgmma_serving_gemm.cuh):
 //   (a) ln_rows_kernel: LN1 in fp32, rounded to bf16;
-//   (b) gemm_kernel<bf16>: h @ wqkv on the bf16 tensor cores, epilogue
-//       bf16(acc + bqkv), stored (B*S, 3W);
-//   (c) attn_core_kernel<bf16> (common.cuh): the streaming no-max core;
-//   (d) gemm_kernel<bf16>: attn @ wo, epilogue bf16(x + (acc + bo)).
+//   (b) wgmma_stage_kernel<bf16, EpiBiasQKV>: h @ wqkv on the bf16 tensor
+//       cores through TMA and wgmma (m64n128k16, w read MN-major as it lies),
+//       epilogue bf16(acc + bqkv) staged through shared memory, stored
+//       (B*S, 3W);
+//   (c) attn_core_mma_kernel<kPacked> (attn_core_mma.cuh): 64 query rows of
+//       one (image, head) a block, K and V streamed in 64-key tiles, both
+//       products on wgmma;
+//   (d) wgmma_stage_kernel<bf16, EpiOutProj>: attn @ wo, epilogue
+//       bf16(x + (acc + bo)) on the fragments (row 1's instantiation).
+// Form 1, the first design, runs (b) and (d) on common.cuh's WMMA
+// gemm_kernel and (c) on the scalar attn_core_kernel<bf16>; it stays for
+// the side-by-side time. The two forms sum the fp32 products in different
+// orders, so they agree at the bf16 bar, not bit for bit.
 //
-// What bounds it on the H100: at B=256 the two projections are
-// 2*rows*W*4W = 238 GFLOP of bf16 tensor-core work (0.24 ms at 989 TFLOP/s)
-// and dominate; the core adds 30.5 GFLOP and the row pass is bandwidth-bound.
+// What bounds it on the H100: at B=256 ViT-B/16 (50,432 rows, W = 768) the
+// two projections are 2*rows*W*4W = 238 GFLOP of bf16 tensor-core work and
+// the core 30.5 GFLOP: 0.271 ms at 989 TFLOP/s. The row pass is bound by its
+// bytes.
 //
-// What the simple design gives up: the int8 half-block's (int8_attention.cu)
-// GEMM and core, with the same gaps: WMMA tiles staged by plain loads with no
-// TMA/wgmma pipeline, h, qkv and attn round-trip through device memory
-// between launches, and the core runs scalar FMAs.
+// What the design gives up: h (77 MB), qkv (232 MB) and attn (77 MB)
+// round-trip through device memory between the four launches at B=256;
+// a block that ran LN, the QKV product and the core on its own rows would
+// keep them on chip.
 
-#include "common.cuh"
+#include "wgmma_serving_gemm.cuh"
 
 namespace aiic {
 namespace {
 
-struct EpiBiasQKV {  // qkv = bf16(acc + bqkv)
-  const float* b;
-  bf16* out;
-  int n_cols;
-  __device__ void operator()(int r, int n, float acc) const {
-    out[static_cast<size_t>(r) * n_cols + n] = __float2bfloat16_rn(acc + b[n]);
+cudaError_t bf16_attn_half(const bf16* x, const float* ln_s, const float* ln_b,
+                           const bf16* wqkv, const float* bqkv, const bf16* wo, const float* bo,
+                           const float* mask, bf16* out, bf16* h, bf16* qkv, bf16* attn, int B,
+                           int S, int W, int H, float eps, float qconst, int form,
+                           cudaStream_t st) {
+  if (W % kSBN != 0 || W % H != 0 || W / H != kHeadDim || (form != 0 && form != 1))
+    return cudaErrorInvalidValue;
+  const int rows = B * S;
+  AIIC_CHECK(launch_ln_rows(x, ln_s, ln_b, h, rows, W, eps, st));
+  const EpiBiasQKV epi_qkv{bqkv, qkv, 3 * W};
+  const EpiOutProj epi_out{bo, x, out, W};
+  const bf16* hc = h;
+  const bf16* q = qkv;
+  const bf16* a = attn;
+  if (form == 0) {
+    AIIC_CHECK(launch_wgmma_stage(hc, wqkv, rows, 3 * W, W, epi_qkv, st));
+    AIIC_CHECK(launch_attn_core_mma<QKVLayout::kPacked>(q, q, q, mask, attn, B, S, W, H, qconst,
+                                                        st));
+    return launch_wgmma_stage(a, wo, rows, W, W, epi_out, st);
   }
-};
+  AIIC_CHECK(launch_gemm(hc, wqkv, rows, 3 * W, W, epi_qkv, st));
+  AIIC_CHECK(launch_attn_core(q, mask, attn, B, S, W, H, qconst, st));
+  return launch_gemm(a, wo, rows, W, W, epi_out, st);
+}
 
 }  // namespace
 }  // namespace aiic
 
 // x (B,S,W) bf16; ln_s, ln_b (W) f32; wqkv (W,3W) bf16; bqkv (3W) f32;
 // wo (W,W) bf16; bo (W) f32; mask (S,S) f32 or null; out (B,S,W) bf16.
-// Scratch: h (B*S,W), qkv (B*S,3W), attn (B*S,W), all bf16. Needs
-// W % 128 == 0 and W / H == 64. Returns a cudaError_t.
+// Scratch: h (B*S,W), qkv (B*S,3W), attn (B*S,W), all bf16. form 0: the
+// wgmma stage and the tensor-core core; 1: the WMMA form (K and V of one
+// head within a block's shared memory). Needs W % 128 == 0 and W / H == 64;
+// rows and weights 16-B aligned. Returns a cudaError_t.
 extern "C" int aiic_ln_qkv_attention(
     const void* x, const void* ln_s, const void* ln_b, const void* wqkv, const void* bqkv,
     const void* wo, const void* bo, const void* mask, void* out, void* h, void* qkv,
-    void* attn, int B, int S, int W, int H, float eps, float qconst, void* stream) {
+    void* attn, int B, int S, int W, int H, float eps, float qconst, int form, void* stream) {
   using namespace aiic;
-  if (W % kBN != 0 || W % H != 0 || W / H != kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = B * S;
-  const bf16* xb = static_cast<const bf16*>(x);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-
-  AIIC_CHECK(launch_ln_rows(xb, f(ln_s), f(ln_b), static_cast<bf16*>(h), rows, W, eps, st));
-  AIIC_CHECK(launch_gemm(static_cast<const bf16*>(h), static_cast<const bf16*>(wqkv), rows,
-                         3 * W, W, EpiBiasQKV{f(bqkv), static_cast<bf16*>(qkv), 3 * W}, st));
-  AIIC_CHECK(launch_attn_core(static_cast<const bf16*>(qkv), f(mask), static_cast<bf16*>(attn),
-                              B, S, W, H, qconst, st));
-  AIIC_CHECK(launch_gemm(static_cast<const bf16*>(attn), static_cast<const bf16*>(wo), rows, W,
-                         W, EpiOutProj{f(bo), xb, static_cast<bf16*>(out), W}, st));
-  return 0;
+  auto b = [](const void* p) { return static_cast<const bf16*>(p); };
+  return static_cast<int>(bf16_attn_half(
+      b(x), f(ln_s), f(ln_b), b(wqkv), f(bqkv), b(wo), f(bo), f(mask), static_cast<bf16*>(out),
+      static_cast<bf16*>(h), static_cast<bf16*>(qkv), static_cast<bf16*>(attn), B, S, W, H, eps,
+      qconst, form, static_cast<cudaStream_t>(stream)));
 }

@@ -22,7 +22,9 @@
 // _int8_block_chunk_kernel (int8_block: row 1, then row 2 or row 3). The
 // WMMA forms of int8_halves.cuh (int8_attn_half, int8_mlp_half: common.cuh's
 // gemm_kernel and scalar attn_core_kernel) stay, reachable through the same
-// C entries with form 1; rows 15-16 run them.
+// C entries with form 1; rows 15-16 run them. The bf16 half-blocks of rows
+// 5 and 10 (ln_qkv_attention.cu, ln_mlp.cu) run their products on the bf16
+// form of the stage too (EpiBiasQKV, EpiOutProj; EpiBiasGelu, EpiMlpOut).
 //
 // What bounds the stage on the H100: at B=256 ViT-B/16 (50,432 rows, K = W =
 // 768) the int8 products are 2*rows*K*N operations, 0.060 ms (QKV), 0.080
@@ -47,8 +49,9 @@
 //   released to the producer once the next slice's products are issued and
 //   its own are done (wgmma_wait<1>).
 // - The epilogue applies an existing per-element functor to each
-//   accumulator (EpiQKV, EpiGelu<kExp2>, EpiResidual, EpiOutProj) at (row,
-//   column), rows past M skipped. For QKV and c_fc the accumulators are
+//   accumulator (EpiQKV, EpiGelu<kExp2>, EpiResidual, EpiOutProj; rows 5 and
+//   10's EpiBiasQKV, EpiBiasGelu, EpiMlpOut) at (row, column), rows past M
+//   skipped. For QKV and c_fc (int8 and bf16) the accumulators are
 //   first staged through shared memory (the ring's space) so that each warp
 //   walks 32 consecutive columns of a row: the functors' loads of the
 //   column vectors and their stores coalesce, where the fragment layout (8
@@ -99,13 +102,16 @@ static_assert(2 * 64 * kSTileLd * 4 <= kSStages * kSStageBytes, "the staged tile
 
 // Which epilogues walk rows through the staged tile: those whose stores
 // dominate, the 2304-column bf16 qkv and c_fc's fp32 y (0.57 -> 0.28 and
-// 0.74 -> 0.53 ms at 256 ViT-B/16 images). The residual epilogues read x and
-// write 768 columns; staged they ran 0.42 -> 0.45 (c_proj) and 0.30 -> 0.35
-// ms (out-projection), so they stay on the fragments (one card call, NVIDIA
-// H100 80GB HBM3, 700 W).
+// 0.74 -> 0.53 ms at 256 ViT-B/16 images), and their bf16 twins of rows 5
+// and 10 (EpiBiasQKV, EpiBiasGelu: the same wide stores). The residual
+// epilogues read x and write 768 columns; staged they ran 0.42 -> 0.45
+// (c_proj) and 0.30 -> 0.35 ms (out-projection), so they stay on the
+// fragments (one card call, NVIDIA H100 80GB HBM3, 700 W).
 template <typename Epi> struct StagedEpilogue { static constexpr bool value = false; };
 template <> struct StagedEpilogue<EpiQKV> { static constexpr bool value = true; };
 template <> struct StagedEpilogue<EpiGelu<Gelu::kExp2>> { static constexpr bool value = true; };
+template <> struct StagedEpilogue<EpiBiasQKV> { static constexpr bool value = true; };
+template <> struct StagedEpilogue<EpiBiasGelu> { static constexpr bool value = true; };
 
 // Row 3's c_proj with the chunk sums folded in: out = bf16((((x + p_0) +
 // p_1) + ... + p_{C-1}) + b2), p_c = float(acc_c) * ys[r, c] * s2[n] with
@@ -345,19 +351,24 @@ cudaError_t launch_wgmma_stage(const T* A, const T* B, int M, int N, int K, Epi 
   return cudaGetLastError();
 }
 
-// Blocks of the int8 (EpiGelu, c_fc's), bf16 (EpiOutProj) and folded
-// (EpiChunkResidual, row 3's c_proj) stage kernels resident on one SM into
-// blocks[0..2].
+// Blocks resident on one SM of the stage kernels, into blocks[0..4]: int8
+// (EpiGelu, c_fc's), bf16 (EpiOutProj), folded (EpiChunkResidual, row 3's
+// c_proj), and rows 5 and 10's staged bf16 products (EpiBiasQKV,
+// EpiBiasGelu).
 inline cudaError_t wgmma_stage_occupancy(int* blocks) {
-  const auto k8 = wgmma_stage_kernel<int8_t, EpiGelu<Gelu::kExp2>>;
-  const auto kb = wgmma_stage_kernel<bf16, EpiOutProj>;
-  const auto kf = wgmma_stage_kernel<int8_t, EpiChunkResidual>;
-  AIIC_CHECK(cudaFuncSetAttribute(k8, cudaFuncAttributeMaxDynamicSharedMemorySize, kSSmem));
-  AIIC_CHECK(cudaFuncSetAttribute(kb, cudaFuncAttributeMaxDynamicSharedMemorySize, kSSmem));
-  AIIC_CHECK(cudaFuncSetAttribute(kf, cudaFuncAttributeMaxDynamicSharedMemorySize, kSSmem));
-  AIIC_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k8, kSThreads, kSSmem));
-  AIIC_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 1, kb, kSThreads, kSSmem));
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 2, kf, kSThreads, kSSmem);
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(wgmma_stage_kernel<int8_t, EpiGelu<Gelu::kExp2>>),
+      reinterpret_cast<const void*>(wgmma_stage_kernel<bf16, EpiOutProj>),
+      reinterpret_cast<const void*>(wgmma_stage_kernel<int8_t, EpiChunkResidual>),
+      reinterpret_cast<const void*>(wgmma_stage_kernel<bf16, EpiBiasQKV>),
+      reinterpret_cast<const void*>(wgmma_stage_kernel<bf16, EpiBiasGelu>)};
+  for (int i = 0; i < 5; ++i) {
+    AIIC_CHECK(cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    kSSmem));
+    AIIC_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + i, kernels[i], kSThreads,
+                                                             kSSmem));
+  }
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------

@@ -61,7 +61,7 @@ _SIGNATURES = {
     "aiic_int8_ln_qkv": [_P] * 10 + [_I, _I, _F, _I, _P],
     # a, w, rs, cs, b, x, out, rows, N, K, n_chunks, epi, form, stream
     "aiic_gemm_stage": [_P] * 7 + [_I] * 6 + [_P],
-    # blocks (int[3]: int8, bf16, folded int8)
+    # blocks (int[5]: int8, bf16, folded int8, bf16 bias, bf16 bias_gelu)
     "aiic_gemm_stage_occupancy": [_P],
     # x, 19 weights/K-major copies/vectors/mask, out, y1, hq, hs, qkv, attn, y,
     # yq, ys, part, B, S, W, H, M, n_chunks, eps, qconst, form, stream
@@ -74,10 +74,10 @@ _SIGNATURES = {
     "aiic_attention_qkv_mma_occupancy": [_P],
     "aiic_attention_f32_occupancy": [_P],
     # x, ln_s, ln_b, wqkv, bqkv, wo, bo, mask, out, h, qkv, attn,
-    # B, S, W, H, eps, qconst, stream
-    "aiic_ln_qkv_attention": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P],
-    # x, ln_s, ln_b, w1, b1, w2, b2, out, h, y, rows, W, M, eps, stream
-    "aiic_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _P],
+    # B, S, W, H, eps, qconst, form, stream
+    "aiic_ln_qkv_attention": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _I, _P],
+    # x, ln_s, ln_b, w1, b1, w2, b2, out, h, y, rows, W, M, eps, form, stream
+    "aiic_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
     # B, S, W, M, ro, rf, rp, fp32, backward -> bytes (a long long)
     "aiic_text_block_workspace": [_I] * 9,
     # x, mask, 18 weights/vectors/factors, y, ws, B, S, W, H, M, ro, rf, rp,
@@ -213,6 +213,20 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _COUNTED.values():
         fn.launches = 0
+
+
+# The forms of the half-blocks redesigned on the wgmma GEMM stage (rows 1-5,
+# 10 and the stage alone), as their C entries' ``form``: the route, and the
+# first (WMMA) design, kept for timing and the side-by-side check.
+FORMS = {"wgmma": 0, "wmma": 1}
+
+
+def form_code(name: str, form: str) -> int:
+    """The C entries' code of ``form``; ValueError on any other, before
+    anything is built or launched."""
+    if form not in FORMS:
+        raise ValueError(f"{name}: no {form!r} form (forms {list(FORMS)})")
+    return FORMS[form]
 
 
 def route(name: str, x: torch.Tensor) -> bool:

@@ -11,7 +11,11 @@
   ``fused_attention_qkv_ref``.
 - ``fused_ln_qkv_attention``: the bf16 attention half-block (TPU kernel
   ``_ln_qkv_attention_kernel``) x + OutProj(Attn(QKV(LN x))); kernel
-  ``csrc/ln_qkv_attention.cu``, plain version ``fused_ln_qkv_attention_ref``.
+  ``csrc/ln_qkv_attention.cu`` (both products on the ``wgmma`` + TMA GEMM
+  stage of ``csrc/wgmma_serving_gemm.cuh``, the core on the tensor-core
+  core; the first WMMA + scalar-core design stays reachable, uncounted, as
+  ``_fused_ln_qkv_attention_cuda(..., form="wmma")``), plain version
+  ``fused_ln_qkv_attention_ref``.
 - ``fused_attention_qkv_headgroups``: the same core on a HEAD-MAJOR
   projection ([q_h | k_h | v_h] per head, ``headmajor_perm``), bf16 (TPU
   kernel ``_attention_qkv_hg_kernel``); kernel ``csrc/attention_qkv.cu``
@@ -65,7 +69,8 @@ import numpy as np
 import torch
 
 from aiic_tpu_torch.ops._build import (
-    bf16_activation, check, counted, f32_vector, load_library, mask_arg, ptr, route, weight,
+    bf16_activation, check, counted, f32_vector, form_code, load_library, mask_arg, ptr, route,
+    weight,
 )
 
 # Clamped no-max softmax in the log2 domain: e^70 numerators keep the
@@ -523,13 +528,21 @@ def tiled_bwd_occupancy() -> tuple:
     return blocks[0], blocks[1]
 
 
-def _fused_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask, heads, eps):
+def _fused_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask, heads, eps,
+                                 form: str = "wgmma"):
+    """Row 5 on the card in ``form``: "wgmma" (the route: the LN row pass,
+    the QKV product and the out-projection on the wgmma + TMA GEMM stage,
+    the tensor-core core; any S) or "wmma" (the first design: WMMA
+    products, the scalar core with K and V of a head in shared memory).
+    Raises ValueError on what the form does not take, before the library
+    loads; it never falls back to the other form."""
     name = "fused_ln_qkv_attention"
+    code = form_code(name, form)
     bf16_activation(name, x)
     bsz, seq, width = x.shape
     if width % 128:
         raise ValueError(f"{name} kernel needs W % 128 == 0, got W={width}")
-    _check_core_shape(name, seq, width, heads, 2)
+    _check_core_shape(name, seq, width, heads, 2, tiled=form == "wgmma")
     lib = load_library()
     rows = bsz * seq
     x = x.contiguous()
@@ -549,7 +562,7 @@ def _fused_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, mask,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.aiic_ln_qkv_attention(
         *[ptr(a) for a in args], bsz, seq, width, heads, ctypes.c_float(eps),
-        ctypes.c_float(_qconst(width // heads, torch.bfloat16)), stream)
+        ctypes.c_float(_qconst(width // heads, torch.bfloat16)), code, stream)
     check(name, rc)
     return out
 

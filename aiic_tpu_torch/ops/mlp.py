@@ -2,9 +2,11 @@
 
 ``fused_ln_mlp`` is ``x + W2·gelu(W1·LN(x))`` in bf16 (TPU kernel
 ``_mlp_kernel``, selected by ``attn_impl="pallas_mlp"``); kernel
-``csrc/ln_mlp.cu``, plain version ``fused_ln_mlp_ref``. The wrapper takes
-the plain version only for tensors on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+``csrc/ln_mlp.cu`` (both products on the ``wgmma`` + TMA GEMM stage of
+``csrc/wgmma_serving_gemm.cuh``; the first WMMA design stays reachable,
+uncounted, as ``_fused_ln_mlp_cuda(..., form="wmma")``), plain version
+``fused_ln_mlp_ref``. The wrapper takes the plain version only for tensors
+on the CPU; for a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import ctypes
 import torch
 
 from aiic_tpu_torch.ops._build import (
-    bf16_activation, check, counted, f32_vector, load_library, ptr, route, weight,
+    bf16_activation, check, counted, f32_vector, form_code, load_library, ptr, route, weight,
 )
 from aiic_tpu_torch.ops.attention import _ln_fp32, no_tf32
 from aiic_tpu_torch.ops.quant import _gelu_exp2
@@ -35,8 +37,14 @@ def fused_ln_mlp_ref(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5)
     return (xf + out).to(x.dtype)
 
 
-def _fused_ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
+def _fused_ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, form: str = "wgmma"):
+    """Row 10 on the card in ``form``: "wgmma" (the route: the LN row pass,
+    c_fc with the gelu and c_proj with the residual on the wgmma + TMA GEMM
+    stage) or "wmma" (the first design: WMMA products). Raises ValueError on
+    what the form does not take, before the library loads; it never falls
+    back to the other form."""
     name = "fused_ln_mlp"
+    code = form_code(name, form)
     bf16_activation(name, x)
     bsz, seq, width = x.shape
     mlp_dim = w1.shape[-1]
@@ -55,7 +63,7 @@ def _fused_ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
             f32_vector(b1, mlp_dim, dev), w2, f32_vector(b2, width, dev), out, h, y]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.aiic_ln_mlp(*[ptr(a) for a in args], rows, width, mlp_dim, ctypes.c_float(eps),
-                         stream)
+                         code, stream)
     check(name, rc)
     return out
 

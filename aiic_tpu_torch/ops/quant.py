@@ -47,7 +47,8 @@ from typing import Any, Dict, Tuple
 import torch
 
 from aiic_tpu_torch.ops._build import (
-    bf16_activation, check, counted, f32_vector, load_library, mask_arg, ptr, route, weight,
+    bf16_activation, check, counted, f32_vector, form_code, load_library, mask_arg, ptr, route,
+    weight,
 )
 from aiic_tpu_torch.ops import attention as attention_ops
 from aiic_tpu_torch.ops.attention import (
@@ -105,11 +106,13 @@ def kmajor(w: torch.Tensor) -> torch.Tensor:
     return hit
 
 
-# The epilogues of the GEMM stage (gemm_stage) and their C codes.
-STAGE_EPILOGUES = {"qkv": 0, "gelu": 1, "residual": 2, "out_proj": 3, "chunk_residual": 4}
-# The forms of rows 1-4 (and of the stage) on the card: the route, and the
-# first (WMMA) design, kept for timing and the bit-for-bit check.
-FORMS = {"wgmma": 0, "wmma": 1}
+# The epilogues of the GEMM stage (gemm_stage) and their C codes; the bf16
+# ones (row 1's out-projection, rows 5 and 10's QKV and c_fc) take bf16
+# operands, the others int8. ``ops._build.FORMS`` names the forms of the
+# stage and of rows 1-5 and 10 on the card.
+STAGE_EPILOGUES = {"qkv": 0, "gelu": 1, "residual": 2, "out_proj": 3, "chunk_residual": 4,
+                   "bias": 5, "bias_gelu": 6}
+BF16_EPILOGUES = ("out_proj", "bias", "bias_gelu")
 # The depth of one K-slice of the wgmma stage in int8 (128 B): row 3's chunk
 # of the hidden axis must be a whole number of them.
 STAGE_SLICE = 128
@@ -117,19 +120,24 @@ STAGE_SLICE = 128
 
 def gemm_stage_ref(a, w, epilogue: str, *, row_scale=None, col_scale=None, bias=None,
                    x=None, n_chunks: int = 1) -> torch.Tensor:
-    """One product of rows 1-4 with its epilogue, as their plain versions
-    compute it: a (rows, K) . w (K, N), int8 exact in int32 (qkv, gelu,
-    residual, chunk_residual) or bf16 with fp32 sums (out_proj), then
-    qkv: bf16(acc·rs·cs + b); gelu: gelu_exp2(acc·rs·cs + b) in fp32;
-    residual: bf16(x + (acc·rs·cs + b)); out_proj: bf16(x + (acc + b));
-    chunk_residual (row 3's c_proj, K in ``n_chunks`` chunks, rs (rows, C)):
-    the fp32 sum seeded with x, each chunk's acc_c·rs[:, c]·cs added in
-    order, b last, then bf16."""
+    """One product of rows 1-5 or 10 with its epilogue, as their plain
+    versions compute it: a (rows, K) . w (K, N), int8 exact in int32 (qkv,
+    gelu, residual, chunk_residual) or bf16 with fp32 sums (out_proj, bias,
+    bias_gelu), then qkv: bf16(acc·rs·cs + b); gelu: gelu_exp2(acc·rs·cs + b)
+    in fp32; residual: bf16(x + (acc·rs·cs + b)); out_proj: bf16(x + (acc +
+    b)); bias (row 5's QKV): bf16(acc + b); bias_gelu (row 10's c_fc):
+    bf16(gelu_exp2(acc + b)), fp32 through the gelu; chunk_residual (row 3's
+    c_proj, K in ``n_chunks`` chunks, rs (rows, C)): the fp32 sum seeded
+    with x, each chunk's acc_c·rs[:, c]·cs added in order, b last, then
+    bf16."""
     no_tf32()
     n = w.shape[-1]
     b = bias.reshape(1, n).float()
-    if epilogue == "out_proj":
-        return (x.float() + (a.float() @ w.float() + b)).to(torch.bfloat16)
+    if epilogue in BF16_EPILOGUES:
+        v = a.float() @ w.float() + b
+        if epilogue == "out_proj":
+            return (x.float() + v).to(torch.bfloat16)
+        return (_gelu_exp2(v) if epilogue == "bias_gelu" else v).to(torch.bfloat16)
     if epilogue == "chunk_residual":
         chunk = w.shape[0] // n_chunks
         rs = row_scale.reshape(-1, n_chunks).float()
@@ -391,12 +399,12 @@ def _int8_ln_mlp_cuda(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps, n_c
     p = [*p[:4], ptr(kt[0]), *p[4:7], ptr(kt[1]), *p[7:]]
     eps = ctypes.c_float(eps)
     if n_chunks == 1:
-        rc = lib.aiic_int8_ln_mlp(*p, rows, width, mlp_dim, eps, FORMS[form], stream)
+        rc = lib.aiic_int8_ln_mlp(*p, rows, width, mlp_dim, eps, form_code(name, form), stream)
     else:
         part = (torch.empty((n_chunks, rows, width), dtype=torch.float32, device=x.device)
                 if form == "wmma" else None)
         rc = lib.aiic_int8_ln_mlp_chunked(*p, ptr(part), rows, width, mlp_dim, n_chunks, eps,
-                                          FORMS[form], stream)
+                                          form_code(name, form), stream)
     check(name, rc)
     return args[9]
 
@@ -436,7 +444,8 @@ def _int8_ln_qkv_attention_cuda(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wo,
     wqkv_t = kmajor(wqkv_q) if form == "wgmma" else None
     rc = lib.aiic_int8_ln_qkv_attention(
         *p[:4], ptr(wqkv_t), *p[4:], bsz, seq, width, heads, ctypes.c_float(eps),
-        ctypes.c_float(_qconst(width // heads, torch.bfloat16)), FORMS[form], stream)
+        ctypes.c_float(_qconst(width // heads, torch.bfloat16)),
+        form_code("int8_ln_qkv_attention", form), stream)
     check("int8_ln_qkv_attention", rc)
     return out
 
@@ -463,7 +472,8 @@ def _int8_qkv(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, eps, form="wgmma"):
             wqkv_q, kmajor(wqkv_q) if form == "wgmma" else None,
             f32_vector(sqkv, 3 * width, dev), f32_vector(bqkv, 3 * width, dev), qkv, hq, hs]
     rc = lib.aiic_int8_ln_qkv(*[ptr(a) for a in args], rows, width, ctypes.c_float(eps),
-                              FORMS[form], torch.cuda.current_stream(dev).cuda_stream)
+                              form_code("int8_qkv", form),
+                              torch.cuda.current_stream(dev).cuda_stream)
     check("int8_qkv", rc)
     if form == "wgmma":
         gemm_stage.launches += 1
@@ -472,9 +482,10 @@ def _int8_qkv(x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, eps, form="wgmma"):
 
 def stage_occupancy() -> list:
     """Blocks of the GEMM stage resident on one SM: [int8 (c_fc's), bf16
-    (the out-projection's), folded int8 (row 3's c_proj)], as
+    (the out-projection's), folded int8 (row 3's c_proj), bf16 bias (row
+    5's QKV), bf16 bias_gelu (row 10's c_fc)], as
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them."""
-    blocks = (ctypes.c_int * 3)()
+    blocks = (ctypes.c_int * 5)()
     check("gemm_stage_occupancy", load_library().aiic_gemm_stage_occupancy(blocks))
     return list(blocks)
 
@@ -485,7 +496,7 @@ def _gemm_stage_cuda(a, w, epilogue, row_scale, col_scale, bias, x, form="wgmma"
     launch. chunk_residual runs in the wgmma form only, on K in
     ``n_chunks`` chunks of whole 128-B slices."""
     name = "gemm_stage"
-    int8 = epilogue != "out_proj"
+    int8 = epilogue not in BF16_EPILOGUES
     dtype = torch.int8 if int8 else torch.bfloat16
     if a.dim() != 2 or w.dim() != 2 or a.dtype != dtype or w.dtype != dtype:
         raise TypeError(f"{name}[{epilogue}]: takes 2-D {dtype} a and w, got {a.dtype} "
@@ -501,6 +512,7 @@ def _gemm_stage_cuda(a, w, epilogue, row_scale, col_scale, bias, x, form="wgmma"
     if n_chunks < 1 or (n_chunks > 1 and not chunked) or (chunked and form != "wgmma"):
         raise ValueError(f"{name}[{epilogue}]: chunks of K go with chunk_residual in the wgmma "
                          f"form alone, got n_chunks={n_chunks}, form {form!r}")
+    code = form_code(f"{name}[{epilogue}]", form)
     a, w = a.contiguous(), w.contiguous()
     wk = kmajor(w) if int8 and form == "wgmma" else w
     rs = f32_vector(row_scale, rows * n_chunks, dev) if int8 else None
@@ -512,7 +524,7 @@ def _gemm_stage_cuda(a, w, epilogue, row_scale, col_scale, bias, x, form="wgmma"
                       device=dev)
     rc = load_library().aiic_gemm_stage(
         ptr(a), ptr(wk), ptr(rs), ptr(cs), ptr(f32_vector(bias, n, dev)), ptr(xr), ptr(out),
-        rows, n, k, n_chunks, STAGE_EPILOGUES[epilogue], FORMS[form],
+        rows, n, k, n_chunks, STAGE_EPILOGUES[epilogue], code,
         torch.cuda.current_stream(dev).cuda_stream)
     check(name, rc)
     return out
@@ -542,7 +554,7 @@ def _int8_block_cuda(x, attn_w, mlp_w, heads, eps, n_chunks, form="wgmma"):
             + m[7:9] + [m[9], y1] + m[10:12] + [qkv, attn] + m[12:] + [part]]
     qconst = _qconst(width // heads, torch.bfloat16)
     rc = lib.aiic_int8_block(*ptrs, bsz, seq, width, heads, mlp_dim, n_chunks,
-                             ctypes.c_float(eps), ctypes.c_float(qconst), FORMS[form],
+                             ctypes.c_float(eps), ctypes.c_float(qconst), form_code(name, form),
                              torch.cuda.current_stream(dev).cuda_stream)
     check(name, rc)
     return m[9]
@@ -581,7 +593,9 @@ def gemm_stage(a, w, epilogue: str, *, row_scale=None, col_scale=None, bias=None
     stage those rows run (an int8 w read through its cached K-major copy),
     on the CPU the plain version. ``launches`` also counts the stage's
     launches inside rows 1-3 (two each), row 4 (four) and the large-S int8
-    projection (one): their wrappers add them where they launch."""
+    projection (one): their wrappers add them where they launch. Rows 5 and
+    10 (bf16) run two launches of the stage each too and count one launch
+    of their own, none here."""
     if epilogue not in STAGE_EPILOGUES:
         raise ValueError(f"gemm_stage: epilogue must be one of {sorted(STAGE_EPILOGUES)}, "
                          f"got {epilogue!r}")

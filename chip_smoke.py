@@ -10,14 +10,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
    registers, spills and blocks per SM of the bf16 tensor-core core and the
    fp32 register-tiled core (each layout), of the two passes of the bf16
    tensor-core and the fp32 register-tiled core backward, of row 17's
-   wgmma products and row pass, and of the wgmma GEMM stage of rows 1-4
-   (per epilogue, row 3's folded c_proj among them);
+   wgmma products and row pass, and of the wgmma GEMM stage of rows 1-5
+   and 10 (per epilogue, row 3's folded c_proj among them);
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes (ViT-B/16 image and text half-blocks, B=1, an odd
-   B, and an all-zero LN row; rows 1 and 2 on the wgmma GEMM stage, row 2
-   and row 1's QKV stage bit for bit their WMMA forms, each bit for bit a
-   second run, and the stage alone on each of the four products, the int8
-   ones bit for bit the WMMA stage); the packed-QKV core in fp32 and bf16; the
+   B, an all-zero LN row, the text tower's 52 prompts; rows 1 and 2 on the
+   wgmma GEMM stage, row 2 and row 1's QKV stage bit for bit their WMMA
+   forms, each bit for bit a second run, and the stage alone on each of the
+   four products, the int8 ones bit for bit the WMMA stage; rows 5 and 10
+   (bf16) on the same stage, row 5's core on the tensor-core core, each at
+   the bf16 bar against its WMMA form and bit for bit a second run, and the
+   stage alone on their three other products); the packed-QKV core in fp32 and bf16; the
    zoo's kernels: the chunked int8 MLP (row 3, on the wgmma stage with its
    chunk sums folded into c_proj) at the ViT-L/14 widths (C=2 and 4, a zero
    LN row) and at L/14@336 (C=4), each bit for bit its WMMA form; the whole
@@ -93,18 +96,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
    text features moved by the adapter and held against their CPU runs;
 9. timings: each kernel against its plain version (serving kernels at B=256
    image rows, the text-block kernels at B=256 text rows in fp32, bf16 and
-   int8), with its bound (rows 1 and 2 beside their WMMA forms, the stage
-   yardstick and device ms by stage of both forms, held against their plain
-   versions; the GEMM stage alone on each product beside the WMMA stage and
-   ``torch._int_mm`` / ``torch.matmul``; the int8 engine's 8-image call
-   launching the wgmma stage and the tensor-core core and no WMMA GEMM or
-   scalar core; and the packed core against
+   int8), with its bound (rows 1, 2, 5 and 10 beside their WMMA forms
+   timed right after them, the stage yardstick and device ms by stage of
+   both forms, held against their plain versions; the GEMM stage alone on
+   each of the seven products beside the WMMA stage and ``torch._int_mm`` /
+   ``torch.matmul``; the int8, bf16 and bf16 ``pallas_mlp`` engines' 8-image
+   calls launching the wgmma stage and the tensor-core core and no WMMA
+   GEMM or scalar core; and the packed core against
    ``scaled_dot_product_attention``, in bf16 also at the L/14 shape B=256,
    S=257, W=1024, in fp32 also at 256 text rows, causal, and beside the
    scalar core it replaced; rows 7 and 8 held against their plain versions
    at the timed shapes, one counted launch each; every SDPA time, forward
    and backward, the median of 5 repeats with its spread); classify images/s at B=256 and
-   single-image p50 latency of the int8 and the bf16 unquantized engines;
+   single-image p50 latency of the int8, the bf16 unquantized and the bf16
+   ``pallas_mlp`` engines;
    train-step ms at batch 256 (cached image features, dense text rows) on
    the four training paths; the steady-state images/s of a ``train_lora``
    epoch; row 6 at B=256 ViT-B/16 beside ``scaled_dot_product_attention``
@@ -210,8 +215,13 @@ KERNELS = {
         "source": "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh",
         "replaces": "aiic_tpu/ops/quant.py:353, :102 and :190",
     },
+    # Rows 5 and 10 run their products on the GEMM stage, row 5 its core on
+    # the tensor-core core.
     "fused_ln_qkv_attention": {
         "source": "aiic_tpu_torch/csrc/ln_qkv_attention.cu",
+        "sources": ["aiic_tpu_torch/csrc/ln_qkv_attention.cu",
+                    "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh",
+                    "aiic_tpu_torch/csrc/attn_core_mma.cuh"],
         "replaces": "aiic_tpu/ops/attention.py:133",
     },
     "fused_attention_qkv": {
@@ -220,6 +230,7 @@ KERNELS = {
     },
     "fused_ln_mlp": {
         "source": "aiic_tpu_torch/csrc/ln_mlp.cu",
+        "sources": ["aiic_tpu_torch/csrc/ln_mlp.cu", "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh"],
         "replaces": "aiic_tpu/ops/mlp.py:27",
     },
     "text_block_fwd": {
@@ -471,6 +482,34 @@ def _stage_products(p) -> dict:
     }
 
 
+def _bf16_stage_products(p) -> dict:
+    """The products of rows 5 and 10 that row 1's out-projection does not
+    already stand for, for the GEMM stage alone, as ``_stage_products``: h =
+    bf16(LN(x)); row 5's QKV product with its bias (``bias``), row 10's c_fc
+    with its bias and gelu (``bias_gelu``), and its c_proj (``out_proj`` at
+    K = 4W) on y = the plain c_fc."""
+    import torch
+
+    from aiic_tpu_torch.ops import attention, quant
+
+    x = p["x"]
+    bsz, seq, width = x.shape
+    rows, mlp_dim = bsz * seq, p["w1"].shape[-1]
+    h = attention._ln_fp32(x.float().reshape(rows, width), p["ln_s"].reshape(1, width),
+                           p["ln_b"].reshape(1, width), 1e-5).to(torch.bfloat16)
+    fc_kw = dict(bias=p["b1"])
+    y = quant.gemm_stage_ref(h, p["w1_b"], "bias_gelu", **fc_kw)
+    return {
+        "gemm_stage_bf16_qkv": (h, p["wqkv_b"], "bias", dict(bias=p["bqkv"]),
+                                {"bf16": 2 * rows * width * 3 * width}),
+        "gemm_stage_bf16_c_fc": (h, p["w1_b"], "bias_gelu", fc_kw,
+                                 {"bf16": 2 * rows * width * mlp_dim}),
+        "gemm_stage_bf16_c_proj": (y, p["w2_b"], "out_proj",
+                                   dict(bias=p["b2"], x=x.reshape(rows, width)),
+                                   {"bf16": 2 * rows * mlp_dim * width}),
+    }
+
+
 def _stage_calls(products) -> dict:
     """check name -> (kernel call, plain call, tensors the kernel reads, ops)
     of each product of ``_stage_products``."""
@@ -501,7 +540,7 @@ def _stage_library(product):
     from aiic_tpu_torch.ops import quant
 
     a, w, e, _, _ = product
-    if e == "out_proj":
+    if e in quant.BF16_EPILOGUES:
         return lambda: torch.matmul(a, w)
     wt = quant.kmajor(w)
     return lambda: torch._int_mm(a, wt.t())
@@ -561,9 +600,7 @@ def _hold_forms(p, label: str, results: list, worst: dict) -> None:
     bit for bit its WMMA form, row 1's QKV stage bit for bit the WMMA stage,
     each row bit for bit a second run of itself, the WMMA form of row 1
     against the plain version (recorded); then the GEMM stage alone on each
-    of the four products against its plain version, the int8 ones also bit
-    for bit the WMMA stage. ``worst["gemm_stage"]`` takes the stage's
-    largest error."""
+    of the four products (``_hold_stage_products``)."""
     import torch
 
     from aiic_tpu_torch.ops import quant
@@ -593,12 +630,59 @@ def _hold_forms(p, label: str, results: list, worst: dict) -> None:
         f"min_row_cos={r['row1_wmma_vs_plain']['min_row_cos']:.8f}")
     if not all(flags.values()):
         raise AssertionError(f"rows 1-2 on {label}: {r}")
-    for name, prod in _stage_products(p).items():
+    _hold_stage_products(_stage_products(p), label, results, worst)
+
+
+def _hold_bf16_forms(p, label: str, results: list, worst: dict) -> None:
+    """Phase 3 for rows 5 and 10 beside the WMMA forms they replaced: each
+    row's form 0 (the route) against its form 1 at the bf16 bar (the two sum
+    fp32 in different orders) and bit for bit a second run of itself; then
+    the stage alone on row 5's QKV product and row 10's two against their
+    plain versions."""
+    import torch
+
+    from aiic_tpu_torch.ops import attention, mlp
+
+    h = p["heads"]
+    attn_b = (p["x"], p["ln_s"], p["ln_b"], p["wqkv_b"], p["bqkv"], p["wo"], p["bo"], p["mask"])
+    mlp_b = (p["x"], p["ln_s"], p["ln_b"], p["w1_b"], p["b1"], p["w2_b"], p["b2"])
+    new5 = attention.fused_ln_qkv_attention(*attn_b, heads=h)
+    again5 = attention.fused_ln_qkv_attention(*attn_b, heads=h)
+    old5 = attention._fused_ln_qkv_attention_cuda(*attn_b, h, 1e-5, "wmma")
+    new10, again10 = mlp.fused_ln_mlp(*mlp_b), mlp.fused_ln_mlp(*mlp_b)
+    old10 = mlp._fused_ln_mlp_cuda(*mlp_b, 1e-5, "wmma")
+    torch.cuda.synchronize()
+    r = {"kernel": "bf16 rows 5 and 10 forms", "case": label,
+         "row5_repeat_bit_identical": bool(torch.equal(new5, again5)),
+         "row10_repeat_bit_identical": bool(torch.equal(new10, again10)),
+         "row5_vs_wmma": _agreement(new5, old5), "row10_vs_wmma": _agreement(new10, old10)}
+    results.append(r)
+    ok = (r["row5_repeat_bit_identical"] and r["row10_repeat_bit_identical"]
+          and r["row5_vs_wmma"]["ok"] and r["row10_vs_wmma"]["ok"])
+    log(f"[kernels] rows 5, 10 forms {label:20s} repeats bit for bit "
+        f"{r['row5_repeat_bit_identical']}, {r['row10_repeat_bit_identical']}; form 0 vs the "
+        f"WMMA form min_row_cos {r['row5_vs_wmma']['min_row_cos']:.8f}, "
+        f"{r['row10_vs_wmma']['min_row_cos']:.8f}, within_2ulp "
+        f"{r['row5_vs_wmma']['within_2ulp']:.6f}, {r['row10_vs_wmma']['within_2ulp']:.6f}")
+    if not ok:
+        raise AssertionError(f"rows 5 and 10 on {label}: {r}")
+    _hold_stage_products(_bf16_stage_products(p), label, results, worst)
+
+
+def _hold_stage_products(products: dict, label: str, results: list, worst: dict) -> None:
+    """The GEMM stage alone on each product against its plain version, the
+    int8 ones also bit for bit the WMMA stage. ``worst["gemm_stage"]`` takes
+    the stage's largest error."""
+    import torch
+
+    from aiic_tpu_torch.ops import quant
+
+    for name, prod in products.items():
         kernel, plain, _, _ = _stage_calls({name: prod})[name]
         out, wmma = kernel(), _stage_wmma(prod)
         torch.cuda.synchronize()
         a = _agreement(out, plain())
-        if prod[2] != "out_proj":
+        if prod[2] not in quant.BF16_EPILOGUES:
             a["bit_identical_to_wmma"] = bool(torch.equal(out, wmma))
             a["ok"] = a["ok"] and a["bit_identical_to_wmma"]
         a.update(kernel="gemm_stage", product=name, case=label)
@@ -622,6 +706,8 @@ def phase_kernels(device) -> dict:
         ("image B=1", dict(bsz=1, seq=197, width=768, heads=12, mask=False, zero_row=False)),
         ("image B=3", dict(bsz=3, seq=197, width=768, heads=12, mask=False, zero_row=False)),
         ("image B=2 zero row", dict(bsz=2, seq=197, width=768, heads=12, mask=False, zero_row=True)),
+        # the bf16 text tower's build shape: the vocabulary's 52 prompts
+        ("text B=52 causal", dict(bsz=52, seq=77, width=512, heads=8, mask=True, zero_row=False)),
     ]
     rng = np.random.default_rng(0)
     worst = {}
@@ -642,6 +728,7 @@ def phase_kernels(device) -> dict:
                 raise AssertionError(f"{name} disagrees with its plain version on {label}: {a}")
             worst[name] = max(worst.get(name, 0.0), a["max_abs_err"])
         _hold_forms(p, label, results, worst)
+        _hold_bf16_forms(p, label, results, worst)
     REPORT["kernel_checks"] = results
     return worst
 
@@ -870,8 +957,9 @@ def mma_core_resources(build_log: str) -> dict:
     build's ``-Xptxas -v`` report: the bf16 core of rows 6-8 and the fp32
     core of rows 6-7 per layout, the two passes of row 9's bf16 and fp32
     backward, row 17's wgmma products and its i8_quant row pass, the GEMM
-    stage of rows 1-2 per epilogue; and their blocks per SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    stage of rows 1-5 and 10 per epilogue; and their blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the stage's [int8
+    c_fc, bf16 out-projection, folded c_proj, bf16 QKV, bf16 c_fc])."""
     from aiic_tpu_torch.ops import attention, quant
     from aiic_tpu_torch.probes import mxu_probe
 
@@ -886,7 +974,10 @@ def mma_core_resources(build_log: str) -> dict:
                "wgmma_stage_kernel": {"EpiQKV": "stage_qkv", "EpiGelu": "stage_c_fc",
                                       "EpiResidual": "stage_c_proj",
                                       "EpiOutProj": "stage_out_proj",
-                                      "EpiChunkResidual": "stage_c_proj_folded"},
+                                      "EpiChunkResidual": "stage_c_proj_folded",
+                                      "EpiBiasQKV": "stage_bf16_qkv",
+                                      "EpiBiasGelu": "stage_bf16_c_fc",
+                                      "EpiMlpOut": "stage_bf16_c_proj"},
                "mxu_wgmma_quant_kernel": {"": "mxu_i8_quant"},
                "mxu_quant_rows_kernel": {"": "mxu_i8_quant_row_pass"}}
     res, lines = {}, build_log.splitlines()
@@ -1159,6 +1250,9 @@ def _randn(gen, shape, dtype, device):
 # each) and row 4 (four); the stage's own count says so.
 STAGE_LAUNCHES = {"int8_ln_qkv_attention": 2, "int8_ln_mlp": 2, "int8_ln_mlp_chunked": 2,
                   "int8_block": 4}
+# Rows 5 and 10 (bf16) launch the stage twice each too, but count one launch
+# of their own and none of the stage's.
+BF16_STAGE_LAUNCHES = {"fused_ln_qkv_attention": 2, "fused_ln_mlp": 2}
 
 
 def _one_launch(name: str, fn):
@@ -1440,7 +1534,7 @@ def phase_slice(device):
     for label in PATHS:
         engine, counts = phase_path(label, params, device, requests)
         _add(launches, counts)
-        if label in ("int8", "bf16"):  # compared with the CPU and timed below
+        if label in ("int8", "bf16", "bf16_pallas_mlp"):  # timed below
             engines[label] = engine
     paths = REPORT["paths"]
     same = all(paths["int8_auto"][k] == paths["int8"][k] for k in ("launches_at_build", "launches"))
@@ -2436,20 +2530,25 @@ def _device_ms_by_kernel(fn, needles: dict) -> dict:
     each needle, from ``_trace`` (None where the trace shows no such
     kernel). A trace is whole when it shows device time, every kernel's
     count is a multiple of the calls, and it holds as many
-    ``wgmma_stage_kernel`` launches as ``quant.gemm_stage`` counted in it;
-    the one used is whole and counts what the whole trace before it
-    counted."""
+    ``wgmma_stage_kernel`` launches as ``quant.gemm_stage`` counted in it
+    and rows 5 and 10 launched inside theirs (``BF16_STAGE_LAUNCHES``); the
+    one used is whole and counts what the whole trace before it counted."""
     import torch
 
-    from aiic_tpu_torch.ops import quant
+    from aiic_tpu_torch.ops import _build
+
+    def stage_launches():
+        counts = _build.launch_counts()
+        return counts.get("gemm_stage", 0) + sum(n * counts.get(k, 0)
+                                                 for k, n in BF16_STAGE_LAUNCHES.items())
 
     fn()
     torch.cuda.synchronize()
     before = None
     for _ in range(PROFILE_TRIES):
-        counted = quant.gemm_stage.launches
+        counted = stage_launches()
         events = _trace(fn)
-        counted = quant.gemm_stage.launches - counted
+        counted = stage_launches() - counted
         stage = sum(ev.count for ev in events if "wgmma_stage_kernel" in ev.key)
         counts = {ev.key: ev.count for ev in events}
         whole = bool(events) and stage == counted and all(
@@ -2694,29 +2793,33 @@ def _f32_core_forms(t: dict, name: str, card: str, call) -> None:
         f"core timed after it {t['tiled_ms_after']:.3f} ms ({card})")
 
 
-# Device time of rows 1-2 by stage: kernel-name needles of both forms.
-ROW_STAGE_NEEDLES = {"row_pass": "rowquant_kernel", "wgmma_stage": "wgmma_stage_kernel",
-                     "wmma_gemm": "gemm_kernel<", "core_mma": "attn_core_mma_kernel",
-                     "core_scalar": "attn_core_kernel<"}
+# Device time of rows 1, 2, 5 and 10 by stage: kernel-name needles of both
+# forms (the int8 rows' LN row quantizer, the bf16 rows' LN row pass).
+ROW_STAGE_NEEDLES = {"row_pass": "rowquant_kernel", "ln_pass": "ln_rows_kernel",
+                     "wgmma_stage": "wgmma_stage_kernel", "wmma_gemm": "gemm_kernel<",
+                     "core_mma": "attn_core_mma_kernel", "core_scalar": "attn_core_kernel<"}
 
 
 def _row_forms_times(p, calls, times: dict, card: str, worst: dict) -> None:
-    """Phase 9 for rows 1 and 2 and their GEMM stage, at B=256 ViT-B/16:
-    the stage alone on each of the four products (``_kernel_times``: plain,
-    kernel, kernel, plain; the bound of the product and its epilogue's
-    bytes; held against its plain version) beside the WMMA stage it replaced
-    and the stage yardstick (``torch._int_mm``, ``torch.matmul``: the product
-    without the epilogue, the median of 5), with its rate; then beside each
-    row's new form (timed by the caller) its WMMA form, the sum of its two
+    """Phase 9 for rows 1, 2, 5 and 10 and their GEMM stage, at B=256
+    ViT-B/16: the stage alone on each of the seven products
+    (``_kernel_times``: plain, kernel, kernel, plain; the bound of the
+    product and its epilogue's bytes; held against its plain version) beside
+    the WMMA stage it replaced and the stage yardstick (``torch._int_mm``,
+    ``torch.matmul``: the product without the epilogue, the median of 5),
+    with its rate; then for each row (timed by the caller) its new form again
+    and right after it its WMMA form on the same inputs, the sum of its two
     products' yardsticks, and both forms' device ms by stage
     (``torch.profiler``). The new forms must launch no WMMA GEMM and no
     scalar core."""
-    from aiic_tpu_torch.ops import quant
+    from aiic_tpu_torch.ops import attention, mlp, quant
 
     h = p["heads"]
     attn_q = calls["int8_ln_qkv_attention"][2]
     mlp_q = calls["int8_ln_mlp"][2]
-    products = _stage_products(p)
+    attn_b = calls["fused_ln_qkv_attention"][2]
+    mlp_b = calls["fused_ln_mlp"][2]
+    products = {**_stage_products(p), **_bf16_stage_products(p)}
     stage: dict = {}
     _kernel_times(_stage_calls(products), stage, "B=256 S=197 W=768 (stage)", card,
                   hold={name: "gemm_stage" for name in products}, worst=worst)
@@ -2728,8 +2831,8 @@ def _row_forms_times(p, calls, times: dict, card: str, worst: dict) -> None:
         t["rate_t_per_s"] = sum(prod[4].values()) / t["ms"] / 1e9
         log(f"[timing] {name:24s} wgmma stage {t['ms']:.3f} ms ({t['rate_t_per_s']:.1f} T/s on "
             f"its operations), WMMA stage {t['wmma_ms']:.3f} ms, yardstick "
-            f"({'torch.matmul' if prod[2] == 'out_proj' else 'torch._int_mm'}, no epilogue) "
-            f"{t['yardstick_ms']:.3f} ms ({card})")
+            f"({'torch.matmul' if prod[2] in quant.BF16_EPILOGUES else 'torch._int_mm'}, no "
+            f"epilogue) {t['yardstick_ms']:.3f} ms (spread {t['yardstick_ms_spread']}) ({card})")
     times.update(stage)
     c_fc = times["gemm_stage_c_fc"]  # the kernels line's entry: the largest product
     times["gemm_stage"] = dict(c_fc, products={k: {f: stage[k][f] for f in (
@@ -2739,20 +2842,51 @@ def _row_forms_times(p, calls, times: dict, card: str, worst: dict) -> None:
                  lambda: quant._int8_ln_qkv_attention_cuda(*attn_q, h, 1e-5, "wmma"),
                  ("gemm_stage_qkv", "gemm_stage_out_proj")),
              "int8_ln_mlp": (lambda: quant._int8_ln_mlp_cuda(*mlp_q, 1e-5, 1, "wmma"),
-                             ("gemm_stage_c_fc", "gemm_stage_c_proj"))}
+                             ("gemm_stage_c_fc", "gemm_stage_c_proj")),
+             "fused_ln_qkv_attention": (
+                 lambda: attention._fused_ln_qkv_attention_cuda(*attn_b, h, 1e-5, "wmma"),
+                 ("gemm_stage_bf16_qkv", "gemm_stage_out_proj")),
+             "fused_ln_mlp": (lambda: mlp._fused_ln_mlp_cuda(*mlp_b, 1e-5, "wmma"),
+                              ("gemm_stage_bf16_c_fc", "gemm_stage_bf16_c_proj"))}
     for name, (wmma, prods) in forms.items():
         t = times[name]
+        t["ms_beside_wmma"] = min(_time_ms(calls[name][0], 10) for _ in range(2))
         t["wmma_ms"] = min(_time_ms(wmma, 10) for _ in range(2))
         t["stage_yardstick_ms"] = sum(stage[k]["yardstick_ms"] for k in prods)
         t["device_ms_by_stage"] = _device_ms_by_kernel(calls[name][0], ROW_STAGE_NEEDLES)
         t["wmma_device_ms_by_stage"] = _device_ms_by_kernel(wmma, ROW_STAGE_NEEDLES)
-        log(f"[timing] {name:24s} new form {t['ms']:.3f} ms, WMMA form {t['wmma_ms']:.3f} ms, "
+        log(f"[timing] {name:24s} new form {t['ms']:.3f} ms ({t['ms_beside_wmma']:.3f} right "
+            f"before the WMMA form), WMMA form {t['wmma_ms']:.3f} ms, "
             f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms, stage yardstick "
             f"{t['stage_yardstick_ms']:.3f} ms; device ms by stage {t['device_ms_by_stage']}, "
             f"WMMA form {t['wmma_device_ms_by_stage']} ({card})")
         d = t["device_ms_by_stage"]
         if d["wmma_gemm"] is not None or d["core_scalar"] is not None or d["wgmma_stage"] is None:
             raise AssertionError(f"{name}: the new form launched {d}")
+
+
+def _bf16_text_forms(device, times: dict, card: str) -> None:
+    """Rows 5 and 10 at the bf16 text tower's build shape (52 prompts, S=77,
+    W=512, causal): the new form (through the wrapper) and right after it
+    the WMMA form on the same inputs, the best of two 10-call runs each;
+    4,004 rows make 32 x 12 QKV tiles, so both may be host-bound."""
+    from aiic_tpu_torch.ops import attention, mlp
+
+    p = _half_block_inputs(np.random.default_rng(9), 52, 77, 512, 8, mask=True, zero_row=False,
+                           device=device)
+    attn_b = (p["x"], p["ln_s"], p["ln_b"], p["wqkv_b"], p["bqkv"], p["wo"], p["bo"], p["mask"])
+    mlp_b = (p["x"], p["ln_s"], p["ln_b"], p["w1_b"], p["b1"], p["w2_b"], p["b2"])
+    forms = {"fused_ln_qkv_attention": (
+                 lambda: attention.fused_ln_qkv_attention(*attn_b, heads=8),
+                 lambda: attention._fused_ln_qkv_attention_cuda(*attn_b, 8, 1e-5, "wmma")),
+             "fused_ln_mlp": (lambda: mlp.fused_ln_mlp(*mlp_b),
+                              lambda: mlp._fused_ln_mlp_cuda(*mlp_b, 1e-5, "wmma"))}
+    for name, (new, wmma) in forms.items():
+        t = times[name]["text"] = {
+            "ms": min(_time_ms(new, 10) for _ in range(2)),
+            "wmma_ms": min(_time_ms(wmma, 10) for _ in range(2))}
+        log(f"[timing] {name:24s} B=52 S=77 W=512 causal: new form {t['ms']:.3f} ms, WMMA form "
+            f"{t['wmma_ms']:.3f} ms ({card})")
 
 
 def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
@@ -2776,8 +2910,11 @@ def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
                   hold={"fused_attention_qkv": "fused_attention_qkv",
                         "fused_attention_qkv_bf16": "fused_attention_qkv",
                         "int8_ln_qkv_attention": "int8_ln_qkv_attention",
-                        "int8_ln_mlp": "int8_ln_mlp"})
+                        "int8_ln_mlp": "int8_ln_mlp",
+                        "fused_ln_qkv_attention": "fused_ln_qkv_attention",
+                        "fused_ln_mlp": "fused_ln_mlp"})
     _row_forms_times(p, calls, times, card, worst)
+    _bf16_text_forms(device, times, card)
     for name in ("fused_attention_qkv", "fused_attention_qkv_bf16"):
         times[name].update(_sdpa_times(calls[name][2][0], p["heads"]))
         log(f"[timing] {name:24s} SDPA median {times[name]['library_ms']:.3f} ms (spread "
@@ -2838,15 +2975,18 @@ def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
         log(f"[timing] classify_pixels {label} B=256: {r['images_per_s_b256']:.1f} images/s; "
             f"single image p50 {r['single_image_p50_ms']:.3f} ms ({card})")
     # Per image chunk the int8 engine runs rows 1-2 on the wgmma stage and row
-    # 1's core on the tensor-core core: no WMMA GEMM, no scalar core.
-    engine = engines["int8"]
-    px = _pixels(rng, 8, engine.config.image_size)
-    d = _device_ms_by_kernel(lambda: engine.classify_pixels(px), ROW_STAGE_NEEDLES)
-    REPORT["int8_engine_kernels_per_chunk"] = d
-    log(f"[path int8] one 8-image classify call, device ms by kernel kind: {d}")
-    if (d["wgmma_stage"] is None or d["core_mma"] is None or d["wmma_gemm"] is not None
-            or d["core_scalar"] is not None):
-        raise AssertionError(f"the int8 engine's image chunk launched {d}")
+    # 1's core on the tensor-core core, the bf16 engines row 5 (and 10) on
+    # the stage and row 5's core on the tensor-core core: no WMMA GEMM, no
+    # scalar core.
+    for label in ("int8", "bf16", "bf16_pallas_mlp"):
+        engine = engines[label]
+        px = _pixels(rng, 8, engine.config.image_size)
+        d = _device_ms_by_kernel(lambda: engine.classify_pixels(px), ROW_STAGE_NEEDLES)
+        REPORT[f"{label}_engine_kernels_per_chunk"] = d
+        log(f"[path {label}] one 8-image classify call, device ms by kernel kind: {d}")
+        if (d["wgmma_stage"] is None or d["core_mma"] is None or d["wmma_gemm"] is not None
+                or d["core_scalar"] is not None):
+            raise AssertionError(f"the {label} engine's image chunk launched {d}")
     REPORT["timing"] = times
     return times
 
@@ -3151,7 +3291,7 @@ def main() -> int:
     REPORT["attn_core_mma"] = mma_core_resources(BUILD_INFO["log"])
     log(f"[build] attn_core_mma (rows 6-8 bf16), attn_core_f32 (rows 6-7 fp32), core_bwd_mma "
         f"(row 9 bf16), core_bwd_tiled (row 9 fp32), mxu_wgmma (row 17) and wgmma_stage (rows "
-        f"1-4's GEMM stage; its folded c_proj, row 3's): "
+        f"1-5 and 10's GEMM stage; its folded c_proj, row 3's): "
         f"{REPORT['attn_core_mma']}")
 
     worst = phase_kernels(device)
@@ -3166,8 +3306,8 @@ def main() -> int:
     built = kernel_experiments.model(device)
     worst.update(phase_variant_kernels(device, built))
     engines, params, launches = phase_slice(device)
-    for label, engine in engines.items():
-        phase_cpu_compare(label, engine, params)
+    for label in ("int8", "bf16"):
+        phase_cpu_compare(label, engines[label], params)
     with tempfile.TemporaryDirectory() as root:
         train_launches, epoch_rates = phase_train(params, device, root)
         launches.update(train_launches)
@@ -3228,14 +3368,16 @@ def main() -> int:
                      "replaced_forms_ms": t["replaced_forms_ms"],
                      "max_abs_err": max(worst["fused_attention_qkv_bwd" + suffix],
                                         worst[f"fused_attention_qkv_bwd_{shape}{suffix}"])}
-    # Rows 1-4: the WMMA form each replaced and the stage yardstick beside
+    # Rows 1-5 and 10: the WMMA form each replaced and the stage yardstick beside
     # (rows 3 and 4 also at their second shape, row 3 with its folded c_proj
     # alone); the GEMM stage's entry is its c_fc product, every product
     # beside.
     for k in kernels:
         if k["name"] in ("int8_ln_qkv_attention", "int8_ln_mlp", "int8_ln_mlp_chunked",
-                         "int8_block"):
+                         "int8_block", "fused_ln_qkv_attention", "fused_ln_mlp"):
             k.update({f: times[k["name"]][f] for f in ("wmma_ms", "stage_yardstick_ms")})
+        if k["name"] in ("fused_ln_qkv_attention", "fused_ln_mlp"):
+            k["text"] = times[k["name"]]["text"]
         if k["name"] in ("int8_ln_mlp_chunked", "int8_block"):
             second = "l14_336" if k["name"] == "int8_ln_mlp_chunked" else "text"
             t = times[f"{k['name']}_{second}"]

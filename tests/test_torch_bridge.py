@@ -506,3 +506,36 @@ def test_device_ms_by_kernel_uses_only_agreeing_whole_traces(monkeypatch, traces
     got = chip_smoke._device_ms_by_kernel(two_stage_launches, needles)
     assert not left
     assert got == {"stage": pytest.approx(0.02), "row_pass": pytest.approx(row_ms), "core": None}
+
+
+@pytest.mark.parametrize("row", ["fused_ln_qkv_attention", "fused_ln_mlp", None],
+                         ids=["row5", "row10", "uncounted"])
+def test_device_ms_by_kernel_counts_the_bf16_rows_stage_launches(monkeypatch, row):
+    """Rows 5 and 10 launch the stage twice a call and count one launch of
+    their own, none of ``quant.gemm_stage``'s: a trace of them is whole with
+    two stage kernels a counted launch; stage kernels that no wrapper
+    counted make no trace whole."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    from aiic_tpu_torch.ops import _build
+
+    def trace(fn, lead_in=chip_smoke.PROFILE_LEAD_IN):
+        for _ in range(chip_smoke.PROFILE_ITERS):
+            fn()
+        return _WHOLE
+
+    def one_call():
+        if row is not None:
+            _build._COUNTED[row].launches += 1
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    for fn in _build._COUNTED.values():
+        monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(chip_smoke, "_trace", trace)
+    needles = {"stage": "wgmma_stage_kernel"}
+    if row is None:
+        with pytest.raises(AssertionError, match="no two whole ones in a row"):
+            chip_smoke._device_ms_by_kernel(one_call, needles)
+        return
+    got = chip_smoke._device_ms_by_kernel(one_call, needles)
+    assert got == {"stage": pytest.approx(0.02)}

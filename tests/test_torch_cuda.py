@@ -48,7 +48,12 @@ bf16 bar against their plain versions. Rows 3 and 4 run on the same stage
 equals its WMMA form 1 bit for bit, row 4's form 0 equals rows 1 and 2 (or
 3) in turn, its form 1 the WMMA rows in turn; the folded c_proj alone takes
 the bf16 bar against its plain version; a chunk of the hidden axis that is
-not a whole number of 128-deep K-slices is refused before a launch.
+not a whole number of 128-deep K-slices is refused before a launch. Rows 5
+and 10 (bf16) run their products on the same stage and row 5's core on the
+tensor-core core (form 0): they sum fp32 in another order than their WMMA
+form 1, so each takes the bf16 bar against its plain version and against
+form 1, and repeats itself bit for bit; the bf16 engines' image chunks
+launch the stage and the tensor-core core and no WMMA GEMM or scalar core.
 """
 
 import numpy as np
@@ -938,13 +943,15 @@ def test_int8_rows_on_the_wgmma_stage_match_plain_and_wmma(device, case):
 def test_gemm_stage_matches_plain_and_wmma(device, epilogue, rows):
     """The stage alone: the bf16 bar (fp32's for gelu's fp32 y) against its
     plain version, an int8 product bit for bit the WMMA stage, one counted
-    launch; rows past the last 128-row tile untouched."""
+    launch; rows past the last 128-row tile untouched. The bf16 epilogues
+    (out_proj; rows 5 and 10's bias and bias_gelu) sum fp32 in another
+    order than the WMMA stage, so they take the bar alone."""
     rng = np.random.default_rng(rows)
     k, n = (3072, 768) if epilogue == "residual" else (768, 2304)
     x = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(device,
                                                                                torch.bfloat16)
     bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device)
-    if epilogue == "out_proj":
+    if epilogue in quant.BF16_EPILOGUES:
         a = _randn(device, rows, k, dtype=torch.bfloat16, seed=rows)
         w = (_randn(device, k, n, seed=rows + 1) / 32).to(torch.bfloat16)
         kw = dict(bias=bias, x=x)
@@ -962,7 +969,7 @@ def test_gemm_stage_matches_plain_and_wmma(device, epilogue, rows):
         _f32_agree(out, ref)
     else:
         _agree(out, ref)
-    if epilogue != "out_proj":
+    if epilogue not in quant.BF16_EPILOGUES:
         wmma = quant._gemm_stage_cuda(a, w, epilogue, kw["row_scale"], kw["col_scale"], bias, x,
                                       "wmma")
         assert torch.equal(out, wmma)
@@ -1107,3 +1114,99 @@ def test_rows_3_and_4_refuse_a_chunk_off_the_stage_slices(device):
     with pytest.raises(ValueError, match="multiple of 128"):
         quant.int8_block(x, *attn, None, *mlp_w, heads=12, plan_override=("chunked", 1, 16))
     assert _build.launch_counts() == before
+
+
+# Rows 5 and 10 (bf16) at the shapes the bf16 engines launch them: ViT-B/16
+# at B = 1 and 3 (B*S not a multiple of 128), the text tower's 52 prompts
+# (W = 512, causal), a zero LN row.
+ROW5_CASES = [(1, 197, 768, 12, False, False), (3, 197, 768, 12, False, False),
+              (52, 77, 512, 8, True, False), (2, 197, 768, 12, False, True)]
+ROW5_IDS = ["image_B1", "image_B3", "text_B52_causal", "image_B2_zero_row"]
+
+
+def _bf16_row_args(device, case):
+    bsz, seq, width, heads, masked, zero_row = case
+    x, attn, mlp_w = _row12_inputs(device, bsz, seq, width, zero_row)
+    rng = np.random.default_rng(bsz + width)
+    w = lambda *s, std: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * std).astype(np.float32)).to(device, torch.bfloat16)
+    mask = causal_mask(seq, device=device) if masked else None
+    attn_b = (x, *attn[:2], w(width, 3 * width, std=width ** -0.5), attn[4], attn[5], attn[6],
+              mask)
+    mlp_b = (x, *mlp_w[:2], w(width, 4 * width, std=(2 * width) ** -0.5), mlp_w[4],
+             w(4 * width, width, std=0.01), mlp_w[7])
+    return attn_b, mlp_b, heads
+
+
+@pytest.mark.parametrize("case", ROW5_CASES, ids=ROW5_IDS)
+def test_bf16_rows_on_the_wgmma_stage_match_plain_and_wmma(device, case):
+    """Rows 5 and 10 through their wrappers (form 0: the wgmma stage, row 5's
+    core on the tensor-core core): the bf16 bar against the plain versions
+    and against the WMMA form 1 (another fp32 summation order); a second run
+    bit for bit the first; one counted launch each and none of the stage's
+    own count."""
+    attn_b, mlp_b, heads = _bf16_row_args(device, case)
+    before = (attention.fused_ln_qkv_attention.launches, mlp.fused_ln_mlp.launches,
+              quant.gemm_stage.launches)
+    out5 = attention.fused_ln_qkv_attention(*attn_b, heads=heads)
+    out10 = mlp.fused_ln_mlp(*mlp_b)
+    torch.cuda.synchronize()
+    assert (attention.fused_ln_qkv_attention.launches, mlp.fused_ln_mlp.launches,
+            quant.gemm_stage.launches) == (before[0] + 1, before[1] + 1, before[2])
+    _agree(out5, attention.fused_ln_qkv_attention_ref(*attn_b, heads=heads))
+    _agree(out10, mlp.fused_ln_mlp_ref(*mlp_b))
+    old5 = attention._fused_ln_qkv_attention_cuda(*attn_b, heads, 1e-5, "wmma")
+    old10 = mlp._fused_ln_mlp_cuda(*mlp_b, 1e-5, "wmma")
+    torch.cuda.synchronize()
+    _agree(out5, old5)
+    _agree(out10, old10)
+    assert torch.equal(out5, attention.fused_ln_qkv_attention(*attn_b, heads=heads))
+    assert torch.equal(out10, mlp.fused_ln_mlp(*mlp_b))
+
+
+def test_bf16_rows_keep_their_forms_apart(device):
+    """Form 0 of rows 5 and 10 launches the LN row pass, the wgmma stage and
+    (row 5) the tensor-core core, and no WMMA gemm_kernel or scalar core;
+    form 1 (uncounted) launches those and not the stage."""
+    attn_b, mlp_b, heads = _bf16_row_args(device, ROW5_CASES[1])
+    for route, wmma in (
+            (lambda: attention.fused_ln_qkv_attention(*attn_b, heads=heads),
+             lambda: attention._fused_ln_qkv_attention_cuda(*attn_b, heads, 1e-5, "wmma")),
+            (lambda: mlp.fused_ln_mlp(*mlp_b), lambda: mlp._fused_ln_mlp_cuda(*mlp_b, 1e-5,
+                                                                              "wmma"))):
+        names = _cuda_kernels(route)
+        assert _launched(names, "wgmma_stage_kernel") and _launched(names, "ln_rows_kernel")
+        assert not _launched(names, "gemm_kernel<") and not _launched(names, "attn_core_kernel<")
+        before = dict(_build.launch_counts())
+        names = _cuda_kernels(wmma)
+        assert _build.launch_counts() == before
+        assert _launched(names, "gemm_kernel<") and not _launched(names, "wgmma_stage_kernel")
+    names = _cuda_kernels(lambda: attention.fused_ln_qkv_attention(*attn_b, heads=heads))
+    assert _launched(names, "attn_core_mma_kernel")
+    names = _cuda_kernels(lambda: attention._fused_ln_qkv_attention_cuda(*attn_b, heads, 1e-5,
+                                                                          "wmma"))
+    assert _launched(names, "attn_core_kernel<")
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "pallas_mlp"])
+def test_bf16_engine_chunks_run_the_wgmma_stage_and_the_mma_core(device, attn_impl):
+    """Per image chunk the bf16 ViT-B/16 engines (the worker's default and
+    ``pallas_mlp``) launch rows 5 (and 10) on the wgmma stage and row 5's
+    core as attn_core_mma_kernel, and no WMMA gemm_kernel or scalar
+    attn_core_kernel."""
+    from aiic_tpu_torch.engine.analyzer import InteriorAnalyzer
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.models.init import init_clip_params
+
+    params = init_clip_params(VIT_B_16, torch.Generator(device=device).manual_seed(0),
+                              device=device)
+    vocab = [{"image_path": "x.jpg", "style": "nowoczesny", "characteristics": ["jasne"],
+              "materials": ["drewno"], "colors": ["biały"], "room_type": "kuchnia"}]
+    engine = InteriorAnalyzer(params, VIT_B_16, training_data=vocab, device=device,
+                              dtype=torch.bfloat16, quantize=False, wire_format="hwc",
+                              attn_impl=attn_impl)
+    px = np.random.default_rng(11).integers(0, 256, (3, 224, 224, 3), dtype=np.uint8)
+    engine.classify_pixels(px)
+    names = _cuda_kernels(lambda: engine.classify_pixels(px))
+    assert _launched(names, "wgmma_stage_kernel") and _launched(names, "attn_core_mma_kernel")
+    assert not _launched(names, "gemm_kernel<") and not _launched(names, "attn_core_kernel<")

@@ -1,5 +1,5 @@
-"""The GEMM stage of rows 1-4 (``quant.gemm_stage``) and the K-major int8
-copies its ``wgmma`` form reads, on the CPU.
+"""The GEMM stage of rows 1-5 and 10 (``quant.gemm_stage``) and the K-major
+int8 copies its ``wgmma`` form reads, on the CPU.
 
 - ``quant.kmajor`` makes w^T once per weight and caches it on the tensor
   that owns the weight's storage: the copy equals the transpose exactly,
@@ -19,6 +19,13 @@ copies its ``wgmma`` form reads, on the CPU.
   excess precision off) at the bar above; the kernel wrappers refuse a chunk
   of the hidden axis that is not a whole number of the stage's 128-B
   K-slices before anything is built or launched.
+- The bf16 half-blocks (rows 5 and 10) composed from the stage's plain
+  calls as their form 0 runs them (LN rounded to bf16, ``bias`` or
+  ``bias_gelu``, the packed core for row 5, ``out_proj``) give
+  ``fused_ln_qkv_attention`` and ``fused_ln_mlp`` bit for bit and hold the
+  JAX kernels (interpret mode, excess precision off) at the bar above; each
+  per-element epilogue holds float64 numpy; rows 5 and 10 and the stage
+  refuse an unknown ``form`` before the library is loaded.
 """
 
 import functools
@@ -32,10 +39,12 @@ import torch
 from aiic_tpu.models.clip import causal_mask as jax_causal_mask
 from aiic_tpu.models.config import TINY_TEST
 from aiic_tpu.models.init import flatten_params, init_clip_params
+from aiic_tpu.ops import attention as jax_attention
+from aiic_tpu.ops import mlp as jax_mlp
 from aiic_tpu.ops import quant as jax_quant
 from aiic_tpu_torch.models.clip import causal_mask
 from aiic_tpu_torch.models.init import params_from_numpy
-from aiic_tpu_torch.ops import attention, quant
+from aiic_tpu_torch.ops import attention, mlp, quant
 
 torch.set_num_threads(2)
 
@@ -181,7 +190,7 @@ def test_stage_plain_version_matches_numpy(epilogue):
     rows, k, n = 13, 256, 128
     x = rng.standard_normal((rows, n)).astype(np.float32)
     bias = rng.standard_normal(n).astype(np.float32)
-    if epilogue == "out_proj":
+    if epilogue in quant.BF16_EPILOGUES:
         a = rng.standard_normal((rows, k)).astype(np.float32)
         w = (rng.standard_normal((k, n)) / 16).astype(np.float32)
         at = torch.from_numpy(a).to(torch.bfloat16)
@@ -189,7 +198,8 @@ def test_stage_plain_version_matches_numpy(epilogue):
         out = quant.gemm_stage(at, wt, epilogue, bias=torch.from_numpy(bias),
                                x=torch.from_numpy(x).to(torch.bfloat16))
         xb = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
-        ref = xb + at.double().numpy() @ wt.double().numpy() + bias
+        v = at.double().numpy() @ wt.double().numpy() + bias
+        ref = {"out_proj": xb + v, "bias": v, "bias_gelu": v / (1 + np.exp(-1.702 * v))}[epilogue]
     else:
         a, w = _int8(rng, rows, k), _int8(rng, k, n)
         rs = rng.random(rows).astype(np.float32) / 100
@@ -205,6 +215,98 @@ def test_stage_plain_version_matches_numpy(epilogue):
     assert out.dtype == (torch.float32 if epilogue == "gelu" else torch.bfloat16)
     tol = 2.0 ** -23 * 8 if epilogue == "gelu" else 2.0 ** -8
     np.testing.assert_allclose(out.double().numpy(), ref, rtol=tol, atol=1e-5)
+
+
+def _ln_bf16(x, ln_s, ln_b):
+    rows, width = x.shape[0] * x.shape[1], x.shape[2]
+    return attention._ln_fp32(x.float().reshape(rows, width), ln_s.reshape(1, width),
+                              ln_b.reshape(1, width), 1e-5).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("use_mask", [False, True], ids=["nomask", "causal"])
+def test_stage_composes_row5(use_mask):
+    """Row 5 (bf16) from the stage's plain calls as its form 0 runs it: LN
+    rounded to bf16, the QKV product with its bias (``bias``), the packed
+    core, the out-projection with the residual (``out_proj``); bit for bit
+    ``fused_ln_qkv_attention`` and at the bf16 bar of the JAX kernel
+    (interpret mode, excess precision off)."""
+    rng = np.random.default_rng(8)
+    b, s, w, h = 2, 77, 64, 4
+    p = _weights(rng, w, 4 * w)
+    x = torch.from_numpy(rng.standard_normal((b, s, w)).astype(np.float32)).to(torch.bfloat16)
+    t = torch.from_numpy
+    mask = causal_mask(s) if use_mask else None
+    wqkv, wo = t(p["wqkv"]).to(torch.bfloat16), t(p["wo"]).to(torch.bfloat16)
+    hb = _ln_bf16(x, t(p["ln_s"]), t(p["ln_b"]))
+    qkv = quant.gemm_stage(hb, wqkv, "bias", bias=t(p["bqkv"]))
+    assert qkv.dtype == torch.bfloat16 and qkv.shape == (b * s, 3 * w)
+    core = attention.fused_attention_qkv(qkv.reshape(b, s, 3 * w), mask, heads=h)
+    out = quant.gemm_stage(core.reshape(b * s, w), wo, "out_proj", bias=t(p["bo"]),
+                           x=x.reshape(b * s, w)).reshape(x.shape)
+    want = attention.fused_ln_qkv_attention(x, t(p["ln_s"]), t(p["ln_b"]), t(p["wqkv"]),
+                                            t(p["bqkv"]), t(p["wo"]), t(p["bo"]), mask, heads=h)
+    assert torch.equal(out, want)
+    run = jax.jit(functools.partial(jax_attention.fused_ln_qkv_attention, heads=h,
+                                    interpret=True), compiler_options=EXACT_BF16)
+    ref = run(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16), p["ln_s"], p["ln_b"],
+              p["wqkv"], p["bqkv"], p["wo"], p["bo"], jax_causal_mask(s) if use_mask else None)
+    _bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("bsz", [1, 3])
+def test_stage_composes_row10(bsz):
+    """Row 10 (bf16) from the stage's plain calls as its form 0 runs it: LN
+    rounded to bf16, c_fc with its bias and the exp2 gelu rounded once
+    (``bias_gelu``), c_proj with the residual (``out_proj``, K = 4W); bit for
+    bit ``fused_ln_mlp`` and at the bf16 bar of the JAX kernel."""
+    rng = np.random.default_rng(9)
+    s, w, m = 16, 64, 256
+    p = _weights(rng, w, m)
+    x = torch.from_numpy(rng.standard_normal((bsz, s, w)).astype(np.float32)).to(torch.bfloat16)
+    t = torch.from_numpy
+    w1, w2 = t(p["w1"]).to(torch.bfloat16), t(p["w2"]).to(torch.bfloat16)
+    hb = _ln_bf16(x, t(p["ln_s"]), t(p["ln_b"]))
+    y = quant.gemm_stage(hb, w1, "bias_gelu", bias=t(p["b1"]))
+    assert y.dtype == torch.bfloat16 and y.shape == (bsz * s, m)
+    out = quant.gemm_stage(y, w2, "out_proj", bias=t(p["b2"]),
+                           x=x.reshape(bsz * s, w)).reshape(x.shape)
+    names = ("ln_s", "ln_b", "w1", "b1", "w2", "b2")
+    assert torch.equal(out, mlp.fused_ln_mlp(x, *(t(p[k]) for k in names)))
+    ref = jax.jit(functools.partial(jax_mlp.fused_ln_mlp, interpret=True),
+                  compiler_options=EXACT_BF16)(
+        jnp.asarray(x.float().numpy()).astype(jnp.bfloat16), *(p[k] for k in names))
+    _bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("kernel", ["fused_ln_qkv_attention", "fused_ln_mlp", "gemm_stage"])
+def test_bf16_forms_refuse_an_unknown_form(monkeypatch, kernel):
+    """Rows 5 and 10 and the stage take form "wgmma" (the route) or "wmma"
+    (the first design) alone: any other is refused with a clear error
+    before the library is loaded; nothing falls back to another form."""
+    def no_library():
+        raise AssertionError("the kernel library was reached before the check")
+
+    for module in (attention, mlp, quant):
+        monkeypatch.setattr(module, "load_library", no_library)
+    rng = np.random.default_rng(10)
+    w = 128
+    p = _weights(rng, w, 4 * w)
+    t = torch.from_numpy
+    xb = torch.from_numpy(rng.standard_normal((1, 16, w)).astype(np.float32)).to(torch.bfloat16)
+    if kernel == "fused_ln_qkv_attention":
+        call = lambda: attention._fused_ln_qkv_attention_cuda(  # noqa: E731
+            xb, t(p["ln_s"]), t(p["ln_b"]), t(p["wqkv"]), t(p["bqkv"]), t(p["wo"]), t(p["bo"]),
+            None, 2, 1e-5, form="scalar")
+    elif kernel == "fused_ln_mlp":
+        call = lambda: mlp._fused_ln_mlp_cuda(  # noqa: E731
+            xb, t(p["ln_s"]), t(p["ln_b"]), t(p["w1"]), t(p["b1"]), t(p["w2"]), t(p["b2"]), 1e-5,
+            form="wmma_split")
+    else:
+        call = lambda: quant._gemm_stage_cuda(  # noqa: E731
+            xb.reshape(16, w), t(p["w1"]).to(torch.bfloat16), "bias", None, None, t(p["b1"]),
+            None, form="mma")
+    with pytest.raises(ValueError, match="form"):
+        call()
 
 
 def test_stage_refuses_an_unknown_epilogue():

@@ -48,9 +48,12 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 GROUPS = [  # (group, substring(s) of the CUDA kernel name, all present), first match wins
-    # rows 1-4's products on the wgmma + TMA stage (wgmma_serving_gemm.cuh;
-    # row 3's c_proj with the chunk sums folded in); the WMMA gemm_kernel's
-    # groups (int8_gemm_*, bf16_gemm_*) below
+    # rows 1-5 and 10's products on the wgmma + TMA stage
+    # (wgmma_serving_gemm.cuh; row 3's c_proj with the chunk sums folded in);
+    # the WMMA gemm_kernel's groups (int8_gemm_*, bf16_gemm_*) below
+    ("wgmma_bf16_gemm_qkv", ("wgmma_stage_kernel", "EpiBiasQKV")),
+    ("wgmma_bf16_gemm_c_fc_gelu", ("wgmma_stage_kernel", "EpiBiasGelu")),
+    ("wgmma_bf16_gemm_c_proj", ("wgmma_stage_kernel", "EpiMlpOut")),
     ("wgmma_int8_gemm_qkv", ("wgmma_stage_kernel", "EpiQKV")),
     ("wgmma_int8_gemm_c_fc_gelu", ("wgmma_stage_kernel", "EpiGelu")),
     ("wgmma_int8_gemm_c_proj", ("wgmma_stage_kernel", "EpiResidual")),
