@@ -18,8 +18,10 @@
 //   same shape, a 4x4 micro-tile of every product a thread, nine products
 //   a tile pair, delta summed beside l.
 // - S <= 128, one tile: block_core_bwd_kernel (common.cuh), the whole-text-
-//   block backward's core (rows 12 and 14), one block per (head, image) with
-//   Q, K, V, G and the S x S tile in fp32 shared memory (102,564 B at S=77).
+//   block backward's core in fp32 and in the first design (form 1) of rows
+//   12 and 14 (their form 0 runs the tensor-core form), one block per (head,
+//   image) with Q, K, V, G and the S x S tile in fp32 shared memory (102,564
+//   B at S=77).
 // - any S, streaming (below): two scalar passes with no atomics, one thread
 //   per row. Pass 1, over (query tile, head, image): the keys streamed
 //   through shared memory three times, for l = sum p, for
@@ -349,7 +351,7 @@ extern "C" int aiic_attention_qkv_bwd(const void* qkv, const void* mask, const v
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into blocks[0] (pass 1,
 // query rows) and blocks[1] (pass 2, key rows). Returns a cudaError_t.
 extern "C" int aiic_attention_qkv_bwd_mma_occupancy(int* blocks) {
-  return static_cast<int>(aiic::core_bwd_mma_occupancy(blocks));
+  return static_cast<int>(aiic::core_bwd_mma_occupancy<aiic::bf16>(blocks));
 }
 
 // Blocks of the fp32 register-tiled form's two passes resident on one SM

@@ -1,17 +1,24 @@
 // Tensor-core attention-core backward for Hopper (sm_90a), bf16, on the
 // packed (B, S, 3W) projection and a (B, S, W) cotangent, at any S: row 9 of
-// the TPU kernel table in bf16.
+// the TPU kernel table in bf16, and the core backward of rows 12 (bf16) and
+// 14 (the whole text block's backward, form 0).
 //
 // Replaces, as attention_qkv_bwd.cu's bf16 route, the TPU kernel
 // aiic_tpu/ops/attention.py::_attention_qkv_bwd_kernel (:728, called from
-// fused_attention_qkv_bwd :802 at :818). The plain PyTorch version is
-// aiic_tpu_torch/ops/attention.py::fused_attention_qkv_bwd_ref. Per head:
+// fused_attention_qkv_bwd :802 at :818), and inside text_block.cuh and
+// text_block_int8.cu the core step of aiic_tpu/ops/block_grad.py::
+// _text_block_bwd_kernel (:295-316) and its int8 twin, which compute the same
+// function. The plain PyTorch version is aiic_tpu_torch/ops/attention.py::
+// fused_attention_qkv_bwd_ref. Per head:
 //   p = exp2(min(q'.k^T + mask*log2 e, 70 log2 e)) / max(l, 1e-38), q' = bf16(q*c);
 //   dv = bf16(p)^T g;  dp = g v^T;  ds = bf16((p (dp - delta)) scale),
 //   delta = rowsum(p dp);  dq = ds k;  dk = ds^T q.
-// The fp32 routes (common.cuh's one-tile block_core_bwd_kernel, which rows
-// 12 and 14 run too, and attention_qkv_bwd.cu's two scalar streaming passes)
-// stay as they were.
+// dqkv is stored as TO: bf16 (row 9, row 12) or fp32 (row 14, whose dqkv
+// feeds the row quantizer of rowquant(dqkv * sqkv) and must not be rounded
+// to bf16 first; fused_attention_qkv_bwd_ref(..., out_dtype=torch.float32)).
+// The fp32 routes (common.cuh's one-tile block_core_bwd_kernel, which the
+// text block's form 1 and fp32 route keep, and attention_qkv_bwd.cu's two
+// scalar streaming passes) stay as they were.
 //
 // What bounds it on the H100: the bytes. At 256 ViT-B/16 images (S=197,
 // W=768, H=12) it reads qkv and g and writes dqkv, 7*B*S*W bf16 = 542 MB:
@@ -83,10 +90,32 @@
 namespace aiic {
 namespace {
 
-// Dynamic shared memory of the passes, with 1 KB to align the tiles.
+// Dynamic shared memory of the passes, with 1 KB to align the tiles. The fp32
+// store writes the fragments straight to device memory (below), so it needs
+// no more.
 constexpr int kBwdQuerySmem = 6 * kTileElems * 2 + 1024;  // q', G, 2 K, 2 V tiles
 constexpr int kBwdKeySmem =
     8 * kTileElems * 2 + 2 * 2 * kMmaRows * 4 + 1024;  // K, V, 2 (Q, q', G), 2 (inv, delta)
+
+// mma_tiles.cuh's store_rows for an fp32 dst (the stage tile and the row
+// factors, all 1 here, unused): a warp's 16 rows of an fp32 accumulator
+// (rows g and g + 8, columns 8n + 2 tig + {0, 1}) stored unrounded to dst
+// (row r at dst + r*ld) for the rows below n_rows. Each quad writes 32
+// consecutive bytes of a row, a whole sector, so nothing is staged.
+__device__ __forceinline__ void store_rows(bf16*, const float (&d)[8][4], const float*,
+                                           float* dst, size_t ld, int n_rows, int wrow,
+                                           int lane) {
+  const int g = lane >> 2, tig = lane & 3, r0 = wrow + g, r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if (r0 < n_rows)
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r0) * ld + 8 * n + 2 * tig) =
+          make_float2(d[n][0], d[n][1]);
+    if (r1 < n_rows)
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r1) * ld + 8 * n + 2 * tig) =
+          make_float2(d[n][2], d[n][3]);
+  }
+}
 
 // The sum over the four threads of a row group (disjoint columns of a row).
 __device__ __forceinline__ float quad_sum(float v) {
@@ -98,9 +127,10 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Pass 1. Writes dq of the block's query rows to columns h*64 of dqkv, and
 // inv = 1/max(l, 1e-38), delta = rowsum(p dp) to the workspace at
 // (b*H + h)*S + row.
+template <typename TO>
 __global__ void __launch_bounds__(kMmaThreads, 3)
 core_bwd_mma_query_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
-                          const float* __restrict__ mask, bf16* __restrict__ dqkv,
+                          const float* __restrict__ mask, TO* __restrict__ dqkv,
                           float* __restrict__ inv_ws, float* __restrict__ delta_ws, int S, int W,
                           int H, float qconst, float scale) {
   extern __shared__ unsigned char smem_raw[];
@@ -253,10 +283,11 @@ core_bwd_mma_query_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__
 
 // Pass 2. Writes dk and dv of the block's key rows to columns W + h*64 and
 // 2W + h*64 of dqkv, from pass 1's inv and delta.
+template <typename TO>
 __global__ void __launch_bounds__(kMmaThreads, 3)
 core_bwd_mma_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
                         const float* __restrict__ mask, const float* __restrict__ inv_ws,
-                        const float* __restrict__ delta_ws, bf16* __restrict__ dqkv, int S, int W,
+                        const float* __restrict__ delta_ws, TO* __restrict__ dqkv, int S, int W,
                         int H, float qconst, float scale) {
   extern __shared__ unsigned char smem_raw[];
   bf16* sk = reinterpret_cast<bf16*>(align1024(smem_raw));
@@ -381,45 +412,50 @@ core_bwd_mma_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g
   // (n_tiles - 1) & 1, and every warp passed the barrier after the one before.
   const int free_stage = ((n_tiles - 1) & 1) ^ 1;
   const float one[2] = {1.f, 1.f};
-  bf16* dst = dqkv + (row0 + k0) * ld + h * kHeadDim;
+  TO* dst = dqkv + (row0 + k0) * ld + h * kHeadDim;
   store_rows(sqs + free_stage * kTileElems, dk, one, dst + W, ld, S - k0, wrow, lane);
   store_rows(sg + free_stage * kTileElems, dv, one, dst + 2 * W, ld, S - k0, wrow, lane);
 }
 
-// qkv (B*S, 3W), g (B*S, W) -> dqkv (B*S, 3W), all bf16; mask (S, S) fp32 or
-// null; ws 2*B*H*S floats (inv, then delta). Needs W == H*64.
-cudaError_t launch_core_bwd_mma(const bf16* qkv, const bf16* g, const float* mask, bf16* dqkv,
+// qkv (B*S, 3W), g (B*S, W) bf16 -> dqkv (B*S, 3W) in TO (bf16 or fp32);
+// mask (S, S) fp32 or null; ws 2*B*H*S floats (inv, then delta). Needs
+// W == H*64.
+template <typename TO>
+cudaError_t launch_core_bwd_mma(const bf16* qkv, const bf16* g, const float* mask, TO* dqkv,
                                 float* ws, int B, int S, int W, int H, float qconst,
                                 cudaStream_t st) {
+  static_assert(std::is_same<TO, bf16>::value || std::is_same<TO, float>::value,
+                "dqkv is stored as bf16 or fp32");
   if (B <= 0 || S <= 0 || H <= 0 || W != H * kHeadDim || !ws || B > 65535)
     return cudaErrorInvalidValue;
-  AIIC_CHECK(cudaFuncSetAttribute(core_bwd_mma_query_kernel,
+  AIIC_CHECK(cudaFuncSetAttribute(core_bwd_mma_query_kernel<TO>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdQuerySmem));
-  AIIC_CHECK(cudaFuncSetAttribute(core_bwd_mma_key_kernel,
+  AIIC_CHECK(cudaFuncSetAttribute(core_bwd_mma_key_kernel<TO>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdKeySmem));
   const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));  // as launch_core_bwd
   const dim3 grid((S + kMmaRows - 1) / kMmaRows, H, B);
   float* inv = ws;
   float* delta = ws + static_cast<size_t>(B) * H * S;
-  core_bwd_mma_query_kernel<<<grid, kMmaThreads, kBwdQuerySmem, st>>>(qkv, g, mask, dqkv, inv,
-                                                                       delta, S, W, H, qconst,
-                                                                       scale);
+  core_bwd_mma_query_kernel<TO><<<grid, kMmaThreads, kBwdQuerySmem, st>>>(
+      qkv, g, mask, dqkv, inv, delta, S, W, H, qconst, scale);
   AIIC_CHECK(cudaGetLastError());
-  core_bwd_mma_key_kernel<<<grid, kMmaThreads, kBwdKeySmem, st>>>(qkv, g, mask, inv, delta, dqkv,
-                                                                   S, W, H, qconst, scale);
+  core_bwd_mma_key_kernel<TO><<<grid, kMmaThreads, kBwdKeySmem, st>>>(qkv, g, mask, inv, delta,
+                                                                       dqkv, S, W, H, qconst,
+                                                                       scale);
   return cudaGetLastError();
 }
 
-// Blocks of each pass resident on one SM, into blocks[0] (pass 1) and
-// blocks[1] (pass 2).
+// Blocks of each pass storing TO resident on one SM, into blocks[0] (pass
+// 1) and blocks[1] (pass 2).
+template <typename TO>
 cudaError_t core_bwd_mma_occupancy(int* blocks) {
-  AIIC_CHECK(cudaFuncSetAttribute(core_bwd_mma_query_kernel,
+  AIIC_CHECK(cudaFuncSetAttribute(core_bwd_mma_query_kernel<TO>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdQuerySmem));
-  AIIC_CHECK(cudaFuncSetAttribute(core_bwd_mma_key_kernel,
+  AIIC_CHECK(cudaFuncSetAttribute(core_bwd_mma_key_kernel<TO>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdKeySmem));
-  AIIC_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, core_bwd_mma_query_kernel,
+  AIIC_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, core_bwd_mma_query_kernel<TO>,
                                                            kMmaThreads, kBwdQuerySmem));
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 1, core_bwd_mma_key_kernel,
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 1, core_bwd_mma_key_kernel<TO>,
                                                        kMmaThreads, kBwdKeySmem);
 }
 

@@ -25,8 +25,9 @@
 //   which is a no-op for fp32).
 // - block_core_bwd_kernel<T, TO>: the attention-core backward with the
 //   S x S probabilities in shared memory, one block per (head, image), for
-//   S <= 128 (rows 12 and 14, and fp32 row 9; bf16 row 9 runs the
-//   tensor-core backward of attn_core_bwd_mma.cuh).
+//   S <= 128 (the fp32 text block, the first design (form 1) of rows 12
+//   and 14, and fp32 row 9's one-tile form; bf16 row 9 and form 0 of rows
+//   12 and 14 run the tensor-core backward of attn_core_bwd_mma.cuh).
 //
 // Built with -fmad=false so the epilogues' a*b+c round twice, as the plain
 // PyTorch versions do; the products themselves use the tensor cores or

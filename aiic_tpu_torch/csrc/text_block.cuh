@@ -24,11 +24,20 @@
 // statistics are fp32; the probabilities are normalized before p.V; the
 // quick-gelu is fp32 f*sigmoid(1.702 f); the LoRA cotangents are fp32.
 //
-// Products and where they run:
-// - the backbone products (rows x W or M, depth W, 3W or M): in bf16 the WMMA
-//   tensor-core GEMM of common.cuh (kTransB for dy.W^T); in fp32 a SIMT GEMM
-//   of 128x128 tiles (sgemm_kernel), because TF32 keeps 10 bits of mantissa
-//   and the fp32 bar is 1e-5;
+// Products and where they run (bf16 takes a form: 0, the route, and 1, the
+// first design, kept reachable for the side-by-side check and time; fp32
+// has one route):
+// - the backbone products (rows x W or M, depth W, 3W or M): in bf16 form 0
+//   the wgmma + TMA stage of wgmma_serving_gemm.cuh (128 x 128 tiles, a
+//   3-stage TMA ring, two consumer warpgroups), B = W (K, N) as it lies for
+//   the forward and W (N, K) read as the K-major B it is for the
+//   backward's dy.W^T (no transposed copy), with this file's per-element
+//   epilogues (the rank-r up-projection LoRATerm inside them; every one
+//   with that term, and qkv's, walks rows through the staged tile with F's
+//   column in registers, AIIC_LORA_COLUMN); in bf16 form 1
+//   the WMMA tensor-core GEMM of common.cuh (kTransB for dy.W^T); in fp32 a
+//   SIMT GEMM of 128x128 tiles (sgemm_kernel), because TF32 keeps 10 bits
+//   of mantissa and the fp32 bar is 1e-5;
 // - the rank-r down-projections (a.Ao, dy.Bp^T, ...): a SIMT GEMM at 64x16
 //   tiles with the depth split in chunks of kDepthChunk, each chunk's partial
 //   in its own slice, then one pass that sums the slices in order and stores;
@@ -36,11 +45,16 @@
 // - the six LoRA cotangents, sums over all B*S rows: the same split product
 //   with the row axis as its depth, in chunks of kRowChunk rows. No atomics,
 //   so a run repeats bit for bit;
-// - the attention core: one block per (image, head), one thread per query
-//   row, q/k/v (and g in the backward) and the S x S probabilities in shared
-//   memory (the backward's opt-in is 102,564 B at S=77 in fp32); the
-//   backward is common.cuh's block_core_bwd_kernel, which row 9
-//   (attention_qkv_bwd.cu) launches too.
+// - the attention core forward: one block per (image, head), one thread per
+//   query row, K, V and the S x S probabilities in fp32 shared memory
+//   (block_core_fwd_kernel: it normalizes p before p.V, which the
+//   tensor-core forward of attn_core_mma.cuh does not);
+// - the core backward: in bf16 form 0 row 9's two tensor-core passes
+//   (attn_core_bwd_mma.cuh: the same function, the TPU text-block kernel's
+//   core step being _attention_qkv_bwd_kernel's; 2 B H S floats of
+//   workspace for inv and delta); in bf16 form 1 and in fp32 common.cuh's
+//   block_core_bwd_kernel, one thread per query row with Q, K, V, G and the
+//   S x S tile in shared memory (102,564 B at S=77 in fp32).
 //
 // What bounds it on the H100: at B=256 text rows (S=77, W=512, M=2048, H=8,
 // rank 16) the forward does 131.0 GFLOP and the backward 227.3 (it recomputes
@@ -49,10 +63,11 @@
 // TFLOP/s of fp32 without tensor cores, 0.132 / 0.230 ms at the 989 TFLOP/s of
 // bf16. Both are bound by operations.
 //
-// What the simple design gives up: the fp32 GEMM is a shared-memory tile with
-// 8x8 register blocking and one stage of register prefetch, the WMMA GEMM has
-// no TMA/wgmma pipeline, the core runs scalar FMAs, and every intermediate
-// makes a round trip through device memory between launches.
+// What the design gives up: the rank-r products and LoRA sums run on the
+// CUDA cores in split passes (the largest part left in bf16 form 0), the
+// core forward runs scalar FMAs, the fp32 GEMM is a shared-memory tile with
+// 8x8 register blocking and one stage of register prefetch, and every
+// intermediate makes a round trip through device memory between launches.
 //
 // The code is this header; text_block_f32.cu and text_block_bf16.cu
 // instantiate it for one compute type each, so that nvcc builds the two
@@ -65,7 +80,8 @@
 #include <type_traits>
 #include <utility>
 
-#include "common.cuh"
+#include "attn_core_bwd_mma.cuh"
+#include "wgmma_serving_gemm.cuh"  // and common.cuh
 
 namespace aiic {
 
@@ -85,6 +101,8 @@ struct BlockArgs {
   const void *aoA, *aoB, *afA, *afB, *apA, *apB;
   int B, S, W, H, M, ro, rf, rp;
   float s, eps, qconst;
+  int form;  // 0: the wgmma stage and the tensor-core core backward; 1: the WMMA tile and
+             // block_core_bwd_kernel (bf16; fp32 has one route, form 0)
 };
 
 // The workspace, carved from one buffer at 256-byte offsets (layout()).
@@ -93,6 +111,7 @@ struct Workspace {
   float *y1, *f;
   void *t_p, *dfq, *t_f, *dy1c, *t_o, *da, *dqkv;  // T
   float *dh2, *dy1, *dh1, *part;
+  float* core_ws;  // the tensor-core core backward's inv and delta, 2 B H S
 };
 
 namespace {
@@ -186,7 +205,18 @@ cudaError_t launch_simt(const TA* A, long long sam, long long sak, const TB* B, 
 // The rank-r term s * sum_j lo[r, j] F(j, n), F(j, n) = F[j*fj + n*fn], both
 // in T: the up-projection of a LoRA delta (forward) or of its cotangent
 // (backward, F transposed). rank 0 gives 0.
+//
+// On the wgmma stage an epilogue with this term walks the 64 rows of one
+// column n (the staged path), so F's column n is loaded once into registers
+// (column, up to kColumnRanks ranks) and each row's term is taken from it
+// (at), in place of 2 * rank loads per element: the same fmaf chain over j
+// in order, so the same bits as operator().
 template <typename T> struct LoRATerm {
+  static constexpr int kColumnRanks = 16;
+  struct Column {
+    float f[kColumnRanks];
+  };
+
   const T* lo;
   const T* F;
   int rank;
@@ -199,7 +229,54 @@ template <typename T> struct LoRATerm {
       acc = fmaf(to_f32(l[j]), to_f32(F[static_cast<size_t>(j) * fj + static_cast<size_t>(n) * fn]), acc);
     return s * acc;
   }
+  __device__ __forceinline__ bool column_fits() const { return rank <= kColumnRanks; }
+  __device__ __forceinline__ Column column(int n) const {
+    Column c;
+#pragma unroll
+    for (int j = 0; j < kColumnRanks; ++j)
+      c.f[j] = j < rank
+                   ? to_f32(F[static_cast<size_t>(j) * fj + static_cast<size_t>(n) * fn])
+                   : 0.f;
+    return c;
+  }
+  // operator()(r, n) with F's column n from column(n); needs column_fits().
+  __device__ __forceinline__ float at(int r, const Column& c) const {
+    float acc = 0.f;
+    const T* l = lo + static_cast<size_t>(r) * rank;
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (rank == kColumnRanks && (reinterpret_cast<uintptr_t>(l) & 15) == 0) {
+        // the row of lo as two 16-B loads; bf16 -> fp32 is exact
+        const uint4 v[2] = {*reinterpret_cast<const uint4*>(l),
+                            *reinterpret_cast<const uint4*>(l + 8)};
+        const uint32_t* w = reinterpret_cast<const uint32_t*>(v);
+#pragma unroll
+        for (int j = 0; j < kColumnRanks / 2; ++j) {
+          acc = fmaf(__uint_as_float(w[j] << 16), c.f[2 * j], acc);
+          acc = fmaf(__uint_as_float(w[j] & 0xffff0000u), c.f[2 * j + 1], acc);
+        }
+        return s * acc;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kColumnRanks; ++j)
+      if (j < rank) acc = fmaf(to_f32(l[j]), c.f[j], acc);
+    return s * acc;
+  }
 };
+
+// The column-cached form of an epilogue with a rank-r term (a member
+// ``lora``), for the stage's staged path: Column, column_fits(), column(n)
+// and at(r, n, acc, column), which applies the epilogue (its apply(r, n,
+// acc, term), acc the int32 or fp32 accumulator as it is) with the term
+// from LoRATerm::at.
+#define AIIC_LORA_COLUMN(T)                                                                    \
+  using Column = typename LoRATerm<T>::Column;                                                 \
+  __device__ __forceinline__ bool column_fits() const { return lora.column_fits(); }           \
+  __device__ __forceinline__ Column column(int n) const { return lora.column(n); }             \
+  template <typename Acc>                                                                      \
+  __device__ __forceinline__ void at(int r, int n, Acc acc, const Column& c) const {           \
+    apply(r, n, acc, lora.at(r, c));                                                           \
+  }
 
 // The fp32 backbone product C (M x N) = A (M x K) . B on the CUDA cores, B
 // stored (K, N), or (N, K) and read transposed (kTransB). Block tile 128x128,
@@ -306,11 +383,15 @@ template <typename E>
 struct HasLoRA<E, std::void_t<decltype(std::declval<E&>().lora)>> : std::true_type {};
 
 // A backbone product C (rows x N) = A (rows x K) . W, or . W^T for a weight
-// stored (N, K) (kTransW): WMMA in bf16 (the epilogue adds the rank-r term),
-// the SIMT tile above in fp32 (the sums take it).
+// stored (N, K) (kTransW). bf16: form 0 the wgmma + TMA stage of
+// wgmma_serving_gemm.cuh (W^T read as the K-major B it is, no copy), form 1
+// the WMMA tile of common.cuh; either way the epilogue adds the rank-r term.
+// fp32: the SIMT tile above (the sums take the rank-r term).
 template <bool kTransW, typename T, typename Epi>
-cudaError_t big_gemm(const T* A, const T* W, int rows, int N, int K, Epi epi, cudaStream_t st) {
+cudaError_t big_gemm(const T* A, const T* W, int rows, int N, int K, Epi epi, int form,
+                     cudaStream_t st) {
   if constexpr (std::is_same<T, bf16>::value) {
+    if (form == 0) return launch_wgmma_stage<bf16, Epi, kTransW>(A, W, rows, N, K, epi, st);
     return launch_gemm<kTransW>(A, W, rows, N, K, epi, st);
   } else {
     LoRATerm<float> lora{nullptr, nullptr, 0, 0, 0, 0.f};
@@ -406,12 +487,14 @@ template <typename T> struct EpiY1 {  // y1 = x + ((acc + bo) + s (a Ao) Bo), fp
   const T* x;
   float* y1;
   int n_cols;
-  __device__ void operator()(int r, int n, float acc) const {
+  __device__ void operator()(int r, int n, float acc) const { apply(r, n, acc, lora(r, n)); }
+  __device__ __forceinline__ void apply(int r, int n, float acc, float term) const {
     const size_t i = static_cast<size_t>(r) * n_cols + n;
     float v = acc + b[n];
-    v = v + lora(r, n);
+    v = v + term;
     y1[i] = to_f32(x[i]) + v;
   }
+  AIIC_LORA_COLUMN(T)
 };
 
 template <typename T> struct EpiFc {  // f = (acc + b1) + s (h2 Af) Bf; u = T(f sigmoid(1.702 f))
@@ -420,13 +503,15 @@ template <typename T> struct EpiFc {  // f = (acc + b1) + s (h2 Af) Bf; u = T(f 
   float* f_out;  // kept for the backward, or null
   T* u;
   int n_cols;
-  __device__ void operator()(int r, int n, float acc) const {
+  __device__ void operator()(int r, int n, float acc) const { apply(r, n, acc, lora(r, n)); }
+  __device__ __forceinline__ void apply(int r, int n, float acc, float term) const {
     const size_t i = static_cast<size_t>(r) * n_cols + n;
     float f = acc + b[n];
-    f = f + lora(r, n);
+    f = f + term;
     if (f_out) f_out[i] = f;
     store_as<T>(u + i, f * sigmoid_gelu(f));
   }
+  AIIC_LORA_COLUMN(T)
 };
 
 template <typename T> struct EpiY {  // y = T(y1 + ((acc + b2) + s (u Ap) Bp))
@@ -435,12 +520,14 @@ template <typename T> struct EpiY {  // y = T(y1 + ((acc + b2) + s (u Ap) Bp))
   const float* y1;
   T* y;
   int n_cols;
-  __device__ void operator()(int r, int n, float acc) const {
+  __device__ void operator()(int r, int n, float acc) const { apply(r, n, acc, lora(r, n)); }
+  __device__ __forceinline__ void apply(int r, int n, float acc, float term) const {
     const size_t i = static_cast<size_t>(r) * n_cols + n;
     float mo = acc + b[n];
-    mo = mo + lora(r, n);
+    mo = mo + term;
     store_as<T>(y + i, y1[i] + mo);
   }
+  AIIC_LORA_COLUMN(T)
 };
 
 template <typename T> struct EpiDfq {  // du = acc + s t_p Ap^T; dfq = T(du gelu'(f))
@@ -448,24 +535,33 @@ template <typename T> struct EpiDfq {  // du = acc + s t_p Ap^T; dfq = T(du gelu
   const float* f;
   T* dfq;
   int n_cols;
-  __device__ void operator()(int r, int n, float acc) const {
+  __device__ void operator()(int r, int n, float acc) const { apply(r, n, acc, lora(r, n)); }
+  __device__ __forceinline__ void apply(int r, int n, float acc, float term) const {
     const size_t i = static_cast<size_t>(r) * n_cols + n;
-    const float du = acc + lora(r, n);
+    const float du = acc + term;
     const float fv = f[i];
     const float sg = sigmoid_gelu(fv);
     const float d = sg + kGeluK * fv * sg * (1.0f - sg);
     store_as<T>(dfq + i, du * d);
   }
+  AIIC_LORA_COLUMN(T)
 };
 
 template <typename T, typename TO> struct EpiLoRAOut {  // out = TO(acc + s lo F^T)
   LoRATerm<T> lora;
   TO* out;
   int n_cols;
-  __device__ void operator()(int r, int n, float acc) const {
-    store_as<TO>(out + static_cast<size_t>(r) * n_cols + n, acc + lora(r, n));
+  __device__ void operator()(int r, int n, float acc) const { apply(r, n, acc, lora(r, n)); }
+  __device__ __forceinline__ void apply(int r, int n, float acc, float term) const {
+    store_as<TO>(out + static_cast<size_t>(r) * n_cols + n, acc + term);
   }
+  AIIC_LORA_COLUMN(T)
 };
+
+// On the wgmma stage every epilogue with a rank-r term walks rows through
+// shared memory with F's column in registers (ColumnCached); so does qkv's
+// (3W columns), so that its stores coalesce.
+template <> struct StagedEpilogue<EpiQkv<bf16>> { static constexpr bool value = true; };
 
 // ---------------------------------------------------------------------------
 // Row passes: LN forward, LN backward
@@ -644,6 +740,7 @@ size_t layout(char* base, int B, int S, int W, int M, int ro, int rf, int rp, in
     w->dh2 = static_cast<float*>(take(rows * W * 4));
     w->dy1 = static_cast<float*>(take(rows * W * 4));
     w->dh1 = static_cast<float*>(take(rows * W * 4));
+    w->core_ws = static_cast<float*>(take(2 * rows * (W / kHeadDim) * 4));
   }
   return off;
 }
@@ -658,20 +755,20 @@ cudaError_t forward_stages(const BlockArgs& p, const Workspace& w, float* f_keep
   const T* x = c(p.x);
   AIIC_CHECK(launch_ln_fwd(x, p.ln1s, p.ln1b, m(w.h1), rows, W, p.eps, st));
   AIIC_CHECK(big_gemm<false>(c(w.h1), c(p.wqkv), rows, 3 * W, W,
-                             EpiQkv<T>{p.bqkv, m(w.qkv), 3 * W}, st));
+                             EpiQkv<T>{p.bqkv, m(w.qkv), 3 * W}, p.form, st));
   AIIC_CHECK(launch_core_fwd(c(w.qkv), p.mask, m(w.a), p.B, p.S, W, p.H, p.qconst, st));
   AIIC_CHECK(narrow_gemm<T>(c(w.a), W, 1, c(p.aoA), p.ro, 1, rows, p.ro, W, kDepthChunk,
                             w.part, EpiStore<T>{m(w.a_ao), p.ro}, st));
   AIIC_CHECK(big_gemm<false>(c(w.a), c(p.wo), rows, W, W,
                              EpiY1<T>{p.bo, LoRATerm<T>{c(w.a_ao), c(p.aoB), p.ro, W, 1, p.s},
-                                      x, w.y1, W}, st));
+                                      x, w.y1, W}, p.form, st));
   AIIC_CHECK(launch_ln_fwd(static_cast<const float*>(w.y1), p.ln2s, p.ln2b, m(w.h2), rows, W,
                            p.eps, st));
   AIIC_CHECK(narrow_gemm<T>(c(w.h2), W, 1, c(p.afA), p.rf, 1, rows, p.rf, W, kDepthChunk,
                             w.part, EpiStore<T>{m(w.h2_af), p.rf}, st));
   AIIC_CHECK(big_gemm<false>(c(w.h2), c(p.w1), rows, M, W,
                              EpiFc<T>{p.b1, LoRATerm<T>{c(w.h2_af), c(p.afB), p.rf, M, 1, p.s},
-                                      f_keep, m(w.u), M}, st));
+                                      f_keep, m(w.u), M}, p.form, st));
   AIIC_CHECK(narrow_gemm<T>(c(w.u), M, 1, c(p.apA), p.rp, 1, rows, p.rp, M, kDepthChunk,
                             w.part, EpiStore<T>{m(w.u_ap), p.rp}, st));
   return cudaSuccess;
@@ -686,7 +783,7 @@ cudaError_t run_fwd(const BlockArgs& p, const Workspace& w, void* y, cudaStream_
       EpiY<T>{p.b2, LoRATerm<T>{static_cast<const T*>(w.u_ap), static_cast<const T*>(p.apB), p.rp,
                                 p.W, 1, p.s},
               w.y1, static_cast<T*>(y), p.W},
-      st);
+      p.form, st);
 }
 
 // grads: d(out_proj A, B), d(c_fc A, B), d(c_proj A, B), fp32.
@@ -704,7 +801,7 @@ cudaError_t run_bwd(const BlockArgs& p, const Workspace& w, const void* dy_, voi
                             EpiStore<T>{m(w.t_p), p.rp}, st));
   AIIC_CHECK(big_gemm<true>(dy, c(p.w2), rows, M, W,
                             EpiDfq<T>{LoRATerm<T>{c(w.t_p), c(p.apA), p.rp, 1, p.rp, p.s}, w.f,
-                                      m(w.dfq), M}, st));
+                                      m(w.dfq), M}, p.form, st));
   AIIC_CHECK(rows_reduce<T>(c(w.u), M, c(w.t_p), p.rp, rows, p.s, w.part, g[4], false, st));
   AIIC_CHECK(rows_reduce<T>(dy, W, c(w.u_ap), p.rp, rows, p.s, w.part, g[5], true, st));
   AIIC_CHECK(narrow_gemm<T>(c(w.dfq), M, 1, c(p.afB), 1, M, rows, p.rf, M, kDepthChunk,
@@ -712,7 +809,7 @@ cudaError_t run_bwd(const BlockArgs& p, const Workspace& w, const void* dy_, voi
   AIIC_CHECK(big_gemm<true>(c(w.dfq), c(p.w1), rows, W, M,
                             EpiLoRAOut<T, float>{
                                 LoRATerm<T>{c(w.t_f), c(p.afA), p.rf, 1, p.rf, p.s}, w.dh2, W},
-                            st));
+                            p.form, st));
   AIIC_CHECK(rows_reduce<T>(c(w.h2), W, c(w.t_f), p.rf, rows, p.s, w.part, g[2], false, st));
   AIIC_CHECK(rows_reduce<T>(c(w.dfq), M, c(w.h2_af), p.rf, rows, p.s, w.part, g[3], true, st));
   AIIC_CHECK(launch_ln_bwd(static_cast<const float*>(w.y1), w.dh2, p.ln2s, dy, w.dy1, m(w.dy1c),
@@ -723,15 +820,24 @@ cudaError_t run_bwd(const BlockArgs& p, const Workspace& w, const void* dy_, voi
                             W, kDepthChunk, w.part, EpiStore<T>{m(w.t_o), p.ro}, st));
   AIIC_CHECK(big_gemm<true>(c(w.dy1c), c(p.wo), rows, W, W,
                             EpiLoRAOut<T, T>{LoRATerm<T>{c(w.t_o), c(p.aoA), p.ro, 1, p.ro, p.s},
-                                             m(w.da), W}, st));
+                                             m(w.da), W}, p.form, st));
   AIIC_CHECK(rows_reduce<T>(c(w.a), W, c(w.t_o), p.ro, rows, p.s, w.part, g[0], false, st));
   AIIC_CHECK(rows_reduce<T>(static_cast<const float*>(w.dy1), W, c(w.a_ao), p.ro, rows, p.s,
                             w.part, g[1], true, st));
-  AIIC_CHECK(launch_core_bwd(c(w.qkv), c(w.da), p.mask, m(w.dqkv), p.B, p.S, W, p.H, p.qconst,
-                             st));
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (p.form == 0)  // row 9's two tensor-core passes
+      AIIC_CHECK(launch_core_bwd_mma(c(w.qkv), c(w.da), p.mask, m(w.dqkv), w.core_ws, p.B, p.S, W,
+                                     p.H, p.qconst, st));
+    else
+      AIIC_CHECK(launch_core_bwd(c(w.qkv), c(w.da), p.mask, m(w.dqkv), p.B, p.S, W, p.H,
+                                 p.qconst, st));
+  } else {
+    AIIC_CHECK(launch_core_bwd(c(w.qkv), c(w.da), p.mask, m(w.dqkv), p.B, p.S, W, p.H, p.qconst,
+                               st));
+  }
   AIIC_CHECK(big_gemm<true>(c(w.dqkv), c(p.wqkv), rows, W, 3 * W,
                             EpiLoRAOut<T, float>{LoRATerm<T>{nullptr, nullptr, 0, 0, 0, 0.f},
-                                                 w.dh1, W}, st));
+                                                 w.dh1, W}, p.form, st));
   return launch_ln_bwd(c(p.x), w.dh1, p.ln1s, static_cast<const float*>(w.dy1),
                        static_cast<T*>(dx), static_cast<T*>(nullptr), rows, W, p.eps, st);
 }
@@ -739,6 +845,9 @@ cudaError_t run_bwd(const BlockArgs& p, const Workspace& w, const void* dy_, voi
 bool valid(int S, int W, int H, int M) {
   return W % kBN == 0 && M % kBN == 0 && W == H * kHeadDim && S > 0 && S <= kBlockCoreThreads;
 }
+
+// form 0 or 1 in bf16 (and int8), form 0 alone in fp32.
+bool valid_form(int form, bool fp32) { return form == 0 || (form == 1 && !fp32); }
 
 }  // namespace
 
@@ -749,5 +858,9 @@ cudaError_t text_block_bwd_f32(const BlockArgs& p, const Workspace& w, const voi
                                float* const* g, cudaStream_t st);
 cudaError_t text_block_bwd_bf16(const BlockArgs& p, const Workspace& w, const void* dy, void* dx,
                                 float* const* g, cudaStream_t st);
+// Blocks per SM of the bf16 block's stage and core instantiations, into
+// blocks[0..4]: EpiQkv, EpiY1, EpiFc (forward), EpiDfq, EpiLoRAOut (backward,
+// K-major B).
+cudaError_t text_block_occupancy_bf16(int* blocks);
 
 }  // namespace aiic

@@ -15,4 +15,14 @@ cudaError_t text_block_bwd_bf16(const BlockArgs& p, const Workspace& w, const vo
   return run_bwd<bf16>(p, w, dy, dx, g, st);
 }
 
+cudaError_t text_block_occupancy_bf16(int* blocks) {
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(wgmma_stage_kernel<bf16, EpiQkv<bf16>>),
+      reinterpret_cast<const void*>(wgmma_stage_kernel<bf16, EpiY1<bf16>>),
+      reinterpret_cast<const void*>(wgmma_stage_kernel<bf16, EpiFc<bf16>>),
+      reinterpret_cast<const void*>(wgmma_stage_kernel<bf16, EpiDfq<bf16>, true>),
+      reinterpret_cast<const void*>(wgmma_stage_kernel<bf16, EpiLoRAOut<bf16, float>, true>)};
+  return stage_kernel_occupancy(kernels, 5, blocks);
+}
+
 }  // namespace aiic

@@ -265,8 +265,11 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32_ss(int (&d)[64], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d (64 x 128 fp32) += a . b: a 64x16 bf16 K-major and b 16x128 bf16
-// MN-major (two 64-column atoms atom_bytes apart), both by descriptor.
+// d (64 x 128 fp32) += a . b: a 64x16 bf16 K-major and b 16x128 bf16, both
+// by descriptor: MN-major (kTransB = 1: two 64-column atoms atom_bytes
+// apart) or K-major (kTransB = 0: b's 128 columns as rows of 128 B along K,
+// as A's).
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma_bf16_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
                                                          uint64_t desc_b) {
   asm volatile(
@@ -277,7 +280,7 @@ __device__ __forceinline__ void wgmma_bf16_m64n128k16_ss(float (&d)[64], uint64_
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -286,7 +289,7 @@ __device__ __forceinline__ void wgmma_bf16_m64n128k16_ss(float (&d)[64], uint64_
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransB));
 }
 
 }  // namespace

@@ -24,7 +24,13 @@
 // gemm_kernel and scalar attn_core_kernel) stay, reachable through the same
 // C entries with form 1; rows 15-16 run them. The bf16 half-blocks of rows
 // 5 and 10 (ln_qkv_attention.cu, ln_mlp.cu) run their products on the bf16
-// form of the stage too (EpiBiasQKV, EpiOutProj; EpiBiasGelu, EpiMlpOut).
+// form of the stage too (EpiBiasQKV, EpiOutProj; EpiBiasGelu, EpiMlpOut),
+// and so do the training text block's forward and backward (rows 11-14,
+// text_block.cuh and text_block_int8.cu, with their own epilogues): their
+// backward reads each weight transposed (dy.W2^T, dfq.W1^T, dy1.Wo^T,
+// dqkv.Wqkv^T), which the bf16 form takes as a K-major B (kKMajorB, the
+// weight (N, K) as it lies, no transposed copy), and row 14's chunked dh2
+// product folds its chunk sums as row 3's c_proj does (EpiChunkRowScale).
 //
 // What bounds the stage on the H100: at B=256 ViT-B/16 (50,432 rows, K = W =
 // 768) the int8 products are 2*rows*K*N operations, 0.060 ms (QKV), 0.080
@@ -45,7 +51,9 @@
 //   with A K-major and B = w^T (N, K), K-major, since 8-bit wgmma takes
 //   K-major B only (the caller keeps that copy, made once per weight); bf16
 //   m64n128k16 with A K-major and B = w (K, N) as it lies, MN-major (two
-//   64-column atoms a slice, as row 17's bf16 body reads w). Each slice is
+//   64-column atoms a slice, as row 17's bf16 body reads w), or, for a . w^T
+//   with w stored (N, K), K-major as A is (one 128-row box a slice, the
+//   wgmma without the B transpose). Each slice is
 //   released to the producer once the next slice's products are issued and
 //   its own are done (wgmma_wait<1>).
 // - The epilogue applies an existing per-element functor to each
@@ -113,6 +121,14 @@ template <> struct StagedEpilogue<EpiGelu<Gelu::kExp2>> { static constexpr bool 
 template <> struct StagedEpilogue<EpiBiasQKV> { static constexpr bool value = true; };
 template <> struct StagedEpilogue<EpiBiasGelu> { static constexpr bool value = true; };
 
+// Epilogues with a per-column cache (the text block's with a rank-r term:
+// Column, column_fits(), column(n), at(r, n, acc, column); text_block.cuh's
+// AIIC_LORA_COLUMN) walk rows through the staged tile too, each thread
+// loading its column's cache once for the 64 rows, where column_fits().
+template <typename E, typename = void> struct ColumnCached : std::false_type {};
+template <typename E>
+struct ColumnCached<E, std::void_t<typename E::Column>> : std::true_type {};
+
 // Row 3's c_proj with the chunk sums folded in: out = bf16((((x + p_0) +
 // p_1) + ... + p_{C-1}) + b2), p_c = float(acc_c) * ys[r, c] * s2[n] with
 // acc_c the product over chunk c's M/C-deep slice of the depth. Not a
@@ -168,8 +184,65 @@ struct EpiChunkResidual {
     }
   }
 };
+
+// The chunked cotangent product through an int8 weight of the text block's
+// backward (row 14's dh2 at n_chunks > 1), with the chunk sums folded in as
+// EpiChunkResidual folds them: out = ((0 + p_0) + p_1 + ... + p_{C-1}) +
+// tail(r, n), fp32, p_c = float(acc_c) * qs[r, c] (dfq * s1 quantized per
+// (row, chunk), qs its scales), the tail (the LoRA term, or nothing) added
+// last. That is the order of the WMMA form's split product (EpiChunkPart)
+// and sum_partials_kernel, so the two give the same bits.
+struct NoTail {
+  __device__ __forceinline__ float operator()(int, int) const { return 0.f; }
+};
+template <typename Tail> struct EpiChunkRowScale {
+  const float* qs;  // (rows, n_chunks)
+  Tail tail;
+  float* out;
+  int n_cols, n_chunks;
+
+  __device__ __forceinline__ void seed(float (&t)[64], int, int, int) const {
+#pragma unroll
+    for (int e = 0; e < 64; ++e) t[e] = 0.f;
+  }
+  __device__ __forceinline__ void fold(float (&t)[64], const int (&acc)[64], int c, int r0,
+                                       int, int M) const {
+    const float y0 = r0 < M ? qs[static_cast<size_t>(r0) * n_chunks + c] : 0.f;
+    const float y1 = r0 + 8 < M ? qs[static_cast<size_t>(r0 + 8) * n_chunks + c] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      t[4 * j] = t[4 * j] + static_cast<float>(acc[4 * j]) * y0;
+      t[4 * j + 1] = t[4 * j + 1] + static_cast<float>(acc[4 * j + 1]) * y0;
+      t[4 * j + 2] = t[4 * j + 2] + static_cast<float>(acc[4 * j + 2]) * y1;
+      t[4 * j + 3] = t[4 * j + 3] + static_cast<float>(acc[4 * j + 3]) * y1;
+    }
+  }
+  __device__ __forceinline__ void store(const float (&t)[64], int r0, int col, int M) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= M) continue;
+      float* o = out + static_cast<size_t>(r) * n_cols + col;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float v = t[4 * j + 2 * h + i];
+          if constexpr (std::is_same<Tail, NoTail>::value)
+            o[8 * j + i] = v;
+          else
+            o[8 * j + i] = v + tail(r, col + 8 * j + i);
+        }
+      }
+    }
+  }
+};
+
 template <typename Epi> struct ChunkFold { static constexpr bool value = false; };
 template <> struct ChunkFold<EpiChunkResidual> { static constexpr bool value = true; };
+template <typename Tail> struct ChunkFold<EpiChunkRowScale<Tail>> {
+  static constexpr bool value = true;
+};
 
 // Waits until `count` threads (whole warps) have arrived at barrier `id`
 // (1-15: 0 is __syncthreads', which the exited producer warp never reaches).
@@ -178,10 +251,13 @@ __device__ __forceinline__ void named_barrier_sync(int id, int count) {
 }
 
 // C (M, N) = A (M, K) . B through epi(r, n, acc) for r < M (or, for
-// EpiChunkResidual, the chunk sums folded as it says). int8: A (M, K) and B
-// = w^T (N, K), both K-major; bf16: A (M, K) K-major and B = w (K, N),
-// MN-major. Grid (N / 128, ceil(M / 128)). Two blocks an SM, the fold one.
-template <typename T, typename Epi>
+// EpiChunkResidual and EpiChunkRowScale, the chunk sums folded as they say).
+// int8: A (M, K) and B = w^T (N, K), both K-major; bf16: A (M, K) K-major
+// and B = w (K, N), MN-major, or with kKMajorB B = w (N, K) as it lies,
+// K-major (the backward's products through a weight read transposed, a .
+// w^T, with no transposed copy). Grid (N / 128, ceil(M / 128)). Two blocks
+// an SM, the folds one.
+template <typename T, typename Epi, bool kKMajorB = false>
 __global__ void __launch_bounds__(kSThreads, ChunkFold<Epi>::value ? 1 : 2)
 wgmma_stage_kernel(__grid_constant__ const CUtensorMap tma, __grid_constant__ const CUtensorMap tmb,
                    int M, int K, Epi epi) {
@@ -212,8 +288,8 @@ wgmma_stage_kernel(__grid_constant__ const CUtensorMap tma, __grid_constant__ co
         unsigned char* bs = as + kSSliceBytes;
         mbar_expect_tx(&full[ring.stage], kSStageBytes);
         tma_load_2d(as, &tma, &full[ring.stage], kt * kSliceK, m0);
-        if constexpr (kInt8) {
-          tma_load_2d(bs, &tmb, &full[ring.stage], kt * 128, n0);
+        if constexpr (kInt8 || kKMajorB) {  // 128 rows of B, one 128-B K-slice
+          tma_load_2d(bs, &tmb, &full[ring.stage], kt * kSliceK, n0);
         } else {
 #pragma unroll
           for (int a = 0; a < 2; ++a)  // two 64-column atoms of 64 K rows
@@ -250,6 +326,8 @@ wgmma_stage_kernel(__grid_constant__ const CUtensorMap tma, __grid_constant__ co
     for (int k = 0; k < 4; ++k) {  // four 32-B K steps of the slice
       if constexpr (kInt8)
         wgmma_s8_m64n128k32_ss(acc, da + 2 * k, sw128_desc(as + kSSliceBytes) + 2 * k, 1);
+      else if constexpr (kKMajorB)  // K-major w: a 16-deep step is 32 B along each row
+        wgmma_bf16_m64n128k16_ss<0>(acc, da + 2 * k, sw128_desc(as + kSSliceBytes) + 2 * k);
       else  // MN-major w: a 16-deep step is 16 K rows, 2048 B
         wgmma_bf16_m64n128k16_ss(acc, da + 2 * k,
                                  sw128_desc_mn(as + kSSliceBytes + 2048 * k, 8192));
@@ -281,7 +359,7 @@ wgmma_stage_kernel(__grid_constant__ const CUtensorMap tma, __grid_constant__ co
   const int g = lane >> 2, t4 = lane & 3, wr = 16 * (warp & 3) + g;
   if constexpr (kFold) {
     epi.store(total, fr, fc, M);
-  } else if constexpr (StagedEpilogue<Epi>::value) {
+  } else if constexpr (StagedEpilogue<Epi>::value || ColumnCached<Epi>::value) {
     // Through shared memory (the ring, idle once both warpgroups' products
     // are done), so that a warp calls epi on 32 consecutive columns of one
     // row and its loads of the column vectors and its stores coalesce.
@@ -298,6 +376,18 @@ wgmma_stage_kernel(__grid_constant__ const CUtensorMap tma, __grid_constant__ co
     }
     named_barrier_sync(2 + wg, 128);  // the warpgroup's 64 rows are staged
     const int t = tid & 127, r0 = m0 + 64 * wg, rows = min(64, M - r0);
+    if constexpr (ColumnCached<Epi>::value) {
+      if (epi.column_fits()) {
+        const auto c = epi.column(n0 + t);
+        if (rows == 64) {
+#pragma unroll 4
+          for (int i = 0; i < 64; ++i) epi.at(r0 + i, n0 + t, tile[i * kSTileLd + t], c);
+        } else {
+          for (int i = 0; i < rows; ++i) epi.at(r0 + i, n0 + t, tile[i * kSTileLd + t], c);
+        }
+        return;
+      }
+    }
     if (rows == 64) {
 #pragma unroll 8
       for (int i = 0; i < 64; ++i) epi(r0 + i, n0 + t, tile[i * kSTileLd + t]);
@@ -322,10 +412,11 @@ wgmma_stage_kernel(__grid_constant__ const CUtensorMap tma, __grid_constant__ co
 }
 
 // The stage on the caller's stream: int8 A (M, K) with B = w^T (N, K), or
-// bf16 A (M, K) with B = w (K, N). Needs N % 128 == 0 and K a multiple of
-// the 128-B slice (128 int8, 64 bf16), for the fold each chunk's K / C too;
-// rows and weights 16-B aligned.
-template <typename T, typename Epi>
+// bf16 A (M, K) with B = w (K, N) (kKMajorB: B = w (N, K), the product a .
+// w^T). Needs N % 128 == 0 and K a multiple of the 128-B slice (128 int8, 64
+// bf16), for the folds each chunk's K / C too; rows and weights 16-B
+// aligned.
+template <typename T, typename Epi, bool kKMajorB = false>
 cudaError_t launch_wgmma_stage(const T* A, const T* B, int M, int N, int K, Epi epi,
                                cudaStream_t st) {
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
@@ -342,13 +433,30 @@ cudaError_t launch_wgmma_stage(const T* A, const T* B, int M, int N, int K, Epi 
     AIIC_CHECK(tensor_map_2d(&tmb, B, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N, K, 128, kSBN));
   } else {
     AIIC_CHECK(tensor_map_2d(&tma, A, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, M, 2ull * K, 64, kSBM));
-    AIIC_CHECK(tensor_map_2d(&tmb, B, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N, K, 2ull * N, 64, 64));
+    if constexpr (kKMajorB)  // (N, K) as A is (M, K): boxes of 128 rows x 64 K elements
+      AIIC_CHECK(
+          tensor_map_2d(&tmb, B, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, N, 2ull * K, 64, kSBN));
+    else
+      AIIC_CHECK(
+          tensor_map_2d(&tmb, B, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N, K, 2ull * N, 64, 64));
   }
-  AIIC_CHECK(cudaFuncSetAttribute(wgmma_stage_kernel<T, Epi>,
+  AIIC_CHECK(cudaFuncSetAttribute(wgmma_stage_kernel<T, Epi, kKMajorB>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, kSSmem));
-  wgmma_stage_kernel<T, Epi><<<dim3(N / kSBN, grid_y), kSThreads, kSSmem, st>>>(tma, tmb, M, K,
-                                                                                epi);
+  wgmma_stage_kernel<T, Epi, kKMajorB>
+      <<<dim3(N / kSBN, grid_y), kSThreads, kSSmem, st>>>(tma, tmb, M, K, epi);
   return cudaGetLastError();
+}
+
+// Blocks resident on one SM of each stage kernel of `kernels` (n of them),
+// into blocks[0..n).
+inline cudaError_t stage_kernel_occupancy(const void* const* kernels, int n, int* blocks) {
+  for (int i = 0; i < n; ++i) {
+    AIIC_CHECK(cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    kSSmem));
+    AIIC_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + i, kernels[i], kSThreads,
+                                                             kSSmem));
+  }
+  return cudaSuccess;
 }
 
 // Blocks resident on one SM of the stage kernels, into blocks[0..4]: int8
@@ -362,13 +470,7 @@ inline cudaError_t wgmma_stage_occupancy(int* blocks) {
       reinterpret_cast<const void*>(wgmma_stage_kernel<int8_t, EpiChunkResidual>),
       reinterpret_cast<const void*>(wgmma_stage_kernel<bf16, EpiBiasQKV>),
       reinterpret_cast<const void*>(wgmma_stage_kernel<bf16, EpiBiasGelu>)};
-  for (int i = 0; i < 5; ++i) {
-    AIIC_CHECK(cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    kSSmem));
-    AIIC_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + i, kernels[i], kSThreads,
-                                                             kSSmem));
-  }
-  return cudaSuccess;
+  return stage_kernel_occupancy(kernels, 5, blocks);
 }
 
 // ---------------------------------------------------------------------------

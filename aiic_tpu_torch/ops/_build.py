@@ -81,20 +81,26 @@ _SIGNATURES = {
     # B, S, W, M, ro, rf, rp, fp32, backward -> bytes (a long long)
     "aiic_text_block_workspace": [_I] * 9,
     # x, mask, 18 weights/vectors/factors, y, ws, B, S, W, H, M, ro, rf, rp,
-    # scaling, eps, qconst, fp32, stream
-    "aiic_text_block_fwd": [_P] * 22 + [_I] * 8 + [_F] * 3 + [_I, _P],
+    # scaling, eps, qconst, fp32, form, stream
+    "aiic_text_block_fwd": [_P] * 22 + [_I] * 8 + [_F] * 3 + [_I, _I, _P],
     # x, dy, mask, 18 weights, dx, six LoRA cotangents, ws, then as the forward
-    "aiic_text_block_bwd": [_P] * 29 + [_I] * 8 + [_F] * 3 + [_I, _P],
+    "aiic_text_block_bwd": [_P] * 29 + [_I] * 8 + [_F] * 3 + [_I, _I, _P],
+    # blocks (int[5]: the bf16 block's stage kernels)
+    "aiic_text_block_occupancy": [_P],
     # B, S, W, M, ro, rf, rp, n_chunks, backward -> bytes (a long long)
     "aiic_text_block_int8_workspace": [_I] * 9,
-    # x, mask, 21 weights/scales/vectors/factors, y, ws, B, S, W, H, M, ro,
-    # rf, rp, scaling, eps, qconst, stream
-    "aiic_text_block_int8_fwd": [_P] * 25 + [_I] * 8 + [_F] * 3 + [_P],
-    # x, dy, mask, 21 weights, dx, six LoRA cotangents, ws, then as the
-    # forward with n_chunks after rp
-    "aiic_text_block_int8_bwd": [_P] * 32 + [_I] * 9 + [_F] * 3 + [_P],
-    # A, B, out, M, N, K, ksplit, stream (the int8 A @ B^T alone, for tests)
-    "aiic_int8_matmul_t": [_P] * 3 + [_I] * 4 + [_P],
+    # x, mask, 21 weights/scales/vectors/factors, wqkv_t, w1_t, w2_t (the
+    # K-major copies), y, ws, B, S, W, H, M, ro, rf, rp, scaling, eps,
+    # qconst, form, stream
+    "aiic_text_block_int8_fwd": [_P] * 28 + [_I] * 8 + [_F] * 3 + [_I, _P],
+    # x, dy, mask, 21 weights, 3 K-major copies, dx, six LoRA cotangents, ws,
+    # then as the forward with n_chunks after rp
+    "aiic_text_block_int8_bwd": [_P] * 35 + [_I] * 9 + [_F] * 3 + [_I, _P],
+    # blocks (int[7]: the int8 block's stage kernels and core passes)
+    "aiic_text_block_int8_occupancy": [_P],
+    # A, B, out, M, N, K, ksplit, form, stream (the int8 A @ B^T alone, for
+    # tests)
+    "aiic_int8_matmul_t": [_P] * 3 + [_I] * 5 + [_P],
     # q, k, v, mask, out, B, S, H, D, qconst, fp32, scalar, stream
     "aiic_attention_bshd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     # qkv, mask, g, dqkv, ws, B, S, W, H, qconst, fp32, form, stream
@@ -215,9 +221,9 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-# The forms of the half-blocks redesigned on the wgmma GEMM stage (rows 1-5,
-# 10 and the stage alone), as their C entries' ``form``: the route, and the
-# first (WMMA) design, kept for timing and the side-by-side check.
+# The forms of the kernels redesigned on the wgmma GEMM stage (rows 1-5 and
+# 10-14 and the stage alone), as their C entries' ``form``: the route, and
+# the first (WMMA) design, kept for timing and the side-by-side check.
 FORMS = {"wgmma": 0, "wmma": 1}
 
 

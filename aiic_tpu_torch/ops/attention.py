@@ -342,13 +342,17 @@ def fused_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def fused_attention_qkv_bwd_ref(qkv: torch.Tensor, mask: Optional[torch.Tensor],
-                                g: torch.Tensor, *, heads: int) -> torch.Tensor:
+                                g: torch.Tensor, *, heads: int,
+                                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The TPU kernel's core backward (``_attention_qkv_bwd_kernel``) on a
     fused (B, S, 3W) projection and a (B, S, W) cotangent, in qkv's dtype T:
     p recomputed with the forward's clamped no-max exp2 (q·T(scale·log2 e)
     rounded to T, fp32 scores plus mask·log2 e) and normalized in fp32;
     dv = T(p)ᵀ·T(g); dp = T(g)·vᵀ; ds = T(p∘(dp − rowsum(dp∘p))·scale);
-    dq = ds·k; dk = dsᵀ·q; products in fp32. ``mask`` None is no mask."""
+    dq = ds·k; dk = dsᵀ·q; products in fp32. ``mask`` None is no mask.
+    dqkv comes back in ``out_dtype`` (default T): ``torch.float32`` keeps
+    the fp32 sums unrounded, as the int8 text block's backward (row 14)
+    stores them for its row quantizer."""
     no_tf32()
     dtype = qkv.dtype
     bsz, seq, w3 = qkv.shape
@@ -368,7 +372,8 @@ def fused_attention_qkv_bwd_ref(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     ds = (ds * scale).to(dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    return torch.cat([t.reshape(bsz, seq, w3 // 3) for t in (dq, dk, dv)], dim=-1).to(dtype)
+    return torch.cat([t.reshape(bsz, seq, w3 // 3) for t in (dq, dk, dv)],
+                     dim=-1).to(out_dtype or dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -63,11 +63,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from aiic_tpu_torch.adapters.lora import ATTACH_POINTS as POINTS
-from aiic_tpu_torch.ops._build import check, counted, load_library, mask_arg, route
+from aiic_tpu_torch.ops._build import (
+    check, counted, form_code, load_library, mask_arg, ptr, route,
+)
 from aiic_tpu_torch.ops.attention import (
     LOG2E, _HEAD_DIM, _denom_guard, _qconst, _split_heads, exp2_rows, no_tf32,
 )
-from aiic_tpu_torch.ops.quant import _int_matmul, _row_quant
+from aiic_tpu_torch.ops.quant import STAGE_SLICE, _int_matmul, _row_quant, kmajor
 
 Params = Dict[str, Any]
 
@@ -215,6 +217,17 @@ def _int8_chunks(x: torch.Tensor, mlp_dim: int, heads: int,
     return plan[1]
 
 
+def _card_chunks(name: str, mlp_dim: int, n_chunks: int, form: str) -> None:
+    """Raises, before anything is built or launched, on a hidden-axis chunk
+    that the card's form cannot take: the wgmma stage folds whole 128-B int8
+    K-slices (``STAGE_SLICE``), the WMMA form splits 32-deep tiles. The JAX
+    planner's chunks are multiples of 128; a forced plan may not be."""
+    depth = STAGE_SLICE if form == "wgmma" else 32
+    if n_chunks < 1 or mlp_dim % n_chunks or (mlp_dim // n_chunks) % depth:
+        raise ValueError(f"{name} ({form}): the chunk M/C must be a multiple of {depth}, got "
+                         f"M={mlp_dim}, C={n_chunks}")
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
@@ -358,6 +371,28 @@ def _block_fwd(x, mask, w, heads, scaling, eps) -> torch.Tensor:
     return (t["y1"] + mo).to(cdt).reshape(x.shape)
 
 
+def _core_bwd(qkv: torch.Tensor, p: torch.Tensor, da: torch.Tensor, heads: int) -> torch.Tensor:
+    """The block's core backward per head from the normalized fp32
+    probabilities p (B, H, S, S) of the (B, S, 3W) qkv in the compute dtype
+    and the cotangent da of the attention output: dqkv (B, S, 3W) in fp32,
+    unrounded (the int8 backward quantizes it from fp32). The function is
+    row 9's (``attention.fused_attention_qkv_bwd_ref``), which the card's
+    form 0 runs in its place."""
+    cdt = qkv.dtype
+    bsz, seq, w3 = qkv.shape
+    width = w3 // 3
+    q, k, v = _split_heads(qkv, heads)  # (B, S, H, D)
+    dim = width // heads
+    g = da.reshape(bsz, seq, heads, dim).to(cdt).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(cdt).float(), g)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v.float())
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = (ds * dim ** -0.5).to(cdt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return torch.cat([t.reshape(bsz, seq, width) for t in (dq, dk, dv)], dim=-1)
+
+
 def _block_bwd(x, dy, mask, w, lora, heads, scaling, eps, n_chunks=1):
     """The forward recomputed from x, then the MLP half, LN2, the attention
     half, the per-head core backward and LN1."""
@@ -388,21 +423,8 @@ def _block_bwd(x, dy, mask, w, lora, heads, scaling, eps, n_chunks=1):
     d_ao_a = scaling * dot(t["a"].t(), t_o)
     d_ao_b = scaling * dot(t["a_ao"].t(), dy1)
 
-    # core backward per head from the normalized fp32 probabilities
-    qkv = t["qkv"].reshape(bsz, seq, 3 * width)
-    q, k, v = _split_heads(qkv, heads)  # (B, S, H, D)
-    dim = width // heads
-    p = t["probs"]  # (B, H, S, S)
-    g = da.reshape(bsz, seq, heads, dim).to(cdt).float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(cdt).float(), g)
-    dp = torch.einsum("bqhd,bkhd->bhqk", g, v.float())
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    ds = (ds * dim ** -0.5).to(cdt).float()
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dqkv = torch.cat([dq.reshape(rows, width), dk.reshape(rows, width),
-                      dv.reshape(rows, width)], dim=-1)
-    dh1 = _product_t(dqkv, w, "wqkv", cdt)
+    dqkv = _core_bwd(t["qkv"].reshape(bsz, seq, 3 * width), t["probs"], da, heads)
+    dh1 = _product_t(dqkv.reshape(rows, 3 * width), w, "wqkv", cdt)
     dx = dy1 + _ln_bwd(dh1, t["xhat1"], t["inv1"], w["ln1s"])
     dlora = {"out_proj": {"A": d_ao_a, "B": d_ao_b}, "c_fc": {"A": d_af_a, "B": d_af_b},
              "c_proj": {"A": d_ap_a, "B": d_ap_b}}
@@ -553,8 +575,21 @@ def _dy_arg(name: str, x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return _aligned(dy.to(x.dtype))
 
 
-def _text_block_fwd_cuda(x, mask, bp, lora, heads, scaling, eps):
+def _block_form(name: str, x: torch.Tensor, form: str) -> int:
+    """The C entries' code of ``form``: "wgmma" (the route: bf16 and int8 on
+    the wgmma stage with the tensor-core core backward; fp32's SIMT route)
+    or "wmma" (the first design, bf16 and int8 only). ValueError on any
+    other, before anything is built or launched."""
+    code = form_code(name, form)
+    if code and x.dtype == torch.float32:
+        raise ValueError(f"{name}: fp32 has one route (form 'wgmma'), got {form!r}")
+    return code
+
+
+def _text_block_fwd_cuda(x, mask, bp, lora, heads, scaling, eps, form="wgmma"):
+    """Row 11 in ``form`` (``_block_form``)."""
     name = "text_block_fwd"
+    code = _block_form(name, x, form)
     x = x.contiguous()
     args, dims, ranks = _fp_operands(name, x, mask, bp, lora, heads)
     lib = load_library()
@@ -567,13 +602,15 @@ def _text_block_fwd_cuda(x, mask, bp, lora, heads, scaling, eps):
     rc = lib.aiic_text_block_fwd(
         x.data_ptr(), *[a.data_ptr() for a in args], y.data_ptr(), ws.data_ptr(), *dims,
         *ranks, ctypes.c_float(scaling), ctypes.c_float(eps),
-        ctypes.c_float(_qconst(width // heads, x.dtype)), int(fp32), stream)
+        ctypes.c_float(_qconst(width // heads, x.dtype)), int(fp32), code, stream)
     check(name, rc)
     return y
 
 
-def _text_block_bwd_cuda(x, dy, mask, bp, lora, heads, scaling, eps):
+def _text_block_bwd_cuda(x, dy, mask, bp, lora, heads, scaling, eps, form="wgmma"):
+    """Row 12 in ``form`` (``_block_form``)."""
     name = "text_block_bwd"
+    code = _block_form(name, x, form)
     x = x.contiguous()
     dy = _dy_arg(name, x, dy)
     args, dims, ranks = _fp_operands(name, x, mask, bp, lora, heads)
@@ -589,15 +626,29 @@ def _text_block_bwd_cuda(x, dy, mask, bp, lora, heads, scaling, eps):
         x.data_ptr(), dy.data_ptr(), *[a.data_ptr() for a in args], dx.data_ptr(),
         *[g.data_ptr() for g in grads], ws.data_ptr(), *dims, *ranks,
         ctypes.c_float(scaling), ctypes.c_float(eps),
-        ctypes.c_float(_qconst(width // heads, x.dtype)), int(fp32), stream)
+        ctypes.c_float(_qconst(width // heads, x.dtype)), int(fp32), code, stream)
     check(name, rc)
     return dx, _lora_out(grads, lora)
 
 
-def _text_block_fwd_int8_cuda(x, mask, bp, qw, lora, heads, scaling, eps):
+def _kmajor_copies(qw: Params, form: str, forward: bool):
+    """The K-major copies w^T of the int8 weights that form 0 reads for the
+    forward's products (wqkv, w1; w2 where c_proj runs), made once per
+    weight by ``quant.kmajor``; None each for form 1 and the weights not
+    read. The backward's cotangent products read the weights as they lie."""
+    keys = ("wqkv_q", "w1_q", "w2_q") if forward else ("wqkv_q", "w1_q")
+    copies = {k: kmajor(qw[k]) for k in keys} if form == "wgmma" else {}
+    return [copies.get(k) for k in ("wqkv_q", "w1_q", "w2_q")]
+
+
+def _text_block_fwd_int8_cuda(x, mask, bp, qw, lora, heads, scaling, eps, form="wgmma"):
+    """Row 13 in ``form``: "wgmma" (the products on the wgmma stage, the
+    int8 ones reading the K-major copies) or "wmma" (the first design)."""
     name = "text_block_fwd_int8"
+    code = _block_form(name, x, form)
     x = x.contiguous()
     args, dims, ranks = _int8_kernel_operands(name, x, mask, bp, qw, lora, heads)
+    kt = _kmajor_copies(qw, form, forward=True)
     lib = load_library()
     y = torch.empty_like(x)
     bsz, seq, width, _, mlp_dim = dims
@@ -605,21 +656,26 @@ def _text_block_fwd_int8_cuda(x, mask, bp, qw, lora, heads, scaling, eps):
                   x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.aiic_text_block_int8_fwd(
-        x.data_ptr(), *[a.data_ptr() for a in args], y.data_ptr(), ws.data_ptr(), *dims,
-        *ranks, ctypes.c_float(scaling), ctypes.c_float(eps),
-        ctypes.c_float(_qconst(width // heads, x.dtype)), stream)
+        x.data_ptr(), *[a.data_ptr() for a in args], *map(ptr, kt), y.data_ptr(), ws.data_ptr(),
+        *dims, *ranks, ctypes.c_float(scaling), ctypes.c_float(eps),
+        ctypes.c_float(_qconst(width // heads, x.dtype)), code, stream)
     check(name, rc)
     return y
 
 
-def _text_block_bwd_int8_cuda(x, dy, mask, bp, qw, lora, heads, scaling, eps, n_chunks):
+def _text_block_bwd_int8_cuda(x, dy, mask, bp, qw, lora, heads, scaling, eps, n_chunks,
+                              form="wgmma"):
+    """Row 14 in ``form``: "wgmma" (the products on the wgmma stage, the
+    chunked dh2 product folding its chunk sums, the core backward on row
+    9's tensor-core passes storing fp32) or "wmma" (the first design)."""
     name = "text_block_bwd_int8"
+    code = _block_form(name, x, form)
     x = x.contiguous()
     dy = _dy_arg(name, x, dy)
     args, dims, ranks = _int8_kernel_operands(name, x, mask, bp, qw, lora, heads)
     mlp_dim = dims[4]
-    if mlp_dim % n_chunks or (mlp_dim // n_chunks) % 32:
-        raise ValueError(f"{name}: {n_chunks} chunks of M={mlp_dim} are not multiples of 32")
+    _card_chunks(name, mlp_dim, n_chunks, form)
+    kt = _kmajor_copies(qw, form, forward=False)
     lib = load_library()
     dx = torch.empty_like(x)
     grads = _grads(dims, ranks, x.device)
@@ -628,27 +684,48 @@ def _text_block_bwd_int8_cuda(x, dy, mask, bp, qw, lora, heads, scaling, eps, n_
                                                      n_chunks, 1), x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.aiic_text_block_int8_bwd(
-        x.data_ptr(), dy.data_ptr(), *[a.data_ptr() for a in args], dx.data_ptr(),
-        *[g.data_ptr() for g in grads], ws.data_ptr(), *dims, *ranks, n_chunks,
+        x.data_ptr(), dy.data_ptr(), *[a.data_ptr() for a in args], *map(ptr, kt),
+        dx.data_ptr(), *[g.data_ptr() for g in grads], ws.data_ptr(), *dims, *ranks, n_chunks,
         ctypes.c_float(scaling), ctypes.c_float(eps),
-        ctypes.c_float(_qconst(width // heads, x.dtype)), stream)
+        ctypes.c_float(_qconst(width // heads, x.dtype)), code, stream)
     check(name, rc)
     return dx, _lora_out(grads, lora)
 
 
-def int8_matmul_t_cuda(a: torch.Tensor, b: torch.Tensor, ksplit: int = 0) -> torch.Tensor:
+def block_occupancy() -> Dict[str, list]:
+    """Blocks per SM of the text block's form-0 kernels, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them: "bf16"
+    [the stage with EpiQkv, EpiY1, EpiFc, EpiDfq, EpiLoRAOut], "int8" [the
+    stage with EpiQkv8, EpiFc8, EpiDfq8, EpiDh2, the chunked dh2 fold; the
+    two core-backward passes storing fp32]."""
+    lib = load_library()
+    bf16, int8 = (ctypes.c_int * 5)(), (ctypes.c_int * 7)()
+    check("text_block_occupancy", lib.aiic_text_block_occupancy(bf16))
+    check("text_block_int8_occupancy", lib.aiic_text_block_int8_occupancy(int8))
+    return {"bf16": list(bf16), "int8": list(int8)}
+
+
+def int8_matmul_t_cuda(a: torch.Tensor, b: torch.Tensor, ksplit: int = 0,
+                       form: str = "wmma") -> torch.Tensor:
     """The int8 product of the int8 backward alone, for the card's tests:
     (K / ksplit, M, N) int32 partial sums of a (M, K) @ b (N, K)ᵀ over depth
-    splits of ``ksplit`` (0: one split). CUDA int8 tensors only."""
+    splits of ``ksplit`` (0: one split), on the WMMA tile ("wmma", the first
+    design) or the wgmma stage ("wgmma": one split, K a multiple of 128).
+    CUDA int8 tensors only."""
     m, k = a.shape
     n = b.shape[0]
     ksplit = ksplit or k
+    code = form_code("int8_matmul_t", form)
     if a.dtype != torch.int8 or b.dtype != torch.int8 or not a.is_cuda or b.shape[1] != k:
         raise TypeError("int8_matmul_t_cuda takes CUDA int8 (M, K) and (N, K)")
+    if code == 0 and (ksplit != k or k % STAGE_SLICE):
+        raise ValueError(f"int8_matmul_t_cuda (wgmma): one split of K a multiple of "
+                         f"{STAGE_SLICE}, got K={k}, ksplit={ksplit}")
     out = torch.empty((k // ksplit, m, n), dtype=torch.int32, device=a.device)
     a, b = _aligned(a), _aligned(b)
     rc = load_library().aiic_int8_matmul_t(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                                           ksplit, torch.cuda.current_stream(a.device).cuda_stream)
+                                           ksplit, code,
+                                           torch.cuda.current_stream(a.device).cuda_stream)
     check("int8_matmul_t", rc)
     return out
 

@@ -107,12 +107,21 @@ def kmajor(w: torch.Tensor) -> torch.Tensor:
 
 
 # The epilogues of the GEMM stage (gemm_stage) and their C codes; the bf16
-# ones (row 1's out-projection, rows 5 and 10's QKV and c_fc) take bf16
+# ones (row 1's out-projection, rows 5 and 10's QKV and c_fc, the text
+# block's cotangent product through a weight read transposed) take bf16
 # operands, the others int8. ``ops._build.FORMS`` names the forms of the
-# stage and of rows 1-5 and 10 on the card.
+# stage and of rows 1-5 and 10-14 on the card.
 STAGE_EPILOGUES = {"qkv": 0, "gelu": 1, "residual": 2, "out_proj": 3, "chunk_residual": 4,
-                   "bias": 5, "bias_gelu": 6}
-BF16_EPILOGUES = ("out_proj", "bias", "bias_gelu")
+                   "bias": 5, "bias_gelu": 6, "chunk_rowscale": 7, "dot_t": 8}
+BF16_EPILOGUES = ("out_proj", "bias", "bias_gelu", "dot_t")
+# The epilogues that fold the sums of K's chunks into the stage's mainloop
+# (the wgmma form only), and those that store fp32.
+FOLD_EPILOGUES = ("chunk_residual", "chunk_rowscale")
+F32_EPILOGUES = ("gelu", "chunk_rowscale", "dot_t")
+# What each epilogue reads besides a and w: row_scale, col_scale, bias, x.
+_STAGE_READS = {"qkv": "rcb", "gelu": "rcb", "residual": "rcbx", "out_proj": "bx",
+                "chunk_residual": "rcbx", "bias": "b", "bias_gelu": "b", "chunk_rowscale": "r",
+                "dot_t": ""}
 # The depth of one K-slice of the wgmma stage in int8 (128 B): row 3's chunk
 # of the hidden axis must be a whole number of them.
 STAGE_SLICE = 128
@@ -120,18 +129,31 @@ STAGE_SLICE = 128
 
 def gemm_stage_ref(a, w, epilogue: str, *, row_scale=None, col_scale=None, bias=None,
                    x=None, n_chunks: int = 1) -> torch.Tensor:
-    """One product of rows 1-5 or 10 with its epilogue, as their plain
-    versions compute it: a (rows, K) . w (K, N), int8 exact in int32 (qkv,
-    gelu, residual, chunk_residual) or bf16 with fp32 sums (out_proj, bias,
-    bias_gelu), then qkv: bf16(acc·rs·cs + b); gelu: gelu_exp2(acc·rs·cs + b)
-    in fp32; residual: bf16(x + (acc·rs·cs + b)); out_proj: bf16(x + (acc +
-    b)); bias (row 5's QKV): bf16(acc + b); bias_gelu (row 10's c_fc):
-    bf16(gelu_exp2(acc + b)), fp32 through the gelu; chunk_residual (row 3's
-    c_proj, K in ``n_chunks`` chunks, rs (rows, C)): the fp32 sum seeded
-    with x, each chunk's acc_c·rs[:, c]·cs added in order, b last, then
-    bf16."""
+    """One product of rows 1-5, 10 or 11-14 with its epilogue, as their
+    plain versions compute it: a (rows, K) . w (K, N), int8 exact in int32
+    (qkv, gelu, residual, chunk_residual, chunk_rowscale) or bf16 with fp32
+    sums (out_proj, bias, bias_gelu, dot_t), then qkv: bf16(acc·rs·cs + b);
+    gelu: gelu_exp2(acc·rs·cs + b) in fp32; residual: bf16(x + (acc·rs·cs +
+    b)); out_proj: bf16(x + (acc + b)); bias (row 5's QKV): bf16(acc + b);
+    bias_gelu (row 10's c_fc): bf16(gelu_exp2(acc + b)), fp32 through the
+    gelu; chunk_residual (row 3's c_proj, K in ``n_chunks`` chunks, rs (rows,
+    C)): the fp32 sum seeded with x, each chunk's acc_c·rs[:, c]·cs added in
+    order, b last, then bf16; chunk_rowscale (row 14's chunked dh2 product
+    without its LoRA term, rs (rows, C)): the fp32 sum from 0, each chunk's
+    acc_c·rs[:, c] added in order, fp32 out; dot_t (the text block's
+    cotangent products g·Wᵀ): w given (N, K) as the weight lies, fp32 a·wᵀ."""
     no_tf32()
+    if epilogue == "dot_t":
+        return a.float() @ w.float().t()
     n = w.shape[-1]
+    if epilogue == "chunk_rowscale":
+        chunk = w.shape[0] // n_chunks
+        rs = row_scale.reshape(-1, n_chunks).float()
+        total = torch.zeros((a.shape[0], n), dtype=torch.float32, device=a.device)
+        for c in range(n_chunks):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            total = total + _int_matmul(a[:, sl], w[sl]).float() * rs[:, c:c + 1]
+        return total
     b = bias.reshape(1, n).float()
     if epilogue in BF16_EPILOGUES:
         v = a.float() @ w.float() + b
@@ -492,9 +514,10 @@ def stage_occupancy() -> list:
 
 def _gemm_stage_cuda(a, w, epilogue, row_scale, col_scale, bias, x, form="wgmma", n_chunks=1):
     """The stage alone on the card (``aiic_gemm_stage``): the checked
-    arguments, the output ((rows, N) fp32 for gelu, bf16 otherwise), the
-    launch. chunk_residual runs in the wgmma form only, on K in
-    ``n_chunks`` chunks of whole 128-B slices."""
+    arguments, the output ((rows, N) fp32 for ``F32_EPILOGUES``, bf16
+    otherwise), the launch. The folds run in the wgmma form only, on K in
+    ``n_chunks`` chunks of whole 128-B slices; dot_t takes w (N, K), read as
+    the K-major B it is in the wgmma form and transposed in the WMMA one."""
     name = "gemm_stage"
     int8 = epilogue not in BF16_EPILOGUES
     dtype = torch.int8 if int8 else torch.bfloat16
@@ -502,28 +525,34 @@ def _gemm_stage_cuda(a, w, epilogue, row_scale, col_scale, bias, x, form="wgmma"
         raise TypeError(f"{name}[{epilogue}]: takes 2-D {dtype} a and w, got {a.dtype} "
                         f"{tuple(a.shape)} and {w.dtype} {tuple(w.shape)}")
     rows, k = a.shape
-    n, dev = w.shape[1], a.device
+    n_axis = 0 if epilogue == "dot_t" else 1  # w is (N, K) for dot_t, else (K, N)
+    n, dev = w.shape[n_axis], a.device
     depth = STAGE_SLICE if int8 else 64
-    if w.shape[0] != k or n % 128 or k % (depth * n_chunks) or w.device != dev:
-        raise ValueError(f"{name}[{epilogue}]: needs w (K, N) on {dev} with N % 128 == 0 and K "
-                         f"(each of its {n_chunks} chunks) a multiple of {depth}, got a "
-                         f"{tuple(a.shape)}, w {tuple(w.shape)} on {w.device}")
-    chunked = epilogue == "chunk_residual"
+    if w.shape[1 - n_axis] != k or n % 128 or k % (depth * n_chunks) or w.device != dev:
+        raise ValueError(f"{name}[{epilogue}]: needs w ({'N, K' if n_axis == 0 else 'K, N'}) "
+                         f"on {dev} with N % 128 == 0 and K (each of its {n_chunks} chunks) a "
+                         f"multiple of {depth}, got a {tuple(a.shape)}, w {tuple(w.shape)} on "
+                         f"{w.device}")
+    chunked = epilogue in FOLD_EPILOGUES
     if n_chunks < 1 or (n_chunks > 1 and not chunked) or (chunked and form != "wgmma"):
-        raise ValueError(f"{name}[{epilogue}]: chunks of K go with chunk_residual in the wgmma "
-                         f"form alone, got n_chunks={n_chunks}, form {form!r}")
+        raise ValueError(f"{name}[{epilogue}]: chunks of K go with {FOLD_EPILOGUES} in the "
+                         f"wgmma form alone, got n_chunks={n_chunks}, form {form!r}")
     code = form_code(f"{name}[{epilogue}]", form)
+    reads, given = _STAGE_READS[epilogue], dict(r=row_scale, c=col_scale, b=bias, x=x)
+    missing = [r for r in reads if given[r] is None]
+    if missing:
+        names = dict(r="row_scale", c="col_scale", b="bias", x="the residual x")
+        raise ValueError(f"{name}[{epilogue}]: needs {', '.join(names[m] for m in missing)}")
     a, w = a.contiguous(), w.contiguous()
     wk = kmajor(w) if int8 and form == "wgmma" else w
-    rs = f32_vector(row_scale, rows * n_chunks, dev) if int8 else None
-    cs = f32_vector(col_scale, n, dev) if int8 else None
-    xr = x.to(torch.bfloat16).reshape(rows, n).contiguous() if x is not None else None
-    if epilogue in ("residual", "out_proj", "chunk_residual") and xr is None:
-        raise ValueError(f"{name}[{epilogue}]: needs the residual x")
-    out = torch.empty((rows, n), dtype=torch.float32 if epilogue == "gelu" else torch.bfloat16,
-                      device=dev)
+    rs = f32_vector(row_scale, rows * n_chunks, dev) if "r" in reads else None
+    cs = f32_vector(col_scale, n, dev) if "c" in reads else None
+    b = f32_vector(bias, n, dev) if "b" in reads else None
+    xr = x.to(torch.bfloat16).reshape(rows, n).contiguous() if "x" in reads else None
+    out = torch.empty((rows, n), device=dev, dtype=torch.float32
+                      if epilogue in F32_EPILOGUES else torch.bfloat16)
     rc = load_library().aiic_gemm_stage(
-        ptr(a), ptr(wk), ptr(rs), ptr(cs), ptr(f32_vector(bias, n, dev)), ptr(xr), ptr(out),
+        ptr(a), ptr(wk), ptr(rs), ptr(cs), ptr(b), ptr(xr), ptr(out),
         rows, n, k, n_chunks, STAGE_EPILOGUES[epilogue], code,
         torch.cuda.current_stream(dev).cuda_stream)
     check(name, rc)
@@ -587,11 +616,11 @@ def int8_ln_mlp(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2,
 @counted
 def gemm_stage(a, w, epilogue: str, *, row_scale=None, col_scale=None, bias=None,
                x=None, n_chunks: int = 1) -> torch.Tensor:
-    """(rows, K) . w (K, N) -> (rows, N) through one of rows 1-4's epilogues
-    (``STAGE_EPILOGUES``; ``gemm_stage_ref`` says what each computes; K in
-    ``n_chunks`` chunks for chunk_residual): on the card the wgmma + TMA
-    stage those rows run (an int8 w read through its cached K-major copy),
-    on the CPU the plain version. ``launches`` also counts the stage's
+    """(rows, K) . w (K, N) -> (rows, N) through one of the epilogues of
+    rows 1-5, 10 and 11-14 (``STAGE_EPILOGUES``; ``gemm_stage_ref`` says
+    what each computes; K in ``n_chunks`` chunks for the folds; dot_t takes
+    w (N, K)): on the card the wgmma + TMA stage those rows run (an int8 w
+    read through its cached K-major copy), on the CPU the plain version. ``launches`` also counts the stage's
     launches inside rows 1-3 (two each), row 4 (four) and the large-S int8
     projection (one): their wrappers add them where they launch. Rows 5 and
     10 (bf16) run two launches of the stage each too and count one launch

@@ -11,7 +11,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    fp32 register-tiled core (each layout), of the two passes of the bf16
    tensor-core and the fp32 register-tiled core backward, of row 17's
    wgmma products and row pass, and of the wgmma GEMM stage of rows 1-5
-   and 10 (per epilogue, row 3's folded c_proj among them);
+   and 10 (per epilogue, row 3's folded c_proj among them) and of rows
+   11-14 (per epilogue: the bf16 K-major B of the backward, row 14's folded
+   dh2, the core backward's passes storing fp32);
 3. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes (ViT-B/16 image and text half-blocks, B=1, an odd
    B, an all-zero LN row, the text tower's 52 prompts; rows 1 and 2 on the
@@ -79,7 +81,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    B = 1, 7, 64 in fp32 and bf16; their int8 twins (``text_block_fwd_int8``,
    ``text_block_bwd_int8``) on per-channel-quantized weights at the same
    shape (unchunked plan) and at the L/14 text width (W=768, M=3072, H=12,
-   B=7, the chunked plan);
+   B=7, the chunked plan, C=6); in bf16 and int8 (rows 11-14) form 0 (the
+   products on the wgmma stage, the core backward on row 9's tensor-core
+   passes) beside form 1 (the first design: WMMA products, scalar core
+   backward) at every case: form 1 against the plain version, form 0
+   against form 1 at the same bars (the int8 forward bit for bit), form 0
+   a second time bit for bit, and form 0 launching the stage (and the two
+   tensor-core passes) and no WMMA gemm_kernel or block_core_bwd_kernel;
 7. the LoRA trainer at full ViT-B/16 width through ``train_lora``, 2 epochs
    at batch 16 on a synthetic dataset of random 256x256 PNGs written to a
    temporary directory, on four paths: fp32 ``auto`` (which resolves to
@@ -110,6 +118,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and backward, the median of 5 repeats with its spread); classify images/s at B=256 and
    single-image p50 latency of the int8, the bf16 unquantized and the bf16
    ``pallas_mlp`` engines;
+   rows 11-14 at 256 text rows in bf16 and int8, form 0 again right
+   before form 1, with both forms' device ms by stage;
    train-step ms at batch 256 (cached image features, dense text rows) on
    the four training paths; the steady-state images/s of a ``train_lora``
    epoch; row 6 at B=256 ViT-B/16 beside ``scaled_dot_product_attention``
@@ -233,20 +243,33 @@ KERNELS = {
         "sources": ["aiic_tpu_torch/csrc/ln_mlp.cu", "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh"],
         "replaces": "aiic_tpu/ops/mlp.py:27",
     },
+    # Rows 11-14: the entries of rows 11-12 are their fp32 (CLI default)
+    # route; in bf16 and int8 the backbone products run on the GEMM stage
+    # and the backward's core on row 9's tensor-core passes.
     "text_block_fwd": {
         "source": "aiic_tpu_torch/csrc/text_block.cuh",
+        "sources": ["aiic_tpu_torch/csrc/text_block.cuh",
+                    "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh"],
         "replaces": "aiic_tpu/ops/block_grad.py:322 and :388",
     },
     "text_block_bwd": {
         "source": "aiic_tpu_torch/csrc/text_block.cuh",
+        "sources": ["aiic_tpu_torch/csrc/text_block.cuh",
+                    "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh",
+                    "aiic_tpu_torch/csrc/attn_core_bwd_mma.cuh"],
         "replaces": "aiic_tpu/ops/block_grad.py:198 and :472",
     },
     "text_block_fwd_int8": {
         "source": "aiic_tpu_torch/csrc/text_block_int8.cu",
+        "sources": ["aiic_tpu_torch/csrc/text_block_int8.cu",
+                    "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh"],
         "replaces": "aiic_tpu/ops/block_grad.py:1084 and :1433",
     },
     "text_block_bwd_int8": {
         "source": "aiic_tpu_torch/csrc/text_block_int8.cu",
+        "sources": ["aiic_tpu_torch/csrc/text_block_int8.cu",
+                    "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh",
+                    "aiic_tpu_torch/csrc/attn_core_bwd_mma.cuh"],
         "replaces": "aiic_tpu/ops/block_grad.py:1104 and :1542",
     },
     "int8_ln_mlp_chunked": {
@@ -957,16 +980,19 @@ def mma_core_resources(build_log: str) -> dict:
     build's ``-Xptxas -v`` report: the bf16 core of rows 6-8 and the fp32
     core of rows 6-7 per layout, the two passes of row 9's bf16 and fp32
     backward, row 17's wgmma products and its i8_quant row pass, the GEMM
-    stage of rows 1-5 and 10 per epilogue; and their blocks per SM
+    stage of rows 1-5 and 10 per epilogue and of rows 11-14 per epilogue
+    (the bf16 K-major B of their backward, row 14's folded dh2, the
+    tensor-core core backward storing fp32); and their blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the stage's [int8
-    c_fc, bf16 out-projection, folded c_proj, bf16 QKV, bf16 c_fc])."""
-    from aiic_tpu_torch.ops import attention, quant
+    c_fc, bf16 out-projection, folded c_proj, bf16 QKV, bf16 c_fc], the text
+    block's ``block_grad.block_occupancy``)."""
+    from aiic_tpu_torch.ops import attention, block_grad, quant
     from aiic_tpu_torch.probes import mxu_probe
 
     kernels = {"attn_core_mma_kernel": {"QKVLayoutE0": "packed", "QKVLayoutE1": "head_major",
                                         "QKVLayoutE2": "separate"},
-               "core_bwd_mma_query_kernel": {"": "bwd_pass1"},
-               "core_bwd_mma_key_kernel": {"": "bwd_pass2"},
+               "core_bwd_mma_query_kernel": {"IfE": "bwd_pass1_f32", "": "bwd_pass1"},
+               "core_bwd_mma_key_kernel": {"IfE": "bwd_pass2_f32", "": "bwd_pass2"},
                "attn_core_f32_kernel": {"QKVLayoutE0": "f32_packed", "QKVLayoutE2": "f32_separate"},
                "core_bwd_tiled_query_kernel": {"": "bwd_f32_pass1"},
                "core_bwd_tiled_key_kernel": {"": "bwd_f32_pass2"},
@@ -977,7 +1003,25 @@ def mma_core_resources(build_log: str) -> dict:
                                       "EpiChunkResidual": "stage_c_proj_folded",
                                       "EpiBiasQKV": "stage_bf16_qkv",
                                       "EpiBiasGelu": "stage_bf16_c_fc",
-                                      "EpiMlpOut": "stage_bf16_c_proj"},
+                                      "EpiMlpOut": "stage_bf16_c_proj",
+                                      # rows 11-14 (mangled names)
+                                      "EpiQkvI": "block_bf16_qkv",
+                                      "EpiY1I": "block_out_proj",
+                                      "EpiFcI": "block_bf16_c_fc",
+                                      "EpiYI": "block_bf16_c_proj",
+                                      "EpiDfqI": "block_bf16_dfq",
+                                      "EpiLoRAOutIS2_fE": "block_bf16_dh",
+                                      "EpiLoRAOutIS2_S2_E": "block_da",
+                                      "EpiQkv8": "block_int8_qkv",
+                                      "EpiFc8": "block_int8_c_fc",
+                                      "EpiY8": "block_int8_c_proj",
+                                      "EpiDfq8": "block_int8_dfq",
+                                      "EpiDh2": "block_int8_dh2",
+                                      "NoTail": "stage_chunk_rowscale",
+                                      "EpiChunkRowScale": "block_int8_dh2_folded",
+                                      "EpiRowScale": "block_int8_dh1",
+                                      "EpiSplitStore": "stage_int8_matmul_t",
+                                      "EpiF32": "stage_dot_t"},
                "mxu_wgmma_quant_kernel": {"": "mxu_i8_quant"},
                "mxu_quant_rows_kernel": {"": "mxu_i8_quant_row_pass"}}
     res, lines = {}, build_log.splitlines()
@@ -1000,6 +1044,7 @@ def mma_core_resources(build_log: str) -> dict:
     res["f32_blocks_per_sm"] = attention.f32_core_occupancy()
     res["mxu_wgmma_blocks_per_sm"] = mxu_probe.wgmma_occupancy()
     res["stage_blocks_per_sm"] = quant.stage_occupancy()
+    res["text_block_blocks_per_sm"] = block_grad.block_occupancy()
     return res
 
 
@@ -1251,8 +1296,14 @@ def _randn(gen, shape, dtype, device):
 STAGE_LAUNCHES = {"int8_ln_qkv_attention": 2, "int8_ln_mlp": 2, "int8_ln_mlp_chunked": 2,
                   "int8_block": 4}
 # Rows 5 and 10 (bf16) launch the stage twice each too, but count one launch
-# of their own and none of the stage's.
-BF16_STAGE_LAUNCHES = {"fused_ln_qkv_attention": 2, "fused_ln_mlp": 2}
+# of their own and none of the stage's; so do rows 11-14 in bf16 and int8
+# (form 0): four products a forward (QKV, the out-projection, c_fc,
+# c_proj), seven a backward (the recomputed forward's first three, then
+# dy.W2^T, dfq.W1^T, dy1.Wo^T, dqkv.Wqkv^T). fp32 rows 11-12 launch none: no
+# trace of them goes through _device_ms_by_kernel.
+BF16_STAGE_LAUNCHES = {"fused_ln_qkv_attention": 2, "fused_ln_mlp": 2,
+                       "text_block_fwd": 4, "text_block_bwd": 7,
+                       "text_block_fwd_int8": 4, "text_block_bwd_int8": 7}
 
 
 def _one_launch(name: str, fn):
@@ -2019,8 +2070,111 @@ def _lora_agreement(got: dict, ref: dict, fp32: bool) -> dict:
     return {"per_factor": worst, "ok": ok}
 
 
+def _block_check(name: str, label: str, out, ref, dl, dl_ref, kind: str, int8: bool) -> dict:
+    """One text-block output against a reference at the text-block bars
+    (y and bf16 dx per row within 2 bf16 ULPs of the row's largest value and
+    row cosine >= COS_MIN; int8 dx the row cosine alone; the LoRA
+    cotangents as ``_lora_agreement``), logged; raises where it fails."""
+    import torch
+
+    a = _agreement(out, ref, row_scale=True)
+    a.update(kernel=name, case=label, against=kind)
+    if dl is not None:
+        a["lora"] = _lora_agreement(dl, dl_ref, out.dtype == torch.float32)
+        ok = a["finite"] and a["min_row_cos"] >= COS_MIN if int8 else a["ok"]
+        a["ok"] = ok and a["lora"]["ok"]
+    log(f"[kernels] {name:24s} {label:24s} {kind:14s} {a['dtype']:8s} "
+        f"max_abs_err={a['max_abs_err']:.6g} max_rel_err={a['max_rel_err']:.3g} "
+        f"within_2ulp={a['within_2ulp']:.6f} "
+        f"max_err_in_row_max_ulps={a['max_err_in_row_max_ulps']:.3g} "
+        f"min_row_cos={a['min_row_cos']:.8f}"
+        + (f" lora={a['lora']['per_factor']}" if "lora" in a else ""))
+    if not a["ok"]:
+        raise AssertionError(f"{name} ({kind}) disagrees on {label}: {a}")
+    return a
+
+
+# The kernels a form-0 call of rows 11-14 must launch (the wgmma stage; in
+# the backward row 9's two tensor-core passes) and those of the first design
+# it must not (common.cuh's WMMA gemm_kernel, block_core_bwd_kernel).
+BLOCK_FORM0_KERNELS = ("wgmma_stage_kernel",)
+BLOCK_FORM0_BWD_KERNELS = ("core_bwd_mma_query_kernel", "core_bwd_mma_key_kernel")
+BLOCK_FORM1_KERNELS = ("::gemm_kernel<", "block_core_bwd_kernel")
+
+
+def _block_form0_kernels(fn, backward: bool) -> list:
+    """The CUDA kernels that fn() (a form-0 text-block call) launches, from
+    ``_trace``; a trace that misses a kernel it must show is taken again
+    (the profiler drops leading records), up to PROFILE_TRIES. Raises
+    unless every kernel of ``BLOCK_FORM0_KERNELS`` (and, in the backward,
+    ``BLOCK_FORM0_BWD_KERNELS``) is there and none of
+    ``BLOCK_FORM1_KERNELS``."""
+    want = BLOCK_FORM0_KERNELS + (BLOCK_FORM0_BWD_KERNELS if backward else ())
+    for _ in range(PROFILE_TRIES):
+        names = sorted({ev.key for ev in _trace(fn)})
+        missing = [w for w in want if not any(w in n for n in names)]
+        if not missing:
+            break
+    stale = [n for n in names if any(k in n for k in BLOCK_FORM1_KERNELS)]
+    if missing or stale:
+        raise AssertionError(f"a form-0 text-block call launched {names}: missing {missing}, "
+                             f"first-design kernels {stale}")
+    return names
+
+
+def _hold_block_forms(p, label: str, results: list, int8: bool, form0, ref) -> None:
+    """Rows 11-14 beside their first design (form 1, uncounted) on the
+    inputs of ``p``: form 1 against the plain version and form 0 against
+    form 1 at the text-block bars (the int8 forward bit for bit: exact
+    int32 products, the same epilogues), form 0 a second time bit for bit
+    the first, and form 0's kernels (``_block_form0_kernels``)."""
+    import torch
+
+    from aiic_tpu_torch.ops import block_grad
+
+    x, dy, mask, bp, lora, h = p["x"], p["dy"], p["mask"], p["bp"], p["lora"], p["heads"]
+    a = (h, 2.0, 1e-5)
+    if int8:
+        qw = p["qw"]
+        c = block_grad._int8_chunks(x, 4 * x.shape[-1], h, None)
+        fwd = lambda form: block_grad._text_block_fwd_int8_cuda(  # noqa: E731
+            x, mask, bp, qw, lora, *a, form)
+        bwd = lambda form: block_grad._text_block_bwd_int8_cuda(  # noqa: E731
+            x, dy, mask, bp, qw, lora, *a, c, form)
+        names = ("text_block_fwd_int8", "text_block_bwd_int8")
+    else:
+        fwd = lambda form: block_grad._text_block_fwd_cuda(x, mask, bp, lora, *a, form)  # noqa: E731
+        bwd = lambda form: block_grad._text_block_bwd_cuda(  # noqa: E731
+            x, dy, mask, bp, lora, *a, form)
+        names = ("text_block_fwd", "text_block_bwd")
+    y0, (dx0, dl0) = form0
+    y_ref, (dx_ref, dl_ref) = ref
+    y1, (dx1, dl1) = fwd("wmma"), bwd("wmma")
+    torch.cuda.synchronize()
+    for kind, y, yr, dx, dxr, dl, dlr in (
+            ("wmma_vs_plain", y1, y_ref, dx1, dx_ref, dl1, dl_ref),
+            ("wgmma_vs_wmma", y0, y1, dx0, dx1, dl0, dl1)):
+        results.append(_block_check(names[0], label, y, yr, None, None, kind, int8))
+        results.append(_block_check(names[1], label, dx, dxr, dl, dlr, kind, int8))
+    if int8 and not torch.equal(y0, y1):
+        raise AssertionError(f"text_block_fwd_int8 form 0 is not form 1 bit for bit on {label}")
+    y2, (dx2, dl2) = fwd("wgmma"), bwd("wgmma")
+    torch.cuda.synchronize()
+    same = torch.equal(y0, y2) and torch.equal(dx0, dx2) and all(
+        torch.equal(dl0[q][ab], dl2[q][ab]) for q in dl0 for ab in "AB")
+    if not same:
+        raise AssertionError(f"{names} form 0: a second run on {label} is not the first bit for bit")
+    launched = {"fwd": _block_form0_kernels(lambda: fwd("wgmma"), False),
+                "bwd": _block_form0_kernels(lambda: bwd("wgmma"), True)}
+    REPORT.setdefault("text_block_form0_kernels", {})[f"{names[1]} {label}"] = launched
+    log(f"[kernels] {names[0]}/{names[1]} {label}: form 0 repeats bit for bit; launches the wgmma "
+        f"stage (and core_bwd_mma_* in the backward), no WMMA gemm_kernel or "
+        f"block_core_bwd_kernel")
+
+
 def phase_text_block_kernels(device) -> dict:
-    """Phase 6: the text-block kernels against their plain versions."""
+    """Phase 6: the text-block kernels against their plain versions; bf16
+    and int8 (rows 11-14) in form 0 beside form 1 (``_hold_block_forms``)."""
     import torch
 
     rng = np.random.default_rng(5)
@@ -2035,23 +2189,17 @@ def phase_text_block_kernels(device) -> dict:
             y_ref = calls["text_block_fwd"][1]()
             dx_ref, dl_ref = calls["text_block_bwd"][1]()
             label = f"B={bsz} S=77 W=512"
-            for name, out, ref in (("text_block_fwd", y, y_ref), ("text_block_bwd", dx, dx_ref)):
-                a = _agreement(out, ref, row_scale=True)
-                a.update(kernel=name, case=label)
-                if name == "text_block_bwd":
-                    a["lora"] = _lora_agreement(dl, dl_ref, dtype == torch.float32)
-                    a["ok"] = a["ok"] and a["lora"]["ok"]
-                results.append(a)
-                log(f"[kernels] {name:24s} {label:20s} {a['dtype']:8s} "
-                    f"max_abs_err={a['max_abs_err']:.6g} max_rel_err={a['max_rel_err']:.3g} "
-                    f"within_2ulp={a['within_2ulp']:.6f} "
-                    f"max_err_in_row_max_ulps={a['max_err_in_row_max_ulps']:.3g} "
-                    f"min_row_cos={a['min_row_cos']:.8f}"
-                    + (f" lora={a['lora']['per_factor']}" if "lora" in a else ""))
-                if not a["ok"]:
-                    raise AssertionError(f"{name} disagrees with its plain version on {label}: {a}")
-                if dtype == torch.float32:  # the line reports the fp32 (CLI default) kernel
-                    worst[name] = max(worst.get(name, 0.0), a["max_abs_err"])
+            results.append(_block_check("text_block_fwd", label, y, y_ref, None, None, "plain",
+                                        False))
+            results.append(_block_check("text_block_bwd", label, dx, dx_ref, dl, dl_ref, "plain",
+                                        False))
+            # the line's entries are the fp32 (CLI default) kernels, bf16 beside
+            suffix = "" if dtype == torch.float32 else "_bf16"
+            for name, a in zip(("text_block_fwd", "text_block_bwd"), results[-2:]):
+                worst[name + suffix] = max(worst.get(name + suffix, 0.0), a["max_abs_err"])
+            if dtype == torch.bfloat16:
+                _hold_block_forms(p, label, results, False, (y, (dx, dl)),
+                                  (y_ref, (dx_ref, dl_ref)))
     cases = [(f"B={bsz} S=77 W=512", dict(bsz=bsz)) for bsz in (1, 7, 64)]
     cases.append(("B=7 S=77 W=768 chunked", dict(bsz=7, w=768)))
     for label, kw in cases:
@@ -2063,23 +2211,12 @@ def phase_text_block_kernels(device) -> dict:
         torch.cuda.synchronize()
         y_ref = calls["text_block_fwd_int8"][1]()
         dx_ref, dl_ref = calls["text_block_bwd_int8"][1]()
-        for name, out, ref in (("text_block_fwd_int8", y, y_ref),
-                               ("text_block_bwd_int8", dx, dx_ref)):
-            a = _agreement(out, ref, row_scale=True)
-            a.update(kernel=name, case=label)
-            if name == "text_block_bwd_int8":
-                a["lora"] = _lora_agreement(dl, dl_ref, False)
-                a["ok"] = (a["finite"] and a["min_row_cos"] >= COS_MIN) and a["lora"]["ok"]
+        for name, out, ref, g, g_ref in (("text_block_fwd_int8", y, y_ref, None, None),
+                                         ("text_block_bwd_int8", dx, dx_ref, dl, dl_ref)):
+            a = _block_check(name, label, out, ref, g, g_ref, "plain", True)
             results.append(a)
-            log(f"[kernels] {name:24s} {label:24s} {a['dtype']:8s} "
-                f"max_abs_err={a['max_abs_err']:.6g} max_rel_err={a['max_rel_err']:.3g} "
-                f"within_2ulp={a['within_2ulp']:.6f} "
-                f"max_err_in_row_max_ulps={a['max_err_in_row_max_ulps']:.3g} "
-                f"min_row_cos={a['min_row_cos']:.8f}"
-                + (f" lora={a['lora']['per_factor']}" if "lora" in a else ""))
-            if not a["ok"]:
-                raise AssertionError(f"{name} disagrees with its plain version on {label}: {a}")
             worst[name] = max(worst.get(name, 0.0), a["max_abs_err"])
+        _hold_block_forms(p, label, results, True, (y, (dx, dl)), (y_ref, (dx_ref, dl_ref)))
     REPORT["text_block_checks"] = results
     return worst
 
@@ -2531,8 +2668,9 @@ def _device_ms_by_kernel(fn, needles: dict) -> dict:
     kernel). A trace is whole when it shows device time, every kernel's
     count is a multiple of the calls, and it holds as many
     ``wgmma_stage_kernel`` launches as ``quant.gemm_stage`` counted in it
-    and rows 5 and 10 launched inside theirs (``BF16_STAGE_LAUNCHES``); the
-    one used is whole and counts what the whole trace before it counted."""
+    and rows 5, 10 and 11-14 launched inside theirs (``BF16_STAGE_LAUNCHES``);
+    the one used is whole and counts what the whole trace before it
+    counted."""
     import torch
 
     from aiic_tpu_torch.ops import _build
@@ -2889,6 +3027,54 @@ def _bf16_text_forms(device, times: dict, card: str) -> None:
             f"{t['wmma_ms']:.3f} ms ({card})")
 
 
+# Device time of rows 11-14 by stage, both forms: kernel-name needles (the
+# WMMA gemm_kernel apart from the SIMT rank-r and fp32 tiles, whose names
+# end in gemm_kernel too; the fold is a stage kernel, shown again alone).
+BLOCK_STAGE_NEEDLES = {"wgmma_stage": "wgmma_stage_kernel", "of_which_fold": "EpiChunkRowScale",
+                       "wmma_gemm": "::gemm_kernel<", "core_bwd_mma": "core_bwd_mma_",
+                       "core_bwd_scalar": "block_core_bwd_kernel",
+                       "core_fwd": "block_core_fwd_kernel", "rank_r": "simt_gemm_kernel<",
+                       "rank_r_sums": "sum_partials_kernel", "ln_fwd": "ln_fwd_rows_kernel",
+                       "ln_bwd": "ln_bwd_rows_kernel", "row_quant": "rowquant"}
+
+
+def _block_forms_times(p, times: dict, card: str) -> None:
+    """Rows 11-14 at 256 text rows (B/16: S=77, W=512, M=2048, H=8, rank 16)
+    on the bf16 weights of ``p`` and their int8 quantization: form 0 through
+    the counted wrapper and right after it, on the same inputs, form 1 (the
+    first design, uncounted), the best of two 10-call runs each, with both
+    forms' device ms by stage (``_device_ms_by_kernel``, checked traces)."""
+    from aiic_tpu_torch.ops import block_grad
+
+    x, dy, mask, bp, lora, qw = p["x"], p["dy"], p["mask"], p["bp"], p["lora"], p["qw"]
+    kw, a = dict(heads=8, scaling=2.0), (8, 2.0, 1e-5)
+    c = block_grad._int8_chunks(x, 2048, 8, None)
+    forms = {
+        "text_block_fwd_bf16": (
+            lambda: block_grad.text_block_fwd(x, mask, bp, lora, **kw),
+            lambda: block_grad._text_block_fwd_cuda(x, mask, bp, lora, *a, "wmma")),
+        "text_block_bwd_bf16": (
+            lambda: block_grad.text_block_bwd(x, dy, mask, bp, lora, **kw),
+            lambda: block_grad._text_block_bwd_cuda(x, dy, mask, bp, lora, *a, "wmma")),
+        "text_block_fwd_int8": (
+            lambda: block_grad.text_block_fwd_int8(x, mask, bp, qw, lora, **kw),
+            lambda: block_grad._text_block_fwd_int8_cuda(x, mask, bp, qw, lora, *a, "wmma")),
+        "text_block_bwd_int8": (
+            lambda: block_grad.text_block_bwd_int8(x, dy, mask, bp, qw, lora, **kw),
+            lambda: block_grad._text_block_bwd_int8_cuda(x, dy, mask, bp, qw, lora, *a, c,
+                                                         "wmma")),
+    }
+    for name, (new, wmma) in forms.items():
+        t = times[name]
+        t["ms_before_wmma"] = min(_time_ms(new, 10) for _ in range(2))
+        t["wmma_ms"] = min(_time_ms(wmma, 10) for _ in range(2))
+        t["device_ms_by_stage"] = _device_ms_by_kernel(new, BLOCK_STAGE_NEEDLES)
+        t["wmma_device_ms_by_stage"] = _device_ms_by_kernel(wmma, BLOCK_STAGE_NEEDLES)
+        log(f"[timing] {name:24s} B=256 S=77 W=512: form 0 {t['ms_before_wmma']:.3f} ms, form 1 "
+            f"(WMMA, scalar core backward) {t['wmma_ms']:.3f} ms; device ms by stage form 0 "
+            f"{t['device_ms_by_stage']}, form 1 {t['wmma_device_ms_by_stage']} ({card})")
+
+
 def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
     """Phase 9. Launches made here are not the paths': the counts are
     saved before and put back after. Row 7 (fp32 and bf16 at B/16, fp32 at
@@ -2964,6 +3150,7 @@ def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
     p = _text_block_inputs(rng, 256, torch.bfloat16, device)
     p["qw"] = _quantized(p["bp"])
     _kernel_times(_int8_block_calls(p), times, "B=256 S=77 W=512 int8", card)
+    _block_forms_times(p, times, card)
     del p
     torch.cuda.empty_cache()
     times.update(train_step_times(params, device, card))
@@ -3290,8 +3477,9 @@ def main() -> int:
     REPORT["build"] = dict(BUILD_INFO)
     REPORT["attn_core_mma"] = mma_core_resources(BUILD_INFO["log"])
     log(f"[build] attn_core_mma (rows 6-8 bf16), attn_core_f32 (rows 6-7 fp32), core_bwd_mma "
-        f"(row 9 bf16), core_bwd_tiled (row 9 fp32), mxu_wgmma (row 17) and wgmma_stage (rows "
-        f"1-5 and 10's GEMM stage; its folded c_proj, row 3's): "
+        f"(row 9 bf16, rows 12 and 14's core; _f32 row 14's fp32 store), core_bwd_tiled (row 9 "
+        f"fp32), mxu_wgmma (row 17) and wgmma_stage (rows 1-5 and 10-14's GEMM stage; the "
+        f"folded c_proj, row 3's; block_*: rows 11-14's products): "
         f"{REPORT['attn_core_mma']}")
 
     worst = phase_kernels(device)
@@ -3388,6 +3576,16 @@ def main() -> int:
                 "ms", "bound_ms", "bound_by", "yardstick_ms")}
         elif k["name"] == "gemm_stage":
             k["products"] = times["gemm_stage"]["products"]
+    # Rows 11-14: rows 11-12's entries are fp32 (one route); bf16 beside, and
+    # for bf16 and int8 form 1 (the first design) timed right after form 0.
+    form_keys = ("wmma_ms", "ms_before_wmma", "device_ms_by_stage", "wmma_device_ms_by_stage")
+    for k in kernels:
+        if k["name"] in ("text_block_fwd", "text_block_bwd"):
+            t = times[k["name"] + "_bf16"]
+            k["bf16"] = {**{f: t[f] for f in keys + form_keys},
+                         "max_abs_err": worst[k["name"] + "_bf16"]}
+        elif k["name"] in ("text_block_fwd_int8", "text_block_bwd_int8"):
+            k.update({f: times[k["name"]][f] for f in form_keys})
     # Row 17's entries are the wgmma form; the WMMA form it replaced beside.
     for k in kernels:
         if k["name"].startswith("mxu_"):

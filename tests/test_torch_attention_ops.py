@@ -19,7 +19,10 @@ seed and handed to both packages. Tolerances:
   q·c, p, ds or the output by an ULP);
 - the probe's plain versions against a numpy formula: int8 and the
   quantized body exactly (integer products, the same fp32 operations), bf16
-  within one bf16 rounding of the float64 sum.
+  within one bf16 rounding of the float64 sum;
+- the whole text block's core backward step is row 9's plain version bit
+  for bit (bf16, and fp32 with ``out_dtype``), the premise of rows 12 and
+  14 running row 9's tensor-core passes on the card.
 """
 
 import functools
@@ -35,7 +38,7 @@ from aiic_tpu.models.clip import causal_mask as jax_causal_mask
 from aiic_tpu.ops import attention as jax_attention
 from aiic_tpu_torch.models import clip
 from aiic_tpu_torch.models.clip import causal_mask
-from aiic_tpu_torch.ops import attention
+from aiic_tpu_torch.ops import attention, block_grad
 from aiic_tpu_torch.probes import mxu_probe
 
 torch.set_num_threads(2)
@@ -135,6 +138,32 @@ def test_fused_attention_qkv_bwd_plain_matches_autograd_of_the_composition(seq, 
     got = attention.fused_attention_qkv_bwd(qt, mt, gt.double(), heads=heads)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("seq,heads,dim,use_mask", ROW9_GEOMETRIES,
+                         ids=["text_causal", "tiny_causal", "vit"])
+def test_text_block_core_step_is_row9(seq, heads, dim, use_mask):
+    """The premise of rows 12 and 14 running their core backward on row 9's
+    passes: the whole text block's core step (``block_grad._core_bwd`` on
+    ``_core_probs``, the mask as the block takes it, zeros for none) is row
+    9's plain version bit for bit in bf16: rounded once, as row 12 stores
+    dqkv, and unrounded with ``out_dtype=torch.float32``, as row 14 stores it
+    for its row quantizer. Both hold the bf16 bar above against JAX's
+    ``fused_attention_qkv_bwd`` (interpret mode, excess precision off)."""
+    (qt, qj), (gt, gj), (mt, mj) = _row9_inputs(seq, heads, dim, use_mask, "bfloat16", seed=7)
+    probs = block_grad._core_probs(qt, block_grad._mask_or_zeros(mt, qt), heads)
+    step = block_grad._core_bwd(qt, probs, gt, heads)
+    unrounded = attention.fused_attention_qkv_bwd_ref(qt, mt, gt, heads=heads,
+                                                      out_dtype=torch.float32)
+    rounded = attention.fused_attention_qkv_bwd_ref(qt, mt, gt, heads=heads)
+    assert step.dtype == unrounded.dtype == torch.float32 and rounded.dtype == torch.bfloat16
+    assert torch.equal(step, unrounded)
+    assert torch.equal(step.to(torch.bfloat16), rounded)
+    run = jax.jit(functools.partial(jax_attention.fused_attention_qkv_bwd, heads=heads,
+                                    interpret=True), compiler_options=EXACT_BF16)
+    ref = _np(run(qj, mj, gj))
+    _bf16_close(_np(rounded), ref)
+    _bf16_close(_np(unrounded), ref)
 
 
 def test_resolve_attn_impl_auto_as_jax():

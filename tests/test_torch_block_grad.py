@@ -18,6 +18,14 @@ packages. Tolerances:
   products are exact in both packages, so the two differ only where an fp32
   sum taken in another order moves an activation across an int8 rounding
   boundary (none did at this size: the outputs are bit-identical).
+- form 0 of rows 12 and 14 (the card's route: the backbone products on the
+  wgmma stage, the core backward on row 9's passes) composed from the plain
+  pieces in its order (the stage's ``dot_t`` and ``chunk_rowscale``, row 9's
+  plain core backward with the fp32 store for int8), unchunked, on the
+  (2, 2) plan and at the L/14 text width W=768 on its C=6 plan: the plain
+  versions' bits, and JAX's kernels at the bars above. The card's launch
+  functions refuse an unknown form, fp32's "wmma" and a hidden-axis chunk
+  their product cannot take before the library is loaded.
 """
 
 import functools
@@ -31,7 +39,7 @@ import torch
 from aiic_tpu.ops import block_grad as jax_bg
 from aiic_tpu_torch.models import config
 from aiic_tpu_torch.models.clip import causal_mask
-from aiic_tpu_torch.ops import block_grad, quant
+from aiic_tpu_torch.ops import attention, block_grad, quant
 
 torch.set_num_threads(2)
 
@@ -41,11 +49,14 @@ POINTS = ("out_proj", "c_fc", "c_proj")
 PLANS = {"unchunked": None, "chunked": (2, 2)}
 
 
-def _inputs(seed=0, bsz=4):
+def _inputs(seed=0, bsz=4, width=None):
     """numpy block params, LoRA factors (nonzero B, at the scale of
-    tests/test_block_grad.py), x and a cotangent dy in [-1, 1] at TINY_TEST."""
+    tests/test_block_grad.py), x and a cotangent dy in [-1, 1] at TINY_TEST
+    (or at another text width, M = 4 W)."""
     rng = np.random.default_rng(seed)
     s, w, m = CFG.context_length, CFG.text.width, CFG.text.mlp_dim
+    if width is not None:
+        w, m = width, 4 * width
     f = lambda *shape, std=1.0: (rng.standard_normal(shape) * std).astype(np.float32)  # noqa: E731
     bp = {
         "ln1": {"scale": 1 + f(w, std=0.1), "bias": f(w, std=0.1)},
@@ -263,3 +274,157 @@ def test_text_block_gate_at_the_cli_geometries():
     assert block_grad.text_block_plan(77, 512, 2048, 8, 2) == (2, 1)
     assert block_grad.text_block_plan(77, 768, 3072, 12, 4) is None
     assert block_grad.text_block_plan(77, 768, 3072, 12, 2)[1] > 1
+
+
+# ---------------------------------------------------------------------------
+# Form 0 of rows 12 and 14 (the card's route) composed from the plain pieces
+# ---------------------------------------------------------------------------
+
+
+def _form0_bwd(x, dy, mask, w, heads, scaling, n_chunks=1, eps=1e-5):
+    """Rows 12 (bf16) and 14 (int8: ``w`` holds the int8 weights) composed
+    from the plain pieces in the order form 0 runs them on the card: the
+    forward recomputed, then each backbone cotangent product g·Wᵀ as the
+    stage's plain version (``dot_t`` through a bf16 weight as it lies;
+    through an int8 one, g·colscale row-quantized per (row, chunk) and
+    ``chunk_rowscale``, the chunk sums folded from 0 in order), the rank-r
+    term added after it as the epilogues add it, and the core backward as
+    row 9's plain version (dqkv stored fp32 for int8, rounded to bf16 by the
+    next product's load for bf16)."""
+    cdt = x.dtype
+    bsz, seq, width = x.shape
+    rows = bsz * seq
+    t = block_grad._forward(x, block_grad._mask_or_zeros(mask, x), w, heads, scaling, eps)
+    dot = lambda a, b: block_grad._dot(a, b, cdt)  # noqa: E731
+
+    def cotangent(g, key, chunks=1):
+        if key + "_q" not in w:
+            return quant.gemm_stage_ref(g.to(cdt), w[key].to(cdt), "dot_t")
+        gs = g * w[block_grad._SCALE[key]]
+        q, qs = quant._row_quant(gs.reshape(rows * chunks, -1))
+        return quant.gemm_stage_ref(q.reshape(rows, -1), w[key + "_q"].t(), "chunk_rowscale",
+                                    row_scale=qs.reshape(rows, chunks), n_chunks=chunks)
+
+    dyf = dy.to(cdt).reshape(rows, width).float()
+    t_p = dot(dyf, w["c_proj_B"].t())
+    du = cotangent(dyf, "w2") + scaling * dot(t_p, w["c_proj_A"].t())
+    f, sig = t["f"], t["sig"]
+    dfq = du * (sig + 1.702 * f * sig * (1.0 - sig))
+    t_f = dot(dfq, w["c_fc_B"].t())
+    dh2 = cotangent(dfq, "w1", n_chunks) + scaling * dot(t_f, w["c_fc_A"].t())
+    dy1 = dyf + block_grad._ln_bwd(dh2, t["xhat2"], t["inv2"], w["ln2s"])
+    t_o = dot(dy1, w["out_proj_B"].t())
+    da = cotangent(dy1, "wo") + scaling * dot(t_o, w["out_proj_A"].t())
+    dqkv = attention.fused_attention_qkv_bwd_ref(
+        t["qkv"].reshape(bsz, seq, 3 * width), mask, da.reshape(bsz, seq, width), heads=heads,
+        out_dtype=torch.float32)
+    dh1 = cotangent(dqkv.reshape(rows, 3 * width), "wqkv")
+    dx = dy1 + block_grad._ln_bwd(dh1, t["xhat1"], t["inv1"], w["ln1s"])
+    dlora = {"out_proj": {"A": scaling * dot(t["a"].t(), t_o),
+                          "B": scaling * dot(t["a_ao"].t(), dy1)},
+             "c_fc": {"A": scaling * dot(t["h2"].t(), t_f), "B": scaling * dot(t["h2_af"].t(), dfq)},
+             "c_proj": {"A": scaling * dot(t["u"].t(), t_p),
+                        "B": scaling * dot(t["u_ap"].t(), dyf)}}
+    return dx.to(cdt).reshape(x.shape), dlora
+
+
+# (label, compute dtype, text width (None: TINY_TEST's), int8 plan)
+FORM0_CASES = [("bf16", "bfloat16", None, None), ("int8", "int8", None, None),
+               ("int8_chunked", "int8", None, (2, 2)), ("int8_W768_C6", "int8", 768, (1, 6))]
+
+
+@pytest.mark.parametrize("case", FORM0_CASES, ids=[c[0] for c in FORM0_CASES])
+def test_form0_composition_matches_plain_and_jax(case):
+    """Rows 12 and 14 composed in form 0's order (``_form0_bwd``: the
+    stage's plain products, row 9's plain core backward, the fold's plain
+    version; at W=768 the L/14 text width on its C=6 plan) give the plain
+    versions' bits (the same operations; only the card's fp32 sums run in
+    another order), and hold JAX's ``text_block_bwd`` / ``text_block_bwd_int8``
+    (interpret mode, excess precision off) at this file's bf16 bars."""
+    _, dtype, width, plan = case
+    bp, lora, x, dy = _inputs(seed=9, bsz=2, width=width)
+    heads = CFG.text.heads if width is None else width // 64
+    seq, scaling = CFG.context_length, 2.0
+    n_chunks = 1 if plan is None else plan[1]
+    xt, dyt = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, dy))
+    mask = causal_mask(seq)
+    kw = dict(heads=heads, scaling=scaling)
+    mask_j = jnp.triu(jnp.full((seq, seq), -jnp.inf, jnp.float32), k=1)
+    xj, dyj = jnp.asarray(x, jnp.bfloat16), jnp.asarray(dy, jnp.bfloat16)
+    if dtype == "int8":
+        qw_t, qw_j = _quantized(bp)
+        w = block_grad._int8_operands(_torch_tree(bp), qw_t, _torch_tree(lora), torch.bfloat16)
+        plain = block_grad.text_block_bwd_int8_ref(xt, dyt, mask, _torch_tree(bp), qw_t,
+                                                   _torch_tree(lora), n_chunks=n_chunks, **kw)
+        run = jax.jit(functools.partial(jax_bg.text_block_bwd_int8, interpret=True,
+                                        force_plan=plan, **kw), compiler_options=EXACT_BF16)
+        dx_ref, dl_ref = run(xj, dyj, mask_j, _jax_tree(bp), qw_j, _jax_tree(lora))
+    else:
+        w = block_grad._operands(_torch_tree(bp), _torch_tree(lora), torch.bfloat16)
+        plain = block_grad.text_block_bwd_ref(xt, dyt, mask, _torch_tree(bp), _torch_tree(lora),
+                                              **kw)
+        run = jax.jit(functools.partial(jax_bg.text_block_bwd, interpret=True, **kw),
+                      compiler_options=EXACT_BF16)
+        dx_ref, dl_ref = run(xj, dyj, mask_j, _jax_tree(bp), _jax_tree(lora))
+    dx, dl = _form0_bwd(xt, dyt, mask, w, heads, scaling, n_chunks)
+    assert dx.dtype == torch.bfloat16 and dx.shape == xt.shape
+    assert torch.equal(dx, plain[0])
+    for p in POINTS:
+        for ab in "AB":
+            assert torch.equal(dl[p][ab], plain[1][p][ab]), (p, ab)
+            assert _cos(dl[p][ab].numpy(), np.asarray(dl_ref[p][ab])) >= 0.9999, (p, ab)
+    _row_close_bf16(dx.float().numpy(), np.asarray(dx_ref, np.float32))
+
+
+def _no_library():
+    raise AssertionError("the kernel library was reached before the check")
+
+
+# (label, call on CPU tensors that must be refused, the message's words)
+def _refusals():
+    bp, lora, x, dy = _inputs(seed=2, bsz=1, width=128)
+    bpt, lt = _torch_tree(bp), _torch_tree(lora)
+    qw, _ = _quantized(bp)
+    xb, dyb = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, dy))
+    xf, dyf = torch.from_numpy(x), torch.from_numpy(dy)
+    mask = causal_mask(CFG.context_length)
+    a = (2, 2.0, 1e-5)  # heads (head dim 64), scaling, eps
+    i8 = torch.zeros((77, 512), dtype=torch.int8)
+    return {
+        "bf16_fwd_form": (lambda: block_grad._text_block_fwd_cuda(xb, mask, bpt, lt, *a,
+                                                                  form="mma"), "form"),
+        "bf16_bwd_form": (lambda: block_grad._text_block_bwd_cuda(xb, dyb, mask, bpt, lt, *a,
+                                                                  form="tensor"), "form"),
+        "fp32_wmma": (lambda: block_grad._text_block_bwd_cuda(xf, dyf, mask, bpt, lt, *a,
+                                                              form="wmma"), "one route"),
+        "int8_fwd_form": (lambda: block_grad._text_block_fwd_int8_cuda(xb, mask, bpt, qw, lt, *a,
+                                                                       form="wgmma2"), "form"),
+        "int8_bwd_form": (lambda: block_grad._text_block_bwd_int8_cuda(
+            xb, dyb, mask, bpt, qw, lt, *a, 1, form=""), "form"),
+        # M = 512 in 8 chunks of 64: not whole 128-B K-slices of the stage's fold
+        "int8_chunk_wgmma": (lambda: block_grad._text_block_bwd_int8_cuda(
+            xb, dyb, mask, bpt, qw, lt, *a, 8), "multiple of 128"),
+        # 32 chunks of 16: not whole 32-deep steps of the WMMA split product
+        "int8_chunk_wmma": (lambda: block_grad._text_block_bwd_int8_cuda(
+            xb, dyb, mask, bpt, qw, lt, *a, 32, form="wmma"), "multiple of 32"),
+        "matmul_form": (lambda: block_grad.int8_matmul_t_cuda(i8, i8, form="stage"), "form"),
+    }
+
+
+REFUSALS = ["bf16_fwd_form", "bf16_bwd_form", "fp32_wmma", "int8_fwd_form", "int8_bwd_form",
+            "int8_chunk_wgmma", "int8_chunk_wmma", "matmul_form"]
+
+
+@pytest.mark.parametrize("case", REFUSALS)
+def test_card_forms_refuse_before_the_library(monkeypatch, case):
+    """The card's launch functions of rows 11-14 take form "wgmma" (the
+    route) or "wmma" (the first design; bf16 and int8 only), and a
+    hidden-axis chunk that the form's product takes (whole 128-B K-slices
+    on the stage, 32-deep steps on the WMMA tile): anything else raises a
+    clear ValueError before the kernel library is built or loaded; nothing
+    falls back to another form."""
+    monkeypatch.setattr(block_grad, "load_library", _no_library)
+    call, words = _refusals()[case]
+    with pytest.raises(ValueError, match=words):
+        call()
+

@@ -539,3 +539,39 @@ def test_device_ms_by_kernel_counts_the_bf16_rows_stage_launches(monkeypatch, ro
         return
     got = chip_smoke._device_ms_by_kernel(one_call, needles)
     assert got == {"stage": pytest.approx(0.02)}
+
+
+@pytest.mark.parametrize("row,per_call", [("text_block_fwd", 4), ("text_block_bwd", 7),
+                                          ("text_block_fwd_int8", 4), ("text_block_bwd_int8", 7)])
+def test_device_ms_by_kernel_counts_the_text_blocks_stage_launches(monkeypatch, row, per_call):
+    """Rows 11-14 in bf16 and int8 (form 0) launch the stage four times a
+    forward and seven a backward inside one counted launch of their own: a
+    trace with that many stage kernels a call is whole, one with a stage
+    kernel lost is not."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+    from aiic_tpu_torch.ops import _build
+
+    assert chip_smoke.BF16_STAGE_LAUNCHES[row] == per_call
+    n = per_call * chip_smoke.PROFILE_ITERS
+    for events, whole in (([_KernelEvent("void wgmma_stage_kernel<EpiFc<bf16>>", n)], True),
+                          ([_KernelEvent("void wgmma_stage_kernel<EpiFc<bf16>>", n - 1)], False)):
+        def trace(fn, lead_in=chip_smoke.PROFILE_LEAD_IN):
+            for _ in range(chip_smoke.PROFILE_ITERS):
+                fn()
+            return events
+
+        def one_call():
+            _build._COUNTED[row].launches += 1
+
+        monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+        for fn in _build._COUNTED.values():
+            monkeypatch.setattr(fn, "launches", 0)
+        monkeypatch.setattr(chip_smoke, "_trace", trace)
+        needles = {"stage": "wgmma_stage_kernel"}
+        if whole:
+            got = chip_smoke._device_ms_by_kernel(one_call, needles)
+            assert got["stage"] == pytest.approx(n * 0.01 / chip_smoke.PROFILE_ITERS)
+        else:
+            with pytest.raises(AssertionError, match="no two whole ones in a row"):
+                chip_smoke._device_ms_by_kernel(one_call, needles)

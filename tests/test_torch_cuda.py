@@ -54,7 +54,19 @@ tensor-core core (form 0): they sum fp32 in another order than their WMMA
 form 1, so each takes the bf16 bar against its plain version and against
 form 1, and repeats itself bit for bit; the bf16 engines' image chunks
 launch the stage and the tensor-core core and no WMMA GEMM or scalar core.
+Rows 11-14 (the training text block, bf16 and int8) run form 0: their
+backbone products on the same stage (bf16 with a K-major B for the
+backward's g . W^T, row 14's chunked dh2 product with its chunk sums
+folded) and their core backward on row 9's tensor-core passes (fp32 store
+for int8). Forms 0 and 1 each hold the text-block bars against the plain
+version and against each other (the int8 forward bit for bit); the
+backwards launch the stage and the tensor-core passes and no WMMA GEMM or
+block_core_bwd_kernel, and repeat themselves bit for bit; the fold alone is
+form 1's split product plus its in-order sum bit for bit, the stage's int8
+A @ B^T its WMMA form; fp32 rows 11-12 keep their SIMT route.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -735,11 +747,21 @@ def test_attention_core_op_routes(device):
         assert _launched(names, want) and not _launched(names, not_want), (dtype, seq, names)
 
 
+def _wmma_gemm(names: set) -> bool:
+    """Whether common.cuh's WMMA gemm_kernel is among the launched kernels
+    (not the text block's SIMT simt_gemm_kernel or sgemm_kernel)."""
+    return any(re.search(r"(?<![A-Za-z_])gemm_kernel<", n) for n in names)
+
+
 @pytest.mark.parametrize("path", ["bf16", "int8"])
 def test_text_block_backwards_keep_their_core(device, path):
-    """Rows 12 and 14 (text_block_bwd, text_block_bwd_int8) still run
-    common.cuh's block_core_bwd_kernel, not the tensor-core backward, and
-    repeat themselves bit for bit across two calls."""
+    """Rows 12 and 14 (text_block_bwd, text_block_bwd_int8) run form 0:
+    their backbone products on the wgmma stage (wgmma_stage_kernel) and
+    their core backward on row 9's tensor-core passes (core_bwd_mma_*), no
+    WMMA gemm_kernel and no block_core_bwd_kernel (which form 1 keeps); and
+    they repeat themselves bit for bit across two calls. (Before the
+    redesign this test pinned block_core_bwd_kernel, the core they then
+    ran.)"""
     mask = causal_mask(77, device=device)
     kw = dict(heads=8, scaling=2.0)
     if path == "bf16":
@@ -750,13 +772,170 @@ def test_text_block_backwards_keep_their_core(device, path):
         call = lambda: block_grad.text_block_bwd_int8(x, dy, mask, bp, qw, lora, **kw)  # noqa: E731
     first = call()
     names = _cuda_kernels(call)
-    assert _launched(names, "block_core_bwd_kernel") and not _launched(names, "core_bwd_mma")
+    assert _launched(names, "wgmma_stage_kernel") and _launched(names, "core_bwd_mma_query")
+    assert _launched(names, "core_bwd_mma_key")
+    assert not _wmma_gemm(names) and not _launched(names, "block_core_bwd_kernel"), names
     second = call()
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0])
     for p in first[1]:
         for ab in "AB":
             assert torch.equal(first[1][p][ab], second[1][p][ab])
+
+
+def _block_agree(got, want, int8: bool):
+    """The text-block bars: dx every row within 2 bf16 ULPs of its largest
+    value and row cosine >= 0.9999 (int8: the row cosine alone), each LoRA
+    cotangent cosine >= 0.9999."""
+    dx, dl = got
+    if int8:
+        cos = torch.nn.functional.cosine_similarity(dx.float().flatten(0, -2),
+                                                    want[0].float().flatten(0, -2), dim=-1)
+        assert float(cos.min()) >= 0.9999
+    else:
+        _agree_rows(dx, want[0])
+    for p in dl:
+        for ab in "AB":
+            cos = torch.nn.functional.cosine_similarity(dl[p][ab].flatten(),
+                                                        want[1][p][ab].flatten(), dim=0)
+            assert float(cos) >= 0.9999, (p, ab)
+
+
+# (B, W, H, int8 plan) of the form checks: B = 1, 3 at the B/16 text width,
+# and the L/14 text width on the chunked int8 plan (C = 6).
+FORM_CASES = [(1, 512, 8, None), (3, 512, 8, None), (3, 768, 12, (1, 6))]
+FORM_IDS = ["B1", "B3", "B3_W768"]
+
+
+@pytest.mark.parametrize("path", ["bf16", "int8"])
+@pytest.mark.parametrize("case", FORM_CASES, ids=FORM_IDS)
+def test_text_block_forms_match_plain_and_each_other(device, path, case):
+    """Rows 11-14 in form 0 (the route) and form 1 (the first design,
+    uncounted): each against the plain version and form 0 against form 1
+    at the text-block bars, y of the int8 forward bit for bit (int8 products
+    exact in int32, the same epilogues; the bf16 wo sums in another order
+    round the same here, which the bar does not need), form 1 launching the
+    WMMA gemm_kernel and block_core_bwd_kernel and no stage."""
+    bsz, width, heads, plan = case
+    mask = causal_mask(77, device=device)
+    a = (heads, 2.0, 1e-5)
+    if path == "bf16":
+        x, dy, bp, lora = _text_block_inputs(device, bsz, torch.bfloat16, width, heads)
+        fwd = lambda form: block_grad._text_block_fwd_cuda(x, mask, bp, lora, *a, form)  # noqa: E731
+        bwd = lambda form: block_grad._text_block_bwd_cuda(x, dy, mask, bp, lora, *a,  # noqa: E731
+                                                           form)
+        y_ref = block_grad.text_block_fwd_ref(x, mask, bp, lora, heads=heads, scaling=2.0)
+        ref = block_grad.text_block_bwd_ref(x, dy, mask, bp, lora, heads=heads, scaling=2.0)
+    else:
+        x, dy, bp, qw, lora = _int8_block_inputs(device, bsz, width, heads)
+        c = block_grad._int8_chunks(x, 4 * width, heads, plan)
+        fwd = lambda form: block_grad._text_block_fwd_int8_cuda(  # noqa: E731
+            x, mask, bp, qw, lora, *a, form)
+        bwd = lambda form: block_grad._text_block_bwd_int8_cuda(  # noqa: E731
+            x, dy, mask, bp, qw, lora, *a, c, form)
+        y_ref = block_grad.text_block_fwd_int8_ref(x, mask, bp, qw, lora, heads=heads,
+                                                   scaling=2.0, n_chunks=c)
+        ref = block_grad.text_block_bwd_int8_ref(x, dy, mask, bp, qw, lora, heads=heads,
+                                                 scaling=2.0, n_chunks=c)
+    before = _build.launch_counts()
+    y0, y1 = fwd("wgmma"), fwd("wmma")
+    g0, g1 = bwd("wgmma"), bwd("wmma")
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == before  # the private forms count nothing
+    for y in (y0, y1):
+        _agree_rows(y, y_ref)
+    _agree_rows(y0, y1)
+    if path == "int8":
+        assert torch.equal(y0, y1)
+    for g in (g0, g1):
+        _block_agree(g, ref, path == "int8")
+    _block_agree(g0, g1, path == "int8")
+    names = _cuda_kernels(lambda: bwd("wmma"))
+    assert _wmma_gemm(names) and _launched(names, "block_core_bwd_kernel")
+    assert not _launched(names, "wgmma_stage_kernel") and not _launched(names, "core_bwd_mma")
+
+
+@pytest.mark.parametrize("bsz", [1, 3])
+def test_fp32_text_block_keeps_its_route(device, bsz):
+    """fp32 rows 11 and 12 take form 0 alone, which is the SIMT route they
+    ran before the bf16 and int8 redesign: sgemm_kernel and
+    block_core_bwd_kernel, no wgmma stage, no WMMA GEMM, no tensor-core core;
+    a second run bit for bit the first, and "wmma" refused."""
+    x, dy, bp, lora = _text_block_inputs(device, bsz, torch.float32)
+    mask = causal_mask(77, device=device)
+    kw = dict(heads=8, scaling=2.0)
+    fwd = lambda: block_grad.text_block_fwd(x, mask, bp, lora, **kw)  # noqa: E731
+    bwd = lambda: block_grad.text_block_bwd(x, dy, mask, bp, lora, **kw)  # noqa: E731
+    for call in (fwd, bwd):
+        names = _cuda_kernels(call)
+        assert _launched(names, "sgemm_kernel") and not _wmma_gemm(names), names
+        assert not _launched(names, "wgmma_stage_kernel") and not _launched(names, "core_bwd_mma")
+    assert _launched(_cuda_kernels(bwd), "block_core_bwd_kernel")
+    y, (dx, dl) = fwd(), bwd()
+    assert torch.equal(y, fwd())
+    dx2, dl2 = bwd()
+    assert torch.equal(dx, dx2)
+    assert all(torch.equal(dl[p][ab], dl2[p][ab]) for p in dl for ab in "AB")
+    with pytest.raises(ValueError):
+        block_grad._text_block_bwd_cuda(x, dy, mask, bp, lora, 8, 2.0, 1e-5, "wmma")
+
+
+@pytest.mark.parametrize("rows", [77, 539])
+def test_int8_transposed_gemm_stage_form_is_the_wmma_form(device, rows):
+    """The backward's int8 A @ B^T on the wgmma stage (B = the weight as it
+    lies, K-major) bit for bit its WMMA form and the exact product."""
+    gen = torch.Generator(device=device).manual_seed(rows)
+    a = torch.randint(-127, 128, (rows, 3072), dtype=torch.int8, device=device, generator=gen)
+    b = torch.randint(-127, 128, (768, 3072), dtype=torch.int8, device=device, generator=gen)
+    got = block_grad.int8_matmul_t_cuda(a, b, form="wgmma")
+    assert torch.equal(got, block_grad.int8_matmul_t_cuda(a, b, form="wmma"))
+    assert torch.equal(got[0], (a.double() @ b.double().t()).int())
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 6])
+@pytest.mark.parametrize("rows", [1, 539])
+def test_chunk_rowscale_is_the_split_product_and_its_sum(device, rows, n_chunks):
+    """Row 14's chunked dh2 fold alone (``chunk_rowscale``, K = 3072, N =
+    768: the L/14 text block's dfq . W1^T) bit for bit form 1's split WMMA
+    product (``int8_matmul_t_cuda`` in K/C splits) plus its in-order sum
+    from 0, and its plain version; one counted launch."""
+    gen = torch.Generator(device=device).manual_seed(rows + n_chunks)
+    k, n = 3072, 768
+    a = torch.randint(-127, 128, (rows, k), dtype=torch.int8, device=device, generator=gen)
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=device, generator=gen)
+    rs = torch.rand(rows, n_chunks, device=device, generator=gen) / 100
+    before = quant.gemm_stage.launches
+    out = quant.gemm_stage(a, w, "chunk_rowscale", row_scale=rs, n_chunks=n_chunks)
+    torch.cuda.synchronize()
+    assert quant.gemm_stage.launches == before + 1
+    parts = block_grad.int8_matmul_t_cuda(a, w.t().contiguous(), k // n_chunks, "wmma")
+    total = torch.zeros_like(out)
+    for c in range(n_chunks):
+        total = total + parts[c].float() * rs[:, c:c + 1]
+    assert torch.equal(out, total)
+    assert torch.equal(out, quant.gemm_stage_ref(a, w, "chunk_rowscale", row_scale=rs,
+                                                 n_chunks=n_chunks))
+
+
+@pytest.mark.parametrize("shape", [(77, 512, 2048), (77, 2048, 512), (539, 1536, 512),
+                                   (1, 512, 1536)], ids=["K512", "K2048", "K1536", "row1"])
+def test_gemm_stage_bf16_kmajor_b(device, shape):
+    """The stage's bf16 K-major B (``dot_t``: g . W^T with W (N, K) as it
+    lies) at K = 512 and 2048 (the text block's dy.W2^T and dfq.W1^T) and
+    the others of rows 12-14: within 1e-5 of the largest |entry| of its
+    plain version (fp32 sums in another order), and against the WMMA form
+    reading W transposed (measured equal on the card); one counted launch."""
+    rows, k, n = shape
+    a = _randn(device, rows, k, dtype=torch.bfloat16, seed=k)
+    w = (_randn(device, n, k, seed=n) / 16).to(torch.bfloat16)
+    before = quant.gemm_stage.launches
+    out = quant.gemm_stage(a, w, "dot_t")
+    torch.cuda.synchronize()
+    assert quant.gemm_stage.launches == before + 1 and out.dtype == torch.float32
+    ref = quant.gemm_stage_ref(a, w, "dot_t")
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    wmma = quant._gemm_stage_cuda(a, w, "dot_t", None, None, None, None, "wmma")
+    assert float((out - wmma).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
 def test_attention_core_ops_refuse_what_they_do_not_take(device):
@@ -939,7 +1118,8 @@ def test_int8_rows_on_the_wgmma_stage_match_plain_and_wmma(device, case):
 
 
 @pytest.mark.parametrize("rows", [1, 591, 50432 // 64])
-@pytest.mark.parametrize("epilogue", sorted(set(quant.STAGE_EPILOGUES) - {"chunk_residual"}))
+@pytest.mark.parametrize("epilogue", sorted(set(quant.STAGE_EPILOGUES)
+                                             - {"chunk_residual", "chunk_rowscale", "dot_t"}))
 def test_gemm_stage_matches_plain_and_wmma(device, epilogue, rows):
     """The stage alone: the bf16 bar (fp32's for gelu's fp32 y) against its
     plain version, an int8 product bit for bit the WMMA stage, one counted

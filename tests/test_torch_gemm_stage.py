@@ -26,6 +26,13 @@ int8 copies its ``wgmma`` form reads, on the CPU.
   JAX kernels (interpret mode, excess precision off) at the bar above; each
   per-element epilogue holds float64 numpy; rows 5 and 10 and the stage
   refuse an unknown ``form`` before the library is loaded.
+- The text block's two products on the stage (rows 12 and 14's backward):
+  ``dot_t``, g . W^T with W (N, K) as it lies (the bf16 K-major B), against
+  float64 numpy at K = 512 and 2048 and bit for bit the (K, N) product of
+  the transposed copy; ``chunk_rowscale``, the chunked int8 cotangent
+  product with its chunk sums folded (C = 1, 2, 6), bit for bit numpy's
+  float32 sum in chunk order; a chunk off the 128-B slices and an unknown
+  form refused before anything is built.
 """
 
 import functools
@@ -177,8 +184,10 @@ def test_stage_composes_row1(use_mask):
     _bf16_close(out, ref)
 
 
-# The per-element epilogues; chunk_residual has its own tests below.
-PER_ELEMENT = sorted(set(quant.STAGE_EPILOGUES) - {"chunk_residual"})
+# The per-element epilogues; the folds (chunk_residual, chunk_rowscale) and
+# the text block's transposed-weight product (dot_t) have their own tests
+# below.
+PER_ELEMENT = sorted(set(quant.STAGE_EPILOGUES) - {"chunk_residual", "chunk_rowscale", "dot_t"})
 EXACT_BF16 = {"xla_allow_excess_precision": False}
 
 
@@ -278,7 +287,8 @@ def test_stage_composes_row10(bsz):
     _bf16_close(out, ref)
 
 
-@pytest.mark.parametrize("kernel", ["fused_ln_qkv_attention", "fused_ln_mlp", "gemm_stage"])
+@pytest.mark.parametrize("kernel", ["fused_ln_qkv_attention", "fused_ln_mlp", "gemm_stage",
+                                    "gemm_stage_dot_t"])
 def test_bf16_forms_refuse_an_unknown_form(monkeypatch, kernel):
     """Rows 5 and 10 and the stage take form "wgmma" (the route) or "wmma"
     (the first design) alone: any other is refused with a clear error
@@ -301,10 +311,14 @@ def test_bf16_forms_refuse_an_unknown_form(monkeypatch, kernel):
         call = lambda: mlp._fused_ln_mlp_cuda(  # noqa: E731
             xb, t(p["ln_s"]), t(p["ln_b"]), t(p["w1"]), t(p["b1"]), t(p["w2"]), t(p["b2"]), 1e-5,
             form="wmma_split")
-    else:
+    elif kernel == "gemm_stage":
         call = lambda: quant._gemm_stage_cuda(  # noqa: E731
             xb.reshape(16, w), t(p["w1"]).to(torch.bfloat16), "bias", None, None, t(p["b1"]),
             None, form="mma")
+    else:
+        call = lambda: quant._gemm_stage_cuda(  # noqa: E731
+            xb.reshape(16, w), t(p["w1"]).t().to(torch.bfloat16), "dot_t", None, None, None,
+            None, form="kmajor")
     with pytest.raises(ValueError, match="form"):
         call()
 
@@ -341,6 +355,54 @@ def test_chunk_residual_plain_version_matches_numpy(n_chunks):
         total64 = total64 + acc * ys[:, c:c + 1].astype(np.float64) * s2
     assert torch.equal(out, torch.from_numpy(total + b2).to(torch.bfloat16))
     np.testing.assert_allclose(out.double().numpy(), total64 + b2, rtol=2.0 ** -8, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [512, 2048])
+def test_dot_t_plain_version_matches_numpy(k):
+    """The text block's cotangent product g . W^T (``dot_t``, W (N, K) as the
+    weight lies: the bf16 K-major B of the wgmma form) against float64 numpy
+    at K = 512 and 2048: fp32 sums of exact bf16 products, within 1e-5 of
+    the largest |entry|; and the same bits as the bf16 (K, N) product of the
+    transposed copy, which only its layout tells apart."""
+    rng = np.random.default_rng(11 + k)
+    rows, n = 77, 384
+    a = torch.from_numpy(rng.standard_normal((rows, k)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((n, k)) / 16).astype(np.float32)).to(torch.bfloat16)
+    out = quant.gemm_stage(a, w, "dot_t")
+    assert out.shape == (rows, n) and out.dtype == torch.float32
+    ref = a.double().numpy() @ w.double().numpy().T
+    assert np.abs(out.double().numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert torch.equal(out, a.float() @ w.t().contiguous().float())
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 6])
+def test_chunk_rowscale_plain_version_matches_numpy(n_chunks):
+    """Row 14's chunked dh2 product without its LoRA term
+    (``chunk_rowscale``): from 0, each chunk's acc_c·rs[:, c] added in
+    chunk order, fp32. numpy's float32 ops in that order give the plain
+    version's bits (each int32 acc_c exact); float64 agrees within fp32
+    rounding. C = 1 is the unchunked cotangent product (EpiRowScale's
+    acc·rs)."""
+    rng = np.random.default_rng(20 + n_chunks)
+    rows, k, n = 13, 768, 128
+    chunk = k // n_chunks
+    a, w = _int8(rng, rows, k), _int8(rng, k, n)
+    rs = (rng.random((rows, n_chunks)) / 100).astype(np.float32)
+    out = quant.gemm_stage(a, w, "chunk_rowscale", row_scale=torch.from_numpy(rs),
+                           n_chunks=n_chunks)
+    assert out.shape == (rows, n) and out.dtype == torch.float32
+    an, wn = a.numpy().astype(np.int64), w.numpy().astype(np.int64)
+    total = np.zeros((rows, n), np.float32)
+    total64, largest = np.zeros((rows, n)), 0.0
+    for c in range(n_chunks):
+        acc = an[:, c * chunk:(c + 1) * chunk] @ wn[c * chunk:(c + 1) * chunk]
+        total = total + acc.astype(np.float32) * rs[:, c:c + 1]
+        term = acc * rs[:, c:c + 1].astype(np.float64)
+        total64, largest = total64 + term, max(largest, np.abs(term).max())
+    assert torch.equal(out, torch.from_numpy(total))
+    # two fp32 roundings a chunk (the product, the sum), each within half
+    # an ULP of the largest term
+    assert np.abs(out.double().numpy() - total64).max() <= 2 * n_chunks * 2.0 ** -24 * largest
 
 
 @pytest.mark.parametrize("n_chunks", [2, 4])
@@ -387,7 +449,8 @@ def _refused_before_a_launch(monkeypatch, call):
         call()
 
 
-@pytest.mark.parametrize("kernel", ["int8_ln_mlp_chunked", "int8_block", "gemm_stage"])
+@pytest.mark.parametrize("kernel", ["int8_ln_mlp_chunked", "int8_block", "gemm_stage",
+                                    "gemm_stage_rowscale"])
 def test_wgmma_forms_refuse_a_chunk_off_the_slices(monkeypatch, kernel):
     """4W/C = 64: not a whole number of the wgmma stage's 128-B K-slices.
     The launch functions that the public wrappers call for a CUDA tensor
@@ -408,9 +471,14 @@ def test_wgmma_forms_refuse_a_chunk_off_the_slices(monkeypatch, kernel):
         attn_w = (t(p["ln_s"]), t(p["ln_b"]), wqkv_q, sqkv, t(p["bqkv"]),
                   t(p["wo"]).to(torch.bfloat16), t(p["bo"]), None)
         call = lambda: quant._int8_block_cuda(xb, attn_w, mlp_w, 2, 1e-5, n_chunks)  # noqa: E731
-    else:
+    elif kernel == "gemm_stage":
         yq = _int8(rng, 16, m)
         call = lambda: quant._gemm_stage_cuda(  # noqa: E731
             yq, w2_q, "chunk_residual", torch.ones(16, n_chunks), s2, t(p["b2"]),
             xb.reshape(16, w), n_chunks=n_chunks)
+    else:
+        yq = _int8(rng, 16, m)
+        call = lambda: quant._gemm_stage_cuda(  # noqa: E731
+            yq, w2_q, "chunk_rowscale", torch.ones(16, n_chunks), None, None, None,
+            n_chunks=n_chunks)
     _refused_before_a_launch(monkeypatch, call)

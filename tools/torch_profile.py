@@ -48,6 +48,22 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 GROUPS = [  # (group, substring(s) of the CUDA kernel name, all present), first match wins
+    # rows 11-14 (the training text block, form 0): their products on the
+    # wgmma + TMA stage by type and direction (the backward's recomputed
+    # forward counts as forward), row 14's chunked dh2 fold apart
+    ("block_wgmma_fold", ("wgmma_stage_kernel", "EpiChunkRowScale")),
+    ("block_wgmma_gemm_int8_fwd", ("wgmma_stage_kernel", "EpiQkv8")),
+    ("block_wgmma_gemm_int8_fwd", ("wgmma_stage_kernel", "EpiFc8")),
+    ("block_wgmma_gemm_int8_fwd", ("wgmma_stage_kernel", "EpiY8")),
+    ("block_wgmma_gemm_int8_bwd", ("wgmma_stage_kernel", "EpiDfq8")),
+    ("block_wgmma_gemm_int8_bwd", ("wgmma_stage_kernel", "EpiDh2")),
+    ("block_wgmma_gemm_int8_bwd", ("wgmma_stage_kernel", "EpiRowScale")),
+    ("block_wgmma_gemm_bf16_fwd", ("wgmma_stage_kernel", "EpiQkv<")),
+    ("block_wgmma_gemm_bf16_fwd", ("wgmma_stage_kernel", "EpiY1<")),
+    ("block_wgmma_gemm_bf16_fwd", ("wgmma_stage_kernel", "EpiFc<")),
+    ("block_wgmma_gemm_bf16_fwd", ("wgmma_stage_kernel", "EpiY<")),
+    ("block_wgmma_gemm_bf16_bwd", ("wgmma_stage_kernel", "EpiDfq<")),
+    ("block_wgmma_gemm_bf16_bwd", ("wgmma_stage_kernel", "EpiLoRAOut")),
     # rows 1-5 and 10's products on the wgmma + TMA stage
     # (wgmma_serving_gemm.cuh; row 3's c_proj with the chunk sums folded in);
     # the WMMA gemm_kernel's groups (int8_gemm_*, bf16_gemm_*) below
@@ -171,7 +187,12 @@ def main(argv=None) -> int:
     return 0
 
 
-def _trace(fn, iters: int, tag: str) -> dict:
+# In a train step the tensor-core core backward (core_bwd_mma_*) is the text
+# block's (rows 12 and 14, form 0): no training path launches row 9.
+TRAIN_GROUPS = [("block_core_bwd_mma", "core_bwd_mma_")] + GROUPS
+
+
+def _trace(fn, iters: int, tag: str, table=GROUPS) -> dict:
     """Trace ``iters`` calls of fn; device ms per call by kernel group."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -190,7 +211,7 @@ def _trace(fn, iters: int, tag: str) -> dict:
             continue
         us = ev.self_device_time_total
         busy_us += us
-        name = next((g for g, key in GROUPS if _matches(key, ev.key)), "elementwise_and_other")
+        name = next((g for g, key in table if _matches(key, ev.key)), "elementwise_and_other")
         groups[name] = groups.get(name, 0.0) + us / 1e3 / iters
     if busy_us == 0:
         raise SystemExit("torch_profile: the trace shows no device time")
@@ -239,7 +260,7 @@ def profile_train(args) -> int:
     for _ in range(args.iters):
         one_step()
     step_ms = (time.perf_counter() - t0) * 1e3 / args.iters
-    traced = _trace(one_step, args.iters, f"train_{args.train}_b{args.batch}")
+    traced = _trace(one_step, args.iters, f"train_{args.train}_b{args.batch}", TRAIN_GROUPS)
     print(json.dumps({"card": card, "train": args.train, "text_impl": impl,
                       "batch": args.batch, "step_ms": step_ms,
                       "images_per_s": args.batch / step_ms * 1e3, **traced}), flush=True)
