@@ -38,36 +38,45 @@
 //   the WMMA tensor-core GEMM of common.cuh (kTransB for dy.W^T); in fp32 a
 //   SIMT GEMM of 128x128 tiles (sgemm_kernel), because TF32 keeps 10 bits
 //   of mantissa and the fp32 bar is 1e-5;
-// - the rank-r down-projections (a.Ao, dy.Bp^T, ...): a SIMT GEMM at 64x16
-//   tiles with the depth split in chunks of kDepthChunk, each chunk's partial
-//   in its own slice, then one pass that sums the slices in order and stores;
-//   the rank-r up-projections (.Bo, .Ap^T, ...) run inside the epilogues;
-// - the six LoRA cotangents, sums over all B*S rows: the same split product
-//   with the row axis as its depth, in chunks of kRowChunk rows. No atomics,
-//   so a run repeats bit for bit;
-// - the attention core forward: one block per (image, head), one thread per
-//   query row, K, V and the S x S probabilities in fp32 shared memory
-//   (block_core_fwd_kernel: it normalizes p before p.V, which the
-//   tensor-core forward of attn_core_mma.cuh does not);
+// - the rank-r down-projections (a.Ao, dy.Bp^T, ...) and the six LoRA
+//   cotangents (sums over all B*S rows): in form 0 and fp32 rank_down_kernel
+//   and rank_cot_kernel (one warp a chunk of the depth, a lane 8 x 4 outputs,
+//   X streamed through a per-warp cp.async ring; below), in form 1 a SIMT
+//   GEMM at 64x16 tiles (narrow_gemm); either way each output is an fmaf
+//   chain over chunks of kDepthChunk (kRowChunk) in order, the chunk
+//   partials added in chunk order, so the two give the same bits and no
+//   atomics make a run repeat bit for bit; the rank-r up-projections (.Bo,
+//   .Ap^T, ...) run inside the epilogues;
+// - the attention core forward: in bf16 form 0 the tensor-core kernel of
+//   block_core_fwd_mma.cuh (one 80-key tile, p normalized before p.V, as
+//   the TPU kernel rounds), in bf16 form 1 block_core_fwd_kernel (one block
+//   per (image, head), one thread per query row, K, V and the S x S
+//   probabilities in fp32 shared memory), in fp32 the register-tiled core
+//   of rows 6-7 (attn_core_f32.cuh; it folds 1/l in after p.V, an fp32
+//   rounding apart);
 // - the core backward: in bf16 form 0 row 9's two tensor-core passes
 //   (attn_core_bwd_mma.cuh: the same function, the TPU text-block kernel's
 //   core step being _attention_qkv_bwd_kernel's; 2 B H S floats of
-//   workspace for inv and delta); in bf16 form 1 and in fp32 common.cuh's
+//   workspace for inv and delta), in fp32 row 9's two register-tiled passes
+//   (attn_core_bwd_f32.cuh, the same workspace), in bf16 form 1 common.cuh's
 //   block_core_bwd_kernel, one thread per query row with Q, K, V, G and the
-//   S x S tile in shared memory (102,564 B at S=77 in fp32).
+//   S x S tile in shared memory.
 //
 // What bounds it on the H100: at B=256 text rows (S=77, W=512, M=2048, H=8,
 // rank 16) the forward does 131.0 GFLOP and the backward 227.3 (it recomputes
 // the forward less its last product, then four input-gradient products, the
 // core backward and the rank-r cotangents): 1.96 / 3.40 ms at the 66.9
 // TFLOP/s of fp32 without tensor cores, 0.132 / 0.230 ms at the 989 TFLOP/s of
-// bf16. Both are bound by operations.
+// bf16. Both are bound by operations. The rank-r products alone are bound by
+// their bytes: each reads its activation once (a forward's three 121 MB in
+// bf16, a backward's three and six cotangents about 420 MB), 0.036 / 0.13 ms
+// at 3.35 TB/s.
 //
-// What the design gives up: the rank-r products and LoRA sums run on the
-// CUDA cores in split passes (the largest part left in bf16 form 0), the
-// core forward runs scalar FMAs, the fp32 GEMM is a shared-memory tile with
-// 8x8 register blocking and one stage of register prefetch, and every
-// intermediate makes a round trip through device memory between launches.
+// What the design gives up: the rank-r products run on the CUDA cores
+// (their fmaf order is the contract, so no tensor core takes them), the
+// fp32 GEMM is a shared-memory tile with 8x8 register blocking and one stage
+// of register prefetch, and every intermediate makes a round trip through
+// device memory between launches.
 //
 // The code is this header; text_block_f32.cu and text_block_bf16.cu
 // instantiate it for one compute type each, so that nvcc builds the two
@@ -81,6 +90,7 @@
 #include <utility>
 
 #include "attn_core_bwd_mma.cuh"
+#include "block_core_fwd_mma.cuh"
 #include "wgmma_serving_gemm.cuh"  // and common.cuh
 
 namespace aiic {
@@ -113,6 +123,15 @@ struct Workspace {
   float *dh2, *dy1, *dh1, *part;
   float* core_ws;  // the tensor-core core backward's inv and delta, 2 B H S
 };
+
+// The fp32 attention core (text_block_f32.cu): the forward on the
+// register-tiled core of attn_core_f32.cuh, the backward on row 9's
+// register-tiled passes of attn_core_bwd_f32.cuh (ws: 2 B H S floats).
+cudaError_t text_core_fwd_f32(const float* qkv, const float* mask, float* a, int B, int S, int W,
+                              int H, float qconst, cudaStream_t st);
+cudaError_t text_core_bwd_f32(const float* qkv, const float* da, const float* mask, float* dqkv,
+                              float* ws, int B, int S, int W, int H, float qconst,
+                              cudaStream_t st);
 
 namespace {
 
@@ -425,11 +444,12 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int splits, 
 }
 
 // A product with a rank-r side, (Mo x No) = A' (Mo x K) . B' (K x No): the SIMT
-// tile at 64x16. Its depth (W or M for a down-projection, B*S rows for a LoRA
-// cotangent) is split in chunks of kc, one block per chunk and tile writing
-// its partial into its own slice of part, and a second pass adds the slices in
-// order and applies epi: enough blocks to keep the loads in flight, and no
-// atomics, so a run repeats bit for bit.
+// tile at 64x16 (form 1, the first design). Its depth (W or M for a
+// down-projection, B*S rows for a LoRA cotangent) is split in chunks of kc,
+// one block per chunk and tile writing its partial into its own slice of
+// part, and a second pass adds the slices in order and applies epi: enough
+// blocks to keep the loads in flight, and no atomics, so a run repeats bit
+// for bit.
 template <typename T, typename TA, typename TB, typename Epi>
 cudaError_t narrow_gemm(const TA* A, long long sam, long long sak, const TB* B, long long sbk,
                         long long sbn, int Mo, int No, int K, int kc, float* part, Epi epi,
@@ -438,6 +458,289 @@ cudaError_t narrow_gemm(const TA* A, long long sam, long long sak, const TB* B, 
                                           EpiPartial{part, Mo, No}, st)));
   sum_partials_kernel<<<(Mo * No + 255) / 256, 256, 0, st>>>(part, (K + kc - 1) / kc, Mo, No,
                                                               epi);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Rank-r products (form 0; fp32's one route)
+// ---------------------------------------------------------------------------
+//
+// The same function as narrow_gemm, (P x R) = X' (P x D) . Y' (D x R) with
+// both operands rounded to T on load, in the same order, so the same bits:
+// each output is the fmaf chain over the depth d in increasing order from 0.f
+// within each chunk of kc depths, and the chunk partials are added in chunk
+// order from 0.f. The narrow side R (the LoRA rank) is taken 16 columns at a
+// time (a column group); within that order the kernels are shaped for a
+// product that streams X once and does 16 fmaf per element of it:
+// - a warp owns 64 indices p of the wide side (rows of a down-projection,
+//   columns of a cotangent's X) and the group's 16 columns for one chunk: a
+//   lane 8 p x 4 columns (p group lane / 4, columns 4 (lane % 4)), so a
+//   depth costs a lane 32 fmaf, its 8 X' values and one float4 of Y' from
+//   shared memory, where the old tile spent five shared-memory reads on 4;
+// - X streams through a warp's own kRankStages-deep cp.async ring in shared
+//   memory, one 16-B vector of each of the warp's 64 p a step, each lane
+//   copying two, so that several KB a warp are in flight with no block
+//   barrier; each value is converted where it is read. Y' (the rank-r side,
+//   tiny) is staged in shared memory as fp32, converted once;
+// - a down-projection (X a row-major activation, depth W or M: 2-16
+//   chunks) runs every chunk of a 64-row tile in one block, a warp a chunk
+//   (or more), and adds the partials in chunk order through shared memory
+//   before its epilogue: one launch, no partial slices;
+// - a LoRA cotangent (X an activation read transposed, depth B*S rows: 77
+//   chunks at 256 text rows) writes each chunk's partial into its slice of
+//   part, which sum_partials_kernel then adds in chunk order.
+// No atomics: a run repeats bit for bit.
+
+constexpr int kRankCols = 16;       // columns of a column group
+constexpr int kRankStages = 6;      // steps of a warp's X ring (1 KB each)
+constexpr int kRankStage = 32;      // depths of a down-projection's staged slice of B'
+constexpr int kRankWarps = 4;       // warps of a cotangent block
+constexpr int kDownWarps = 8;       // warps of a down-projection block (a chunk each, or more)
+constexpr int kRankMaxChunks = 16;  // chunks of a down-projection: K <= 4096
+constexpr int kRingVecs = 64;       // 16-B vectors of a warp's ring step
+
+// Bytes of dynamic shared memory of a down-projection block: the warps'
+// rings and B' slices, and every chunk's partials of the 64 rows.
+constexpr int rank_down_smem(int warps, int n_chunks) {
+  return (warps * (kRankStages * kRingVecs * 4 + kRankStage * kRankCols) +
+          n_chunks * 64 * kRankCols) * static_cast<int>(sizeof(float));
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Element e of a 16-B vector of TX (8 bf16 or 4 fp32) as fp32, rounded to T.
+template <typename T, typename TX>
+__device__ __forceinline__ float vec_at(const uint4& v, int e) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  float f;
+  if constexpr (std::is_same<TX, bf16>::value)
+    f = __uint_as_float((e & 1) ? (w[e >> 1] & 0xffff0000u) : (w[e >> 1] << 16));
+  else
+    f = __uint_as_float(w[e]);
+  if constexpr (!std::is_same<TX, T>::value) f = round_as<T>(f);
+  return f;
+}
+
+// Row d of Y' (Y'(d, j) = Y[d*syd + j*syj], columns j0 .. j0 + 15; zeros
+// past R or where !live) into y, each converted once.
+template <typename T, typename TY>
+__device__ __forceinline__ void load_y_row(const TY* __restrict__ Y, long long syd, long long syj,
+                                           int R, int j0, long long d, bool live,
+                                           float (&y)[kRankCols]) {
+#pragma unroll
+  for (int j = 0; j < kRankCols; ++j)
+    y[j] = live && j0 + j < R
+               ? round_as<T>(to_f32(Y[d * syd + static_cast<long long>(j0 + j) * syj]))
+               : 0.f;
+}
+
+__device__ __forceinline__ void store_y_row(float* dst, const float (&y)[kRankCols]) {
+#pragma unroll
+  for (int q = 0; q < kRankCols / 4; ++q)
+    reinterpret_cast<float4*>(dst)[q] = make_float4(y[4 * q], y[4 * q + 1], y[4 * q + 2],
+                                                    y[4 * q + 3]);
+}
+
+// acc[i][c] = fmaf(x_i, Y'(d, 4 jg + c), acc[i][c]) for one depth: x the
+// lane's 8 X' values at d, yrow Y' row d in shared memory.
+__device__ __forceinline__ void fma_depth(const float (&x)[8], const float* yrow, int jg,
+                                          float (&acc)[8][4]) {
+  const float4 b = *reinterpret_cast<const float4*>(yrow + 4 * jg);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    acc[i][0] = fmaf(x[i], b.x, acc[i][0]);
+    acc[i][1] = fmaf(x[i], b.y, acc[i][1]);
+    acc[i][2] = fmaf(x[i], b.z, acc[i][2]);
+    acc[i][3] = fmaf(x[i], b.w, acc[i][3]);
+  }
+}
+
+// The down-projection out = epi(A' (rows x K) . B'), B'(k, j) = B[k*sbk +
+// j*sbn]. Grid (ceil(rows / 64), ceil(R / 16)); warp w takes chunks w, w +
+// warps, ... of the block's 64 rows: lane rows 8 (lane / 4) + i, columns
+// 4 (lane % 4) + c of the group. A step is one 16-B vector (E depths) of
+// each row, which the warp's ring holds as [i][g] (vector of row 8g + i at
+// 8i + g: a lane's reads fall in distinct banks); the warp stages B' in
+// kRankStage-deep slices (lane = depth, the next slice's row loaded a slice
+// ahead); then the chunk partials are added in chunk order and epi(row, j,
+// sum) applied.
+template <typename T, typename TA, typename TB, typename Epi>
+__global__ void __launch_bounds__(32 * kDownWarps, 2)
+rank_down_kernel(const TA* __restrict__ A, int K, const TB* __restrict__ B, long long sbk,
+                 long long sbn, int rows, int R, int kc, Epi epi) {
+  constexpr int E = 16 / static_cast<int>(sizeof(TA)), kSlice = kRankStage / E;
+  extern __shared__ __align__(16) float rs[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, jg = lane & 3, n_chunks = (K + kc - 1) / kc;
+  const int r0 = blockIdx.x * 64, j0 = blockIdx.y * kRankCols;
+  uint4* ring = reinterpret_cast<uint4*>(rs) + warp * kRankStages * kRingVecs;
+  float* ys = rs + warps * kRankStages * kRingVecs * 4 + warp * kRankStage * kRankCols;
+  float* part = rs + warps * (kRankStages * kRingVecs * 4 + kRankStage * kRankCols);
+  // The rows this lane copies: lane and lane + 32 (past the last, the last;
+  // never stored), into ring slots 8 (r % 8) + r / 8.
+  const TA* src[2];
+  int slot[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int r = lane + 32 * c;
+    src[c] = A + static_cast<long long>(min(r0 + r, rows - 1)) * K;
+    slot[c] = 8 * (r & 7) + (r >> 3);
+  }
+  for (int z = warp; z < n_chunks; z += warps) {
+    const int d0 = z * kc, n_steps = (min(K, d0 + kc) - d0) / E;
+    auto issue = [&](int t) {
+      if (t < n_steps) {
+        uint4* st = ring + (t % kRankStages) * kRingVecs;
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          cp_async16(smem_addr(st + slot[c]), src[c] + d0 + t * E, 16);
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int t = 0; t < kRankStages - 1; ++t) issue(t);
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    float y[kRankCols];
+    load_y_row<T>(B, sbk, sbn, R, j0, d0 + lane, lane < n_steps * E, y);
+    for (int t = 0; t < n_steps; ++t) {
+      cp_async_wait_pending<kRankStages - 2>();
+      __syncwarp();  // step t is whole; every lane is done with step t - 1
+      if (t % kSlice == 0) {
+        store_y_row(ys + lane * kRankCols, y);
+        const int nd = (t + kSlice) * E + lane;
+        load_y_row<T>(B, sbk, sbn, R, j0, d0 + nd, nd < n_steps * E, y);
+        __syncwarp();
+      }
+      issue(t + kRankStages - 1);
+      const uint4* st = ring + (t % kRankStages) * kRingVecs;
+      uint4 v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = st[8 * i + g];
+      const float* yr = ys + (t % kSlice) * E * kRankCols;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        float x[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] = vec_at<T, TA>(v[i], e);
+        fma_depth(x, yr + e * kRankCols, jg, acc);
+      }
+    }
+    __syncwarp();  // the ring and the slice are free for the warp's next chunk
+    float* pz = part + static_cast<size_t>(z) * 64 * kRankCols;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<float4*>(pz + (8 * g + i) * kRankCols + 4 * jg) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 64 * kRankCols; e += blockDim.x) {
+    const int r = e / kRankCols, j = e % kRankCols;
+    float v = 0.f;
+    for (int c = 0; c < n_chunks; ++c) v += part[static_cast<size_t>(c) * 64 * kRankCols + e];
+    if (r0 + r < rows && j0 + j < R) epi(r0 + r, j0 + j, v);
+  }
+}
+
+// Chunk z = blockIdx.y (kc <= kRowChunk rows) of a LoRA cotangent: X (D,
+// P) read transposed, Y (D, R). The block stages the chunk's rows of Y'
+// once; each warp takes 64 columns p (a lane the 8 adjacent ones from 8
+// (lane / 4), and columns 4 (lane % 4) of the group), DS = 8 / NV rows a
+// step (NV = 16-B vectors of a lane's 8 p), through its own ring (a row's
+// 8 NV vectors in column order, so a lane's reads fall in distinct banks);
+// the partials go to part[z][p][j] (P x R slices). Grid (ceil(P / 256),
+// ceil(D / kc), ceil(R / 16)).
+template <typename T, typename TX, typename TY>
+__global__ void __launch_bounds__(32 * kRankWarps)
+rank_cot_kernel(const TX* __restrict__ X, int P, const TY* __restrict__ Y, int R, int D, int kc,
+                float* __restrict__ part) {
+  constexpr int NV = 8 * static_cast<int>(sizeof(TX)) / 16, DS = 8 / NV;
+  __shared__ __align__(16) float ys[kRowChunk * kRankCols];
+  __shared__ __align__(16) uint4 rings[kRankWarps][kRankStages * kRingVecs];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, jg = lane & 3;
+  const int z = blockIdx.y, j0 = blockIdx.z * kRankCols, d0 = z * kc, d1 = min(D, d0 + kc);
+  const int pw = (blockIdx.x * kRankWarps + warp) * 64;  // the warp's first column
+  const int n_steps = (d1 - d0 + DS - 1) / DS;
+  uint4* ring = rings[warp];
+  // The vectors this lane copies: v = lane + 32 c, row v / (8 NV), vector v %
+  // (8 NV) of the warp's 64 columns (past P: the last 64, never stored).
+  const TX* xw = X + min(pw, P - 64);
+  auto issue = [&](int t) {
+    if (t < n_steps) {
+      uint4* st = ring + (t % kRankStages) * kRingVecs;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int v = lane + 32 * c, dd = v / (8 * NV), q = v % (8 * NV);
+        const int d = d0 + t * DS + dd;
+        const bool live = d < d1;
+        cp_async16(smem_addr(st + v),
+                   xw + static_cast<long long>(live ? d : d0) * P + q * (16 / sizeof(TX)),
+                   live ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < kRankStages - 1; ++t) issue(t);
+  for (int d = threadIdx.x; d < d1 - d0; d += blockDim.x) {
+    float y[kRankCols];
+    load_y_row<T>(Y, R, 1, R, j0, d0 + d, true, y);
+    store_y_row(ys + d * kRankCols, y);
+  }
+  __syncthreads();
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int t = 0; t < n_steps; ++t) {
+    cp_async_wait_pending<kRankStages - 2>();
+    __syncwarp();  // step t is whole; every lane is done with step t - 1
+    issue(t + kRankStages - 1);
+    const uint4* st = ring + (t % kRankStages) * kRingVecs;
+#pragma unroll
+    for (int dd = 0; dd < DS; ++dd) {
+      const int d = d0 + t * DS + dd;
+      if (d < d1) {
+        uint4 v[NV];
+#pragma unroll
+        for (int q = 0; q < NV; ++q) v[q] = st[dd * 8 * NV + g * NV + q];
+        float x[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] = vec_at<T, TX>(v[i / (8 / NV)], i % (8 / NV));
+        fma_depth(x, ys + (d - d0) * kRankCols, jg, acc);
+      }
+    }
+  }
+  const int p0 = pw + 8 * g;
+  if (p0 >= P) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* dst = part + (static_cast<size_t>(z) * P + p0 + i) * R + j0 + 4 * jg;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (j0 + 4 * jg + c < R) dst[c] = acc[i][c];
+  }
+}
+
+// A down-projection out (rows x R) = epi(A' . B') for A (rows, K) and B'
+// (K x R), on rank_down_kernel. Needs K % kRankStage == 0, K within
+// kRankMaxChunks chunks of kDepthChunk, 16-byte aligned rows of A.
+template <typename T, typename TA, typename TB, typename Epi>
+cudaError_t launch_rank_down(const TA* A, int K, const TB* B, long long sbk, long long sbn,
+                             int rows, int R, Epi epi, cudaStream_t st) {
+  const int n_chunks = (K + kDepthChunk - 1) / kDepthChunk;
+  if (rows <= 0 || R <= 0 || K <= 0 || K % kRankStage || n_chunks > kRankMaxChunks)
+    return cudaErrorInvalidValue;
+  const int warps = min(n_chunks, kDownWarps);
+  const int smem = rank_down_smem(warps, n_chunks);
+  AIIC_CHECK(cudaFuncSetAttribute(rank_down_kernel<T, TA, TB, Epi>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  const dim3 grid((rows + 63) / 64, (R + kRankCols - 1) / kRankCols);
+  rank_down_kernel<T, TA, TB, Epi><<<grid, 32 * warps, smem, st>>>(A, K, B, sbk, sbn, rows, R,
+                                                                   kDepthChunk, epi);
   return cudaGetLastError();
 }
 
@@ -452,12 +755,23 @@ struct EpiScaled {  // out = s * v, (P x R) or stored (R x P)
 };
 
 // out = s * X^T Y for X (rows, P) and Y (rows, R), a sum over the row axis:
-// (P, R), or (R, P) when transposed. Both operands rounded to T.
+// (P, R), or (R, P) when transposed. Both operands rounded to T. Form 0
+// rank_cot_kernel, form 1 narrow_gemm, each at kRowChunk with its partial
+// slices in part, then sum_partials_kernel.
 template <typename T, typename TX, typename TY>
 cudaError_t rows_reduce(const TX* X, int P, const TY* Y, int R, int rows, float s, float* part,
-                        float* out, bool transposed, cudaStream_t st) {
-  return narrow_gemm<T>(X, 1, P, Y, R, 1, P, R, rows, kRowChunk, part,
-                        EpiScaled{out, P, R, s, transposed}, st);
+                        float* out, bool transposed, int form, cudaStream_t st) {
+  const EpiScaled epi{out, P, R, s, transposed};
+  if (form != 0)
+    return narrow_gemm<T>(X, 1, P, Y, R, 1, P, R, rows, kRowChunk, part, epi, st);
+  const int n_chunks = (rows + kRowChunk - 1) / kRowChunk;
+  if (P < 64 || R <= 0 || rows <= 0 || P % 8 || n_chunks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((P + 64 * kRankWarps - 1) / (64 * kRankWarps), n_chunks,
+                  (R + kRankCols - 1) / kRankCols);
+  rank_cot_kernel<T><<<grid, 32 * kRankWarps, 0, st>>>(X, P, Y, R, rows, kRowChunk, part);
+  AIIC_CHECK(cudaGetLastError());
+  sum_partials_kernel<<<(P * R + 255) / 256, 256, 0, st>>>(part, n_chunks, P, R, epi);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -557,6 +871,17 @@ template <typename T, typename TO> struct EpiLoRAOut {  // out = TO(acc + s lo F
   }
   AIIC_LORA_COLUMN(T)
 };
+
+// The down-projection out (rows x R) = T(A' (rows x K) . B') of a LoRA delta
+// or its cotangent, B'(k, j) = B[k*sbk + j*sbn]: form 0 rank_down_kernel,
+// form 1 narrow_gemm at kDepthChunk (part its slices).
+template <typename T, typename TA, typename TB>
+cudaError_t down_proj(const TA* A, int K, const TB* B, long long sbk, long long sbn, int rows,
+                      int R, float* part, T* out, int form, cudaStream_t st) {
+  if (form == 0) return launch_rank_down<T>(A, K, B, sbk, sbn, rows, R, EpiStore<T>{out, R}, st);
+  return narrow_gemm<T>(A, K, 1, B, sbk, sbn, rows, R, K, kDepthChunk, part,
+                        EpiStore<T>{out, R}, st);
+}
 
 // On the wgmma stage every epilogue with a rank-r term walks rows through
 // shared memory with F's column in registers (ColumnCached); so does qkv's
@@ -695,6 +1020,22 @@ cudaError_t launch_core_fwd(const T* qkv, const float* mask, T* a, int B, int S,
   return cudaGetLastError();
 }
 
+// The text block's core forward: in bf16 form 0 the tensor-core kernel of
+// block_core_fwd_mma.cuh (S <= kCoreKeys), in bf16 form 1
+// block_core_fwd_kernel, in fp32 the register-tiled core of
+// attn_core_f32.cuh (text_core_fwd_f32), which folds 1/l in after p.V: in
+// fp32 that moves only an fp32 rounding, inside the fp32 bar.
+template <typename T>
+cudaError_t core_fwd(const BlockArgs& p, const T* qkv, T* a, cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (p.form == 0)
+      return launch_block_core_fwd_mma(qkv, p.mask, a, p.B, p.S, p.W, p.H, p.qconst, st);
+    return launch_core_fwd(qkv, p.mask, a, p.B, p.S, p.W, p.H, p.qconst, st);
+  } else {
+    return text_core_fwd_f32(qkv, p.mask, a, p.B, p.S, p.W, p.H, p.qconst, st);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The block
 // ---------------------------------------------------------------------------
@@ -756,21 +1097,21 @@ cudaError_t forward_stages(const BlockArgs& p, const Workspace& w, float* f_keep
   AIIC_CHECK(launch_ln_fwd(x, p.ln1s, p.ln1b, m(w.h1), rows, W, p.eps, st));
   AIIC_CHECK(big_gemm<false>(c(w.h1), c(p.wqkv), rows, 3 * W, W,
                              EpiQkv<T>{p.bqkv, m(w.qkv), 3 * W}, p.form, st));
-  AIIC_CHECK(launch_core_fwd(c(w.qkv), p.mask, m(w.a), p.B, p.S, W, p.H, p.qconst, st));
-  AIIC_CHECK(narrow_gemm<T>(c(w.a), W, 1, c(p.aoA), p.ro, 1, rows, p.ro, W, kDepthChunk,
-                            w.part, EpiStore<T>{m(w.a_ao), p.ro}, st));
+  AIIC_CHECK(core_fwd<T>(p, c(w.qkv), m(w.a), st));
+  AIIC_CHECK(down_proj<T>(c(w.a), W, c(p.aoA), p.ro, 1, rows, p.ro, w.part, m(w.a_ao), p.form,
+                          st));
   AIIC_CHECK(big_gemm<false>(c(w.a), c(p.wo), rows, W, W,
                              EpiY1<T>{p.bo, LoRATerm<T>{c(w.a_ao), c(p.aoB), p.ro, W, 1, p.s},
                                       x, w.y1, W}, p.form, st));
   AIIC_CHECK(launch_ln_fwd(static_cast<const float*>(w.y1), p.ln2s, p.ln2b, m(w.h2), rows, W,
                            p.eps, st));
-  AIIC_CHECK(narrow_gemm<T>(c(w.h2), W, 1, c(p.afA), p.rf, 1, rows, p.rf, W, kDepthChunk,
-                            w.part, EpiStore<T>{m(w.h2_af), p.rf}, st));
+  AIIC_CHECK(down_proj<T>(c(w.h2), W, c(p.afA), p.rf, 1, rows, p.rf, w.part, m(w.h2_af), p.form,
+                          st));
   AIIC_CHECK(big_gemm<false>(c(w.h2), c(p.w1), rows, M, W,
                              EpiFc<T>{p.b1, LoRATerm<T>{c(w.h2_af), c(p.afB), p.rf, M, 1, p.s},
                                       f_keep, m(w.u), M}, p.form, st));
-  AIIC_CHECK(narrow_gemm<T>(c(w.u), M, 1, c(p.apA), p.rp, 1, rows, p.rp, M, kDepthChunk,
-                            w.part, EpiStore<T>{m(w.u_ap), p.rp}, st));
+  AIIC_CHECK(down_proj<T>(c(w.u), M, c(p.apA), p.rp, 1, rows, p.rp, w.part, m(w.u_ap), p.form,
+                          st));
   return cudaSuccess;
 }
 
@@ -797,33 +1138,36 @@ cudaError_t run_bwd(const BlockArgs& p, const Workspace& w, const void* dy_, voi
   AIIC_CHECK(forward_stages<T>(p, w, w.f, st));
 
   // MLP half: y = y1 + u W2 + b2 + s (u Ap) Bp
-  AIIC_CHECK(narrow_gemm<T>(dy, W, 1, c(p.apB), 1, W, rows, p.rp, W, kDepthChunk, w.part,
-                            EpiStore<T>{m(w.t_p), p.rp}, st));
+  AIIC_CHECK(down_proj<T>(dy, W, c(p.apB), 1, W, rows, p.rp, w.part, m(w.t_p), p.form, st));
   AIIC_CHECK(big_gemm<true>(dy, c(p.w2), rows, M, W,
                             EpiDfq<T>{LoRATerm<T>{c(w.t_p), c(p.apA), p.rp, 1, p.rp, p.s}, w.f,
                                       m(w.dfq), M}, p.form, st));
-  AIIC_CHECK(rows_reduce<T>(c(w.u), M, c(w.t_p), p.rp, rows, p.s, w.part, g[4], false, st));
-  AIIC_CHECK(rows_reduce<T>(dy, W, c(w.u_ap), p.rp, rows, p.s, w.part, g[5], true, st));
-  AIIC_CHECK(narrow_gemm<T>(c(w.dfq), M, 1, c(p.afB), 1, M, rows, p.rf, M, kDepthChunk,
-                            w.part, EpiStore<T>{m(w.t_f), p.rf}, st));
+  AIIC_CHECK(rows_reduce<T>(c(w.u), M, c(w.t_p), p.rp, rows, p.s, w.part, g[4], false, p.form,
+                            st));
+  AIIC_CHECK(rows_reduce<T>(dy, W, c(w.u_ap), p.rp, rows, p.s, w.part, g[5], true, p.form, st));
+  AIIC_CHECK(down_proj<T>(c(w.dfq), M, c(p.afB), 1, M, rows, p.rf, w.part, m(w.t_f), p.form,
+                          st));
   AIIC_CHECK(big_gemm<true>(c(w.dfq), c(p.w1), rows, W, M,
                             EpiLoRAOut<T, float>{
                                 LoRATerm<T>{c(w.t_f), c(p.afA), p.rf, 1, p.rf, p.s}, w.dh2, W},
                             p.form, st));
-  AIIC_CHECK(rows_reduce<T>(c(w.h2), W, c(w.t_f), p.rf, rows, p.s, w.part, g[2], false, st));
-  AIIC_CHECK(rows_reduce<T>(c(w.dfq), M, c(w.h2_af), p.rf, rows, p.s, w.part, g[3], true, st));
+  AIIC_CHECK(rows_reduce<T>(c(w.h2), W, c(w.t_f), p.rf, rows, p.s, w.part, g[2], false, p.form,
+                            st));
+  AIIC_CHECK(rows_reduce<T>(c(w.dfq), M, c(w.h2_af), p.rf, rows, p.s, w.part, g[3], true, p.form,
+                            st));
   AIIC_CHECK(launch_ln_bwd(static_cast<const float*>(w.y1), w.dh2, p.ln2s, dy, w.dy1, m(w.dy1c),
                            rows, W, p.eps, st));
 
   // attention half: y1 = x + a Wo + bo + s (a Ao) Bo
-  AIIC_CHECK(narrow_gemm<T>(static_cast<const float*>(w.dy1), W, 1, c(p.aoB), 1, W, rows, p.ro,
-                            W, kDepthChunk, w.part, EpiStore<T>{m(w.t_o), p.ro}, st));
+  AIIC_CHECK(down_proj<T>(static_cast<const float*>(w.dy1), W, c(p.aoB), 1, W, rows, p.ro, w.part,
+                          m(w.t_o), p.form, st));
   AIIC_CHECK(big_gemm<true>(c(w.dy1c), c(p.wo), rows, W, W,
                             EpiLoRAOut<T, T>{LoRATerm<T>{c(w.t_o), c(p.aoA), p.ro, 1, p.ro, p.s},
                                              m(w.da), W}, p.form, st));
-  AIIC_CHECK(rows_reduce<T>(c(w.a), W, c(w.t_o), p.ro, rows, p.s, w.part, g[0], false, st));
+  AIIC_CHECK(rows_reduce<T>(c(w.a), W, c(w.t_o), p.ro, rows, p.s, w.part, g[0], false, p.form,
+                            st));
   AIIC_CHECK(rows_reduce<T>(static_cast<const float*>(w.dy1), W, c(w.a_ao), p.ro, rows, p.s,
-                            w.part, g[1], true, st));
+                            w.part, g[1], true, p.form, st));
   if constexpr (std::is_same<T, bf16>::value) {
     if (p.form == 0)  // row 9's two tensor-core passes
       AIIC_CHECK(launch_core_bwd_mma(c(w.qkv), c(w.da), p.mask, m(w.dqkv), w.core_ws, p.B, p.S, W,
@@ -831,9 +1175,9 @@ cudaError_t run_bwd(const BlockArgs& p, const Workspace& w, const void* dy_, voi
     else
       AIIC_CHECK(launch_core_bwd(c(w.qkv), c(w.da), p.mask, m(w.dqkv), p.B, p.S, W, p.H,
                                  p.qconst, st));
-  } else {
-    AIIC_CHECK(launch_core_bwd(c(w.qkv), c(w.da), p.mask, m(w.dqkv), p.B, p.S, W, p.H, p.qconst,
-                               st));
+  } else {  // row 9's two register-tiled fp32 passes
+    AIIC_CHECK(text_core_bwd_f32(c(w.qkv), c(w.da), p.mask, m(w.dqkv), w.core_ws, p.B, p.S, W,
+                                 p.H, p.qconst, st));
   }
   AIIC_CHECK(big_gemm<true>(c(w.dqkv), c(p.wqkv), rows, W, 3 * W,
                             EpiLoRAOut<T, float>{LoRATerm<T>{nullptr, nullptr, 0, 0, 0, 0.f},
@@ -846,8 +1190,11 @@ bool valid(int S, int W, int H, int M) {
   return W % kBN == 0 && M % kBN == 0 && W == H * kHeadDim && S > 0 && S <= kBlockCoreThreads;
 }
 
-// form 0 or 1 in bf16 (and int8), form 0 alone in fp32.
-bool valid_form(int form, bool fp32) { return form == 0 || (form == 1 && !fp32); }
+// form 0 or 1 in bf16 (and int8), form 0 alone in fp32; bf16 form 0's core
+// forward holds S keys in one tile.
+bool valid_form(int form, bool fp32, int S) {
+  return (form == 0 && (fp32 || S <= kCoreKeys)) || (form == 1 && !fp32);
+}
 
 }  // namespace
 

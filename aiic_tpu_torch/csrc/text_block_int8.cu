@@ -29,11 +29,14 @@
 // aiic_tpu_torch/ops/block_grad.py::text_block_{fwd,bwd}_int8_ref.
 //
 // Built from text_block.cuh's pieces (bf16 only): the LN passes, the core
-// forward per (image, head), the split-depth rank-r products and the
-// row-axis LoRA reductions (no atomics: a run repeats bit for bit). Values
+// forward, the rank-r products and the row-axis LoRA reductions (no
+// atomics: a run repeats bit for bit). Values
 // that feed a row quantizer stay fp32: u, dfq, dqkv (and dy1); a product
 // that rounds them to bf16 does so on load. Two forms:
-// - form 0, the route: every backbone product on the wgmma + TMA stage of
+// - form 0, the route: the core forward on the tensor-core kernel of
+//   block_core_fwd_mma.cuh (p normalized before p.V, one 80-key tile), the
+//   rank-r products on rank_down_kernel and rank_cot_kernel, and every
+//   backbone product on the wgmma + TMA stage of
 //   wgmma_serving_gemm.cuh. The forward's int8 QKV, c_fc and c_proj read
 //   the K-major copies w^T that quant.kmajor keeps once per weight (the
 //   weights are frozen in LoRA training); the backward's int8 cotangent
@@ -47,12 +50,13 @@
 //   two tensor-core passes, storing dqkv in fp32 for its row quantizer.
 // - form 1, the first design: common.cuh's WMMA int8 GEMM (kTransB for the
 //   cotangent products, a split depth for the per-chunk dfq product, then
-//   sum_partials_kernel), the WMMA bf16 GEMM for wo, and the scalar
-//   block_core_bwd_kernel; kept reachable, uncounted, for the side-by-side
-//   check and time.
-// The int8 products are exact in int32 in any order and the epilogues are
-// shared, so the two forms' int8 products agree bit for bit; the bf16 wo
-// products and the core backward sum fp32 in another order.
+//   sum_partials_kernel), the WMMA bf16 GEMM for wo, the scalar
+//   block_core_fwd_kernel and block_core_bwd_kernel, the 64x16 SIMT rank-r
+//   tile; kept reachable, uncounted, for the side-by-side check and time.
+// The int8 products are exact in int32 in any order, the epilogues are
+// shared and the rank-r products keep their order, so those agree bit for
+// bit; the bf16 wo products and the core forward and backward sum fp32 in
+// another order.
 //
 // What bounds it on the H100: at B=256 text rows (S=77, W=512, M=2048, H=8,
 // rank 16) the forward does 113.7 GOP of int8 products and 17.3 GFLOP of
@@ -62,9 +66,8 @@
 //
 // What the design gives up: the row quantizers need a whole row's amax, so
 // u, dfq and dqkv make an fp32 round trip through device memory; the
-// rank-r products and LoRA sums run in split SIMT passes; the core forward
-// runs scalar FMAs; every intermediate goes through device memory between
-// launches.
+// rank-r products run on the CUDA cores (their fmaf order is the contract);
+// every intermediate goes through device memory between launches.
 
 #include "text_block.cuh"
 
@@ -344,23 +347,22 @@ cudaError_t forward8(const Int8Args& q, const Workspace8& w, bool backward, cuda
   AIIC_CHECK((launch_rowquant<true, bf16>(x, p.ln1s, p.ln1b, w.h1q, w.h1s, rows, W, p.eps, st)));
   AIIC_CHECK(int8_gemm<false>(w.h1q, i8(p.wqkv), q.wqkv_t, rows, 3 * W, W,
                               EpiQkv8{w.h1s, q.sqkv, p.bqkv, w.qkv, 3 * W}, p.form, st));
-  AIIC_CHECK(launch_core_fwd(w.qkv, p.mask, w.a, p.B, p.S, W, p.H, p.qconst, st));
-  AIIC_CHECK(narrow_gemm<bf16>(w.a, W, 1, c(p.aoA), p.ro, 1, rows, p.ro, W, kDepthChunk, w.part,
-                               EpiStore<bf16>{w.a_ao, p.ro}, st));
+  AIIC_CHECK(core_fwd<bf16>(p, w.qkv, w.a, st));
+  AIIC_CHECK(
+      down_proj<bf16>(w.a, W, c(p.aoA), p.ro, 1, rows, p.ro, w.part, w.a_ao, p.form, st));
   AIIC_CHECK(big_gemm<false>(static_cast<const bf16*>(w.a), c(p.wo), rows, W, W,
                              EpiY1<bf16>{p.bo, LoRATerm<bf16>{w.a_ao, c(p.aoB), p.ro, W, 1, p.s},
                                          x, w.y1, W}, p.form, st));
   ln_rowquant_kernel<<<rows, kRowThreads, W * sizeof(float), st>>>(w.y1, p.ln2s, p.ln2b, w.h2,
                                                                    w.h2q, w.h2s, W, p.eps);
   AIIC_CHECK(cudaGetLastError());
-  AIIC_CHECK(narrow_gemm<bf16>(w.h2, W, 1, c(p.afA), p.rf, 1, rows, p.rf, W, kDepthChunk, w.part,
-                               EpiStore<bf16>{w.h2_af, p.rf}, st));
+  AIIC_CHECK(
+      down_proj<bf16>(w.h2, W, c(p.afA), p.rf, 1, rows, p.rf, w.part, w.h2_af, p.form, st));
   AIIC_CHECK(int8_gemm<false>(w.h2q, i8(p.w1), q.w1_t, rows, M, W,
                               EpiFc8{w.h2s, q.s1, p.b1,
                                      LoRATerm<bf16>{w.h2_af, c(p.afB), p.rf, M, 1, p.s},
                                      backward ? w.f : nullptr, w.u, M}, p.form, st));
-  return narrow_gemm<bf16>(w.u, M, 1, c(p.apA), p.rp, 1, rows, p.rp, M, kDepthChunk, w.part,
-                           EpiStore<bf16>{w.u_ap, p.rp}, st);
+  return down_proj<bf16>(w.u, M, c(p.apA), p.rp, 1, rows, p.rp, w.part, w.u_ap, p.form, st);
 }
 
 cudaError_t run_fwd8(const Int8Args& q, const Workspace8& w, bf16* y, cudaStream_t st) {
@@ -386,16 +388,15 @@ cudaError_t run_bwd8(const Int8Args& q, const Workspace8& w, const bf16* dy, bf1
   AIIC_CHECK(forward8(q, w, true, st));
 
   // MLP half: y = y1 + deq(rowquant(u) W2_q) + b2 + s (u Ap) Bp
-  AIIC_CHECK(narrow_gemm<bf16>(dy, W, 1, c(p.apB), 1, W, rows, p.rp, W, kDepthChunk, w.part,
-                               EpiStore<bf16>{w.t_p, p.rp}, st));
+  AIIC_CHECK(down_proj<bf16>(dy, W, c(p.apB), 1, W, rows, p.rp, w.part, w.t_p, p.form, st));
   AIIC_CHECK(launch_rowquant_scaled(dy, q.s2, w.dyq, w.dys, rows, W, 1, st));
   AIIC_CHECK(int8_gemm<true>(w.dyq, i8(p.w2), nullptr, rows, M, W,
                              EpiDfq8{w.dys, LoRATerm<bf16>{w.t_p, c(p.apA), p.rp, 1, p.rp, p.s},
                                      w.f, w.dfq, M}, p.form, st));
-  AIIC_CHECK(rows_reduce<bf16>(w.u, M, w.t_p, p.rp, rows, p.s, w.part, g[4], false, st));
-  AIIC_CHECK(rows_reduce<bf16>(dy, W, w.u_ap, p.rp, rows, p.s, w.part, g[5], true, st));
-  AIIC_CHECK(narrow_gemm<bf16>(w.dfq, M, 1, c(p.afB), 1, M, rows, p.rf, M, kDepthChunk, w.part,
-                               EpiStore<bf16>{w.t_f, p.rf}, st));
+  AIIC_CHECK(
+      rows_reduce<bf16>(w.u, M, w.t_p, p.rp, rows, p.s, w.part, g[4], false, p.form, st));
+  AIIC_CHECK(rows_reduce<bf16>(dy, W, w.u_ap, p.rp, rows, p.s, w.part, g[5], true, p.form, st));
+  AIIC_CHECK(down_proj<bf16>(w.dfq, M, c(p.afB), 1, M, rows, p.rf, w.part, w.t_f, p.form, st));
   AIIC_CHECK(launch_rowquant_scaled(w.dfq, q.s1, w.dfqq, w.dfs, rows, M, q.C, st));
   const LoRATerm<bf16> t_f_afA{w.t_f, c(p.afA), p.rf, 1, p.rf, p.s};
   if (q.C == 1) {
@@ -411,21 +412,24 @@ cudaError_t run_bwd8(const Int8Args& q, const Workspace8& w, const bf16* dy, bf1
         w.part, q.C, rows, W, EpiLoRAOut<bf16, float>{t_f_afA, w.dh2, W});
     AIIC_CHECK(cudaGetLastError());
   }
-  AIIC_CHECK(rows_reduce<bf16>(w.h2, W, w.t_f, p.rf, rows, p.s, w.part, g[2], false, st));
-  AIIC_CHECK(rows_reduce<bf16>(w.dfq, M, w.h2_af, p.rf, rows, p.s, w.part, g[3], true, st));
+  AIIC_CHECK(
+      rows_reduce<bf16>(w.h2, W, w.t_f, p.rf, rows, p.s, w.part, g[2], false, p.form, st));
+  AIIC_CHECK(
+      rows_reduce<bf16>(w.dfq, M, w.h2_af, p.rf, rows, p.s, w.part, g[3], true, p.form, st));
   AIIC_CHECK(launch_ln_bwd(static_cast<const float*>(w.y1), w.dh2, p.ln2s, dy, w.dy1, w.dy1c,
                            rows, W, p.eps, st));
 
   // attention half: y1 = x + a Wo + bo + s (a Ao) Bo (wo in bf16, as in serving)
-  AIIC_CHECK(narrow_gemm<bf16>(static_cast<const float*>(w.dy1), W, 1, c(p.aoB), 1, W, rows,
-                               p.ro, W, kDepthChunk, w.part, EpiStore<bf16>{w.t_o, p.ro}, st));
+  AIIC_CHECK(down_proj<bf16>(static_cast<const float*>(w.dy1), W, c(p.aoB), 1, W, rows, p.ro,
+                             w.part, w.t_o, p.form, st));
   AIIC_CHECK(big_gemm<true>(static_cast<const bf16*>(w.dy1c), c(p.wo), rows, W, W,
                             EpiLoRAOut<bf16, bf16>{
                                 LoRATerm<bf16>{w.t_o, c(p.aoA), p.ro, 1, p.ro, p.s}, w.da, W},
                             p.form, st));
-  AIIC_CHECK(rows_reduce<bf16>(w.a, W, w.t_o, p.ro, rows, p.s, w.part, g[0], false, st));
+  AIIC_CHECK(
+      rows_reduce<bf16>(w.a, W, w.t_o, p.ro, rows, p.s, w.part, g[0], false, p.form, st));
   AIIC_CHECK(rows_reduce<bf16>(static_cast<const float*>(w.dy1), W, w.a_ao, p.ro, rows, p.s,
-                               w.part, g[1], true, st));
+                               w.part, g[1], true, p.form, st));
   if (p.form == 0)  // row 9's two tensor-core passes, dqkv stored in fp32
     AIIC_CHECK(launch_core_bwd_mma(static_cast<const bf16*>(w.qkv),
                                    static_cast<const bf16*>(w.da), p.mask, w.dqkv, w.core_ws, p.B,
@@ -445,7 +449,7 @@ cudaError_t run_bwd8(const Int8Args& q, const Workspace8& w, const bf16* dy, bf1
 // Form 0's fold needs each chunk of the hidden axis to be whole 128-B int8
 // K-slices of the stage, form 1's split product whole 32-deep WMMA steps.
 bool valid8(int S, int W, int H, int M, int C, int form) {
-  return valid(S, W, H, M) && valid_form(form, false) && C > 0 && M % C == 0 &&
+  return valid(S, W, H, M) && valid_form(form, false, S) && C > 0 && M % C == 0 &&
          (M / C) % (form == 0 ? 128 : kBK) == 0;
 }
 

@@ -87,6 +87,17 @@ _SIGNATURES = {
     "aiic_text_block_bwd": [_P] * 29 + [_I] * 8 + [_F] * 3 + [_I, _I, _P],
     # blocks (int[5]: the bf16 block's stage kernels)
     "aiic_text_block_occupancy": [_P],
+    # blocks (int[5]: the tensor-core core forward and the rank-r kernels)
+    "aiic_text_block_rank_occupancy": [_P],
+    # A, B, out, part, rows, K, R, kind, trans, fp32, a_fp32, s, form, stream
+    # (a rank-r product of the text block alone, for tests and timing)
+    "aiic_rank_product": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
+    # A, B, C, M, N, K, trans, stream (the fp32 text block's backbone product
+    # alone)
+    "aiic_text_sgemm": [_P] * 3 + [_I] * 4 + [_P],
+    # qkv, mask, out, B, S, W, H, qconst, form, stream (the bf16 text block's
+    # core forward alone)
+    "aiic_block_core_fwd": [_P] * 3 + [_I] * 4 + [_F, _I, _P],
     # B, S, W, M, ro, rf, rp, n_chunks, backward -> bytes (a long long)
     "aiic_text_block_int8_workspace": [_I] * 9,
     # x, mask, 21 weights/scales/vectors/factors, wqkv_t, w1_t, w2_t (the

@@ -334,6 +334,26 @@ def _core_probs(qkv: torch.Tensor, mask: torch.Tensor, heads: int) -> torch.Tens
     return p * (1.0 / _denom_guard(p.sum(dim=-1, keepdim=True)))
 
 
+def _core_out(qkv: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """a = T(T(p)·v) (B, S, W) from the normalized fp32 probabilities."""
+    bsz, seq, w3 = qkv.shape
+    _, _, v = _split_heads(qkv, probs.shape[1])
+    a = torch.einsum("bhqk,bkhd->bqhd", probs.to(qkv.dtype).float(), v.float())
+    return a.to(qkv.dtype).reshape(bsz, seq, w3 // 3)
+
+
+def block_core_fwd_ref(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                       heads: int) -> torch.Tensor:
+    """The text block's core forward on a (B, S, 3W) projection in the
+    compute dtype: (B, S, W), the probabilities normalized before p·V
+    (``_core_probs``), any S. The plain version of the card's form-0 core
+    forward (``csrc/block_core_fwd_mma.cuh``) and of
+    ``block_core_fwd_kernel``."""
+    no_tf32()
+    x = qkv[..., : qkv.shape[-1] // 3]
+    return _core_out(qkv, _core_probs(qkv, _mask_or_zeros(mask, x), heads))
+
+
 def _forward(x: torch.Tensor, mask: torch.Tensor, w: Params, heads: int,
              scaling: float, eps: float) -> Params:
     """The forward on (rows, W) views, returning what the backward needs.
@@ -346,9 +366,7 @@ def _forward(x: torch.Tensor, mask: torch.Tensor, w: Params, heads: int,
     h1f, xhat1, inv1 = _ln_fwd(xf, w["ln1s"], w["ln1b"], eps)
     qkv = (_product(h1f, w, "wqkv", cdt) + w["bqkv"]).to(cdt)
     probs = _core_probs(qkv.reshape(bsz, seq, 3 * width), mask, heads)
-    _, _, v = _split_heads(qkv.reshape(bsz, seq, 3 * width), heads)
-    a = torch.einsum("bhqk,bkhd->bqhd", probs.to(cdt).float(), v.float())
-    a = a.to(cdt).reshape(bsz * seq, width)
+    a = _core_out(qkv.reshape(bsz, seq, 3 * width), probs).reshape(bsz * seq, width)
     a_ao = dot(a, w["out_proj_A"])
     y1 = xf + (dot(a, w["wo"]) + w["bo"] + scaling * dot(a_ao, w["out_proj_B"]))
     h2f, xhat2, inv2 = _ln_fwd(y1, w["ln2s"], w["ln2b"], eps)
@@ -577,13 +595,138 @@ def _dy_arg(name: str, x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 def _block_form(name: str, x: torch.Tensor, form: str) -> int:
     """The C entries' code of ``form``: "wgmma" (the route: bf16 and int8 on
-    the wgmma stage with the tensor-core core backward; fp32's SIMT route)
-    or "wmma" (the first design, bf16 and int8 only). ValueError on any
-    other, before anything is built or launched."""
+    the wgmma stage, the rank-r kernels and the tensor-core cores, S <=
+    ``CORE_KEYS``; fp32's SIMT route) or "wmma" (the first design, bf16 and
+    int8 only). ValueError on any other, before anything is built or
+    launched."""
     code = form_code(name, form)
     if code and x.dtype == torch.float32:
         raise ValueError(f"{name}: fp32 has one route (form 'wgmma'), got {form!r}")
+    _core_tile(name, x, form)
     return code
+
+
+# Keys of the one tile of the form-0 bf16 core forward
+# (``csrc/block_core_fwd_mma.cuh``): the text tower's S = 77 in every preset.
+CORE_KEYS = 80
+
+
+def _core_tile(name: str, x: torch.Tensor, form: str) -> None:
+    """Raises, before anything is built or launched, where bf16 or int8 form
+    0 would run its core forward on more keys than its one tile holds."""
+    seq = x.shape[-2]
+    if form == "wgmma" and x.dtype != torch.float32 and seq > CORE_KEYS:
+        raise ValueError(f"{name} ({form}): the tensor-core core forward takes S <= {CORE_KEYS} "
+                         f"(one key tile), got S={seq}")
+
+
+def block_core_fwd_cuda(qkv: torch.Tensor, mask: Optional[torch.Tensor], heads: int,
+                        form: str = "wgmma") -> torch.Tensor:
+    """The bf16 text block's core forward alone (B, S, 3W) -> (B, S, W), for
+    the card's tests and timing: "wgmma" the tensor-core kernel of form 0
+    (S <= ``CORE_KEYS``), "wmma" form 1's ``block_core_fwd_kernel``.
+    Uncounted; CUDA bf16 tensors only."""
+    name = "block_core_fwd"
+    code = form_code(name, form)
+    if qkv.dtype != torch.bfloat16 or qkv.dim() != 3:
+        raise TypeError(f"{name}: takes bf16 (B, S, 3W), got {qkv.dtype} {tuple(qkv.shape)}")
+    bsz, seq, w3 = qkv.shape
+    width = w3 // 3
+    _core_tile(name, qkv, form)
+    if width != heads * _HEAD_DIM:
+        raise ValueError(f"{name}: needs head_dim {_HEAD_DIM}, got W={width}, H={heads}")
+    lib = load_library()
+    qkv = _aligned(qkv)
+    mask = mask_arg(mask if mask is not None else torch.zeros((seq, seq)), seq, qkv.device)
+    out = torch.empty((bsz, seq, width), dtype=qkv.dtype, device=qkv.device)
+    rc = lib.aiic_block_core_fwd(qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), bsz, seq, width,
+                                 heads, ctypes.c_float(_qconst(_HEAD_DIM, qkv.dtype)), code,
+                                 torch.cuda.current_stream(qkv.device).cuda_stream)
+    check(name, rc)
+    return out
+
+
+# The two kinds of rank-r product: a down-projection a·B (B (K, r), or (r,
+# K) read transposed) and a LoRA cotangent s·aᵀb over the rows (or its
+# transpose).
+RANK_KINDS = {"down": 0, "cotangent": 1}
+
+
+def rank_product_ref(a: torch.Tensor, b: torch.Tensor, kind: str, *, dtype: torch.dtype,
+                     trans: bool = False, scaling: float = 1.0) -> torch.Tensor:
+    """The plain version of the text block's rank-r products, both operands
+    rounded to ``dtype`` with fp32 sums: "down" dtype(a·b) (b (K, r), or
+    with ``trans`` (r, K) read as bᵀ); "cotangent" the fp32 scaling·aᵀb for
+    a (rows, K), b (rows, r), transposed with ``trans``."""
+    no_tf32()
+    if kind == "down":
+        return _dot(a, b.t() if trans else b, dtype).to(dtype)
+    out = scaling * _dot(a.t(), b, dtype)
+    return out.t().contiguous() if trans else out
+
+
+def rank_product_cuda(a: torch.Tensor, b: torch.Tensor, kind: str, *, trans: bool = False,
+                      scaling: float = 1.0, form: str = "wgmma") -> torch.Tensor:
+    """One rank-r product of the text block alone, on the kernel that form
+    0 (and fp32) runs ("wgmma": ``rank_down_kernel``, ``rank_cot_kernel``)
+    or form 1's ``narrow_gemm`` ("wmma"), for the card's tests and timing:
+    the function of ``rank_product_ref`` with ``dtype`` b's (fp32 or bf16;
+    in bf16 a may be fp32, rounded on load). Uncounted; CUDA tensors only."""
+    name = "rank_product"
+    code = form_code(name, form)
+    if kind not in RANK_KINDS:
+        raise ValueError(f"{name}: kind must be one of {sorted(RANK_KINDS)}, got {kind!r}")
+    fp32 = b.dtype == torch.float32
+    if b.dtype not in (torch.float32, torch.bfloat16) or a.dtype not in (torch.float32, b.dtype):
+        raise TypeError(f"{name}: b fp32 or bf16 and a fp32 or b's dtype, got {a.dtype}, "
+                        f"{b.dtype}")
+    if not (a.is_cuda and b.device == a.device):
+        raise TypeError(f"{name}: takes CUDA tensors on one device, got {a.device}, {b.device}")
+    rows, k = a.shape
+    if kind == "down":
+        rank = b.shape[0] if trans else b.shape[1]
+        if tuple(b.shape) != ((rank, k) if trans else (k, rank)):
+            raise ValueError(f"{name}: b must be (K, r) or (r, K) for a (rows, {k})")
+        out = torch.empty((rows, rank), dtype=b.dtype, device=a.device)
+        depth, wide = k, rows
+    else:
+        rank = b.shape[1]
+        if b.shape[0] != rows:
+            raise ValueError(f"{name}: b must be (rows, r) for a ({rows}, K)")
+        out = torch.empty((rank, k) if trans else (k, rank), dtype=torch.float32, device=a.device)
+        depth, wide = rows, k
+    a, b = _aligned(a), _aligned(b)
+    part = torch.empty(((depth + 255) // 256) * wide * rank, dtype=torch.float32,
+                       device=a.device)
+    rc = load_library().aiic_rank_product(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), part.data_ptr(), rows, k, rank,
+        RANK_KINDS[kind], int(trans), int(fp32), int(a.dtype == torch.float32 and not fp32),
+        ctypes.c_float(scaling), code, torch.cuda.current_stream(a.device).cuda_stream)
+    check(name, rc)
+    return out
+
+
+def text_sgemm_cuda(a: torch.Tensor, w: torch.Tensor, *, trans: bool = False) -> torch.Tensor:
+    """The fp32 text block's backbone product alone on its SIMT tile
+    (``sgemm_kernel``), a @ w (w (K, N)) or a @ wᵀ (``trans``: w (N, K) as a
+    weight lies), fp32 sums without TF32, for the card's tests and for
+    timing beside cuBLAS. Uncounted; CUDA fp32 tensors, N % 128 == 0, K % 8
+    == 0."""
+    name = "text_sgemm"
+    m, k = a.shape
+    n = w.shape[0] if trans else w.shape[1]
+    if a.dtype != torch.float32 or w.dtype != torch.float32 or not a.is_cuda:
+        raise TypeError(f"{name}: takes CUDA fp32 tensors")
+    if (w.shape[1] if trans else w.shape[0]) != k or n % 128 or k % 8:
+        raise ValueError(f"{name}: needs w ({'N, K' if trans else 'K, N'}) with N % 128 == 0 "
+                         f"and K % 8 == 0, got a {tuple(a.shape)}, w {tuple(w.shape)}")
+    a, w = _aligned(a), _aligned(w)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    rc = load_library().aiic_text_sgemm(a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+                                        int(trans),
+                                        torch.cuda.current_stream(a.device).cuda_stream)
+    check(name, rc)
+    return out
 
 
 def _text_block_fwd_cuda(x, mask, bp, lora, heads, scaling, eps, form="wgmma"):
@@ -697,12 +840,15 @@ def block_occupancy() -> Dict[str, list]:
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them: "bf16"
     [the stage with EpiQkv, EpiY1, EpiFc, EpiDfq, EpiLoRAOut], "int8" [the
     stage with EpiQkv8, EpiFc8, EpiDfq8, EpiDh2, the chunked dh2 fold; the
-    two core-backward passes storing fp32]."""
+    two core-backward passes storing fp32], "core_rank" [the tensor-core
+    core forward, the bf16 down-projection at 2 and 8 chunks, the bf16 and
+    fp32 cotangent products]."""
     lib = load_library()
-    bf16, int8 = (ctypes.c_int * 5)(), (ctypes.c_int * 7)()
+    bf16, int8, rank = (ctypes.c_int * 5)(), (ctypes.c_int * 7)(), (ctypes.c_int * 5)()
     check("text_block_occupancy", lib.aiic_text_block_occupancy(bf16))
     check("text_block_int8_occupancy", lib.aiic_text_block_int8_occupancy(int8))
-    return {"bf16": list(bf16), "int8": list(int8)}
+    check("text_block_rank_occupancy", lib.aiic_text_block_rank_occupancy(rank))
+    return {"bf16": list(bf16), "int8": list(int8), "core_rank": list(rank)}
 
 
 def int8_matmul_t_cuda(a: torch.Tensor, b: torch.Tensor, ksplit: int = 0,

@@ -82,12 +82,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``text_block_bwd_int8``) on per-channel-quantized weights at the same
    shape (unchunked plan) and at the L/14 text width (W=768, M=3072, H=12,
    B=7, the chunked plan, C=6); in bf16 and int8 (rows 11-14) form 0 (the
-   products on the wgmma stage, the core backward on row 9's tensor-core
-   passes) beside form 1 (the first design: WMMA products, scalar core
-   backward) at every case: form 1 against the plain version, form 0
-   against form 1 at the same bars (the int8 forward bit for bit), form 0
-   a second time bit for bit, and form 0 launching the stage (and the two
-   tensor-core passes) and no WMMA gemm_kernel or block_core_bwd_kernel;
+   products on the wgmma stage, the core forward on the tensor-core
+   kernel, the rank-r products on rank_down_kernel / rank_cot_kernel, the
+   core backward on row 9's tensor-core passes) beside form 1 (the first
+   design: WMMA products, scalar cores, the 64x16 SIMT rank-r tile) at
+   every case: form 1 against the plain version, form 0 against form 1 at
+   the same bars, form 0 a second time bit for bit, form 0 launching the
+   new kernels and none of the first design's; the tensor-core core
+   forward alone against block_core_fwd_kernel at the bf16 bar; the rank-r
+   kernels bit for bit narrow_gemm at every launch shape, fp32 and bf16;
+   fp32 rows 11-12 launching the SIMT tile, the rank-r kernels and row 7's
+   and row 9's register-tiled cores;
 7. the LoRA trainer at full ViT-B/16 width through ``train_lora``, 2 epochs
    at batch 16 on a synthetic dataset of random 256x256 PNGs written to a
    temporary directory, on four paths: fp32 ``auto`` (which resolves to
@@ -119,7 +124,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    single-image p50 latency of the int8, the bf16 unquantized and the bf16
    ``pallas_mlp`` engines;
    rows 11-14 at 256 text rows in bf16 and int8, form 0 again right
-   before form 1, with both forms' device ms by stage;
+   before form 1, with both forms' device ms by stage; fp32 rows 11-12's
+   device ms by stage and their stage yardstick (each product on the SIMT
+   tile alone beside cuBLAS SGEMM with TF32 off); the rank-r products and
+   the tensor-core core forward alone at 256 text rows beside their first
+   designs (narrow_gemm, block_core_fwd_kernel), with their byte bounds;
    train-step ms at batch 256 (cached image features, dense text rows) on
    the four training paths; the steady-state images/s of a ``train_lora``
    epoch; row 6 at B=256 ViT-B/16 beside ``scaled_dot_product_attention``
@@ -244,31 +253,40 @@ KERNELS = {
         "replaces": "aiic_tpu/ops/mlp.py:27",
     },
     # Rows 11-14: the entries of rows 11-12 are their fp32 (CLI default)
-    # route; in bf16 and int8 the backbone products run on the GEMM stage
-    # and the backward's core on row 9's tensor-core passes.
+    # route (the SIMT tile, the rank-r kernels, row 7's and row 9's
+    # register-tiled cores); in bf16 and int8 the backbone products run on
+    # the GEMM stage, the core forward on the tensor-core kernel and the
+    # backward's core on row 9's tensor-core passes.
     "text_block_fwd": {
         "source": "aiic_tpu_torch/csrc/text_block.cuh",
         "sources": ["aiic_tpu_torch/csrc/text_block.cuh",
-                    "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh"],
+                    "aiic_tpu_torch/csrc/attn_core_f32.cuh",
+                    "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh",
+                    "aiic_tpu_torch/csrc/block_core_fwd_mma.cuh"],
         "replaces": "aiic_tpu/ops/block_grad.py:322 and :388",
     },
     "text_block_bwd": {
         "source": "aiic_tpu_torch/csrc/text_block.cuh",
         "sources": ["aiic_tpu_torch/csrc/text_block.cuh",
+                    "aiic_tpu_torch/csrc/attn_core_f32.cuh",
+                    "aiic_tpu_torch/csrc/attn_core_bwd_f32.cuh",
                     "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh",
+                    "aiic_tpu_torch/csrc/block_core_fwd_mma.cuh",
                     "aiic_tpu_torch/csrc/attn_core_bwd_mma.cuh"],
         "replaces": "aiic_tpu/ops/block_grad.py:198 and :472",
     },
     "text_block_fwd_int8": {
         "source": "aiic_tpu_torch/csrc/text_block_int8.cu",
         "sources": ["aiic_tpu_torch/csrc/text_block_int8.cu",
-                    "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh"],
+                    "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh",
+                    "aiic_tpu_torch/csrc/block_core_fwd_mma.cuh"],
         "replaces": "aiic_tpu/ops/block_grad.py:1084 and :1433",
     },
     "text_block_bwd_int8": {
         "source": "aiic_tpu_torch/csrc/text_block_int8.cu",
         "sources": ["aiic_tpu_torch/csrc/text_block_int8.cu",
                     "aiic_tpu_torch/csrc/wgmma_serving_gemm.cuh",
+                    "aiic_tpu_torch/csrc/block_core_fwd_mma.cuh",
                     "aiic_tpu_torch/csrc/attn_core_bwd_mma.cuh"],
         "replaces": "aiic_tpu/ops/block_grad.py:1104 and :1542",
     },
@@ -982,7 +1000,8 @@ def mma_core_resources(build_log: str) -> dict:
     backward, row 17's wgmma products and its i8_quant row pass, the GEMM
     stage of rows 1-5 and 10 per epilogue and of rows 11-14 per epilogue
     (the bf16 K-major B of their backward, row 14's folded dh2, the
-    tensor-core core backward storing fp32); and their blocks per SM
+    tensor-core core backward storing fp32), rows 11-14's tensor-core core
+    forward and rank-r kernels per operand type; and their blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the stage's [int8
     c_fc, bf16 out-projection, folded c_proj, bf16 QKV, bf16 c_fc], the text
     block's ``block_grad.block_occupancy``)."""
@@ -1023,7 +1042,15 @@ def mma_core_resources(build_log: str) -> dict:
                                       "EpiSplitStore": "stage_int8_matmul_t",
                                       "EpiF32": "stage_dot_t"},
                "mxu_wgmma_quant_kernel": {"": "mxu_i8_quant"},
-               "mxu_quant_rows_kernel": {"": "mxu_i8_quant_row_pass"}}
+               "mxu_quant_rows_kernel": {"": "mxu_i8_quant_row_pass"},
+               # rows 11-14's tensor-core core forward and rank-r kernels
+               "block_core_fwd_mma_kernel": {"": "block_core_fwd_mma"},
+               "rank_down_kernel": {"kernelI13__nv_bfloat16S2_S2_": "rank_down_bf16",
+                                    "kernelI13__nv_bfloat16fS2_": "rank_down_bf16_a_f32",
+                                    "kernelIfff": "rank_down_f32"},
+               "rank_cot_kernel": {"kernelI13__nv_bfloat16S2_S2_": "rank_cot_bf16",
+                                   "kernelI13__nv_bfloat16fS2_": "rank_cot_bf16_a_f32",
+                                   "kernelIfff": "rank_cot_f32"}}
     res, lines = {}, build_log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" not in line:
@@ -2094,22 +2121,35 @@ def _block_check(name: str, label: str, out, ref, dl, dl_ref, kind: str, int8: b
     return a
 
 
-# The kernels a form-0 call of rows 11-14 must launch (the wgmma stage; in
-# the backward row 9's two tensor-core passes) and those of the first design
-# it must not (common.cuh's WMMA gemm_kernel, block_core_bwd_kernel).
-BLOCK_FORM0_KERNELS = ("wgmma_stage_kernel",)
-BLOCK_FORM0_BWD_KERNELS = ("core_bwd_mma_query_kernel", "core_bwd_mma_key_kernel")
-BLOCK_FORM1_KERNELS = ("::gemm_kernel<", "block_core_bwd_kernel")
+# The kernels a form-0 call of rows 11-14 must launch (the wgmma stage, the
+# tensor-core core forward, the rank-r down-projections; in the backward row
+# 9's two tensor-core passes and the rank-r cotangent products) and those of
+# the first design it must not (common.cuh's WMMA gemm_kernel,
+# block_core_bwd_kernel, block_core_fwd_kernel, the 64x16 SIMT tile of the
+# rank-r products). fp32 rows 11-12 (one route): the SIMT tile, the rank-r
+# kernels, the register-tiled cores of rows 6-7 and 9.
+BLOCK_FORM0_KERNELS = ("wgmma_stage_kernel", "block_core_fwd_mma_kernel", "rank_down_kernel")
+BLOCK_FORM0_BWD_KERNELS = ("core_bwd_mma_query_kernel", "core_bwd_mma_key_kernel",
+                           "rank_cot_kernel")
+BLOCK_FORM1_KERNELS = ("::gemm_kernel<", "block_core_bwd_kernel", "block_core_fwd_kernel<",
+                       "simt_gemm_kernel<")
+BLOCK_F32_KERNELS = ("sgemm_kernel", "rank_down_kernel", "attn_core_f32_kernel")
+BLOCK_F32_BWD_KERNELS = ("core_bwd_tiled_query_kernel", "core_bwd_tiled_key_kernel",
+                         "rank_cot_kernel")
 
 
-def _block_form0_kernels(fn, backward: bool) -> list:
+def _block_form0_kernels(fn, backward: bool, fp32: bool = False) -> list:
     """The CUDA kernels that fn() (a form-0 text-block call) launches, from
     ``_trace``; a trace that misses a kernel it must show is taken again
     (the profiler drops leading records), up to PROFILE_TRIES. Raises
     unless every kernel of ``BLOCK_FORM0_KERNELS`` (and, in the backward,
-    ``BLOCK_FORM0_BWD_KERNELS``) is there and none of
+    ``BLOCK_FORM0_BWD_KERNELS``; fp32: ``BLOCK_F32_KERNELS`` and
+    ``BLOCK_F32_BWD_KERNELS``) is there and none of
     ``BLOCK_FORM1_KERNELS``."""
-    want = BLOCK_FORM0_KERNELS + (BLOCK_FORM0_BWD_KERNELS if backward else ())
+    if fp32:
+        want = BLOCK_F32_KERNELS + (BLOCK_F32_BWD_KERNELS if backward else ())
+    else:
+        want = BLOCK_FORM0_KERNELS + (BLOCK_FORM0_BWD_KERNELS if backward else ())
     for _ in range(PROFILE_TRIES):
         names = sorted({ev.key for ev in _trace(fn)})
         missing = [w for w in want if not any(w in n for n in names)]
@@ -2122,12 +2162,91 @@ def _block_form0_kernels(fn, backward: bool) -> list:
     return names
 
 
+def _rank_shapes(rows: int, width: int, rank: int = 16) -> list:
+    """Every rank-r product of rows 11-14 at ``rows`` text rows and text
+    width W (M = 4W): (label, kind, a shape, b shape, trans, a in fp32 in the
+    bf16 block). Down-projections a.Ao, h2.Af (depth W), u.Ap (M; u fp32 in
+    the int8 block), dy.Bp^T (W), dfq.Bf^T (M; fp32 in int8), dy1.Bo^T (W,
+    dy1 fp32); the six cotangents over the rows, P = W or M, three stored
+    transposed."""
+    m = 4 * width
+    return [("a.Ao", "down", (rows, width), (width, rank), False, False),
+            ("u.Ap", "down", (rows, m), (m, rank), False, True),
+            ("dy.Bp^T", "down", (rows, width), (rank, width), True, False),
+            ("dfq.Bf^T", "down", (rows, m), (rank, m), True, True),
+            ("dy1.Bo^T", "down", (rows, width), (rank, width), True, True),
+            ("u^T t_p", "cotangent", (rows, m), (rows, rank), False, True),
+            ("dy^T u_ap", "cotangent", (rows, width), (rows, rank), True, False),
+            ("h2^T t_f", "cotangent", (rows, width), (rows, rank), False, False),
+            ("dfq^T h2_af", "cotangent", (rows, m), (rows, rank), True, True),
+            ("dy1^T a_ao", "cotangent", (rows, width), (rows, rank), True, True)]
+
+
+def _hold_rank_products(device, rows: int, width: int, label: str, fp32: bool) -> dict:
+    """The rank-r kernels of form 0 (and fp32's route) bit for bit form 1's
+    narrow_gemm at every launch shape of ``_rank_shapes`` (in bf16 with a
+    in bf16 and, where the block passes an fp32 activation, in fp32);
+    raises where one differs."""
+    import torch
+
+    from aiic_tpu_torch.ops import block_grad
+
+    gen = torch.Generator(device=device).manual_seed(rows + width)
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    held = {}
+    for name, kind, a_shape, b_shape, trans, a_f32 in _rank_shapes(rows, width):
+        for a_fp32 in ((True,) if fp32 else ((False, True) if a_f32 else (False,))):
+            a = torch.randn(a_shape, generator=gen, device=device)
+            a = a if a_fp32 else a.to(dtype)
+            b = torch.randn(b_shape, generator=gen, device=device).to(dtype)
+            kw = dict(trans=trans, scaling=2.0)
+            got = block_grad.rank_product_cuda(a, b, kind, **kw)
+            if not torch.equal(got, block_grad.rank_product_cuda(a, b, kind, form="wmma", **kw)):
+                raise AssertionError(f"rank-r product {name} ({label}, a {a.dtype}) is not "
+                                     f"narrow_gemm bit for bit")
+            held[f"{name} a={str(a.dtype)[6:]}"] = list(a_shape)
+    log(f"[kernels] rank-r products {label} {str(dtype)[6:]}: rank_down_kernel / rank_cot_kernel "
+        f"bit for bit narrow_gemm at {len(held)} launch shapes {held}")
+    return held
+
+
+def _hold_core_forward(p, label: str, results: list) -> None:
+    """Form 0's tensor-core core forward (``block_core_fwd_mma_kernel``, p
+    normalized before p.V) against form 1's ``block_core_fwd_kernel`` and
+    the plain version on the same qkv at the bf16 bar (``_agreement``), and
+    bit for bit its own second run."""
+    import torch
+
+    from aiic_tpu_torch.ops import block_grad
+
+    x, mask, h = p["x"], p["mask"], p["heads"]
+    gen = torch.Generator(device=x.device).manual_seed(x.shape[0])
+    qkv = torch.randn((x.shape[0], 77, 3 * x.shape[-1]), generator=gen,
+                      device=x.device).to(torch.bfloat16)
+    a0 = block_grad.block_core_fwd_cuda(qkv, mask, h)
+    for kind, ref in (("vs_block_core_fwd_kernel",
+                       block_grad.block_core_fwd_cuda(qkv, mask, h, form="wmma")),
+                      ("vs_plain", block_grad.block_core_fwd_ref(qkv, mask, h))):
+        a = _agreement(a0, ref)
+        a.update(kernel="block_core_fwd_mma", case=label, against=kind)
+        results.append(a)
+        log(f"[kernels] block_core_fwd_mma {label:24s} {kind:24s} max_abs_err="
+            f"{a['max_abs_err']:.6g} within_2ulp={a['within_2ulp']:.6f} "
+            f"min_row_cos={a['min_row_cos']:.8f}")
+        if not a["ok"]:
+            raise AssertionError(f"the tensor-core core forward disagrees ({kind}) on {label}: {a}")
+    if not torch.equal(a0, block_grad.block_core_fwd_cuda(qkv, mask, h)):
+        raise AssertionError(f"the tensor-core core forward does not repeat on {label}")
+
+
 def _hold_block_forms(p, label: str, results: list, int8: bool, form0, ref) -> None:
     """Rows 11-14 beside their first design (form 1, uncounted) on the
     inputs of ``p``: form 1 against the plain version and form 0 against
-    form 1 at the text-block bars (the int8 forward bit for bit: exact
-    int32 products, the same epilogues), form 0 a second time bit for bit
-    the first, and form 0's kernels (``_block_form0_kernels``)."""
+    form 1 at the text-block bars, form 0 a second time bit for bit the
+    first, and form 0's kernels (``_block_form0_kernels``). The int8
+    forward's two forms are not bit for bit: their int32 products are, but
+    form 0's core forward sums fp32 on the tensor cores in another order;
+    ``_hold_core_forward`` holds that core alone against form 1's."""
     import torch
 
     from aiic_tpu_torch.ops import block_grad
@@ -2156,8 +2275,6 @@ def _hold_block_forms(p, label: str, results: list, int8: bool, form0, ref) -> N
             ("wgmma_vs_wmma", y0, y1, dx0, dx1, dl0, dl1)):
         results.append(_block_check(names[0], label, y, yr, None, None, kind, int8))
         results.append(_block_check(names[1], label, dx, dxr, dl, dlr, kind, int8))
-    if int8 and not torch.equal(y0, y1):
-        raise AssertionError(f"text_block_fwd_int8 form 0 is not form 1 bit for bit on {label}")
     y2, (dx2, dl2) = fwd("wgmma"), bwd("wgmma")
     torch.cuda.synchronize()
     same = torch.equal(y0, y2) and torch.equal(dx0, dx2) and all(
@@ -2168,17 +2285,25 @@ def _hold_block_forms(p, label: str, results: list, int8: bool, form0, ref) -> N
                 "bwd": _block_form0_kernels(lambda: bwd("wgmma"), True)}
     REPORT.setdefault("text_block_form0_kernels", {})[f"{names[1]} {label}"] = launched
     log(f"[kernels] {names[0]}/{names[1]} {label}: form 0 repeats bit for bit; launches the wgmma "
-        f"stage (and core_bwd_mma_* in the backward), no WMMA gemm_kernel or "
-        f"block_core_bwd_kernel")
+        f"stage, block_core_fwd_mma_kernel and rank_down_kernel (and core_bwd_mma_* and "
+        f"rank_cot_kernel in the backward), no WMMA gemm_kernel, block_core_bwd_kernel, "
+        f"block_core_fwd_kernel or simt_gemm_kernel")
 
 
 def phase_text_block_kernels(device) -> dict:
     """Phase 6: the text-block kernels against their plain versions; bf16
-    and int8 (rows 11-14) in form 0 beside form 1 (``_hold_block_forms``)."""
+    and int8 (rows 11-14) in form 0 beside form 1 (``_hold_block_forms``),
+    with the tensor-core core forward alone (``_hold_core_forward``); fp32
+    rows 11-12's kernels from a trace; at every case the rank-r kernels bit
+    for bit narrow_gemm at the block's launch shapes
+    (``_hold_rank_products``)."""
     import torch
+
+    from aiic_tpu_torch.ops import block_grad
 
     rng = np.random.default_rng(5)
     worst, results = {}, []
+    REPORT["rank_product_bits"] = rank_bits = {}
     for dtype in (torch.float32, torch.bfloat16):
         for bsz in (1, 7, 64):
             p = _text_block_inputs(rng, bsz, dtype, device)
@@ -2197,9 +2322,21 @@ def phase_text_block_kernels(device) -> dict:
             suffix = "" if dtype == torch.float32 else "_bf16"
             for name, a in zip(("text_block_fwd", "text_block_bwd"), results[-2:]):
                 worst[name + suffix] = max(worst.get(name + suffix, 0.0), a["max_abs_err"])
+            rank_bits[f"{label} {str(dtype)[6:]}"] = _hold_rank_products(
+                device, bsz * 77, 512, label, dtype == torch.float32)
             if dtype == torch.bfloat16:
+                _hold_core_forward(p, label, results)
                 _hold_block_forms(p, label, results, False, (y, (dx, dl)),
                                   (y_ref, (dx_ref, dl_ref)))
+            else:
+                a = (p["heads"], 2.0, 1e-5)
+                args = (p["x"], p["mask"], p["bp"], p["lora"])
+                REPORT.setdefault("text_block_form0_kernels", {})[f"fp32 {label}"] = {
+                    "fwd": _block_form0_kernels(
+                        lambda: block_grad._text_block_fwd_cuda(*args, *a), False, True),
+                    "bwd": _block_form0_kernels(
+                        lambda: block_grad._text_block_bwd_cuda(args[0], p["dy"], *args[1:], *a),
+                        True, True)}
     cases = [(f"B={bsz} S=77 W=512", dict(bsz=bsz)) for bsz in (1, 7, 64)]
     cases.append(("B=7 S=77 W=768 chunked", dict(bsz=7, w=768)))
     for label, kw in cases:
@@ -2216,6 +2353,9 @@ def phase_text_block_kernels(device) -> dict:
             a = _block_check(name, label, out, ref, g, g_ref, "plain", True)
             results.append(a)
             worst[name] = max(worst.get(name, 0.0), a["max_abs_err"])
+        _hold_core_forward(p, label, results)
+        if "W=768" in label:
+            rank_bits[label] = _hold_rank_products(device, 7 * 77, 768, label, False)
         _hold_block_forms(p, label, results, True, (y, (dx, dl)), (y_ref, (dx_ref, dl_ref)))
     REPORT["text_block_checks"] = results
     return worst
@@ -3027,15 +3167,128 @@ def _bf16_text_forms(device, times: dict, card: str) -> None:
             f"{t['wmma_ms']:.3f} ms ({card})")
 
 
-# Device time of rows 11-14 by stage, both forms: kernel-name needles (the
-# WMMA gemm_kernel apart from the SIMT rank-r and fp32 tiles, whose names
-# end in gemm_kernel too; the fold is a stage kernel, shown again alone).
+# Device time of rows 11-14 by stage, both forms and fp32: kernel-name
+# needles (the WMMA gemm_kernel apart from the SIMT rank-r and fp32 tiles,
+# whose names end in gemm_kernel too; the fold is a stage kernel, shown again
+# alone; "rank_r" the rank_down / rank_cot kernels of form 0 and fp32,
+# "rank_r_first" form 1's 64x16 tile).
 BLOCK_STAGE_NEEDLES = {"wgmma_stage": "wgmma_stage_kernel", "of_which_fold": "EpiChunkRowScale",
-                       "wmma_gemm": "::gemm_kernel<", "core_bwd_mma": "core_bwd_mma_",
+                       "wmma_gemm": "::gemm_kernel<", "sgemm": "sgemm_kernel",
+                       "core_bwd_mma": "core_bwd_mma_", "core_bwd_tiled": "core_bwd_tiled_",
                        "core_bwd_scalar": "block_core_bwd_kernel",
-                       "core_fwd": "block_core_fwd_kernel", "rank_r": "simt_gemm_kernel<",
-                       "rank_r_sums": "sum_partials_kernel", "ln_fwd": "ln_fwd_rows_kernel",
-                       "ln_bwd": "ln_bwd_rows_kernel", "row_quant": "rowquant"}
+                       "core_fwd_mma": "block_core_fwd_mma_kernel",
+                       "core_fwd_f32": "attn_core_f32_kernel",
+                       "core_fwd_scalar": "block_core_fwd_kernel<", "rank_r": "rank_",
+                       "rank_r_first": "simt_gemm_kernel<", "rank_r_sums": "sum_partials_kernel",
+                       "ln_fwd": "ln_fwd_rows_kernel", "ln_bwd": "ln_bwd_rows_kernel",
+                       "row_quant": "rowquant"}
+
+
+def _rank_core_times(device, times: dict, card: str) -> None:
+    """Rows 11-14's redesigned pieces alone at 256 text rows (B/16: W=512,
+    M=2048, rank 16), each against its plain version (``_kernel_times``:
+    plain, kernel, kernel, plain; the bound of its bytes and operations)
+    and right after it on the same inputs its first design, the best of two
+    10-call runs: every rank-r product of ``_rank_shapes`` in bf16 (a in
+    fp32 where the int8 block passes one) and fp32 beside narrow_gemm; the
+    tensor-core core forward beside block_core_fwd_kernel (causal, qkv of
+    256 images)."""
+    import torch
+
+    from aiic_tpu_torch.models.clip import causal_mask
+    from aiic_tpu_torch.ops import block_grad
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    calls, first = {}, {}
+    for fp32 in (False, True):
+        dtype = torch.float32 if fp32 else torch.bfloat16
+        for name, kind, a_shape, b_shape, trans, a_f32 in _rank_shapes(256 * 77, 512):
+            a = torch.randn(a_shape, generator=gen, device=device)
+            a = a if (fp32 or a_f32) else a.to(dtype)
+            b = torch.randn(b_shape, generator=gen, device=device).to(dtype)
+            kw = dict(trans=trans, scaling=2.0)
+            key = f"rank_{name}_{'fp32' if fp32 else 'bf16'}"
+            calls[key] = (
+                lambda a=a, b=b, kind=kind, kw=kw: block_grad.rank_product_cuda(a, b, kind, **kw),
+                lambda a=a, b=b, kind=kind, kw=kw, dtype=dtype: block_grad.rank_product_ref(
+                    a, b, kind, dtype=dtype, **kw),
+                (a, b), {"fp32" if fp32 else "bf16": 2 * a_shape[0] * a_shape[1] * 16})
+            first[key] = (lambda a=a, b=b, kind=kind, kw=kw: block_grad.rank_product_cuda(
+                a, b, kind, form="wmma", **kw))
+    qkv = torch.randn((256, 77, 1536), generator=gen, device=device).to(torch.bfloat16)
+    mask = causal_mask(77, device=device)
+    calls["core_fwd_mma"] = (lambda: block_grad.block_core_fwd_cuda(qkv, mask, 8),
+                             lambda: block_grad.block_core_fwd_ref(qkv, mask, 8), (qkv, mask),
+                             {"bf16": 4 * 256 * 8 * 77 * 77 * 64})
+    first["core_fwd_mma"] = lambda: block_grad.block_core_fwd_cuda(qkv, mask, 8, form="wmma")
+    _kernel_times(calls, times, "B=256 S=77 W=512 (rows 11-14's pieces)", card)
+    for key, fn in first.items():
+        t = times[key]
+        t["first_ms"] = min(_time_ms(fn, 10) for _ in range(2))
+        log(f"[timing] {key:24s} form 0 {t['ms']:.4f} ms, first design (narrow_gemm / "
+            f"block_core_fwd_kernel) {t['first_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}) ({card})")
+    REPORT["rank_core_timing"] = {k: times[k] for k in calls}
+
+
+# Row 12 fp32's backbone products at 256 text rows: (label, K, N, w read
+# as (N, K)); row 11 fp32 runs the first three and c_proj.
+F32_PRODUCTS = [("qkv", 512, 1536, False), ("out_proj", 512, 512, False),
+                ("c_fc", 512, 2048, False), ("c_proj", 2048, 512, False),
+                ("dy.W2^T", 512, 2048, True), ("dfq.W1^T", 2048, 512, True),
+                ("dy1.Wo^T", 512, 512, True), ("dqkv.Wqkv^T", 1536, 512, True)]
+
+
+def _f32_block_times(device, times: dict, card: str) -> None:
+    """fp32 rows 11-12 at 256 text rows: the device ms by stage of one call
+    each (the private launch functions, uncounted), and their stage
+    yardstick: each backbone product alone on the SIMT tile
+    (``text_sgemm_cuda``, no epilogue) beside cuBLAS SGEMM on the same fp32
+    operands with TF32 off (``torch.matmul``, the median of 5), summed over
+    the products each row runs (row 11: QKV, out-projection, c_fc, c_proj;
+    row 12: the recomputed forward's first three and the four input-gradient
+    products)."""
+    import torch
+
+    from aiic_tpu_torch.ops import attention, block_grad
+
+    attention.no_tf32()
+    p = _text_block_inputs(np.random.default_rng(12), 256, torch.float32, device)
+    a = (p["heads"], 2.0, 1e-5)
+    args = (p["x"], p["mask"], p["bp"], p["lora"])
+    stages = {"text_block_fwd": _device_ms_by_kernel(
+                  lambda: block_grad._text_block_fwd_cuda(*args, *a), BLOCK_STAGE_NEEDLES),
+              "text_block_bwd": _device_ms_by_kernel(
+                  lambda: block_grad._text_block_bwd_cuda(args[0], p["dy"], *args[1:], *a),
+                  BLOCK_STAGE_NEEDLES)}
+    gen = torch.Generator(device=device).manual_seed(17)
+    prods = {}
+    for label, k, n, trans in F32_PRODUCTS:
+        x = torch.randn((256 * 77, k), generator=gen, device=device)
+        w = torch.randn((n, k) if trans else (k, n), generator=gen, device=device)
+        lib = _library_ms(lambda: x @ (w.t() if trans else w))
+        prods[label] = {"tile_ms": min(_time_ms(lambda: block_grad.text_sgemm_cuda(
+                            x, w, trans=trans), 10) for _ in range(2)),
+                        "cublas_ms": lib["library_ms"],
+                        "cublas_ms_spread": lib["library_ms_spread"],
+                        "gflop": 2 * 256 * 77 * k * n / 1e9}
+        q = prods[label]
+        log(f"[timing] fp32 backbone product {label:12s} K={k} N={n}: SIMT tile {q['tile_ms']:.4f} "
+            f"ms ({q['gflop'] / q['tile_ms']:.1f} TFLOP/s), cuBLAS SGEMM (TF32 off) "
+            f"{q['cublas_ms']:.4f} ms ({q['gflop'] / q['cublas_ms']:.1f}) ({card})")
+        del x, w
+    rows = {"text_block_fwd": ("qkv", "out_proj", "c_fc", "c_proj"),
+            "text_block_bwd": ("qkv", "out_proj", "c_fc", "dy.W2^T", "dfq.W1^T", "dy1.Wo^T",
+                               "dqkv.Wqkv^T")}
+    for name, labels in rows.items():
+        t = times[name]
+        t["device_ms_by_stage"] = stages[name]
+        t["tile_ms"] = sum(prods[q]["tile_ms"] for q in labels)
+        t["stage_yardstick_ms"] = sum(prods[q]["cublas_ms"] for q in labels)
+        log(f"[timing] {name:24s} fp32 B=256 S=77 W=512: {t['ms']:.3f} ms; device ms by stage "
+            f"{stages[name]}; its products on the SIMT tile alone {t['tile_ms']:.3f} ms, stage "
+            f"yardstick (cuBLAS SGEMM, TF32 off) {t['stage_yardstick_ms']:.3f} ms ({card})")
+    REPORT["f32_products"] = prods
 
 
 def _block_forms_times(p, times: dict, card: str) -> None:
@@ -3152,6 +3405,9 @@ def phase_timing(device, card: str, engines, params, worst: dict) -> dict:
     _kernel_times(_int8_block_calls(p), times, "B=256 S=77 W=512 int8", card)
     _block_forms_times(p, times, card)
     del p
+    torch.cuda.empty_cache()
+    _f32_block_times(device, times, card)
+    _rank_core_times(device, times, card)
     torch.cuda.empty_cache()
     times.update(train_step_times(params, device, card))
     for fn in _build._COUNTED.values():
@@ -3479,7 +3735,8 @@ def main() -> int:
     log(f"[build] attn_core_mma (rows 6-8 bf16), attn_core_f32 (rows 6-7 fp32), core_bwd_mma "
         f"(row 9 bf16, rows 12 and 14's core; _f32 row 14's fp32 store), core_bwd_tiled (row 9 "
         f"fp32), mxu_wgmma (row 17) and wgmma_stage (rows 1-5 and 10-14's GEMM stage; the "
-        f"folded c_proj, row 3's; block_*: rows 11-14's products): "
+        f"folded c_proj, row 3's; block_*: rows 11-14's products), block_core_fwd_mma and "
+        f"rank_* (rows 11-14's core forward and rank-r products): "
         f"{REPORT['attn_core_mma']}")
 
     worst = phase_kernels(device)
@@ -3584,6 +3841,8 @@ def main() -> int:
             t = times[k["name"] + "_bf16"]
             k["bf16"] = {**{f: t[f] for f in keys + form_keys},
                          "max_abs_err": worst[k["name"] + "_bf16"]}
+            k.update({f: times[k["name"]][f] for f in ("device_ms_by_stage", "tile_ms",
+                                                         "stage_yardstick_ms")})
         elif k["name"] in ("text_block_fwd_int8", "text_block_bwd_int8"):
             k.update({f: times[k["name"]][f] for f in form_keys})
     # Row 17's entries are the wgmma form; the WMMA form it replaced beside.

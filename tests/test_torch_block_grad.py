@@ -26,6 +26,17 @@ packages. Tolerances:
   versions' bits, and JAX's kernels at the bars above. The card's launch
   functions refuse an unknown form, fp32's "wmma" and a hidden-axis chunk
   their product cannot take before the library is loaded.
+- form 0 of rows 11 and 13 (the forward, also recomputed by rows 12 and 14)
+  composed from the plain pieces in its order (the stage's "bias" and "qkv"
+  products, the tensor-core core forward's plain version
+  ``block_core_fwd_ref``, which normalizes p before p·V, the rank-r
+  kernels' plain version ``rank_product_ref``), on the same cases: the
+  plain versions' bits, and JAX's ``text_block_fwd`` /
+  ``text_block_fwd_int8`` at the bf16 bars above. Form 0's core forward
+  refuses an S beyond its one 80-key tile before the library is loaded;
+  the plain core takes any S (fp32: within 1e-6 of row 7's plain version,
+  which folds 1/l in after p·V). Every chunk of ``text_block_int8_plan``
+  over every preset's text tower is whole 128-B stage slices.
 """
 
 import functools
@@ -376,6 +387,143 @@ def test_form0_composition_matches_plain_and_jax(case):
     _row_close_bf16(dx.float().numpy(), np.asarray(dx_ref, np.float32))
 
 
+def _form0_fwd(x, mask, w, heads, scaling, eps=1e-5):
+    """Rows 11 (bf16) and 13 (int8: ``w`` holds the int8 weights) composed
+    from the plain pieces in the order form 0 runs them on the card: LN1;
+    the QKV product as the stage's plain version (bf16 "bias"; int8 the row
+    quantizer, then "qkv"); the core forward as the tensor-core kernel's
+    plain version (``block_core_fwd_ref``: p normalized before p·V); each
+    rank-r down-projection as the rank-r kernels' plain version
+    (``rank_product_ref``, rounded where it is stored) ahead of the product
+    whose epilogue adds its up-projection; the out-projection with the
+    residual; LN2; c_fc with the gelu; c_proj with the residual."""
+    cdt = x.dtype
+    bsz, seq, width = x.shape
+    rows = bsz * seq
+    dot = lambda a, b: block_grad._dot(a, b, cdt)  # noqa: E731
+    down = lambda a, key: block_grad.rank_product_ref(a, w[key], "down", dtype=cdt)  # noqa: E731
+    xf = x.reshape(rows, width).float()
+    h1f = block_grad._ln_fwd(xf, w["ln1s"], w["ln1b"], eps)[0]
+    if "wqkv_q" in w:
+        hq, hs = quant._row_quant(h1f)
+        qkv = quant.gemm_stage_ref(hq, w["wqkv_q"], "qkv", row_scale=hs, col_scale=w["sqkv"],
+                                   bias=w["bqkv"])
+    else:
+        qkv = quant.gemm_stage_ref(h1f.to(cdt), w["wqkv"], "bias", bias=w["bqkv"])
+    a = block_grad.block_core_fwd_ref(qkv.reshape(bsz, seq, 3 * width), mask, heads)
+    a = a.reshape(rows, width)
+    y1 = xf + (dot(a, w["wo"]) + w["bo"] + scaling * dot(down(a, "out_proj_A"), w["out_proj_B"]))
+    h2f = block_grad._ln_fwd(y1, w["ln2s"], w["ln2b"], eps)[0]
+    f = (block_grad._product(h2f, w, "w1", cdt) + w["b1"]
+         + scaling * dot(down(h2f.to(cdt), "c_fc_A"), w["c_fc_B"]))
+    u = f * torch.sigmoid(1.702 * f)
+    mo = (block_grad._product(u, w, "w2", cdt) + w["b2"]
+          + scaling * dot(down(u, "c_proj_A"), w["c_proj_B"]))
+    return (y1 + mo).to(cdt).reshape(x.shape)
+
+
+@pytest.mark.parametrize("case", FORM0_CASES, ids=[c[0] for c in FORM0_CASES])
+def test_form0_forward_composition_matches_plain_and_jax(case):
+    """Rows 11 and 13 composed in form 0's order (``_form0_fwd``: the
+    stage's plain products, the tensor-core core forward's and the rank-r
+    kernels' plain versions) give the plain versions' bits, and hold JAX's
+    ``text_block_fwd`` / ``text_block_fwd_int8`` (interpret mode, excess
+    precision off; int8 also on the (2, 2) plan and at W=768 on its C=6
+    plan) at this file's bf16 bars."""
+    _, dtype, width, plan = case
+    bp, lora, x, _ = _inputs(seed=11, bsz=2, width=width)
+    heads = CFG.text.heads if width is None else width // 64
+    seq, scaling = CFG.context_length, 2.0
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    mask = causal_mask(seq)
+    kw = dict(heads=heads, scaling=scaling)
+    mask_j = jnp.triu(jnp.full((seq, seq), -jnp.inf, jnp.float32), k=1)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    if dtype == "int8":
+        qw_t, qw_j = _quantized(bp)
+        w = block_grad._int8_operands(_torch_tree(bp), qw_t, _torch_tree(lora), torch.bfloat16)
+        plain = block_grad.text_block_fwd_int8_ref(xt, mask, _torch_tree(bp), qw_t,
+                                                   _torch_tree(lora), **kw)
+        run = jax.jit(functools.partial(jax_bg.text_block_fwd_int8, interpret=True,
+                                        force_plan=plan, **kw), compiler_options=EXACT_BF16)
+        y_ref = run(xj, mask_j, _jax_tree(bp), qw_j, _jax_tree(lora))
+    else:
+        w = block_grad._operands(_torch_tree(bp), _torch_tree(lora), torch.bfloat16)
+        plain = block_grad.text_block_fwd_ref(xt, mask, _torch_tree(bp), _torch_tree(lora), **kw)
+        run = jax.jit(functools.partial(jax_bg.text_block_fwd, interpret=True, **kw),
+                      compiler_options=EXACT_BF16)
+        y_ref = run(xj, mask_j, _jax_tree(bp), _jax_tree(lora))
+    y = _form0_fwd(xt, mask, w, heads, scaling)
+    assert y.dtype == torch.bfloat16 and y.shape == xt.shape
+    assert torch.equal(y, plain)
+    _row_close_bf16(y.float().numpy(), np.asarray(y_ref, np.float32))
+
+
+@pytest.mark.parametrize("seq", [81, 128])
+def test_plain_core_forward_takes_any_s(seq):
+    """The plain core forward takes an S that form 0's one 80-key tile
+    cannot: in fp32 within 1e-6 of row 7's plain version (which folds 1/l
+    in after p·V, an fp32 rounding apart), in bf16 the shape and dtype."""
+    rng = np.random.default_rng(seq)
+    qkv = torch.from_numpy(rng.standard_normal((2, seq, 384)).astype(np.float32))
+    mask = causal_mask(seq)
+    a = block_grad.block_core_fwd_ref(qkv, mask, 2)
+    np.testing.assert_allclose(a.numpy(), attention.fused_attention_qkv_ref(qkv, mask, 2).numpy(),
+                               atol=1e-6)
+    ab = block_grad.block_core_fwd_ref(qkv.bfloat16(), mask, 2)
+    assert ab.dtype == torch.bfloat16 and ab.shape == (2, seq, 128)
+
+
+@pytest.mark.parametrize("kind", ["down", "down_t", "cotangent", "cotangent_t"])
+def test_rank_product_plain_version(kind):
+    """``rank_product_ref``, the rank-r kernels' plain version: operands
+    rounded to the compute dtype, fp32 sums; a down-projection rounded to
+    it, a cotangent fp32 and scaled. Held against float64 products of the
+    rounded operands."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((91, 64)).astype(np.float32))
+    trans = kind.endswith("_t")
+    for dtype in (torch.float32, torch.bfloat16):
+        ad = a.to(dtype).double()
+        if kind.startswith("down"):
+            b = torch.from_numpy(rng.standard_normal((4, 64) if trans else (64, 4)).astype(
+                np.float32)).to(dtype)
+            got = block_grad.rank_product_ref(a, b, "down", dtype=dtype, trans=trans)
+            want = ad @ (b.t() if trans else b).double()
+            assert got.dtype == dtype
+        else:
+            b = torch.from_numpy(rng.standard_normal((91, 4)).astype(np.float32)).to(dtype)
+            got = block_grad.rank_product_ref(a, b, "cotangent", dtype=dtype, trans=trans,
+                                              scaling=2.0)
+            want = 2.0 * (ad.t() @ b.double())
+            want = want.t() if trans else want
+            assert got.dtype == torch.float32
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=tol, atol=tol)
+
+
+def test_every_text_block_int8_chunk_fills_whole_stage_slices():
+    """Each plan that ``text_block_int8_plan`` gives a preset's text tower
+    (every batch of 1, 2, 3, 7, 16, 52, 64 and 256) splits the hidden axis
+    into chunks of whole 128-B stage slices (``quant.STAGE_SLICE``), which
+    form 0's folded dh2 product needs (``_card_chunks`` refuses any other
+    before a launch): B/16 and B/32 unchunked (M = 2048), L/14 and
+    L/14@336 in six chunks of 512, TINY_TEST unchunked (128)."""
+    seen = set()
+    for name in ("VIT_B_16", "VIT_B_32", "VIT_L_14", "VIT_L_14_336", "TINY_TEST"):
+        c = getattr(config, name)
+        t = c.text
+        for bsz in (1, 2, 3, 7, 16, 52, 64, 256):
+            plan = block_grad.text_block_int8_plan(c.context_length, t.width, t.mlp_dim, t.heads,
+                                                   bsz=bsz)
+            assert plan is not None, (name, bsz)
+            chunk, rest = divmod(t.mlp_dim, plan[1])
+            assert rest == 0 and chunk % quant.STAGE_SLICE == 0, (name, bsz, plan)
+            block_grad._card_chunks(name, t.mlp_dim, plan[1], "wgmma")
+            seen.add(chunk)
+    assert seen == {2048, 512, 128}, seen
+
+
 def _no_library():
     raise AssertionError("the kernel library was reached before the check")
 
@@ -390,7 +538,25 @@ def _refusals():
     mask = causal_mask(CFG.context_length)
     a = (2, 2.0, 1e-5)  # heads (head dim 64), scaling, eps
     i8 = torch.zeros((77, 512), dtype=torch.int8)
+    # S = 81: one key past the tensor-core core forward's tile
+    x81 = torch.zeros((1, 81, 128), dtype=torch.bfloat16)
+    m81 = causal_mask(81)
     return {
+        "core_fwd_tile": (lambda: block_grad.block_core_fwd_cuda(
+            torch.zeros((1, 81, 384), dtype=torch.bfloat16), m81, 2), "S <= 80"),
+        "core_fwd_form": (lambda: block_grad.block_core_fwd_cuda(
+            torch.zeros((1, 77, 384), dtype=torch.bfloat16), mask, 2, form="mma"), "form"),
+        "bf16_fwd_tile": (lambda: block_grad._text_block_fwd_cuda(x81, m81, bpt, lt, *a),
+                          "S <= 80"),
+        "bf16_bwd_tile": (lambda: block_grad._text_block_bwd_cuda(x81, x81, m81, bpt, lt, *a),
+                          "S <= 80"),
+        "int8_fwd_tile": (lambda: block_grad._text_block_fwd_int8_cuda(x81, m81, bpt, qw, lt, *a),
+                          "S <= 80"),
+        "int8_bwd_tile": (lambda: block_grad._text_block_bwd_int8_cuda(
+            x81, x81, m81, bpt, qw, lt, *a, 1), "S <= 80"),
+        "rank_product_kind": (lambda: block_grad.rank_product_cuda(xf[0], xf[0], "up"), "kind"),
+        "rank_product_form": (lambda: block_grad.rank_product_cuda(xf[0], xf[0], "down",
+                                                                   form="simt"), "form"),
         "bf16_fwd_form": (lambda: block_grad._text_block_fwd_cuda(xb, mask, bpt, lt, *a,
                                                                   form="mma"), "form"),
         "bf16_bwd_form": (lambda: block_grad._text_block_bwd_cuda(xb, dyb, mask, bpt, lt, *a,
@@ -412,7 +578,9 @@ def _refusals():
 
 
 REFUSALS = ["bf16_fwd_form", "bf16_bwd_form", "fp32_wmma", "int8_fwd_form", "int8_bwd_form",
-            "int8_chunk_wgmma", "int8_chunk_wmma", "matmul_form"]
+            "int8_chunk_wgmma", "int8_chunk_wmma", "matmul_form", "core_fwd_tile",
+            "core_fwd_form", "bf16_fwd_tile", "bf16_bwd_tile", "int8_fwd_tile", "int8_bwd_tile",
+            "rank_product_kind", "rank_product_form"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)
@@ -420,9 +588,11 @@ def test_card_forms_refuse_before_the_library(monkeypatch, case):
     """The card's launch functions of rows 11-14 take form "wgmma" (the
     route) or "wmma" (the first design; bf16 and int8 only), and a
     hidden-axis chunk that the form's product takes (whole 128-B K-slices
-    on the stage, 32-deep steps on the WMMA tile): anything else raises a
-    clear ValueError before the kernel library is built or loaded; nothing
-    falls back to another form."""
+    on the stage, 32-deep steps on the WMMA tile); bf16 and int8 form 0,
+    and the core forward alone, S within the tensor-core core forward's one
+    80-key tile; the rank-r product alone a known kind and form: anything
+    else raises a clear ValueError before the kernel library is built or
+    loaded; nothing falls back to another form."""
     monkeypatch.setattr(block_grad, "load_library", _no_library)
     call, words = _refusals()[case]
     with pytest.raises(ValueError, match=words):

@@ -756,9 +756,12 @@ def _wmma_gemm(names: set) -> bool:
 @pytest.mark.parametrize("path", ["bf16", "int8"])
 def test_text_block_backwards_keep_their_core(device, path):
     """Rows 12 and 14 (text_block_bwd, text_block_bwd_int8) run form 0:
-    their backbone products on the wgmma stage (wgmma_stage_kernel) and
-    their core backward on row 9's tensor-core passes (core_bwd_mma_*), no
-    WMMA gemm_kernel and no block_core_bwd_kernel (which form 1 keeps); and
+    their backbone products on the wgmma stage (wgmma_stage_kernel), their
+    core backward on row 9's tensor-core passes (core_bwd_mma_*), the
+    recomputed core forward on the tensor-core kernel
+    (block_core_fwd_mma_kernel) and the rank-r products on rank_down_kernel
+    and rank_cot_kernel; no WMMA gemm_kernel, block_core_bwd_kernel,
+    block_core_fwd_kernel or SIMT simt_gemm_kernel (which form 1 keeps); and
     they repeat themselves bit for bit across two calls. (Before the
     redesign this test pinned block_core_bwd_kernel, the core they then
     ran.)"""
@@ -775,6 +778,11 @@ def test_text_block_backwards_keep_their_core(device, path):
     assert _launched(names, "wgmma_stage_kernel") and _launched(names, "core_bwd_mma_query")
     assert _launched(names, "core_bwd_mma_key")
     assert not _wmma_gemm(names) and not _launched(names, "block_core_bwd_kernel"), names
+    # the recomputed forward's core and the rank-r products
+    assert _launched(names, "block_core_fwd_mma_kernel") and _launched(names, "rank_down_kernel")
+    assert _launched(names, "rank_cot_kernel")
+    assert not _launched(names, "block_core_fwd_kernel<"), names
+    assert not _launched(names, "simt_gemm"), names
     second = call()
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0])
@@ -812,10 +820,12 @@ FORM_IDS = ["B1", "B3", "B3_W768"]
 def test_text_block_forms_match_plain_and_each_other(device, path, case):
     """Rows 11-14 in form 0 (the route) and form 1 (the first design,
     uncounted): each against the plain version and form 0 against form 1
-    at the text-block bars, y of the int8 forward bit for bit (int8 products
-    exact in int32, the same epilogues; the bf16 wo sums in another order
-    round the same here, which the bar does not need), form 1 launching the
-    WMMA gemm_kernel and block_core_bwd_kernel and no stage."""
+    at the text-block bars, form 0 repeating itself bit for bit, form 1
+    launching the WMMA gemm_kernel, block_core_bwd_kernel,
+    block_core_fwd_kernel and simt_gemm_kernel and no stage. The int8
+    forward's two forms are not bit for bit: their int32 products are, but
+    form 0's core forward sums fp32 on the tensor cores in another order
+    (test_block_core_fwd_mma_matches_scalar_core holds that core alone)."""
     bsz, width, heads, plan = case
     mask = causal_mask(77, device=device)
     a = (heads, 2.0, 1e-5)
@@ -845,22 +855,26 @@ def test_text_block_forms_match_plain_and_each_other(device, path, case):
     for y in (y0, y1):
         _agree_rows(y, y_ref)
     _agree_rows(y0, y1)
-    if path == "int8":
-        assert torch.equal(y0, y1)
+    assert torch.equal(y0, fwd("wgmma"))
     for g in (g0, g1):
         _block_agree(g, ref, path == "int8")
     _block_agree(g0, g1, path == "int8")
     names = _cuda_kernels(lambda: bwd("wmma"))
     assert _wmma_gemm(names) and _launched(names, "block_core_bwd_kernel")
+    assert _launched(names, "block_core_fwd_kernel<") and _launched(names, "simt_gemm_kernel")
     assert not _launched(names, "wgmma_stage_kernel") and not _launched(names, "core_bwd_mma")
+    assert not _launched(names, "rank_") and not _launched(names, "block_core_fwd_mma")
 
 
 @pytest.mark.parametrize("bsz", [1, 3])
 def test_fp32_text_block_keeps_its_route(device, bsz):
-    """fp32 rows 11 and 12 take form 0 alone, which is the SIMT route they
-    ran before the bf16 and int8 redesign: sgemm_kernel and
-    block_core_bwd_kernel, no wgmma stage, no WMMA GEMM, no tensor-core core;
-    a second run bit for bit the first, and "wmma" refused."""
+    """fp32 rows 11 and 12 take form 0 alone, their SIMT route: the 128 x
+    128 tile (sgemm_kernel), the rank-r kernels
+    (rank_down_kernel, rank_cot_kernel), the register-tiled core forward
+    of rows 6-7 (attn_core_f32_kernel) and row 9's register-tiled core
+    backward (core_bwd_tiled_*), no block_core_bwd_kernel, no wgmma stage,
+    no WMMA GEMM, no tensor-core core; a second run bit for bit the first,
+    and "wmma" refused."""
     x, dy, bp, lora = _text_block_inputs(device, bsz, torch.float32)
     mask = causal_mask(77, device=device)
     kw = dict(heads=8, scaling=2.0)
@@ -869,8 +883,12 @@ def test_fp32_text_block_keeps_its_route(device, bsz):
     for call in (fwd, bwd):
         names = _cuda_kernels(call)
         assert _launched(names, "sgemm_kernel") and not _wmma_gemm(names), names
+        assert _launched(names, "rank_down_kernel") and _launched(names, "attn_core_f32_kernel")
         assert not _launched(names, "wgmma_stage_kernel") and not _launched(names, "core_bwd_mma")
-    assert _launched(_cuda_kernels(bwd), "block_core_bwd_kernel")
+        assert not _launched(names, "block_core_") and not _launched(names, "simt_gemm"), names
+    names = _cuda_kernels(bwd)
+    assert _launched(names, "core_bwd_tiled_query") and _launched(names, "core_bwd_tiled_key")
+    assert _launched(names, "rank_cot_kernel")
     y, (dx, dl) = fwd(), bwd()
     assert torch.equal(y, fwd())
     dx2, dl2 = bwd()
@@ -878,6 +896,87 @@ def test_fp32_text_block_keeps_its_route(device, bsz):
     assert all(torch.equal(dl[p][ab], dl2[p][ab]) for p in dl for ab in "AB")
     with pytest.raises(ValueError):
         block_grad._text_block_bwd_cuda(x, dy, mask, bp, lora, 8, 2.0, 1e-5, "wmma")
+
+
+# (kind, rows, depth or wide side K, rank, trans): every launch shape of
+# rows 11-14 at B = 1 and 7 (77 and 539 rows; 256 text rows in phase 9),
+# depth W and M, and a rank of two column groups.
+RANK_CASES = [(kind, rows, k, 16, trans) for kind in ("down", "cotangent") for rows in (77, 539)
+              for k in (512, 2048) for trans in (False, True)] + [
+    ("down", 539, 512, 20, False), ("cotangent", 539, 512, 20, True), ("down", 77, 768, 4, True)]
+
+
+@pytest.mark.parametrize("a_dtype", ["fp32", "bf16", "bf16_a_fp32"])
+@pytest.mark.parametrize("case", RANK_CASES,
+                         ids=[f"{c[0]}_{c[1]}_{c[2]}_r{c[3]}{'_t' if c[4] else ''}"
+                              for c in RANK_CASES])
+def test_rank_product_kernel_is_narrow_gemm(device, a_dtype, case):
+    """The rank-r kernels of form 0 (rank_down_kernel, rank_cot_kernel) bit
+    for bit form 1's narrow_gemm (the same fmaf chains over each chunk in
+    order, the partials added in chunk order) at the text block's launch
+    shapes, in fp32 and bf16 (a in fp32 rounded on load, as u, dfq and dy1
+    are), and within fp32 rounding of the plain version."""
+    kind, rows, k, rank, trans = case
+    gen = torch.Generator(device=device).manual_seed(rows + k + rank)
+    dtype = torch.float32 if a_dtype == "fp32" else torch.bfloat16
+    a = torch.randn((rows, k), generator=gen, device=device)
+    a = a if a_dtype != "bf16" else a.to(dtype)
+    if kind == "down":
+        b = torch.randn((rank, k) if trans else (k, rank), generator=gen, device=device).to(dtype)
+    else:
+        b = torch.randn((rows, rank), generator=gen, device=device).to(dtype)
+    kw = dict(trans=trans, scaling=2.0)
+    got = block_grad.rank_product_cuda(a, b, kind, **kw)
+    assert torch.equal(got, block_grad.rank_product_cuda(a, b, kind, form="wmma", **kw))
+    ref = block_grad.rank_product_ref(a, b, kind, dtype=dtype, **kw)
+    if dtype == torch.float32 or kind == "cotangent":
+        assert float((got.float() - ref.float()).abs().max() / ref.abs().max()) <= 1e-5
+    else:
+        _agree(got, ref)
+
+
+@pytest.mark.parametrize("bsz", [1, 7, 64])
+@pytest.mark.parametrize("masked", [True, False], ids=["causal", "nomask"])
+def test_block_core_fwd_mma_matches_scalar_core(device, bsz, masked):
+    """The tensor-core core forward of form 0 (block_core_fwd_mma_kernel,
+    p normalized before p.V) against form 1's block_core_fwd_kernel and the
+    plain version on the same qkv, at the bf16 bar, at S=77; S=80 (the
+    tile's last key) against the plain version; S=81 refused."""
+    gen = torch.Generator(device=device).manual_seed(bsz)
+    mask = causal_mask(77, device=device) if masked else None
+    qkv = torch.randn((bsz, 77, 1536), generator=gen, device=device).to(torch.bfloat16)
+    got = block_grad.block_core_fwd_cuda(qkv, mask, 8)
+    _agree(got, block_grad.block_core_fwd_cuda(qkv, mask, 8, form="wmma"))
+    _agree(got, block_grad.block_core_fwd_ref(qkv, mask, 8))
+    assert torch.equal(got, block_grad.block_core_fwd_cuda(qkv, mask, 8))
+    q80 = torch.randn((bsz, 80, 1536), generator=gen, device=device).to(torch.bfloat16)
+    _agree(block_grad.block_core_fwd_cuda(q80, None, 8),
+           block_grad.block_core_fwd_ref(q80, None, 8))
+    with pytest.raises(ValueError):
+        block_grad.block_core_fwd_cuda(torch.zeros_like(q80[:, :1]).expand(bsz, 81, 1536), None, 8)
+
+
+# Row 12 fp32's backbone products at B = 7 (539 rows): (K, N, w read as (N, K)).
+SGEMM_CASES = [(512, 1536, False), (512, 512, False), (512, 2048, False), (2048, 512, False),
+               (512, 2048, True), (2048, 512, True), (512, 512, True), (1536, 512, True)]
+
+
+@pytest.mark.parametrize("case", SGEMM_CASES,
+                         ids=[f"K{c[0]}_N{c[1]}{'_t' if c[2] else ''}" for c in SGEMM_CASES])
+def test_text_sgemm_tile_matches_cublas(device, case):
+    """fp32 rows 11-12's backbone tile alone (sgemm_kernel, the product that
+    phase 9 times beside cuBLAS SGEMM) on each product shape, M ragged:
+    within the fp32 bar of cuBLAS without TF32, and bit for bit a second
+    run."""
+    k, n, trans = case
+    gen = torch.Generator(device=device).manual_seed(k + n)
+    a = torch.randn((539, k), generator=gen, device=device)
+    w = torch.randn((n, k) if trans else (k, n), generator=gen, device=device)
+    got = block_grad.text_sgemm_cuda(a, w, trans=trans)
+    assert torch.equal(got, block_grad.text_sgemm_cuda(a, w, trans=trans))
+    attention.no_tf32()
+    ref = a @ (w.t() if trans else w)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("rows", [77, 539])

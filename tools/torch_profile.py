@@ -84,16 +84,20 @@ GROUPS = [  # (group, substring(s) of the CUDA kernel name, all present), first 
     ("block_int8_gemm_bwd", "EpiRowScale"),
     ("block_row_quant", "rowquant_scaled_kernel"),
     ("block_row_quant", "ln_rowquant_kernel"),
+    ("block_core_fwd_mma", "block_core_fwd_mma_kernel"),  # rows 11-14 form 0, tensor cores
     ("block_core_fwd", "block_core_fwd_kernel"),
     ("block_core_bwd", "block_core_bwd_kernel"),
     ("block_simt_gemm_backbone", "sgemm_kernel"),
+    ("block_rank_r_down", "rank_down_kernel"),  # rows 11-14 form 0 and fp32
+    ("block_rank_r_cotangent", "rank_cot_kernel"),
     ("block_simt_gemm_rank_r", "simt_gemm_kernel<64"),
     ("block_rank_r_sums", "sum_partials_kernel"),
     ("block_ln_fwd", "ln_fwd_rows_kernel"),
     ("block_ln_bwd", "ln_bwd_rows_kernel"),
     ("attn_core_mma", "attn_core_mma_kernel"),  # rows 6-7 (bf16) and 8, tensor cores
     ("attn_core_bwd_mma", "core_bwd_mma_"),  # row 9 (bf16), tensor cores
-    ("attn_core_f32", "attn_core_f32_kernel"),  # rows 6-7 (fp32), register-tiled
+    ("attn_core_f32", "attn_core_f32_kernel"),  # rows 6-7 and 11-12 (fp32), register-tiled
+    ("attn_core_bwd_f32", "core_bwd_tiled_"),  # rows 9 and 12 (fp32), register-tiled
     ("attn_core_fp32", "attn_core_kernel<float"),
     ("attn_core_bf16", "attn_core_kernel"),
     ("int8_gemm_qkv", "EpiQKV"),
