@@ -5,29 +5,34 @@
 // (coreqk, corepv, coreboth). Plain PyTorch versions:
 // aiic_tpu_torch/probes/variants.py (int8_attn_nomax_ref, attn_var{2,4,5,7}_ref).
 //
-// One C entry takes the variant's id and runs its launch sequence, row 1's
-// four stages with the variant's pieces in place:
+// One C entry takes the variant's id and its form. Form 0, the route, is
+// attn_variants_wgmma.cu: row 1's current design (the wgmma + TMA GEMM stage
+// and a tensor-core core) with the variant's pieces. Form 1, kept here for
+// the side-by-side time, is the first design: row 1's four stages on
+// common.cuh's WMMA gemm_kernel with a scalar core, the variant's pieces in
+// place:
 //   (a) row pass: LN1 (or none: noln) and the per-row int8 quantizer, or the
 //       two passes of v4's scale per image pair, or a constant 3 (maconly);
 //   (b) int8 QKV product, qkv = bf16(acc*hscale*sqkv + bqkv) (v4:
 //       acc*(hscale*sqkv) + bqkv; maconly: clip(acc[:, :W]) in int8);
 //   (c) var_core_kernel: the core with the variant's flags, one thread per
-//       query row as row 1's core (common.cuh attn_core_kernel), written
-//       fp32 where the int8 out-projection quantizes it, bf16 otherwise
-//       (none: nocore, maconly);
+//       query row as row 1's first core (common.cuh attn_core_kernel),
+//       written fp32 where the int8 out-projection quantizes it, bf16
+//       otherwise (none: nocore, maconly);
 //   (d) the out-projection: int8 (the attention rows quantized per row, then
 //       acc*ascale*so + bo + x), bf16 (attn @ wo + bo + x) or, for maconly,
 //       bf16(x + f32(acc)).
 //
-// The core's flags: exp2 with q rounded to bf16 after q*bf16(scale log2 e),
-// or exp with the scores scaled after the dot; the clamp (70, 80, 70 log2 e,
-// 80 log2 e, or none); the denominator folded after p@v, or p divided by its
-// sum before p@v; p = s (nosm); int8 Q.K^T (q and k rows quantized along D,
-// s = acc * (qs * scale log2 e) * ks) and/or int8 p@v (p quantized along the
-// keys, v per channel over S, o = acc * ps * vs). Dividing p before p@v and
-// quantizing p need the row's sum or amax first, so those variants walk the
-// keys twice, recomputing each score and p in the same order (the same
-// values). The int8 products run as exact integer sums.
+// The core's flags (variants.cuh CoreFlags): exp2 with q rounded to bf16
+// after q*bf16(scale log2 e), or exp with the scores scaled after the dot;
+// the clamp (70, 80, 70 log2 e, 80 log2 e, or none); the denominator folded
+// after p@v, or p divided by its sum before p@v; p = s (nosm); int8 Q.K^T (q
+// and k rows quantized along D, s = acc * (qs * scale log2 e) * ks) and/or
+// int8 p@v (p quantized along the keys, v per channel over S, o = acc * ps
+// * vs). Dividing p before p@v and quantizing p need the row's sum or amax
+// first, so those variants walk the keys twice, recomputing each score and
+// p in the same order (the same values). The int8 products run as exact
+// integer sums.
 //
 // The schedules of kernel_experiments5.py (the TPU batched its head dots
 // three ways) are block schedules of the same per-row arithmetic: gbatch one
@@ -35,47 +40,16 @@
 // image, hg one block walking all heads of an image pair. K and V of one
 // head (50 KB in bf16 at S=197) fill the block's shared memory, and all 12
 // heads of an image (~605 KB) do not fit, so a block stages its heads in
-// turn. Every row runs row 1's core arithmetic without its 1e-38 guard, so
-// the three agree with row 1 bit for bit wherever a row's sum passes 1e-38.
+// turn.
 //
-// What bounds it on the H100: as row 1 (int8_attention.cu), the two
-// products on the tensor cores and the scalar core. hstack and hg give a
-// block 12 or 24 heads, so at B=256 the grid is 256 or 128 blocks for 132
-// SMs of 16 query-row slots each: the schedules measure what fewer, longer
-// blocks cost, not a faster core.
+// What bounds form 1 on the H100: its products on the WMMA tile and the
+// scalar core (4.3-8.4 ms at B=256 against bounds of 0.12-0.18 ms).
 
 #include "int8_halves.cuh"
+#include "variants.cuh"
 
 namespace aiic {
 namespace {
-
-template <bool kExp2_, bool kClamp_, bool kFold_, bool kSoftmax_, bool kQK8_, bool kPV8_>
-struct CoreFlags {
-  static constexpr bool kExp2 = kExp2_, kClamp = kClamp_, kFold = kFold_, kSoftmax = kSoftmax_,
-                        kQK8 = kQK8_, kPV8 = kPV8_;
-};
-//                     exp2   clamp  fold   softmax qk8    pv8
-using CoreNomax = CoreFlags<false, false, false, true, false, false>;
-using CoreExpFold = CoreFlags<false, true, true, true, false, false>;    // v1
-using CoreExp2Div = CoreFlags<true, true, false, true, false, false>;    // v2
-using CoreExp2Fold = CoreFlags<true, true, true, true, false, false>;   // v3, row 1
-using CoreExpDiv = CoreFlags<false, true, false, true, false, false>;   // v4
-using CoreNoSm = CoreFlags<true, false, true, false, false, false>;
-using CoreQK8 = CoreFlags<true, false, true, true, true, false>;
-using CorePV8 = CoreFlags<true, false, true, true, false, true>;
-using CoreBoth8 = CoreFlags<true, false, true, true, true, true>;
-
-enum class Sched { kHead, kGBatch, kHStack, kHG };
-
-struct CoreArgs {
-  const bf16* qkv;  // (B*S, 3W), columns [Q | K | V]
-  void* out;        // (B*S, W), fp32 or bf16
-  int S, W, H;
-  float qconst;  // bf16(scale * log2 e): q * qconst for exp2
-  float sconst;  // fp32(scale * log2 e): int8 Q.K^T's dequant
-  float scale;   // scale = 1/sqrt(64), after the dot for exp
-  float clamp;
-};
 
 // Shared memory of one head: K, V in bf16; with int8 Q.K^T each key row's
 // scale and the int8 K; with int8 p@v each channel's scale and the int8 V.
@@ -310,15 +284,7 @@ cudaError_t launch_var_core(const CoreArgs& a, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// The variant ids of aiic_tpu_torch/probes/variants.py ATTN_VARIANTS.
-enum AttnVariantId {
-  kNomax, kV1, kV2, kV3, kV4, kNoLn, kNoSm, kNoCore, kMacOnly, kQoBf16, kGBatch, kHStack, kHG,
-  kCoreQK, kCorePV, kCoreBoth, kNumAttnVariants
-};
-
 cudaError_t run_core(int variant, CoreArgs a, int B, cudaStream_t st) {
-  constexpr float kClamp70e2 = kExp2Clamp;
-  constexpr float kClamp80e2 = static_cast<float>(80.0 * 1.4426950408889634);
   switch (variant) {
     case kNomax: return launch_var_core<CoreNomax, float>(a, B, st);
     case kV1: a.clamp = 70.0f; return launch_var_core<CoreExpFold, float>(a, B, st);
@@ -345,19 +311,29 @@ cudaError_t run_core(int variant, CoreArgs a, int B, cudaStream_t st) {
 }  // namespace
 }  // namespace aiic
 
-// x (B,S,W) bf16; ln_s, ln_b (W) f32; wqkv_q (W,3W) int8; sqkv, bqkv (3W)
-// f32; wo_q (W,W) int8 with so (W) f32; wo (W,W) bf16; bo (W) f32; out
-// (B,S,W) bf16. Scratch: hq (B*S,W) int8, hs and amax (B*S) f32, qkv
-// (B*S,3W) bf16, attn (B*S,W) f32 (bf16 for the bf16 out-projection), aq
-// (B*S,W) int8, as (B*S) f32. qconst = bf16(scale * log2 e). Needs W == 64 H,
-// W % 128 == 0 and an even B for v4 and the pair schedules. Returns a
-// cudaError_t.
+// x (B,S,W) bf16; ln_s, ln_b (W) f32; wqkv_q (W,3W) int8 and its K-major
+// copy wqkv_t (3W,W); sqkv, bqkv (3W) f32; wo_q (W,W) int8 and wo_t = wo_q^T
+// with so (W) f32; wo (W,W) bf16; bo (W) f32; out (B,S,W) bf16. Scratch: hq
+// (B*S,W) int8, hs and amax (B*S) f32, qkv (B*S,3W) bf16, attn (B*S,W) f32
+// (bf16 for the bf16 out-projection), aq (B*S,W) int8, as (B*S) f32. qconst
+// = bf16(scale * log2 e). form 0 (attn_variants_wgmma.cu: reads wqkv_t and
+// wo_t; its int8 cores, coreqk, corepv and coreboth, also take the scratch
+// kv8 (2 B*H*s_pad*64) int8 and kvs (B*H*(s_pad + 64)) f32, s_pad =
+// 64 ceil(S/64), null for the others) or 1 (here: reads wqkv_q and wo_q).
+// Needs W == 64 H, W % 128 == 0 and an even B for v4 and the pair
+// schedules. Returns a cudaError_t.
 extern "C" int aiic_attn_variant(
     int variant, const void* x, const void* ln_s, const void* ln_b, const void* wqkv_q,
-    const void* sqkv, const void* bqkv, const void* wo_q, const void* so, const void* wo,
-    const void* bo, void* out, void* hq, void* hs, void* amax, void* qkv, void* attn, void* aq,
-    void* as, int B, int S, int W, int H, float eps, float qconst, void* stream) {
+    const void* wqkv_t, const void* sqkv, const void* bqkv, const void* wo_q, const void* wo_t,
+    const void* so, const void* wo, const void* bo, void* out, void* hq, void* hs, void* amax,
+    void* qkv, void* attn, void* aq, void* as, void* kv8, void* kvs, int B, int S, int W, int H,
+    float eps, float qconst, int form, void* stream) {
   using namespace aiic;
+  if (form == 0)
+    return aiic_attn_variant_wgmma(variant, x, ln_s, ln_b, wqkv_t, sqkv, bqkv, wo_t, so, wo, bo,
+                                   out, hq, hs, amax, qkv, attn, aq, as, kv8, kvs, B, S, W, H,
+                                   eps, qconst, stream);
+  if (form != 1) return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto st = static_cast<cudaStream_t>(stream);
   const auto xb = static_cast<const bf16*>(x);

@@ -5,7 +5,10 @@
 // PyTorch versions: aiic_tpu_torch/probes/variants.py (mlp_var_ref,
 // mlp_var3_ref).
 //
-// One C entry takes the variant's id and runs row 2's sequence with the
+// One C entry takes the variant's id and its form. Form 0, the route, is
+// mlp_variants_wgmma.cu: every product on the wgmma + TMA GEMM stage, as row
+// 2 runs today. Form 1, kept here for the side-by-side time, is the first
+// design: row 2's sequence on common.cuh's WMMA gemm_kernel with the
 // variant's pieces in place (int8_halves.cuh):
 //   (a) row pass: LN2 (or none: noln) and the per-row int8 quantizer; the
 //       fixed scale 6/127 multiplied by its reciprocal (static); LN2 rounded
@@ -24,36 +27,31 @@
 // What bounds it on the H100: as row 2 (int8_mlp.cu), the two products on
 // the tensor cores, compute-bound at B=256; the row passes move the fp32
 // hidden activation (rows x 4W) through device memory. The static variant
-// keeps that round trip out: with a fixed scale the gelu epilogue writes
-// int8 directly, which is the pass the TPU experiment priced.
+// keeps that round trip out in both forms: with a fixed scale the gelu
+// epilogue writes int8 directly, which is the pass the TPU experiment
+// priced.
 
 #include "int8_halves.cuh"
+#include "variants.cuh"
 
-namespace aiic {
-namespace {
-
-// The variant ids of aiic_tpu_torch/probes/variants.py MLP_VARIANTS.
-enum MlpVariantId {
-  kStatic, kNoGelu, kNoLn, kNoQ, kMacOnly, kMacBf16, kQ2Bf16, kGelu2, kGeluBf16, kNumMlpVariants
-};
-
-constexpr float kStaticH = static_cast<float>(6.0 / 127.0);
-constexpr float kStaticY = static_cast<float>(30.0 / 127.0);
-
-}  // namespace
-}  // namespace aiic
-
-// x (rows,W) bf16; ln_s, ln_b (W) f32; w1_q (W,M) int8; s1, b1 (M) f32;
-// w2_q (M,W) int8; s2, b2 (W) f32; w1 (W,M), w2 (M,W) bf16; out (rows,W)
-// bf16. Scratch: hq (rows,W) int8, hb (rows,W) bf16, hs (rows) f32, y
-// (rows,M) f32, yb (rows,M) bf16, yq (rows,M) int8, ys (rows) f32. Needs W
-// and M multiples of 128. Returns a cudaError_t.
+// x (rows,W) bf16; ln_s, ln_b (W) f32; w1_q (W,M) int8 and its K-major copy
+// w1_t (M,W); s1, b1 (M) f32; w2_q (M,W) int8 and w2_t (W,M); s2, b2 (W)
+// f32; w1 (W,M), w2 (M,W) bf16; out (rows,W) bf16. Scratch: hq (rows,W)
+// int8, hb (rows,W) bf16, hs (rows) f32, y (rows,M) f32, yb (rows,M) bf16,
+// yq (rows,M) int8, ys (rows) f32. form 0 (mlp_variants_wgmma.cu: reads
+// w1_t and w2_t) or 1 (here: reads w1_q and w2_q). Needs W and M multiples
+// of 128. Returns a cudaError_t.
 extern "C" int aiic_mlp_variant(
     int variant, const void* x, const void* ln_s, const void* ln_b, const void* w1_q,
-    const void* s1, const void* b1, const void* w2_q, const void* s2, const void* b2,
-    const void* w1, const void* w2, void* out, void* hq, void* hb, void* hs, void* y, void* yb,
-    void* yq, void* ys, int rows, int W, int M, float eps, void* stream) {
+    const void* w1_t, const void* s1, const void* b1, const void* w2_q, const void* w2_t,
+    const void* s2, const void* b2, const void* w1, const void* w2, void* out, void* hq, void* hb,
+    void* hs, void* y, void* yb, void* yq, void* ys, int rows, int W, int M, float eps, int form,
+    void* stream) {
   using namespace aiic;
+  if (form == 0)
+    return aiic_mlp_variant_wgmma(variant, x, ln_s, ln_b, w1_t, s1, b1, w2_t, s2, b2, w1, w2, out,
+                                  hq, hb, hs, y, yb, yq, ys, rows, W, M, eps, stream);
+  if (form != 1) return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto st = static_cast<cudaStream_t>(stream);
   const auto xb = static_cast<const bf16*>(x);
@@ -78,8 +76,8 @@ extern "C" int aiic_mlp_variant(
   using LN = std::true_type;
   using NoLN = std::false_type;
   switch (variant) {
-    case kNoGelu: return rr(LN{}, std::integral_constant<Gelu, Gelu::kNone>{});
-    case kNoLn: return rr(NoLN{}, std::integral_constant<Gelu, Gelu::kSigmoid>{});
+    case kMlpNoGelu: return rr(LN{}, std::integral_constant<Gelu, Gelu::kNone>{});
+    case kMlpNoLn: return rr(NoLN{}, std::integral_constant<Gelu, Gelu::kSigmoid>{});
     case kGelu2: return rr(LN{}, std::integral_constant<Gelu, Gelu::kExp2>{});  // row 2's gelu
     case kGeluBf16: return rr(LN{}, std::integral_constant<Gelu, Gelu::kBf16>{});
     case kStatic:
@@ -109,7 +107,7 @@ extern "C" int aiic_mlp_variant(
       return launch_gemm(static_cast<const bf16*>(ybb), w2b, rows, W, M,
                          EpiOutProj{f(b2), xb, o, W}, st);
     }
-    case kMacOnly:
+    case kMlpMacOnly:
       AIIC_CHECK(fill_int8(hq8, static_cast<size_t>(rows) * W, 3, st));
       AIIC_CHECK(launch_gemm(static_cast<const int8_t*>(hq8), w1q, rows, M, W, EpiClip8{yq8, M},
                              st));

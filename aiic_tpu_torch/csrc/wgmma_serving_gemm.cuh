@@ -22,7 +22,9 @@
 // _int8_block_chunk_kernel (int8_block: row 1, then row 2 or row 3). The
 // WMMA forms of int8_halves.cuh (int8_attn_half, int8_mlp_half: common.cuh's
 // gemm_kernel and scalar attn_core_kernel) stay, reachable through the same
-// C entries with form 1; rows 15-16 run them. The bf16 half-blocks of rows
+// C entries with form 1, and rows 15-16 (the kernel-experiment variants,
+// attn_variants.cu and mlp_variants.cu) keep them as their form 1 too: their
+// form 0 runs this stage (attn_variants_wgmma.cu, mlp_variants_wgmma.cu). The bf16 half-blocks of rows
 // 5 and 10 (ln_qkv_attention.cu, ln_mlp.cu) run their products on the bf16
 // form of the stage too (EpiBiasQKV, EpiOutProj; EpiBiasGelu, EpiMlpOut),
 // and so do the training text block's forward and backward (rows 11-14,
@@ -115,11 +117,20 @@ static_assert(2 * 64 * kSTileLd * 4 <= kSStages * kSStageBytes, "the staged tile
 // epilogues read x and write 768 columns; staged they ran 0.42 -> 0.45
 // (c_proj) and 0.30 -> 0.35 ms (out-projection), so they stay on the
 // fragments (one card call, NVIDIA H100 80GB HBM3, 700 W).
+// The kernel-experiment variants' epilogues of the same kinds stage too:
+// every gelu of c_fc (EpiGelu<G>, EpiMlp1: fp32, bf16 or int8 y), v4's QKV
+// (EpiQKVTile) and the maconly products' int8 store (EpiClip8); their
+// residual epilogues (EpiResidualStatic, EpiAddRaw) stay on the fragments.
 template <typename Epi> struct StagedEpilogue { static constexpr bool value = false; };
 template <> struct StagedEpilogue<EpiQKV> { static constexpr bool value = true; };
-template <> struct StagedEpilogue<EpiGelu<Gelu::kExp2>> { static constexpr bool value = true; };
+template <Gelu G> struct StagedEpilogue<EpiGelu<G>> { static constexpr bool value = true; };
 template <> struct StagedEpilogue<EpiBiasQKV> { static constexpr bool value = true; };
 template <> struct StagedEpilogue<EpiBiasGelu> { static constexpr bool value = true; };
+template <> struct StagedEpilogue<EpiQKVTile> { static constexpr bool value = true; };
+template <> struct StagedEpilogue<EpiClip8> { static constexpr bool value = true; };
+template <Gelu G, YOut O> struct StagedEpilogue<EpiMlp1<G, O>> {
+  static constexpr bool value = true;
+};
 
 // Epilogues with a per-column cache (the text block's with a rank-r term:
 // Column, column_fits(), column(n), at(r, n, acc, column); text_block.cuh's
@@ -478,11 +489,13 @@ inline cudaError_t wgmma_stage_occupancy(int* blocks) {
 // w2_t: the K-major int8 copies (w^T) of the Int8Attn / Int8Mlp weights.
 // ---------------------------------------------------------------------------
 
-inline cudaError_t int8_qkv_stage_wgmma(const bf16* x, const Int8Attn& a, const int8_t* wqkv_t,
-                                        bf16* qkv, int8_t* hq, float* hs, int rows, int W,
-                                        float eps, cudaStream_t st) {
+// kLN false: no LN1 (the noln ablation of the kernel experiments).
+template <bool kLN = true>
+cudaError_t int8_qkv_stage_wgmma(const bf16* x, const Int8Attn& a, const int8_t* wqkv_t, bf16* qkv,
+                                 int8_t* hq, float* hs, int rows, int W, float eps,
+                                 cudaStream_t st) {
   if (W % kSBN != 0) return cudaErrorInvalidValue;
-  AIIC_CHECK((launch_rowquant<true, bf16>(x, a.ln_s, a.ln_b, hq, hs, rows, W, eps, st)));
+  AIIC_CHECK((launch_rowquant<kLN, bf16>(x, a.ln_s, a.ln_b, hq, hs, rows, W, eps, st)));
   return launch_wgmma_stage(static_cast<const int8_t*>(hq), wqkv_t, rows, 3 * W, W,
                             EpiQKV{hs, a.sqkv, a.bqkv, qkv, 3 * W}, st);
 }
@@ -505,14 +518,17 @@ inline cudaError_t int8_attn_half_wgmma(const bf16* x, const Int8Attn& a, const 
 // (rows*C, M/C) matrix it is in memory, so each (row, chunk) gets its own
 // scale, and c_proj folding the chunks in order). Needs W % 128 == 0 and
 // M / C a multiple of 128 (a whole number of c_proj's 128-B K-slices); the
-// scratch's part is not read.
-inline cudaError_t int8_mlp_half_wgmma(const bf16* x, const Int8Mlp& m, const int8_t* w1_t,
-                                       const int8_t* w2_t, bf16* out, const MlpScratch& s,
-                                       int rows, int W, int M, int C, float eps, cudaStream_t st) {
+// scratch's part is not read. kLN and G: rows 2-4 run LN2 and the exp2
+// gelu; the kernel-experiment variants drop LN2 (noln) or change the gelu
+// (nogelu, sigmoid, bf16), as int8_mlp_half's.
+template <bool kLN = true, Gelu G = Gelu::kExp2>
+cudaError_t int8_mlp_half_wgmma(const bf16* x, const Int8Mlp& m, const int8_t* w1_t,
+                                const int8_t* w2_t, bf16* out, const MlpScratch& s, int rows,
+                                int W, int M, int C, float eps, cudaStream_t st) {
   if (W % kSBN != 0 || C < 1 || M % (C * 128) != 0) return cudaErrorInvalidValue;
-  AIIC_CHECK((launch_rowquant<true, bf16>(x, m.ln_s, m.ln_b, s.hq, s.hs, rows, W, eps, st)));
+  AIIC_CHECK((launch_rowquant<kLN, bf16>(x, m.ln_s, m.ln_b, s.hq, s.hs, rows, W, eps, st)));
   AIIC_CHECK(launch_wgmma_stage(static_cast<const int8_t*>(s.hq), w1_t, rows, M, W,
-                                EpiGelu<Gelu::kExp2>{s.hs, m.s1, m.b1, s.y, M}, st));
+                                EpiGelu<G>{s.hs, m.s1, m.b1, s.y, M}, st));
   AIIC_CHECK((launch_rowquant<false, float>(static_cast<const float*>(s.y), nullptr, nullptr,
                                             s.yq, s.ys, rows * C, M / C, 0.f, st)));
   const int8_t* yq = s.yq;

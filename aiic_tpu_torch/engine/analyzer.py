@@ -41,7 +41,9 @@ from typing import Any, Dict, List, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from aiic_tpu_torch.data.dataset import build_category_prompts, extract_all_categories
+from aiic_tpu_torch.data.dataset import (
+    build_category_prompts, extract_all_categories, load_training_data,
+)
 from aiic_tpu_torch.data.tokenizer import tokenize_for_model
 from aiic_tpu_torch.engine.detector import (
     DEFAULT_CONFIDENCE_THRESHOLD,
@@ -71,6 +73,7 @@ class InteriorAnalyzer:
         params: Optional[Dict[str, Any]] = None,
         config: CLIPConfig = VIT_B_16,
         *,
+        dataset_json: str = "interior_dataset.json",
         training_data: Optional[List[Dict[str, Any]]] = None,
         use_lora: bool = False,
         lora_weights_path: Union[str, Mapping[str, Any], None] = None,
@@ -130,7 +133,13 @@ class InteriorAnalyzer:
             self.quantized = True
         self.params = params
 
-        self.training_data = training_data or []
+        # Attribute vocabulary from the dataset (main.py:259-262), as the JAX
+        # engine builds it: ``dataset_json`` where no ``training_data`` is
+        # given and the file exists, else none.
+        if training_data is None:
+            training_data = (load_training_data(dataset_json) if os.path.exists(dataset_json)
+                             else [])
+        self.training_data = training_data
         self.all_categories = extract_all_categories(self.training_data)
         self.category_names = [k for k, v in self.all_categories.items() if v]
         self._precompute_text_features()

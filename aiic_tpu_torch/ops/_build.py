@@ -125,12 +125,13 @@ _SIGNATURES = {
     "aiic_mxu_probe_wgmma": [_P] * 5 + [_I] * 5 + [_P],
     # blocks (int[3]: bf16, i8, i8_quant)
     "aiic_mxu_probe_wgmma_occupancy": [_P],
-    # variant, x, ln_s, ln_b, wqkv_q, sqkv, bqkv, wo_q, so, wo, bo, out, hq, hs,
-    # amax, qkv, attn, aq, as, B, S, W, H, eps, qconst, stream
-    "aiic_attn_variant": [_I] + [_P] * 18 + [_I] * 4 + [_F, _F, _P],
-    # variant, x, ln_s, ln_b, w1_q, s1, b1, w2_q, s2, b2, w1, w2, out, hq, hb,
-    # hs, y, yb, yq, ys, rows, W, M, eps, stream
-    "aiic_mlp_variant": [_I] + [_P] * 19 + [_I] * 3 + [_F, _P],
+    # variant, x, ln_s, ln_b, wqkv_q, wqkv_t, sqkv, bqkv, wo_q, wo_t, so, wo,
+    # bo, out, hq, hs, amax, qkv, attn, aq, as, kv8, kvs, B, S, W, H, eps,
+    # qconst, form, stream
+    "aiic_attn_variant": [_I] + [_P] * 22 + [_I] * 4 + [_F, _F, _I, _P],
+    # variant, x, ln_s, ln_b, w1_q, w1_t, s1, b1, w2_q, w2_t, s2, b2, w1, w2,
+    # out, hq, hb, hs, y, yb, yq, ys, rows, W, M, eps, form, stream
+    "aiic_mlp_variant": [_I] + [_P] * 21 + [_I] * 3 + [_F, _I, _P],
 }
 _RESTYPES = {"aiic_text_block_workspace": ctypes.c_longlong,
              "aiic_text_block_int8_workspace": ctypes.c_longlong}

@@ -20,9 +20,13 @@ Timing: one warm-up stack, then ``iters`` times ``inner`` chained stacks
 between two CUDA events; ms per stack (the minimum and the mean of the
 ``iters``). Each REAL candidate's cosine against ``prod`` is taken as its
 tool takes it: on 4 images through one stack (2, 3, 4, 5), or on the whole
-batch through ``inner`` chained stacks (7). The run prints the card's
-``nvidia-smi`` line and ends with one JSON line. It raises without a card:
-a CPU timing is not a kernel time.
+batch through ``inner`` chained stacks (7). The variants run their form 0,
+rows 1-2's current design (the ``wgmma`` + TMA GEMM stage and a tensor-core
+core), so ``prod - variant`` (``attribution``, printed after the stacks)
+prices what the variant removes or changes in rows 1-2: experiment 4 LN1,
+the softmax and the core, experiment 3 the gelu, LN2 and the quantizers.
+The run prints the card's ``nvidia-smi`` line and ends with one JSON line.
+It raises without a card: a CPU timing is not a kernel time.
 """
 
 from __future__ import annotations
@@ -102,6 +106,18 @@ def _stack_fn(exp: int, variant: str, layers: List[dict]):
             x = layer(x, lp)
         return x
     return stack
+
+
+def attribution(exp: int, res: dict) -> Dict[str, float]:
+    """ms per 12-layer stack that each variant saves against prod (``prod -
+    variant``, the minima; negative where the variant is slower), from
+    ``run_experiment``'s result: experiment 1 against ``prod_attn`` and
+    ``prod_mlp``, the others against ``prod``."""
+    if exp == 1:
+        pairs = {"nomax": "prod_attn", "static": "prod_mlp"}
+    else:
+        pairs = {v: "prod" for v in EXPERIMENTS[exp]["variants"] if v != "prod"}
+    return {v: res[p]["ms"] - res[v]["ms"] for v, p in pairs.items() if v in res and p in res}
 
 
 def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -212,6 +228,9 @@ def run_experiment(exp: int, iters: int = 5, inner: Optional[int] = None,
               f"{r['ms_mean']:.3f}){cos}", flush=True)
     if e["check"] == "four" and ref is not None:
         res["prod_check_stacks"] = 1
+    res["attribution"] = attribution(exp, res)
+    for v, d in res["attribution"].items():
+        print(f"exp {exp} B={e['batch']} prod - {v:9s} {d:9.3f} ms/stack", flush=True)
     if exp == 1 and not only:
         res["classify"] = {}
         for b in CLASSIFY_BATCHES:

@@ -11,11 +11,18 @@ the port has:
   layer's parameters ``lp`` (``layer_params``); an unknown variant raises
   ``ValueError``;
 - a Hopper kernel: one C entry per half (``csrc/attn_variants.cu``,
-  ``csrc/mlp_variants.cu``) that takes the variant's id and runs its launch
-  sequence;
+  ``csrc/mlp_variants.cu``) that takes the variant's id and its form and
+  runs its launch sequence. Form 0 (``"wgmma"``, the route) is rows 1-2's
+  current design: every product on the ``wgmma`` + TMA GEMM stage, the int8
+  ones reading the K-major weight copies that ``layer_params`` carries, and
+  every attention core on a tensor-core variant core
+  (``csrc/attn_variants_wgmma.cu``, ``csrc/mlp_variants_wgmma.cu``). Form 1
+  (``"wmma"``) is the first design (common.cuh's WMMA GEMM and a scalar
+  core), kept for the side-by-side time and reached, uncounted, through
+  ``_attn_cuda`` / ``_mlp_cuda(..., form="wmma")``;
 - a ``@counted`` wrapper of the same name without ``_ref``: the plain
-  version for a CPU tensor, the kernel (one counted launch per call) for a
-  CUDA tensor.
+  version for a CPU tensor, form 0 of the kernel (one counted launch per
+  call) for a CUDA tensor.
 
 What the variants compute (the tools' names; "base" is the tools' body: LN1
 in fp32, per-row int8 quantization dividing by the scale, the int8 QKV
@@ -53,13 +60,16 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from aiic_tpu_torch.ops._build import check, counted, f32_vector, load_library, ptr, route, weight
+from aiic_tpu_torch.ops._build import (
+    check, counted, f32_vector, form_code, load_library, ptr, route, weight,
+)
 from aiic_tpu_torch.ops.attention import LOG2E, _qconst, no_tf32
-from aiic_tpu_torch.ops.quant import _check_inputs, quantize_weight
+from aiic_tpu_torch.ops.quant import _check_inputs, kmajor, quantize_weight
 
 EPS = 1e-5
 LN2 = 0.6931471805599453
 HEAD_DIM = 64
+KEY_TILE = 64  # the tensor-core variant core's key tile
 STATIC_H_SCALE = 6.0 / 127.0   # kernel_experiments.py: "plausible post-LN range"
 STATIC_Y_SCALE = 30.0 / 127.0
 
@@ -150,20 +160,27 @@ def layer_params(blocks: Dict, heads: int) -> List[Dict[str, object]]:
     ``wo`` with ``bo``, ``w1_q, s1, b1, w2_q, s2, b2``, the unquantized
     ``w1``/``w2`` (the bf16 variants' weights), ``heads``, and the int8
     out-projection ``wo_q, so = quantize_weight(wo)`` that the historical
-    variants keep (the serving tree's out-projection is bf16)."""
+    variants keep (the serving tree's out-projection is bf16); and the
+    K-major copies ``wqkv_t, wo_t, w1_t, w2_t`` (w^T of each int8 weight,
+    made once by ``quant.kmajor`` as for the serving tree), which form 0's
+    int8 products read: 8-bit ``wgmma`` takes a K-major B only."""
     out = []
     for i in range(blocks["attn"]["wqkv"].shape[0]):
         wo_q, so = quantize_weight(blocks["attn"]["wo"][i])
+        wqkv_q, w1_q, w2_q = (blocks["attn_q"]["wqkv_q"][i], blocks["mlp_q"]["w1_q"][i],
+                              blocks["mlp_q"]["w2_q"][i])
         out.append({
             "ln1_s": blocks["ln1"]["scale"][i], "ln1_b": blocks["ln1"]["bias"][i],
-            "wqkv_q": blocks["attn_q"]["wqkv_q"][i], "sqkv": blocks["attn_q"]["sqkv"][i],
+            "wqkv_q": wqkv_q, "sqkv": blocks["attn_q"]["sqkv"][i],
             "bqkv": blocks["attn"]["bqkv"][i], "wo": blocks["attn"]["wo"][i],
             "bo": blocks["attn"]["bo"][i], "wo_q": wo_q, "so": so,
             "ln2_s": blocks["ln2"]["scale"][i], "ln2_b": blocks["ln2"]["bias"][i],
-            "w1_q": blocks["mlp_q"]["w1_q"][i], "s1": blocks["mlp_q"]["s1"][i],
-            "b1": blocks["mlp"]["b1"][i], "w2_q": blocks["mlp_q"]["w2_q"][i],
+            "w1_q": w1_q, "s1": blocks["mlp_q"]["s1"][i],
+            "b1": blocks["mlp"]["b1"][i], "w2_q": w2_q,
             "s2": blocks["mlp_q"]["s2"][i], "b2": blocks["mlp"]["b2"][i],
             "w1": blocks["mlp"]["w1"][i], "w2": blocks["mlp"]["w2"][i], "heads": heads,
+            "wqkv_t": kmajor(wqkv_q), "wo_t": kmajor(wo_q), "w1_t": kmajor(w1_q),
+            "w2_t": kmajor(w2_q),
         })
     return out
 
@@ -434,19 +451,28 @@ def attn_var7_ref(x, lp, variant):
 # ---------------------------------------------------------------------------
 
 
-def _attn_cuda(wrapper: str, x: torch.Tensor, lp: Dict, variant: str) -> torch.Tensor:
+def _attn_cuda(wrapper: str, x: torch.Tensor, lp: Dict, variant: str,
+               form: str = "wgmma") -> torch.Tensor:
+    """The attention variant on the card in ``form``: "wgmma" (the route:
+    the stage and the tensor-core variant core) or "wmma" (the first
+    design). Any other form raises before the library loads."""
+    code = form_code(wrapper, form)
     bsz, seq, width = x.shape
     spec = _spec(wrapper, variant, bsz)
-    _check_inputs(wrapper, x, (lp["wqkv_q"], (width, 3 * width)), (lp["wo_q"], (width, width)))
+    weights = [("wqkv_q", (width, 3 * width)), ("wo_q", (width, width))]
+    if form == "wgmma":  # the K-major copies that layer_params makes
+        weights += [("wqkv_t", (3 * width, width)), ("wo_t", (width, width))]
+    _check_inputs(wrapper, x, *[(lp[k], shape) for k, shape in weights])
     heads = lp["heads"]
     if width != heads * HEAD_DIM or width % 128:
         raise ValueError(f"{wrapper} kernel needs head_dim 64 and W % 128 == 0, got W={width}, "
                          f"H={heads}")
+    kt = [lp["wqkv_t"], lp["wo_t"]] if form == "wgmma" else [None, None]
     dev, rows = x.device, bsz * seq
     args = [x.contiguous(), f32_vector(lp["ln1_s"], width, dev), f32_vector(lp["ln1_b"], width, dev),
-            lp["wqkv_q"],
+            lp["wqkv_q"], kt[0],
             f32_vector(lp["sqkv"], 3 * width, dev), f32_vector(lp["bqkv"], 3 * width, dev),
-            lp["wo_q"], f32_vector(lp["so"], width, dev),
+            lp["wo_q"], kt[1], f32_vector(lp["so"], width, dev),
             weight(wrapper, lp["wo"], (width, width), torch.bfloat16, dev),
             f32_vector(lp["bo"], width, dev), torch.empty_like(x),
             torch.empty((rows, width), dtype=torch.int8, device=dev),       # hq
@@ -456,25 +482,43 @@ def _attn_cuda(wrapper: str, x: torch.Tensor, lp: Dict, variant: str) -> torch.T
             torch.empty((rows, width), dtype=torch.float32, device=dev),    # attn (f32 or bf16)
             torch.empty((rows, width), dtype=torch.int8, device=dev),       # aq
             torch.empty((rows,), dtype=torch.float32, device=dev)]          # as
+    # Form 0's int8 cores (coreqk, corepv, coreboth) quantize K and V once per
+    # (image, head) in a pre-pass: K and V^T in int8, their row and channel
+    # scales, each (image, head) padded to s_pad keys.
+    int8_core = form == "wgmma" and spec.core is not None and (spec.core.qk8 or spec.core.pv8)
+    s_pad = -(-seq // KEY_TILE) * KEY_TILE
+    args += ([torch.empty((2 * bsz * heads * s_pad * HEAD_DIM,), dtype=torch.int8, device=dev),
+              torch.empty((bsz * heads * (s_pad + HEAD_DIM),), dtype=torch.float32, device=dev)]
+             if int8_core else [None, None])
     rc = load_library().aiic_attn_variant(
         spec.vid, *[ptr(a) for a in args], bsz, seq, width, heads, ctypes.c_float(EPS),
-        ctypes.c_float(_qconst(HEAD_DIM, torch.bfloat16)), torch.cuda.current_stream(dev).cuda_stream)
+        ctypes.c_float(_qconst(HEAD_DIM, torch.bfloat16)), code,
+        torch.cuda.current_stream(dev).cuda_stream)
     check(wrapper, rc)
-    return args[10]
+    return args[12]
 
 
-def _mlp_cuda(wrapper: str, x: torch.Tensor, lp: Dict, variant: str) -> torch.Tensor:
+def _mlp_cuda(wrapper: str, x: torch.Tensor, lp: Dict, variant: str,
+              form: str = "wgmma") -> torch.Tensor:
+    """The MLP variant on the card in ``form``: "wgmma" (the route: every
+    product on the stage) or "wmma" (the first design). Any other form
+    raises before the library loads."""
+    code = form_code(wrapper, form)
     bsz, seq, width = x.shape
     spec = _spec(wrapper, variant, bsz)
     mlp_dim = lp["w1_q"].shape[-1]
-    _check_inputs(wrapper, x, (lp["w1_q"], (width, mlp_dim)), (lp["w2_q"], (mlp_dim, width)))
+    weights = [("w1_q", (width, mlp_dim)), ("w2_q", (mlp_dim, width))]
+    if form == "wgmma":
+        weights += [("w1_t", (mlp_dim, width)), ("w2_t", (width, mlp_dim))]
+    _check_inputs(wrapper, x, *[(lp[k], shape) for k, shape in weights])
     if width % 128 or mlp_dim % 128:
         raise ValueError(f"{wrapper} kernel needs W and 4W multiples of 128, got {width}, {mlp_dim}")
+    kt = [lp["w1_t"], lp["w2_t"]] if form == "wgmma" else [None, None]
     dev, rows = x.device, bsz * seq
     args = [x.contiguous(), f32_vector(lp["ln2_s"], width, dev), f32_vector(lp["ln2_b"], width, dev),
-            lp["w1_q"],
+            lp["w1_q"], kt[0],
             f32_vector(lp["s1"], mlp_dim, dev), f32_vector(lp["b1"], mlp_dim, dev),
-            lp["w2_q"],
+            lp["w2_q"], kt[1],
             f32_vector(lp["s2"], width, dev), f32_vector(lp["b2"], width, dev),
             weight(wrapper, lp["w1"], (width, mlp_dim), torch.bfloat16, dev),
             weight(wrapper, lp["w2"], (mlp_dim, width), torch.bfloat16, dev), torch.empty_like(x),
@@ -486,10 +530,10 @@ def _mlp_cuda(wrapper: str, x: torch.Tensor, lp: Dict, variant: str) -> torch.Te
             torch.empty((rows, mlp_dim), dtype=torch.int8, device=dev),        # yq
             torch.empty((rows,), dtype=torch.float32, device=dev)]             # ys
     rc = load_library().aiic_mlp_variant(
-        spec.vid, *[ptr(a) for a in args], rows, width, mlp_dim, ctypes.c_float(EPS),
+        spec.vid, *[ptr(a) for a in args], rows, width, mlp_dim, ctypes.c_float(EPS), code,
         torch.cuda.current_stream(dev).cuda_stream)
     check(wrapper, rc)
-    return args[11]
+    return args[13]
 
 
 def _run(fn, wrapper, plain, kernel, x, lp, variant):

@@ -58,10 +58,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    kernel-experiment variants (rows 15-16: the 25
    variants of ``probes/variants.py``'s seven wrappers) at ViT-B/16, B = 2
    and 64 (and 1 for the two kernel_experiments.py functions, 1024 for the
-   three kernel_experiments7.py variants), x with an all-zero row,
-   maconly exact and the three kernel_experiments5.py schedules bit for
-   bit row 1's WMMA form; each with the counts set to 0 before and exactly one
-   launch after;
+   three kernel_experiments7.py variants), x with an all-zero row, form 0
+   (the GEMM stage and the tensor-core variant core) counted and form 1
+   (the WMMA design) beside, both maconly exact, the three
+   kernel_experiments5.py schedules bit for bit row 1's form 0 and gelu2
+   row 2's; each with the counts set to 0 before and exactly one launch
+   after;
 4. the paths: five full-width ViT-B/16 ``InteriorAnalyzer`` engines from
    one seeded init (int8 serving on the patch wire; the same with
    ``attn_impl="auto"``, which must launch exactly what the int8 engine
@@ -144,8 +146,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``torch.matmul`` / ``torch._int_mm``, held against their plain
    versions, with device ms by stage; each
    kernel-experiment variant, one launch at B=256, beside its plain version
-   with its bound (no PyTorch call computes any of them), and that launch's
-   output held against the plain version at phase 3's bars;
+   with its bound (no PyTorch call computes any of them), its form 1 timed
+   right after form 0, both forms' device ms by stage from whole
+   ``torch.profiler`` traces (form 0 launching the stage and, where the
+   variant has a core, the variant core, and no WMMA GEMM or scalar core),
+   and that launch's output held against the plain version at phase 3's
+   bars;
 10. the zoo: full-width, full-depth engines from one seeded init per preset
    (int8 ViT-B/32, ViT-L/14 and ViT-L/14@336 on the patch wire; bf16 L/14
    and L/14@336 and fp32 L/14@336 on the HWC wire), each answering 1, 7 and
@@ -174,7 +180,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    int8 classify program at B=256 and 512 in experiment 1, every count set
    to 0 before and checked exactly after (12 launches a 12-layer stack, 11
    of rows 1 and 2 a classify call), each REAL candidate's cosine against
-   prod finite.
+   prod finite; each variant's stack time against prod's (``prod -
+   ablation``: rows 1-2's time by pass, both on one design).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -322,33 +329,35 @@ KERNELS = {
         "source": "aiic_tpu_torch/csrc/mxu_probe_wgmma.cu",
         "replaces": "tools/mxu_probe.py:62",
     },
-    # The kernel-experiment variants (rows 15-16): one wrapper per TPU function.
+    # The kernel-experiment variants (rows 15-16): one wrapper per TPU function,
+    # form 0 (the C entries in attn_variants.cu / mlp_variants.cu, form 1
+    # beside them).
     "int8_attn_nomax": {
-        "source": "aiic_tpu_torch/csrc/attn_variants.cu",
+        "source": "aiic_tpu_torch/csrc/attn_variants_wgmma.cu",
         "replaces": "tools/kernel_experiments.py:92",
     },
     "mlp_var": {
-        "source": "aiic_tpu_torch/csrc/mlp_variants.cu",
+        "source": "aiic_tpu_torch/csrc/mlp_variants_wgmma.cu",
         "replaces": "tools/kernel_experiments.py:163",
     },
     "attn_var2": {
-        "source": "aiic_tpu_torch/csrc/attn_variants.cu",
+        "source": "aiic_tpu_torch/csrc/attn_variants_wgmma.cu",
         "replaces": "tools/kernel_experiments2.py:55",
     },
     "mlp_var3": {
-        "source": "aiic_tpu_torch/csrc/mlp_variants.cu",
+        "source": "aiic_tpu_torch/csrc/mlp_variants_wgmma.cu",
         "replaces": "tools/kernel_experiments3.py:67",
     },
     "attn_var4": {
-        "source": "aiic_tpu_torch/csrc/attn_variants.cu",
+        "source": "aiic_tpu_torch/csrc/attn_variants_wgmma.cu",
         "replaces": "tools/kernel_experiments4.py:68",
     },
     "attn_var5": {
-        "source": "aiic_tpu_torch/csrc/attn_variants.cu",
+        "source": "aiic_tpu_torch/csrc/attn_variants_wgmma.cu",
         "replaces": "tools/kernel_experiments5.py:55",
     },
     "attn_var7": {
-        "source": "aiic_tpu_torch/csrc/attn_variants.cu",
+        "source": "aiic_tpu_torch/csrc/attn_variants_wgmma.cu",
         "replaces": "tools/kernel_experiments7.py:107",
     },
 }
@@ -1004,7 +1013,8 @@ def mma_core_resources(build_log: str) -> dict:
     forward and rank-r kernels per operand type; and their blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; the stage's [int8
     c_fc, bf16 out-projection, folded c_proj, bf16 QKV, bf16 c_fc], the text
-    block's ``block_grad.block_occupancy``)."""
+    block's ``block_grad.block_occupancy``); rows 15-16's variant core per
+    variant and their stage epilogues."""
     from aiic_tpu_torch.ops import attention, block_grad, quant
     from aiic_tpu_torch.probes import mxu_probe
 
@@ -1051,6 +1061,25 @@ def mma_core_resources(build_log: str) -> dict:
                "rank_cot_kernel": {"kernelI13__nv_bfloat16S2_S2_": "rank_cot_bf16",
                                    "kernelI13__nv_bfloat16fS2_": "rank_cot_bf16_a_f32",
                                    "kernelIfff": "rank_cot_f32"}}
+    # Rows 15-16's form 0: the variants' own stage epilogues (matched before
+    # the serving ones whose names they extend) and the variant core per
+    # flags, output type and schedule.
+    kernels["wgmma_stage_kernel"] = {
+        "EpiQKVTile": "variant_stage_qkv_tile", "EpiClip8": "variant_stage_clip8",
+        "EpiAddRaw": "variant_stage_add_raw", "EpiResidualStatic": "variant_stage_residual_static",
+        "EpiMlp1": "variant_stage_mlp1", "EpiGeluILNS0_4GeluE0": "variant_stage_c_fc_nogelu",
+        "EpiGeluILNS0_4GeluE1": "variant_stage_c_fc_sigmoid",
+        "EpiGeluILNS0_4GeluE3": "variant_stage_c_fc_bf16", **kernels["wgmma_stage_kernel"]}
+    kernels["var_core_mma_kernel"] = {
+        "CoreFlagsI" + "".join(f"Lb{b}E" for b in flags) + "EE" + out + f"LNS0_5SchedE{sched}":
+        "var_core_" + tag
+        for tag, flags, out, sched in (
+            ("nomax", "000100", "f", 0), ("v1", "011100", "f", 0), ("v2", "110100", "f", 0),
+            ("v3", "111100", "f", 0), ("v4", "010100", "f", 0), ("nosm", "101000", "f", 0),
+            ("qobf16", "111100", "13__nv_bfloat16", 0), ("gbatch", "111100", "13__nv_bfloat16", 1),
+            ("hstack", "111100", "13__nv_bfloat16", 2), ("hg", "111100", "13__nv_bfloat16", 3),
+            ("coreqk", "101110", "13__nv_bfloat16", 0), ("corepv", "101101", "13__nv_bfloat16", 0),
+            ("coreboth", "101111", "13__nv_bfloat16", 0))}
     res, lines = {}, build_log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" not in line:
@@ -1331,6 +1360,12 @@ STAGE_LAUNCHES = {"int8_ln_qkv_attention": 2, "int8_ln_mlp": 2, "int8_ln_mlp_chu
 BF16_STAGE_LAUNCHES = {"fused_ln_qkv_attention": 2, "fused_ln_mlp": 2,
                        "text_block_fwd": 4, "text_block_bwd": 7,
                        "text_block_fwd_int8": 4, "text_block_bwd_int8": 7}
+# The kernel-experiment variants' form 0 likewise: each of the 25 runs two
+# products on the stage (QKV or c_fc, then the out-projection or c_proj).
+VARIANT_STAGE_LAUNCHES = 2
+BF16_STAGE_LAUNCHES.update({w: VARIANT_STAGE_LAUNCHES for w in (
+    "int8_attn_nomax", "mlp_var", "attn_var2", "mlp_var3", "attn_var4", "attn_var5",
+    "attn_var7")})
 
 
 def _one_launch(name: str, fn):
@@ -3542,11 +3577,10 @@ def _variant_agreement(out, ref) -> dict:
     return a
 
 
-def _variant_check(wrapper: str, v: str, x, lp, out, ref) -> dict:
-    """The bars of rows 15-16: the bf16 bar, maconly exact, the 16d
-    schedules bit for bit row 1's WMMA form (the same arithmetic without the
-    1e-38 guard; row 1 itself now runs the wgmma stage and the tensor-core
-    core)."""
+def _variant_check(wrapper: str, v: str, x, lp, out, ref, form: str = "wgmma") -> dict:
+    """The bars of rows 15-16: the bf16 bar, maconly exact; form 0's 16d
+    schedules bit for bit row 1's form 0 (the same stage and core arithmetic
+    without the 1e-38 guard) and its gelu2 bit for bit row 2's form 0."""
     import torch
 
     from aiic_tpu_torch.ops import quant
@@ -3555,34 +3589,51 @@ def _variant_check(wrapper: str, v: str, x, lp, out, ref) -> dict:
     if v == "maconly":
         a["bit_identical"] = bool(torch.equal(out, ref))
         a["ok"] = a["ok"] and a["bit_identical"]
-    if wrapper == "attn_var5":
+    if wrapper == "attn_var5" and form == "wgmma":
         row1 = quant._int8_ln_qkv_attention_cuda(
             x, lp["ln1_s"], lp["ln1_b"], lp["wqkv_q"], lp["sqkv"], lp["bqkv"],
-            lp["wo"], lp["bo"], None, lp["heads"], 1e-5, "wmma")
+            lp["wo"], lp["bo"], None, lp["heads"], 1e-5, "wgmma")
         a["bit_identical_to_row1"] = bool(torch.equal(out, row1))
         a["ok"] = a["ok"] and a["bit_identical_to_row1"]
+    if v == "gelu2" and form == "wgmma":
+        row2 = quant._int8_ln_mlp_cuda(x, lp["ln2_s"], lp["ln2_b"], lp["w1_q"], lp["s1"],
+                                       lp["b1"], lp["w2_q"], lp["s2"], lp["b2"], 1e-5)
+        a["bit_identical_to_row2"] = bool(torch.equal(out, row2))
+        a["ok"] = a["ok"] and a["bit_identical_to_row2"]
     return a
 
 
-def _hold_variant(results: list, wrapper: str, v: str, x, lp, out, ref) -> dict:
-    a = _variant_check(wrapper, v, x, lp, out, ref)
+_VARIANT_BITS = ("bit_identical", "bit_identical_to_row1", "bit_identical_to_row2")
+
+
+def _hold_variant(results: list, wrapper: str, v: str, x, lp, out, ref,
+                  form: str = "wgmma") -> dict:
+    a = _variant_check(wrapper, v, x, lp, out, ref, form)
     bsz = x.shape[0]
-    a.update(kernel=wrapper, variant=v, case=f"ViT-B/16 B={bsz}")
+    a.update(kernel=wrapper, variant=v, form=form, case=f"ViT-B/16 B={bsz}")
     results.append(a)
-    log(f"[kernels] {wrapper:16s} {v:9s} B={bsz:<4d} max_abs_err={a['max_abs_err']:.6g} "
+    log(f"[kernels] {wrapper:16s} {v:9s} {form:5s} B={bsz:<4d} max_abs_err={a['max_abs_err']:.6g} "
         f"within_2ulp={a['within_2ulp']:.6f} min_row_cos={a['min_row_cos']:.8f}"
-        + "".join(f" {k}={a[k]}" for k in ("bit_identical", "bit_identical_to_row1") if k in a))
+        + "".join(f" {k}={a[k]}" for k in _VARIANT_BITS if k in a))
     if not a["ok"]:
-        raise AssertionError(f"{wrapper}[{v}] disagrees with its plain version at B={bsz}: {a}")
+        raise AssertionError(f"{wrapper}[{v}] ({form}) disagrees with its plain version at "
+                             f"B={bsz}: {a}")
     return a
+
+
+def _variant_kernel(wrapper: str):
+    from aiic_tpu_torch.probes import variants
+
+    return variants._mlp_cuda if wrapper.startswith("mlp") else variants._attn_cuda
 
 
 def phase_variant_kernels(device, built) -> dict:
-    """Phase 3 for rows 15-16: every variant of each wrapper against its
-    plain version at the ViT-B/16 shapes, B = 2 and 64 (and 1 for the two
-    kernel_experiments.py functions; and 1024, experiment 7's batch, for the
-    three int8-core variants), x with an all-zero row; counts at 0 before
-    and one launch after each call (``_variant_check``'s bars)."""
+    """Phase 3 for rows 15-16: every variant of each wrapper (form 0, the
+    route) against its plain version at the ViT-B/16 shapes, B = 2 and 64
+    (and 1 for the two kernel_experiments.py functions; and 1024, experiment
+    7's batch, for the three int8-core variants), x with an all-zero row;
+    counts at 0 before and one launch after each call (``_variant_check``'s
+    bars); form 1 (the WMMA design, uncounted) beside at the smallest batch."""
     import torch
 
     from aiic_tpu_torch.probes import variants
@@ -3601,6 +3652,9 @@ def phase_variant_kernels(device, built) -> dict:
                 ref = variants.PLAIN[wrapper](x, lp, v)
                 a = _hold_variant(results, wrapper, v, x, lp, out, ref)
                 worst[wrapper] = max(worst.get(wrapper, 0.0), a["max_abs_err"])
+                if bsz == batches[0]:
+                    out = _variant_kernel(wrapper)(wrapper, x, lp, v, form="wmma")
+                    _hold_variant(results, wrapper, v, x, lp, out, ref, "wmma")
                 del out, ref
             del x
             torch.cuda.empty_cache()
@@ -3608,13 +3662,34 @@ def phase_variant_kernels(device, built) -> dict:
     return worst
 
 
+# Device ms by stage of the variants' two forms; form 0 must launch the
+# stage (and the variant core where the variant has a core) and none of the
+# first design's kernels (common.cuh's WMMA gemm_kernel and scalar cores).
+VARIANT_STAGE_NEEDLES = {"row_pass": "rowquant", "ln_pass": "ln_rows_kernel",
+                         "fill": "fill_int8_kernel", "wgmma_stage": "wgmma_stage_kernel",
+                         "var_core_mma": "var_core_mma_kernel", "wmma_gemm": "gemm_kernel<",
+                         "var_core_scalar": "var_core_kernel<",
+                         "core_scalar": "attn_core_kernel<"}
+
+
+def _variant_form0_launches(name: str, has_core: bool, d: dict) -> None:
+    first = [k for k in ("wmma_gemm", "var_core_scalar", "core_scalar") if d[k] is not None]
+    if first or d["wgmma_stage"] is None or (d["var_core_mma"] is None) == has_core:
+        raise AssertionError(f"{name} form 0 launched {d}: it must run the stage "
+                             f"{'and the variant core ' if has_core else ''}and none of {first}")
+
+
 def phase_variant_timing(device, card: str, built, worst: dict) -> dict:
-    """Phase 9 for rows 15-16: one launch of each variant at B=256 beside its
-    plain version (plain, kernel, kernel, plain), with its bound from the
-    tensors the variant reads and its products' operations; then the timed
-    launch's output held against the plain version (``_variant_check``'s
-    bars, one launch counted). The kernels line carries each wrapper's first
-    variant; the report has them all. Launch counts are put back."""
+    """Phase 9 for rows 15-16: one launch of each variant's form 0 at B=256
+    beside its plain version (plain, kernel, kernel, plain), with its bound
+    from the tensors the variant reads and its products' operations; form 0
+    again and right after it form 1 (the WMMA design) on the same inputs;
+    both forms' device ms by stage (``torch.profiler``, traces checked whole:
+    form 0 launches the stage and the variant core, no WMMA GEMM or scalar
+    core); then the timed launch's output held against the plain version
+    (``_variant_check``'s bars, one launch counted) and form 1's too. The
+    kernels line carries each wrapper's first variant; the report has them
+    all. Launch counts are put back."""
     import torch
 
     from aiic_tpu_torch.ops import _build
@@ -3627,17 +3702,35 @@ def phase_variant_timing(device, card: str, built, worst: dict) -> dict:
     for wrapper, names in variants.WRAPPER_VARIANTS.items():
         for v in names:
             fn, plain = variants.WRAPPERS[wrapper], variants.PLAIN[wrapper]
+            wmma = lambda: _variant_kernel(wrapper)(wrapper, x, lp, v, form="wmma")  # noqa: E731
             ops = variants.ops(wrapper, v, 256, 197, 768, 3072)
             inputs = [x] + [lp[k] for k in variants.reads(wrapper, v)]
             t: dict = {}
             _kernel_times({wrapper: (lambda: fn(x, lp, v), lambda: plain(x, lp, v), inputs, ops)},
                           t, f"[{v}] B=256 S=197 W=768", card)
+            t = t[wrapper]
+            t["ms_beside_wmma"] = min(_time_ms(lambda: fn(x, lp, v), 10) for _ in range(2))
+            t["wmma_ms"] = min(_time_ms(wmma, 10) for _ in range(2))
+            t["device_ms_by_stage"] = _device_ms_by_kernel(lambda: fn(x, lp, v),
+                                                           VARIANT_STAGE_NEEDLES)
+            t["wmma_device_ms_by_stage"] = _device_ms_by_kernel(wmma, VARIANT_STAGE_NEEDLES)
+            spec = (variants.MLP_VARIANTS if wrapper.startswith("mlp")
+                    else variants.ATTN_VARIANTS)[v]
+            _variant_form0_launches(f"{wrapper}[{v}]", getattr(spec, "core", None) is not None,
+                                    t["device_ms_by_stage"])
+            log(f"[timing] {wrapper}[{v}] form 0 {t['ms']:.3f} ms ({t['ms_beside_wmma']:.3f} "
+                f"right before form 1), form 1 (WMMA) {t['wmma_ms']:.3f} ms, plain "
+                f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms; device ms by stage "
+                f"{t['device_ms_by_stage']}, form 1 {t['wmma_device_ms_by_stage']} ({card})")
+            ref = plain(x, lp, v)
             out = _one_launch(wrapper, lambda: fn(x, lp, v))
-            a = _hold_variant(checks, wrapper, v, x, lp, out, plain(x, lp, v))
-            per_variant[f"{wrapper}[{v}]"] = dict(t[wrapper], max_abs_err=a["max_abs_err"])
-            worst[wrapper] = max(worst[wrapper], a["max_abs_err"])
-            times.setdefault(wrapper, dict(t[wrapper], variant=v))
+            a = _hold_variant(checks, wrapper, v, x, lp, out, ref)
             del out
+            _hold_variant(checks, wrapper, v, x, lp, wmma(), ref, "wmma")
+            per_variant[f"{wrapper}[{v}]"] = dict(t, max_abs_err=a["max_abs_err"])
+            worst[wrapper] = max(worst[wrapper], a["max_abs_err"])
+            times.setdefault(wrapper, dict(t, variant=v))
+            del ref
             torch.cuda.empty_cache()
     for fn in _build._COUNTED.values():
         fn.launches = saved[fn.__name__]
@@ -3697,6 +3790,8 @@ def phase_experiments(device, built) -> dict:
         for v in e["real"]:
             if not np.isfinite(res[v].get("cosine", np.nan)):
                 raise AssertionError(f"experiment {exp} [{v}]: no finite cosine against prod")
+        log(f"[path experiments] experiment {exp}: prod - variant, ms a 12-layer stack at "
+            f"B={e['batch']} (rows 1-2's time by pass): {res['attribution']}")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got = launch_counts()
@@ -3845,6 +3940,12 @@ def main() -> int:
                                                          "stage_yardstick_ms")})
         elif k["name"] in ("text_block_fwd_int8", "text_block_bwd_int8"):
             k.update({f: times[k["name"]][f] for f in form_keys})
+    # Rows 15-16's entries are each wrapper's first variant in form 0; form 1
+    # (the first design) beside, every variant in the report.
+    for k in kernels:
+        if "variant" in k:
+            k["wmma"] = {"source": k["source"].replace("_wgmma", ""),
+                         "ms": times[k["name"]]["wmma_ms"]}
     # Row 17's entries are the wgmma form; the WMMA form it replaced beside.
     for k in kernels:
         if k["name"].startswith("mxu_"):

@@ -35,9 +35,11 @@ which kernels each route launches is read from the profiler's trace. The
 probe's int8 body is exact in both its forms (wgmma, the route, and WMMA),
 its bf16 and quantized bodies take the bf16 bar (fp32 sums in another order
 before one bf16 rounding). The kernel-experiment variants (rows 15-16)
-take the bf16 bar, rows that are zero in the plain version equal; maconly
-is exact (integer products and one fp32 add), and the three schedules of
-kernel_experiments5.py give row 1's WMMA form's output bit for bit.
+take the bf16 bar in both forms (form 0, the stage and the tensor-core
+variant core, at B = 2 and 64; form 1, the WMMA design, at B = 2), rows that
+are zero in the plain version equal; maconly is exact (integer products and
+one fp32 add), the three schedules of kernel_experiments5.py give row 1's
+form 0 output bit for bit and gelu2 row 2's.
 Rows 1 and 2 run their products on the wgmma GEMM stage and row 1's core on
 the tensor-core core: their int8 products are exact in int32 and their
 epilogues are the WMMA form's, so row 2 and row 1's QKV stage equal the
@@ -1118,18 +1120,14 @@ def variant_layer():
 VARIANT_CASES = [(w, v) for w, vs in variants.WRAPPER_VARIANTS.items() for v in vs]
 
 
-@pytest.mark.parametrize("wrapper,variant", VARIANT_CASES, ids=[f"{w}-{v}" for w, v in VARIANT_CASES])
-def test_variant_kernels_match_plain(device, variant_layer, wrapper, variant):
-    gen = torch.Generator(device=device).manual_seed(3)
-    x = torch.randn((2, 197, 768), generator=gen, device=device)
+def _variant_x(device, bsz, seed=3):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((bsz, 197, 768), generator=gen, device=device)
     x[0, 0] = 0.0
-    x = x.to(torch.bfloat16)
-    fn = variants.WRAPPERS[wrapper]
-    before = fn.launches
-    out = fn(x, variant_layer, variant)
-    torch.cuda.synchronize()
-    assert fn.launches == before + 1
-    ref = variants.PLAIN[wrapper](x, variant_layer, variant)
+    return x.to(torch.bfloat16)
+
+
+def _variant_agree(out, ref, variant):
     if variant == "maconly":
         assert torch.equal(out, ref)
         return
@@ -1137,12 +1135,43 @@ def test_variant_kernels_match_plain(device, variant_layer, wrapper, variant):
     zero = ~r.bool().any(dim=-1)
     assert torch.equal(o[zero], r[zero])
     _agree(o[~zero], r[~zero])
-    if wrapper == "attn_var5":  # the schedules share the arithmetic of row 1's WMMA form
-        lp = variant_layer
+
+
+@pytest.mark.parametrize("bsz", [2, 64])
+@pytest.mark.parametrize("wrapper,variant", VARIANT_CASES, ids=[f"{w}-{v}" for w, v in VARIANT_CASES])
+def test_variant_kernels_match_plain(device, variant_layer, wrapper, variant, bsz):
+    """Form 0 (the stage and the tensor-core variant core), one counted
+    launch, against the plain version; the 16d schedules bit for bit row 1's
+    form 0 and gelu2 row 2's."""
+    x = _variant_x(device, bsz)
+    fn = variants.WRAPPERS[wrapper]
+    before = fn.launches
+    out = fn(x, variant_layer, variant)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _variant_agree(out, variants.PLAIN[wrapper](x, variant_layer, variant), variant)
+    lp = variant_layer
+    if wrapper == "attn_var5":  # row 1's arithmetic without its 1e-38 guard
         row1 = quant._int8_ln_qkv_attention_cuda(x, lp["ln1_s"], lp["ln1_b"], lp["wqkv_q"],
                                                  lp["sqkv"], lp["bqkv"], lp["wo"], lp["bo"], None,
-                                                 lp["heads"], 1e-5, "wmma")
+                                                 lp["heads"], 1e-5, "wgmma")
         assert torch.equal(out, row1)
+    if variant == "gelu2":  # row 2's sequence
+        row2 = quant._int8_ln_mlp_cuda(x, lp["ln2_s"], lp["ln2_b"], lp["w1_q"], lp["s1"],
+                                       lp["b1"], lp["w2_q"], lp["s2"], lp["b2"], 1e-5)
+        assert torch.equal(out, row2)
+
+
+@pytest.mark.parametrize("wrapper,variant", VARIANT_CASES, ids=[f"{w}-{v}" for w, v in VARIANT_CASES])
+def test_variant_wmma_form_matches_plain(device, variant_layer, wrapper, variant):
+    """Form 1 (the first design, uncounted) still holds the plain version."""
+    x = _variant_x(device, 2)
+    kernel = variants._mlp_cuda if wrapper.startswith("mlp") else variants._attn_cuda
+    before = variants.WRAPPERS[wrapper].launches
+    out = kernel(wrapper, x, variant_layer, variant, form="wmma")
+    torch.cuda.synchronize()
+    assert variants.WRAPPERS[wrapper].launches == before
+    _variant_agree(out, variants.PLAIN[wrapper](x, variant_layer, variant), variant)
 
 
 def test_variant_kernels_refuse_what_they_do_not_take(device, variant_layer):

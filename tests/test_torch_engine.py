@@ -30,6 +30,7 @@ with every bf16 rounding kept, the two engines agree to ~1e-6.
 import dataclasses
 import functools
 import inspect
+import json
 import warnings
 
 import jax
@@ -312,7 +313,8 @@ def test_analyzer_shared_defaults_equal_jax():
     ours = inspect.signature(InteriorAnalyzer.__init__).parameters
     ref = inspect.signature(JaxAnalyzer.__init__).parameters
     shared = (set(ours) & set(ref)) - {"self"}
-    assert {"dtype", "quantize", "wire_format", "attn_impl", "max_batch", "seed"} <= shared
+    assert {"dtype", "quantize", "wire_format", "attn_impl", "max_batch", "seed",
+            "dataset_json"} <= shared
     for name in sorted(shared):
         assert _default_name(ours[name].default) == _default_name(ref[name].default), name
     assert "device" in ours and "device" not in ref  # the port's own option
@@ -337,3 +339,41 @@ def test_default_engines_match_jax():
     for k in ("top_conf", "interior_mass", "non_interior_mass"):
         np.testing.assert_allclose(got[k], want[k], atol=1e-4)
     _topk_close(got["topk_vals"], got["topk_idx"], want["topk_vals"], want["topk_idx"], 1e-4)
+
+
+def test_dataset_json_vocabulary_matches_jax(tmp_path):
+    """With no ``training_data``, both engines build their vocabulary from
+    ``dataset_json`` (``{"training_data": [...]}``) and give the same
+    categories and results."""
+    path = tmp_path / "dataset.json"
+    path.write_text(json.dumps({"training_data": TRAINING}, ensure_ascii=False),
+                    encoding="utf-8")
+    jp = init_clip_params(jax.random.PRNGKey(3), JAX_TINY)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = JaxAnalyzer(jp, JAX_TINY, dataset_json=str(path), max_batch=4)
+    ours = InteriorAnalyzer(params_from_numpy(flatten_params(jp)), TINY_TEST,
+                            dataset_json=str(path), max_batch=4, device="cpu")
+    assert ours.category_names == ref.category_names
+    assert ours.category_names == ["styles", "characteristics", "materials", "colors",
+                                   "room_types"]
+    assert ours.training_data == ref.training_data == TRAINING
+    px = _pixels(3, seed=5)
+    got, want = ours.classify_pixels(px), {k: np.asarray(v) for k, v in ref.classify_pixels(px).items()}
+    assert set(got) == set(want)
+    assert ((got["features"] * want["features"]).sum(-1)).min() >= 0.99999
+    for k in ("top_conf", "interior_mass", "non_interior_mass"):
+        np.testing.assert_allclose(got[k], want[k], atol=1e-4)
+    _topk_close(got["topk_vals"], got["topk_idx"], want["topk_vals"], want["topk_idx"], 1e-4)
+
+
+def test_dataset_json_missing_gives_empty_vocabulary(tmp_path):
+    missing = str(tmp_path / "absent.json")
+    jp = init_clip_params(jax.random.PRNGKey(3), JAX_TINY)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = JaxAnalyzer(jp, JAX_TINY, dataset_json=missing, max_batch=4)
+    ours = InteriorAnalyzer(params_from_numpy(flatten_params(jp)), TINY_TEST,
+                            dataset_json=missing, max_batch=4, device="cpu")
+    assert ours.training_data == ref.training_data == []
+    assert ours.category_names == ref.category_names == []

@@ -221,3 +221,29 @@ def test_runner_raises_without_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         kernel_experiments.run_experiment(2, iters=1, inner=1)
+
+
+def test_layer_params_carry_the_kmajor_copies(layers):
+    """Form 0's int8 products read w^T of each int8 weight: ``layer_params``
+    carries them, made once by ``quant.kmajor`` as for the serving tree."""
+    _, tl = layers
+    for lp in tl:
+        for kt, key in (("wqkv_t", "wqkv_q"), ("wo_t", "wo_q"), ("w1_t", "w1_q"),
+                        ("w2_t", "w2_q")):
+            assert lp[kt] is quant.kmajor(lp[key])
+            assert lp[kt].dtype == torch.int8 and lp[kt].is_contiguous()
+            assert torch.equal(lp[kt], lp[key].t())
+
+
+@pytest.mark.parametrize("wrapper", list(variants.WRAPPER_VARIANTS))
+def test_kernel_wrappers_refuse_an_unknown_form(layers, wrapper):
+    """The card's wrappers take "wgmma" (form 0) or "wmma" (form 1) and raise
+    on any other form before the library is built or anything launched."""
+    _, tl = layers
+    xt, _ = _x(2)
+    kernel = variants._mlp_cuda if wrapper.startswith("mlp") else variants._attn_cuda
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="no 'mma' form"):
+        kernel(wrapper, xt, tl[0], variants.WRAPPER_VARIANTS[wrapper][0], form="mma")
+    assert _build._LIB is None
+    assert not any(_build.launch_counts().values())
