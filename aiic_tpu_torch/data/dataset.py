@@ -72,3 +72,15 @@ def build_training_prompts(item: Dict[str, Any]) -> List[str]:
         for char in item["characteristics"][:2]:
             prompts.append(f"{char} {item['style']} wnętrze")
     return prompts
+
+
+# Worker-side style vocabulary and template
+# (reference python-worker/main_API.py:150-153, 159).
+WORKER_STYLES = [
+    "nowoczesny", "klasyczny", "skandynawski", "industrialny", "rustykalny",
+    "glamour", "minimalistyczny", "retro", "boho", "farmhouse",
+]
+
+
+def build_worker_style_prompts(styles: Sequence[str] = WORKER_STYLES) -> List[str]:
+    return [f"wnętrze w stylu {style}" for style in styles]

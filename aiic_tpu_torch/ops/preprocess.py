@@ -4,6 +4,10 @@ The serving wire is patch-major uint8 (B, N, 3·p·p): normalization folds
 into the embed weight (``patch_norm_constants``), and under int8 serving the
 folded weight itself is quantized (``quantize_patch_embed``), so the embed
 is one integer product straight from the uint8 patches.
+
+The device-resize path (``make_resize_mats``, ``device_preprocess_fixed``)
+runs PIL's separable bicubic as two fp32 products on the device, with PIL's
+round-half-up clip to uint8 levels after each pass, then crop and normalize.
 """
 
 from __future__ import annotations
@@ -14,7 +18,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from aiic_tpu_torch.data.preprocess import CLIP_MEAN, CLIP_STD
+from aiic_tpu_torch.data.preprocess import (
+    CLIP_MEAN, CLIP_STD, center_crop_bounds, resize_matrix, resize_target,
+)
 
 
 def normalize_u8(pixels_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -70,3 +76,35 @@ def to_patch_major(pixels_u8: np.ndarray, patch: int) -> np.ndarray:
     x = pixels_u8.reshape(b, gh, patch, gw, patch, c)
     x = x.transpose(0, 1, 3, 5, 2, 4)
     return np.ascontiguousarray(x.reshape(b, gh * gw, c * patch * patch))
+
+
+@functools.lru_cache(maxsize=64)
+def make_resize_mats(in_h: int, in_w: int, size: int = 224) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """(Ky, Kx, top, left) for resize-shorter-side + center-crop of a fixed
+    input geometry. Ky: (new_h, in_h), Kx: (new_w, in_w)."""
+    new_w, new_h = resize_target(in_w, in_h, size)
+    ky = resize_matrix(in_h, new_h)
+    kx = resize_matrix(in_w, new_w)
+    top, left = center_crop_bounds(new_w, new_h, size)
+    return ky, kx, max(top, 0), max(left, 0)
+
+
+def device_preprocess_fixed(pixels_u8: torch.Tensor, ky: torch.Tensor, kx: torch.Tensor,
+                            top: int, left: int, size: int = 224,
+                            dtype=torch.float32) -> torch.Tensor:
+    """uint8 (B, H, W, 3) of one fixed geometry -> normalized (B, size, size, 3)
+    in ``dtype``: the horizontal pass, then the vertical one, each summed in
+    fp32 (TF32 off) and clipped to ``floor(x + 0.5)`` in [0, 255] as PIL
+    rounds between passes, then crop and normalize."""
+    from aiic_tpu_torch.ops.attention import no_tf32
+
+    no_tf32()
+    x = pixels_u8.float()
+    x = torch.einsum("bhwc,ow->bhoc", x, kx.float())  # horizontal: contract W
+    x = torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
+    x = torch.einsum("bhwc,oh->bowc", x, ky.float())  # vertical: contract H
+    x = torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
+    x = x[:, top:top + size, left:left + size]
+    mean = torch.as_tensor(CLIP_MEAN * 255.0, device=x.device)
+    inv = torch.as_tensor(1.0 / (CLIP_STD * 255.0), device=x.device)
+    return ((x - mean) * inv).to(dtype)

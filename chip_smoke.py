@@ -181,7 +181,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
    to 0 before and checked exactly after (12 launches a 12-layer stack, 11
    of rows 1 and 2 a classify call), each REAL candidate's cosine against
    prod finite; each variant's stack time against prod's (``prod -
-   ablation``: rows 1-2's time by pass, both on one design).
+   ablation``: rows 1-2's time by pass, both on one design);
+13. the serving surface: the worker's REST app built as ``python -m
+   aiic_tpu_torch.cli.worker --serve`` builds it (its parser, ``EngineArgs.
+   build_analyzer``, ``build_serving_app`` on a free port) at full ViT-B/16
+   width and depth from one seeded init (made on the CPU, loaded through
+   ``--weights``), in the worker's default
+   configuration (bf16, HWC wire, max batch 64, pipeline depth 2: row 5)
+   and with ``--dtype bfloat16 --quantize --wire-format patch`` (rows 1, 2
+   and 4), each with every count set to 0 before the engine is built and
+   the launches checked exactly at build (the text tower), after the warmup
+   of buckets 1-64, after 20 sequential single-image ``POST /analyze``,
+   after one ``POST /analyze-batch`` of 64 images and after a burst of 64
+   single-image requests from 16 client threads (per batch the batcher
+   reports in /metrics' batch-size histogram); every answer held against
+   the same engine's ``classify_pixels`` on the same decoded pixels, 4
+   images against the CPU plain path as in phase 5, an undecodable image's
+   error answer, ``GET /health``, ``/ready``, ``/metrics`` (the stage
+   timings) and ``/dead-letters``; single-image p50/p90 and requests/s,
+   burst and batch images/s with their batch sizes, the decoder that
+   served; then ``process_apartments_pipeline`` on an ``InMemoryDB`` of two
+   apartments of 4 local images and one unreadable path on the bf16 engine
+   (exact launches, statuses, the failed attempt, the export); then ``python
+   -m aiic_tpu_torch.cli.worker --serve`` as a process with default flags,
+   ready within a bound, one ``POST /analyze`` and ``GET /metrics``, exit
+   code 0 on SIGTERM.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -3806,6 +3830,481 @@ def phase_experiments(device, built) -> dict:
     return {name: n for name, n in got.items() if n}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the serving surface (the worker's REST app, the apartment drain,
+# the worker CLI as a process) on rows 5 and 1-2
+# ---------------------------------------------------------------------------
+
+# The two worker configurations served: label, configuration of CONFIGS (its
+# kernels), the worker CLI's flags beyond its defaults.
+REST_CONFIGS = (("bf16", "bf16", []),
+                ("int8", "int8", ["--dtype", "bfloat16", "--quantize", "--wire-format", "patch"]))
+# A REST answer against the same engine's classify_pixels on the same pixels
+# (another batch, so another cuBLAS product order for the bf16 MLP):
+# confidences and attribute scores within REST_TOL; verdicts, categories and
+# top-5 names equal wherever the engine's own values are not within REST_TOL
+# of a tie.
+REST_TOL = 2e-2
+REST_SINGLES = 20
+
+
+def _rest_images(rng, n: int) -> list:
+    """n synthetic JPEGs and PNGs of assorted sizes (every third a PNG): in
+    turn a flat colour, a two-colour gradient, a checkerboard and noise, so
+    that the seeded weights judge some interior and the answers carry their
+    attribute top-5 too."""
+    import io
+
+    from PIL import Image
+
+    out = []
+    for i in range(n):
+        h, w = int(rng.integers(160, 480)), int(rng.integers(160, 480))
+        yy, xx = np.mgrid[0:h, 0:w]
+        a, b = rng.integers(0, 256, 3), rng.integers(0, 256, 3)
+        if i % 4 == 0:
+            img = np.broadcast_to(a, (h, w, 3))
+        elif i % 4 == 1:
+            t = ((xx / w) if rng.random() < 0.5 else (yy / h))[..., None]
+            img = a * (1 - t) + b * t
+        elif i % 4 == 2:
+            m = ((xx * int(rng.integers(2, 12)) // w + yy * int(rng.integers(2, 12)) // h) % 2)
+            img = np.where(m[..., None] == 1, a, b)
+        else:
+            img = rng.integers(0, 256, (h, w, 3))
+        buf = io.BytesIO()
+        pixels = np.asarray(img, dtype=np.float64).clip(0, 255).astype(np.uint8)
+        Image.fromarray(pixels).save(buf, format="PNG" if i % 3 == 2 else "JPEG")
+        out.append(buf.getvalue())
+    return out
+
+
+def _http(port: int, method: str, path: str, body: bytes = None):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode())
+
+
+def _rest_disagreement(got: dict, res: dict, row: int, engine) -> list:
+    """Where a REST answer departs from the engine's classify results for the
+    same pixels beyond REST_TOL (ties within REST_TOL excepted)."""
+    bad = []
+    margin = min(abs(float(res["interior_mass"][row] - res["non_interior_mass"][row])),
+                 abs(float(res["top_conf"][row]) - 0.3))
+    want = engine._result(res, row, True, 0.3)
+    if abs(got["interior_confidence"] - want["interior_confidence"]) > REST_TOL:
+        bad.append(("interior_confidence", got["interior_confidence"],
+                    want["interior_confidence"]))
+    if margin > REST_TOL and got["is_interior"] != want["is_interior"]:
+        bad.append(("is_interior", got["is_interior"], want["is_interior"]))
+    if not (got["is_interior"] and want["is_interior"]):
+        if margin > REST_TOL and got["detected_category"] != want["detected_category"] \
+                and float(res["top_conf"][row]) > 0.5 + REST_TOL:
+            bad.append(("detected_category", got["detected_category"], want["detected_category"]))
+        return bad
+    for cat, top in want["analysis"].items():
+        vals = [v for _, v in top]
+        gvals = [v for _, v in got["analysis"].get(cat, [])]
+        if len(gvals) != len(vals) or np.abs(np.subtract(gvals, vals)).max() > REST_TOL:
+            bad.append((cat, got["analysis"].get(cat), top))
+            continue
+        for k, (name, v) in enumerate(top):
+            apart = all(abs(v - u) > REST_TOL for j, u in enumerate(vals) if j != k)
+            if apart and got["analysis"][cat][k][0] != name:
+                bad.append((cat, got["analysis"][cat], top))
+                break
+    return bad
+
+
+def _hold_rest(label: str, answers: list, blobs: list, engine, wire_patch: int) -> dict:
+    """Each answer against the engine's classify_pixels on the pixels the
+    app decodes from its blob (one call for all of them)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from aiic_tpu_torch.data.native_loader import preprocess_any_batch
+
+    # one blob a task, as the app decodes them (the Python fallback's numpy
+    # resize runs outside the interpreter lock, so the pool overlaps them)
+    with ThreadPoolExecutor(8) as pool:
+        decoded = list(pool.map(lambda b: preprocess_any_batch(
+            [b], engine.config.image_size, patch=wire_patch), blobs))
+    px = np.concatenate([d[0] for d in decoded])
+    ok = np.concatenate([d[1] for d in decoded])
+    if not ok.all():
+        raise AssertionError(f"[rest {label}] a synthetic image did not decode")
+    res = engine.classify_pixels(px)
+    worst, bad = 0.0, []
+    for i, got in enumerate(answers):
+        if set(got) != {"is_interior", "interior_confidence", "detected_category", "analysis",
+                        "reason"}:
+            raise AssertionError(f"[rest {label}] malformed answer {got}")
+        worst = max(worst, abs(got["interior_confidence"] - float(res["interior_mass"][i])))
+        bad += [(i, b) for b in _rest_disagreement(got, res, i, engine)]
+    if bad:
+        raise AssertionError(f"[rest {label}] answers depart from classify_pixels: {bad[:5]}")
+    return {"n": len(answers), "max_confidence_diff": worst,
+            "interior": int(sum(a["is_interior"] for a in answers))}
+
+
+def _batch_launches(opts: dict, config, sizes: dict) -> dict:
+    """Launches the classify program makes for batches of these sizes
+    ({size: count}), one chunk each (sizes up to the worker's max_batch):
+    the image tower's blocks at the batch's bucket, the CLS-row block
+    aside."""
+    from aiic_tpu_torch.utils.batching import bucket_size
+
+    v = config.vision
+    want: dict = {}
+    for size, count in sizes.items():
+        for name in _block_kernels(opts, config.vision_seq_len, v.width, v.heads,
+                                   bucket_size(size, 1 << 20)):
+            want[name] = want.get(name, 0) + (v.layers - 1) * count
+    return want
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    return {n: after[n] - before.get(n, 0) for n in after if after[n] - before.get(n, 0)}
+
+
+def _check_launches(label: str, stage: str, got: dict, want: dict) -> dict:
+    want = {n: c for n, c in want.items() if c}
+    log(f"[rest {label}] {stage}: launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"[rest {label}] {stage}: launched {got}, expected {want}")
+    return got
+
+
+def _batch_sizes(snap: dict) -> dict:
+    pre = "batches_of_size_"
+    return {int(k[len(pre):-len("_total")]): int(v) for k, v in snap.items() if k.startswith(pre)}
+
+
+def _wait_images(metrics, before: dict, n: int) -> dict:
+    """The metrics snapshot once the batcher has resolved n more images."""
+    deadline = time.monotonic() + 60
+    while True:
+        snap = metrics.snapshot()
+        if snap.get("images_total", 0) - before.get("images_total", 0) >= n:
+            return snap
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the batcher resolved {snap.get('images_total', 0)} images, "
+                                 f"expected {before.get('images_total', 0) + n}")
+        time.sleep(0.01)
+
+
+def _serve_config(label: str, conf: str, flags: list, root: str, card: str, params) -> tuple:
+    """Step 1 for one configuration: the app as ``cli.worker --serve`` builds
+    it, its launches counted stage by stage, its answers held against the
+    engine and the CPU."""
+    import base64
+    import threading
+
+    import torch
+
+    from aiic_tpu_torch.cli import worker as cli_worker
+    from aiic_tpu_torch.cli.common import EngineArgs
+    from aiic_tpu_torch.data.native_loader import native_available
+    from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+    from aiic_tpu_torch.serve.app import build_serving_app
+    from aiic_tpu_torch.serve.db import InMemoryDB
+    from aiic_tpu_torch.serve.metrics import GLOBAL_METRICS
+    from aiic_tpu_torch.utils.profiling import StageTimer
+
+    opts = CONFIGS[conf]
+    t0 = time.perf_counter()
+    decoder = "native" if native_available() else "Python fallback"  # built before any request
+    log(f"[rest {label}] image decoder: {decoder} ({time.perf_counter() - t0:.2f} s)")
+    ds = os.path.join(root, "dataset.json")
+    args = cli_worker.build_parser().parse_args(
+        ["--serve", "--port", "0", "--weights", os.path.join(root, "weights.npz"),
+         "--dataset-json", ds, "--text-cache", os.path.join(root, f"text_{label}.npz")] + flags)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = EngineArgs.from_args(args).build_analyzer(log=log)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    at_build = launch_counts()
+    path: dict = {}  # the REST path's launches, stage by stage (not the checks against it)
+    n_prompts = engine.det_text.shape[0] + int(engine.cat_mask.sum())
+    want_build, _ = _expected_launches(opts, engine.config, n_prompts, [])
+    _add(path, _check_launches(label, f"engine build ({build_s:.2f} s, {n_prompts} prompts)",
+                               {n: c for n, c in at_build.items() if c}, want_build))
+    server, batcher, warmed = build_serving_app(
+        engine, db=InMemoryDB(), confidence=args.confidence, port=args.port,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        request_timeout=args.request_timeout, max_queue=args.max_queue or None,
+        fast_decode=args.fast_decode, wire_format=args.wire_format,
+        pipeline_depth=args.pipeline_depth, max_batch_items=args.max_batch_items, log=log)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    wire_patch = engine.config.patch_size if args.wire_format == "patch" else 0
+    out: dict = {"build_s": build_s, "launches_at_build": at_build}
+    try:
+        t0 = time.perf_counter()
+        if not warmed.wait(300):
+            raise AssertionError(f"[rest {label}] warmup did not finish in 300 s")
+        out["warmup_s"] = time.perf_counter() - t0
+        before = launch_counts()
+        buckets = [b for b in (1, 2, 4, 8, 16, 32) if b < args.max_batch] + [args.max_batch]
+        _add(path, _check_launches(label, f"warmup of buckets {buckets} ({out['warmup_s']:.2f} s)",
+                                   _launch_delta(at_build, before),
+                                   _batch_launches(opts, engine.config, {b: 1 for b in buckets})))
+        status, ready = _http(port, "GET", "/ready")
+        if status != 200 or ready.get("ready") is not True:
+            raise AssertionError(f"[rest {label}] /ready answered {status} {ready}")
+        # the stage timings of /metrics from here on are this configuration's
+        # requests alone (the process-wide timer also holds every earlier
+        # phase's classify calls)
+        GLOBAL_METRICS.stages = StageTimer()
+
+        rng = np.random.default_rng(13)
+        singles = _rest_images(rng, REST_SINGLES)
+        snap0 = GLOBAL_METRICS.snapshot()
+        lat, answers = [], []
+        t_all = time.perf_counter()
+        for blob in singles:
+            t0 = time.perf_counter()
+            status, ans = _http(port, "POST", "/analyze", blob)
+            lat.append(1e3 * (time.perf_counter() - t0))
+            if status != 200:
+                raise AssertionError(f"[rest {label}] POST /analyze answered {status} {ans}")
+            answers.append(ans)
+        t_all = time.perf_counter() - t_all
+        snap1 = _wait_images(GLOBAL_METRICS, snap0, REST_SINGLES)
+        after = launch_counts()
+        _add(path, _check_launches(label, f"{REST_SINGLES} sequential POST /analyze",
+                                   _launch_delta(before, after),
+                                   _batch_launches(opts, engine.config, {1: REST_SINGLES})))
+        out["singles"] = _hold_rest(label, answers, singles, engine, wire_patch)
+        out["singles"].update(
+            p50_ms=float(np.percentile(lat, 50)), p90_ms=float(np.percentile(lat, 90)),
+            requests_per_s=REST_SINGLES / t_all)
+        status, err = _http(port, "POST", "/analyze", b"not an image")
+        if status != 200 or err != {"error": "could not decode image"}:
+            raise AssertionError(f"[rest {label}] an undecodable image got {status} {err}")
+
+        batch = _rest_images(rng, 64)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        status, body = _http(port, "POST", "/analyze-batch", json.dumps(
+            {"images_b64": [base64.b64encode(b).decode() for b in batch]}).encode())
+        batch_s = time.perf_counter() - t0
+        if status != 200 or len(body.get("results", [])) != 64:
+            raise AssertionError(f"[rest {label}] POST /analyze-batch answered {status}")
+        snap2 = _wait_images(GLOBAL_METRICS, snap1, 64)
+        sizes = {s: c - _batch_sizes(snap1).get(s, 0) for s, c in _batch_sizes(snap2).items()}
+        sizes = {s: c for s, c in sizes.items() if c}
+        _add(path, _check_launches(label, f"POST /analyze-batch of 64 in {batch_s:.3f} s, "
+                                          f"batches {sizes}",
+                                   _launch_delta(before, launch_counts()),
+                                   _batch_launches(opts, engine.config, sizes)))
+        out["batch"] = {**_hold_rest(label, body["results"], batch, engine, wire_patch),
+                        "seconds": batch_s, "batch_sizes": sizes}
+
+        burst = _rest_images(rng, 64)
+        got: list = [None] * 64
+
+        def client(k):
+            for i in range(k, 64, 16):
+                got[i] = _http(port, "POST", "/analyze", burst[i])
+
+        before = launch_counts()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(16)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        burst_s = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or any(g is None or g[0] != 200 for g in got):
+            raise AssertionError(f"[rest {label}] the burst did not complete: "
+                                 f"{[g[0] if g else None for g in got]}")
+        snap3 = _wait_images(GLOBAL_METRICS, snap2, 64)
+        status, m = _http(port, "GET", "/metrics")
+        sizes = {s: c - _batch_sizes(snap2).get(s, 0) for s, c in _batch_sizes(m).items()}
+        sizes = {s: c for s, c in sizes.items() if c}
+        if m["images_total"] != snap3["images_total"]:
+            raise AssertionError(f"[rest {label}] /metrics and the batcher disagree")
+        _add(path, _check_launches(label, f"burst of 64 from 16 clients in {burst_s:.3f} s, "
+                                          f"batches {sizes} (11 launches a batch)",
+                                   _launch_delta(before, launch_counts()),
+                                   _batch_launches(opts, engine.config, sizes)))
+        out["burst"] = {**_hold_rest(label, [g[1] for g in got], burst, engine, wire_patch),
+                        "seconds": burst_s, "images_per_s": 64 / burst_s, "batch_sizes": sizes}
+
+        stages = {k: v for k, v in m.items() if k.startswith("stage_") and k.endswith("_p50_ms")}
+        for name in ("dispatch", "fetch", "serve_decode"):
+            if f"stage_{name}_p50_ms" not in m:
+                raise AssertionError(f"[rest {label}] /metrics lacks the {name} stage: {sorted(m)}")
+        for route in ("/health", "/dead-letters"):
+            status, body = _http(port, "GET", route)
+            if status != 200:
+                raise AssertionError(f"[rest {label}] GET {route} answered {status}")
+        out.update(stage_p50_ms=stages, decoder=decoder, launches=path)
+        s = out["singles"]
+        log(f"[rest {label}] ({card}) single-image POST /analyze p50 {s['p50_ms']:.3f} ms, p90 "
+            f"{s['p90_ms']:.3f} ms, {s['requests_per_s']:.1f} requests/s; burst of 64 from 16 "
+            f"clients {out['burst']['images_per_s']:.1f} images/s in batches {sizes}; "
+            f"/analyze-batch of 64 {64 / batch_s:.1f} images/s in batches "
+            f"{out['batch']['batch_sizes']}; decoder {out['decoder']}; stage p50 ms {stages}; "
+            f"answers against classify_pixels: max confidence diff "
+            f"{max(out[k]['max_confidence_diff'] for k in ('singles', 'batch', 'burst')):.2e}, "
+            f"{sum(out[k]['interior'] for k in ('singles', 'batch', 'burst'))} of 148 interior "
+            f"(their top-5 held too)")
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    phase_cpu_compare(conf, engine, params, tag="_rest")
+    REPORT.setdefault("rest", {})[label] = out
+    return engine, path
+
+
+def _drain(engine, root: str) -> dict:
+    """Step 2: process_apartments_pipeline on an InMemoryDB of two apartments
+    of 4 local images each and one unreadable path."""
+    from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+    from aiic_tpu_torch.serve.db import InMemoryDB
+    from aiic_tpu_torch.serve.worker import process_apartments_pipeline
+
+    rng = np.random.default_rng(14)
+    db = InMemoryDB()
+    for a in ("apt1", "apt2"):
+        db.insert_apartment(a, title=f"{a} (synthetic)")
+    for i, blob in enumerate(_rest_images(rng, 8)):
+        path = os.path.join(root, f"drain{i}.{'png' if i % 3 == 2 else 'jpg'}")
+        with open(path, "wb") as f:
+            f.write(blob)
+        db.insert_image(f"img{i}", "apt1" if i < 4 else "apt2", path)
+    db.insert_image("img_bad", "apt1", os.path.join(root, "unreadable.jpg"))
+    export = os.path.join(root, "analysis_export.json")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = process_apartments_pipeline(db=db, analyzer=engine, batch_size=8, export_file=export,
+                                      log=log)
+    seconds = time.perf_counter() - t0
+    got = {n: c for n, c in launch_counts().items() if c}
+    _check_launches("bf16", f"apartment drain ({seconds:.2f} s)", got,
+                    _batch_launches(CONFIGS["bf16"], engine.config, {4: 2}))
+    statuses = {k: im["analysis_status"] for k, im in db.images.items()}
+    bad = db.images["img_bad"]
+    if out != export or any(s not in ("completed", "not_interior")
+                            for k, s in statuses.items() if k != "img_bad"):
+        raise AssertionError(f"[rest drain] statuses {statuses}")
+    if (bad["analysis_status"], bad.get("attempts"), bad.get("last_error")) != (
+            "pending", 1, "load failed"):
+        raise AssertionError(f"[rest drain] the unreadable image's record {bad}")
+    with open(export, encoding="utf-8") as f:
+        exported = json.load(f)
+    if sorted(r["apartment_id"] for r in exported) != ["apt1", "apt2"] or any(
+            r["total_images"] != (5 if r["apartment_id"] == "apt1" else 4) for r in exported):
+        raise AssertionError(f"[rest drain] export {exported}")
+    held = [(r["apartment_id"], r["overall_style"]["style"], r["room_distribution"])
+            for r in exported]
+    log(f"[rest drain] statuses {statuses}; the unreadable image's attempt recorded; export "
+        f"holds {held}")
+    REPORT.setdefault("rest", {})["drain"] = {"seconds": seconds, "launches": got,
+                                             "statuses": statuses}
+    return got
+
+
+def _worker_process(root: str) -> dict:
+    """Step 3: ``python -m aiic_tpu_torch.cli.worker --serve`` with the
+    default flags (step 1's weights and its bf16 text cache), ready within a
+    bound, one
+    POST /analyze and GET /metrics, then SIGTERM and exit code 0."""
+    import signal
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "aiic_tpu_torch.cli.worker", "--serve", "--port", str(port),
+           "--weights", os.path.join(root, "weights.npz"),
+           "--dataset-json", os.path.join(root, "dataset.json"),
+           "--text-cache", os.path.join(root, "text_bf16.npz")]
+    env = {**os.environ, "PYTHONPATH": HERE + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    logf = open(os.path.join(root, "worker.log"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"the worker exited with {proc.returncode} before /ready")
+            try:
+                status, _ = _http(port, "GET", "/ready")
+                if status == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise AssertionError("the worker was not ready within 300 s")
+            time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        status, ans = _http(port, "POST", "/analyze", _rest_images(np.random.default_rng(15), 1)[0])
+        if status != 200 or "is_interior" not in ans:
+            raise AssertionError(f"the worker's POST /analyze answered {status} {ans}")
+        status, m = _http(port, "GET", "/metrics")
+        if status != 200 or m.get("images_total", 0) < 1 or "stage_dispatch_p50_ms" not in m:
+            raise AssertionError(f"the worker's /metrics answered {status} {m}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        logf.close()
+    with open(os.path.join(root, "worker.log")) as f:
+        tail = f.read()[-2000:]
+    log(f"[rest worker] python -m aiic_tpu_torch.cli.worker --serve: ready in {ready_s:.1f} s, "
+        f"one POST /analyze and GET /metrics answered, exit code {rc} on SIGTERM")
+    if rc != 0:
+        raise AssertionError(f"the worker exited with {rc} on SIGTERM:\n{tail}")
+    REPORT.setdefault("rest", {})["worker_process"] = {"ready_s": ready_s, "rc": rc}
+    return {"ready_s": ready_s}
+
+
+def phase_rest(device, card: str) -> dict:
+    """Phase 13: the worker's REST app in both worker configurations, the
+    apartment drain, the worker CLI as a process. Returns the launches."""
+    import torch
+
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.models.init import init_clip_params, save_clip_weights
+
+    t0 = time.perf_counter()
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as root:
+        with open(os.path.join(root, "dataset.json"), "w", encoding="utf-8") as f:
+            json.dump({"training_data": TRAINING_DATA}, f, ensure_ascii=False)
+        # One seeded init made with the CPU's generator, so that the weights
+        # are the same on any machine, saved as the npz that --weights loads.
+        # (The card's generator with seed 0 puts every synthetic image in
+        # one non-interior category; these weights judge some of them
+        # interior, so the answers carry their top-5 too.)
+        params = init_clip_params(VIT_B_16, torch.Generator().manual_seed(0), device="cpu")
+        save_clip_weights(params, os.path.join(root, "weights.npz"))
+        engines = {}
+        for label, conf, flags in REST_CONFIGS:
+            engines[label], got = _serve_config(label, conf, flags, root, card, params)
+            _add(launches, got)
+        del engines["int8"], params
+        _add(launches, _drain(engines["bf16"], root))
+        del engines
+        torch.cuda.empty_cache()
+        _worker_process(root)
+    REPORT.setdefault("rest", {})["seconds"] = time.perf_counter() - t0
+    log(f"[rest] phase 13 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3865,6 +4364,7 @@ def main() -> int:
     _add(launches, phase_core_ops(device))
     _add(launches, phase_experiments(device, built))
     del built
+    _add(launches, phase_rest(device, card))
     REPORT["wall_s"] = time.perf_counter() - T0
     log(f"[wall] chip_smoke.py took {REPORT['wall_s']:.1f} s ({card})")
 

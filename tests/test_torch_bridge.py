@@ -438,7 +438,16 @@ def test_port_imports_no_jax():
             "import aiic_tpu_torch.ops.block_grad, aiic_tpu_torch.train.trainer\n"
             "import aiic_tpu_torch.train.checkpoint, aiic_tpu_torch.train.evaluate\n"
             "import aiic_tpu_torch.cli.train_lora, aiic_tpu_torch.adapters.torch_convert\n"
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
+            "import aiic_tpu_torch.serve.app, aiic_tpu_torch.serve.worker\n"
+            "import aiic_tpu_torch.serve.rest, aiic_tpu_torch.serve.batcher\n"
+            "import aiic_tpu_torch.serve.db, aiic_tpu_torch.serve.metrics\n"
+            "import aiic_tpu_torch.cli.worker, aiic_tpu_torch.cli.main, aiic_tpu_torch.cli.common\n"
+            "import aiic_tpu_torch.data.pipeline, aiic_tpu_torch.data.native_loader\n"
+            "import aiic_tpu_torch.data.images, aiic_tpu_torch.ops.preprocess\n"
+            "import aiic_tpu_torch.utils.profiling, aiic_tpu_torch.utils.logging\n"
+            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'aiic_tpu' or m.startswith('aiic_tpu.'))\n"
+            "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
 
 

@@ -25,6 +25,16 @@ default XLA on the CPU may keep a bf16 intermediate in fp32, while the port
 (like the Hopper kernels) rounds each bf16 result. With 100x softmax
 temperatures at the tiny test width, that alone moves confidences by ~1e-2;
 with every bf16 rounding kept, the two engines agree to ~1e-6.
+
+The serving surface (fp32 engines on the same weights; features and
+confidences within 1e-5, verdicts, categories and top-k names equal): the
+dispatch/fetch pair against ``classify_pixels`` and JAX's, ``warmup``'s
+buckets, a ``text_cache`` npz written by either package and read by the
+other, ``analyze_images_batch`` over local JPEGs, PNGs and missing paths
+(the port in several stream batches, the JAX engine in one: its stream can
+lose its end behind two or more), with the filter on and off and with
+``device_resize``, the single-image helpers, the stage timings, the
+refused mesh, and the hermetic-tokenizer warning on loaded weights.
 """
 
 import dataclasses
@@ -377,3 +387,259 @@ def test_dataset_json_missing_gives_empty_vocabulary(tmp_path):
                             dataset_json=missing, max_batch=4, device="cpu")
     assert ours.training_data == ref.training_data == []
     assert ours.category_names == ref.category_names == []
+
+
+# ---------------------------------------------------------------------------
+# The serving surface: dispatch/fetch, warmup, the text cache, file and URL
+# ingest, the single-image helpers, the stage timings. fp32 engines on the
+# same weights (attn_impl "auto" is "xla" on the CPU in both packages):
+# features and confidences within 1e-5, verdicts, categories and top-k
+# names equal.
+# ---------------------------------------------------------------------------
+
+TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def fp32_engines():
+    from aiic_tpu.serve.metrics import Metrics as JaxMetrics
+    from aiic_tpu_torch.serve.metrics import Metrics
+
+    jp = init_clip_params(jax.random.PRNGKey(0), JAX_TINY)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = JaxAnalyzer(jp, JAX_TINY, training_data=TRAINING, max_batch=4,
+                          metrics=JaxMetrics())
+        ours = InteriorAnalyzer(params_from_numpy(flatten_params(jp)), TINY_TEST,
+                                training_data=TRAINING, max_batch=4, device="cpu",
+                                metrics=Metrics())
+    return ref, ours
+
+
+def _close_results(got, want):
+    assert set(got) == set(want)
+    for k in got:
+        if got[k].dtype.kind == "f":
+            np.testing.assert_allclose(got[k], want[k], atol=TOL, rtol=0)
+        else:
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def _same_result(g, w):
+    """One five-key result dict against the JAX engine's."""
+    assert set(g) == set(w)
+    for k in ("is_interior", "detected_category", "reason"):
+        assert g[k] == w[k], k
+    assert abs(g["interior_confidence"] - w["interior_confidence"]) <= TOL
+    assert set(g["analysis"]) == set(w["analysis"])
+    for cat, top in g["analysis"].items():
+        assert [a for a, _ in top] == [a for a, _ in w["analysis"][cat]]
+        np.testing.assert_allclose([v for _, v in top], [v for _, v in w["analysis"][cat]],
+                                   atol=TOL, rtol=0)
+
+
+def test_dispatch_fetch_pair_matches_classify_and_jax(fp32_engines):
+    ref, ours = fp32_engines
+    px = _pixels(6, seed=31)  # max_batch 4: two chunks, the second padded
+    pending = ours.dispatch_pixels(px)
+    assert len(pending) == 2 and [v for _, v in pending] == [4, 2]
+    got = ours.fetch_results(pending)
+    same = ours.classify_pixels(px)
+    for k in got:
+        np.testing.assert_array_equal(got[k], same[k])
+    want = {k: np.asarray(v) for k, v in ref.fetch_results(ref.dispatch_pixels(px)).items()}
+    _close_results(got, want)
+    assert got["features"].shape == (6, TINY_TEST.embed_dim)
+    cap2 = ours.classify_pixels(px, max_batch=2)
+    _close_results(cap2, want)
+    assert ours.max_batch == 4  # the per-call cap leaves the engine's alone
+
+
+@pytest.mark.parametrize("sizes", [None, [1, 3, 5, 8, 16], [2, 2, 4]], ids=["default", "mixed",
+                                                                             "repeated"])
+def test_warmup_runs_the_buckets_jax_runs(fp32_engines, sizes, monkeypatch):
+    ref, ours = fp32_engines
+    calls = {"ours": [], "ref": []}
+    for name, eng in (("ours", ours), ("ref", ref)):
+        monkeypatch.setattr(eng, "classify_pixels",
+                            lambda px, max_batch=None, _l=calls[name]: _l.append(
+                                (px.shape, px.dtype.name, max_batch)))
+        eng.warmup(sizes)
+    assert calls["ours"] == calls["ref"] and calls["ours"]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_text_cache_is_read_across_packages(tmp_path, writer):
+    """An npz written by either engine is read by the other: the reader's
+    text features are the file's, bit for bit, and its results those of the
+    writer within 1e-5."""
+    jp = init_clip_params(jax.random.PRNGKey(5), JAX_TINY)
+    cache = str(tmp_path / "text.npz")
+    kw = dict(training_data=TRAINING, max_batch=4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        if writer == "jax":
+            first = JaxAnalyzer(jp, JAX_TINY, text_cache=cache, **kw)
+        else:
+            first = InteriorAnalyzer(params_from_numpy(flatten_params(jp)), TINY_TEST,
+                                     text_cache=cache, device="cpu", **kw)
+        with np.load(cache) as blob:
+            saved = {k: blob[k] for k in blob.files}
+        assert sorted(saved) == ["cat_mask", "cat_text", "det_text"]
+        assert {k: v.dtype.name for k, v in saved.items()} == {
+            "det_text": "float32", "cat_text": "float32", "cat_mask": "bool"}
+        # the reader's own text tower would differ from the file in the last
+        # bits: equal bits say the file was read
+        if writer == "jax":
+            second = InteriorAnalyzer(params_from_numpy(flatten_params(jp)), TINY_TEST,
+                                      text_cache=cache, device="cpu", **kw)
+            texts = {k: getattr(second, k).numpy() for k in saved}
+        else:
+            second = JaxAnalyzer(jp, JAX_TINY, text_cache=cache, **kw)
+            texts = {k: np.asarray(getattr(second, k)) for k in saved}
+    for k in saved:
+        np.testing.assert_array_equal(texts[k], saved[k])
+    px = _pixels(3, seed=32)
+    a = {k: np.asarray(v) for k, v in first.classify_pixels(px).items()}
+    b = {k: np.asarray(v) for k, v in second.classify_pixels(px).items()}
+    _close_results(b, a)
+
+
+def test_port_writes_the_jax_text_cache_layout(tmp_path, fp32_engines):
+    ref, ours = fp32_engines
+    path = str(tmp_path / "port.npz")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        InteriorAnalyzer(ours.params, TINY_TEST, training_data=TRAINING, device="cpu",
+                         text_cache=path)
+    with np.load(path) as blob:
+        np.testing.assert_allclose(blob["det_text"], np.asarray(ref.det_text), atol=TOL, rtol=0)
+        np.testing.assert_allclose(blob["cat_text"], np.asarray(ref.cat_text), atol=TOL, rtol=0)
+        np.testing.assert_array_equal(blob["cat_mask"], np.asarray(ref.cat_mask))
+
+
+def _write_images(root, kinds):
+    from PIL import Image
+
+    paths = []
+    for i, kind in enumerate(kinds):
+        if kind == "missing":
+            paths.append(str(root / f"missing{i}.jpg"))
+            continue
+        arr = np.random.default_rng(40 + i).integers(0, 256, (40 + 4 * i, 52 - 2 * i, 3),
+                                                     dtype=np.uint8)
+        p = root / f"im{i}.{'jpg' if kind == 'jpeg' else 'png'}"
+        Image.fromarray(arr).save(p, quality=90) if kind == "jpeg" else Image.fromarray(arr).save(p)
+        paths.append(str(p))
+    return paths
+
+
+@pytest.mark.parametrize("kinds, device_resize", [
+    (["jpeg"] * 5, False),
+    (["jpeg", "jpeg", "missing", "jpeg"], False),
+    (["jpeg", "png", "missing", "png", "jpeg"], False),
+    (["jpeg"] * 5 + ["missing"], True),
+], ids=["jpegs", "jpegs_missing", "mixed_png", "device_resize"])
+@pytest.mark.parametrize("filter_interiors", [True, False], ids=["filter", "nofilter"])
+def test_analyze_images_batch_matches_jax(fp32_engines, tmp_path, kinds, device_resize,
+                                          filter_interiors):
+    ref, ours = fp32_engines
+    paths = _write_images(tmp_path, kinds)
+    kw = dict(filter_interiors=filter_interiors, device_resize=device_resize)
+    # the port in chunks of 2 (several stream batches); the JAX engine in one
+    # batch, as its stream can lose its end behind two or more
+    got = ours.analyze_images_batch(paths, batch_size=2, **kw)
+    want = ref.analyze_images_batch(paths, batch_size=8, **kw)
+    assert list(got) == list(want) and set(got) == set(paths)
+    for p in paths:
+        _same_result(got[p], want[p])
+    for p, kind in zip(paths, kinds):
+        if kind == "missing":
+            assert got[p]["detected_category"] == "load error"
+    if not filter_interiors:
+        assert all(r["analysis"] for p, r in got.items() if "missing" not in p)
+
+
+def test_single_image_helpers_match_jax(fp32_engines, tmp_path):
+    from PIL import Image
+
+    ref, ours = fp32_engines
+    paths = _write_images(tmp_path, ["jpeg", "png", "missing"])
+    img = Image.open(paths[0])
+    got, want = ours.is_interior_image(img), ref.is_interior_image(img)
+    assert got[0] == want[0] and got[2] == want[2] and abs(got[1] - want[1]) <= TOL
+    assert ours.is_interior_image(None) == ref.is_interior_image(None)
+    for threshold in (0.3, 0.0):
+        gi, gn = ours.filter_interior_images(paths, confidence_threshold=threshold)
+        wi, wn = ref.filter_interior_images(paths, confidence_threshold=threshold)
+        assert [p for p, _, _ in gi] == [p for p, _, _ in wi]
+        for (_, gpx, gc), (_, wpx, wc) in zip(gi, wi):
+            np.testing.assert_array_equal(gpx, wpx)
+            assert abs(gc - wc) <= TOL
+        assert [{k: v for k, v in d.items() if k != "confidence"} for d in gn] == \
+            [{k: v for k, v in d.items() if k != "confidence"} for d in wn]
+        np.testing.assert_allclose([d["confidence"] for d in gn], [d["confidence"] for d in wn],
+                                   atol=TOL, rtol=0)
+    for p in paths:
+        for filter_interiors in (True, False):
+            g = ours.analyze_image_from_url(p, filter_interiors=filter_interiors)
+            w = ref.analyze_image_from_url(p, filter_interiors=filter_interiors)
+            if "missing" in p:
+                assert g == w == {"is_interior": False, "reason": "Failed to load image"}
+            else:
+                _same_result(g, w)
+
+
+def test_stage_timings_on_metrics(fp32_engines, tmp_path):
+    _, ours = fp32_engines
+    paths = _write_images(tmp_path, ["jpeg", "jpeg"])
+    ours.analyze_images_batch(paths)
+    ours.analyze_images_batch(paths, device_resize=True)
+    stages = ours.metrics.stages.summary()
+    assert {"dispatch", "fetch", "decode_stall", "decode"} <= set(stages)
+    snap = ours.metrics.snapshot()
+    assert snap["stage_fetch_count"] >= 2 and snap["stage_dispatch_count"] >= 2
+
+
+def test_engine_refuses_a_mesh():
+    with pytest.raises(ValueError, match="mesh"):
+        InteriorAnalyzer(config=TINY_TEST, training_data=TRAINING, device="cpu", mesh=object())
+
+
+@pytest.mark.parametrize("merges", [False, True], ids=["hermetic", "bpe_path"])
+def test_hermetic_tokenizer_warning_on_loaded_weights(tmp_path, monkeypatch, merges):
+    """Both engines warn that loaded weights meet the hermetic vocabulary;
+    neither warns with ``AIIC_BPE_PATH`` at a merges file, or on the seeded
+    init."""
+    import gzip
+
+    from aiic_tpu.data import tokenizer as jax_tok
+    from aiic_tpu_torch.data import tokenizer as tok
+
+    if merges:
+        path = tmp_path / "bpe.txt.gz"
+        with gzip.open(path, "wt", encoding="utf-8") as f:
+            f.write("#version\n" + "w n\nwn ę\ns t\nst y\nk u\nku ch\n")
+        monkeypatch.setenv("AIIC_BPE_PATH", str(path))
+    else:
+        monkeypatch.delenv("AIIC_BPE_PATH", raising=False)
+    for t in (tok, jax_tok):
+        t._default_tokenizer.cache_clear()
+    try:
+        jp = init_clip_params(jax.random.PRNGKey(6), JAX_TINY)
+        for build in (lambda: JaxAnalyzer(jp, JAX_TINY, training_data=TRAINING, max_batch=2),
+                      lambda: InteriorAnalyzer(params_from_numpy(flatten_params(jp)), TINY_TEST,
+                                               training_data=TRAINING, max_batch=2,
+                                               device="cpu")):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                build()
+            hermetic = [w for w in caught if "HERMETIC" in str(w.message)]
+            assert len(hermetic) == (0 if merges else 1), [str(w.message) for w in caught]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            InteriorAnalyzer(config=TINY_TEST, training_data=TRAINING, device="cpu")
+        assert not [w for w in caught if "HERMETIC" in str(w.message)]
+    finally:
+        for t in (tok, jax_tok):
+            t._default_tokenizer.cache_clear()
