@@ -9,17 +9,19 @@ train_lora.py:76-98): the text tower's ``attn.out_proj``, ``mlp.c_fc`` and
 
 so a fresh adapter is a no-op. Training threads the tree through the text
 tower (``models.clip.run_tower``); inference folds it into the weights
-(``fold_text_lora``: W' = W + scaling * A @ B).
+(``fold_text_lora``: W' = W + scaling * A @ B). ``init_visual_lora`` and
+``fold_visual_lora`` do the same for the image tower.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence
+from typing import TYPE_CHECKING, Any, Dict, Sequence
 
 import torch
 
-from aiic_tpu_torch.models.config import CLIPConfig
+if TYPE_CHECKING:  # models.clip imports this module: no import of models at run time
+    from aiic_tpu_torch.models.config import CLIPConfig
 
 Params = Dict[str, Any]
 
@@ -49,13 +51,12 @@ def _dims(point: str, width: int, mlp_dim: int):
     raise ValueError(f"unknown LoRA attach point: {point}")
 
 
-def init_text_lora(generator: torch.Generator, config: CLIPConfig, lora: LoRAConfig,
-                   device="cuda") -> Params:
-    """Stacked adapter tree over the text tower's layers: A ~ N(0, 0.02^2),
-    B = 0 (reference main.py:26-27). A is drawn from ``generator`` (which
-    must live on ``device``) point by point in ``lora.attach`` order; it does
-    not reproduce JAX's random bits."""
-    layers, width, mlp_dim = config.text.layers, config.text.width, config.text.mlp_dim
+def init_tower_lora(generator: torch.Generator, layers: int, width: int, mlp_dim: int,
+                    lora: LoRAConfig, device="cuda") -> Params:
+    """Stacked adapter tree over any tower's layers: A ~ N(0, 0.02^2), B = 0
+    (reference main.py:26-27). A is drawn from ``generator`` (which must
+    live on ``device``) point by point in ``lora.attach`` order; it does not
+    reproduce JAX's random bits."""
     tree: Params = {}
     for point in lora.attach:
         din, dout = _dims(point, width, mlp_dim)
@@ -64,6 +65,22 @@ def init_text_lora(generator: torch.Generator, config: CLIPConfig, lora: LoRACon
             "B": torch.zeros((layers, lora.rank, dout), device=device),
         }
     return tree
+
+
+def init_text_lora(generator: torch.Generator, config: CLIPConfig, lora: LoRAConfig,
+                   device="cuda") -> Params:
+    """``init_tower_lora`` over the text tower."""
+    t = config.text
+    return init_tower_lora(generator, t.layers, t.width, t.mlp_dim, lora, device)
+
+
+def init_visual_lora(generator: torch.Generator, config: CLIPConfig, lora: LoRAConfig,
+                     device="cuda") -> Params:
+    """``init_tower_lora`` over the image tower (the reference's whole-model
+    injection, main.py:62-74: a no-op until trained, since B starts at
+    zero)."""
+    v = config.vision
+    return init_tower_lora(generator, v.layers, v.width, v.mlp_dim, lora, device)
 
 
 def fold_tower_lora(blocks: Params, lora_tree: Params, scaling: float) -> Params:
@@ -89,6 +106,16 @@ def fold_text_lora(params: Params, lora_tree: Params, scaling: float) -> Params:
     new_text["blocks"] = fold_tower_lora(params["text"]["blocks"], lora_tree, scaling)
     out = dict(params)
     out["text"] = new_text
+    return out
+
+
+def fold_visual_lora(params: Params, lora_tree: Params, scaling: float) -> Params:
+    """Backbone params with W' = W + scaling * A @ B baked into the image
+    tower."""
+    new_vis = dict(params["visual"])
+    new_vis["blocks"] = fold_tower_lora(params["visual"]["blocks"], lora_tree, scaling)
+    out = dict(params)
+    out["visual"] = new_vis
     return out
 
 

@@ -5,7 +5,9 @@ The reference preprocess is the torchvision pipeline of ``clip.load``
 bicubic) -> CenterCrop(224) -> ToTensor -> Normalize(CLIP mean/std).
 ``preprocess_pil`` runs it with PIL (the resample torchvision calls);
 ``resize_matrix`` / ``resize_bicubic_numpy`` are PIL's separable bicubic as
-dense matrices, fixed-point weight quantization included. The trainer's
+dense matrices, fixed-point weight quantization included, and
+``preprocess_numpy`` / ``preprocess_numpy_batch`` the whole pipeline on them
+(uint8 arrays in, normalized float32 out). The trainer's
 ``PromptedImageDataset`` feeds its images through ``preprocess_pil``.
 """
 
@@ -125,3 +127,19 @@ def preprocess_pil(img, size: int = 224) -> np.ndarray:
     """
     arr = preprocess_pil_u8(img, size)
     return ((arr.astype(np.float32) / 255.0) - CLIP_MEAN) / CLIP_STD
+
+
+def preprocess_numpy(img: np.ndarray, size: int = 224) -> np.ndarray:
+    """uint8 HWC array -> normalized float32 (size, size, 3) using the
+    matrix-resample path (same math the device kernel runs)."""
+    h, w = img.shape[:2]
+    new_w, new_h = resize_target(w, h, size)
+    resized = resize_bicubic_numpy(img, new_w, new_h)
+    top, left = center_crop_bounds(new_w, new_h, size)
+    crop = resized[max(top, 0) : max(top, 0) + size, max(left, 0) : max(left, 0) + size]
+    return ((crop / 255.0) - CLIP_MEAN) / CLIP_STD
+
+
+def preprocess_numpy_batch(imgs, size: int = 224) -> np.ndarray:
+    """List of uint8 HWC arrays (any sizes) -> (N, size, size, 3) float32."""
+    return np.stack([preprocess_numpy(np.asarray(im), size) for im in imgs])

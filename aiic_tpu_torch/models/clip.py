@@ -440,3 +440,17 @@ def normalize_features(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     """L2-normalize along the last axis in fp32."""
     xf = x.float()
     return xf / (torch.linalg.vector_norm(xf, dim=-1, keepdim=True) + eps)
+
+
+def clip_forward(params: Params, pixels: torch.Tensor, tokens: torch.Tensor, config: CLIPConfig,
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "pallas",
+                 text_lora: Optional[Params] = None, lora_scaling: float = 1.0):
+    """Joint forward: (logits_per_image, logits_per_text), the reference
+    training objective's ``logit_scale.exp() * img @ text.T``
+    (train_lora.py:241-243), with the scale in fp32."""
+    img = normalize_features(encode_image(params, pixels, config, dtype=dtype, attn_impl=attn_impl))
+    txt = normalize_features(encode_text(params, tokens, config, dtype=dtype, attn_impl=attn_impl,
+                                         lora=text_lora, lora_scaling=lora_scaling))
+    scale = torch.exp(params["logit_scale"]).float()
+    logits_per_image = scale * img @ txt.T
+    return logits_per_image, logits_per_image.T

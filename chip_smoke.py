@@ -205,7 +205,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (exact launches, statuses, the failed attempt, the export); then ``python
    -m aiic_tpu_torch.cli.worker --serve`` as a process with default flags,
    ready within a bound, one ``POST /analyze`` and ``GET /metrics``, exit
-   code 0 on SIGTERM.
+   code 0 on SIGTERM;
+14. dataset evaluation, from one CPU-seeded ViT-B/16 init at full width and
+   depth and 32 synthetic 224-288 px JPEGs and PNGs labelled from the
+   two-item vocabulary (an ``interior_dataset.json``): ``train.metrics.
+   attribute_f1`` on the int8 worker configuration (rows 1, 2 and 4) and the
+   bf16 worker default (row 5), every count set to 0 before the engine is
+   built and checked exactly at build and after the call, each against the
+   same call on the CPU plain path (every attribute score within
+   SCORE_TOL, the decisions equal up to logged swaps of two attributes
+   closer than SWAP_TOL on the CPU); ``tools/torch_eval_f1.py --limit 16``
+   as a process, its JSON equal to the in-process call on the fp32 engine it
+   builds (row 7, exact launches); the serving configuration's and the fp32
+   configuration's 40 detector-prompt logits on the card (rows 1, 2 and 4;
+   row 7; exact launches) against the port's fp32 plain path on the CPU
+   (logit cosine >= 0.999, fp32 verdicts equal, each disagreeing image
+   logged with its interior mass on both sides); ``tools/
+   torch_parity_report.py`` as a process in fp32 and in the serving
+   configuration against its seeded ``transformers.CLIPModel`` oracle
+   (``passes_0999_bar``); ``models.clip_forward`` in fp32 on 8 images and
+   the 40 prompts (row 7 exactly 23 times) against the CPU (row cosine >=
+   0.999, argmax per row equal); bf16 ``encode_image`` on
+   ``adapters.fold_visual_lora``'s params (row 5) with a seeded rank-4 tree
+   against the CPU, and a zero-B fold bit for bit the unfolded features.
+   The three tool processes run beside the in-process parts.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -3848,18 +3871,18 @@ REST_TOL = 2e-2
 REST_SINGLES = 20
 
 
-def _rest_images(rng, n: int) -> list:
-    """n synthetic JPEGs and PNGs of assorted sizes (every third a PNG): in
-    turn a flat colour, a two-colour gradient, a checkerboard and noise, so
-    that the seeded weights judge some interior and the answers carry their
-    attribute top-5 too."""
+def _rest_images(rng, n: int, lo: int = 160, hi: int = 480) -> list:
+    """n synthetic JPEGs and PNGs of assorted sizes in [lo, hi) (every third a
+    PNG): in turn a flat colour, a two-colour gradient, a checkerboard and
+    noise, so that the seeded weights judge some interior and the answers
+    carry their attribute top-5 too."""
     import io
 
     from PIL import Image
 
     out = []
     for i in range(n):
-        h, w = int(rng.integers(160, 480)), int(rng.integers(160, 480))
+        h, w = int(rng.integers(lo, hi)), int(rng.integers(lo, hi))
         yy, xx = np.mgrid[0:h, 0:w]
         a, b = rng.integers(0, 256, 3), rng.integers(0, 256, 3)
         if i % 4 == 0:
@@ -4305,6 +4328,486 @@ def phase_rest(device, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: dataset evaluation (attribute-F1, the eval_f1 and parity_report
+# twins, the oracle check), clip_forward and the image tower's LoRA
+# ---------------------------------------------------------------------------
+
+EVAL_IMAGES = 32
+EVAL_CONFIGS = ("int8", "bf16")  # the int8 worker configuration and the worker default
+# Every attribute score on the card within SCORE_TOL of the CPU plain path's,
+# and a card-vs-CPU decision that differs a swap of two attributes whose CPU
+# scores differ by less than SWAP_TOL. The attribute softmax runs at a 100x
+# temperature, so the text and image features' card-vs-CPU cosines (0.9997-
+# 0.99998, phase 5) move a score by a few hundredths: 3.6e-2 (int8) and 3.2e-2
+# (bf16) at most here, on an H100; two attributes closer than that can swap.
+SCORE_TOL = 5e-2
+SWAP_TOL = SCORE_TOL
+PARITY_COS_MIN = 0.999  # BASELINE.md's logit agreement bar
+EVAL_F1_LIMIT = 16
+# The engine tools/torch_eval_f1.py builds: the JAX tool's options.
+EVAL_F1_OPTS = dict(dtype="float32", quantize=False, wire_format="hwc", attn_impl="auto")
+# tools/torch_parity_report.py needs transformers. The card's machine has it,
+# so phase 14 runs the twin as a process in fp32 and in the serving
+# configuration, each on the first PARITY_TWIN_LIMIT generated JPEGs.
+PARITY_TWIN_FLAGS = {"parity_fp32": ["--attn-impl", "pallas"],
+                     "parity_serving": ["--dtype", "bfloat16", "--quantize", "--wire", "patch",
+                                        "--attn-impl", "pallas"]}
+PARITY_TWIN_LIMIT = 8
+CLIP_FORWARD_IMAGES = 8
+
+
+def _eval_dataset(root: str) -> list:
+    """EVAL_IMAGES synthetic 224-288 px JPEGs and PNGs under
+    ``root/dataset_images`` and their labelled items, written as
+    ``root/interior_dataset.json``: the first two items carry TRAINING_DATA's
+    labels (so that the vocabulary, 52 prompts, is the engines' own), the
+    others labels drawn from that vocabulary by seed."""
+    from aiic_tpu_torch.data.dataset import extract_all_categories
+
+    rng = np.random.default_rng(21)
+    vocab = extract_all_categories(TRAINING_DATA)
+    os.makedirs(os.path.join(root, "dataset_images"))
+    items = []
+    for i, blob in enumerate(_rest_images(rng, EVAL_IMAGES, 224, 289)):
+        name = f"dataset_images/eval{i:02d}.{'png' if i % 3 == 2 else 'jpg'}"
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(blob)
+        if i < len(TRAINING_DATA):
+            items.append({**TRAINING_DATA[i], "image_path": name})
+            continue
+
+        def pick(key, k):
+            return [str(v) for v in rng.choice(vocab[key], k, replace=False)]
+
+        items.append({"image_path": name, "style": pick("styles", 1)[0],
+                      "characteristics": pick("characteristics", int(rng.integers(1, 4))),
+                      "materials": pick("materials", int(rng.integers(0, 3))),
+                      "colors": pick("colors", int(rng.integers(1, 4))),
+                      "room_type": pick("room_types", 1)[0]})
+    with open(os.path.join(root, "interior_dataset.json"), "w", encoding="utf-8") as f:
+        json.dump({"training_data": items}, f, ensure_ascii=False)
+    return items
+
+
+class _Recorded:
+    """An analyzer that keeps the per-image results ``attribute_f1`` asked
+    for; the call passes through to the engine unchanged."""
+
+    def __init__(self, engine):
+        self.engine, self.category_names, self.results = engine, engine.category_names, None
+
+    def analyze_images_batch(self, paths, **kw):
+        self.results = self.engine.analyze_images_batch(paths, **kw)
+        return self.results
+
+
+def _decisions(results: dict, items: list, root: str, cat: str) -> dict:
+    """attribute_f1's decision per image in one category (the top-1 of a
+    single-label category, the top-k set, k = min(5, |true|), of a
+    multi-label one) with the analysis' scores beside."""
+    single = {"styles": "style", "room_types": "room_type"}
+    out = {}
+    for item in items:
+        path = os.path.join(root, item["image_path"])
+        top = results[path]["analysis"][cat]
+        if cat in single:
+            if item.get(single[cat]):
+                out[path] = ({top[0][0]}, dict(top))
+        elif item.get(cat):
+            out[path] = ({a for a, _ in top[: min(5, len(set(item[cat])))]}, dict(top))
+    return out
+
+
+def _hold_f1(label: str, card: tuple, cpu: tuple, items: list, root: str) -> list:
+    """The card's attribute-F1 and per-image decisions against the CPU's:
+    every score within SCORE_TOL, the decisions equal up to swaps of two
+    attributes whose CPU scores differ by less than SWAP_TOL (each logged).
+    Returns the swaps."""
+    (f1, res), (f1_cpu, res_cpu) = card, cpu
+    if set(res) != set(res_cpu) or not all(r.get("analysis") for r in res.values()):
+        raise AssertionError(f"[eval {label}] results for {len(res)} images (CPU "
+                             f"{len(res_cpu)}), or some without an analysis")
+    swaps, bad = [], []
+    for cat in f1:
+        got, want = (_decisions(r, items, root, cat) for r in (res, res_cpu))
+        for path, (dec, _) in got.items():
+            dec_cpu, scores = want[path]
+            if dec == dec_cpu:
+                continue
+            only_card, only_cpu = sorted(dec - dec_cpu), sorted(dec_cpu - dec)
+            swap = len(only_card) == len(only_cpu) == 1
+            gap = abs(scores[only_card[0]] - scores[only_cpu[0]]) if swap else np.inf
+            case = (os.path.basename(path), cat, only_card, only_cpu, gap)
+            (swaps if gap < SWAP_TOL else bad).append(case)
+    for name, cat, a, b, gap in swaps:
+        log(f"[eval {label}] swap on {name}, {cat}: card {a}, CPU {b} (CPU scores "
+            f"{gap:.2e} apart)")
+    dev = max(abs(sc - dict(res_cpu[p]["analysis"][c]).get(a, np.inf))
+              for p, r in res.items() for c, top in r["analysis"].items() for a, sc in top)
+    log(f"[eval {label}] max |attribute score, card - CPU| {dev:.3e} (bar {SCORE_TOL}); "
+        f"decisions that differ beyond the swap bar: {bad}")
+    if bad or dev > SCORE_TOL or (f1 != f1_cpu and not swaps):
+        raise AssertionError(f"[eval {label}] the card's attribute-F1 departs from the CPU's: "
+                             f"{f1} against {f1_cpu}; scores {dev:.3e} apart; decisions {bad}")
+    return swaps
+
+
+def _launches_since_reset(label: str, stage: str, want: dict) -> dict:
+    from aiic_tpu_torch.ops._build import launch_counts
+
+    got = {n: c for n, c in launch_counts().items() if c}
+    want = {n: c for n, c in want.items() if c}
+    log(f"[eval {label}] {stage}: launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"[eval {label}] {stage}: launched {got}, expected {want}")
+    return got
+
+
+def _tower_launches(opts: dict, config, n_images: int, n_texts: int, calls: int = 1) -> dict:
+    """Launches of ``calls`` encode_image calls on n_images (the CLS-row
+    block aside) and encode_text calls on n_texts (none where 0)."""
+    want: dict = {}
+    v, t = config.vision, config.text
+    for seq, tower, bsz, layers in ((config.vision_seq_len, v, n_images, v.layers - 1),
+                                    (config.context_length, t, n_texts, t.layers)):
+        if bsz:
+            for name in _block_kernels(opts, seq, tower.width, tower.heads, bsz):
+                want[name] = want.get(name, 0) + layers * calls
+    return want
+
+
+def _start(cmd: list, root: str, name: str) -> tuple:
+    """Start a tool as a process from ``root``, its output into files there."""
+    env = {**os.environ, "PYTHONPATH": HERE + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    out = open(os.path.join(root, f"{name}.out"), "w")
+    err = open(os.path.join(root, f"{name}.err"), "w")
+    return (subprocess.Popen(cmd, cwd=root, env=env, stdout=out, stderr=err), out, err, name,
+            time.perf_counter())
+
+
+def _finish(job: tuple, root: str, timeout: float = 600) -> tuple:
+    """Wait for a started tool: (its stdout, seconds), or a failure with its
+    stderr. The process is killed if it outlives ``timeout``."""
+    proc, out, err, name, t0 = job
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        out.close()
+        err.close()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(root, f"{name}.out")) as f:
+        stdout = f.read()
+    with open(os.path.join(root, f"{name}.err")) as f:
+        stderr = f.read()
+    log(f"[eval {name}] exit code {rc} after {seconds:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"[eval {name}] exited with {rc}:\n{stderr[-3000:]}")
+    return stdout, seconds
+
+
+def _f1_engines(params, device, items: list, root: str, card: str) -> dict:
+    """(a): attribute_f1 on the int8 and bf16 engines on the card, with exact
+    launches, against the same call on the CPU plain path."""
+    import torch
+
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.ops._build import reset_launch_counts
+    from aiic_tpu_torch.train.metrics import attribute_f1
+    from aiic_tpu_torch.utils.batching import bucket_size
+
+    out: dict = {}
+    for label in EVAL_CONFIGS:
+        opts = CONFIGS[label]
+        reset_launch_counts()
+        engine = _engine(params, device, opts, VIT_B_16)
+        torch.cuda.synchronize()
+        n_prompts = engine.det_text.shape[0] + int(engine.cat_mask.sum())
+        cap = engine.max_batch
+        buckets = [bucket_size(len(items[i:i + cap]), cap) for i in range(0, len(items), cap)]
+        want_build, want = _expected_launches(opts, VIT_B_16, n_prompts, buckets)
+        _launches_since_reset(label, f"engine build ({n_prompts} prompts)", want_build)
+        rec = _Recorded(engine)
+        t0 = time.perf_counter()
+        f1 = attribute_f1(rec, items, root)
+        seconds = time.perf_counter() - t0
+        got = _launches_since_reset(label, f"attribute_f1 on {len(items)} images in "
+                                           f"{seconds:.2f} s (buckets {buckets})", want)
+        rec_cpu = _Recorded(_engine(params, "cpu", opts, VIT_B_16))
+        t0 = time.perf_counter()
+        f1_cpu = attribute_f1(rec_cpu, items, root)
+        cpu_s = time.perf_counter() - t0
+        swaps = _hold_f1(label, (f1, rec.results), (f1_cpu, rec_cpu.results), items, root)
+        interior = sum(r["is_interior"] for r in rec.results.values())
+        log(f"[eval {label}] ({card}) attribute-F1 on the card: {json.dumps(f1)}; equal to the "
+            f"CPU plain path's: {f1 == f1_cpu} ({len(swaps)} swaps); "
+            f"{len(items) / seconds:.2f} images/s, decode included ({seconds:.2f} s; the CPU "
+            f"{cpu_s:.2f} s); {interior} of {len(items)} judged interior")
+        out[label] = {"f1": f1, "f1_cpu": f1_cpu, "equal": f1 == f1_cpu, "swaps": swaps,
+                      "seconds": seconds, "images_per_s": len(items) / seconds,
+                      "cpu_seconds": cpu_s, "launches": got}
+        del engine, rec
+    return out
+
+
+def _eval_f1_twin(job: tuple, weights: str, device, items: list, root: str) -> dict:
+    """(b): tools/torch_eval_f1.py as a process against the in-process call
+    on the engine it builds (fp32, HWC wire, "auto": row 7 on the card)."""
+    import torch
+
+    from aiic_tpu_torch.data.dataset import load_training_data
+    from aiic_tpu_torch.engine import InteriorAnalyzer
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.models.init import load_clip_weights
+    from aiic_tpu_torch.ops._build import reset_launch_counts
+    from aiic_tpu_torch.train.metrics import attribute_f1
+    from aiic_tpu_torch.utils.batching import bucket_size
+
+    reset_launch_counts()
+    engine = InteriorAnalyzer(
+        params=load_clip_weights(weights, VIT_B_16, device=device), config=VIT_B_16,
+        training_data=load_training_data(os.path.join(root, "interior_dataset.json")),
+        lora_rank=4, lora_alpha=8, device=device)
+    torch.cuda.synchronize()
+    n_prompts = engine.det_text.shape[0] + int(engine.cat_mask.sum())
+    want_build, want = _expected_launches(
+        EVAL_F1_OPTS, VIT_B_16, n_prompts, [bucket_size(EVAL_F1_LIMIT, engine.max_batch)])
+    _launches_since_reset("eval_f1", f"fp32 engine build ({n_prompts} prompts)", want_build)
+    f1 = attribute_f1(engine, items[:EVAL_F1_LIMIT], root)
+    got = _launches_since_reset("eval_f1", f"attribute_f1 on {EVAL_F1_LIMIT} images", want)
+    stdout, seconds = _finish(job, root)
+    printed = json.loads(stdout)
+    log(f"[eval eval_f1] tools/torch_eval_f1.py --limit {EVAL_F1_LIMIT}: {json.dumps(printed)}; "
+        f"equal to the in-process call: {printed == f1}")
+    if printed != f1:
+        raise AssertionError(f"[eval eval_f1] the tool printed {printed}, in process {f1}")
+    return {"f1": f1, "tool_seconds": seconds, "launches": got}
+
+
+def _detector(logits: np.ndarray) -> tuple:
+    """(verdict, interior mass) of the reference's detector rule
+    (main.py:208-220) on 40-prompt logits."""
+    from aiic_tpu_torch.engine.detector import DEFAULT_CONFIDENCE_THRESHOLD, INTERIOR_COUNT
+
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    mass = p[:, :INTERIOR_COUNT].sum(-1)
+    return (mass > p[:, INTERIOR_COUNT:].sum(-1)) & (p.max(-1) > DEFAULT_CONFIDENCE_THRESHOLD), mass
+
+
+def _parity(params, device, root: str, card: str) -> dict:
+    """(c): the serving configuration's and the fp32 configuration's 40
+    detector-prompt logits on the card (exact launches) against the port's
+    fp32 plain path on the CPU, on the generated JPEGs."""
+    import glob
+
+    import torch
+    from PIL import Image
+
+    from aiic_tpu_torch.data.preprocess import preprocess_pil, preprocess_pil_u8
+    from aiic_tpu_torch.data.tokenizer import tokenize_for_model
+    from aiic_tpu_torch.engine.detector import DETECTOR_CATEGORIES
+    from aiic_tpu_torch.models import VIT_B_16, encode_image, encode_text, normalize_features
+    from aiic_tpu_torch.models.init import tree_map
+    from aiic_tpu_torch.ops._build import reset_launch_counts
+    from aiic_tpu_torch.ops.preprocess import to_patch_major
+    from aiic_tpu_torch.ops.quant import quantize_model
+
+    paths = sorted(glob.glob(os.path.join(root, "dataset_images", "*.jpg")))
+    size = VIT_B_16.image_size
+    hwc = np.stack([preprocess_pil(Image.open(p), size) for p in paths])
+    patch = to_patch_major(np.stack([preprocess_pil_u8(Image.open(p), size) for p in paths]),
+                           VIT_B_16.patch_size)
+    tokens = torch.from_numpy(tokenize_for_model(DETECTOR_CATEGORIES, VIT_B_16).astype(np.int64))
+
+    def logits(p, px, dtype, dev, attn_impl):
+        with torch.inference_mode():
+            img = normalize_features(encode_image(p, torch.from_numpy(px).to(dev), VIT_B_16,
+                                                  dtype=dtype, attn_impl=attn_impl))
+            txt = normalize_features(encode_text(p, tokens.to(dev), VIT_B_16, dtype=dtype,
+                                                 attn_impl=attn_impl))
+            return (100.0 * img @ txt.T).cpu().numpy()
+
+    ref = logits(params, hwc, torch.float32, "cpu", "xla")
+    on_card = tree_map(lambda t: t.to(device), params)
+    serving = quantize_model(tree_map(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t, on_card))
+    out: dict = {"images": len(paths)}
+    for label, p, px, dtype, opts in (
+            ("serving", serving, patch, torch.bfloat16, CONFIGS["int8"]),
+            ("fp32", on_card, hwc, torch.float32, CONFIGS["fp32"])):
+        reset_launch_counts()
+        got = logits(p, px, dtype, device, "pallas")
+        launches = _launches_since_reset(
+            f"parity {label}", f"{len(paths)} images and {len(DETECTOR_CATEGORIES)} prompts",
+            _tower_launches(opts, VIT_B_16, len(paths), len(DETECTOR_CATEGORIES)))
+        a, b = got.ravel(), ref.ravel()
+        cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+        (v_card, m_card), (v_cpu, m_cpu) = _detector(got), _detector(ref)
+        differ = [(os.path.basename(paths[i]), float(m_card[i]), float(m_cpu[i]))
+                  for i in np.flatnonzero(v_card != v_cpu)]
+        log(f"[eval parity {label}] ({card}) logit cosine against the CPU's fp32 plain path "
+            f"{cos:.6f}, max |logit diff| {float(np.abs(a - b).max()):.5f}, verdict agreement "
+            f"{float((v_card == v_cpu).mean()):.4f} ({int(v_cpu.sum())} of {len(paths)} interior "
+            f"on the CPU)")
+        for name, mc, mp in differ:
+            log(f"[eval parity {label}] verdicts differ on {name}: interior mass card {mc:.5f}, "
+                f"CPU {mp:.5f}")
+        out[label] = {"logit_cosine": cos, "verdict_agreement": float((v_card == v_cpu).mean()),
+                      "differing": differ, "launches": launches}
+        if cos < PARITY_COS_MIN or (label == "fp32" and differ):
+            raise AssertionError(f"[eval parity {label}] against the CPU: {out[label]}")
+    return out
+
+
+def _clip_forward_and_lora(params, device, root: str, card: str) -> dict:
+    """(d): clip_forward in fp32 (row 7: 11 launches for the images, 12 for
+    the text) and bf16 encode_image on fold_visual_lora's params (row 5)
+    against the CPU; a zero-B fold bit for bit the unfolded features."""
+    import glob
+
+    import torch
+    from PIL import Image
+
+    from aiic_tpu_torch.adapters import LoRAConfig, fold_visual_lora, init_visual_lora
+    from aiic_tpu_torch.data.preprocess import preprocess_numpy_batch
+    from aiic_tpu_torch.data.tokenizer import tokenize_for_model
+    from aiic_tpu_torch.engine.detector import DETECTOR_CATEGORIES
+    from aiic_tpu_torch.models import VIT_B_16, clip_forward, encode_image
+    from aiic_tpu_torch.models.init import tree_map
+    from aiic_tpu_torch.ops._build import reset_launch_counts
+
+    paths = sorted(glob.glob(os.path.join(root, "dataset_images", "*")))[:CLIP_FORWARD_IMAGES]
+    px = torch.from_numpy(preprocess_numpy_batch(
+        [np.asarray(Image.open(p).convert("RGB")) for p in paths], VIT_B_16.image_size))
+    tokens = torch.from_numpy(tokenize_for_model(DETECTOR_CATEGORIES, VIT_B_16).astype(np.int64))
+    on_card = tree_map(lambda t: t.to(device), params)
+    out: dict = {}
+
+    reset_launch_counts()
+    with torch.inference_mode():
+        per_image, per_text = (t.cpu().numpy() for t in clip_forward(
+            on_card, px.to(device), tokens.to(device), VIT_B_16))
+    want = _tower_launches(CONFIGS["fp32"], VIT_B_16, len(paths), len(tokens))
+    # row 7 in every block but the CLS-row one, and in every text block (23)
+    if want != {"fused_attention_qkv": VIT_B_16.vision.layers - 1 + VIT_B_16.text.layers}:
+        raise AssertionError(f"clip_forward's planned launches {want}")
+    out["clip_forward_launches"] = _launches_since_reset(
+        "clip_forward", f"fp32, {len(paths)} images and {len(tokens)} prompts", want)
+    with torch.inference_mode():
+        ref = clip_forward(params, px, tokens, VIT_B_16)[0].numpy()
+    rows = (per_image * ref).sum(-1) / (np.linalg.norm(per_image, axis=-1)
+                                        * np.linalg.norm(ref, axis=-1))
+    same_argmax = bool((per_image.argmax(-1) == ref.argmax(-1)).all()
+                       and (per_text.argmax(-1) == ref.T.argmax(-1)).all())
+    log(f"[eval clip_forward] ({card}) logits {per_image.shape} against the CPU: min row cosine "
+        f"{rows.min():.6f}, max |diff| {float(np.abs(per_image - ref).max()):.5f}, argmax per "
+        f"row equal {same_argmax}, logits_per_text the transpose "
+        f"{bool((per_text == per_image.T).all())}")
+    out["clip_forward"] = {"min_row_cos": float(rows.min()), "same_argmax": same_argmax}
+    if rows.min() < 0.999 or not same_argmax or not (per_text == per_image.T).all():
+        raise AssertionError(f"clip_forward on the card departs from the CPU: {out}")
+
+    # The image tower's LoRA: a seeded rank-4 tree on all three attach points
+    # with B drawn too, and a fresh (B = 0) one, both folded in fp32.
+    lc = LoRAConfig(rank=4, alpha=8, attach=("out_proj", "c_fc", "c_proj"))
+    gen = torch.Generator().manual_seed(31)
+    tree = init_visual_lora(gen, VIT_B_16, lc, device="cpu")
+    for ab in tree.values():
+        ab["B"] = torch.randn(ab["B"].shape, generator=gen) * 0.02
+    zero = init_visual_lora(torch.Generator().manual_seed(32), VIT_B_16, lc, device="cpu")
+    folded = fold_visual_lora(params, tree, lc.scaling)
+    reset_launch_counts()
+    with torch.inference_mode():
+        feats = [encode_image(p, px.to(device), VIT_B_16, dtype=torch.bfloat16).float().cpu()
+                 for p in (fold_visual_lora(on_card, tree_map(lambda t: t.to(device), tree),
+                                            lc.scaling),
+                           fold_visual_lora(on_card, tree_map(lambda t: t.to(device), zero),
+                                            lc.scaling),
+                           on_card)]
+    out["lora_launches"] = _launches_since_reset(
+        "visual_lora", f"bf16 encode_image x3 on {len(paths)} images",
+        _tower_launches(CONFIGS["bf16"], VIT_B_16, len(paths), 0, calls=3))
+    with torch.inference_mode():
+        cpu = encode_image(folded, px, VIT_B_16, dtype=torch.bfloat16).float()
+    cos = torch.nn.functional.cosine_similarity(feats[0], cpu, dim=-1)
+    moved = float((feats[0] - feats[2]).abs().max())
+    zero_exact = bool(torch.equal(feats[1], feats[2]))
+    log(f"[eval visual_lora] ({card}) folded rank-4 tree, bf16 on the card against the CPU: min "
+        f"feature cosine {float(cos.min()):.6f}; max |feature change| from the adapter {moved:.6g};"
+        f" the zero-B fold bit for bit the unfolded: {zero_exact}")
+    out["visual_lora"] = {"min_feature_cos": float(cos.min()), "feature_change": moved,
+                          "zero_b_bit_for_bit": zero_exact}
+    if cos.min() < 0.999 or not zero_exact or not moved > 0:
+        raise AssertionError(f"the visual LoRA fold on the card: {out['visual_lora']}")
+    return out
+
+
+def phase_eval(device, card: str) -> dict:
+    """Phase 14: attribute-F1 on the int8 and bf16 engines and the eval_f1
+    twin; the oracle check (in process against the CPU's fp32 plain path, and
+    the parity_report twin against transformers.CLIPModel); clip_forward and
+    the image tower's LoRA. Returns the launches."""
+    import torch
+
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.models.init import init_clip_params, save_clip_weights
+
+    t0 = time.perf_counter()
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as root:
+        items = _eval_dataset(root)
+        # The CPU's generator, as in phase 13: the same weights on any machine.
+        params = init_clip_params(VIT_B_16, torch.Generator().manual_seed(0), device="cpu")
+        weights = os.path.join(root, "weights.npz")
+        save_clip_weights(params, weights)
+        # The three tool processes run beside the in-process parts (their
+        # launches are their own); each is waited for below, and any still
+        # running when a part fails is killed.
+        tools = os.path.join(HERE, "tools")
+        eval_job = _start([sys.executable, os.path.join(tools, "torch_eval_f1.py"),
+                           "--dataset-json", os.path.join(root, "interior_dataset.json"),
+                           "--weights", weights, "--limit", str(EVAL_F1_LIMIT)], root, "eval_f1")
+        jobs = {"eval_f1": eval_job}
+        try:
+            for name, flags in PARITY_TWIN_FLAGS.items():
+                jobs[name] = _start([sys.executable, os.path.join(tools, "torch_parity_report.py"),
+                                     "--reference-root", root, "--limit", str(PARITY_TWIN_LIMIT)]
+                                    + flags, root, name)
+            report = _f1_engines(params, device, items, root, card)
+            report["eval_f1"] = _eval_f1_twin(eval_job, weights, device, items, root)
+            report["parity"] = _parity(params, device, root, card)
+            report.update(_clip_forward_and_lora(params, device, root, card))
+            for name in PARITY_TWIN_FLAGS:
+                stdout, seconds = _finish(jobs[name], root)
+                res = json.loads(stdout.strip().splitlines()[-1])
+                log(f"[eval {name}] ({card}) tools/torch_parity_report.py "
+                    f"{' '.join(PARITY_TWIN_FLAGS[name])} against transformers.CLIPModel: "
+                    f"{json.dumps(res)}")
+                report[name] = {**res, "seconds": seconds}
+                if res["passes_0999_bar"] is not True or res["images"] != PARITY_TWIN_LIMIT:
+                    raise AssertionError(f"[eval {name}] {res}")
+        finally:
+            for proc, out, err, *_ in jobs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+                out.close()
+                err.close()
+        for part in ([report[c]["launches"] for c in EVAL_CONFIGS]
+                     + [report["eval_f1"]["launches"], report["clip_forward_launches"],
+                        report["lora_launches"]]
+                     + [report["parity"][c]["launches"] for c in ("serving", "fp32")]):
+            _add(launches, part)
+    report["seconds"] = time.perf_counter() - t0
+    REPORT["eval"] = report
+    log(f"[eval] ({card}) phase 14 took {report['seconds']:.1f} s; its launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4365,6 +4868,7 @@ def main() -> int:
     _add(launches, phase_experiments(device, built))
     del built
     _add(launches, phase_rest(device, card))
+    _add(launches, phase_eval(device, card))
     REPORT["wall_s"] = time.perf_counter() - T0
     log(f"[wall] chip_smoke.py took {REPORT['wall_s']:.1f} s ({card})")
 

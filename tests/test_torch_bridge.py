@@ -233,9 +233,11 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting(name):
 
 
 def test_batching_helpers_are_jax_free_and_reused():
-    """Importing the port, its smoke script and its profiler loads no JAX
-    and no module of the ``aiic_tpu`` package: the batching helpers and the
-    other host helpers the engine reuses are the port's own copies."""
+    """Importing the port (each subpackage's exports), its smoke script, its
+    profiler and its twins of ``tools/eval_f1.py`` and
+    ``tools/parity_report.py`` loads no JAX and no module of the ``aiic_tpu``
+    package: the batching helpers and the other host helpers the engine
+    reuses are the port's own copies."""
     code = (
         "import sys\n"
         "sys.path.insert(0, 'tools')\n"
@@ -244,13 +246,63 @@ def test_batching_helpers_are_jax_free_and_reused():
         "import aiic_tpu_torch.ops.quant, aiic_tpu_torch.ops.attention, aiic_tpu_torch.ops.mlp\n"
         "import aiic_tpu_torch.probes.mxu_probe, aiic_tpu_torch.probes.variants\n"
         "import aiic_tpu_torch.probes.kernel_experiments\n"
-        "import chip_smoke, torch_profile, profiler_loss\n"
+        "import chip_smoke, torch_profile, profiler_loss, torch_eval_f1, torch_parity_report\n"
+        "import aiic_tpu_torch.engine, aiic_tpu_torch.models, aiic_tpu_torch.data\n"
+        "import aiic_tpu_torch.ops, aiic_tpu_torch.utils, aiic_tpu_torch.train.metrics\n"
         "from aiic_tpu_torch.utils.batching import bucket_size\n"
         "assert bucket_size(3, 8) == 4\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "bad = sorted(m for m in sys.modules if m == 'aiic_tpu' or m.startswith('aiic_tpu.'))\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
+
+
+# Each subpackage exports the names of JAX's counterpart. The one name left
+# out is utils.enable_compilation_cache: XLA's persistent compilation cache,
+# which has no counterpart in the port.
+NOT_PORTED = {"utils": {"enable_compilation_cache"}}
+
+
+@pytest.mark.parametrize("sub", ["engine", "models", "data", "ops", "utils", "adapters"])
+def test_subpackage_exports_match_jax(sub):
+    import importlib
+
+    ours = importlib.import_module(f"aiic_tpu_torch.{sub}")
+    ref = importlib.import_module(f"aiic_tpu.{sub}")
+    want = [n for n in ref.__all__ if n not in NOT_PORTED.get(sub, set())]
+    assert sorted(ours.__all__) == sorted(want)
+    for name in want:
+        obj = getattr(ours, name)
+        mod = getattr(obj, "__module__", None)
+        assert mod is None or not mod.startswith("aiic_tpu."), (name, mod)
+        if isinstance(getattr(ref, name), (str, int, float, list)):
+            assert obj == getattr(ref, name), name
+        elif isinstance(getattr(ref, name), np.ndarray):
+            np.testing.assert_array_equal(obj, getattr(ref, name))
+
+
+PREPROCESS_CASES = [(640, 479), (200, 300), (224, 224), (256, 256), (1000, 50), "zeros", "batch"]
+
+
+@pytest.mark.parametrize("case", PREPROCESS_CASES, ids=lambda c: c if isinstance(c, str)
+                         else f"{c[0]}x{c[1]}")
+def test_preprocess_numpy_bit_for_bit_jax(case):
+    """``preprocess_numpy`` / ``preprocess_numpy_batch`` on tests/
+    test_preprocess.py's geometries, an all-zero image and a batch of mixed
+    sizes: bit for bit the JAX package's."""
+    rng = np.random.default_rng(3)
+    if case == "batch":
+        imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                for h, w in ((479, 640), (300, 200), (224, 224))]
+        out, ref = data_pre.preprocess_numpy_batch(imgs), jax_data_pre.preprocess_numpy_batch(imgs)
+        assert out.shape == (3, 224, 224, 3)
+    else:
+        img = (np.zeros((224, 224, 3), np.uint8) if case == "zeros"
+               else rng.integers(0, 256, (case[1], case[0], 3), dtype=np.uint8))
+        out, ref = data_pre.preprocess_numpy(img), jax_data_pre.preprocess_numpy(img)
+        assert out.shape == (224, 224, 3)
+    assert out.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(out, ref)
 
 
 PROMPTS = ["wnętrze w stylu skandynawskim", "Łazienka z płytkami — żółć, źdźbło, gęślą jaźń",

@@ -12,6 +12,11 @@
 - the bf16 unquantized towers (the worker's default) against JAX
   ``attn_impl="pallas"`` and ``"pallas_mlp"``: every row's cosine >= 0.9999,
   for the same reason (a bf16 rounding flip moves one value by an ULP).
+- ``clip_forward`` (fp32, with and without a text adapter) within 1e-5 of
+  JAX's; the adapter trees of ``init_tower_lora`` / ``init_visual_lora`` /
+  ``init_text_lora`` shaped and typed as JAX's, B zero, A's std 0.02 within
+  10%; ``fold_visual_lora`` a bit-for-bit no-op with B = 0, and with a random
+  tree the folded features within 1e-5 of JAX's.
 """
 
 import functools
@@ -24,11 +29,12 @@ import torch
 
 from aiic_tpu.models import clip as jax_clip
 from aiic_tpu.models.config import TINY_TEST as JAX_TINY
+from aiic_tpu.models.config import VIT_B_16 as JAX_B16
 from aiic_tpu.models.init import flatten_params, init_clip_params
 from aiic_tpu.ops import quant as jax_quant
 from aiic_tpu.ops.preprocess import to_patch_major
 from aiic_tpu_torch.data.preprocess import CLIP_MEAN, CLIP_STD
-from aiic_tpu_torch.models import clip
+from aiic_tpu_torch.models import clip, config
 from aiic_tpu_torch.models.config import TINY_TEST
 from aiic_tpu_torch.models.init import params_from_numpy
 from aiic_tpu_torch.ops import quant
@@ -229,3 +235,118 @@ def test_primitives_match_jax():
                                   np.asarray(jax_clip.patchify(jnp.asarray(img), 8)))
     np.testing.assert_allclose(clip.normalize_features(torch.from_numpy(x)).numpy(),
                                np.asarray(jax_clip.normalize_features(jnp.asarray(x))), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# clip_forward and the image tower's LoRA (fp32, TINY_TEST, the same weights)
+# ---------------------------------------------------------------------------
+
+
+def _lora_pair(tree_fn, seed, scale=0.05):
+    """A JAX adapter tree with random nonzero A and B, and the same numbers
+    as the port's tree."""
+    rng = np.random.default_rng(seed)
+    jt = jax.tree.map(lambda a: jnp.asarray(
+        np.asarray(a) + scale * rng.standard_normal(a.shape).astype(np.float32)), tree_fn())
+    return jt, jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jt)
+
+
+@pytest.mark.parametrize("text_lora", [False, True], ids=["plain", "text_lora"])
+def test_clip_forward_matches_jax(weights, text_lora):
+    """The reference training objective's logits, both directions, within
+    1e-5 (fp32; the port's default route, the packed-QKV core's plain version
+    on the CPU, against JAX's ``"xla"``), with a c_fc/c_proj/out_proj text
+    adapter threaded through the blocks or none."""
+    from aiic_tpu.adapters import LoRAConfig as JaxLoRAConfig
+    from aiic_tpu.adapters import init_text_lora as jax_init_text_lora
+
+    jp, tp = weights
+    px = (_images(seed=21).astype(np.float32) / 255.0 - 0.45) / 0.27
+    tok = _tokens(seed=22)
+    jl = tl = None
+    if text_lora:
+        lc = JaxLoRAConfig(rank=2, alpha=4, attach=("out_proj", "c_fc", "c_proj"))
+        jl, tl = _lora_pair(lambda: jax_init_text_lora(jax.random.PRNGKey(3), JAX_TINY, lc), 23)
+    scaling = 2.0 if text_lora else 1.0
+    ref = jax_clip.clip_forward(jp, jnp.asarray(px), jnp.asarray(tok), JAX_TINY,
+                                text_lora=jl, lora_scaling=scaling)
+    out = clip.clip_forward(tp, torch.from_numpy(px), torch.from_numpy(tok), TINY_TEST,
+                            text_lora=tl, lora_scaling=scaling)
+    assert out[0].dtype == torch.float32 and out[0].shape == (3, 3)
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(out[1].numpy(), out[0].numpy().T)
+    if text_lora:  # the adapter moved the logits
+        plain = clip.clip_forward(tp, torch.from_numpy(px), torch.from_numpy(tok), TINY_TEST)
+        assert not torch.allclose(plain[0], out[0], atol=1e-3)
+
+
+@pytest.mark.parametrize("which", ["tower", "visual", "text"])
+def test_lora_init_trees_match_jax(which):
+    """init_tower_lora / init_visual_lora (and init_text_lora through them):
+    the tree's points, shapes and dtypes equal JAX's; B exactly zero; A's
+    std 0.02 within 10%."""
+    from aiic_tpu import adapters as jax_adapters
+    from aiic_tpu_torch import adapters
+
+    lc = adapters.LoRAConfig(rank=4, alpha=8, attach=("out_proj", "c_fc", "c_proj"))
+    jlc = jax_adapters.LoRAConfig(rank=4, alpha=8, attach=("out_proj", "c_fc", "c_proj"))
+    gen = torch.Generator().manual_seed(0)
+    key = jax.random.PRNGKey(0)
+    if which == "tower":  # a wider tower, so that A's std is well sampled
+        got = adapters.init_tower_lora(gen, 3, 96, 384, lc, device="cpu")
+        want = jax_adapters.init_tower_lora(key, 3, 96, 384, jlc)
+    elif which == "visual":
+        got = adapters.init_visual_lora(gen, config.VIT_B_16, lc, device="cpu")
+        want = jax_adapters.init_visual_lora(key, JAX_B16, jlc)
+    else:
+        got = adapters.init_text_lora(gen, config.VIT_B_16, lc, device="cpu")
+        want = jax_adapters.init_text_lora(key, JAX_B16, jlc)
+    assert list(got) == list(want)
+    for point in want:
+        assert set(got[point]) == set(want[point]) == {"A", "B"}
+        for k in ("A", "B"):
+            assert tuple(got[point][k].shape) == want[point][k].shape, (point, k)
+            assert got[point][k].dtype == torch.float32 and want[point][k].dtype == jnp.float32
+        assert not got[point]["B"].any()
+        assert abs(float(got[point]["A"].std()) - 0.02) <= 0.002, point
+    assert adapters.lora_param_count(got) == jax_adapters.lora_param_count(want)
+
+
+def test_fold_visual_lora_zero_b_is_a_no_op():
+    """A fresh adapter (B = 0) folded into the image tower leaves every
+    weight and the features bit for bit as they were."""
+    from aiic_tpu_torch import adapters
+    from aiic_tpu_torch.models.init import init_clip_params as port_init
+
+    tp = port_init(TINY_TEST, torch.Generator().manual_seed(0), device="cpu")
+    lc = adapters.LoRAConfig(rank=2, alpha=4)
+    tree = adapters.init_visual_lora(torch.Generator().manual_seed(1), TINY_TEST, lc,
+                                     device="cpu")
+    folded = adapters.fold_visual_lora(tp, tree, lc.scaling)
+    assert folded["text"] is tp["text"]
+    for grp, name in (("mlp", "w1"), ("mlp", "w2")):
+        torch.testing.assert_close(folded["visual"]["blocks"][grp][name],
+                                   tp["visual"]["blocks"][grp][name], rtol=0, atol=0)
+    px = torch.from_numpy((_images(seed=24).astype(np.float32) / 255.0 - 0.45) / 0.27)
+    torch.testing.assert_close(clip.encode_image(folded, px, TINY_TEST),
+                               clip.encode_image(tp, px, TINY_TEST), rtol=0, atol=0)
+
+
+def test_fold_visual_lora_matches_jax(weights):
+    """A random image-tower adapter on all three attach points, carried
+    across: the port's folded features within 1e-5 of JAX's."""
+    from aiic_tpu.adapters import LoRAConfig as JaxLoRAConfig
+    from aiic_tpu.adapters import fold_visual_lora as jax_fold
+    from aiic_tpu.adapters import init_visual_lora as jax_init_visual
+    from aiic_tpu_torch.adapters import fold_visual_lora
+
+    jp, tp = weights
+    lc = JaxLoRAConfig(rank=2, alpha=4, attach=("out_proj", "c_fc", "c_proj"))
+    jt, tt = _lora_pair(lambda: jax_init_visual(jax.random.PRNGKey(4), JAX_TINY, lc), 25)
+    px = (_images(seed=26).astype(np.float32) / 255.0 - 0.45) / 0.27
+    ref = jax_clip.encode_image(jax_fold(jp, jt, lc.scaling), jnp.asarray(px), JAX_TINY)
+    out = clip.encode_image(fold_visual_lora(tp, tt, lc.scaling), torch.from_numpy(px), TINY_TEST)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    assert not np.allclose(out.numpy(), clip.encode_image(tp, torch.from_numpy(px),
+                                                          TINY_TEST).numpy(), atol=1e-4)
