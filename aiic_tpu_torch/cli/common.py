@@ -12,12 +12,12 @@ import argparse
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
+from aiic_tpu_torch.utils.platform import apply_platform_env
+
 # Hashed into every ``auto`` text-cache fingerprint: the two packages compute
 # text features with different kernels, so neither picks up the other's
 # ``.aiic_cache/`` file (an explicit ``--text-cache`` path loads either's).
 CACHE_TAG = b"aiic_tpu_torch"
-NO_MESH_DEVICES = ("--mesh-devices: multi-device serving is not ported; the port serves "
-                   "from one device (--mesh-devices 0)")
 
 
 def model_presets() -> Dict[str, Any]:
@@ -88,9 +88,11 @@ class EngineArgs:
                             "config-fingerprinted path under .aiic_cache/; 'none' disables "
                             "caching")
         p.add_argument("--mesh-devices", type=int, default=0,
-                       help="N-device data-parallel serving (not ported: 0 only)")
-        p.add_argument("--device", default="cuda",
-                       help="torch device (default cuda; cpu runs the plain versions)")
+                       help="shard serving over an N-rank data-parallel mesh (0 = one "
+                            "device); run N processes, e.g. torchrun --nproc-per-node N")
+        p.add_argument("--device", default=apply_platform_env(),
+                       help="torch device (default $AIIC_PLATFORM, else cuda; cpu runs the "
+                            "plain versions)")
 
     @classmethod
     def from_args(cls, args: argparse.Namespace) -> "EngineArgs":
@@ -183,20 +185,28 @@ class EngineArgs:
 
     def build_analyzer(self, *, max_batch: Optional[int] = None,
                        log: Callable[[str], None] = print):
-        """Construct the InteriorAnalyzer this config describes. Refuses
-        ``mesh_devices`` above 0 and a CUDA device where none is visible
-        (nothing falls back to the CPU)."""
+        """Construct the InteriorAnalyzer this config describes. Refuses a
+        CUDA device where none is visible (nothing falls back to the CPU).
+        ``mesh_devices`` N > 0 serves over ``create_mesh(N, tp=1)``: serving
+        is pure data parallelism."""
         import torch
 
         from aiic_tpu_torch.engine.analyzer import InteriorAnalyzer
         from aiic_tpu_torch.models.init import load_clip_weights
 
-        if self.mesh_devices:
-            raise SystemExit(NO_MESH_DEVICES)
         device = torch.device(self.device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise SystemExit(f"--device {self.device}: no CUDA device is visible; the port "
                              "runs on the card (pass --device cpu for the plain CPU path)")
+        mesh = None
+        if self.mesh_devices:
+            from aiic_tpu_torch.parallel import create_mesh
+            from aiic_tpu_torch.parallel.mesh import mesh_device
+
+            # on the card each rank takes its own (LOCAL_RANK's)
+            mesh = create_mesh(self.mesh_devices, tp=1,
+                               device=None if device.type == "cuda" else device)
+            device = mesh_device(mesh)
         config = model_presets()[self.model]
         ckpt, rank, alpha = self.resolve_lora()
         text_cache = self.text_cache_path(ckpt, rank, alpha)
@@ -218,6 +228,7 @@ class EngineArgs:
             quantize=self.quantize,
             text_cache=text_cache,
             wire_format=self.wire_format,
+            mesh=mesh,
             device=device,
             **kw,
         )

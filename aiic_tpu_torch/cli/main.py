@@ -8,7 +8,10 @@ Flag-compatible with the reference analyzer entry point (main.py:584-613):
 (:class:`aiic_tpu_torch.cli.common.EngineArgs`, ``--device`` among them).
 
 Output: ``analysis_results_{N}.json`` with the reference's record schema
-keyed by ``{offer_id}_{seq}`` (main.py:516-578).
+keyed by ``{offer_id}_{seq}`` (main.py:516-578). Under ``--mesh-devices N``
+(N processes, e.g. ``torchrun --nproc-per-node N``) rank 0 fetches and
+decodes each batch, every rank analyzes its slice of it, and rank 0 alone
+prints and writes the results.
 """
 
 from __future__ import annotations
@@ -16,6 +19,12 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+import torch
+
+
+def _quiet(_msg: str) -> None:
+    pass
 
 
 def analyze_images_from_csv(
@@ -45,7 +54,6 @@ def analyze_images_from_csv(
 
     images = load_images_from_csv(csv_path, max_images)
     urls = [d["url"] for d in images]
-    log(f"loaded {len(urls)} urls from {csv_path}")
 
     if analyzer is None:
         if engine is None:
@@ -59,6 +67,9 @@ def analyze_images_from_csv(
                 lora_rank=4, lora_alpha=8, text_cache="none",
             )
         analyzer = engine.build_analyzer(log=log)
+    if getattr(analyzer, "mesh", None) is not None and torch.distributed.get_rank() != 0:
+        log = _quiet
+    log(f"loaded {len(urls)} urls from {csv_path}")
     results = analyzer.analyze_images_batch(
         urls,
         batch_size=batch_size,
@@ -95,9 +106,11 @@ def analyze_images_from_csv(
             non_interior_count += 1
 
     out_path = out_path or f"analysis_results_{len(images)}.json"
-    with open(out_path, "w", encoding="utf-8") as f:
-        json.dump(out, f, ensure_ascii=False, indent=2)
-    log(f"interiors: {interior_count}  non-interiors: {non_interior_count}  -> {out_path}")
+    if getattr(analyzer, "mesh", None) is None or torch.distributed.get_rank() == 0:
+        # under a mesh every rank holds every result: rank 0 alone writes
+        with open(out_path, "w", encoding="utf-8") as f:
+            json.dump(out, f, ensure_ascii=False, indent=2)
+        log(f"interiors: {interior_count}  non-interiors: {non_interior_count}  -> {out_path}")
     return out
 
 

@@ -10,14 +10,22 @@
 state dict, an HF checkpoint directory); without it the backbone is a
 seeded random init. ``--quantize-text`` (with ``--attn-impl block_fused``)
 trains the text tower in the int8 serving numerics on the int8 whole-block
-kernels. ``--mesh``/``--tp`` are parsed and refused: multi-device training
-is not ported yet (ROADMAP Queue 1 item 13).
+kernels. ``--mesh N --tp T`` trains over an N-rank ``("data", "model")``
+mesh, one process per device:
+
+    torchrun --nproc-per-node N -m aiic_tpu_torch.cli.train_lora --mesh N ...
+
+Each rank loads its rows of every batch; rank 0 prints and writes the
+adapters and the state. ``--device`` defaults to ``$AIIC_PLATFORM``, else
+``cuda``.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+from aiic_tpu_torch.utils.platform import apply_platform_env
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,36 +61,45 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="continue from {save-path}.state.npz (full state)")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="train over N devices (not ported yet; 0 = one device)")
-    p.add_argument("--tp", type=int, default=None, help="model-axis size within --mesh")
+                   help="train over an N-rank ('data','model') mesh (0 = one device); each "
+                        "rank feeds its rows of every batch")
+    p.add_argument("--tp", type=int, default=None,
+                   help="model-axis size within --mesh (default: auto)")
     p.add_argument("--attn-impl", default="auto",
                    choices=["auto", "xla", "pallas_vjp", "block_fused"],
                    help="text-tower path: 'auto' = pallas_vjp on the card; 'block_fused' = "
                         "the whole-block forward and backward kernels")
-    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--device", default=apply_platform_env(),
+                   help="torch device (default $AIIC_PLATFORM, else cuda)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh or args.tp:
-        raise SystemExit("--mesh/--tp: multi-device training is not ported yet "
-                         "(ROADMAP Queue 1 item 13, parallel/ as torch.distributed)")
 
     import torch
 
     from aiic_tpu_torch.cli.common import model_presets
     from aiic_tpu_torch.models.init import load_clip_weights
 
+    mesh, device = None, args.device
+    if args.mesh:
+        from aiic_tpu_torch.parallel import create_mesh
+        from aiic_tpu_torch.parallel.mesh import mesh_device
+
+        # on the card each rank takes its own (LOCAL_RANK's)
+        mesh = create_mesh(args.mesh, tp=args.tp,
+                           device=None if torch.device(device).type == "cuda" else device)
+        device = mesh_device(mesh)
     config = model_presets()[args.model]
-    params = load_clip_weights(args.weights, config, device=args.device) if args.weights else None
+    params = load_clip_weights(args.weights, config, device=device) if args.weights else None
 
     if args.test:
         from aiic_tpu_torch.train import test_trained_lora
 
         acc = test_trained_lora(args.json_path, args.save_path, params=params, config=config,
                                 rank=args.rank, alpha=args.alpha, batch_size=args.batch_size,
-                                image_root=args.image_root, device=args.device)
+                                image_root=args.image_root, device=device)
         print(f"retrieval accuracy: {acc:.4f}")
         return 0
 
@@ -96,8 +113,9 @@ def main(argv=None) -> int:
             quantize_text=args.quantize_text, dtype=getattr(torch, args.dtype),
             attn_impl=args.attn_impl, cache_image_features=not args.no_feature_cache,
             dedup_prompts=not args.no_dedup_prompts),
-        image_root=args.image_root, resume=args.resume, device=args.device)
-    print(f"best val loss: {out['best_val_loss']:.4f}")
+        image_root=args.image_root, mesh=mesh, resume=args.resume, device=device)
+    if mesh is None or torch.distributed.get_rank() == 0:
+        print(f"best val loss: {out['best_val_loss']:.4f}")
     return 0
 
 

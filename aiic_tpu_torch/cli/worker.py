@@ -7,12 +7,16 @@ The JAX package's flags and defaults (the reference worker's ``--export-only
 --use-lora --lora-weights --max-apartments --batch-size --confidence``, plus
 ``--serve``, ``--mongo-uri``, ``--seed-demo`` and the serving knobs); the
 engine flags come from :class:`aiic_tpu_torch.cli.common.EngineArgs`, with
-``--device`` (default ``cuda``; ``cpu`` runs the plain versions).
+``--device`` (default ``$AIIC_PLATFORM``, else ``cuda``; ``cpu`` runs the
+plain versions). ``--mesh-devices 1`` serves through the mesh path on a
+world of one; above one rank the worker refuses: requests reach one
+process, and nothing hands the other ranks their buckets.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from aiic_tpu_torch.cli.common import EngineArgs
@@ -54,9 +58,16 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+NO_WORLD = ("a world of {n} ranks: the REST and Mongo workers serve from one process; a mesh "
+            "above one rank would need rank 0 to broadcast each padded bucket to the other "
+            "ranks, which is not built (run --mesh-devices 1, or the batch CLI under torchrun)")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-
+    world = max(args.mesh_devices, int(os.environ.get("WORLD_SIZE", "1")))
+    if world > 1 and not args.export_only:
+        raise SystemExit(NO_WORLD.format(n=world))
 
     from aiic_tpu_torch.serve.db import connect_db, seed_demo_data
 

@@ -34,8 +34,18 @@ device-to-host copy, into pinned host memory, before it waits on any),
 ``warmup``, ``analyze_images_batch`` over files, URLs and bytes (streamed
 through ``data.pipeline``; ``device_resize`` resizes on the device), the
 single-image helpers, and the ``decode`` / ``dispatch`` / ``fetch`` /
-``decode_stall`` stage timings on ``metrics.stages``. Multi-device serving
-(``mesh``) is not ported: the engine serves from one device.
+``decode_stall`` stage timings on ``metrics.stages``.
+
+``mesh`` (``parallel.create_mesh``) serves data-parallel over every mesh
+axis: every rank builds the engine and makes the same calls; each runs the
+single-device classify program, kernels included, on its slice of every
+bucket with its own replica of the weights, and the fetch gathers the rows
+(``parallel.make_sharded_classify_fn(kernels=True)``). Rank 0 alone reads
+what can differ between ranks and sends it to the others: the text features
+(computed, or read from ``text_cache``, and written there), and the images
+of the path and URL entry points (fetched and decoded once), so that every
+rank classifies the same rows. Pixels passed in (``classify_pixels``,
+``dispatch_pixels``, ``analyze_pixels``) must be the same on every rank.
 """
 
 from __future__ import annotations
@@ -61,10 +71,10 @@ from aiic_tpu_torch.engine.detector import (
 from aiic_tpu_torch.engine.programs import classify_batch, encode_texts_program
 from aiic_tpu_torch.models.config import VIT_B_16, CLIPConfig
 from aiic_tpu_torch.models.init import init_clip_params, tree_map
+from aiic_tpu_torch.parallel.mesh import from_rank0, mesh_device
 from aiic_tpu_torch.utils.batching import bucket_size, pad_batch
 
-NO_MESH = ("mesh serving is not ported: the port's engine serves from one device "
-           "(pass mesh=None)")
+TEXT_CACHE_KEYS = ("det_text", "cat_text", "cat_mask")
 
 
 class InteriorAnalyzer:
@@ -77,6 +87,8 @@ class InteriorAnalyzer:
     ``device`` is explicit and defaults to the first CUDA card: on a machine
     without one the engine fails instead of running on the CPU. Pass
     ``device="cpu"`` for the plain PyTorch path (every kernel's CPU version).
+    Under a ``mesh`` the device is the rank's own, and batch buckets round
+    up to a multiple of the mesh's size.
     """
 
     def __init__(
@@ -103,15 +115,14 @@ class InteriorAnalyzer:
     ):
         if wire_format not in ("hwc", "patch"):
             raise ValueError(f"wire_format must be 'hwc' or 'patch', got {wire_format!r}")
-        if mesh is not None:
-            raise ValueError(NO_MESH)
         self.config = config
         self.attn_impl = attn_impl
         self.dtype = dtype
         self.max_batch = max_batch
         self.wire_format = wire_format
-        self.mesh = None
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh_device(mesh)
+        self._bucket_multiple = 1 if mesh is None else mesh.size()
         if metrics is None:
             from aiic_tpu_torch.serve.metrics import GLOBAL_METRICS
 
@@ -179,25 +190,49 @@ class InteriorAnalyzer:
         self.all_categories = extract_all_categories(self.training_data)
         self.category_names = [k for k, v in self.all_categories.items() if v]
 
-        # A persisted text-feature cache skips the text tower; its npz keys and
-        # dtypes are the JAX engine's, so either package reads the other's.
-        if text_cache and os.path.exists(text_cache):
-            with np.load(text_cache, allow_pickle=False) as blob:
-                self.det_text, self.cat_text, self.cat_mask = (
-                    torch.from_numpy(blob[k]).to(self.device)
-                    for k in ("det_text", "cat_text", "cat_mask"))
-        else:
-            self._precompute_text_features()
-            if text_cache:
-                np.savez(text_cache, det_text=self.det_text.cpu().numpy(),
-                         cat_text=self.cat_text.cpu().numpy(),
-                         cat_mask=self.cat_mask.cpu().numpy())
+        # one set of text features on every rank: rank 0's
+        self.det_text, self.cat_text, self.cat_mask = (
+            torch.from_numpy(a).to(self.device)
+            for a in self._from_lead(lambda: self._text_features(text_cache)))
         # Per-geometry resize + classify programs (the device_resize path).
         self._resize_programs: Dict[tuple, Any] = {}
+        self._sharded = None
+        if mesh is not None:
+            import functools
+
+            from aiic_tpu_torch.parallel.sharding import make_sharded_classify_fn
+
+            self._sharded = make_sharded_classify_fn(
+                mesh, functools.partial(classify_batch, config=config,
+                                        interior_count=INTERIOR_COUNT, dtype=dtype,
+                                        attn_impl=attn_impl),
+                self.params, kernels=True)
+
+    def _from_lead(self, fn):
+        """``fn()``; under a mesh run by rank 0 alone, its value on every
+        rank (``parallel.mesh.from_rank0``)."""
+        return fn() if self.mesh is None else from_rank0(fn)
+
+    def _text_features(self, text_cache: Optional[str]) -> tuple:
+        """(det_text, cat_text, cat_mask) as numpy arrays. A persisted cache
+        skips the text tower; its npz keys and dtypes are the JAX engine's,
+        so either package reads the other's. A new cache is written under a
+        temporary name and renamed: no reader sees it half written."""
+        if text_cache and os.path.exists(text_cache):
+            with np.load(text_cache, allow_pickle=False) as blob:
+                return tuple(blob[k] for k in TEXT_CACHE_KEYS)
+        feats = tuple(t.cpu().numpy() for t in self._precompute_text_features())
+        if text_cache:
+            tmp = f"{text_cache}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                np.savez(f, **dict(zip(TEXT_CACHE_KEYS, feats)))
+            os.replace(tmp, text_cache)
+        return feats
 
     @torch.inference_mode()
-    def _precompute_text_features(self) -> None:
-        """Detector + category prompts through the text tower in one batch."""
+    def _precompute_text_features(self) -> tuple:
+        """Detector + category prompts through the text tower in one batch
+        -> (det_text, cat_text, cat_mask)."""
         config = self.config
         prompts_by_cat = build_category_prompts(self.all_categories)
         all_prompts = list(DETECTOR_CATEGORIES)
@@ -209,7 +244,6 @@ class InteriorAnalyzer:
         tokens = torch.from_numpy(tokenize_for_model(all_prompts, config)).to(self.device)
         feats = encode_texts_program(self.params, tokens, config=config, dtype=self.dtype,
                                      attn_impl=self.attn_impl)
-        self.det_text = feats[: len(DETECTOR_CATEGORIES)]
 
         n_cat = len(self.category_names)
         max_n = max((e - s for s, e in spans.values()), default=1)
@@ -219,8 +253,7 @@ class InteriorAnalyzer:
             s, e = spans[name]
             cat_text[ci, : e - s] = feats[s:e]
             cat_mask[ci, : e - s] = True
-        self.cat_text = cat_text
-        self.cat_mask = cat_mask
+        return feats[: len(DETECTOR_CATEGORIES)], cat_text, cat_mask
 
     # ------------------------------------------------------------------
     # Device passes
@@ -287,9 +320,11 @@ class InteriorAnalyzer:
         return self._fetch_pending(pending)
 
     def _final_bucket(self, n: int, cap: int) -> int:
-        """The bucket a request of n rows runs: its power-of-two bucket (one
-        device, so no device-count multiple)."""
-        return bucket_size(n, cap)
+        """The bucket a request of n rows runs: its power-of-two bucket,
+        rounded up to the mesh's size (every rank takes an equal slice)."""
+        b = bucket_size(n, cap)
+        m = self._bucket_multiple
+        return -(-b // m) * m
 
     @torch.inference_mode()
     def _dispatch_chunk(self, chunk: np.ndarray, cap: int) -> tuple:
@@ -301,6 +336,11 @@ class InteriorAnalyzer:
             chunk = to_patch_major(chunk, self.config.patch_size)
         padded, valid = pad_batch(chunk, self._final_bucket(len(chunk), cap))
         with self.metrics.stages.stage("dispatch"):
+            if self._sharded is not None:
+                # the whole bucket on the host: the rank copies its slice
+                res = self._sharded.local(self.params, torch.from_numpy(padded),
+                                          self.det_text, self.cat_text, self.cat_mask)
+                return res, valid
             pixels = torch.from_numpy(padded).to(self.device, non_blocking=True)
             res = classify_batch(self.params, pixels, self.det_text, self.cat_text,
                                  self.cat_mask, config=self.config,
@@ -384,11 +424,14 @@ class InteriorAnalyzer:
     def _fetch_pending(self, pending: List[tuple]) -> Dict[str, np.ndarray]:
         """Copy back and merge a list of (result tensors, valid rows)
         dispatches. On the card every device-to-host copy is started, as a
-        non-blocking copy into pinned host memory, before the one wait."""
+        non-blocking copy into pinned host memory, before the one wait. Under
+        a mesh each dispatch's rows are first gathered from every rank."""
         with self.metrics.stages.stage("fetch"):
             staged = []
             on_card = False
             for res, valid in pending:
+                if self._sharded is not None:
+                    res = self._sharded.gather(res)
                 out = {}
                 for k, v in res.items():
                     v = v[:valid]
@@ -410,15 +453,17 @@ class InteriorAnalyzer:
         """Drain a prefetching loader (PrefetchingLoader or ByteStreamLoader:
         (pixels, ok, index range) batches): record per-path load errors,
         dispatch the kept rows, fetch once at the end. Returns the merged
-        classify results, or None when nothing decoded."""
+        classify results, or None when nothing decoded. Under a mesh only
+        rank 0 has a loader (the others pass None) and sends each batch."""
         pending: List[tuple] = []
-        it = iter(loader)
+        it = iter(loader) if loader is not None else None
         try:
             while True:
                 # decode_stall: time the device sat waiting on the host
-                # decoder (0 when decode fully overlaps compute)
+                # decoder (0 when decode fully overlaps compute); under a
+                # mesh rank 0's loader feeds every rank
                 with self.metrics.stages.stage("decode_stall"):
-                    item = next(it, None)
+                    item = self._from_lead(lambda: next(it, None))
                 if item is None:
                     break
                 pixels_u8, ok, (start, end) = item
@@ -433,7 +478,8 @@ class InteriorAnalyzer:
         except Exception:
             # a dispatch failure abandons the stream: release its producer
             # thread and fetch pool
-            it.close()
+            if it is not None:
+                it.close()
             raise
         if not pending:
             return None
@@ -508,7 +554,14 @@ class InteriorAnalyzer:
         device (local JPEGs only, grouped by source geometry).
         ``fast_decode``: DCT-scaled JPEG decode on the streaming path
         (quality-approximate, not bit-exact PIL preprocessing); ignored by
-        the device_resize path."""
+        the device_resize path. Not supported under a mesh (its
+        per-geometry programs are single-device): a mesh-backed engine warns
+        and takes the host-resize stream."""
+        if device_resize and self.mesh is not None:
+            warnings.warn("device_resize=True is ignored under a mesh (per-geometry resize "
+                          "programs are single-device); using the host-resize streaming path",
+                          stacklevel=2)
+            device_resize = False
         results: Dict[str, Dict[str, Any]] = {}
         good_paths: List[str] = []
 
@@ -541,7 +594,9 @@ class InteriorAnalyzer:
 
             cap = batch_size or self.max_batch
             wire_patch = self.config.patch_size if self.wire_format == "patch" else 0
-            if local_jpegs:
+            if self.mesh is not None and torch.distributed.get_rank() != 0:
+                loader = None  # rank 0 fetches and decodes for every rank
+            elif local_jpegs:
                 # local JPEGs: batch i+1 decodes on the host while batch i runs
                 # on the device; the decode pool emits the wire layout
                 loader = PrefetchingLoader(list(image_paths), batch_size=cap,
@@ -577,8 +632,11 @@ class InteriorAnalyzer:
             img = load_image(p)
             return p, None if img is None else self._preprocess_host(img)
 
-        with ThreadPoolExecutor(max_workers=max_workers) as pool:
-            fetched = list(pool.map(fetch, image_paths))
+        def fetch_all():
+            with ThreadPoolExecutor(max_workers=max_workers) as pool:
+                return list(pool.map(fetch, image_paths))
+
+        fetched = self._from_lead(fetch_all)
 
         interior_images, non_interior_info = [], []
         good = [(p, px) for p, px in fetched if px is not None]
@@ -612,10 +670,14 @@ class InteriorAnalyzer:
 
     def analyze_image_from_url(self, url: str, filter_interiors: bool = True) -> Dict[str, Any]:
         """Single-URL convenience wrapper (reference main.py:472-498)."""
-        img = load_image(url)
-        if img is None:
+        def fetch():
+            img = load_image(url)
+            return None if img is None else self._preprocess_host(img)[None]
+
+        px = self._from_lead(fetch)
+        if px is None:
             return {"is_interior": False, "reason": "Failed to load image"}
-        res = self.classify_pixels(self._preprocess_host(img)[None])
+        res = self.classify_pixels(px)
         is_interior, conf, category = self._verdict(res, 0, DEFAULT_CONFIDENCE_THRESHOLD)
         if filter_interiors and not is_interior:
             return {

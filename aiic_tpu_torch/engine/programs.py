@@ -51,15 +51,16 @@ def analyze_topk(feats: torch.Tensor, cat_text: torch.Tensor, cat_mask: torch.Te
 def classify_batch(params: Dict[str, Any], pixels: torch.Tensor, det_text: torch.Tensor,
                    cat_text: torch.Tensor, cat_mask: torch.Tensor, *, config: CLIPConfig,
                    interior_count: int, dtype: torch.dtype, attn_impl: str = "pallas",
-                   topk: int = 5) -> Dict[str, torch.Tensor]:
+                   topk: int = 5, tp=None) -> Dict[str, torch.Tensor]:
     """Encode once, detect + analyze. ``pixels``: normalized float HWC,
-    uint8 HWC (normalized here), or patch-major uint8 (B, N, 3·p·p)."""
+    uint8 HWC (normalized here), or patch-major uint8 (B, N, 3·p·p).
+    ``tp``: the image tower tensor-parallel (``models.clip.encode_image``)."""
     if pixels.dtype == torch.uint8 and pixels.dim() == 4:
         from aiic_tpu_torch.ops.preprocess import normalize_u8
 
         pixels = normalize_u8(pixels, dtype=dtype)
     feats = normalize_features(encode_image(params, pixels, config, dtype=dtype,
-                                            attn_impl=attn_impl))
+                                            attn_impl=attn_impl, tp=tp))
     out = detect_logits(feats, det_text, interior_count)
     out["topk_vals"], out["topk_idx"] = analyze_topk(feats, cat_text, cat_mask, k=topk)
     out["features"] = feats

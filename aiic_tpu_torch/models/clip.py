@@ -56,7 +56,7 @@ weights (``block_cls``).
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -133,9 +133,31 @@ def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return (up * scaling).to(x.dtype)
 
 
+def lora_dropout_apply(d: torch.Tensor, dropout: float, generator: torch.Generator,
+                       rows: Optional[Tuple[int, int]] = None,
+                       cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Train-time inverted dropout on a LoRA delta, the keep mask drawn from
+    ``generator``. ``rows`` = (start, total): ``d`` holds rows start.. of a
+    batch of ``total`` rows, and the mask is that slice of the whole batch's
+    mask (``cols`` likewise on the last axis), so a sharded step drops what
+    the single-device step drops."""
+    shape = list(d.shape)
+    if rows is not None:
+        shape[0] = rows[1]
+    if cols is not None:
+        shape[-1] = cols[1]
+    keep = torch.rand(shape, generator=generator, device=d.device) < 1.0 - dropout
+    if rows is not None:
+        keep = keep[rows[0]:rows[0] + d.shape[0]]
+    if cols is not None:
+        keep = keep[..., cols[0]:cols[0] + d.shape[-1]]
+    return torch.where(keep, d / (1.0 - dropout), torch.zeros_like(d))
+
+
 def _maybe_lora_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                        lora: Optional[Params], scaling: float, dropout: float = 0.0,
-                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                       generator: Optional[torch.Generator] = None,
+                       rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """``linear`` plus the LoRA delta where an adapter is given; train-time
     inverted dropout on the delta when ``dropout`` > 0 and a generator is
     given (the reference trainer's nn.Dropout on the low-rank path,
@@ -145,8 +167,7 @@ def _maybe_lora_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
     if lora is not None:
         d = lora_delta(x, lora["A"], lora["B"], scaling)
         if dropout > 0.0 and generator is not None:
-            keep = torch.rand(d.shape, generator=generator, device=d.device) < 1.0 - dropout
-            d = torch.where(keep, d / (1.0 - dropout), torch.zeros_like(d))
+            d = lora_dropout_apply(d, dropout, generator, rows)
         y = y + d
     return y
 
@@ -154,7 +175,8 @@ def _maybe_lora_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
 def attention(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tensor],
               attn_impl: str = "pallas", *, lora_out: Optional[Params] = None,
               lora_scaling: float = 1.0, lora_dropout: float = 0.0,
-              lora_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              lora_generator: Optional[torch.Generator] = None,
+              lora_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Multi-head self-attention with the fused [Q|K|V] projection; the core
     is the packed-QKV kernel under ``pallas*``, the same kernel under
     autograd with the stable-softmax backward under ``pallas_vjp``, the
@@ -171,7 +193,7 @@ def attention(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tenso
     else:
         out = attention_qkv_ref(qkv, mask, heads)
     return _maybe_lora_linear(out, p["wo"], p["bo"], lora_out, lora_scaling,
-                              lora_dropout, lora_generator)
+                              lora_dropout, lora_generator, lora_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -182,12 +204,13 @@ def attention(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tenso
 def block(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tensor],
           gelu_type: str, attn_impl: str = "pallas", *, lora: Optional[Params] = None,
           lora_scaling: float = 1.0, lora_dropout: float = 0.0,
-          lora_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+          lora_generator: Optional[torch.Generator] = None,
+          lora_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Pre-LN residual block: x + attn(ln1(x)); x + mlp(ln2(x)), each half
     on the first branch that applies, in the JAX package's order. ``lora``
     is one layer's adapter tree ({point: {"A", "B"}}); the dropout mask of
     each attach point comes from ``lora_generator`` in the order out_proj,
-    c_fc, c_proj."""
+    c_fc, c_proj (``lora_rows``: see ``lora_dropout_apply``)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     attn_impl = resolve_attn_impl(attn_impl, x.device.type)
@@ -244,7 +267,7 @@ def block(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tensor],
     else:
         x = x + attention(layer_norm(x, ln1), a, heads, mask, attn_impl, lora_out=l_out,
                           lora_scaling=lora_scaling, lora_dropout=lora_dropout,
-                          lora_generator=gen)
+                          lora_generator=gen, lora_rows=lora_rows)
 
     if "mlp_q" in p and kernels and quick and not mlp_lora:
         q = p["mlp_q"]
@@ -255,9 +278,11 @@ def block(x: torch.Tensor, p: Params, heads: int, mask: Optional[torch.Tensor],
                                     mlp["w2"], mlp["b2"])
 
     h = layer_norm(x, ln2)
-    h = _maybe_lora_linear(h, mlp["w1"], mlp["b1"], l_fc, lora_scaling, lora_dropout, gen)
+    h = _maybe_lora_linear(h, mlp["w1"], mlp["b1"], l_fc, lora_scaling, lora_dropout, gen,
+                           lora_rows)
     h = _gelu(h, gelu_type)
-    h = _maybe_lora_linear(h, mlp["w2"], mlp["b2"], l_proj, lora_scaling, lora_dropout, gen)
+    h = _maybe_lora_linear(h, mlp["w2"], mlp["b2"], l_proj, lora_scaling, lora_dropout, gen,
+                           lora_rows)
     return x + h
 
 
@@ -307,9 +332,12 @@ def run_tower(x: torch.Tensor, blocks: Params, heads: int,
               layers: Optional[range] = None, attn_impl: str = "pallas", *,
               lora: Optional[Params] = None, lora_scaling: float = 1.0, remat: bool = False,
               lora_dropout: float = 0.0,
-              lora_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              lora_generator: Optional[torch.Generator] = None,
+              lora_rows: Optional[Tuple[int, int]] = None, tp=None) -> torch.Tensor:
     """Run the stacked blocks in order (``layers``: which of them), each with
-    its layer of the stacked adapter tree ``lora``.
+    its layer of the stacked adapter tree ``lora``. ``tp``: a
+    ``parallel.sharding.TensorParallel`` whose Megatron block runs instead,
+    on this rank's shards of ``blocks`` and ``lora``.
 
     ``remat``: each block runs under ``torch.utils.checkpoint`` and is
     recomputed in the backward instead of keeping its activations (the JAX
@@ -317,6 +345,7 @@ def run_tower(x: torch.Tensor, blocks: Params, heads: int,
     per layer from ``lora_generator`` up front and seeds that layer's masks
     from it, so a recomputed block draws the same masks."""
     use_dropout = lora is not None and lora_dropout > 0.0 and lora_generator is not None
+    block_fn = block if tp is None else tp.block
     for i in layers if layers is not None else range(num_layers(blocks)):
         seed = (int(torch.randint(0, 2 ** 62, (), generator=lora_generator,
                                   device=lora_generator.device))
@@ -326,10 +355,10 @@ def run_tower(x: torch.Tensor, blocks: Params, heads: int,
         def run(x, bp=_layer(blocks, i), lp=lp, seed=seed):
             gen = (None if seed is None
                    else torch.Generator(device=x.device).manual_seed(seed))
-            return block(x, bp, heads, mask, gelu_type, attn_impl, lora=lp,
-                         lora_scaling=lora_scaling,
-                         lora_dropout=lora_dropout if use_dropout else 0.0,
-                         lora_generator=gen)
+            return block_fn(x, bp, heads, mask, gelu_type, attn_impl, lora=lp,
+                            lora_scaling=lora_scaling,
+                            lora_dropout=lora_dropout if use_dropout else 0.0,
+                            lora_generator=gen, lora_rows=lora_rows)
 
         remat_here = remat and torch.is_grad_enabled()
         x = checkpoint(run, x, use_reentrant=False) if remat_here else run(x)
@@ -381,12 +410,14 @@ def _embed_patch_u8(v: Params, pixels: torch.Tensor, config: CLIPConfig,
 
 
 def encode_image(params: Params, pixels: torch.Tensor, config: CLIPConfig,
-                 dtype: torch.dtype = torch.float32, attn_impl: str = "pallas") -> torch.Tensor:
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "pallas", *,
+                 tp=None) -> torch.Tensor:
     """Image tower: pixels -> embeddings (B, embed_dim) fp32.
 
     ``pixels`` is normalized float (B, H, W, 3), or patch-major uint8
     (B, N, 3·p·p) — the serving wire, whose normalization folds into the
-    embed weight."""
+    embed weight. ``tp``: tensor parallelism over the mesh's model axis
+    (``run_tower``; the embed's columns are gathered)."""
     v = params["visual"]
     if pixels.dim() == 3:
         if pixels.dtype != torch.uint8:
@@ -394,6 +425,8 @@ def encode_image(params: Params, pixels: torch.Tensor, config: CLIPConfig,
         x = _embed_patch_u8(v, pixels, config, dtype)
     else:
         x = _mm(patchify(pixels.to(dtype), config.patch_size), v["patch_embed"].to(dtype))
+    if tp is not None:
+        x = tp.full_width(x, config.vision.width)
     x = x.to(dtype)
 
     cls = v["cls"].to(dtype).expand(x.shape[0], 1, x.shape[-1])
@@ -403,9 +436,9 @@ def encode_image(params: Params, pixels: torch.Tensor, config: CLIPConfig,
 
     n_layers = num_layers(v["blocks"])
     x = run_tower(x, v["blocks"], config.vision.heads, None, config.gelu_type,
-                  layers=range(n_layers - 1), attn_impl=attn_impl)
-    x = block_cls(x, _layer(v["blocks"], n_layers - 1), config.vision.heads,
-                  config.gelu_type)
+                  layers=range(n_layers - 1), attn_impl=attn_impl, tp=tp)
+    x = (block_cls if tp is None else tp.block_cls)(
+        x, _layer(v["blocks"], n_layers - 1), config.vision.heads, config.gelu_type)
     x = layer_norm(x, v["ln_post"])
     return _mm(x, v["proj"].to(dtype))
 
@@ -419,17 +452,20 @@ def encode_text(params: Params, tokens: torch.Tensor, config: CLIPConfig,
                 dtype: torch.dtype = torch.float32, attn_impl: str = "pallas", *,
                 lora: Optional[Params] = None, lora_scaling: float = 1.0, remat: bool = False,
                 lora_dropout: float = 0.0,
-                lora_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                lora_generator: Optional[torch.Generator] = None,
+                lora_rows: Optional[Tuple[int, int]] = None, tp=None) -> torch.Tensor:
     """Text tower: (B, ctx) token ids -> embeddings (B, embed_dim) fp32,
     pooled at the EOT token (the highest id: argmax of the tokens), with the
-    stacked adapter tree ``lora`` threaded through the blocks."""
+    stacked adapter tree ``lora`` threaded through the blocks
+    (``lora_rows``, ``tp``: see ``run_tower`` and ``lora_dropout_apply``)."""
     t = params["text"]
     x = t["tok_embed"][tokens.long()].to(dtype)
     x = x + t["pos"].to(dtype)
     mask = causal_mask(tokens.shape[1], device=x.device)
     x = run_tower(x, t["blocks"], config.text.heads, mask, config.gelu_type,
                   attn_impl=attn_impl, lora=lora, lora_scaling=lora_scaling, remat=remat,
-                  lora_dropout=lora_dropout, lora_generator=lora_generator)
+                  lora_dropout=lora_dropout, lora_generator=lora_generator,
+                  lora_rows=lora_rows, tp=tp)
     x = layer_norm(x, t["ln_final"])
     eot = torch.argmax(tokens, dim=-1)
     x = x[torch.arange(x.shape[0], device=x.device), eot]

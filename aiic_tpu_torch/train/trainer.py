@@ -26,8 +26,9 @@ params with 'lora' in name" (train_lora.py:194-197).
   (``train.checkpoint``) for replay-identical resume.
 
 Every entry point takes ``device`` (default ``"cuda"``); the tests pass
-``"cpu"``, where every kernel wrapper takes its plain version. Device meshes
-are not ported (ROADMAP Queue 1 item 13).
+``"cpu"``, where every kernel wrapper takes its plain version. Under a
+``mesh`` (``parallel.create_mesh``) the device is the rank's own, and each
+rank runs its rows of every global batch (``make_train_step``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from aiic_tpu_torch.adapters import ATTACH_POINTS, LoRAConfig, init_text_lora, save_lora_pth
 from aiic_tpu_torch.adapters.torch_convert import lora_tree_to_pth_dict
@@ -49,12 +52,11 @@ from aiic_tpu_torch.data.tokenizer import tokenize_for_model
 from aiic_tpu_torch.models.clip import encode_image, encode_text, normalize_features
 from aiic_tpu_torch.models.config import VIT_B_16, CLIPConfig
 from aiic_tpu_torch.ops import block_grad, quant
+from aiic_tpu_torch.parallel import sharding
+from aiic_tpu_torch.parallel.mesh import all_gather, all_reduce, mesh_device
+from aiic_tpu_torch.parallel.multihost import host_local_batch, process_local_rows
 
 Params = Dict[str, Any]
-
-NO_MESH = ("device meshes are not ported yet: the data-parallel trainer is ROADMAP "
-           "Queue 1 item 13 (parallel/ as torch.distributed)")
-
 
 @dataclasses.dataclass
 class TrainConfig:
@@ -127,10 +129,15 @@ class AdamW:
                 "exp_avg_sq": {p: {ab: t.clone() for ab, t in d.items()} for p, d in zeros.items()},
                 "step": 0}
 
-    def update(self, grads: Params, state: Params, params: Params) -> Tuple[Params, Params]:
-        """-> (new params, new state); neither input is modified."""
+    def update(self, grads: Params, state: Params, params: Params,
+               norm_sq: Optional[torch.Tensor] = None) -> Tuple[Params, Params]:
+        """-> (new params, new state); neither input is modified. ``norm_sq``:
+        the squared global norm where the caller holds only part of some
+        leaves (a tensor-parallel step sums its shards over the mesh)."""
         keys = sorted((p, ab) for p in grads for ab in grads[p])  # optax's leaf order
-        norm = torch.sqrt(sum(torch.sum(grads[p][ab] * grads[p][ab]) for p, ab in keys))
+        if norm_sq is None:
+            norm_sq = sum(torch.sum(grads[p][ab] * grads[p][ab]) for p, ab in keys)
+        norm = torch.sqrt(norm_sq)
         keep = norm < self.grad_clip  # a device flag: no host sync per step
         step = state["step"]
         count = step + 1
@@ -171,7 +178,8 @@ def make_optimizer(cfg: TrainConfig, steps_per_epoch: int) -> AdamW:
 
 def make_train_step(config: CLIPConfig, cfg: TrainConfig, optimizer: AdamW, mesh=None,
                     cached_image: bool = False, prompt_pool: Optional[np.ndarray] = None,
-                    device="cuda") -> Tuple[Callable, Callable]:
+                    device="cuda", *, replicate_visual: bool = True,
+                    replicate_text: Optional[bool] = None) -> Tuple[Callable, Callable]:
     """(train_step, eval_step) as the JAX package's ``make_train_step``:
 
     ``train_step(params, lora, opt_state, batch_x, tokens, generator=None)
@@ -189,10 +197,29 @@ def make_train_step(config: CLIPConfig, cfg: TrainConfig, optimizer: AdamW, mesh
     and becomes ``"block_fused_int8"`` with ``quantize_text`` where the int8
     gate admits the geometry; ``quantize_text`` on any other path raises.
     ``params`` then carries the text tower's ``attn_q``/``mlp_q``
-    (``quantize_model_mlp``, as ``train_lora`` quantizes)."""
-    if mesh is not None:
-        raise ValueError(NO_MESH)
-    dev = torch.device(device)
+    (``quantize_model_mlp``, as ``train_lora`` quantizes).
+
+    ``mesh`` (``parallel.create_mesh``; the device is then the rank's): each
+    rank runs the step's programs on its rows of the global batch, which it
+    takes as a ``host_local_batch`` DTensor or whole. The frozen image tower
+    runs per rank with replicated weights, its kernels included. On a
+    kernel text path the differentiated text tower does the same with
+    replicated weights and adapters; on ``"xla"`` it runs tensor-parallel
+    over ``"model"`` (``parallel.sharding.TensorParallel``) on adapters
+    sharded per ``lora_pspecs``. The feature rows are gathered over
+    ``"data"`` and every rank takes the global contrastive loss; the adapter
+    gradients are summed over ``"data"`` once. Token rows (the prompt
+    pool's) are padded to the ``"data"`` multiple and sliced off before the
+    loss. State trees come in whole or as DTensors (``shard_train_step``)
+    and go out as DTensors.
+
+    The mesh layout is fixed here, as the steps are explicit programs:
+    ``replicate_visual=False`` runs the frozen image tower tensor-parallel
+    (the plain path only); ``replicate_text`` likewise for the text tower,
+    by default tensor-parallel on ``"xla"`` alone. ``train_step.layout``
+    holds the two choices, ``train_step.placements(params, lora,
+    opt_state)`` the states' placement trees, built once."""
+    dev = torch.device(device) if mesh is None else mesh_device(mesh)
     on_card = dev.type == "cuda"
     scaling = cfg.alpha / cfg.rank
     image_impl = cfg.image_attn_impl or ("pallas" if on_card else "xla")
@@ -228,6 +255,14 @@ def make_train_step(config: CLIPConfig, cfg: TrainConfig, optimizer: AdamW, mesh
             "lora_dropout=0, quick-gelu, and a text tower that fits "
             "the kernel's VMEM budget "
             "(ops/block_grad.text_block_int8_supported).")
+    if replicate_text is None:
+        replicate_text = text_impl != "xla"
+    if mesh is not None and not replicate_text and text_impl != "xla":
+        raise ValueError(f"the {text_impl!r} text path runs data-parallel with its kernels: "
+                         "it needs replicate_text=True")
+    if mesh is not None and not replicate_visual and image_impl != "xla":
+        raise ValueError(f"the {image_impl!r} image path runs data-parallel with its kernels: "
+                         "it needs replicate_visual=True")
     # the int8 serving composition computes in bf16; the loss keeps the
     # image features in cfg.dtype
     text_dtype = torch.bfloat16 if text_impl == "block_fused_int8" else cfg.dtype
@@ -238,46 +273,127 @@ def make_train_step(config: CLIPConfig, cfg: TrainConfig, optimizer: AdamW, mesh
             "per-row-dropout semantics")
     pool_tokens = None if prompt_pool is None else torch.as_tensor(prompt_pool, device=dev)
 
-    def image_features(params: Params, pixels: torch.Tensor) -> torch.Tensor:
-        """The frozen-tower branch exactly as the loss sees it."""
+    if mesh is None:
+        dp, di, dgroup, text_tp, image_tp = 1, 0, None, None, None
+    else:
+        dp, di, dgroup = mesh.size(0), mesh.get_local_rank("data"), mesh.get_group("data")
+        text_tp = None if replicate_text else sharding.TensorParallel(mesh)
+        image_tp = None if replicate_visual else sharding.TensorParallel(mesh)
+
+    built: Dict[str, Any] = {}
+
+    def placements(params=None, lora_tree=None, opt_state=None):
+        """(params', adapters', optimizer state's) placement trees, each
+        built on its first use: a run's trees keep their structure."""
+        if params is not None and "params" not in built:
+            built["params"] = sharding.param_pspecs(params, replicate_visual=replicate_visual,
+                                                    replicate_text=replicate_text)
+        if lora_tree is not None and "lora" not in built:
+            built["lora"] = sharding.lora_pspecs(lora_tree, replicate=replicate_text)
+        if opt_state is not None and "opt" not in built:
+            built["opt"] = sharding._opt_state_pspecs(opt_state, lora_tree, built["lora"])
+        return built.get("params"), built.get("lora"), built.get("opt")
+
+    def image_local(params, pixels):
         with torch.no_grad():
             f = encode_image({"visual": params["visual"]}, pixels, config, dtype=image_dtype,
-                             attn_impl=image_impl)
+                             attn_impl=image_impl, tp=image_tp)
             return normalize_features(f).to(cfg.dtype)
 
-    def text_features(lora_tree, params, token_rows, generator=None):
+    def image_features(params: Params, pixels: torch.Tensor) -> torch.Tensor:
+        """The frozen-tower branch exactly as the loss sees it (under a mesh:
+        the global batch's rows, each rank encoding its own)."""
+        if mesh is None:
+            return image_local(params, pixels)
+        local = sharding.local_tree(params, placements(params)[0], mesh)
+        return all_gather(image_local(local, sharding.batch_rows(pixels, dp, di)), dgroup)
+
+    def text_features(lora_tree, params, token_rows, generator=None, rows=None):
         return normalize_features(encode_text(
             params, token_rows, config, dtype=text_dtype, attn_impl=text_impl,
             lora=lora_tree, lora_scaling=scaling,
             lora_dropout=cfg.lora_dropout if generator is not None else 0.0,
-            lora_generator=generator, remat=text_remat))
+            lora_generator=generator, remat=text_remat, lora_rows=rows, tp=text_tp))
 
     def loss_fn(lora_tree, params, batch_x, tokens, generator=None):
-        img = batch_x.to(cfg.dtype) if cached_image else image_features(params, batch_x)
-        txt = text_features(lora_tree, params, tokens if pool_tokens is None else pool_tokens,
-                            generator)
+        """The loss on local trees: this rank's rows encoded, every row's
+        features gathered (under a mesh)."""
+        x = sharding.batch_rows(batch_x, dp, di) if mesh is not None else batch_x
+        img = x.to(cfg.dtype) if cached_image else image_local(params, x)
+        if mesh is not None:
+            img = all_gather(img, dgroup)
         if pool_tokens is not None:
-            txt = txt[tokens.long()]
+            pool = pool_tokens
+            if mesh is not None:
+                pad = (-len(pool)) % dp
+                if pad:
+                    pool = torch.cat([pool, pool.new_zeros((pad,) + pool.shape[1:])])
+                pool = sharding.gather_rows(text_features(lora_tree, params, pool.chunk(dp)[di]),
+                                            dgroup, di)[:len(pool_tokens)]
+                if isinstance(tokens, DTensor):
+                    tokens = all_gather(tokens.to_local(), dgroup)
+                txt = pool[tokens.long()]
+            else:
+                txt = text_features(lora_tree, params, pool)[tokens.long()]
+        elif mesh is not None:
+            rows = sharding.batch_rows(tokens, dp, di)
+            txt = sharding.gather_rows(
+                text_features(lora_tree, params, rows, generator,
+                              (di * rows.shape[0], dp * rows.shape[0])), dgroup, di)
+        else:
+            txt = text_features(lora_tree, params, tokens, generator)
         return contrastive_loss(img, txt, params["logit_scale"])
 
+    def grads_and_norm(grads, keys, lspec):
+        """Adapter gradients summed over "data" (one collective), and the
+        squared global norm with the model-sharded leaves' sums over
+        "model"."""
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), dgroup)
+        grads = [t.view_as(g) for t, g in zip(flat.split([g.numel() for g in grads]), grads)]
+        sq = [torch.sum(g * g) for g in grads]
+        split = [j for j, (p, ab) in enumerate(keys) if isinstance(lspec[p][ab][1], Shard)]
+        if split:  # tensor-parallel adapters: each rank holds a shard of these
+            summed = all_reduce(torch.stack([sq[j] for j in split]), text_tp.group)
+            for j, v in zip(split, summed):
+                sq[j] = v
+        return grads, sum(sq[j] for j in sorted(range(len(keys)), key=lambda j: keys[j]))
+
     def train_step(params, lora_tree, opt_state, batch_x, tokens, generator=None):
+        norm_sq = None
+        if mesh is not None:
+            pspec, lspec, ospec = placements(params, lora_tree, opt_state)
+            params = sharding.local_tree(params, pspec, mesh)
+            lora_tree = sharding.local_tree(lora_tree, lspec, mesh)
+            opt_state = sharding.local_tree(opt_state, ospec, mesh)
         leaves = {p: {ab: t.detach().requires_grad_() for ab, t in d.items()}
                   for p, d in lora_tree.items()}
         loss = loss_fn(leaves, params, batch_x, tokens,
                        generator if cfg.lora_dropout > 0.0 else None)
         keys = [(p, ab) for p in leaves for ab in leaves[p]]
         grads = torch.autograd.grad(loss, [leaves[p][ab] for p, ab in keys])
+        if mesh is not None:
+            grads, norm_sq = grads_and_norm(grads, keys, lspec)
         tree = {}
         for (p, ab), g in zip(keys, grads):
             tree.setdefault(p, {})[ab] = g
-        new_lora, opt_state = optimizer.update(tree, opt_state, lora_tree)
+        new_lora, opt_state = optimizer.update(tree, opt_state, lora_tree, norm_sq)
+        if mesh is not None:
+            new_lora = sharding.distribute_tree(new_lora, lspec, mesh)
+            opt_state = sharding.distribute_tree(opt_state, ospec, mesh)
         return loss.detach(), new_lora, opt_state
 
     def eval_step(params, lora_tree, batch_x, tokens):
+        if mesh is not None:
+            pspec, lspec, _ = placements(params, lora_tree)
+            params = sharding.local_tree(params, pspec, mesh)
+            lora_tree = sharding.local_tree(lora_tree, lspec, mesh)
         with torch.no_grad():
             return loss_fn(lora_tree, params, batch_x, tokens)
 
     train_step.image_features = image_features
+    train_step.mesh = mesh
+    train_step.layout = {"replicate_visual": replicate_visual, "replicate_text": replicate_text}
+    train_step.placements = placements
     train_step.text_impl = eval_step.text_impl = text_impl
     return train_step, eval_step
 
@@ -387,6 +503,10 @@ def precompute_image_features(image_features_fn: Callable, params: Params,
     return out[torch.as_tensor(row_uid, device=out.device)]
 
 
+def _quiet(_msg: str) -> None:
+    pass
+
+
 def _cpu_tree(tree: Params) -> Params:
     return {p: {ab: t.detach().cpu().clone() for ab, t in d.items()} for p, d in tree.items()}
 
@@ -403,14 +523,24 @@ def train_lora(json_path: str = "interior_dataset.json",
     ``models.init.load_clip_weights`` gives it); ``None`` makes a seeded
     ``init_clip_params``. ``resume=True`` continues from
     ``{save_path}.state.npz`` (adapters, optimizer, epoch, best val, the
-    data-order rng and the step count), replaying the uninterrupted run."""
+    data-order rng and the step count), replaying the uninterrupted run.
+
+    ``mesh``: every rank of the mesh calls this with the same arguments.
+    Each draws the same data order and prompts, loads only its rows of each
+    global batch (``process_local_rows``, ``host_local_batch``) and runs the
+    mesh's step (``make_train_step``), train and eval split alike; the
+    losses are the single-device run's. The image-feature cache is used
+    where the world is one rank (each step recomputes the features above
+    that); rank 0 alone logs and writes the outputs."""
     from aiic_tpu_torch.models.init import init_clip_params
     from aiic_tpu_torch.train.checkpoint import load_train_state, save_train_state
 
-    if mesh is not None:
-        raise ValueError(NO_MESH)
     cfg = cfg or TrainConfig()
-    dev = torch.device(device)
+    dev = torch.device(device) if mesh is None else mesh_device(mesh)
+    world = 1 if mesh is None else dist.get_world_size()
+    main_rank = mesh is None or dist.get_rank() == 0
+    if not main_rank:
+        log = _quiet
     if params is None:
         params = init_clip_params(config, torch.Generator(device=dev).manual_seed(cfg.seed),
                                   device=dev)
@@ -450,18 +580,37 @@ def train_lora(json_path: str = "interior_dataset.json",
                 "not replay the uninterrupted run)")
         log(f"resumed from {state_path} at epoch {start_epoch} (best val {best_val:.4f})")
 
-    use_cache = cfg.cache_image_features
+    # the cached table is whole on every rank: a world of one alone uses it
+    use_cache = cfg.cache_image_features and world == 1
     pool = ds.prompt_pool
     use_dedup = cfg.dedup_prompts and cfg.lora_dropout == 0.0 and 0 < len(pool) <= cfg.batch_size
     pool_tokens = tokenize_for_model(pool, config) if use_dedup else None
-    train_step, eval_step = make_train_step(config, cfg, optimizer, cached_image=use_cache,
-                                            prompt_pool=pool_tokens, device=dev)
+    train_step, eval_step = make_train_step(config, cfg, optimizer, mesh=mesh,
+                                            cached_image=use_cache, prompt_pool=pool_tokens,
+                                            device=dev)
     if use_dedup:
         log(f"prompt dedup: {len(pool)} unique prompts encoded per step "
             f"(vs {cfg.batch_size} dense rows)")
 
-    def place_batch(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if mesh is None:
+        def place_batch(a) -> torch.Tensor:
+            return a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(a)).to(dev)
+
+        def local_rows(rows):
+            return rows
+    else:
+        # each rank feeds only its rows of every global batch; the kernel
+        # text paths replicate the text weights and adapters, "xla" splits
+        # them over "model"
+        train_step, eval_step, params, lora_tree, opt_state = sharding.shard_train_step(
+            mesh, train_step, eval_step, params, lora_tree, opt_state)
+
+        def place_batch(a: np.ndarray):
+            return host_local_batch(mesh, a)
+
+        def local_rows(rows):
+            return process_local_rows(rows, mesh)
 
     feats_table = None
     if use_cache:
@@ -472,11 +621,13 @@ def train_lora(json_path: str = "interior_dataset.json",
             f"{precompute_image_features.last_seconds:.1f}s); train steps are text-only")
 
     def make_batch(sl):
-        """(image batch, token batch) with the same rng draws on every path."""
-        toks = ds.batch_prompt_ids(sl, rng) if use_dedup else ds.batch_tokens(sl, rng)
+        """(image batch, token batch) of this rank's rows, with the global
+        batch's rng draws on every path and every rank."""
+        toks = local_rows(ds.batch_prompt_ids(sl, rng) if use_dedup else ds.batch_tokens(sl, rng))
+        rows = local_rows(sl)
         if use_cache:
-            return feats_table[torch.as_tensor(sl, device=dev)], place_batch(toks)
-        return place_batch(np.stack([ds.load_pixels(int(i)) for i in sl])), place_batch(toks)
+            return place_batch(feats_table[torch.as_tensor(rows, device=dev)]), place_batch(toks)
+        return place_batch(np.stack([ds.load_pixels(int(i)) for i in rows])), place_batch(toks)
 
     def run_epoch_batches(indices):
         idx = rng.permutation(indices)
@@ -484,7 +635,7 @@ def train_lora(json_path: str = "interior_dataset.json",
             yield make_batch(idx[i:i + cfg.batch_size])
 
     history = []
-    best_tree = _cpu_tree(lora_tree)
+    best_tree = _cpu_tree(sharding.full_tree(lora_tree))
     step_n = resume_step
     for epoch in range(start_epoch, cfg.epochs):
         train_losses = []
@@ -520,16 +671,18 @@ def train_lora(json_path: str = "interior_dataset.json",
 
         if avg_val < best_val:
             best_val = avg_val
-            best_tree = _cpu_tree(lora_tree)
-            if save_path:
+            best_tree = _cpu_tree(sharding.full_tree(lora_tree))
+            if save_path and main_rank:
                 os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
                 save_lora_pth(best_tree, save_path)
                 np.savez(save_path + ".npz", **lora_tree_to_pth_dict(best_tree))
                 log(f"  saved best adapters (val {avg_val:.4f}) -> {save_path}")
 
         if state_path:
-            save_train_state(state_path, lora_tree, opt_state, epoch=epoch,
-                             best_val_loss=best_val, seed=cfg.seed,
-                             rng_state=rng.bit_generator.state, step=step_n)
+            whole = sharding.full_tree({"lora": lora_tree, "opt": opt_state})
+            if main_rank:
+                save_train_state(state_path, whole["lora"], whole["opt"], epoch=epoch,
+                                 best_val_loss=best_val, seed=cfg.seed,
+                                 rng_state=rng.bit_generator.state, step=step_n)
 
     return {"best_val_loss": best_val, "lora_tree": best_tree, "history": history}

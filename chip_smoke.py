@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``aiic_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
+    (``--mesh-rank DIR``: one of phase 15's two ranks, started by the script)
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -228,7 +229,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    0.999, argmax per row equal); bf16 ``encode_image`` on
    ``adapters.fold_visual_lora``'s params (row 5) with a seeded rank-4 tree
    against the CPU, and a zero-B fold bit for bit the unfolded features.
-   The three tool processes run beside the in-process parts.
+   The three tool processes run beside the in-process parts;
+15. multi-device (``aiic_tpu_torch.parallel``): (a) in this process a mesh
+   of one (``create_mesh(1)``, a NCCL group of one): the int8 patch-wire and
+   the bf16 engines on it answer 1, 7, 64 and 256 images with exact
+   launches (rows 1, 2, 4 and the GEMM stage; row 5), every output bit for
+   bit the single-device engine's; the int8 (rows 13-14) and bf16 (rows
+   11-12) text-block train steps at 256 text rows on it and off it, loss
+   and adapters bit for bit, 12 launches of each kernel; (b) beside (a),
+   two ranks sharing the card over gloo (``torchrun --nproc-per-node 2
+   chip_smoke.py --mesh-rank DIR``): the int8 engine on 7 (bucket 8) and
+   64 images bit for bit the single-device engine's on each rank's rows
+   and at the serving gate against it on the whole bucket (in this process
+   the program's stages locate the one that differs), with exact launches
+   per rank (rank 0 alone runs the text tower); the engine on six files and
+   a missing one, rank 0 decoding for both, at the serving gate; a bf16
+   block_fused step over 16 rows (loss within 1e-5
+   relative, moments and adapters at phase 8's bf16 bars); one epoch of
+   ``train_lora --mesh 2`` on phase 7's dataset, its loss curve the
+   single-rank run's and rank 0 alone writing; then the int8 engine's call
+   at 256 images on the mesh of one beside the single-device call.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -2223,7 +2243,8 @@ BLOCK_F32_BWD_KERNELS = ("core_bwd_tiled_query_kernel", "core_bwd_tiled_key_kern
 def _block_form0_kernels(fn, backward: bool, fp32: bool = False) -> list:
     """The CUDA kernels that fn() (a form-0 text-block call) launches, from
     ``_trace``; a trace that misses a kernel it must show is taken again
-    (the profiler drops leading records), up to PROFILE_TRIES. Raises
+    with twice the lead-in (the profiler drops leading records), up to
+    PROFILE_TRIES. Raises
     unless every kernel of ``BLOCK_FORM0_KERNELS`` (and, in the backward,
     ``BLOCK_FORM0_BWD_KERNELS``; fp32: ``BLOCK_F32_KERNELS`` and
     ``BLOCK_F32_BWD_KERNELS``) is there and none of
@@ -2232,11 +2253,13 @@ def _block_form0_kernels(fn, backward: bool, fp32: bool = False) -> list:
         want = BLOCK_F32_KERNELS + (BLOCK_F32_BWD_KERNELS if backward else ())
     else:
         want = BLOCK_FORM0_KERNELS + (BLOCK_FORM0_BWD_KERNELS if backward else ())
+    lead_in = PROFILE_LEAD_IN
     for _ in range(PROFILE_TRIES):
-        names = sorted({ev.key for ev in _trace(fn)})
+        names = sorted({ev.key for ev in _trace(fn, lead_in)})
         missing = [w for w in want if not any(w in n for n in names)]
         if not missing:
             break
+        lead_in = min(2 * lead_in, PROFILE_MAX_LEAD_IN)
     stale = [n for n in names if any(k in n for k in BLOCK_FORM1_KERNELS)]
     if missing or stale:
         raise AssertionError(f"a form-0 text-block call launched {names}: missing {missing}, "
@@ -2856,20 +2879,36 @@ def _sdpa_bshd_times(q, k, v, mask) -> dict:
 
 # torch.profiler (PyTorch 2.11, CUDA 12.8, on an H100) drops the first kernel
 # records of a trace, the more the older the process, and now and then many
-# more: ``tools/profiler_loss.py`` shows it. Each trace opens with
-# PROFILE_LEAD_IN throwaway spin kernels (about 22 ms of device time), which
-# take the loss in most traces; ``_device_ms_by_kernel`` uses a trace only
-# when it is whole and the one before it counted the same kernels, and fails
-# the run after PROFILE_TRIES traces.
+# more: ``tools/profiler_loss.py`` shows it. Each trace opens with a lead-in
+# of throwaway spin kernels (PROFILE_LEAD_IN, about 22 ms of device time) and
+# closes with PROFILE_TAIL more, whose events are left out; a trace that kept
+# no spin kernel from before the calls' first kernel, or none from after
+# their last, lost records of the calls and is not used, and the next trace
+# opens with twice the lead-in (at most PROFILE_MAX_LEAD_IN).
+# ``_device_ms_by_kernel`` uses a trace only when it is whole and the one
+# before it counted the same kernels, and fails the run after PROFILE_TRIES
+# traces.
 PROFILE_ITERS = 3
 PROFILE_LEAD_IN = 400
-PROFILE_TRIES = 5
+PROFILE_MAX_LEAD_IN = 12800
+PROFILE_TAIL = 20
+PROFILE_TRIES = 8
 
 
-def _trace(fn, lead_in: int = PROFILE_LEAD_IN) -> list:
-    """The CUDA kernel events (``key_averages``) of one ``torch.profiler``
-    trace of PROFILE_ITERS calls of fn(), opened by ``lead_in`` spin
-    kernels, whose events are left out."""
+def _kept_both_ends(kernels) -> bool:
+    """Whether a trace's CUDA kernel events (``prof.events()``) hold a spin
+    kernel that started before the first other kernel and one that started
+    after the last: the profiler loses records at a trace's ends, so such a
+    trace kept every record between them. A trace with no other kernel has
+    nothing to lose."""
+    spins = [ev.time_range.start for ev in kernels if "spin_kernel" in ev.name]
+    work = [ev.time_range.start for ev in kernels if "spin_kernel" not in ev.name]
+    return not work or bool(spins) and min(spins) < min(work) and max(spins) > max(work)
+
+
+def _profile(fn, lead_in: int = PROFILE_LEAD_IN):
+    """One ``torch.profiler`` trace (the profiler) of PROFILE_ITERS calls of
+    fn(), between ``lead_in`` spin kernels and PROFILE_TAIL more."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2880,6 +2919,32 @@ def _trace(fn, lead_in: int = PROFILE_LEAD_IN) -> list:
         for _ in range(PROFILE_ITERS):
             fn()
         torch.cuda.synchronize()
+        for _ in range(PROFILE_TAIL):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+    return prof
+
+
+def _cuda_kernels(prof) -> list:
+    """A trace's CUDA kernel events, one a launch (``prof.events()``)."""
+    import torch
+
+    return [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _trace(fn, lead_in: int = PROFILE_LEAD_IN) -> list:
+    """The CUDA kernel events (``key_averages``) of one ``_profile`` trace,
+    the spin kernels left out; [] when the trace lost records of the calls
+    (``_kept_both_ends``)."""
+    import torch
+
+    prof = _profile(fn, lead_in)
+    kernels = _cuda_kernels(prof)
+    if not _kept_both_ends(kernels):
+        spins = sum("spin_kernel" in ev.name for ev in kernels)
+        log(f"[profile] a trace lost records of its calls: {spins} of {lead_in + PROFILE_TAIL} "
+            f"spin kernels kept, lead-in {lead_in}")
+        return []
     return [ev for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in ev.key]
 
@@ -2887,12 +2952,13 @@ def _trace(fn, lead_in: int = PROFILE_LEAD_IN) -> list:
 def _device_ms_by_kernel(fn, needles: dict) -> dict:
     """Device ms per call of fn() spent in the CUDA kernels whose names hold
     each needle, from ``_trace`` (None where the trace shows no such
-    kernel). A trace is whole when it shows device time, every kernel's
-    count is a multiple of the calls, and it holds as many
-    ``wgmma_stage_kernel`` launches as ``quant.gemm_stage`` counted in it
-    and rows 5, 10 and 11-14 launched inside theirs (``BF16_STAGE_LAUNCHES``);
-    the one used is whole and counts what the whole trace before it
-    counted."""
+    kernel). A trace is whole when it kept both its ends (``_trace``), shows
+    device time, every kernel's count is a multiple of the calls, and it
+    holds as many ``wgmma_stage_kernel`` launches as ``quant.gemm_stage``
+    counted in it and rows 5, 10 and 11-14 launched inside theirs
+    (``BF16_STAGE_LAUNCHES``); the one used is whole and counts what the
+    whole trace before it counted. After a trace that is not whole the next
+    opens with twice the lead-in."""
     import torch
 
     from aiic_tpu_torch.ops import _build
@@ -2904,10 +2970,10 @@ def _device_ms_by_kernel(fn, needles: dict) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    before = None
+    before, lead_in = None, PROFILE_LEAD_IN
     for _ in range(PROFILE_TRIES):
         counted = stage_launches()
-        events = _trace(fn)
+        events = _trace(fn, lead_in)
         counted = stage_launches() - counted
         stage = sum(ev.count for ev in events if "wgmma_stage_kernel" in ev.key)
         counts = {ev.key: ev.count for ev in events}
@@ -2918,6 +2984,7 @@ def _device_ms_by_kernel(fn, needles: dict) -> dict:
         if not whole:
             log(f"[profile] a trace that is not whole: {counted} stage launches counted, {stage} "
                 f"traced, counts {list(counts.values())} over {PROFILE_ITERS} calls")
+            lead_in = min(2 * lead_in, PROFILE_MAX_LEAD_IN)
         before = counts if whole else None
     else:
         raise AssertionError(f"{PROFILE_TRIES} traces of one call: no two whole ones in a row "
@@ -4486,7 +4553,7 @@ def _start(cmd: list, root: str, name: str) -> tuple:
             time.perf_counter())
 
 
-def _finish(job: tuple, root: str, timeout: float = 600) -> tuple:
+def _finish(job: tuple, root: str, timeout: float = 600, tag: str = "eval") -> tuple:
     """Wait for a started tool: (its stdout, seconds), or a failure with its
     stderr. The process is killed if it outlives ``timeout``."""
     proc, out, err, name, t0 = job
@@ -4503,9 +4570,9 @@ def _finish(job: tuple, root: str, timeout: float = 600) -> tuple:
         stdout = f.read()
     with open(os.path.join(root, f"{name}.err")) as f:
         stderr = f.read()
-    log(f"[eval {name}] exit code {rc} after {seconds:.1f} s")
+    log(f"[{tag} {name}] exit code {rc} after {seconds:.1f} s")
     if rc != 0:
-        raise AssertionError(f"[eval {name}] exited with {rc}:\n{stderr[-3000:]}")
+        raise AssertionError(f"[{tag} {name}] exited with {rc}:\n{stderr[-3000:]}")
     return stdout, seconds
 
 
@@ -4808,6 +4875,446 @@ def phase_eval(device, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: multi-device (``parallel``: meshes on torch.distributed)
+# ---------------------------------------------------------------------------
+
+MESH_REQUESTS = (1, 7, 64, 256)
+MESH_STEP_ROWS = 256   # text rows of the mesh-of-one train steps
+MESH_PAIR_ROWS = 16    # the two ranks' global batch
+MESH_PAIR_SECONDS = 400
+# The two ranks' bf16 block_fused step against the single-device step: the
+# loss within MESH_LOSS_RTOL, the moments and adapters at phase 8's bf16
+# bars. train_lora over two ranks recomputes the image features per rank on
+# 8 rows (the single-rank run caches them in chunks of 16), so cuBLAS may
+# sum a row in another order: its losses are held to MESH_CURVE_RTOL.
+MESH_LOSS_RTOL = 1e-5
+MESH_CURVE_RTOL = 1e-4
+MESH_TIMING_ROUNDS = 3
+# The ranks' engine on phase 7's first MESH_FILES images and a missing file:
+# rank 0 decodes for both
+MESH_FILES = 6
+# PERF.md's table rows of the kernels phase 15 launches (the GEMM stage runs
+# inside rows 1-4)
+MESH_ROWS = {"int8_ln_qkv_attention": "1", "int8_ln_mlp": "2", "int8_block": "4",
+             "gemm_stage": "1-4 (stage)", "fused_ln_qkv_attention": "5", "text_block_fwd": "11",
+             "text_block_bwd": "12", "text_block_fwd_int8": "13", "text_block_bwd_int8": "14"}
+
+
+def _mesh_requests():
+    rng = np.random.default_rng(15)
+    return [_pixels(rng, n, 224) for n in MESH_REQUESTS]
+
+
+def _mesh_step_inputs(rows: int, device):
+    rng = np.random.default_rng(13)
+    feats, tokens = _step_batch(rng, rows, device)
+    return feats, tokens, _lora_init(rng, device)
+
+
+def _mesh_step(params, mesh, opts, feats, tokens, lora, device):
+    """One cached-feature train step of the ViT-B/16 text tower on
+    ``params`` (the path's), on ``mesh`` or on one device: (loss, adapters,
+    optimizer state, lr), the trees whole."""
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.parallel.sharding import full_tree
+    from aiic_tpu_torch.train import make_optimizer, make_train_step
+
+    cfg = _train_config(opts, epochs=2, batch_size=len(feats))
+    opt = make_optimizer(cfg, steps_per_epoch=1)
+    step, _ = make_train_step(VIT_B_16, cfg, opt, mesh=mesh, cached_image=True, device=device)
+    loss, new, state = step(params, lora, opt.init(lora), feats, tokens)
+    return float(loss), full_tree(new), full_tree(state), cfg.lr
+
+
+def _same_bits(a: dict, b: dict) -> dict:
+    """Per output: bit-identical, and the largest difference."""
+    return {k: (bool(np.array_equal(a[k], b[k])),
+                float(np.abs(a[k].astype(np.float64) - b[k].astype(np.float64)).max()))
+            for k in a}
+
+
+def _hold_mesh_engine(label: str, single, meshy, requests) -> dict:
+    """The engine on a mesh of one against the single-device engine on every
+    request: each output bit for bit (the same program on the same rows;
+    the mesh adds a row slice and a gather)."""
+    res = {}
+    for px in requests:
+        res[len(px)] = same = _same_bits(meshy.classify_pixels(px), single.classify_pixels(px))
+        if not all(s for s, _ in same.values()):
+            raise AssertionError(f"[mesh {label}] mesh of one differs from one device at "
+                                 f"{len(px)} images: {same}")
+    log(f"[mesh {label}] mesh of one equals the single-device engine bit for bit on "
+        f"{list(res)} images")
+    return res
+
+
+def _hold_mesh_steps(label: str, params, mesh, device) -> tuple:
+    """A train step on the mesh of one against the same step on one device
+    at MESH_STEP_ROWS text rows: loss and adapters bit for bit, the text
+    block kernels launched exactly 12 times each (one block a layer)."""
+    import torch
+
+    from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+
+    opts = TRAIN_PATHS[label][0]
+    path = _path_params(params, opts)
+    feats, tokens, lora = _mesh_step_inputs(MESH_STEP_ROWS, device)
+    single = _mesh_step(path, None, opts, feats, tokens, lora, device)
+    reset_launch_counts()
+    meshed = _mesh_step(path, mesh, opts, feats, tokens, lora, device)
+    got = {n: c for n, c in launch_counts().items() if c}
+    suffix = "_int8" if opts.get("quantize_text") else ""
+    want = {"text_block_fwd" + suffix: 12, "text_block_bwd" + suffix: 12}
+    same = (single[0] == meshed[0]
+            and all(torch.equal(single[1][p][ab], meshed[1][p][ab])
+                    for p in single[1] for ab in "AB"))
+    log(f"[mesh {label}] train step at {MESH_STEP_ROWS} text rows: loss {meshed[0]!r} on the "
+        f"mesh of one, {single[0]!r} on one device; loss and adapters bit for bit: {same}; "
+        f"launches {got} (expected {want})")
+    if got != want or not same:
+        raise AssertionError(f"[mesh {label}] launches {got} (expected {want}), same {same}")
+    return {"loss": meshed[0], "loss_single": single[0], "bit_identical": same,
+            "launches": got}, got
+
+
+def _mesh_files(root: str) -> list:
+    return ([os.path.join(root, f"img{i:03d}.png") for i in range(MESH_FILES)]
+            + [os.path.join(root, "missing.png")])
+
+
+def _files_agree(got: dict, want: dict) -> bool:
+    """Two ``analyze_images_batch`` results (one through JSON) at the serving
+    gate: the same paths, verdicts, categories and attribute names, every
+    confidence within 1e-3."""
+    want = json.loads(json.dumps(want))
+    if sorted(got) != sorted(want):
+        return False
+    for p, w in want.items():
+        g = got[p]
+        if (g["is_interior"], g["detected_category"], list(g["analysis"])) != (
+                w["is_interior"], w["detected_category"], list(w["analysis"])):
+            return False
+        probs = [(a, b) for c in w["analysis"]
+                 for (na, a), (nb, b) in zip(g["analysis"][c], w["analysis"][c]) if na == nb]
+        if (len(probs) != sum(len(v) for v in w["analysis"].values())
+                or abs(g["interior_confidence"] - w["interior_confidence"]) > 1e-3
+                or any(abs(a - b) > 1e-3 for a, b in probs)):
+            return False
+    return True
+
+
+def _start_pair(root: str) -> tuple:
+    """The two ranks, as ``torchrun --nproc-per-node 2`` on this host."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return _start([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+                   "--master-addr", "127.0.0.1", "--master-port", str(port),
+                   os.path.join(HERE, "chip_smoke.py"), "--mesh-rank", root], root, "mesh_pair")
+
+
+def mesh_rank(root: str) -> int:
+    """One of phase 15's two ranks (``chip_smoke.py --mesh-rank ROOT`` under
+    torchrun): the ranks share the card over gloo. Each runs the int8 engine
+    on the mesh (7 and 64 images), a bf16 block_fused train step over a
+    global batch of MESH_PAIR_ROWS, and one epoch of ``train_lora --mesh 2``
+    on phase 7's dataset in ROOT; it writes its outputs to ROOT."""
+    import torch
+    import torch.distributed as dist
+
+    from aiic_tpu_torch import train as train_pkg
+    from aiic_tpu_torch.cli import train_lora as cli
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.models.init import init_clip_params
+    from aiic_tpu_torch.ops._build import launch_counts, load_library, reset_launch_counts
+    from aiic_tpu_torch.parallel import create_mesh
+    from aiic_tpu_torch.train import checkpoint, trainer
+
+    mesh = create_mesh(2, backend="gloo")  # NCCL takes one card a rank
+    rank = dist.get_rank()
+    device = torch.device("cuda", torch.cuda.current_device())
+    load_library()
+    params = init_clip_params(VIT_B_16, torch.Generator(device=device).manual_seed(0),
+                              device=device)
+    requests = _mesh_requests()
+    out, meta = {}, {}
+    reset_launch_counts()
+    engine = _engine(params, device, CONFIGS["int8"], VIT_B_16, mesh=mesh)
+    for px in requests[1:3]:
+        out.update({f"engine{len(px)}/{k}": v for k, v in engine.classify_pixels(px).items()})
+    meta["engine_launches"] = {n: c for n, c in launch_counts().items() if c}
+    meta["files"] = engine.analyze_images_batch(_mesh_files(root), filter_interiors=False)
+    feats, tokens, lora = _mesh_step_inputs(MESH_PAIR_ROWS, device)
+    loss, new, state, _ = _mesh_step(params, mesh, TRAIN_PATHS["bf16_block_fused"][0], feats,
+                                     tokens, lora, device)
+    meta["step_loss"] = loss
+    for p in new:
+        for ab in "AB":
+            out[f"step/lora/{p}/{ab}"] = new[p][ab].cpu().numpy()
+            out[f"step/exp_avg/{p}/{ab}"] = state["exp_avg"][p][ab].cpu().numpy()
+    writes, runs = [], []
+
+    def recorded(real, name, keep=None):
+        def call(*a, **k):
+            res = real(*a, **k)
+            (keep if keep is not None else writes).append(name if keep is None else res)
+            return res
+        return call
+    trainer.save_lora_pth = recorded(trainer.save_lora_pth, "save_lora_pth")
+    checkpoint.save_train_state = recorded(checkpoint.save_train_state, "save_train_state")
+    train_pkg.train_lora = recorded(train_pkg.train_lora, "train_lora", keep=runs)
+    cli.main(["--json-path", os.path.join(root, "dataset.json"), "--save-path",
+              os.path.join(root, "pair", "adapters.pth"), "--epochs", "1", "--batch-size",
+              str(TRAIN_BATCH), "--mesh", "2"])
+    meta["history"] = runs[0]["history"]
+    meta["writes"] = writes
+    np.savez(os.path.join(root, f"mesh_rank{rank}.npz"), **out)
+    with open(os.path.join(root, f"mesh_rank{rank}.json"), "w") as f:
+        json.dump(meta, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _split_engine(single, px) -> dict:
+    """The single-device engine run on each rank's rows of ``px``'s bucket
+    (its first and second half, the second zero-padded as the bucket pads
+    it): what each of the two ranks computes, on one device."""
+    half = single._final_bucket(len(px), single.max_batch) // 2
+    a, b = single.classify_pixels(px[:half]), single.classify_pixels(px[half:])
+    return {k: np.concatenate([a[k], b[k]]) for k in a}
+
+
+def _row_dependence(single, px) -> dict:
+    """Where the int8 classify program gives a row another result when the
+    batch around it changes: ``encode_image``'s stages and the scores on
+    the bucket of ``px`` at once, against the same rows run half a bucket at
+    a time (as the two ranks run them). Returns, per stage in program order,
+    (bit-identical, largest difference); ``faithful``: the stages at the
+    whole bucket end in the engine's own features, bit for bit."""
+    import torch
+
+    from aiic_tpu_torch.engine.detector import INTERIOR_COUNT
+    from aiic_tpu_torch.engine.programs import analyze_topk, detect_logits
+    from aiic_tpu_torch.models import clip as C
+    from aiic_tpu_torch.ops.preprocess import to_patch_major
+    from aiic_tpu_torch.utils.batching import pad_batch
+
+    cfg, dt, v = single.config, single.dtype, single.params["visual"]
+    bucket = single._final_bucket(len(px), single.max_batch)
+    padded, _ = pad_batch(px, bucket)
+    wire = torch.from_numpy(to_patch_major(padded, cfg.patch_size)).to(single.device)
+
+    @torch.inference_mode()
+    def stages(x_u8) -> dict:
+        out = {}
+        x = C._embed_patch_u8(v, x_u8, cfg, dt)
+        out["patch embed (int8 products in fp32, exact)"] = x
+        x = x.to(dt)
+        x = torch.cat([v["cls"].to(dt).expand(x.shape[0], 1, x.shape[-1]), x], dim=1)
+        x = C.layer_norm(x + v["pos"].to(dt), v["ln_pre"])
+        out["ln_pre"] = x
+        n = C.num_layers(v["blocks"])
+        x = C.run_tower(x, v["blocks"], cfg.vision.heads, None, cfg.gelu_type,
+                        layers=range(n - 1), attn_impl=single.attn_impl)
+        out[f"blocks 1-{n - 1} (rows 1 and 2)"] = x
+        x = C.block_cls(x, C._layer(v["blocks"], n - 1), cfg.vision.heads, cfg.gelu_type)
+        out["block_cls (the last block's CLS row: cuBLAS bf16 products)"] = x
+        x = C.layer_norm(x, v["ln_post"])
+        out["ln_post"] = x
+        x = C._mm(x, v["proj"].to(dt))
+        out["proj (cuBLAS bf16 product)"] = x
+        f = C.normalize_features(x)
+        out["features"] = f
+        det = detect_logits(f, single.det_text, INTERIOR_COUNT)
+        out["detector scores (fp32 product, softmax)"] = det["top_conf"]
+        out["attribute top-k (fp32 products, softmax)"] = analyze_topk(
+            f, single.cat_text, single.cat_mask)[0]
+        return out
+
+    whole = stages(wire)
+    half = bucket // 2
+    parts = [stages(wire[:half]), stages(wire[half:])]
+    res = {}
+    for k, t in whole.items():
+        split = torch.cat([p[k] for p in parts])
+        res[k] = (bool(torch.equal(t, split)),
+                  float((t.double() - split.double()).abs().max()))
+    engine_feats = single.classify_pixels(px)["features"]
+    res["faithful"] = bool(np.array_equal(whole["features"][:len(px)].cpu().numpy(),
+                                          engine_feats))
+    return res
+
+
+def _hold_pair(root: str, params, device, single, requests) -> dict:
+    """The two ranks' outputs against one device: the engine bit for bit
+    against the single-device engine on each rank's rows (``_split_engine``,
+    the same program at the ranks' bucket), and at the serving gate against
+    it on the whole bucket (``_row_dependence`` locates the stage that
+    differs); the bf16 step at MESH_LOSS_RTOL and phase 8's bf16 bars; the
+    train_lora curve at MESH_CURVE_RTOL, rank 0 alone writing."""
+    import torch
+
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.train import TrainConfig, train_lora
+
+    res = {}
+    feats, tokens, lora = _mesh_step_inputs(MESH_PAIR_ROWS, device)
+    step = _mesh_step(params, None, TRAIN_PATHS["bf16_block_fused"][0], feats, tokens, lora,
+                      device)
+    ref_run = train_lora(os.path.join(root, "dataset.json"),
+                         os.path.join(root, "single", "adapters.pth"), config=VIT_B_16,
+                         cfg=TrainConfig(epochs=1, batch_size=TRAIN_BATCH), device=device,
+                         log=lambda *_: None)
+    for rank in range(2):
+        with np.load(os.path.join(root, f"mesh_rank{rank}.npz")) as blob:
+            out = {k: blob[k] for k in blob.files}
+        with open(os.path.join(root, f"mesh_rank{rank}.json")) as f:
+            meta = json.load(f)
+        # each rank's int8 engine: its half of each bucket (4 of 8 images,
+        # 32 of 64); rank 0 alone runs the text tower, at build
+        n_prompts = single.det_text.shape[0] + int(single.cat_mask.sum())
+        build, total = _expected_launches(CONFIGS["int8"], VIT_B_16, n_prompts, [4, 32])
+        want = {n: c - (0 if rank == 0 else build.get(n, 0)) for n, c in total.items()}
+        want = {n: c for n, c in want.items() if c}
+        r = res[rank] = {"engine_launches": meta["engine_launches"], "expected": want}
+        if meta["engine_launches"] != want:
+            raise AssertionError(f"[mesh pair rank {rank}] engine launches "
+                                 f"{meta['engine_launches']}, expected {want}")
+        for px in requests[1:3]:
+            want = single.classify_pixels(px)
+            got = {k: out[f"engine{len(px)}/{k}"] for k in want}
+            split = {k: v[:len(px)] for k, v in _split_engine(single, px).items()}
+            r[f"engine_{len(px)}_split"] = bits = _same_bits(got, split)
+            r[f"engine_{len(px)}"] = same = _same_bits(got, want)
+            feats_cos = float((got["features"] * want["features"]).sum(-1).min())
+            gate = (np.array_equal(got["top_idx"], want["top_idx"])
+                    and all(same[k][1] <= 1e-3 for k in ("top_conf", "interior_mass",
+                                                         "non_interior_mass", "topk_vals"))
+                    and feats_cos >= COS_MIN)
+            log(f"[mesh pair rank {rank}] int8 engine on {len(px)} images against one device "
+                f"on the ranks' rows: (bit-identical, max diff) {bits}; on the whole bucket: "
+                f"{same}; feature cosine >= {feats_cos:.7f}")
+            if not gate or not all(b for b, _ in bits.values()):
+                raise AssertionError(f"[mesh pair rank {rank}] engine on {len(px)} images: "
+                                     f"{bits}, {same}, cosine {feats_cos}")
+        files = _files_agree(meta["files"], single.analyze_images_batch(
+            _mesh_files(root), filter_interiors=False))
+        r["files"] = files
+        log(f"[mesh pair rank {rank}] int8 engine on {MESH_FILES} files and a missing one, "
+            f"rank 0 decoding: the single-device results at the serving gate: {files}")
+        if not files:
+            raise AssertionError(f"[mesh pair rank {rank}] files: {meta['files']}")
+        got = (meta["step_loss"],
+               {p: {ab: torch.from_numpy(out[f"step/lora/{p}/{ab}"]) for ab in "AB"}
+                for p in lora},
+               {"exp_avg": {p: {ab: torch.from_numpy(out[f"step/exp_avg/{p}/{ab}"])
+                                for ab in "AB"} for p in lora}}, step[3])
+        agree = _step_agreement(got, step, False)
+        r["step"] = agree
+        log(f"[mesh pair rank {rank}] bf16 block_fused step over {MESH_PAIR_ROWS} rows against "
+            f"one device: loss {got[0]!r} vs {step[0]!r} (rel {agree['loss_rel']:.3g}); "
+            f"moment cosines {agree['moment']}")
+        if not agree["ok"] or agree["loss_rel"] > MESH_LOSS_RTOL:
+            raise AssertionError(f"[mesh pair rank {rank}] train step: {agree}")
+        curve = [(h["train_loss"], h["val_loss"]) for h in meta["history"]]
+        want_curve = [(h["train_loss"], h["val_loss"]) for h in ref_run["history"]]
+        r["train_lora"] = {"curve": curve, "single": want_curve, "writes": meta["writes"]}
+        log(f"[mesh pair rank {rank}] train_lora --mesh 2, one epoch: (train, val) {curve}, "
+            f"one rank {want_curve}; this rank wrote {meta['writes']}")
+        if (not np.allclose(curve, want_curve, rtol=MESH_CURVE_RTOL, atol=0)
+                or bool(meta["writes"]) != (rank == 0)):
+            raise AssertionError(f"[mesh pair rank {rank}] train_lora: {r['train_lora']}")
+    if not os.path.exists(os.path.join(root, "pair", "adapters.pth")):
+        raise AssertionError("[mesh pair] rank 0 wrote no adapters")
+    return res
+
+
+def _mesh_times(single, meshy, px, card: str) -> dict:
+    """The int8 engine's call at len(px) images on the mesh of one beside
+    the single-device call, in turns (single, mesh, mesh, single)."""
+    ms = {"single": [], "mesh1": []}
+    for _ in range(MESH_TIMING_ROUNDS):
+        for key in ("single", "mesh1", "mesh1", "single"):
+            eng = single if key == "single" else meshy
+            t0 = time.perf_counter()
+            eng.classify_pixels(px)
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+    res = {k: {"median_ms": float(np.median(v)), "all_ms": v} for k, v in ms.items()}
+    log(f"[mesh timing] ({card}) int8 engine call at B={len(px)}: mesh of one "
+        f"{res['mesh1']['median_ms']:.2f} ms, one device {res['single']['median_ms']:.2f} ms "
+        f"(medians of {2 * MESH_TIMING_ROUNDS} calls each)")
+    return res
+
+
+def phase_mesh(device, card: str) -> dict:
+    """Phase 15: (a) a mesh of one on a NCCL group of one in this process:
+    the int8 and bf16 engines on it against the single-device engines on
+    MESH_REQUESTS images, bit for bit, with exact launches; the int8 and
+    bf16 text-block train steps at MESH_STEP_ROWS rows on it and off it.
+    (b) two ranks sharing the card over gloo (``mesh_rank``, started first
+    and run beside (a)): their engine, train step and train_lora epoch
+    against one device. Then the mesh-of-one call's time beside the
+    single-device call's. Returns the launches of (a)."""
+    import torch
+
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.models.init import init_clip_params
+    from aiic_tpu_torch.parallel import create_mesh
+
+    t0 = time.perf_counter()
+    launches: dict = {}
+    report: dict = {}
+    with tempfile.TemporaryDirectory() as root:
+        _synth_dataset(root, TRAIN_ITEMS)
+        pair = _start_pair(root)
+        try:
+            params = init_clip_params(VIT_B_16, torch.Generator(device=device).manual_seed(0),
+                                      device=device)
+            mesh = create_mesh(1)
+            log(f"[mesh] {mesh} on a {torch.distributed.get_backend()} group of "
+                f"{torch.distributed.get_world_size()}")
+            requests = _mesh_requests()
+            engines = {}
+            for label in ("int8", "bf16"):
+                single, _ = phase_path(label, params, device, requests, tag="_single")
+                meshy, counts = phase_path(label, params, device, requests, tag="_mesh1",
+                                           mesh=mesh)
+                _add(launches, counts)
+                report[label] = _hold_mesh_engine(label, single, meshy, requests)
+                engines[label] = (single, meshy)
+            for label in ("int8_text", "bf16_block_fused"):
+                report[label], counts = _hold_mesh_steps(label, params, mesh, device)
+                _add(launches, counts)
+            _, report["pair_seconds"] = _finish(pair, root, MESH_PAIR_SECONDS, tag="mesh")
+            report["pair"] = _hold_pair(root, params, device, engines["int8"][0], requests)
+            report["row_dependence"] = rows = _row_dependence(engines["int8"][0], requests[1])
+            kernel_stage = next(k for k in rows if k.startswith("blocks"))
+            log(f"[mesh rows] int8 program at the bucket of {len(requests[1])} images against "
+                f"its halves, by stage (bit-identical, max diff): {rows}")
+            if not rows[kernel_stage][0]:
+                raise AssertionError(f"[mesh rows] the kernels' rows depend on the batch: {rows}")
+            report["timing"] = _mesh_times(*engines["int8"], requests[-1], card)
+        finally:
+            proc, out, err, *_ = pair
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            out.close()
+            err.close()
+    torch.distributed.destroy_process_group()
+    report["seconds"] = time.perf_counter() - t0
+    report["launches"] = launches
+    REPORT["mesh"] = report
+    by_row = {f"row {MESH_ROWS[n]} ({n})": c for n, c in launches.items()}
+    log(f"[mesh] ({card}) phase 15 took {report['seconds']:.1f} s (the two ranks "
+        f"{report['pair_seconds']:.1f} s beside it); its launches by row {by_row}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4869,6 +5376,7 @@ def main() -> int:
     del built
     _add(launches, phase_rest(device, card))
     _add(launches, phase_eval(device, card))
+    _add(launches, phase_mesh(device, card))
     REPORT["wall_s"] = time.perf_counter() - T0
     log(f"[wall] chip_smoke.py took {REPORT['wall_s']:.1f} s ({card})")
 
@@ -4967,4 +5475,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_rank(sys.argv[2]) if sys.argv[1:2] == ["--mesh-rank"] else main())

@@ -249,6 +249,7 @@ def test_batching_helpers_are_jax_free_and_reused():
         "import chip_smoke, torch_profile, profiler_loss, torch_eval_f1, torch_parity_report\n"
         "import aiic_tpu_torch.engine, aiic_tpu_torch.models, aiic_tpu_torch.data\n"
         "import aiic_tpu_torch.ops, aiic_tpu_torch.utils, aiic_tpu_torch.train.metrics\n"
+        "import aiic_tpu_torch.parallel, aiic_tpu_torch.utils.platform\n"
         "from aiic_tpu_torch.utils.batching import bucket_size\n"
         "assert bucket_size(3, 8) == 4\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
@@ -263,7 +264,8 @@ def test_batching_helpers_are_jax_free_and_reused():
 NOT_PORTED = {"utils": {"enable_compilation_cache"}}
 
 
-@pytest.mark.parametrize("sub", ["engine", "models", "data", "ops", "utils", "adapters"])
+@pytest.mark.parametrize("sub", ["engine", "models", "data", "ops", "utils", "adapters",
+                                 "parallel"])
 def test_subpackage_exports_match_jax(sub):
     import importlib
 
@@ -497,6 +499,9 @@ def test_port_imports_no_jax():
             "import aiic_tpu_torch.data.pipeline, aiic_tpu_torch.data.native_loader\n"
             "import aiic_tpu_torch.data.images, aiic_tpu_torch.ops.preprocess\n"
             "import aiic_tpu_torch.utils.profiling, aiic_tpu_torch.utils.logging\n"
+            "import aiic_tpu_torch.parallel, aiic_tpu_torch.parallel.mesh\n"
+            "import aiic_tpu_torch.parallel.multihost, aiic_tpu_torch.parallel.sharding\n"
+            "import aiic_tpu_torch.utils.platform\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
             "bad = sorted(m for m in sys.modules if m == 'aiic_tpu' or m.startswith('aiic_tpu.'))\n"
             "assert not bad, bad\n")
@@ -636,3 +641,63 @@ def test_device_ms_by_kernel_counts_the_text_blocks_stage_launches(monkeypatch, 
         else:
             with pytest.raises(AssertionError, match="no two whole ones in a row"):
                 chip_smoke._device_ms_by_kernel(one_call, needles)
+
+
+class _TimedKernel:
+    """A CUDA kernel's event of ``prof.events()``: name and start in us."""
+
+    def __init__(self, name, start):
+        self.name, self.time_range = name, dataclasses.make_dataclass("R", ["start"])(start)
+
+
+def _timeline(*names):
+    return [_TimedKernel(n, 10.0 * i) for i, n in enumerate(names)]
+
+
+@pytest.mark.parametrize("kernels, kept", [
+    (_timeline("spin_kernel", "spin_kernel", "gemm", "gemm", "spin_kernel"), True),
+    (_timeline("gemm", "gemm", "spin_kernel"), False),
+    (_timeline("spin_kernel", "gemm", "gemm"), False),
+    (_timeline("gemm", "spin_kernel"), False),
+    (_timeline("spin_kernel", "spin_kernel"), True),
+], ids=["both_ends", "lead_in_lost", "tail_lost", "lost_into_calls", "no_calls"])
+def test_kept_both_ends_needs_a_spin_kernel_on_each_side(monkeypatch, kernels, kept):
+    """A trace kept every record of its calls when a spin kernel of the
+    lead-in started before their first kernel and one of the tail after
+    their last; else the profiler may have dropped some at an end."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+
+    assert chip_smoke._kept_both_ends(kernels) is kept
+
+
+def test_device_ms_by_kernel_doubles_the_lead_in_after_a_trace_that_is_not_whole(monkeypatch):
+    """Each trace that is not whole makes the next open with twice the
+    lead-in, up to PROFILE_MAX_LEAD_IN; a whole trace keeps it."""
+    monkeypatch.syspath_prepend(REPO)
+    import chip_smoke
+
+    from aiic_tpu_torch.ops import quant
+
+    traces = [[], [], _WHOLE, [], [], [], [], _WHOLE, _WHOLE]
+    leads = []
+
+    def trace(fn, lead_in=chip_smoke.PROFILE_LEAD_IN):
+        for _ in range(chip_smoke.PROFILE_ITERS):
+            fn()
+        leads.append(lead_in)
+        return traces[len(leads) - 1]
+
+    def two_stage_launches():
+        quant.gemm_stage.launches += 2
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(quant.gemm_stage, "launches", 0)
+    monkeypatch.setattr(chip_smoke, "_trace", trace)
+    monkeypatch.setattr(chip_smoke, "PROFILE_TRIES", len(traces))
+    monkeypatch.setattr(chip_smoke, "PROFILE_MAX_LEAD_IN", 8 * chip_smoke.PROFILE_LEAD_IN)
+    got = chip_smoke._device_ms_by_kernel(two_stage_launches, {"stage": "wgmma_stage_kernel"})
+    assert got == {"stage": pytest.approx(0.02)}
+    lead = chip_smoke.PROFILE_LEAD_IN
+    assert leads == [lead, 2 * lead, 4 * lead, 4 * lead, 8 * lead, 8 * lead, 8 * lead, 8 * lead,
+                     8 * lead]

@@ -1,7 +1,7 @@
 """The port's CLIs against the JAX package's: the parsers (the same flags and
 defaults for the same argv, plus ``--device``), the shared ``EngineArgs``
-(text-cache fingerprints apart per package, ``--mesh-devices`` refused, no
-CUDA fallback to the CPU), and the batch and worker entry points end to end
+(text-cache fingerprints apart per package, ``--mesh-devices`` on a world of
+one, the worker's refusal above one rank, no CUDA fallback to the CPU), and the batch and worker entry points end to end
 with ``--device cpu`` against the JAX package on the same weights file.
 
 Bars: the records' verdicts, categories, reasons, top-k names and DB
@@ -110,12 +110,34 @@ def test_auto_text_cache_paths_differ_from_jax(tmp_path, monkeypatch):
     assert common.EngineArgs(**kw, text_cache=explicit).text_cache_path(None, 4, 8) == explicit
 
 
-def test_mesh_devices_refused():
-    with pytest.raises(SystemExit, match="mesh-devices"):
-        common.EngineArgs(model="tiny", device="cpu", mesh_devices=2).build_analyzer()
-    with pytest.raises(SystemExit, match="mesh-devices"):
-        cli_worker.main(["--model", "tiny", "--device", "cpu", "--mesh-devices", "2",
-                         "--text-cache", "none"])
+def test_mesh_devices_refused(tmp_path, monkeypatch):
+    """``--mesh-devices 1`` serves through the mesh path
+    (``create_mesh(1, tp=1)``: a world of one rank) and gives the JAX
+    engine's results with its own ``--mesh-devices 1``; the REST and Mongo
+    worker still refuse a mesh above one rank, before building anything."""
+    monkeypatch.chdir(tmp_path)
+    weights = str(tmp_path / "w.npz")
+    save_clip_weights(init_clip_params(jax.random.PRNGKey(0), JAX_TINY), weights)
+    kw = dict(model="tiny", weights=weights, mesh_devices=1, text_cache="none")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # loaded weights with the hermetic vocabulary
+        ours = common.EngineArgs(device="cpu", **kw).build_analyzer(log=lambda *_: None)
+        ref = jax_common.EngineArgs(**kw).build_analyzer(log=lambda *_: None)
+    assert tuple(ours.mesh.shape) == (1, 1) and ref.mesh is not None
+    px = np.random.default_rng(4).integers(0, 256, (3, 32, 32, 3), dtype=np.uint8)
+    got, want = ours.classify_pixels(px), ref.classify_pixels(px)
+    for k in got:
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), atol=TOL, rtol=0, err_msg=k)
+    built = []
+    monkeypatch.setattr(common.EngineArgs, "build_analyzer", lambda *a, **k: built.append(1))
+    for flags in ([], ["--serve"]):
+        with pytest.raises(SystemExit, match="a world of 2 ranks"):
+            cli_worker.main(["--model", "tiny", "--device", "cpu", "--mesh-devices", "2",
+                             "--text-cache", "none", *flags])
+    monkeypatch.setenv("WORLD_SIZE", "4")  # under torchrun
+    with pytest.raises(SystemExit, match="a world of 4 ranks"):
+        cli_worker.main(["--model", "tiny", "--device", "cpu", "--text-cache", "none"])
+    assert not built
 
 
 def test_serve_without_cuda_fails_instead_of_serving_on_cpu(monkeypatch):
@@ -265,3 +287,32 @@ def test_build_analyzer_reaches_the_engine(weights, tmp_path, monkeypatch):
     assert (tmp_path / cache).exists()  # the auto cache was written at build
     again = common.EngineArgs.from_args(args).build_analyzer(max_batch=4, log=lambda *_: None)
     assert torch.equal(again.det_text, eng.det_text)
+
+
+@pytest.mark.parametrize("cli", ["worker", "main", "train_lora"])
+def test_platform_env_sets_each_cli_device_default(cli, monkeypatch):
+    """``AIIC_PLATFORM=cpu`` (``utils.platform.apply_platform_env``) makes
+    ``cpu`` each CLI's ``--device`` default, as the caller's choice; no value
+    leaves ``cuda``; a value the port does not run on is refused."""
+    import importlib
+
+    build = importlib.import_module(f"aiic_tpu_torch.cli.{cli}").build_parser
+    monkeypatch.setenv("AIIC_PLATFORM", "cpu")
+    assert build().parse_args([]).device == "cpu"
+    assert build().parse_args(["--device", "cuda"]).device == "cuda"
+    monkeypatch.delenv("AIIC_PLATFORM")
+    assert build().parse_args([]).device == "cuda"
+    monkeypatch.setenv("AIIC_PLATFORM", "tpu")
+    with pytest.raises(ValueError, match="AIIC_PLATFORM"):
+        build()
+
+
+def test_kernel_build_cache_stays_ignored():
+    """The nvcc build persists under ``aiic_tpu_torch/_build/`` (why XLA's
+    compilation cache has no counterpart in ``utils.platform``); git ignores
+    it."""
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, ".gitignore"), encoding="utf-8") as f:
+        assert "aiic_tpu_torch/_build/" in f.read().split()

@@ -34,7 +34,8 @@ other, ``analyze_images_batch`` over local JPEGs, PNGs and missing paths
 (the port in several stream batches, the JAX engine in one: its stream can
 lose its end behind two or more), with the filter on and off and with
 ``device_resize``, the single-image helpers, the stage timings, the
-refused mesh, and the hermetic-tokenizer warning on loaded weights.
+engine on a mesh of one, and the hermetic-tokenizer warning on loaded
+weights.
 """
 
 import dataclasses
@@ -601,9 +602,21 @@ def test_stage_timings_on_metrics(fp32_engines, tmp_path):
     assert snap["stage_fetch_count"] >= 2 and snap["stage_dispatch_count"] >= 2
 
 
-def test_engine_refuses_a_mesh():
-    with pytest.raises(ValueError, match="mesh"):
-        InteriorAnalyzer(config=TINY_TEST, training_data=TRAINING, device="cpu", mesh=object())
+def test_engine_refuses_a_mesh(fp32_engines):
+    """A mesh is served, not refused: the engine on a mesh of one (a world
+    of one rank, through the mesh path's row slice and the fetch's gather)
+    gives the JAX engine's results. What stays refused, a mesh larger than
+    the world, is held in tests/test_torch_parallel.py."""
+    from aiic_tpu_torch.parallel import create_mesh
+
+    ref, ours = fp32_engines
+    meshy = InteriorAnalyzer(ours.params, TINY_TEST, training_data=TRAINING, max_batch=4,
+                             device="cpu", mesh=create_mesh(1, device="cpu"))
+    assert meshy.mesh is not None and meshy._final_bucket(3, 4) == 4
+    px = _pixels(6, seed=33)  # two chunks, the second padded
+    want = {k: np.asarray(v) for k, v in ref.classify_pixels(px).items()}
+    _close_results(meshy.classify_pixels(px), want)
+    _close_results(meshy.fetch_results(meshy.dispatch_pixels(px)), want)
 
 
 @pytest.mark.parametrize("merges", [False, True], ids=["hermetic", "bpe_path"])

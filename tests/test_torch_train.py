@@ -252,10 +252,14 @@ def test_quantized_image_features_match_jax(backbone):
     assert cos.min() >= 0.9999, cos
 
 
-def test_quantize_text_and_mesh_are_refused():
+def test_quantize_text_and_mesh_are_refused(backbone):
     """``quantize_text`` off the ``block_fused`` path raises JAX's error in
-    both packages (the port's old "not ported" text is gone); a mesh is
-    still refused with its ROADMAP item."""
+    both packages (the port's old "not ported" text is gone). A mesh is no
+    longer refused: two steps of ``make_train_step(mesh=...)`` on a mesh of
+    one (the mesh path's row slices, gathers and gradient sum) give JAX's
+    losses and first moments, the bars of ``test_train_step_matches_jax``."""
+    from aiic_tpu_torch.parallel import create_mesh
+
     cfg = trainer.TrainConfig(quantize_text=True, attn_impl="xla")
     opt = trainer.make_optimizer(cfg, 1)
     with pytest.raises(ValueError, match="quantize_text requires") as ours:
@@ -265,8 +269,30 @@ def test_quantize_text_and_mesh_are_refused():
             quantize_text=True, attn_impl="xla"), jax_trainer.make_optimizer(cfg, 1))
     assert str(ours.value) == str(ref.value)
     assert "not ported" not in str(ours.value) and "ROADMAP" not in str(ours.value)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        trainer.make_train_step(CFG, trainer.TrainConfig(), opt, mesh=object(), device="cpu")
+
+    params_j, params_t = backbone
+    common = dict(epochs=2, batch_size=4, rank=2, alpha=4, attn_impl="xla",
+                  image_attn_impl="xla")
+    cfg_j, cfg_t = jax_trainer.TrainConfig(**common), trainer.TrainConfig(**common)
+    opt_j = jax_trainer.make_optimizer(cfg_j, steps_per_epoch=2)
+    opt_t = trainer.make_optimizer(cfg_t, steps_per_epoch=2)
+    step_j, _ = jax_trainer.make_train_step(jax_config.TINY_TEST, cfg_j, opt_j)
+    step_t, _ = trainer.make_train_step(CFG, cfg_t, opt_t, mesh=create_mesh(1, device="cpu"))
+    pixels, tokens, _ = _batch(False)
+    lj, lt = _to_jax(_lora_np()), _to_torch(_lora_np())
+    sj, st = opt_j.init(lj), opt_t.init(lt)
+    for _ in range(2):
+        loss_j, lj, sj = jax.jit(step_j)(params_j, lj, sj, jnp.asarray(pixels),
+                                         jnp.asarray(tokens), jax.random.PRNGKey(2))
+        loss_t, lt, st = step_t(params_t, lt, st, torch.from_numpy(pixels),
+                                torch.from_numpy(tokens))
+        np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
+    mu = sj[1][0].mu
+    for p in POINTS:
+        for ab in "AB":
+            ref = np.asarray(mu[p][ab])
+            np.testing.assert_allclose(st["exp_avg"][p][ab].to_local().numpy(), ref, rtol=0,
+                                       atol=1e-4 * np.abs(ref).max(), err_msg=f"{p}.{ab}")
 
 
 def test_train_step_quantize_text_matches_jax(backbone):
@@ -493,11 +519,12 @@ def test_resume_replays_the_uninterrupted_run(backbone, synth_dataset, tmp_path)
                                        rtol=0, atol=0)
 
 
-def test_cli_parses_the_jax_cli_flags():
+def test_cli_parses_the_jax_cli_flags(backbone, synth_dataset, tmp_path, monkeypatch, capsys):
     """Every flag of ``aiic_tpu/cli/train_lora.py`` parses here with the same
-    default; ``--device`` is the port's own. ``--mesh`` is refused with the
-    ROADMAP item that ports it; ``--quantize-text`` is ported (it passes
-    through to ``TrainConfig``)."""
+    default; ``--device`` is the port's own. ``--quantize-text`` is ported
+    (it passes through to ``TrainConfig``). ``--mesh 1 --tp 1`` trains over a
+    mesh of one: its best val loss is JAX's ``train_lora`` over JAX's mesh
+    of one device, from the same weights and adapters."""
     src = open(os.path.join(REPO, "aiic_tpu", "cli", "train_lora.py"), encoding="utf-8").read()
     jax_flags = re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"', src)
     ours = {a.option_strings[0]: a for a in cli.build_parser()._actions if a.option_strings
@@ -508,6 +535,30 @@ def test_cli_parses_the_jax_cli_flags():
                           ("--lr", 1e-4), ("--dtype", "float32"), ("--attn-impl", "auto"),
                           ("--model", "vit_b_16"), ("--mesh", 0)]:
         assert ours[flag].default == default, flag
-    with pytest.raises(SystemExit, match="Queue 1 item 13"):
-        cli.main(["--mesh", "2"])
     assert cli.build_parser().parse_args(["--quantize-text"]).quantize_text
+
+    from aiic_tpu.models.init import save_clip_weights
+    from aiic_tpu.parallel import create_mesh as jax_create_mesh
+
+    params_j, _ = backbone
+    json_path, root = synth_dataset
+    weights = str(tmp_path / "w.npz")
+    save_clip_weights(params_j, weights)
+    lora = _lora_np(b_std=0.0)
+    monkeypatch.setattr(jax_trainer, "init_text_lora", lambda *a, **k: _to_jax(lora))
+    monkeypatch.setattr(trainer, "init_text_lora", lambda *a, **k: _to_torch(lora))
+    argv = ["--json-path", json_path, "--image-root", root, "--save-path",
+            str(tmp_path / "m.pth"), "--epochs", "1", "--batch-size", "8", "--rank", "2",
+            "--alpha", "4", "--model", "tiny", "--weights", weights, "--device", "cpu",
+            "--mesh", "1", "--tp", "1"]
+    capsys.readouterr()
+    assert cli.main(argv) == 0
+    printed = capsys.readouterr().out
+    ref = jax_trainer.train_lora(json_path, str(tmp_path / "j.pth"), params=params_j,
+                                 config=jax_config.TINY_TEST,
+                                 cfg=jax_trainer.TrainConfig(epochs=1, batch_size=8, rank=2,
+                                                             alpha=4),
+                                 image_root=root, mesh=jax_create_mesh(1, tp=1),
+                                 log=lambda *_: None)
+    assert f"best val loss: {ref['best_val_loss']:.4f}" in printed
+    assert os.path.exists(str(tmp_path / "m.pth"))

@@ -4,12 +4,13 @@
     python3 tools/profiler_loss.py [seconds=200]
 
 Every 15 s of bf16 matmuls on the card, traces ``chip_smoke.PROFILE_ITERS``
-calls of ten 4096^2 matmuls twice through ``chip_smoke._trace``: as they
+calls of ten 4096^2 matmuls twice through ``chip_smoke._profile``: as they
 come, and opened with the ``PROFILE_LEAD_IN`` spin kernels that
 ``chip_smoke._device_ms_by_kernel`` uses; prints one JSON line per round
-with the kernel records each trace kept (20 a call: two kernels a matmul).
-Then fifteen traces of each kind in a row. Needs a CUDA card; builds none
-of the port's kernels.
+with the kernel records each trace kept (20 a call: two kernels a matmul)
+and whether ``chip_smoke._kept_both_ends`` took the trace for whole. Then
+fifteen traces of each kind in a row. Needs a CUDA card; builds none of the
+port's kernels.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ def main(argv=None) -> int:
     seconds = float(argv[0]) if argv else 200.0
     import torch
 
-    from chip_smoke import PROFILE_ITERS, PROFILE_LEAD_IN, _trace
+    from chip_smoke import PROFILE_ITERS, PROFILE_LEAD_IN, _cuda_kernels, _kept_both_ends, _profile
 
     if not torch.cuda.is_available():
         raise SystemExit("profiler_loss: needs a CUDA card")
@@ -37,10 +38,11 @@ def main(argv=None) -> int:
         for _ in range(10):
             a @ a
 
-    def kept(lead_in: int) -> int:
+    def kept(lead_in: int) -> list:
         fn()
         torch.cuda.synchronize()
-        return sum(ev.count for ev in _trace(fn, lead_in))
+        kernels = _cuda_kernels(_profile(fn, lead_in))
+        return [sum("spin_kernel" not in ev.name for ev in kernels), _kept_both_ends(kernels)]
 
     print(json.dumps({"torch": torch.__version__, "card": torch.cuda.get_device_name(0),
                       "records_per_trace": 20 * PROFILE_ITERS}), flush=True)
