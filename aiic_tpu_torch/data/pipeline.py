@@ -14,13 +14,19 @@ Two loaders share the scaffolding:
 Unlike the JAX package's copy, the producer ends the stream with a blocking
 put of its end marker that gives way only to ``close()``: a consumer slower
 than the producer still sees the end (the JAX copy drops the marker when
-the queue is full, and such a consumer then waits forever).
+the queue is full, and such a consumer then waits forever). A consumer with
+a deadline waits for the next batch through ``get(timeout)``, and
+``close()`` releases a producer that waits on a stalled fetch: its
+not-started fetches are cancelled, and the producer thread ends without
+waiting for the fetch in progress (the fetch pool's threads are daemons).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -53,6 +59,17 @@ class _StreamQueue(queue.Queue):
             except queue.Full:
                 continue
 
+    def result(self, fut: "Future"):
+        """``fut.result()``, given up with ``_StreamClosed`` once the consumer
+        has closed the stream: a producer waiting on a stalled fetch ends
+        without it."""
+        while True:
+            try:
+                return fut.result(timeout=0.1)
+            except FutureTimeout:
+                if self._stop.is_set():
+                    raise _StreamClosed() from None
+
 
 class _Stream:
     """Iterator over ``produce``'s queue items with producer-exception
@@ -81,20 +98,33 @@ class _Stream:
                 except _StreamClosed:
                     pass
 
-        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread = threading.Thread(target=run, daemon=True, name="aiic-stream")
         self._thread.start()
 
     def __iter__(self) -> Iterator[Batch]:
         return self
 
     def __next__(self) -> Batch:
-        if self._stop.is_set():
+        item = self.get()
+        if item is None:
             raise StopIteration
-        item = self._q.get()
+        return item
+
+    def get(self, timeout: Optional[float] = None) -> Optional[Batch]:
+        """The next batch, or None at the end of the stream; waits at most
+        ``timeout`` seconds (None: no bound) and raises ``TimeoutError``
+        when no batch came in time. The stream stays open until the
+        caller closes it."""
+        if self._stop.is_set():
+            return None
+        try:
+            item = self._q.get(timeout=timeout)
+        except queue.Empty:
+            raise TimeoutError(f"no batch within {timeout:.3f} s") from None
         if item is self._SENTINEL:
             if self._error:
                 raise self._error[0]
-            raise StopIteration
+            return None
         return item
 
     def close(self) -> None:
@@ -110,6 +140,50 @@ class _Stream:
 
 def _stream(produce: Callable[["queue.Queue"], None], depth: int) -> "_Stream":
     return _Stream(produce, depth)
+
+
+class _FetchPool:
+    """A fixed pool of daemon threads running fetches. A fetch that stalls
+    (URL timeouts are 30 s) holds neither the stream that submitted it nor
+    the process's exit: the interpreter joins a ThreadPoolExecutor's workers
+    at exit, so a SIGTERM'd worker would wait for its stalled fetches."""
+
+    def __init__(self, workers: int):
+        self._q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._n = workers
+        for i in range(workers):
+            threading.Thread(target=self._run, daemon=True, name=f"aiic-fetch_{i}").start()
+
+    def submit(self, fn: Callable, *args) -> Future:
+        fut: Future = Future()
+        self._q.put((fut, fn, args))
+        return fut
+
+    def _run(self) -> None:
+        while True:
+            job = self._q.get()
+            if job is None:
+                return
+            fut, fn, args = job
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn(*args))
+            except Exception as e:  # noqa: BLE001 - re-raised by fut.result()
+                fut.set_exception(e)
+
+    def shutdown(self) -> None:
+        """Cancel the fetches not started; each thread ends after its
+        current fetch."""
+        try:
+            while True:
+                job = self._q.get_nowait()
+                if job is not None:
+                    job[0].cancel()
+        except queue.Empty:
+            pass
+        for _ in range(self._n):
+            self._q.put(None)
 
 
 class PrefetchingLoader:
@@ -223,10 +297,9 @@ class ByteStreamLoader:
         from aiic_tpu_torch.data.native_loader import preprocess_any_batch
 
         def produce(q):
-            from concurrent.futures import ThreadPoolExecutor
-
             n, bs = len(self.sources), self.batch_size
-            with ThreadPoolExecutor(max_workers=self.fetch_workers) as pool:
+            pool = _FetchPool(self.fetch_workers)
+            try:
                 # one-batch fetch lookahead: bounded memory (at most 2 batches
                 # of raw blobs in flight), full network/decode overlap
                 futs_next = [pool.submit(self.fetch_fn, s) for s in self.sources[:bs]]
@@ -236,11 +309,16 @@ class ByteStreamLoader:
                         pool.submit(self.fetch_fn, s)
                         for s in self.sources[start + bs : start + 2 * bs]
                     ]
-                    blobs = [f.result() for f in futs]
+                    blobs = [q.result(f) for f in futs]
                     pixels, ok = preprocess_any_batch(
                         blobs, self.size, num_threads=self.num_threads,
                         fast=self.fast, patch=self.patch,
                     )
                     q.put((pixels, ok, (start, start + len(blobs))))
+            finally:
+                # every future is done unless the consumer closed the stream:
+                # then the fetches not started are cancelled, and a stalled
+                # one is left to its own timeout
+                pool.shutdown()
 
         return _stream(produce, self.depth)

@@ -51,8 +51,9 @@ rank classifies the same rows. Pixels passed in (``classify_pixels``,
 from __future__ import annotations
 
 import os
+import time
 import warnings
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -426,27 +427,40 @@ class InteriorAnalyzer:
         dispatches. On the card every device-to-host copy is started, as a
         non-blocking copy into pinned host memory, before the one wait. Under
         a mesh each dispatch's rows are first gathered from every rank."""
-        with self.metrics.stages.stage("fetch"):
-            staged = []
-            on_card = False
-            for res, valid in pending:
-                if self._sharded is not None:
-                    res = self._sharded.gather(res)
-                out = {}
-                for k, v in res.items():
-                    v = v[:valid]
-                    if v.device.type == "cuda":
-                        host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                        host.copy_(v, non_blocking=True)
-                        v, on_card = host, True
-                    out[k] = v
-                staged.append(out)
-            if on_card:
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
-                done.synchronize()
-            outs = [{k: v.numpy() for k, v in o.items()} for o in staged]
-        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]} if outs else {}
+        return self._start_fetch(pending)()
+
+    def _start_fetch(self, pending: List[tuple]) -> Callable[[], Dict[str, np.ndarray]]:
+        """The fetch in two halves: under a mesh, every gather issued here
+        (the collectives, in the caller's order); the returned call waits
+        for them and copies back (``_fetch_pending``). The ``fetch`` stage
+        spans both halves."""
+        t0 = time.perf_counter()
+        issued = [(self._sharded.gather_start(res) if self._sharded is not None
+                   else (lambda res=res: res), valid) for res, valid in pending]
+
+        def finish() -> Dict[str, np.ndarray]:
+            try:
+                staged = []
+                on_card = False
+                for wait, valid in issued:
+                    out = {}
+                    for k, v in wait().items():
+                        v = v[:valid]
+                        if v.device.type == "cuda":
+                            host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                            host.copy_(v, non_blocking=True)
+                            v, on_card = host, True
+                        out[k] = v
+                    staged.append(out)
+                if on_card:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
+                    done.synchronize()
+                outs = [{k: v.numpy() for k, v in o.items()} for o in staged]
+            finally:
+                self.metrics.stages.record("fetch", time.perf_counter() - t0)
+            return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]} if outs else {}
+        return finish
 
     def _consume_loader(self, loader, image_paths, cap, good_paths,
                         record_load_error) -> Optional[Dict[str, np.ndarray]]:

@@ -137,6 +137,20 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def all_gather_start(t: torch.Tensor, group, dim: int = 0) -> Callable[[], torch.Tensor]:
+    """Issue :func:`all_gather` without waiting for it: the returned call
+    waits and concatenates. A caller that must issue collectives in one
+    order on every rank can wait for them elsewhere."""
+    t = t.contiguous()
+    parts: List[torch.Tensor] = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    work = dist.all_gather(parts, t, group=group, async_op=True)
+
+    def wait() -> torch.Tensor:
+        work.wait()
+        return torch.cat(parts, dim=dim)
+    return wait
+
+
 def from_rank0(fn: Callable[[], Any]) -> Any:
     """``fn()`` run by rank 0 alone, its value (any picklable object) on
     every rank of the world. What rank 0 raises is raised on every rank, so

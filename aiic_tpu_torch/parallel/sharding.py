@@ -44,7 +44,7 @@ from aiic_tpu_torch.models.clip import (
     _gelu, _mm, layer_norm, linear, lora_dropout_apply, resolve_attn_impl,
 )
 from aiic_tpu_torch.ops.attention import attention_qkv_ref
-from aiic_tpu_torch.parallel.mesh import all_gather, all_reduce, mesh_device
+from aiic_tpu_torch.parallel.mesh import all_gather, all_gather_start, all_reduce, mesh_device
 
 Params = Dict[str, Any]
 Spec = Tuple[Placement, Placement]
@@ -404,8 +404,8 @@ def make_sharded_classify_fn(mesh: DeviceMesh, classify_fn: Callable, params: Pa
     the plain composition only); the outputs are gathered over ``"data"``.
 
     The result has ``.local`` (the rank's program on its rows of the batch,
-    which it copies to its device: the dispatch) and ``.gather`` (the
-    collective: the fetch) as attributes."""
+    which it copies to its device: the dispatch) and ``.gather_start`` (the
+    collective, the fetch: issued, its wait returned) as attributes."""
     dev = mesh_device(mesh)
     if kernels:
         # the gather runs over the world, in global rank order
@@ -425,13 +425,14 @@ def make_sharded_classify_fn(mesh: DeviceMesh, classify_fn: Callable, params: Pa
             return classify_fn(local_tree(params, specs, mesh), rows,
                                _local(det_text), _local(cat_text), _local(cat_mask), tp=tp)
 
-    def gather(res: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return {k: all_gather(v, group) for k, v in res.items()}
+    def gather_start(res: Dict[str, torch.Tensor]) -> Callable[[], Dict[str, torch.Tensor]]:
+        waits = {k: all_gather_start(v, group) for k, v in res.items()}
+        return lambda: {k: wait() for k, wait in waits.items()}
 
     def sharded(params, pixels, det_text, cat_text, cat_mask):
-        return gather(local(params, pixels, det_text, cat_text, cat_mask))
+        return gather_start(local(params, pixels, det_text, cat_text, cat_mask))()
 
-    sharded.local, sharded.gather = local, gather
+    sharded.local, sharded.gather_start = local, gather_start
     return sharded
 
 

@@ -196,9 +196,15 @@ def make_analyze_batch(
                 try:
                     while True:
                         # fetch+decode wait for the NEXT chunk (0 when the
-                        # pipeline keeps ahead of batcher submission)
-                        with GLOBAL_METRICS.stages.stage("serve_decode"):
-                            item = next(it, None)
+                        # pipeline keeps ahead of batcher submission),
+                        # bounded by the time left: a stalled fetch ends the
+                        # request at its deadline (the JAX package's copy
+                        # waits for the whole chunk first)
+                        try:
+                            with GLOBAL_METRICS.stages.stage("serve_decode"):
+                                item = it.get(max(deadline - time.monotonic(), 0.0))
+                        except TimeoutError:
+                            request_timed_out()
                         if item is None:
                             break
                         pixels, ok, (start, end) = item
@@ -210,8 +216,7 @@ def make_analyze_batch(
                 except Exception:
                     # release the stream's producer thread + fetch pool (an
                     # abandoned iterator would otherwise block on its queue)
-                    if hasattr(it, "close"):
-                        it.close()
+                    it.close()
                     raise
             else:
                 # pure-bytes request: nothing to overlap with — decode in

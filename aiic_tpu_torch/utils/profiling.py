@@ -70,11 +70,15 @@ class StageTimer:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            with self._lock:
-                self.totals[name] += dt
-                self.counts[name] += 1
-                self.hists[name].record(dt)
+            self.record(name, time.perf_counter() - t0)
+
+    def record(self, name: str, dt: float) -> None:
+        """One span of ``dt`` seconds of stage ``name`` (a span that starts
+        and ends in different calls)."""
+        with self._lock:
+            self.totals[name] += dt
+            self.counts[name] += 1
+            self.hists[name].record(dt)
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         with self._lock:

@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (``aiic_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    (``--mesh-rank DIR``: one of phase 15's two ranks, started by the script)
+    (``--mesh-rank DIR``, ``--worker-rank DIR``: one of phase 15's or 16's
+    two ranks, started by the script)
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -248,7 +249,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    relative, moments and adapters at phase 8's bf16 bars); one epoch of
    ``train_lora --mesh 2`` on phase 7's dataset, its loss curve the
    single-rank run's and rank 0 alone writing; then the int8 engine's call
-   at 256 images on the mesh of one beside the single-device call.
+   at 256 images on the mesh of one beside the single-device call;
+16. the worker over two ranks (``cli.worker.run_rank`` through
+   ``parallel.lane``): ``torchrun --nproc-per-node 2 chip_smoke.py
+   --worker-rank DIR``, each rank building the int8 worker's engine at
+   ViT-B/16 full width (phase 13's weights) on a gloo mesh of two sharing
+   the card; the one-shot drain of phase 13's apartments (rank 0 leads with
+   the DB, rank 1 follows), then ``--serve --request-timeout 2`` on rank 0:
+   20 sequential ``POST /analyze``, a burst of 64 from 16 clients, one
+   ``/analyze-batch`` of 4 base64 images, one whose URL (a server on this
+   host) stalls past the deadline (504 within 4 s), ``GET /metrics`` (the
+   dispatch, fetch and lane stages); SIGTERM to rank 0, both ranks out with
+   exit code 0 within 30 s; each rank's launches exact at build, in the
+   drain and while serving (rows 1, 2 and the stage at its half of each
+   bucket; row 4 at rank 0's text tower); every answer and the drain's
+   records held against the single-device int8 engine on the same weights
+   (verdicts and top-5 equal, scores within 1e-3); then
+   ``examples/torch_quickstart.py`` and ``tools/torch_rest_smoke.py`` as
+   processes on a synthetic reference tree (phase 14's labelled images, a
+   sample JPEG, phase 7's rank-4 ``comprehensive_lora.pth``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -3981,40 +4000,41 @@ def _http(port: int, method: str, path: str, body: bytes = None):
         return e.code, json.loads(e.read().decode())
 
 
-def _rest_disagreement(got: dict, res: dict, row: int, engine) -> list:
+def _rest_disagreement(got: dict, res: dict, row: int, engine, tol: float = REST_TOL) -> list:
     """Where a REST answer departs from the engine's classify results for the
-    same pixels beyond REST_TOL (ties within REST_TOL excepted)."""
+    same pixels beyond ``tol`` (ties within ``tol`` excepted)."""
     bad = []
     margin = min(abs(float(res["interior_mass"][row] - res["non_interior_mass"][row])),
                  abs(float(res["top_conf"][row]) - 0.3))
     want = engine._result(res, row, True, 0.3)
-    if abs(got["interior_confidence"] - want["interior_confidence"]) > REST_TOL:
+    if abs(got["interior_confidence"] - want["interior_confidence"]) > tol:
         bad.append(("interior_confidence", got["interior_confidence"],
                     want["interior_confidence"]))
-    if margin > REST_TOL and got["is_interior"] != want["is_interior"]:
+    if margin > tol and got["is_interior"] != want["is_interior"]:
         bad.append(("is_interior", got["is_interior"], want["is_interior"]))
     if not (got["is_interior"] and want["is_interior"]):
-        if margin > REST_TOL and got["detected_category"] != want["detected_category"] \
-                and float(res["top_conf"][row]) > 0.5 + REST_TOL:
+        if margin > tol and got["detected_category"] != want["detected_category"] \
+                and float(res["top_conf"][row]) > 0.5 + tol:
             bad.append(("detected_category", got["detected_category"], want["detected_category"]))
         return bad
     for cat, top in want["analysis"].items():
         vals = [v for _, v in top]
         gvals = [v for _, v in got["analysis"].get(cat, [])]
-        if len(gvals) != len(vals) or np.abs(np.subtract(gvals, vals)).max() > REST_TOL:
+        if len(gvals) != len(vals) or np.abs(np.subtract(gvals, vals)).max() > tol:
             bad.append((cat, got["analysis"].get(cat), top))
             continue
         for k, (name, v) in enumerate(top):
-            apart = all(abs(v - u) > REST_TOL for j, u in enumerate(vals) if j != k)
+            apart = all(abs(v - u) > tol for j, u in enumerate(vals) if j != k)
             if apart and got["analysis"][cat][k][0] != name:
                 bad.append((cat, got["analysis"][cat], top))
                 break
     return bad
 
 
-def _hold_rest(label: str, answers: list, blobs: list, engine, wire_patch: int) -> dict:
+def _hold_rest(label: str, answers: list, blobs: list, engine, wire_patch: int,
+               tol: float = REST_TOL) -> dict:
     """Each answer against the engine's classify_pixels on the pixels the
-    app decodes from its blob (one call for all of them)."""
+    app decodes from its blob (one call for all of them), at ``tol``."""
     from concurrent.futures import ThreadPoolExecutor
 
     from aiic_tpu_torch.data.native_loader import preprocess_any_batch
@@ -4035,7 +4055,7 @@ def _hold_rest(label: str, answers: list, blobs: list, engine, wire_patch: int) 
                         "reason"}:
             raise AssertionError(f"[rest {label}] malformed answer {got}")
         worst = max(worst, abs(got["interior_confidence"] - float(res["interior_mass"][i])))
-        bad += [(i, b) for b in _rest_disagreement(got, res, i, engine)]
+        bad += [(i, b) for b in _rest_disagreement(got, res, i, engine, tol)]
     if bad:
         raise AssertionError(f"[rest {label}] answers depart from classify_pixels: {bad[:5]}")
     return {"n": len(answers), "max_confidence_diff": worst,
@@ -4256,23 +4276,37 @@ def _serve_config(label: str, conf: str, flags: list, root: str, card: str, para
     return engine, path
 
 
-def _drain(engine, root: str) -> dict:
-    """Step 2: process_apartments_pipeline on an InMemoryDB of two apartments
-    of 4 local images each and one unreadable path."""
-    from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
-    from aiic_tpu_torch.serve.db import InMemoryDB
-    from aiic_tpu_torch.serve.worker import process_apartments_pipeline
-
+def _drain_docs(root: str) -> list:
+    """Two apartments of 4 local images each (written to ``root``) and one
+    unreadable path: (image id, apartment id, path) per image."""
     rng = np.random.default_rng(14)
-    db = InMemoryDB()
-    for a in ("apt1", "apt2"):
-        db.insert_apartment(a, title=f"{a} (synthetic)")
+    docs = []
     for i, blob in enumerate(_rest_images(rng, 8)):
         path = os.path.join(root, f"drain{i}.{'png' if i % 3 == 2 else 'jpg'}")
         with open(path, "wb") as f:
             f.write(blob)
-        db.insert_image(f"img{i}", "apt1" if i < 4 else "apt2", path)
-    db.insert_image("img_bad", "apt1", os.path.join(root, "unreadable.jpg"))
+        docs.append((f"img{i}", "apt1" if i < 4 else "apt2", path))
+    return docs + [("img_bad", "apt1", os.path.join(root, "unreadable.jpg"))]
+
+
+def _drain_db(docs: list):
+    from aiic_tpu_torch.serve.db import InMemoryDB
+
+    db = InMemoryDB()
+    for a in ("apt1", "apt2"):
+        db.insert_apartment(a, title=f"{a} (synthetic)")
+    for image_id, apt, path in docs:
+        db.insert_image(image_id, apt, path)
+    return db
+
+
+def _drain(engine, root: str) -> dict:
+    """Step 2: process_apartments_pipeline on an InMemoryDB of two apartments
+    of 4 local images each and one unreadable path."""
+    from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+    from aiic_tpu_torch.serve.worker import process_apartments_pipeline
+
+    db = _drain_db(_drain_docs(root))
     export = os.path.join(root, "analysis_export.json")
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -5315,6 +5349,423 @@ def phase_mesh(device, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the worker over two ranks (rank 0 leads, the other follows each
+# engine call through the lane), the quickstart and the REST smoke twins
+# ---------------------------------------------------------------------------
+
+# The int8 worker (phase 13's int8 flags) on a mesh of two ranks sharing the
+# card over gloo, with phase 13's weights; --request-timeout WORKER_TIMEOUT_S.
+WORKER_FLAGS = ["--dtype", "bfloat16", "--quantize", "--wire-format", "patch",
+                "--text-cache", "none"]
+WORKER_TIMEOUT_S = 2.0
+WORKER_BATCH = 4        # images of the /analyze-batch request (160-200 px)
+WORKER_504_S = 4.0      # a batch request whose URL stalls answers 504 within this
+WORKER_STOP_S = 30.0    # both ranks exit 0 within this of SIGTERM to rank 0
+WORKER_READY_S = 400.0  # the ranks build, drain and warm within this
+# The ranks' answers against the single-device int8 engine: verdicts and
+# top-5 equal, confidences and scores within phase 15's two-rank bar
+# (``block_cls``'s cuBLAS products take M = B, so the ranks' rows differ
+# from one device's by about 1e-6, PERF.md section 6).
+WORKER_TOL = 1e-3
+
+
+def _worker_flags(root: str) -> list:
+    return ["--weights", os.path.join(root, "weights.npz"),
+            "--dataset-json", os.path.join(root, "dataset.json")] + WORKER_FLAGS
+
+
+def _start_worker_pair(root: str) -> tuple:
+    """Phase 16's two ranks, as ``torchrun --nproc-per-node 2`` on this host."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return _start([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+                   "--master-addr", "127.0.0.1", "--master-port", str(port),
+                   os.path.join(HERE, "chip_smoke.py"), "--worker-rank", root], root,
+                  "worker_pair")
+
+
+def worker_rank(root: str) -> int:
+    """One of phase 16's two ranks (``chip_smoke.py --worker-rank ROOT`` under
+    torchrun; the ranks share the card over gloo). Each builds the int8
+    worker's engine on the mesh and runs the worker CLI's rank function
+    (``cli.worker.run_rank``) twice: the one-shot drain of ROOT's plan
+    (rank 0 leads, with the DB), then ``--serve`` until SIGTERM to rank 0.
+    Each writes its launches (at build, in the drain, while serving) and its
+    exit codes to ROOT; rank 0 also the drain's DB and export."""
+    import torch
+    import torch.distributed as dist
+
+    from aiic_tpu_torch.cli import worker as cli_worker
+    from aiic_tpu_torch.cli.common import EngineArgs
+    from aiic_tpu_torch.ops._build import launch_counts, load_library, reset_launch_counts
+    from aiic_tpu_torch.parallel import create_mesh
+    from aiic_tpu_torch.serve.metrics import GLOBAL_METRICS
+    from aiic_tpu_torch.utils.profiling import StageTimer
+
+    create_mesh(2, backend="gloo")  # NCCL takes one card a rank; the engine's mesh joins it
+    rank = dist.get_rank()
+    lead = rank == 0
+    cli_worker.on_sigterm(lead)
+    if lead:
+        with open(os.path.join(root, "worker_rank0.pid"), "w") as f:
+            f.write(str(os.getpid()))
+    with open(os.path.join(root, "worker_plan.json")) as f:
+        plan = json.load(f)
+    load_library()
+    parser = cli_worker.build_parser()
+    serve = parser.parse_args(["--serve", "--port", str(plan["port"]), "--request-timeout",
+                               str(WORKER_TIMEOUT_S)] + plan["flags"])
+    drain = parser.parse_args(["--batch-size", "8"] + plan["flags"])
+    out: dict = {"launches": {}}
+
+    def counted(stage):
+        torch.cuda.synchronize()
+        out["launches"][stage] = {n: c for n, c in launch_counts().items() if c}
+        reset_launch_counts()
+
+    reset_launch_counts()
+    engine = EngineArgs.from_args(serve).build_analyzer(log=log)
+    counted("build")
+    db = _drain_db([tuple(d) for d in plan["drain"]]) if lead else None
+    out["drain_rc"] = cli_worker.run_rank(drain, engine, db, log=log)
+    counted("drain")
+    GLOBAL_METRICS.stages = StageTimer()  # /metrics' stages: the serving run's alone
+    if lead:
+        with open(os.path.join(root, "analysis_export.json"), encoding="utf-8") as f:
+            export = json.load(f)
+        with open(os.path.join(root, "worker_drain.json"), "w") as f:
+            json.dump({"images": db.images, "export": export}, f, default=str)
+    try:
+        out["serve_rc"] = cli_worker.run_rank(serve, engine, db, log=log)
+    except SystemExit as e:  # SIGTERM to rank 0
+        out["serve_rc"] = e.code
+    counted("serve")
+    with open(os.path.join(root, f"worker_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return max(out["drain_rc"] or 0, out["serve_rc"] or 0)
+
+
+def _stall_server():
+    """A URL on this host whose GET answers only when released (or after
+    two minutes): a fetch that stalls past the request's deadline. ->
+    (server, release event, url)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    release = threading.Event()
+
+    class Stall(BaseHTTPRequestHandler):
+        def do_GET(self):
+            release.wait(120)
+            self.send_response(404)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Stall)
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, release, f"http://127.0.0.1:{server.server_address[1]}/stall.jpg"
+
+
+def _rank_launches(opts: dict, config, buckets: dict) -> dict:
+    """Launches of one of two ranks for classify calls at these final
+    buckets ({bucket: calls}): the image tower's blocks at the rank's half
+    of each bucket, the CLS-row block aside."""
+    v = config.vision
+    want: dict = {}
+    for bucket, calls in buckets.items():
+        for name in _block_kernels(opts, config.vision_seq_len, v.width, v.heads, bucket // 2):
+            want[name] = want.get(name, 0) + (v.layers - 1) * calls
+    return want
+
+
+def _worker_requests(port: int, stall_url: str) -> dict:
+    """The parent's traffic to rank 0: 20 sequential POST /analyze, a burst of
+    64 from 16 clients (phase 13's images), one /analyze-batch of
+    WORKER_BATCH small base64 images (its decode, one image after another
+    on the Python fallback, within the WORKER_TIMEOUT_S deadline), one whose
+    URL stalls, GET /metrics."""
+    import base64
+    import threading
+
+    rng = np.random.default_rng(16)
+    out: dict = {"singles": _rest_images(rng, REST_SINGLES), "burst": _rest_images(rng, 64),
+                 "batch": _rest_images(rng, WORKER_BATCH, 160, 200)}
+    lat, answers = [], []
+    t_all = time.perf_counter()
+    for blob in out["singles"]:
+        t0 = time.perf_counter()
+        status, ans = _http(port, "POST", "/analyze", blob)
+        lat.append(1e3 * (time.perf_counter() - t0))
+        if status != 200:
+            raise AssertionError(f"[worker] POST /analyze answered {status} {ans}")
+        answers.append(ans)
+    out["singles_s"] = time.perf_counter() - t_all
+    out["singles_answers"], out["latency_ms"] = answers, lat
+    got: list = [None] * 64
+
+    def client(k):
+        for i in range(k, 64, 16):
+            got[i] = _http(port, "POST", "/analyze", out["burst"][i])
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(16)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    out["burst_s"] = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or any(g is None or g[0] != 200 for g in got):
+        raise AssertionError(f"[worker] the burst did not complete: "
+                             f"{[g[0] if g else None for g in got]}")
+    out["burst_answers"] = [g[1] for g in got]
+    t0 = time.perf_counter()
+    status, body = _http(port, "POST", "/analyze-batch", json.dumps(
+        {"images_b64": [base64.b64encode(b).decode() for b in out["batch"]]}).encode())
+    out["batch_s"] = time.perf_counter() - t0
+    if status != 200 or len(body.get("results", [])) != WORKER_BATCH:
+        raise AssertionError(f"[worker] POST /analyze-batch answered {status} {body}")
+    out["batch_answers"] = body["results"]
+    t0 = time.perf_counter()
+    status, body = _http(port, "POST", "/analyze-batch", json.dumps({"urls": [stall_url]}).encode())
+    out["stall"] = {"status": status, "seconds": time.perf_counter() - t0, "body": body}
+    if status != 504 or out["stall"]["seconds"] > WORKER_504_S or not body.get("dead_lettered"):
+        raise AssertionError(f"[worker] a stalled URL at a {WORKER_TIMEOUT_S} s deadline: "
+                             f"{out['stall']} (504 within {WORKER_504_S} s expected)")
+    status, out["metrics"] = _http(port, "GET", "/metrics")
+    if status != 200:
+        raise AssertionError(f"[worker] GET /metrics answered {status}")
+    return out
+
+
+def _hold_worker_drain(got: dict, single, docs: list, root: str) -> dict:
+    """The two ranks' drain against the single-device engine's drain of the
+    same documents: statuses, room types, styles and the export's
+    aggregates equal, confidences within WORKER_TOL."""
+    from aiic_tpu_torch.serve.worker import process_apartments_pipeline
+
+    db = _drain_db(docs)
+    process_apartments_pipeline(db=db, analyzer=single, batch_size=8,
+                                export_file=os.path.join(root, "single_export.json"),
+                                log=lambda *_: None)
+    bad = []
+    for k, want in db.images.items():
+        g = got["images"][k]
+        for f in ("analysis_status", "room_type", "style", "attempts"):
+            if g.get(f) != want.get(f):
+                bad.append((k, f, g.get(f), want.get(f)))
+        if abs(g.get("analysis_confidence", 0.0) - want.get("analysis_confidence", 0.0)) \
+                > WORKER_TOL:
+            bad.append((k, "analysis_confidence", g.get("analysis_confidence"),
+                        want.get("analysis_confidence")))
+    with open(os.path.join(root, "single_export.json"), encoding="utf-8") as f:
+        export = json.load(f)
+    for g, w in zip(got["export"], export):
+        if (g["apartment_id"], g["room_distribution"], g["overall_style"]["style"]) != (
+                w["apartment_id"], w["room_distribution"], w["overall_style"]["style"]):
+            bad.append(("export", g, w))
+    if bad or len(got["export"]) != len(export):
+        raise AssertionError(f"[worker drain] the ranks' drain departs from one device's: {bad}")
+    return {k: g["analysis_status"] for k, g in got["images"].items()}
+
+
+def _tool_jobs(root: str, card_root: str) -> list:
+    """examples/torch_quickstart.py and tools/torch_rest_smoke.py as
+    processes on a synthetic reference tree in ``root``: phase 14's labelled
+    images, a generated sample JPEG and a seeded rank-4
+    ``comprehensive_lora.pth`` (phase 7's)."""
+    import socket
+
+    _eval_dataset(root)
+    with open(os.path.join(root, "interior_sample.jpg"), "wb") as f:
+        f.write(_rest_images(np.random.default_rng(17), 1)[0])
+    os.makedirs(os.path.join(root, "lora_models"))
+    _rank4_checkpoint(os.path.join(root, "lora_models", "comprehensive_lora.pth"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return [_start([sys.executable, os.path.join(HERE, "examples", "torch_quickstart.py"),
+                    "--reference", root, "--save-path",
+                    os.path.join(root, "quickstart_adapters.pth")], card_root, "quickstart"),
+            _start([sys.executable, os.path.join(HERE, "tools", "torch_rest_smoke.py"), str(port),
+                    "--dataset-json", os.path.join(root, "interior_dataset.json"),
+                    "--sample", os.path.join(root, "interior_sample.jpg"),
+                    "--text-cache", "none"], card_root, "rest_smoke")]
+
+
+def _hold_tools(jobs: list, root: str) -> dict:
+    quick, quick_s = _finish(jobs[0], root, 600, tag="worker")
+    if json.loads(quick.strip().splitlines()[-1]) != {"quickstart": "ok"}:
+        raise AssertionError(f"[worker quickstart] last line: {quick[-500:]}")
+    smoke, smoke_s = _finish(jobs[1], root, 600, tag="worker")
+    line = json.loads(smoke.strip().splitlines()[-1])
+    failed = [k for k in ("no_cold_start_stall", "full_reference_schema",
+                          "dead_letters_queryable", "latency_quantiles_present",
+                          "stages_present") if line.get(k) is not True]
+    if failed or line.get("batch_results") != 4:
+        raise AssertionError(f"[worker rest_smoke] {failed}: {line}")
+    log(f"[worker quickstart] {' | '.join(quick.strip().splitlines()[-8:])} ({quick_s:.1f} s)")
+    log(f"[worker rest_smoke] {json.dumps(line)} ({smoke_s:.1f} s)")
+    return {"quickstart_s": quick_s, "rest_smoke_s": smoke_s, "rest_smoke": line}
+
+
+def phase_worker(device, card: str) -> dict:
+    """Phase 16: the worker over two ranks sharing the card (``worker_rank``:
+    the int8 worker on a gloo mesh of two, the drain, then ``--serve``):
+    phase 13's traffic, a batch request whose URL stalls past the deadline
+    (504), SIGTERM to rank 0 and both ranks' exit; each rank's launches
+    exact; the answers and the drain held against the single-device int8
+    engine on the same weights; then the quickstart and the REST smoke
+    twins as processes. Returns both ranks' launches."""
+    import signal
+    import socket
+
+    import torch
+
+    from aiic_tpu_torch.cli import worker as cli_worker
+    from aiic_tpu_torch.cli.common import EngineArgs
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.models.init import init_clip_params, save_clip_weights
+    from aiic_tpu_torch.utils.batching import bucket_size
+
+    t_phase = time.perf_counter()
+    opts = CONFIGS["int8"]
+    report: dict = {}
+    with tempfile.TemporaryDirectory() as root:
+        with open(os.path.join(root, "dataset.json"), "w", encoding="utf-8") as f:
+            json.dump({"training_data": TRAINING_DATA}, f, ensure_ascii=False)
+        # phase 13's weights: the CPU-seeded init, the npz --weights loads
+        params = init_clip_params(VIT_B_16, torch.Generator().manual_seed(0), device="cpu")
+        save_clip_weights(params, os.path.join(root, "weights.npz"))
+        del params
+        docs = _drain_docs(root)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        with open(os.path.join(root, "worker_plan.json"), "w") as f:
+            json.dump({"port": port, "flags": _worker_flags(root) + ["--mesh-devices", "2"],
+                       "drain": docs}, f)
+        stall, release, stall_url = _stall_server()
+        pair = _start_worker_pair(root)
+        try:
+            args = cli_worker.build_parser().parse_args(_worker_flags(root))
+            single = EngineArgs.from_args(args).build_analyzer(log=log)
+            deadline = time.monotonic() + WORKER_READY_S
+            while True:
+                if pair[0].poll() is not None:
+                    raise AssertionError(f"[worker] the ranks exited with {pair[0].returncode} "
+                                         f"before /ready")
+                try:
+                    if _http(port, "GET", "/ready")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"[worker] rank 0 was not ready within "
+                                         f"{WORKER_READY_S} s")
+                time.sleep(0.5)
+            report["ready_s"] = time.perf_counter() - pair[4]
+            traffic = _worker_requests(port, stall_url)
+            with open(os.path.join(root, "worker_rank0.pid")) as f:
+                rank0 = int(f.read())
+            t0 = time.perf_counter()
+            os.kill(rank0, signal.SIGTERM)
+            _, report["pair_seconds"] = _finish(pair, root, WORKER_STOP_S, tag="worker")
+            report["stop_s"] = time.perf_counter() - t0
+        finally:
+            release.set()
+            stall.shutdown()
+            stall.server_close()
+            proc, out, err, *_ = pair
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            out.close()
+            err.close()
+        tool_root = os.path.join(root, "reference")
+        os.makedirs(tool_root)
+        jobs = _tool_jobs(tool_root, root)
+        try:
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(root, f"worker_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            if [(x["drain_rc"], x["serve_rc"]) for x in ranks] != [(0, 0), (0, 0)]:
+                raise AssertionError(f"[worker] exit codes {ranks}")
+            m = traffic["metrics"]
+            sizes = _batch_sizes(m)
+
+            def bucket(n):  # a request's bucket on the mesh of two
+                return -(-bucket_size(n, 64) // 2) * 2
+            # the warmup's buckets 1-64, each once, then one call a batch
+            finals = {b: 1 for b in {bucket(n) for n in (1, 2, 4, 8, 16, 32, 64)}}
+            for n, calls in sizes.items():
+                finals[bucket(n)] = finals.get(bucket(n), 0) + calls
+            n_prompts = single.det_text.shape[0] + int(single.cat_mask.sum())
+            build, _ = _expected_launches(opts, VIT_B_16, n_prompts, [])
+            launches: dict = {}
+            for r, x in enumerate(ranks):
+                want = {"build": build if r == 0 else {},
+                        "drain": _rank_launches(opts, VIT_B_16, {4: 2}),
+                        "serve": _rank_launches(opts, VIT_B_16, finals)}
+                for stage, w in want.items():
+                    w = {n: c for n, c in w.items() if c}
+                    log(f"[worker rank {r}] {stage}: launches {x['launches'][stage]} "
+                        f"(expected {w})")
+                    if x["launches"][stage] != w:
+                        raise AssertionError(f"[worker rank {r}] {stage}: launched "
+                                             f"{x['launches'][stage]}, expected {w}")
+                    _add(launches, w)
+            wire_patch = single.config.patch_size
+            held = {k: _hold_rest("worker", traffic[f"{k}_answers"], traffic[k], single,
+                                  wire_patch, tol=WORKER_TOL)
+                    for k in ("singles", "burst", "batch")}
+            with open(os.path.join(root, "worker_drain.json")) as f:
+                statuses = _hold_worker_drain(json.load(f), single, docs, root)
+            del single
+            torch.cuda.empty_cache()
+            report["tools"] = _hold_tools(jobs, root)
+        finally:
+            for job in jobs:
+                if job[0].poll() is None:
+                    job[0].kill()
+                    job[0].wait(timeout=30)
+    lat = traffic["latency_ms"]
+    stages = {k: v for k, v in m.items() if k.startswith("stage_") and k.endswith(("_p50_ms",
+                                                                                  "_mean_ms"))}
+    for name in ("dispatch", "fetch", "lane_wait", "lane_send", "serve_decode"):
+        if f"stage_{name}_p50_ms" not in m:
+            raise AssertionError(f"[worker] /metrics lacks the {name} stage: {sorted(m)}")
+    report.update(
+        singles={"p50_ms": float(np.percentile(lat, 50)), "p90_ms": float(np.percentile(lat, 90)),
+                 "requests_per_s": REST_SINGLES / traffic["singles_s"], **held["singles"]},
+        burst={"images_per_s": 64 / traffic["burst_s"], "seconds": traffic["burst_s"],
+               **held["burst"]},
+        batch={"images_per_s": WORKER_BATCH / traffic["batch_s"], **held["batch"]},
+        batch_sizes=sizes, stall=traffic["stall"], stages=stages, drain=statuses,
+        ranks=ranks, launches=launches, seconds=time.perf_counter() - t_phase)
+    one = REPORT.get("rest", {}).get("int8", {})
+    log(f"[worker] ({card}) two ranks sharing the card: POST /analyze p50 "
+        f"{report['singles']['p50_ms']:.3f} ms (phase 13, one rank: "
+        f"{one.get('singles', {}).get('p50_ms', float('nan')):.3f}), burst of 64 "
+        f"{report['burst']['images_per_s']:.1f} images/s (phase 13: "
+        f"{one.get('burst', {}).get('images_per_s', float('nan')):.1f}) in batches {sizes}; "
+        f"/analyze-batch of {WORKER_BATCH} {report['batch']['images_per_s']:.1f} images/s; "
+        f"stalled URL "
+        f"{traffic['stall']['status']} in {traffic['stall']['seconds']:.3f} s; stages {stages}; "
+        f"ready {report['ready_s']:.1f} s, both ranks exit 0 {report['stop_s']:.2f} s after "
+        f"SIGTERM; phase 16 took {report['seconds']:.1f} s")
+    REPORT["worker"] = report
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5377,6 +5828,7 @@ def main() -> int:
     _add(launches, phase_rest(device, card))
     _add(launches, phase_eval(device, card))
     _add(launches, phase_mesh(device, card))
+    _add(launches, phase_worker(device, card))
     REPORT["wall_s"] = time.perf_counter() - T0
     log(f"[wall] chip_smoke.py took {REPORT['wall_s']:.1f} s ({card})")
 
@@ -5475,4 +5927,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(mesh_rank(sys.argv[2]) if sys.argv[1:2] == ["--mesh-rank"] else main())
+    RANK_ENTRIES = {"--mesh-rank": mesh_rank, "--worker-rank": worker_rank}
+    sys.exit(RANK_ENTRIES[sys.argv[1]](sys.argv[2]) if sys.argv[1:2] and
+             sys.argv[1] in RANK_ENTRIES else main())

@@ -233,14 +233,18 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting(name):
 
 
 def test_batching_helpers_are_jax_free_and_reused():
-    """Importing the port (each subpackage's exports), its smoke script, its
-    profiler and its twins of ``tools/eval_f1.py`` and
-    ``tools/parity_report.py`` loads no JAX and no module of the ``aiic_tpu``
-    package: the batching helpers and the other host helpers the engine
-    reuses are the port's own copies."""
+    """Importing the port (each subpackage's exports, the worker CLI and its
+    engine lane), its smoke script, its profiler, its twins of
+    ``tools/eval_f1.py``, ``tools/parity_report.py`` and
+    ``tools/rest_smoke.py``, and its quickstart loads no JAX and no module
+    of the ``aiic_tpu`` package: the batching helpers and the other host
+    helpers the engine reuses are the port's own copies."""
     code = (
         "import sys\n"
         "sys.path.insert(0, 'tools')\n"
+        "sys.path.insert(0, 'examples')\n"
+        "import aiic_tpu_torch.parallel.lane, aiic_tpu_torch.cli.worker, aiic_tpu_torch.serve.app\n"
+        "import torch_rest_smoke, torch_quickstart\n"
         "import aiic_tpu_torch, aiic_tpu_torch.engine.analyzer, aiic_tpu_torch.models.clip\n"
         "import aiic_tpu_torch.train, aiic_tpu_torch.cli.train_lora, aiic_tpu_torch.adapters\n"
         "import aiic_tpu_torch.ops.quant, aiic_tpu_torch.ops.attention, aiic_tpu_torch.ops.mlp\n"

@@ -1,7 +1,8 @@
 """The port's CLIs against the JAX package's: the parsers (the same flags and
 defaults for the same argv, plus ``--device``), the shared ``EngineArgs``
 (text-cache fingerprints apart per package, ``--mesh-devices`` on a world of
-one, the worker's refusal above one rank, no CUDA fallback to the CPU), and the batch and worker entry points end to end
+one, the worker over a world of two processes: SIGTERM, a dead follower; no
+CUDA fallback to the CPU), and the batch and worker entry points end to end
 with ``--device cpu`` against the JAX package on the same weights file.
 
 Bars: the records' verdicts, categories, reasons, top-k names and DB
@@ -110,11 +111,95 @@ def test_auto_text_cache_paths_differ_from_jax(tmp_path, monkeypatch):
     assert common.EngineArgs(**kw, text_cache=explicit).text_cache_path(None, 4, 8) == explicit
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _worker_world(root, world=2):
+    """``python -m aiic_tpu_torch.cli.worker --device cpu --mesh-devices 2
+    --serve`` as ``world`` processes with torchrun's environment, the
+    TINY_TEST seeded init on each; -> (the processes, the port), once rank
+    0 is ready."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port, master = _free_port(), _free_port()
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "WORLD_SIZE": str(world), "LOCAL_WORLD_SIZE": str(world),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(master), "GLOO_SOCKET_IFNAME": "lo",
+           "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
+    cmd = [sys.executable, "-m", "aiic_tpu_torch.cli.worker", "--device", "cpu",
+           "--mesh-devices", str(world), "--serve", "--port", str(port), "--model", "tiny",
+           "--text-cache", "none", "--max-batch", "8"]
+    procs = [subprocess.Popen(cmd, cwd=str(root), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+             for r in range(world)]
+    deadline = time.monotonic() + 90
+    while True:
+        try:
+            if _http(port, "GET", "/ready")[0] == 200:
+                return procs, port
+        except OSError:
+            pass
+        if time.monotonic() > deadline or any(p.poll() is not None for p in procs):
+            for p in procs:
+                p.kill()
+            logs = [p.communicate()[0][-2000:] for p in procs]
+            raise AssertionError(f"the world did not get ready: {logs}")
+        time.sleep(0.2)
+
+
+def _http(port, method, path, body=None):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode())
+
+
+def _exit_codes(procs, timeout):
+    """Every process's exit code, all within ``timeout`` (killed after)."""
+    import subprocess
+    import time
+
+    deadline = time.monotonic() + timeout
+    try:
+        return [p.wait(timeout=max(0.1, deadline - time.monotonic())) for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"a rank outlived {timeout} s: "
+                             f"{[p.communicate()[0][-2000:] for p in procs]}")
+
+
+def _jpeg():
+    import io
+
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(5).integers(0, 256, (40, 48, 3), dtype=np.uint8)).save(
+        buf, format="JPEG")
+    return buf.getvalue()
+
+
 def test_mesh_devices_refused(tmp_path, monkeypatch):
     """``--mesh-devices 1`` serves through the mesh path
     (``create_mesh(1, tp=1)``: a world of one rank) and gives the JAX
-    engine's results with its own ``--mesh-devices 1``; the REST and Mongo
-    worker still refuse a mesh above one rank, before building anything."""
+    engine's results with its own ``--mesh-devices 1``; a world of two
+    ranks, once refused, serves: ``--mesh-devices 2 --serve`` as two
+    processes with torchrun's environment answers ``POST /analyze``, and
+    SIGTERM to rank 0 ends both with exit code 0."""
     monkeypatch.chdir(tmp_path)
     weights = str(tmp_path / "w.npz")
     save_clip_weights(init_clip_params(jax.random.PRNGKey(0), JAX_TINY), weights)
@@ -128,16 +213,54 @@ def test_mesh_devices_refused(tmp_path, monkeypatch):
     got, want = ours.classify_pixels(px), ref.classify_pixels(px)
     for k in got:
         np.testing.assert_allclose(got[k], np.asarray(want[k]), atol=TOL, rtol=0, err_msg=k)
-    built = []
-    monkeypatch.setattr(common.EngineArgs, "build_analyzer", lambda *a, **k: built.append(1))
-    for flags in ([], ["--serve"]):
-        with pytest.raises(SystemExit, match="a world of 2 ranks"):
-            cli_worker.main(["--model", "tiny", "--device", "cpu", "--mesh-devices", "2",
-                             "--text-cache", "none", *flags])
-    monkeypatch.setenv("WORLD_SIZE", "4")  # under torchrun
-    with pytest.raises(SystemExit, match="a world of 4 ranks"):
-        cli_worker.main(["--model", "tiny", "--device", "cpu", "--text-cache", "none"])
-    assert not built
+    procs, port = _worker_world(tmp_path)
+    try:
+        status, ans = _http(port, "POST", "/analyze", _jpeg())
+        assert status == 200 and set(ans) == {"is_interior", "interior_confidence",
+                                              "detected_category", "analysis", "reason"}
+        procs[0].send_signal(signal.SIGTERM)
+        assert _exit_codes(procs, 60) == [0, 0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+
+
+def test_worker_world_stops_on_sigterm_to_every_rank(tmp_path):
+    """SIGTERM to both ranks at once (as torchrun forwards it): rank 0's
+    stop command ends the follower, each with exit code 0."""
+    procs, port = _worker_world(tmp_path)
+    try:
+        assert _http(port, "POST", "/analyze", _jpeg())[0] == 200
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        assert _exit_codes(procs, 60) == [0, 0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+
+
+def test_worker_world_dead_follower_fails_rank0(tmp_path):
+    """A follower killed outright: rank 0's next request fails with an
+    error status instead of hanging, and rank 0 exits 1 within the lane's
+    timeout."""
+    from aiic_tpu_torch.parallel.lane import TIMEOUT_S
+
+    procs, port = _worker_world(tmp_path)
+    try:
+        procs[1].kill()
+        procs[1].wait(timeout=30)
+        status, body = _http(port, "POST", "/analyze", _jpeg())
+        assert status >= 500, body
+        assert _exit_codes(procs[:1], TIMEOUT_S) == [1]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
 
 
 def test_serve_without_cuda_fails_instead_of_serving_on_cpu(monkeypatch):

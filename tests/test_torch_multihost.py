@@ -232,6 +232,184 @@ def test_analyzer_paths_over_two_ranks_load_once(world2):
         _same_result(got["url"], want["url"])
 
 
+# ---------------------------------------------------------------------------
+# The worker over two ranks: rank 0 serves and drains, rank 1 follows
+# ---------------------------------------------------------------------------
+
+SERVE_TOL = 1e-5  # tests/test_torch_serve.py's REST bars (fp32 on the CPU)
+HOLD_S, TIMEOUT_S = 3.0, 1.0  # the warmup's hold of the lane, the request's deadline
+
+
+def _blobs(root):
+    """Four encoded images (two JPEGs, two PNGs) as files, and the names of
+    three of them again as the batch request's URLs (local paths)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(21)
+    names = []
+    for i, (w, h, fmt) in enumerate([(48, 40, "JPEG"), (36, 60, "PNG"), (64, 64, "JPEG"),
+                                     (40, 40, "PNG")]):
+        yy, xx = np.mgrid[0:h, 0:w]
+        a, b = rng.integers(0, 256, 3), rng.integers(0, 256, 3)
+        arr = [np.broadcast_to(a, (h, w, 3)), a * (1 - xx[..., None] / w) + b * (xx[..., None] / w),
+               np.where(((xx * 4 // w + yy * 4 // h) % 2)[..., None] == 1, a, b),
+               rng.integers(0, 256, (h, w, 3))][i]
+        name = f"blob{i}.{'jpg' if fmt == 'JPEG' else 'png'}"
+        Image.fromarray(np.asarray(arr, np.float64).clip(0, 255).astype(np.uint8)).save(
+            root / name, format=fmt)
+        names.append(name)
+    return names
+
+
+def _serve_refs(d, flat, blob_names, url_names, drain_names):
+    """The same requests against the port's single-device serving app and
+    the JAX package's over a 2-device JAX mesh (``mesh_devices=2``), and
+    the JAX drain on the same documents."""
+    import threading
+
+    from aiic_tpu.cli import worker as jax_cli_worker
+    from aiic_tpu.engine import InteriorAnalyzer as JaxAnalyzer
+    from aiic_tpu.parallel import create_mesh as jax_mesh
+    from aiic_tpu.serve import app as jax_app
+    from aiic_tpu.serve import db as jax_db
+    from aiic_tpu.serve import worker as jax_worker
+    from aiic_tpu_torch.engine.analyzer import InteriorAnalyzer
+    from aiic_tpu_torch.models.init import params_from_numpy
+    from aiic_tpu_torch.serve import app
+
+    blobs = [(d / n).read_bytes() for n in blob_names]
+    urls = [str(d / n) for n in url_names]
+    jeng = JaxAnalyzer(jax.tree.map(jnp.asarray, _unflatten(flat)), jax_config.TINY_TEST,
+                       training_data=tr.TRAINING, max_batch=8, mesh=jax_mesh(2, tp=1))
+    ours = InteriorAnalyzer(params_from_numpy(flat), CFG, training_data=tr.TRAINING,
+                            max_batch=8, device="cpu")
+    refs = {}
+    for name, mod, eng in (("jax", jax_app, jeng), ("single", app, ours)):
+        for depth in (0, 2):
+            server, batcher, _ = mod.build_serving_app(
+                eng, port=0, max_batch=8, pipeline_depth=depth, warm_async=False,
+                max_batch_items=16, log=lambda *_: None)
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            try:
+                refs[f"{name}{depth}"] = tr._serve_requests(server.server_address[1], blobs, urls)
+            finally:
+                server.shutdown()
+                batcher.close()
+    db = jax_db.InMemoryDB()
+    db.insert_apartment("a1", title="t1")
+    db.insert_apartment("a2", title="t2")
+    for i, p in enumerate(drain_names):
+        db.insert_image(f"i{i}", "a1" if i < 3 else "a2", str(d / p))
+    args = jax_cli_worker.build_parser().parse_args(["--batch-size", "4"])
+    jax_worker.process_apartments_pipeline(
+        max_apartments=args.max_apartments, batch_size=args.batch_size,
+        confidence_threshold=args.confidence, db=db, analyzer=jeng,
+        export_file=str(d / "jax_export.json"), log=lambda *_: None)
+    refs["drain"] = {"images": json.loads(json.dumps(db.images, default=str)),
+                     "export": json.loads((d / "jax_export.json").read_text())}
+    return refs
+
+
+@pytest.fixture(scope="module")
+def serve_world2(tmp_path_factory):
+    return tr.once_per_run(tmp_path_factory, "serve_world2", _serve_world2)
+
+
+def _serve_world2(d):
+    params = tr.seeded_params("TINY_TEST", 3)
+    flat = torch_flatten(params)
+    np.savez(d / "params.npz", **flat)
+    names = _blobs(d)
+    urls = names[:3] + ["missing.png"]
+    drain = names[:2] + ["missing.jpg"] + names[2:]
+    procs = tr.start(d, 2, [dict(name="serve", case="serve", tp=1, blobs=names, urls=urls,
+                                 drain=drain, hold_s=HOLD_S, timeout_s=TIMEOUT_S)])
+    try:
+        refs = _serve_refs(d, flat, names, urls, drain)
+    finally:
+        tr.join(procs)
+    return d, refs
+
+
+def _same_answer(got, want):
+    """Two REST answers (status, body) at tests/test_torch_serve.py's bars."""
+    assert got[0] == want[0] == 200
+    g, w = got[1], want[1]
+    if "results" in w:
+        assert len(g["results"]) == len(w["results"])
+        for a, b in zip(g["results"], w["results"]):
+            _same_answer((200, a), (200, b))
+        return
+    assert set(g) == set(w)
+    for k in set(g) - {"interior_confidence", "analysis"}:
+        assert g[k] == w[k], k
+    if "interior_confidence" in w:
+        assert abs(g["interior_confidence"] - w["interior_confidence"]) <= SERVE_TOL
+    for cat, top in w.get("analysis", {}).items():
+        assert [a for a, _ in g["analysis"][cat]] == [a for a, _ in top]
+        np.testing.assert_allclose([v for _, v in g["analysis"][cat]], [v for _, v in top],
+                                   atol=SERVE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("depth", [0, 2], ids=["sync", "pipelined"])
+@pytest.mark.parametrize("kind", ["sequential", "concurrent", "batch"])
+def test_worker_over_two_ranks_serves_as_jax_and_one_device(serve_world2, depth, kind):
+    """Rank 0's serving app on the engine lane, rank 1 following: the
+    answers to each blob alone, 16 at once and one /analyze-batch (URLs, a
+    missing one among them, and base64) equal the port's single-device app
+    and the JAX app over a 2-device mesh."""
+    d, refs = serve_world2
+    out = tr.load(d, "serve", 0)
+    got = json.loads(str(out["serving"]))[f"depth{depth}"][kind]
+    for ref in (f"single{depth}", f"jax{depth}"):
+        want = refs[ref][kind]
+        if kind == "batch":
+            _same_answer(got, want)
+            assert got[1]["results"][3]["detected_category"] == "load error"
+        else:
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                _same_answer(g, w)
+    assert int(tr.load(d, "serve", 1)["follow_rc"]) == 0
+
+
+def test_worker_drain_over_two_ranks_matches_jax(serve_world2):
+    """``cli.worker.run_rank`` drains over two ranks (rank 0 leads, reads
+    and writes the DB, rank 1 follows): the DB documents and the export the
+    JAX drain stores (tests/test_torch_serve.py's comparison)."""
+    d, refs = serve_world2
+    outs = [tr.load(d, "serve", r) for r in range(2)]
+    assert [int(o["drain_rc"]) for o in outs] == [0, 0]
+    got, want = json.loads(str(outs[0]["drain"])), refs["drain"]
+    skip = ("analyzed_at", "analysis_date", "analysis_confidence", "created_at", "updated_at")
+    assert set(got["images"]) == set(want["images"])
+    for k, a in got["images"].items():
+        b = want["images"][k]
+        assert {x: v for x, v in a.items() if x not in skip} == \
+            {x: v for x, v in b.items() if x not in skip}, k
+        assert abs(a.get("analysis_confidence", 0) - b.get("analysis_confidence", 0)) <= SERVE_TOL
+    assert got["images"]["i2"]["attempts"] == 1
+    assert [r["apartment_id"] for r in got["export"]] == \
+        [r["apartment_id"] for r in want["export"]] == ["a1", "a2"]
+    for x, y in zip(got["export"], want["export"]):
+        assert x["room_distribution"] == y["room_distribution"]
+        assert x["overall_style"]["style"] == y["overall_style"]["style"]
+        assert abs(x["confidence"] - y["confidence"]) <= SERVE_TOL
+
+
+def test_batch_timeout_over_two_ranks_keeps_the_lane_in_order(serve_world2):
+    """A request whose batch waits past its deadline behind the warmup,
+    which holds the lane: 504 at the deadline, dead-lettered; its dispatch
+    still runs in its turn after the warmup, and the next request is
+    answered as one device answers it."""
+    d, refs = serve_world2
+    got = json.loads(str(tr.load(d, "serve", 0)["serving"]))["timeout"]
+    first = got["first"]
+    assert first["status"] == 504 and first["body"]["dead_lettered"] is True
+    assert TIMEOUT_S - 0.1 <= first["seconds"] < HOLD_S
+    _same_answer(got["next"], refs["single2"]["sequential"][0])
+
+
 def test_single_process_seam_is_identity():
     """``host_local_batch`` in a world of one: the local rows are the global
     batch, placed ``[Shard(0), Replicate()]``; ``replicated`` holds the

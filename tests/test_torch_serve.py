@@ -19,6 +19,7 @@ import base64
 import io
 import json
 import logging
+import os
 import sys
 import threading
 import time
@@ -51,6 +52,7 @@ from aiic_tpu_torch.utils import logging as port_logging
 from aiic_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
 WAIT = 20.0  # seconds any single wait in these tests may take
 
@@ -668,6 +670,124 @@ def test_rest_analyze_batch_matches_jax(servers, payload):
         _same_result(g, w)
     if payload == "b64":
         assert got[2]["results"][-1]["detected_category"] == "load error"
+
+
+@pytest.fixture
+def stalled_url():
+    """A URL on this host whose GET answers only when the test ends (or
+    after a minute): a fetch that stalls past any request's deadline."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    release = threading.Event()
+
+    class Stall(BaseHTTPRequestHandler):
+        def do_GET(self):
+            release.wait(60)
+            self.send_response(404)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Stall)
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    yield f"http://127.0.0.1:{server.server_address[1]}/stall.jpg"
+    release.set()
+    server.shutdown()
+    server.server_close()
+
+
+def _stream_threads():
+    return {t for t in threading.enumerate() if t.name == "aiic-stream"}
+
+
+def test_batch_deadline_bounds_a_stalled_url(engines, tmp_path, stalled_url):
+    """``make_analyze_batch`` with a URL that stalls in the second chunk
+    (the first chunk's 64 images already submitted to a batcher that holds
+    them): TimeoutError within request_timeout + 2 s, the stream's producer
+    thread ended, the 64 submitted futures cancelled and dead-lettered. The
+    JAX package's copy waits for the stalled chunk (not compared here)."""
+    from concurrent.futures import Future
+
+    _, ours = engines
+
+    class Holding:  # a batcher whose batches never finish
+        def __init__(self):
+            self.futures = []
+
+        def submit(self, item):
+            self.futures.append(Future())
+            return self.futures[-1]
+
+    held, dead = Holding(), []
+    timeout = 1.0
+    analyze_batch = app.make_analyze_batch(ours, held, request_timeout=timeout,
+                                           on_dead_letter=dead.append)
+    urls = _files(tmp_path, IMAGES) * 16 + [stalled_url]
+    before = _stream_threads()
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="batch request exceeded"):
+        analyze_batch({"urls": urls})
+    assert time.monotonic() - t0 < timeout + 2.0
+    _wait_until(lambda: not (_stream_threads() - before), "the stream's thread to end")
+    assert len(held.futures) == 64 and all(f.cancelled() for f in held.futures)
+    assert dead == [64]
+
+
+def test_stalled_fetch_does_not_hold_the_process_exit():
+    """A process that gives up on a stream whose fetch stalls exits at
+    once: the fetch pool's threads are daemons (the interpreter would join a
+    ThreadPoolExecutor's workers, here for the fetch's 30 s timeout)."""
+    import subprocess
+
+    code = (
+        "import threading, time\n"
+        "from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer\n"
+        "from aiic_tpu_torch.data.pipeline import ByteStreamLoader\n"
+        "class Stall(BaseHTTPRequestHandler):\n"
+        "    def do_GET(self):\n"
+        "        time.sleep(60)\n"
+        "server = ThreadingHTTPServer(('127.0.0.1', 0), Stall)\n"
+        "server.daemon_threads = True\n"
+        "threading.Thread(target=server.serve_forever, daemon=True).start()\n"
+        "url = f'http://127.0.0.1:{server.server_address[1]}/x.jpg'\n"
+        "it = iter(ByteStreamLoader([url], batch_size=1, size=32))\n"
+        "try:\n"
+        "    it.get(0.5)\n"
+        "except TimeoutError:\n"
+        "    it.close()\n"
+        "    print('gave up')\n")
+    t0 = time.monotonic()
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=60, cwd=REPO)
+    assert run.returncode == 0 and run.stdout.strip() == "gave up", run.stderr[-2000:]
+    assert time.monotonic() - t0 < 15.0
+
+
+def test_rest_batch_with_a_stalled_url_answers_504(engines, stalled_url):
+    """``POST /analyze-batch`` whose only URL stalls answers 504 within
+    request_timeout + 2 s, and the next request is answered."""
+    _, ours = engines
+    timeout = 1.0
+    server, b, _ = app.build_serving_app(ours, port=0, max_batch=8, request_timeout=timeout,
+                                         warm_async=False, log=lambda *_: None)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    try:
+        before = _stream_threads()
+        t0 = time.monotonic()
+        status, _, body = _call(port, "POST", "/analyze-batch", json.dumps(
+            {"urls": [stalled_url], "images_b64": [base64.b64encode(IMAGES[0]).decode()]}
+        ).encode())
+        assert status == 504 and body["dead_lettered"] is True
+        assert time.monotonic() - t0 < timeout + 2.0
+        _wait_until(lambda: not (_stream_threads() - before), "the stream's thread to end")
+        assert _call(port, "POST", "/analyze", IMAGES[0])[0] == 200
+    finally:
+        server.shutdown()
+        b.close()
 
 
 @pytest.mark.parametrize("case", ["bad_json", "not_object", "urls_not_list", "too_many",

@@ -288,6 +288,123 @@ def case_analyzer_paths(mesh, d, c):
             "det_text": eng.det_text, "cat_text": eng.cat_text}
 
 
+def _http(port: int, method: str, path: str, body: bytes = None) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode())
+
+
+def _serve_requests(port: int, blobs: list, urls: list) -> dict:
+    """The requests of the serving case: each blob alone in turn, then 16
+    concurrently, then one /analyze-batch of URLs and base64 blobs."""
+    import base64
+    import threading
+
+    out = {"sequential": [_http(port, "POST", "/analyze", b) for b in blobs]}
+    concurrent = [None] * 16
+
+    def one(i):
+        concurrent[i] = _http(port, "POST", "/analyze", blobs[i % len(blobs)])
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    out["concurrent"] = concurrent
+    out["batch"] = _http(port, "POST", "/analyze-batch", json.dumps(
+        {"urls": urls, "images_b64": [base64.b64encode(b).decode() for b in blobs]}).encode())
+    return out
+
+
+def case_serve(mesh, d, c):
+    """The worker over the world: rank 0's serving app on the engine lane
+    (``parallel.lane``) at pipeline depths 0 and 2, then a batch deadline
+    that expires while the warmup holds the lane, then the one-shot drain
+    through ``cli.worker.run_rank``; the other ranks follow."""
+    import threading
+
+    import torch.distributed as dist
+
+    from aiic_tpu_torch.cli import worker as cli_worker
+    from aiic_tpu_torch.engine.analyzer import InteriorAnalyzer
+    from aiic_tpu_torch.models.config import TINY_TEST
+    from aiic_tpu_torch.parallel.lane import EngineLane
+    from aiic_tpu_torch.serve.app import build_serving_app
+    from aiic_tpu_torch.serve.db import InMemoryDB
+
+    eng = InteriorAnalyzer(_tree(os.path.join(d, "params.npz")), TINY_TEST,
+                           training_data=TRAINING, max_batch=8, device="cpu", mesh=mesh)
+    lead = dist.get_rank() == 0
+    blobs = []
+    for name in c["blobs"]:
+        with open(os.path.join(d, name), "rb") as f:
+            blobs.append(f.read())
+    urls = [os.path.join(d, p) for p in c["urls"]]
+    out = {}
+    lane = EngineLane(eng, log=lambda *_: None)
+    if not lead:
+        out["follow_rc"] = lane.follow()
+    else:
+        try:
+            for depth in (0, 2):
+                server, batcher, _ = build_serving_app(
+                    lane, port=0, max_batch=8, pipeline_depth=depth, warm_async=False,
+                    max_batch_items=16, log=lambda *_: None)
+                threading.Thread(target=server.serve_forever, daemon=True).start()
+                try:
+                    out[f"depth{depth}"] = _serve_requests(server.server_address[1], blobs, urls)
+                finally:
+                    server.shutdown()
+                    batcher.close()
+            # the warmup holds the lane past the request's deadline
+            warmup = eng.warmup
+
+            def slow_warmup(sizes):
+                time.sleep(c["hold_s"])
+                warmup(sizes)
+            eng.warmup = slow_warmup
+            server, batcher, warmed = build_serving_app(
+                lane, port=0, max_batch=8, request_timeout=c["timeout_s"], warm_async=True,
+                log=lambda *_: None)
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            port = server.server_address[1]
+            try:
+                t0 = time.monotonic()
+                status, body = _http(port, "POST", "/analyze", blobs[0])
+                timed_out = {"status": status, "seconds": time.monotonic() - t0, "body": body}
+                warmed.wait(60)
+                out["timeout"] = {"first": timed_out, "next": _http(port, "POST", "/analyze",
+                                                                     blobs[0])}
+            finally:
+                server.shutdown()
+                batcher.close()
+                eng.warmup = warmup
+        finally:
+            lane.close()
+    db = None
+    if lead:
+        os.chdir(d)  # the drain's export lands beside the inputs
+        db = InMemoryDB()
+        db.insert_apartment("a1", title="t1")
+        db.insert_apartment("a2", title="t2")
+        for i, p in enumerate(c["drain"]):
+            db.insert_image(f"i{i}", "a1" if i < 3 else "a2", os.path.join(d, p))
+    args = cli_worker.build_parser().parse_args(["--batch-size", "4", "--device", "cpu"])
+    out["drain_rc"] = cli_worker.run_rank(args, eng, db, log=lambda *_: None)
+    if lead:
+        out["serving"] = json.dumps({k: out.pop(k) for k in ("depth0", "depth2", "timeout")})
+        with open("analysis_export.json", encoding="utf-8") as f:
+            export = json.load(f)
+        out["drain"] = json.dumps({"images": db.images, "export": export}, default=str)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 class _Recording:
     """The trainer's optimizer, keeping the gradients each update receives."""
 
@@ -389,7 +506,7 @@ def case_train_lora(mesh, d, c):
 
 CASES = {"encode": case_encode, "classify": case_classify, "analyzer": case_analyzer,
          "analyzer_paths": case_analyzer_paths, "train": case_train, "seam": case_seam,
-         "train_lora": case_train_lora}
+         "train_lora": case_train_lora, "serve": case_serve}
 
 
 def main(plan_path: str, rank: int) -> None:
