@@ -12,7 +12,7 @@ import argparse
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
-from aiic_tpu_torch.utils.platform import apply_platform_env
+from aiic_tpu_torch.utils.platform import apply_platform_env, require_device
 
 # Hashed into every ``auto`` text-cache fingerprint: the two packages compute
 # text features with different kernels, so neither picks up the other's
@@ -194,10 +194,7 @@ class EngineArgs:
         from aiic_tpu_torch.engine.analyzer import InteriorAnalyzer
         from aiic_tpu_torch.models.init import load_clip_weights
 
-        device = torch.device(self.device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise SystemExit(f"--device {self.device}: no CUDA device is visible; the port "
-                             "runs on the card (pass --device cpu for the plain CPU path)")
+        device = require_device(self.device)
         mesh = None
         if self.mesh_devices:
             from aiic_tpu_torch.parallel import create_mesh

@@ -267,7 +267,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (verdicts and top-5 equal, scores within 1e-3); then
    ``examples/torch_quickstart.py`` and ``tools/torch_rest_smoke.py`` as
    processes on a synthetic reference tree (phase 14's labelled images, a
-   sample JPEG, phase 7's rank-4 ``comprehensive_lora.pth``).
+   sample JPEG, phase 7's rank-4 ``comprehensive_lora.pth``);
+17. the measurement twins (``tools/torch_{bench,serve_bench,rest_bench,
+   e2e_bench,train_bench,train_e2e_bench}.py``) in this process through
+   ``main(argv)`` at ViT-B/16 full width on a generated reference tree of
+   32 JPEGs: the bench int8 and bf16 (HWC) at B=256 and int8 at bench.py's
+   B=4096 (8x the engine's 512-row cap; its peak memory logged), the
+   program's first 256 rows of a B=4096 call against a B=256 call
+   (verdicts and top-5 equal, scores within 1e-3); the batcher closed-loop
+   (16 clients) and open-loop (200 QPS); the REST worker at 1 and 8
+   clients with 4-image batch requests; the JPEG and URL streams; the
+   train step (``block``; ``text8 cached dedup``) and ``train_lora`` on 256
+   rows. Every record has its JAX twin's keys, no errors, finite positive
+   rates; the bench and train-step runs launch exactly what the design
+   gives, the others whole image chunks of their kernel set.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -1635,12 +1648,13 @@ def _block_kernels(opts: dict, seq: int, width: int, heads: int, bsz: int) -> li
 
 def _expected_launches(opts: dict, config, n_prompts: int, buckets) -> tuple:
     """(launches at build, launches in all) of every kernel: the text tower
-    once at build over all prompts, then the image tower once per request
-    chunk at its bucket (the last image block is the CLS-row block, no
-    kernel)."""
+    once at build over all prompts (none for ``n_prompts`` 0: the classify
+    program alone), then the image tower once per request chunk at its
+    bucket (the last image block is the CLS-row block, no kernel)."""
     build: dict = {}
     t, v = config.text, config.vision
-    for name in _block_kernels(opts, config.context_length, t.width, t.heads, n_prompts):
+    for name in (_block_kernels(opts, config.context_length, t.width, t.heads, n_prompts)
+                 if n_prompts else []):
         build[name] = build.get(name, 0) + t.layers
     total = dict(build)
     for b in buckets:
@@ -2522,14 +2536,30 @@ def _path_params(params, opts):
             if opts.get("quantize_text") else params)
 
 
-def _expected_train_launches(opts: dict, text_impl: str, n_items: int) -> dict:
-    """Launches of one train_lora run, derived from the design:
+def _expected_train_launches(opts: dict, text_impl: str, n_items: int, *,
+                             batch: int = TRAIN_BATCH, epochs: int = TRAIN_EPOCHS,
+                             unique_images: int = 0) -> dict:
+    """Launches of one train_lora run over ``n_items`` rows of
+    ``unique_images`` distinct images (default: all distinct), derived from
+    the design (``_train_launches``): the image-feature precompute runs once
+    per chunk of ``batch`` unique images (the last padded); each epoch takes
+    (rows - val) // batch train steps and at least one eval step."""
+    n_val = max(1, int(n_items * 0.1))
+    return _train_launches(opts, text_impl,
+                           image_chunks=-(-(unique_images or n_items) // batch),
+                           train_steps=epochs * ((n_items - n_val) // batch),
+                           eval_steps=epochs * max(1, n_val // batch))
 
-    - the image-feature precompute runs the frozen tower once per chunk of
-      TRAIN_BATCH unique images (the last padded): 11 launches per chunk of
-      the packed core (fp32), of the bf16 attention half-block, or (with
-      ``quantize_image``) of each int8 half-block and four of the GEMM stage
-      inside them (the last image block is the CLS-row block, no kernel);
+
+def _train_launches(opts: dict, text_impl: str, *, image_chunks: int, train_steps: int,
+                    eval_steps: int) -> dict:
+    """Launches of the training paths, derived from the design:
+
+    - the frozen image tower, once per chunk of images: 11 launches per
+      chunk of the packed core (fp32), of the bf16 attention half-block, or
+      (with ``quantize_image``) of each int8 half-block and four of the GEMM
+      stage inside them (the last image block is the CLS-row block, no
+      kernel);
     - pallas_vjp (remat on): the packed core 12 times per text encode, and
       12 more per train step where the backward recomputes each block: 24
       per train step, 12 per eval step;
@@ -2537,10 +2567,7 @@ def _expected_train_launches(opts: dict, text_impl: str, n_items: int) -> dict:
       ``text_block_bwd`` 12 per train step (no remat: the backward kernel
       recomputes its forward itself); block_fused_int8 the same of
       ``text_block_fwd_int8`` and ``text_block_bwd_int8``."""
-    n_val = max(1, int(n_items * 0.1))
-    train_steps = TRAIN_EPOCHS * ((n_items - n_val) // TRAIN_BATCH)
-    eval_steps = TRAIN_EPOCHS * max(1, n_val // TRAIN_BATCH)
-    chunks = -(-n_items // TRAIN_BATCH)
+    chunks = image_chunks
     if opts.get("quantize_image"):
         image = ("int8_ln_qkv_attention", "int8_ln_mlp")
     else:
@@ -5766,6 +5793,316 @@ def phase_worker(device, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the measurement twins (tools/torch_*.py) in process
+# ---------------------------------------------------------------------------
+
+# The record keys of the JAX tools, in their order (pinned with their source
+# lines in tests/test_torch_bench_tools.py, which holds these lists to its own).
+REST_POINT_KEYS = ["tag", "clients", "requests", "errors", "qps", "p50_ms", "p95_ms", "p99_ms",
+                   "avg_batch"]
+TWIN_KEYS = {
+    "bench": ["metric", "value", "unit", "vs_baseline", "p50_ms", "p50_device_ms"],
+    "serve_bench": ["metric", "value", "p90_ms", "p99_ms", "qps", "kind", "load", "requests",
+                    "errors", "pipeline_depth", "avg_batch"],
+    "rest_bench_point": REST_POINT_KEYS + ["max_wait_ms", "pipeline_depth"],
+    "rest_bench_batch": REST_POINT_KEYS + ["images_per_request", "img_per_s", "max_wait_ms",
+                                           "pipeline_depth"],
+    "rest_bench_final": ["metric", "value", "unit", "best_point", "batch_img_per_s",
+                         "best_batch_point"],
+    "e2e_bench": ["metric", "value", "unit", "images", "seconds", "stage_seconds"],
+    "train_bench": ["metric", "value", "unit", "batch", "final_loss", "cached_features",
+                    "prompt_pool", "model"],
+    "train_e2e_bench": ["metric", "value", "unit", "epoch_seconds_steady", "setup_seconds",
+                        "n_items", "batch", "epochs", "wall_seconds", "best_val_loss"],
+}
+TWIN_IMAGES = 32            # JPEGs of the generated reference tree, half of them 256x256
+TWIN_BENCH_BATCH, TWIN_BENCH_ITERS = 256, 5
+TWIN_CAP_BATCH, TWIN_CAP_ITERS = 4096, 2   # bench.py's default batch, 8x the engine's cap
+TWIN_TRAIN_E2E = (256, 64, 2)              # items, batch, epochs
+TWIN_PHASE_S = 150.0        # the phase's budget with the kernels built, logged against
+
+
+def _twin_tool(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", os.path.join(HERE, "tools", f"torch_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _twin_reference(root: str) -> None:
+    """TWIN_IMAGES JPEGs in ``root/dataset_images`` (even ones 256x256, the
+    others 224-288 px: the stream256 and device modes' fixed geometry and
+    the rest) and ``interior_dataset.json`` labelling them with
+    TRAINING_DATA's two items in turn."""
+    from PIL import Image
+
+    rng = np.random.default_rng(23)
+    os.makedirs(os.path.join(root, "dataset_images"))
+    items = []
+    for i in range(TWIN_IMAGES):
+        h, w = ((256, 256) if i % 2 == 0
+                else (int(rng.integers(224, 289)), int(rng.integers(224, 289))))
+        a, b = rng.integers(0, 256, 3), rng.integers(0, 256, 3)
+        t = (np.arange(w) / w)[None, :, None]
+        img = a * (1 - t) + b * t + rng.integers(0, 48, (h, w, 3))
+        name = f"dataset_images/twin{i:02d}.jpg"
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(os.path.join(root, name),
+                                                                     quality=90)
+        items.append({**TRAINING_DATA[i % len(TRAINING_DATA)], "image_path": name})
+    with open(os.path.join(root, "interior_dataset.json"), "w", encoding="utf-8") as f:
+        json.dump({"training_data": items}, f, ensure_ascii=False)
+
+
+def _run_twin(label: str, name: str, argv: list, env: dict = None) -> tuple:
+    """``tools/torch_{name}.py``'s ``main(argv)`` in this process with every
+    count at 0 before and ``env`` set for the call; its stdout and stderr go
+    to the log. Returns (records, seconds, launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+
+    tool = _twin_tool(name)
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    out, err = io.StringIO(), io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            records = tool.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for line in (err.getvalue() + out.getvalue()).splitlines():
+            if line.strip():
+                log(f"[twins {label}] {line}")
+    seconds = time.perf_counter() - t0
+    launches = {n: c for n, c in launch_counts().items() if c}
+    log(f"[twins {label}] {name} {' '.join(argv)} {env or ''}: {seconds:.2f} s; launches "
+        f"{launches}")
+    return records, seconds, launches
+
+
+def _hold_records(label: str, kind: str, records: list, rates=("value",)) -> None:
+    """Each record's keys, in order, its JAX twin's (``TWIN_KEYS[kind]``
+    less the optional keys the record leaves out), no errors, every rate
+    finite and positive."""
+    for rec in records:
+        want = [k for k in TWIN_KEYS[kind] if k in rec]
+        if list(rec) != want or not set(TWIN_KEYS[kind][:4]) <= set(rec):
+            raise AssertionError(f"[twins {label}] keys {list(rec)}, the JAX twin's "
+                                 f"{TWIN_KEYS[kind]}")
+        if rec.get("errors", 0) != 0 or "error" in rec:
+            raise AssertionError(f"[twins {label}] errors in {rec}")
+        for k in rates:
+            if k in rec and not (np.isfinite(rec[k]) and rec[k] > 0):
+                raise AssertionError(f"[twins {label}] {k} not finite and positive: {rec}")
+
+
+def _hold_exact(label: str, got: dict, want: dict) -> None:
+    want = {n: c for n, c in want.items() if c}
+    if got != want:
+        raise AssertionError(f"[twins {label}] launched {got}, expected {want}")
+
+
+def _per_chunk(opts: dict, config, buckets) -> dict:
+    """The image tower's launches per chunk, the same at every bucket of
+    the run (raises where a bucket would change the kernel set)."""
+    v = config.vision
+    sets = {tuple(_block_kernels(opts, config.vision_seq_len, v.width, v.heads, b))
+            for b in buckets}
+    if len(sets) != 1:
+        raise AssertionError(f"the kernel set changes across buckets {buckets}: {sets}")
+    per: dict = {}
+    for name in sets.pop():
+        per[name] = per.get(name, 0) + v.layers - 1
+    return per
+
+
+def _hold_kernel_set(label: str, got: dict, build: dict, per_chunk: dict) -> int:
+    """Launches held by kernel set where the chunks are the batcher's or
+    the loader's: ``build`` at the engine's build (its text tower), then a
+    whole number of image chunks, the same for every kernel of the chunk,
+    and nothing else. Returns the chunks."""
+    extra = {n: c for n, c in got.items() if n not in build and n not in per_chunk}
+    counts = {n: (got.get(n, 0) - build.get(n, 0)) / k for n, k in per_chunk.items()}
+    chunks = set(counts.values())
+    if (extra or len(chunks) != 1 or any(got.get(n, 0) < c for n, c in build.items())
+            or not (min(chunks) >= 1 and min(chunks) == int(min(chunks)))):
+        raise AssertionError(f"[twins {label}] launched {got}: expected {build} at build, then "
+                             f"whole chunks of {per_chunk} (got {counts}) and nothing else")
+    log(f"[twins {label}] launches = {build} at build + {int(min(chunks))} chunks of {per_chunk}")
+    return int(min(chunks))
+
+
+def _bench_buckets(batch: int, iters: int) -> list:
+    """The batch sizes ``tools/torch_bench.py`` calls the program at: the
+    first call, 4 warm calls, iters synced, 3 + 2*iters in flight, 1 + the
+    host leg's iterations at ``batch``; 21 single images."""
+    h_iters = max(2, min(iters, (10 * 1024) // batch))
+    return [batch] * (1 + 4 + iters + 3 + 2 * iters + 1 + h_iters) + [1] * 21
+
+
+def phase_twins(device, card: str) -> dict:
+    """Phase 17: the six measurement twins at ViT-B/16 full width in this
+    process through ``main(argv)`` on a generated reference tree. Each
+    record has its JAX twin's keys, no errors, finite positive rates. The
+    bench's int8 and bf16 runs and the two train_bench runs launch exactly
+    what the design gives; the others by kernel set. The B=4096 program's
+    first 256 rows against a B=256 call (``torch_bench.row_agreement``)."""
+    import torch
+
+    from aiic_tpu_torch.data.dataset import (
+        build_category_prompts, extract_all_categories, load_training_data)
+    from aiic_tpu_torch.engine.detector import DETECTOR_CATEGORIES
+    from aiic_tpu_torch.models.config import VIT_B_16
+    from aiic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    report: dict = {"card": card, "runs": {}}
+    launches: dict = {}
+    on_card = ["--device", str(device)]
+    held = torch.ones(1, device=device)  # the allocator is up before its peak is reset
+
+    def keep(label, records, seconds, got, **extra):
+        report["runs"][label] = {"records": records, "seconds": seconds, "launches": got,
+                                 **extra}
+        _add(launches, got)
+
+    # torch_bench: int8 and bf16 at B=256, then int8 at bench.py's B=4096
+    bench_runs = (("bench_int8", "int8", {"AIIC_BENCH_INT8": "2", "AIIC_WIRE": "patch"},
+                   TWIN_BENCH_BATCH, TWIN_BENCH_ITERS),
+                  ("bench_bf16", "bf16", {"AIIC_BENCH_INT8": "0", "AIIC_WIRE": "hwc"},
+                   TWIN_BENCH_BATCH, TWIN_BENCH_ITERS),
+                  ("bench_int8_4096", "int8", {"AIIC_BENCH_INT8": "2", "AIIC_WIRE": "patch"},
+                   TWIN_CAP_BATCH, TWIN_CAP_ITERS))
+    for label, conf, env, batch, iters in bench_runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        recs, sec, got = _run_twin(label, "bench", [str(batch), str(iters), *on_card],
+                                   dict(env, AIIC_BENCH_MODEL="vit_b_16"))
+        peak_mib = torch.cuda.max_memory_allocated(device) / 2 ** 20
+        _hold_records(label, "bench", recs, rates=("value", "p50_ms"))
+        _hold_exact(label, got, _expected_launches(CONFIGS[conf], VIT_B_16, 0,
+                                                   _bench_buckets(batch, iters))[1])
+        log(f"[twins {label}] ({card}) {recs[-1]}; peak device memory {peak_mib:.1f} MiB")
+        keep(label, recs, sec, got, peak_mib=peak_mib)
+
+    # past the cap: the first 256 rows of a B=4096 call against a B=256 call
+    bench_tool = _twin_tool("bench")
+    torch.cuda.empty_cache()
+    prog = bench_tool.setup("vit_b_16", "2", "patch", device, np.random.default_rng(0))
+    px = torch.from_numpy(prog["make_batch"](TWIN_CAP_BATCH)).to(device)
+    reset_launch_counts()
+    big, _ = prog["classify"](px)
+    small, _ = prog["classify"](px[:TWIN_BENCH_BATCH])
+    torch.cuda.synchronize()
+    agreement = bench_tool.row_agreement(big, small)
+    counted = {n: c for n, c in launch_counts().items() if c}
+    log(f"[twins cap] rows {agreement['rows']} of B={agreement['of']} against B="
+        f"{TWIN_BENCH_BATCH}: {agreement} (launches, not counted in the kernels line: "
+        f"{counted})")
+    if not agreement["ok"]:
+        raise AssertionError(f"[twins cap] B={TWIN_CAP_BATCH} rows disagree: {agreement}")
+    report["cap_check"] = agreement
+    del prog, px, big, small
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        _twin_reference(root)
+        items = load_training_data(os.path.join(root, "interior_dataset.json"))
+        n_prompts = len(DETECTOR_CATEGORIES) + sum(
+            len(p) for p in build_category_prompts(extract_all_categories(items)).values())
+        buckets = [1 << k for k in range(7)]  # the batcher's buckets up to max_batch 64
+        bf16_build = _expected_launches(CONFIGS["bf16"], VIT_B_16, len(DETECTOR_CATEGORIES),
+                                        [])[0]
+        bf16_chunk = _per_chunk(CONFIGS["bf16"], VIT_B_16, buckets)
+
+        # torch_serve_bench: closed loop, then open loop (each its own engine)
+        for label, argv in (("serve_closed", ["--clients", "16", "--per-client", "4"]),
+                            ("serve_open", ["--open-rates", "200", "--open-seconds", "2"])):
+            recs, sec, got = _run_twin(label, "serve_bench", argv + on_card)
+            _hold_records(label, "serve_bench", recs, rates=("value", "qps"))
+            chunks = _hold_kernel_set(label, got, bf16_build, bf16_chunk)
+            log(f"[twins {label}] ({card}) {recs}")
+            keep(label, recs, sec, got, chunks=chunks)
+
+        # torch_rest_bench: the int8 worker's configuration
+        label = "rest"
+        recs, sec, got = _run_twin(label, "rest_bench", [
+            "--clients", "1,8", "--per-client", "5", "--batch-images", "4", "--reference", root,
+            *on_card])
+        for rec in recs[:-1]:
+            _hold_records(label, "rest_bench_batch" if "img_per_s" in rec else
+                          "rest_bench_point", [rec], rates=("qps", "p50_ms", "img_per_s"))
+        _hold_records(label, "rest_bench_final", recs[-1:], rates=("value", "batch_img_per_s"))
+        chunks = _hold_kernel_set(label, got, _expected_launches(CONFIGS["int8"], VIT_B_16,
+                                                                 n_prompts, [])[0],
+                                  _per_chunk(CONFIGS["int8"], VIT_B_16, buckets))
+        log(f"[twins {label}] ({card}) {recs[-1]}")
+        keep(label, recs, sec, got, chunks=chunks)
+
+        # torch_e2e_bench: the stream and the URL stream over the tree's JPEGs
+        for mode in ("stream", "url"):
+            label = f"e2e_{mode}"
+            recs, sec, got = _run_twin(label, "e2e_bench", ["1", "64", mode, "--reference", root,
+                                                            *on_card])
+            _hold_records(label, "e2e_bench", recs)
+            if recs[0]["images"] != TWIN_IMAGES:
+                raise AssertionError(f"[twins {label}] {recs[0]['images']} images counted, "
+                                     f"{TWIN_IMAGES} paths")
+            chunks = _hold_kernel_set(label, got, bf16_build, bf16_chunk)
+            log(f"[twins {label}] ({card}) {recs}")
+            keep(label, recs, sec, got, chunks=chunks)
+
+        # torch_train_bench: the bf16 text-block pair, and int8 text with the
+        # feature cache and the prompt pool
+        for label, flags, text_impl in (("train_block", ["block"], "block_fused"),
+                                        ("train_text8", ["text8", "cached", "dedup"],
+                                         "block_fused_int8")):
+            batch, iters = 64, 3
+            recs, sec, got = _run_twin(label, "train_bench", [str(batch), str(iters), *flags,
+                                                              *on_card])
+            _hold_records(label, "train_bench", recs)
+            steps = iters + 1
+            _hold_exact(label, got, _train_launches(
+                {"dtype": "bfloat16"}, text_impl,
+                image_chunks=1 if "cached" in flags else steps, train_steps=steps,
+                eval_steps=0))
+            log(f"[twins {label}] ({card}) {recs}")
+            keep(label, recs, sec, got)
+
+        # torch_train_e2e_bench: the real train_lora loop, bf16 "auto" (pallas_vjp)
+        label = "train_e2e"
+        n_items, batch, epochs = TWIN_TRAIN_E2E
+        recs, sec, got = _run_twin(label, "train_e2e_bench", [
+            str(n_items), str(batch), str(epochs), "--reference", root, *on_card])
+        _hold_records(label, "train_e2e_bench", recs, rates=("value", "epoch_seconds_steady"))
+        _hold_exact(label, got, _expected_train_launches(
+            {"dtype": "bfloat16"}, "pallas_vjp", n_items, batch=batch, epochs=epochs,
+            unique_images=TWIN_IMAGES))
+        log(f"[twins {label}] ({card}) {recs}")
+        keep(label, recs, sec, got)
+
+    del held
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[twins] ({card}) phase 17 took {report['seconds']:.1f} s (budget {TWIN_PHASE_S:.0f} "
+        f"s); its launches {launches}")
+    REPORT["twins"] = report
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5829,6 +6166,7 @@ def main() -> int:
     _add(launches, phase_eval(device, card))
     _add(launches, phase_mesh(device, card))
     _add(launches, phase_worker(device, card))
+    _add(launches, phase_twins(device, card))
     REPORT["wall_s"] = time.perf_counter() - T0
     log(f"[wall] chip_smoke.py took {REPORT['wall_s']:.1f} s ({card})")
 

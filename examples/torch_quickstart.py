@@ -115,7 +115,7 @@ def run(ref: str, *, config=None, params=None, device="cuda", save_path=None,
 
 
 def main():
-    from aiic_tpu_torch.utils.platform import apply_platform_env
+    from aiic_tpu_torch.utils.platform import apply_platform_env, require_device
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--reference", default=".")
@@ -132,9 +132,7 @@ def main():
     from aiic_tpu_torch.models.config import VIT_B_16
     from aiic_tpu_torch.models.init import load_clip_weights
 
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device is visible; the port runs on "
-                         "the card (pass --device cpu for the plain CPU path)")
+    require_device(args.device)
     params = (load_clip_weights(args.weights, VIT_B_16, device=torch.device(args.device))
               if args.weights else None)
     run(args.reference, params=params, device=args.device, save_path=args.save_path)

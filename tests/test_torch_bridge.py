@@ -236,15 +236,19 @@ def test_batching_helpers_are_jax_free_and_reused():
     """Importing the port (each subpackage's exports, the worker CLI and its
     engine lane), its smoke script, its profiler, its twins of
     ``tools/eval_f1.py``, ``tools/parity_report.py`` and
-    ``tools/rest_smoke.py``, and its quickstart loads no JAX and no module
-    of the ``aiic_tpu`` package: the batching helpers and the other host
-    helpers the engine reuses are the port's own copies."""
+    ``tools/rest_smoke.py``, its quickstart, and its measurement tools (the
+    twins of ``bench.py`` and of ``tools/{serve,rest,e2e,train,train_e2e}_bench.py``)
+    loads no JAX, no module of the ``aiic_tpu`` package and none of the JAX
+    tools: the batching helpers and the other host helpers the engine reuses
+    are the port's own copies."""
     code = (
         "import sys\n"
         "sys.path.insert(0, 'tools')\n"
         "sys.path.insert(0, 'examples')\n"
         "import aiic_tpu_torch.parallel.lane, aiic_tpu_torch.cli.worker, aiic_tpu_torch.serve.app\n"
         "import torch_rest_smoke, torch_quickstart\n"
+        "import torch_bench, torch_serve_bench, torch_rest_bench, torch_e2e_bench\n"
+        "import torch_train_bench, torch_train_e2e_bench\n"
         "import aiic_tpu_torch, aiic_tpu_torch.engine.analyzer, aiic_tpu_torch.models.clip\n"
         "import aiic_tpu_torch.train, aiic_tpu_torch.cli.train_lora, aiic_tpu_torch.adapters\n"
         "import aiic_tpu_torch.ops.quant, aiic_tpu_torch.ops.attention, aiic_tpu_torch.ops.mlp\n"
@@ -258,7 +262,10 @@ def test_batching_helpers_are_jax_free_and_reused():
         "assert bucket_size(3, 8) == 4\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "bad = sorted(m for m in sys.modules if m == 'aiic_tpu' or m.startswith('aiic_tpu.'))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "jax_tools = {'bench', 'serve_bench', 'rest_bench', 'e2e_bench', 'train_bench',\n"
+        "             'train_e2e_bench'} & set(sys.modules)\n"
+        "assert not jax_tools, jax_tools\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
 
 
@@ -508,7 +515,10 @@ def test_port_imports_no_jax():
             "import aiic_tpu_torch.utils.platform\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
             "bad = sorted(m for m in sys.modules if m == 'aiic_tpu' or m.startswith('aiic_tpu.'))\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+        "jax_tools = {'bench', 'serve_bench', 'rest_bench', 'e2e_bench', 'train_bench',\n"
+        "             'train_e2e_bench'} & set(sys.modules)\n"
+        "assert not jax_tools, jax_tools\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
 
 

@@ -1518,3 +1518,25 @@ def test_bf16_engine_chunks_run_the_wgmma_stage_and_the_mma_core(device, attn_im
     names = _cuda_kernels(lambda: engine.classify_pixels(px))
     assert _launched(names, "wgmma_stage_kernel") and _launched(names, "attn_core_mma_kernel")
     assert not _launched(names, "gemm_kernel<") and not _launched(names, "attn_core_kernel<")
+
+
+def test_bench_program_past_the_engine_cap(device):
+    """``tools/torch_bench.py``'s program (int8 ViT-B/16 on the patch wire,
+    called directly as the tool calls it) at B=4096, 8x the engine's 512-row
+    cap, with c_fc's output past 2^31 elements: every score finite, and its
+    first 256 rows give the verdicts, the top-5 and the scores (within
+    ``ROW_TOL``) of the same rows in a B=256 call."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                        "torch_bench.py")
+    spec = importlib.util.spec_from_file_location("torch_bench", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    bench = tool.setup("vit_b_16", "2", "patch", device, np.random.default_rng(0))
+    px = torch.from_numpy(bench["make_batch"](4096)).to(device)
+    big, _ = bench["classify"](px)
+    small, _ = bench["classify"](px[:256])
+    got = tool.row_agreement(big, small)
+    assert got["ok"] and got["of"] == 4096, got

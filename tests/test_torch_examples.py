@@ -23,7 +23,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 from aiic_tpu.engine import InteriorAnalyzer as JaxAnalyzer
@@ -31,10 +30,9 @@ from aiic_tpu.models.config import TINY_TEST as JAX_TINY
 from aiic_tpu.models.init import flatten_params, init_clip_params
 from aiic_tpu_torch.models.config import TINY_TEST
 from aiic_tpu_torch.models.init import params_from_numpy
+from torch_reference import make_reference
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STYLES = ["nowoczesny", "klasyczny", "skandynawski"]
-ROOMS = ["kuchnia", "salon", "sypialnia"]
 CONF_TOL = 2e-2
 
 
@@ -47,37 +45,8 @@ def _load(relpath: str, name: str):
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """``interior_dataset.json`` over 20 labelled JPEGs in
-    ``dataset_images/``, ``interior_sample.jpg`` and a seeded rank-4
-    c_fc/c_proj adapter in ``lora_models/comprehensive_lora.pth``."""
-    from aiic_tpu_torch.adapters import save_lora_pth
-
-    root = tmp_path_factory.mktemp("reference")
-    (root / "dataset_images").mkdir()
-    (root / "lora_models").mkdir()
-    rng = np.random.default_rng(31)
-    items = []
-    for i in range(20):
-        name = f"dataset_images/room{i:02d}.jpg"
-        a, b = rng.integers(0, 256, 3), rng.integers(0, 256, 3)
-        t = np.linspace(0, 1, 48)[None, :, None]
-        Image.fromarray((a * (1 - t) + b * t).repeat(40, 0).astype(np.uint8)).save(root / name)
-        items.append({"image_path": name, "style": STYLES[i % 3],
-                      "characteristics": ["jasne", "przestronne"][: 1 + i % 2],
-                      "materials": ["drewno"], "colors": ["biały", "szary"][: 1 + i % 2],
-                      "room_type": ROOMS[(i // 3) % 3]})
-    (root / "interior_dataset.json").write_text(json.dumps({"training_data": items},
-                                                           ensure_ascii=False), encoding="utf-8")
-    Image.fromarray(rng.integers(0, 256, (56, 64, 3), dtype=np.uint8)).save(
-        root / "interior_sample.jpg")
-    t = TINY_TEST.text
-
-    def f(*shape):
-        return torch.from_numpy((rng.standard_normal(shape) * 0.02).astype(np.float32))
-    save_lora_pth({"c_fc": {"A": f(t.layers, t.width, 4), "B": f(t.layers, 4, t.mlp_dim)},
-                   "c_proj": {"A": f(t.layers, t.mlp_dim, 4), "B": f(t.layers, 4, t.width)}},
-                  str(root / "lora_models" / "comprehensive_lora.pth"))
-    return root
+    """The synthetic reference tree of ``tests/torch_reference.py``."""
+    return make_reference(tmp_path_factory.mktemp("reference"))
 
 
 def test_quickstart_steps_match_jax(reference, tmp_path):

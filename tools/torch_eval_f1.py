@@ -35,11 +35,9 @@ def main(argv=None):
                     help="torch device (default cuda; cpu runs the plain versions)")
     args = ap.parse_args(argv)
 
-    import torch
+    from aiic_tpu_torch.utils.platform import require_device
 
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device is visible; the port runs on "
-                         "the card (pass --device cpu for the plain CPU path)")
+    require_device(args.device)
 
     from aiic_tpu_torch.data.dataset import load_training_data
     from aiic_tpu_torch.engine import InteriorAnalyzer

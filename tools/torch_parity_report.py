@@ -118,9 +118,9 @@ def main(argv=None):
     import torch
     from PIL import Image
 
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device is visible; the port runs on "
-                         "the card (pass --device cpu for the plain CPU path)")
+    from aiic_tpu_torch.utils.platform import require_device
+
+    require_device(args.device)
 
     from aiic_tpu_torch.data.preprocess import preprocess_pil, preprocess_pil_u8
     from aiic_tpu_torch.data.tokenizer import tokenize
